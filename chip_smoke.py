@@ -3,27 +3,49 @@
 
 Runs on one NVIDIA GPU, from the root of a checkout:
 
-    python3 chip_smoke.py                  # all phases, main path at N=30,000
-    python3 chip_smoke.py --phases 1,2,3 --n 4400   # kernel checks only
+    python3 chip_smoke.py                  # all phases
+    python3 chip_smoke.py --phases 1,2,3,6,7 --n 4400   # kernel checks only
 
-Phases, each printing one line of its own:
+Phases, each printing one line of its own (run in the order 1, 2, 3, 6,
+7, 4, 5, 9, 8: phase 8 runs the profiler, which slows every later
+launch in the process):
   1. device: torch's device name and nvidia-smi's name and power limit;
-  2. build: compile the hand-written kernels from dipper_tpu_torch/csrc/;
-  3. kernel vs plain: mash_inter_cuda against merged_inter_count_ref on the
-     card, torch.equal required, on (a) real S=1000 sketches (bank 4,096 x
-     259 queries), (b) S=128 (pow2, no pads), (c) adversarial duplicate- and
-     sentinel-heavy rank rows, (d) the main path's bank width (every taxon)
-     with 64 queries; median of 5 timed runs after a warm-up; and the main
-     path's largest call (every taxon x 8,192 queries), every 128th query
-     row compared;
-  4. GPU port vs CPU port: the CLI at N=512 (-i r -m 1) with --device cuda
-     and --device cpu, nRF = 0 required;
-  5. the main path: scripts/make_dataset.py's generator (seed 1,
-     L=10,000) and the CLI with default flags, which take k-closest
-     placement at N >= 30,000; requires rc 0, a complete Newick, kernel
-     launches, the tree state on the card and nRF vs the true tree < 0.35.
-     Every kernel launch of the run is then held against the plain version
-     on its own inputs, every 128th query row of it.
+  2. build: compile the hand-written kernels from dipper_tpu_torch/csrc/,
+     one nvcc per source, all started together;
+  3. merge-count kernel vs plain: mash_inter_cuda against
+     merged_inter_count_ref on the card, torch.equal required, on (a) real
+     S=1000 sketches (bank 4,096 x 259 queries), (b) S=128 (pow2, no
+     pads), (c) adversarial duplicate- and sentinel-heavy rank rows, (d)
+     the main path's bank width (every taxon) with 64 queries; median of
+     5 timed runs after a warm-up; and the placement main path's largest
+     call (every taxon x 8,192 queries), every 128th query row compared;
+  6. distance kernel vs plain: mash_rows_dist_cuda against
+     mash_rows_vs_bank on the four cases of phase 3, in f32 and f64,
+     torch.equal required, with times;
+  7. side-vector kernel vs plain: side_vector_cuda against _side_vector at
+     cap 16,384 with 65,536 edges and at cap 30,000 with 120,000 edges, in
+     f32 and f64, equal bits required, with CUDA-event times;
+  4. GPU port vs CPU port, placement: the CLI at N=512 (-i r -m 1) with
+     --device cuda and --device cpu, nRF = 0 required;
+  8. GPU port vs CPU port, NJ: the mash matrix of N=2,048 taxa written by
+     the card (-i r -o d), then -i d -m 2 on both devices in f32 and f64,
+     nRF = 0 required; then one NJ on the card under torch.profiler
+     (launches per merge step, device busy time);
+  5. the placement main path: scripts/make_dataset.py's generator (seed
+     1, L=10,000) and the CLI with default flags, which take k-closest
+     placement at N >= 30,000; requires rc 0, a complete Newick, launches
+     of the merge-count and side-vector kernels, the tree state on the
+     card and nRF vs the true tree < 0.35. Every merge-count launch of the
+     run is then held against the plain version on its own inputs, every
+     128th query row of it, and a sample of the side-vector calls too;
+  9. the NJ main path: the generator at N=20,000 (seed 1) and the CLI
+     with default flags, which take conventional NJ below 30,000 taxa;
+     requires rc 0, a complete Newick, distance-kernel launches, every
+     launch's every 128th row equal to the plain version, a symmetric
+     matrix with a zero diagonal whose lower triangle is the kernel's
+     rows, and nRF vs the true tree < 0.45.
+Every kernel counter is set to 0 just before a main path (phases 5 and 9)
+and read just after it.
 
 The last two lines are the kernels' record and {"ok": true, "device":
 {...}}. Any failed check raises, so the script exits non-zero and prints no
@@ -48,9 +70,22 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCE = "dipper_tpu_torch/csrc/mash_merge_count.cu"
-REPLACES = "dipper_tpu/distance/mash_pallas.py:124"
+# each kernel: its source and the TPU kernel it replaces
+KERNELS = {
+    "mash_merge_count": ("dipper_tpu_torch/csrc/mash_merge_count.cu",
+                         "dipper_tpu/distance/mash_pallas.py:124"),
+    "mash_rows_dist": ("dipper_tpu_torch/csrc/mash_rows_dist.cu",
+                       "dipper_tpu/distance/mash_pallas.py:191"),
+    "side_vector": ("dipper_tpu_torch/csrc/side_vector.cu",
+                    "scripts/gather_micro.py:74"),
+}
 NRF_LIMIT = 0.35
+# a sanity bound for NJ on the generator's 20K set (no JAX figure exists)
+NJ_NRF_LIMIT = 0.45
+# every SIDE_SAMPLE-th side-vector call of the placement main path is kept
+# and held against the plain version
+SIDE_SAMPLE = 997
+ALL_PHASES = (1, 2, 3, 6, 7, 4, 5, 9, 8)
 # every SAMPLE-th query row of a large kernel call is compared with the
 # plain version (which takes ~10 ms per query row at 30,000 bank rows)
 SAMPLE = 128
@@ -122,16 +157,31 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
-    from dipper_tpu_torch.csrc.build import BUILD_DIR, BUILD_SECONDS
-    from dipper_tpu_torch.distance import mash_cuda
+    from dipper_tpu_torch.csrc.build import BUILD_DIR, BUILD_SECONDS, build_all
 
     t0 = time.time()
-    mash_cuda._load()
-    with open(os.path.join(BUILD_DIR, "libmash_merge_count.log")) as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "kernel": "mash_merge_count",
-          "nvcc_s": BUILD_SECONDS.get("mash_merge_count"),
+    build_all()
+    ptxas = {}
+    for name in KERNELS:
+        with open(os.path.join(BUILD_DIR, f"lib{name}.log")) as f:
+            ptxas[name] = [ln.strip() for ln in f
+                           if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "nvcc_s": dict(BUILD_SECONDS),
           "wall_s": time.time() - t0, "ptxas": ptxas})
+
+
+def event_ms(fn, reps: int = 200) -> float:
+    """Mean ms per call over `reps` back-to-back calls between two CUDA
+    events, after a warm-up: for kernels too short for the host clock."""
+    fn()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(reps):
+        fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps
 
 
 def _adversarial(n: int, s: int, m: int, rng) -> np.ndarray:
@@ -170,9 +220,10 @@ def check_sampled(name: str, got, bank, qry, s: int) -> dict:
             "plain_ms_checked_rows": plain_ms}
 
 
-def phase_kernel_vs_plain(fa: str) -> dict:
-    from dipper_tpu_torch.distance.mash import merged_inter_count_ref
-    from dipper_tpu_torch.distance.mash_cuda import mash_inter_cuda
+def kernel_cases(fa: str) -> tuple[dict, np.ndarray, float]:
+    """The kernel phases' inputs from the main path's FASTA: (cases
+    name -> (bank, queries, sketch_size) host rank arrays, the S=1000 rank
+    bank of every taxon, its sketch seconds)."""
     from dipper_tpu_torch.io.fasta import read_fasta
 
     _, seqs = read_fasta(fa)
@@ -189,11 +240,23 @@ def phase_kernel_vs_plain(fa: str) -> dict:
                                _adversarial(67, 100, 128, rng), 100),
         f"d_s1000_bank{n}_q64": (r1000, r1000[-64:], 1000),
     }
+    return cases, r1000, sketch_s
+
+
+def _on_card(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays]
+
+
+def phase_kernel_vs_plain(inputs) -> dict:
+    from dipper_tpu_torch.distance.mash import merged_inter_count_ref
+    from dipper_tpu_torch.distance.mash_cuda import mash_inter_cuda
+
+    cases, r1000, sketch_s = inputs
+    n = r1000.shape[0]
     worst = 0
     out = {}
     for name, (bank, qry, s) in cases.items():
-        bank = torch.from_numpy(np.ascontiguousarray(bank)).cuda()
-        qry = torch.from_numpy(np.ascontiguousarray(qry)).cuda()
+        bank, qry = _on_card(bank, qry)
         got = mash_inter_cuda(bank, qry, sketch_size=s)
         want = merged_inter_count_ref(bank, qry, sketch_size=s)
         torch.cuda.synchronize()
@@ -210,10 +273,10 @@ def phase_kernel_vs_plain(fa: str) -> dict:
                      "M": bank.shape[1], "equal": True, "ms": ms,
                      "plain_ms": plain_ms, "pairs_per_s": pairs / ms * 1e3,
                      "plain_pairs_per_s": pairs / plain_ms * 1e3}
-    # the main path's largest call: one insert range (8,192 queries) against
-    # the whole bank; the plain version of all of it would take minutes, so
-    # it is compared on every SAMPLE-th query row
-    bank = torch.from_numpy(r1000).cuda()
+    # the placement main path's largest call: one insert range (8,192
+    # queries) against the whole bank; the plain version of all of it would
+    # take minutes, so it is compared on every SAMPLE-th query row
+    (bank,) = _on_card(r1000)
     qry = bank[-min(8192, n):]
     rc = check_sampled("range call",
                        mash_inter_cuda(bank, qry, sketch_size=1000),
@@ -222,9 +285,104 @@ def phase_kernel_vs_plain(fa: str) -> dict:
     rc["ms"] = timed_ms(lambda: mash_inter_cuda(bank, qry, sketch_size=1000),
                         reps=3)
     rc["pairs_per_s"] = bank.shape[0] * qry.shape[0] / rc["ms"] * 1e3
-    emit({"phase": "kernel_vs_plain", "sketch_all_s": sketch_s,
-          "cases": out, "max_abs_err": worst, "range_call": rc})
+    emit({"phase": "kernel_vs_plain", "kernel": "mash_merge_count",
+          "sketch_all_s": sketch_s, "cases": out, "max_abs_err": worst,
+          "range_call": rc})
     main_case = out[f"d_s1000_bank{n}_q64"]
+    return {"max_abs_err": worst, "ms": main_case["ms"],
+            "plain_ms": main_case["plain_ms"]}
+
+
+def _max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over the entries that are not NaN in both; inf
+    where the NaN positions differ."""
+    nan = got.isnan()
+    if not torch.equal(nan, want.isnan()):
+        return float("inf")
+    if bool(nan.all()):
+        return 0.0
+    return float((got[~nan].double() - want[~nan].double()).abs().max())
+
+
+def phase_rows_dist_vs_plain(inputs, k: int = 15) -> dict:
+    from dipper_tpu_torch.distance.mash import _dist_table, mash_rows_vs_bank
+    from dipper_tpu_torch.distance.mash_cuda import mash_rows_dist_cuda
+
+    cases, r1000, _ = inputs
+    n = r1000.shape[0]
+    worst = 0.0
+    out = {}
+    for dtype in ("float32", "float64"):
+        for name, (bank, qry, s) in cases.items():
+            bank, qry = _on_card(bank, qry)
+            table = torch.from_numpy(_dist_table(k, s, dtype)).cuda()
+
+            def kernel():
+                return mash_rows_dist_cuda(bank, qry, table, sketch_size=s)
+
+            def plain():
+                return mash_rows_vs_bank(bank, qry, k=k, sketch_size=s,
+                                         dtype_name=dtype)
+
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = _max_abs_err(got, want)
+            check(got.dtype == want.dtype and torch.equal(got, want),
+                  f"mash_rows_dist {dtype} {name}: kernel != plain "
+                  f"(max abs err {err})")
+            worst = max(worst, err)
+            ms, plain_ms = timed_ms(kernel), timed_ms(plain)
+            pairs = bank.shape[0] * qry.shape[0]
+            out[f"{dtype}/{name}"] = {
+                "bank": bank.shape[0], "queries": qry.shape[0], "s": s,
+                "equal": True, "ms": ms, "plain_ms": plain_ms,
+                "pairs_per_s": pairs / ms * 1e3}
+    emit({"phase": "kernel_vs_plain", "kernel": "mash_rows_dist", "k": k,
+          "cases": out, "max_abs_err": worst})
+    main_case = out[f"float32/d_s1000_bank{n}_q64"]
+    return {"max_abs_err": worst, "ms": main_case["ms"],
+            "plain_ms": main_case["plain_ms"]}
+
+
+def _side_inputs(cap: int, E: int, dtype: str, seed: int):
+    """Witness lists as the scorer sees them: ids of placed leaves, 30% of
+    slots empty (-1), every 7th edge with no witness at all."""
+    from dipper_tpu_torch.placement.kclosest import K
+
+    rng = np.random.default_rng(seed)
+    cid = rng.integers(0, cap, (E, K)).astype(np.int32)
+    cid[rng.random((E, K)) < 0.3] = -1
+    cid[::7] = -1
+    cdis = (rng.random((E, K)) * 0.5).astype(dtype)
+    row = rng.random(cap).astype(dtype)
+    return _on_card(cid, cdis, row)
+
+
+def phase_side_vector_vs_plain() -> dict:
+    from dipper_tpu_torch.placement.kclosest import _side_vector, side_vector_cuda
+
+    out = {}
+    worst = 0.0
+    for cap, E in ((16384, 65536), (30000, 120000)):
+        for dtype in ("float32", "float64"):
+            cid, cdis, row = _side_inputs(cap, E, dtype, seed=cap)
+            got = side_vector_cuda(cid, cdis, row)
+            want = _side_vector(cid, cdis, row)
+            torch.cuda.synchronize()
+            err = _max_abs_err(got, want)
+            check(got.dtype == want.dtype and err == 0.0
+                  and torch.equal(got, want),
+                  f"side_vector {dtype} cap {cap}: kernel != plain "
+                  f"(max abs err {err})")
+            worst = max(worst, err)
+            out[f"{dtype}/cap{cap}_E{E}"] = {
+                "cap": cap, "edges": E, "k": cid.shape[1], "equal": True,
+                "ms": event_ms(lambda: side_vector_cuda(cid, cdis, row)),
+                "plain_ms": event_ms(lambda: _side_vector(cid, cdis, row))}
+    emit({"phase": "kernel_vs_plain", "kernel": "side_vector",
+          "timing": "CUDA events, mean of 200 back-to-back calls",
+          "cases": out, "max_abs_err": worst})
+    main_case = out["float32/cap30000_E120000"]
     return {"max_abs_err": worst, "ms": main_case["ms"],
             "plain_ms": main_case["plain_ms"]}
 
@@ -273,10 +431,43 @@ def _ms(pattern: str, text: str) -> float | None:
     return float(m.group(1)) if m else None
 
 
-def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> int:
+def reset_counts() -> None:
+    """Every kernel counter to 0 (just before a main path)."""
     from dipper_tpu_torch.distance import mash_cuda
     from dipper_tpu_torch.placement import kclosest
+
+    mash_cuda.LAUNCHES = 0
+    mash_cuda.ROWS_DIST_LAUNCHES = 0
+    kclosest.SIDE_VECTOR_LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    from dipper_tpu_torch.distance import mash_cuda
+    from dipper_tpu_torch.placement import kclosest
+
+    return {"mash_merge_count": mash_cuda.LAUNCHES,
+            "mash_rows_dist": mash_cuda.ROWS_DIST_LAUNCHES,
+            "side_vector": kclosest.SIDE_VECTOR_LAUNCHES}
+
+
+def check_tree(nwk: str, n: int, true_nwk: str, limit: float) -> tuple:
+    """A complete Newick over S0..S{n-1}, and its RF/nRF vs the true tree
+    below `limit`."""
     from dipper_tpu_torch.utils.treecmp import rf_distance
+
+    check(nwk.count(",") == n - 1, f"Newick has {nwk.count(',')} commas, "
+          f"want {n - 1}")
+    leaves = set(re.findall(r"[(,]([^(),:;]+):", nwk))
+    check(leaves == {f"S{i}" for i in range(n)},
+          "Newick leaf names differ from the input")
+    rf, nrf = rf_distance(nwk, open(true_nwk).read())
+    check(nrf < limit, f"nRF vs the true tree {nrf} >= {limit}")
+    return rf, nrf
+
+
+def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
+    from dipper_tpu_torch.distance import mash_cuda
+    from dipper_tpu_torch.placement import kclosest
 
     out = os.path.join(tmp, f"n{n}.nwk")
 
@@ -288,8 +479,8 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> int:
         states.append(st)
         return st
 
-    # every kernel call of the run: its inputs (views of the resident rank
-    # bank), every SAMPLE-th row of its output, and its CUDA-event time
+    # every merge-count call of the run: its inputs (views of the resident
+    # rank bank), every SAMPLE-th row of its output, and its CUDA-event time
     calls = []
     kernel = mash_cuda.mash_inter_cuda
 
@@ -301,42 +492,63 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> int:
         calls.append((bank, qry, sketch_size, got[::SAMPLE].clone(), ev))
         return got
 
+    # every SIDE_SAMPLE-th side-vector call: copies of its inputs and output
+    side_calls = []
+    side_kernel = kclosest.side_vector_cuda
+    n_side = [0]
+
+    def side_recorded(cid, cdis, row):
+        got = side_kernel(cid, cdis, row)
+        if n_side[0] % SIDE_SAMPLE == 0:
+            side_calls.append((cid.clone(), cdis.clone(), row.clone(),
+                               got.clone()))
+        n_side[0] += 1
+        return got
+
     kclosest.run_placement_chunked = keep_state
     mash_cuda.mash_inter_cuda = recorded
+    kclosest.side_vector_cuda = side_recorded
     torch.cuda.reset_peak_memory_stats()
-    mash_cuda.LAUNCHES = 0
+    reset_counts()
     try:
-        rc, log, wall = run_cli(["-i", "r", "-I", fa, "-O", out])
+        # default flags at the real size; below 30,000 taxa auto mode
+        # would take NJ, so a smaller rehearsal asks for placement
+        rc, log, wall = run_cli(["-i", "r", "-I", fa, "-O", out]
+                                + (["-m", "1"] if n < 30000 else []))
     finally:
         kclosest.run_placement_chunked = chunked
         mash_cuda.mash_inter_cuda = kernel
-    launches = mash_cuda.LAUNCHES
+        kclosest.side_vector_cuda = side_kernel
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
 
     check(rc == 0, f"main path CLI returned {rc}")
-    check(launches > 0, "the main path launched no mash_merge_count kernel")
+    check(counts["mash_merge_count"] > 0,
+          "the placement main path launched no mash_merge_count kernel")
+    check(counts["side_vector"] > 0,
+          "the placement main path launched no side_vector kernel")
     check(len(states) == 1, "the main path did not run run_placement_chunked")
     st = states[0]
     for f in ("e", "belong", "length", "rev", "cdis", "cid", "adj"):
         check(getattr(st, f).device.type == "cuda", f"tree state {f} on "
               f"{getattr(st, f).device}")
-    nwk = open(out).read().strip()
-    check(nwk.count(",") == n - 1, f"Newick has {nwk.count(',')} commas, "
-          f"want {n - 1}")
-    names = [f"S{i}" for i in range(n)]
-    leaves = set(re.findall(r"[(,]([^(),:;]+):", nwk))
-    check(leaves == set(names), "Newick leaf names differ from the input")
-    rf, nrf = rf_distance(nwk, open(true_nwk).read())
-    check(nrf < NRF_LIMIT, f"nRF vs the true tree {nrf} >= {NRF_LIMIT}")
-    check(len(calls) == launches, f"{len(calls)} recorded kernel calls, "
-          f"{launches} launches")
+    rf, nrf = check_tree(open(out).read().strip(), n, true_nwk, NRF_LIMIT)
+    check(len(calls) == counts["mash_merge_count"],
+          f"{len(calls)} recorded kernel calls, "
+          f"{counts['mash_merge_count']} launches")
     checked = []
     for j, (bank, qry, s, got, ev) in enumerate(calls):
         c = check_sampled(f"main-path launch {j}", got, bank, qry, s)
         c["ms"] = ev[0].elapsed_time(ev[1])
         checked.append(c)
-    emit({"phase": "main_path", "n": n, "L": 10000, "k": 15, "s": 1000,
-          "precision": "f32", "chunk": 8192,
+    side_err = 0.0
+    for j, (cid, cdis, row, got) in enumerate(side_calls):
+        err = _max_abs_err(got, kclosest._side_vector(cid, cdis, row))
+        check(err == 0.0, f"main-path side_vector call {j * SIDE_SAMPLE}: "
+              f"kernel != plain (max abs err {err})")
+        side_err = max(side_err, err)
+    emit({"phase": "main_path", "path": "placement", "n": n, "L": 10000,
+          "k": 15, "s": 1000, "precision": "f32", "chunk": 8192,
           "phases_ms": {
               "input": _ms(r"Input in: (\d+) ms", log),
               "sketch": _ms(r"Sketch in: (\d+) ms", log),
@@ -348,17 +560,178 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> int:
           "steady_ms_per_insertion": _ms(
               r"steady ([\d.]+) ms/insertion", log),
           "dense_bfs_fallbacks": int(st.nfb),
-          "kernel_launches": launches, "kernel_calls": checked,
+          "kernel_launches": counts, "kernel_calls": checked,
+          "side_vector_calls_checked": len(side_calls),
           "max_memory_allocated": peak,
           "rf": rf, "nrf_vs_true": nrf, "nrf_limit": NRF_LIMIT})
-    return launches, checked
+    return {"counts": counts, "merge_count_calls": checked,
+            "side_vector_max_abs_err": side_err}
+
+
+def phase_nj_gpu_vs_cpu(tmp: str, n: int = 2048) -> dict:
+    """The card's mash matrix as PHYLIP, then NJ from it on both devices."""
+    from dipper_tpu_torch.io.phylip import read_phylip_lower_triangular
+    from dipper_tpu_torch.nj import neighbor_joining
+    from dipper_tpu_torch.utils.treecmp import rf_distance
+
+    fa, _ = make_dataset(n, os.path.join(tmp, f"nj{n}"), seed=3)
+    phy = os.path.join(tmp, f"nj{n}.phy")
+    rc, _, _ = run_cli(["-i", "r", "-I", fa, "-O", phy, "-o", "d"])
+    check(rc == 0, f"-i r -o d returned {rc}")
+    res = {}
+    for prec in ("f32", "f64"):
+        outs, nj_ms = {}, {}
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(tmp, f"nj{n}.{prec}.{dev}.nwk")
+            rc, log, _ = run_cli(["-i", "d", "-I", phy, "-O", out, "-m", "2",
+                                  "--precision", prec, "--device", dev])
+            check(rc == 0, f"NJ -i d --device {dev} returned {rc}")
+            outs[dev] = open(out).read()
+            nj_ms[dev] = _ms(r"NJ in: (\d+) ms", log)
+        rf, nrf = rf_distance(outs["cuda"], outs["cpu"])
+        check(rf == 0, f"NJ {prec}: GPU vs CPU trees differ: RF {rf} "
+              f"(nRF {nrf})")
+        res[prec] = {"rf": rf, "nrf": nrf, "nj_ms": nj_ms,
+                     "newick_identical": outs["cuda"] == outs["cpu"]}
+    # one NJ on the card under the profiler: launches per merge step and
+    # the device's busy share
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _, D = read_phylip_lower_triangular(phy)
+    neighbor_joining(D[:256, :256], dtype_name="float32", device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        neighbor_joining(D, dtype_name="float32", device="cuda")
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    ka = prof.key_averages()
+    on_dev = [e for e in ka if e.device_type != DeviceType.CPU]
+    busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
+    launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
+    res["profiled_f32"] = {
+        "wall_ms_under_profiler": wall_ms, "device_busy_ms": busy_ms,
+        "device_busy_share_of_unprofiled_cuda_run":
+            busy_ms / res["f32"]["nj_ms"]["cuda"],
+        "kernel_launches_per_step": launches / (n - 2),
+        "device_ops_per_step": sum(e.count for e in on_dev) / (n - 2),
+        "top_device_ops": sorted(
+            ((e.key, e.self_device_time_total / 1e3) for e in on_dev),
+            key=lambda kv: -kv[1])[:8]}
+    emit({"phase": "nj_gpu_vs_cpu", "n": n, **res})
+    return res
+
+
+def phase_nj_main_path(tmp: str, n: int) -> dict:
+    from dipper_tpu_torch.distance import mash, mash_cuda
+
+    t0 = time.time()
+    fa, true_nwk = make_dataset(n, os.path.join(tmp, f"n{n}"), seed=1)
+    gen_s = time.time() - t0
+    out = os.path.join(tmp, f"n{n}.nj.nwk")
+
+    matrices = []
+    build_matrix = mash.mash_distance_matrix
+
+    def keep_matrix(*a, **kw):
+        D = build_matrix(*a, **kw)
+        matrices.append(D)
+        return D
+
+    # every distance-kernel call: its inputs, every SAMPLE-th row of its
+    # output and its CUDA-event time
+    calls = []
+    kernel = mash_cuda.mash_rows_dist_cuda
+
+    def recorded(bank, qry, table, *, sketch_size, out=None):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        got = kernel(bank, qry, table, sketch_size=sketch_size, out=out)
+        ev[1].record()
+        calls.append((bank, qry, table, sketch_size, got[::SAMPLE].clone(),
+                      ev))
+        return got
+
+    mash.mash_distance_matrix = keep_matrix
+    mash_cuda.mash_rows_dist_cuda = recorded
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        rc, log, wall = run_cli(["-i", "r", "-I", fa, "-O", out])
+    finally:
+        mash.mash_distance_matrix = build_matrix
+        mash_cuda.mash_rows_dist_cuda = kernel
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    check(rc == 0, f"NJ main path CLI returned {rc}")
+    check("Using conventional NJ" in log, "auto mode did not take NJ")
+    check(counts["mash_rows_dist"] > 0,
+          "the NJ main path launched no mash_rows_dist kernel")
+    check(len(calls) == counts["mash_rows_dist"],
+          f"{len(calls)} recorded kernel calls, "
+          f"{counts['mash_rows_dist']} launches")
+    rf, nrf = check_tree(open(out).read().strip(), n, true_nwk, NJ_NRF_LIMIT)
+    from dipper_tpu_torch.distance.mash import mash_rows_vs_bank
+
+    k, s = 15, 1000
+    worst = 0.0
+    checked = []
+    for j, (bank, qry, table, ss, got, ev) in enumerate(calls):
+        t1 = time.perf_counter()
+        want = mash_rows_vs_bank(bank, qry[::SAMPLE].contiguous(), k=k,
+                                 sketch_size=ss, dtype_name="float32")
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        err = _max_abs_err(got, want)
+        check(torch.equal(got, want), f"NJ main-path launch {j}: kernel != "
+              f"plain on every {SAMPLE}th row (max abs err {err})")
+        worst = max(worst, err)
+        checked.append({"bank": bank.shape[0], "queries": qry.shape[0],
+                        "rows_checked": want.shape[0], "max_abs_err": err,
+                        "ms": ev[0].elapsed_time(ev[1]),
+                        "plain_ms_checked_rows": plain_ms})
+    check(len(matrices) == 1, "the NJ main path built no mash matrix")
+    D = matrices[0]
+    check(D.shape == (n, n) and D.dtype == torch.float32
+          and D.device.type == "cuda", f"matrix {tuple(D.shape)} {D.dtype} "
+          f"on {D.device}")
+    check(torch.equal(D, D.T), "the mash matrix is not symmetric")
+    check(bool((D.diagonal() == 0).all()), "the mash matrix diagonal is not 0")
+    # the lower triangle is the kernel's rows (row i = query, j < i = bank)
+    q0 = 0
+    for bank, qry, table, ss, got, ev in calls:
+        for r in range(got.shape[0]):
+            i = q0 + r * SAMPLE
+            check(torch.equal(D[i, :i], got[r, :i]),
+                  f"matrix row {i} differs from the kernel's row")
+        q0 += qry.shape[0]
+    emit({"phase": "main_path", "path": "nj", "n": n, "L": 10000, "k": k,
+          "s": s, "precision": "f32", "dataset_gen_s": gen_s,
+          "phases_ms": {
+              "input": _ms(r"Input in: (\d+) ms", log),
+              "sketch": _ms(r"Sketch in: (\d+) ms", log),
+              "rank_bank": _ms(r"Rank bank in: (\d+) ms", log),
+              "distance_matrix": _ms(r"Distance matrix in: (\d+) ms", log),
+              "nj": _ms(r"NJ in: (\d+) ms", log),
+              "tree_created": _ms(r"Tree Created in: (\d+) ms", log),
+              "total_wall": wall * 1e3},
+          "kernel_launches": counts, "kernel_calls": checked,
+          "max_memory_allocated": peak,
+          "rf": rf, "nrf_vs_true": nrf, "nrf_limit": NJ_NRF_LIMIT})
+    return {"counts": counts, "max_abs_err": worst}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=30000,
-                    help="taxa of the main-path run (phase 5)")
-    ap.add_argument("--phases", default="1,2,3,4,5",
+                    help="taxa of the placement main path (phase 5) and of "
+                         "the kernel phases' inputs")
+    ap.add_argument("--nj-n", type=int, default=20000,
+                    help="taxa of the NJ main path (phase 9)")
+    ap.add_argument("--phases", default=",".join(map(str, sorted(ALL_PHASES))),
                     help="comma-separated subset of phases to run")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -371,32 +744,55 @@ def main() -> int:
     info = phase_device()
     if 2 in phases:
         phase_build()
-    record = {"name": "mash_merge_count", "route": "cuda",
-              "source": KERNEL_SOURCE, "replaces": REPLACES}
+    records = {name: {"name": name, "route": "cuda", "source": src,
+                      "replaces": rep}
+               for name, (src, rep) in KERNELS.items()}
     with tempfile.TemporaryDirectory() as tmp:
-        if phases & {3, 5}:
+        if phases & {3, 5, 6}:
             t0 = time.time()
             data = make_dataset(args.n, os.path.join(tmp, f"n{args.n}"),
                                 seed=1)
             emit({"phase": "dataset", "n": args.n, "L": 10000, "seed": 1,
                   "gen_s": time.time() - t0})
+        if phases & {3, 6}:
+            inputs = kernel_cases(data[0])
         if 3 in phases:
-            record.update(phase_kernel_vs_plain(data[0]))
+            records["mash_merge_count"].update(phase_kernel_vs_plain(inputs))
+        if 6 in phases:
+            records["mash_rows_dist"].update(phase_rows_dist_vs_plain(inputs))
+        if phases & {3, 6}:
+            del inputs
+        if 7 in phases:
+            records["side_vector"].update(phase_side_vector_vs_plain())
         if 4 in phases:
             phase_gpu_vs_cpu(tmp)
         if 5 in phases:
-            record["launches"], record["main_path_calls"] = phase_main_path(
-                tmp, args.n, *data)
-            record["max_abs_err"] = max(
-                [record.get("max_abs_err", 0)]
-                + [c["max_abs_err"] for c in record["main_path_calls"]])
+            res = phase_main_path(tmp, args.n, *data)
+            mc, sv = records["mash_merge_count"], records["side_vector"]
+            mc["launches"] = res["counts"]["mash_merge_count"]
+            mc["main_path_calls"] = res["merge_count_calls"]
+            mc["max_abs_err"] = max(
+                [mc.get("max_abs_err", 0)]
+                + [c["max_abs_err"] for c in res["merge_count_calls"]])
+            sv["launches"] = res["counts"]["side_vector"]
+            sv["max_abs_err"] = max(sv.get("max_abs_err", 0.0),
+                                    res["side_vector_max_abs_err"])
+        if 9 in phases:
+            res = phase_nj_main_path(tmp, args.nj_n)
+            rd = records["mash_rows_dist"]
+            rd["launches"] = res["counts"]["mash_rows_dist"]
+            rd["max_abs_err"] = max(rd.get("max_abs_err", 0.0),
+                                    res["max_abs_err"])
+        if 8 in phases:
+            phase_nj_gpu_vs_cpu(tmp)
     check(not any(m == "jax" or m.startswith("jax.") or m == "dipper_tpu"
                   or m.startswith("dipper_tpu.") for m in sys.modules),
           "JAX or the JAX package was imported")
-    if phases != {1, 2, 3, 4, 5}:
-        emit({"partial_run": sorted(phases), "kernels": [record]})
+    kernels = list(records.values())
+    if phases != set(ALL_PHASES):
+        emit({"partial_run": sorted(phases), "kernels": kernels})
         return 0
-    emit({"kernels": [record]})
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["torch_name"],
                                  "count": info["count"]}})
     return 0

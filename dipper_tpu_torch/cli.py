@@ -14,14 +14,18 @@ src/tree_generation.cu:33-99) plus --device:
   -d/--distance-type {1..6}
   -a/--add  -t/--input-tree PATH
   --device {cuda,cpu}         where tensors live (default cuda; asking for
-                              cuda without a GPU raises; cuda takes
-                              sketch sizes up to 12,288)
+                              cuda without a GPU raises; on cuda the mash
+                              kernels take sketch sizes up to 12,288 for
+                              placement, 6,143 (f32) or 4,095 (f64) for NJ
+                              and -o d)
 
-Ported so far: k-closest placement (-m 1, or auto mode at N >= 30,000)
-from -i r and -i d, with --precision, --seed, --save/--load-sketches,
---save/--load-state, --state-chunk and --no-prefix-caps. NJ, exact
-placement, divide-and-conquer, --add, -i m, -o d, --profile, --devices > 1
-and the multi-host flags exit 1 with a "not yet ported" message.
+Ported so far, from -i r and -i d: conventional NJ (-m 2, or auto mode
+below 30,000 taxa), k-closest placement (-m 1, or auto mode at N >=
+30,000) and the mash distance matrix as PHYLIP (-i r -o d), with
+--precision, --seed, --save/--load-sketches, and for placement
+--save/--load-state, --state-chunk and --no-prefix-caps. Exact
+placement, divide-and-conquer, --add, -i m, --profile, --devices > 1 and
+the multi-host flags exit 1 with a "not yet ported" message.
 """
 
 from __future__ import annotations
@@ -53,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="device of the build (default cuda; no silent "
                         "fallback to the CPU). cuda takes --sketch-size up "
-                        "to 12288 (the kernel's shared memory)")
+                        "to 12288 for placement, 6143 (f32) or 4095 (f64) "
+                        "for NJ and -o d (the kernels' shared memory)")
     p.add_argument("--precision", default="f32", choices=["f32", "f64"])
     p.add_argument("--seed", type=int, default=42,
                    help="input shuffle seed; -1 = keep input order")

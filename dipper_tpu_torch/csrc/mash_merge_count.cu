@@ -15,7 +15,8 @@
 // scans because the TPU's vector unit has no cheap data-dependent control.
 // A CUDA thread does: each thread runs the serial two-pointer walk for one
 // (query, bank row) pair, O(2S) steps against the network's O(M log M),
-// with the tie rule "B before A on equal value". A block of 256 threads
+// with the tie rule "B before A on equal value" (mash_walk.cuh, shared
+// with mash_rows_dist.cu). A block of 256 threads
 // covers 256 consecutive bank rows for a group of up to 8 queries, whose
 // first S ranks are staged in shared memory (8 x 1000 x 4 B = 32 KB at
 // S = 1000); each thread walks its bank row from global memory through
@@ -32,6 +33,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mash_walk.cuh"
 
 namespace {
 
@@ -62,27 +65,8 @@ merge_count_kernel(const int32_t* __restrict__ bank,
         __syncthreads();
         if (n >= n_bank) continue;
         const int32_t* a = bank + (size_t)n * m;
-        for (int r = 0; r < nq; ++r) {
-            const int32_t* b = sq + r * s;
-            int uni = 0, inter = 0, ai = 0, bi = 0;
-            int aval = a[0], bval = b[0];
-            // one step consumes the smaller head; on a tie B goes first
-            // and matches. ai <= uni < s holds inside the loop, so the
-            // A reads stay in the row's first s columns.
-            while (uni < s) {
-                if (bi < s && bval <= aval) {
-                    inter += (bval == aval);
-                    uni += (bval != aval);
-                    ++bi;
-                    bval = bi < s ? b[bi] : 0;
-                } else {
-                    ++uni;
-                    ++ai;
-                    aval = ai < s ? a[ai] : 0;
-                }
-            }
-            out[(size_t)(q0 + r) * n_bank + n] = inter;
-        }
+        for (int r = 0; r < nq; ++r)
+            out[(size_t)(q0 + r) * n_bank + n] = mash_walk_inter(a, sq + r * s, s);
     }
 }
 

@@ -12,21 +12,25 @@ sketchSize; then
 
 u64 hashes are rank-compressed once on the host (order- and
 equality-preserving) so every comparison is int32, and rank rows are
-padded to a power of two with ranks that sort last. Intersection counts
-come from the Hopper kernel (distance/mash_cuda.py) for CUDA tensors and
-from `merged_inter_count_ref`, the plain PyTorch restatement of the walk
-as a bitonic merge plus scans (dipper_tpu/distance/mash.py::
-_merged_inter_count), for CPU tensors. Distances go through one host
-lookup table, so equal counts give bitwise-equal distances on every
-device.
+padded to a power of two with ranks that sort last. For CUDA tensors,
+the Hopper kernels of distance/mash_cuda.py run the walk: one returns
+intersection counts (`mash_pairwise_inter`), the other the distances
+(`mash_pairwise`, `mash_distance_matrix`). CPU tensors take
+`merged_inter_count_ref`, the plain PyTorch restatement of the walk as a
+bitonic merge plus scans (dipper_tpu/distance/mash.py::
+_merged_inter_count). Distances go through one host lookup table, so
+equal counts give bitwise-equal distances on every device.
 """
 
 from __future__ import annotations
 
 import functools
+import time
 
 import numpy as np
 import torch
+
+from dipper_tpu_torch.utils.device import synchronize, torch_dtype
 
 _PAD_KEY = np.int32(2**31 - 1)
 _BIG = 2**30
@@ -43,6 +47,25 @@ def rank_compress_host(sketches_u64: np.ndarray) -> np.ndarray:
     flat = np.ascontiguousarray(sketches_u64).reshape(-1)
     _, inv = np.unique(flat, return_inverse=True)
     return inv.astype(np.int32).reshape(sketches_u64.shape)
+
+
+def mash_rank_bank(seqs, params, device, log=None) -> torch.Tensor:
+    """Host sketch bank (sketch/bank.py) -> host ranks -> one upload of
+    the padded int32 rank bank [N, M] to `device`. `log`, if given,
+    receives the CLI's "Sketch in" and "Rank bank in" lines."""
+    from dipper_tpu_torch.sketch.bank import get_sketch_bank
+
+    t0 = time.time()
+    sk = get_sketch_bank(seqs, params)
+    if log:
+        log(f"Sketch in: {int((time.time() - t0) * 1000)} ms")
+    t0 = time.time()
+    ranks = torch.from_numpy(pad_ranks(rank_compress_host(np.asarray(sk))))
+    ranks = ranks.to(device)
+    synchronize(device)
+    if log:
+        log(f"Rank bank in: {int((time.time() - t0) * 1000)} ms")
+    return ranks
 
 
 def _pad_pow2(S: int) -> int:
@@ -79,9 +102,13 @@ def inter_to_dist(inter: torch.Tensor, k: int, sketch_size: int,
                   dtype_name: str) -> torch.Tensor:
     """d = min(1, |ln(2j/(1+j))|/k), j = max(inter,1)/S (mash.cu:453),
     as a gather from the host table on inter's device."""
-    tab = torch.from_numpy(_dist_table(k, sketch_size, dtype_name)).to(
-        inter.device)
+    tab = _dist_table_on(inter.device, k, sketch_size, dtype_name)
     return tab[inter.clamp(0, sketch_size)]
+
+
+def _dist_table_on(device: torch.device, k: int, sketch_size: int,
+                   dtype_name: str) -> torch.Tensor:
+    return torch.from_numpy(_dist_table(k, sketch_size, dtype_name)).to(device)
 
 
 def _bitonic_merge(keys: torch.Tensor) -> torch.Tensor:
@@ -155,10 +182,63 @@ def mash_pairwise_inter(bank_ranks: torch.Tensor, query_ranks: torch.Tensor,
     raise ValueError(f"unsupported device {bank_ranks.device}")
 
 
+def mash_rows_vs_bank(bank_ranks: torch.Tensor, query_ranks: torch.Tensor,
+                      *, k: int, sketch_size: int,
+                      dtype_name: str) -> torch.Tensor:
+    """Plain PyTorch version of the distance kernel (csrc/
+    mash_rows_dist.cu): [N, M] bank x [Q, M] queries -> [Q, N] distances,
+    or a single [M] query -> [N], as dipper_tpu/distance/mash_pallas.py::
+    mash_rows_vs_bank_pallas returns them."""
+    single = query_ranks.dim() == 1
+    q = query_ranks[None] if single else query_ranks
+    d = inter_to_dist(merged_inter_count_ref(bank_ranks, q,
+                                             sketch_size=sketch_size),
+                      k, sketch_size, dtype_name)
+    return d[0] if single else d
+
+
 def mash_pairwise(bank_ranks: torch.Tensor, query_ranks: torch.Tensor, *,
-                  k: int, sketch_size: int, dtype_name: str) -> torch.Tensor:
+                  k: int, sketch_size: int, dtype_name: str,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
     """[N, M] bank x [Q, M] queries -> [Q, N] distances (d[q, a] =
-    distance with bank row a as the placed side)."""
-    inter = mash_pairwise_inter(bank_ranks, query_ranks,
-                                sketch_size=sketch_size)
-    return inter_to_dist(inter, k, sketch_size, dtype_name)
+    distance with bank row a as the placed side). CUDA tensors go to the
+    fused distance kernel (which raises on failure and, given `out`,
+    writes into it in place), CPU tensors to the plain version."""
+    if bank_ranks.device.type == "cuda":
+        from dipper_tpu_torch.distance.mash_cuda import mash_rows_dist_cuda
+
+        table = _dist_table_on(bank_ranks.device, k, sketch_size, dtype_name)
+        return mash_rows_dist_cuda(bank_ranks, query_ranks, table,
+                                   sketch_size=sketch_size, out=out)
+    if bank_ranks.device.type == "cpu":
+        d = mash_rows_vs_bank(bank_ranks, query_ranks, k=k,
+                              sketch_size=sketch_size, dtype_name=dtype_name)
+        if out is None:
+            return d
+        out.copy_(d)
+        return out
+    raise ValueError(f"unsupported device {bank_ranks.device}")
+
+
+# query rows per distance-matrix launch (bounds one launch's run time)
+MATRIX_ROW_BLOCK = 4096
+
+
+def mash_distance_matrix(ranks, k: int, sketch_size: int, dtype_name: str,
+                         device) -> torch.Tensor:
+    """The symmetric [N, N] mash distance matrix of padded int32 rank rows
+    `ranks` [N, M] (host array or tensor), on `device`. As in
+    dipper_tpu/distance/mash.py::mash_distance_matrix_device, entry (i, j)
+    with j < i is the distance with row i as the query (B) and row j as
+    the bank (A), mirrored into the upper triangle; the diagonal is 0.
+    The Mash walk is asymmetric, so that orientation is part of the
+    result."""
+    r = torch.as_tensor(ranks).to(device)
+    N = r.shape[0]
+    out = torch.empty((N, N), dtype=torch_dtype(dtype_name), device=device)
+    for q0 in range(0, N, MATRIX_ROW_BLOCK):
+        q1 = min(N, q0 + MATRIX_ROW_BLOCK)
+        mash_pairwise(r, r[q0:q1], k=k, sketch_size=sketch_size,
+                      dtype_name=dtype_name, out=out[q0:q1])
+    lower = out.tril_(-1)
+    return lower + lower.T

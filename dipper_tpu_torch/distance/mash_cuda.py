@@ -1,56 +1,62 @@
-"""ctypes wrapper of the Hopper mash merge-count kernel
-(csrc/mash_merge_count.cu), the port of
-dipper_tpu/distance/mash_pallas.py::mash_inter_pallas.
+"""ctypes wrappers of the Hopper mash kernels:
 
-The kernel is built from the repository's sources at first use
-(csrc/build.py). It takes rank rows, not the Pallas kernel's tagged keys
-(2r+1 / 2r): the serial walk compares ranks directly, with equal values
-resolved B-first. Its plain PyTorch version is
-distance/mash.py::merged_inter_count_ref.
+- csrc/mash_merge_count.cu, the port of dipper_tpu/distance/
+  mash_pallas.py::mash_inter_pallas: int32 intersection counts;
+- csrc/mash_rows_dist.cu, the port of mash_pallas.py::
+  mash_rows_vs_bank_pallas: the distances those counts index in the host
+  table, written directly (f32 or f64).
+
+Both run the same serial walk (csrc/mash_walk.cuh) and are built from the
+repository's sources at first use (csrc/build.py). They take rank rows,
+not the Pallas kernel's tagged keys (2r+1 / 2r): the walk compares ranks
+directly, with equal values resolved B-first. Their plain PyTorch
+versions are distance/mash.py::merged_inter_count_ref and
+mash_rows_vs_bank.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
-# Kernel launches made by this process; chip_smoke.py resets it and
-# reads it to show that a run went through the kernel.
-LAUNCHES = 0
+from dipper_tpu_torch.csrc.build import check_launch, load
 
-_lib = None
+# Kernel launches made by this process, one counter per kernel;
+# chip_smoke.py resets them and reads them to show that a run went
+# through the kernels.
+LAUNCHES = 0            # mash_merge_count
+ROWS_DIST_LAUNCHES = 0  # mash_rows_dist
 
-# mash_merge_count's return code for a sketch_size whose query rows do not
-# fit the kernel's shared memory (kSketchTooLarge in the .cu file)
+# the launchers' return code for a sketch_size whose shared-memory staging
+# does not fit (kSketchTooLarge in the .cu files)
 _SKETCH_TOO_LARGE = -1
+# the kernels' static shared-memory budget (kSmemBytes)
+_SMEM_BYTES = 48 * 1024
+
+_MERGE_COUNT_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p]
+_ROWS_DIST_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p]
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        from dipper_tpu_torch.csrc.build import build
-
-        lib = ctypes.CDLL(build("mash_merge_count", "mash_merge_count.cu"))
-        lib.mash_merge_count.restype = ctypes.c_int
-        lib.mash_merge_count.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        lib.mash_merge_count_error_string.restype = ctypes.c_char_p
-        lib.mash_merge_count_error_string.argtypes = [ctypes.c_int]
-        _lib = lib
-    return _lib
+def max_sketch_size(dtype_name: str | None = None) -> int:
+    """Largest sketch_size the merge-count kernel (dtype_name None) or the
+    distance kernel in `dtype_name` takes: one query row of int32 ranks,
+    plus the [s+1] table for the distance kernel, in 48 KB of shared
+    memory."""
+    if dtype_name is None:
+        return _SMEM_BYTES // 4
+    item = np.dtype(dtype_name).itemsize
+    return (_SMEM_BYTES - item) // (4 + item)
 
 
-def mash_inter_cuda(bank_ranks: torch.Tensor, query_ranks: torch.Tensor, *,
-                    sketch_size: int) -> torch.Tensor:
-    """bank_ranks int32 [N, M] (rows ascending), query_ranks int32 [Q, M],
-    both contiguous on one CUDA device, M >= sketch_size -> int32 [Q, N]
-    intersection counts. Launches on the current stream and returns
-    without synchronizing."""
-    global LAUNCHES
+def _check_ranks(bank_ranks: torch.Tensor, query_ranks: torch.Tensor,
+                 sketch_size: int) -> None:
     for nm, t in (("bank_ranks", bank_ranks), ("query_ranks", query_ranks)):
         if t.device.type != "cuda":
             raise ValueError(f"{nm} must be a CUDA tensor, got {t.device}")
@@ -69,23 +75,86 @@ def mash_inter_cuda(bank_ranks: torch.Tensor, query_ranks: torch.Tensor, *,
         raise ValueError(f"sketch_size {sketch_size} outside [1, {M}]")
     if max(N, Q, M) >= 2**31:
         raise ValueError("shape too large for the kernel's int arguments")
+
+
+def _too_large(sketch_size: int, what: str, limit: int) -> ValueError:
+    return ValueError(
+        f"sketch_size {sketch_size} is too large for the CUDA kernel: {what} "
+        f"must fit its 48 KB of shared memory (sketch_size <= {limit}); use "
+        "--device cpu")
+
+
+def mash_inter_cuda(bank_ranks: torch.Tensor, query_ranks: torch.Tensor, *,
+                    sketch_size: int) -> torch.Tensor:
+    """bank_ranks int32 [N, M] (rows ascending), query_ranks int32 [Q, M],
+    both contiguous on one CUDA device, M >= sketch_size -> int32 [Q, N]
+    intersection counts. Launches on the current stream and returns
+    without synchronizing."""
+    global LAUNCHES
+    _check_ranks(bank_ranks, query_ranks, sketch_size)
+    N, M = bank_ranks.shape
+    Q = query_ranks.shape[0]
     out = torch.empty((Q, N), dtype=torch.int32, device=bank_ranks.device)
     if N == 0 or Q == 0:
         return out
-    lib = _load()
+    lib = load("mash_merge_count", _MERGE_COUNT_ARGS)
     with torch.cuda.device(bank_ranks.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mash_merge_count(
             bank_ranks.data_ptr(), query_ranks.data_ptr(), out.data_ptr(),
             N, Q, M, sketch_size, stream)
     if rc == _SKETCH_TOO_LARGE:
-        raise ValueError(
-            f"sketch_size {sketch_size} is too large for the CUDA kernel: "
-            "one query row must fit its 48 KB of shared memory "
-            "(sketch_size <= 12288); use --device cpu")
-    if rc != 0:
-        raise RuntimeError(
-            f"mash_merge_count launch failed: CUDA error {rc} "
-            f"({lib.mash_merge_count_error_string(rc).decode()})")
+        raise _too_large(sketch_size, "one query row", max_sketch_size())
+    check_launch(lib, "mash_merge_count", rc)
     LAUNCHES += 1
+    return out
+
+
+def mash_rows_dist_cuda(bank_ranks: torch.Tensor, query_ranks: torch.Tensor,
+                        table: torch.Tensor, *, sketch_size: int,
+                        out: torch.Tensor | None = None) -> torch.Tensor:
+    """bank_ranks int32 [N, M] (rows ascending), query_ranks int32 [Q, M],
+    both contiguous on one CUDA device, M >= sketch_size; table float32 or
+    float64 [sketch_size + 1] on that device (distance/mash.py::
+    _dist_table) -> [Q, N] distances table[inter], in the table's dtype.
+
+    `out`, if given, is a [Q, N] tensor of the table's dtype whose rows are
+    contiguous (stride(1) == 1, any row stride): the kernel writes into it
+    in place, e.g. a block of rows of an [N, N] matrix. Launches on the
+    current stream and returns without synchronizing."""
+    global ROWS_DIST_LAUNCHES
+    _check_ranks(bank_ranks, query_ranks, sketch_size)
+    N, M = bank_ranks.shape
+    Q = query_ranks.shape[0]
+    if table.device != bank_ranks.device:
+        raise ValueError(f"table is on {table.device}, the ranks on "
+                         f"{bank_ranks.device}")
+    if table.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"table must be float32 or float64, got {table.dtype}")
+    if table.shape != (sketch_size + 1,) or not table.is_contiguous():
+        raise ValueError(f"table must be a contiguous [{sketch_size + 1}] "
+                         f"vector, got shape {tuple(table.shape)}")
+    if out is None:
+        out = torch.empty((Q, N), dtype=table.dtype, device=table.device)
+    elif (out.shape != (Q, N) or out.dtype != table.dtype
+          or out.device != table.device or (Q > 1 and out.stride(0) < N)
+          or (N > 1 and out.stride(1) != 1)):
+        raise ValueError(
+            f"out must be a [{Q}, {N}] {table.dtype} tensor on {table.device} "
+            f"with contiguous rows, got {tuple(out.shape)} {out.dtype} "
+            f"{out.device} strides {out.stride()}")
+    if N == 0 or Q == 0:
+        return out
+    lib = load("mash_rows_dist", _ROWS_DIST_ARGS)
+    with torch.cuda.device(bank_ranks.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mash_rows_dist(
+            bank_ranks.data_ptr(), query_ranks.data_ptr(), table.data_ptr(),
+            out.data_ptr(), N, Q, M, sketch_size, max(out.stride(0), N),
+            int(table.dtype == torch.float64), stream)
+    if rc == _SKETCH_TOO_LARGE:
+        raise _too_large(sketch_size, "the distance table and one query row",
+                         max_sketch_size(str(table.dtype).split(".")[1]))
+    check_launch(lib, "mash_rows_dist", rc)
+    ROWS_DIST_LAUNCHES += 1
     return out

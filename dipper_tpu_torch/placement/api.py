@@ -2,13 +2,10 @@
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from dipper_tpu_torch.placement import kclosest
-from dipper_tpu_torch.utils.device import synchronize
 from dipper_tpu_torch.utils.params import Param
 
 _EXACT_NOT_PORTED = "exact placement: not yet ported, see ROADMAP.md"
@@ -35,21 +32,10 @@ def run_fingerprint(params: Param, names) -> dict:
 
 
 def _mash_frontend(seqs, params: Param, device: torch.device, log=None):
-    """Host sketch bank -> host ranks -> one upload of the padded int32
-    rank bank to `device`."""
-    from dipper_tpu_torch.distance.mash import pad_ranks, rank_compress_host
-    from dipper_tpu_torch.sketch.bank import get_sketch_bank
+    """The padded int32 rank bank on `device`, and (k, sketch_size)."""
+    from dipper_tpu_torch.distance.mash import mash_rank_bank
 
-    t0 = time.time()
-    sk = get_sketch_bank(seqs, params)
-    if log:
-        log(f"Sketch in: {int((time.time() - t0) * 1000)} ms")
-    t0 = time.time()
-    ranks = torch.from_numpy(pad_ranks(rank_compress_host(np.asarray(sk))))
-    ranks = ranks.to(device)
-    synchronize(device)
-    if log:
-        log(f"Rank bank in: {int((time.time() - t0) * 1000)} ms")
+    ranks = mash_rank_bank(seqs, params, device, log=log)
     return (ranks,), (params.kmer_size, params.sketch_size)
 
 

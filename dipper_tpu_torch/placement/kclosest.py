@@ -29,13 +29,15 @@ tensor code with a handful of host syncs: the argmin's edge id, the
 chosen edge's endpoints, and one per BFS level, whose frontier is
 compacted with `nonzero` (that sync also decides whether the loop goes
 on). Distance rows of a whole insert range are computed before its loop
-(distance/mash.py: the Hopper merge-count kernel on CUDA). The float
+(distance/mash.py: the Hopper merge-count kernel on CUDA), and the
+scorer's side vector is the Hopper kernel csrc/side_vector.cu. The float
 operations and their order are the reference's, so trees are bitwise
 equal to the JAX package's on the same rows.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -45,7 +47,8 @@ import time
 import numpy as np
 import torch
 
-from dipper_tpu_torch.utils.device import synchronize
+from dipper_tpu_torch.csrc.build import check_launch, load
+from dipper_tpu_torch.utils.device import synchronize, torch_dtype
 
 K = 5
 SENT_DIS = 2.0
@@ -69,12 +72,6 @@ class TreeState:
     adj: torch.Tensor | None = None
     # compact-BFS frontier overflows that fell back to the dense BFS
     nfb: int = 0
-
-
-def torch_dtype(dtype_name: str) -> torch.dtype:
-    if dtype_name not in ("float32", "float64"):
-        raise ValueError(f"unsupported precision {dtype_name!r}")
-    return getattr(torch, dtype_name)
 
 
 def init_state(num_sequences: int, dtype: torch.dtype,
@@ -250,10 +247,71 @@ def adjacency_from_edges(belong: torch.Tensor, num_nodes: int) -> torch.Tensor:
 def _side_vector(cid, cdis, dist_row):
     """side[e] = max(max_j d(new, witness_j) - witness_dis_j, 0) — the
     dis1/dis2 maximization of calculateBranchLength
-    (src/placement_close_k.cu:334-344)."""
+    (src/placement_close_k.cu:334-344). The plain PyTorch version of
+    csrc/side_vector.cu."""
     dv = torch.where(cid != -1, dist_row[cid.clamp(min=0)] - cdis,
                      float("-inf"))
     return dv.amax(dim=-1).clamp(min=0.0)
+
+
+# side_vector_cuda launches made by this process (chip_smoke.py resets it
+# and reads it)
+SIDE_VECTOR_LAUNCHES = 0
+
+
+def side_vector_cuda(cid, cdis, dist_row):
+    """The Hopper kernel csrc/side_vector.cu (the port of scripts/
+    gather_micro.py's TPU gather, fused with the subtraction, the mask and
+    the max over K): cid int32 [E, K] and cdis [E, K], contiguous, and
+    dist_row [cap] with unit stride, float32 or float64, on one CUDA
+    device, every witness id < cap -> side [E], bitwise equal to
+    `_side_vector`. Launches on the current stream without
+    synchronizing."""
+    global SIDE_VECTOR_LAUNCHES
+    dev = dist_row.device
+    if dev.type != "cuda" or cid.device != dev or cdis.device != dev:
+        raise ValueError(f"side_vector_cuda needs CUDA tensors on one device, "
+                         f"got {cid.device}, {cdis.device}, {dev}")
+    if cid.dtype != torch.int32 or cid.dim() != 2 or cid.shape[1] != K:
+        raise ValueError(f"cid must be int32 [E, {K}], got {cid.dtype} "
+                         f"{tuple(cid.shape)}")
+    if cdis.shape != cid.shape or cdis.dtype != dist_row.dtype:
+        raise ValueError(f"cdis must be [E, {K}] of dist_row's dtype, got "
+                         f"{cdis.dtype} {tuple(cdis.shape)}")
+    if dist_row.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"dist_row must be float32 or float64, got "
+                         f"{dist_row.dtype}")
+    if dist_row.dim() != 1 or (dist_row.numel() > 1
+                               and dist_row.stride(0) != 1):
+        raise ValueError("dist_row must be a 1-D tensor with unit stride")
+    if not (cid.is_contiguous() and cdis.is_contiguous()):
+        raise ValueError("cid and cdis must be contiguous")
+    E = cid.shape[0]
+    if E >= 2**31:
+        raise ValueError("too many edges for the kernel's int arguments")
+    side = torch.empty((E,), dtype=dist_row.dtype, device=dev)
+    if E == 0:
+        return side
+    lib = load("side_vector", [ctypes.c_void_p] * 4
+               + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        rc = lib.side_vector(cid.data_ptr(), cdis.data_ptr(),
+                             dist_row.data_ptr(), side.data_ptr(), E,
+                             int(dist_row.dtype == torch.float64),
+                             torch.cuda.current_stream().cuda_stream)
+    check_launch(lib, "side_vector", rc)
+    SIDE_VECTOR_LAUNCHES += 1
+    return side
+
+
+def side_vector(cid, cdis, dist_row):
+    """`_side_vector` on the device of dist_row: the kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    if dist_row.device.type == "cuda":
+        return side_vector_cuda(cid, cdis, dist_row)
+    if dist_row.device.type == "cpu":
+        return _side_vector(cid, cdis, dist_row)
+    raise ValueError(f"unsupported device {dist_row.device}")
 
 
 def _finish_score(st: TreeState, side, dis2):
@@ -284,7 +342,7 @@ def _finish_score(st: TreeState, side, dis2):
 def score_edges(st: TreeState, dist_row):
     """Vectorized calculateBranchLength (src/placement_close_k.cu:309-358).
     Returns (eid, fracLen, addLen); ties -> lowest eid."""
-    side = _side_vector(st.cid, st.cdis, dist_row)     # [E]
+    side = side_vector(st.cid, st.cdis, dist_row)      # [E]
     return _finish_score(st, side, side[st.rev])
 
 
@@ -374,12 +432,17 @@ def _rows(frontend_args, frontend: str, frontend_static, dtype_name: str,
         (D,) = frontend_args
         return D[lo:hi]
     if frontend == "mash":
-        from dipper_tpu_torch.distance.mash import mash_pairwise
+        from dipper_tpu_torch.distance.mash import (inter_to_dist,
+                                                    mash_pairwise_inter)
 
         (ranks,) = frontend_args
         k, sketch_size = frontend_static
-        return mash_pairwise(ranks, ranks[lo:hi], k=k,
-                             sketch_size=sketch_size, dtype_name=dtype_name)
+        # counts, then the table gather: the merge-count kernel's route on
+        # CUDA (moving it to the fused distance kernel is queued in
+        # ROADMAP.md's perf_opt list)
+        inter = mash_pairwise_inter(ranks, ranks[lo:hi],
+                                    sketch_size=sketch_size)
+        return inter_to_dist(inter, k, sketch_size, dtype_name)
     raise ValueError(f"frontend {frontend!r} is not ported")
 
 

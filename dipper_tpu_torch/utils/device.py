@@ -17,6 +17,13 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
+def torch_dtype(dtype_name: str) -> torch.dtype:
+    """'float32' or 'float64' (the CLI's --precision) -> torch.dtype."""
+    if dtype_name not in ("float32", "float64"):
+        raise ValueError(f"unsupported precision {dtype_name!r}")
+    return getattr(torch, dtype_name)
+
+
 def synchronize(device: torch.device) -> None:
     """Wait for the device's queued work (a no-op on the CPU)."""
     if device.type == "cuda":

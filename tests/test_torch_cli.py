@@ -1,8 +1,9 @@
 """The port's CLI (`--device cpu`) vs dipper_tpu.cli on the inputs of
 tests/test_cli_placement.py: identical Newick bytes in f64 (bitwise
 equal builds), nRF = 0 in f32 (the trees are bitwise equal there too, but
-nRF is the contract the f32 path is held to). Unported modes exit 1 with
-a "not yet ported" message."""
+nRF is the contract the f32 path is held to), for k-closest placement and
+conventional NJ; identical PHYLIP bytes for the mash matrix (-i r -o d).
+Unported modes exit 1 with a "not yet ported" message."""
 
 import numpy as np
 import pytest
@@ -86,13 +87,61 @@ def test_sketch_and_state_checkpoints(tmp_path, fasta):
     assert outs[0] == outs[1] == outs[2]
 
 
+# NJ: -m 2, or auto mode below 30,000 taxa (-m 0 included: auto mode)
+NJ_MODES = [pytest.param([], id="auto"), pytest.param(["-m", "2"], id="m2"),
+            pytest.param(["-m", "0"], id="m0")]
+
+
+@pytest.mark.parametrize("mode", NJ_MODES)
+def test_nj_matrix_f64_identical_bytes(tmp_path, phylip, mode):
+    want, got = _both(tmp_path, ["-i", "d", "-I", phylip, "--precision",
+                                 "f64"] + mode)
+    assert got == want
+
+
+@pytest.mark.parametrize("mode", NJ_MODES[:2])
+def test_nj_matrix_f32_nrf_zero(tmp_path, phylip, mode):
+    want, got = _both(tmp_path, ["-i", "d", "-I", phylip] + mode)
+    assert rf_distance(got, want)[0] == 0
+
+
+@pytest.mark.parametrize("mode", NJ_MODES[:2])
+@pytest.mark.parametrize("seed", ["-1", "42"])
+def test_nj_mash_f64_identical_bytes(tmp_path, fasta, seed, mode):
+    want, got = _both(tmp_path, ["-i", "r", "-I", fasta, "-k", "12", "-s",
+                                 "150", "--precision", "f64", "--seed",
+                                 seed] + mode)
+    assert got == want
+
+
+def test_nj_mash_f32_nrf_zero(tmp_path, fasta):
+    want, got = _both(tmp_path, ["-i", "r", "-I", fasta, "-k", "12", "-s",
+                                 "150"])
+    assert rf_distance(got, want)[0] == 0
+
+
+@pytest.mark.parametrize("extra", [[], ["--precision", "f64"], ["-m", "1"]])
+def test_mash_matrix_output_identical_bytes(tmp_path, fasta, extra):
+    """-i r -o d writes the matrix NJ would use, widened to f64, whatever
+    the mode."""
+    want, got = _both(tmp_path, ["-i", "r", "-I", fasta, "-k", "12", "-s",
+                                 "150", "-o", "d"] + extra)
+    assert got == want
+
+
+def test_nj_log_lines(tmp_path, fasta, capsys):
+    assert port_main(["-i", "r", "-I", fasta, "-k", "12", "-s", "150", "-O",
+                      str(tmp_path / "o.nwk"), "--device", "cpu"]) == 0
+    err = capsys.readouterr().err
+    for line in ("Using conventional NJ", "Sketch in:", "Distance matrix in:",
+                 "NJ in:", "Tree Created in:"):
+        assert line in err, err
+
+
 @pytest.mark.parametrize("args, what", [
-    (["-i", "d", "-m", "2"], "conventional NJ"),
-    (["-i", "d"], "pass -m 1"),              # auto mode below 30,000 taxa
     (["-i", "r", "-m", "3"], "divide-and-conquer"),
-    (["-i", "d", "-m", "0"], "conventional NJ"),  # auto: NJ at this N
     (["-i", "m", "-m", "1"], "-i m"),
-    (["-i", "r", "-m", "1", "-o", "d"], "-o d"),
+    (["-i", "m", "-m", "2"], "-i m"),
     (["-i", "r", "--add", "-t", "TREE"], "--add"),
     (["-i", "r", "-m", "1", "--profile", "/tmp/x"], "--profile"),
     (["-i", "r", "-m", "1", "--devices", "2"], "--devices"),

@@ -1,6 +1,7 @@
-"""The port on an NVIDIA GPU: the mash merge-count kernel against its
-plain PyTorch version, and CUDA builds against CPU builds. Every test
-skips without CUDA. The file imports no JAX, so it also runs on a machine
+"""The port on an NVIDIA GPU: the hand-written kernels (mash merge count,
+mash distance rows, side vector) against their plain PyTorch versions,
+and CUDA builds (placement, the mash matrix, NJ) against CPU builds.
+Every test skips without CUDA. The file imports no JAX, so it also runs on a machine
 without it (the repo's conftest imports JAX, hence --noconftest):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -12,10 +13,12 @@ import torch
 
 from dipper_tpu_torch.distance import mash as tm
 from dipper_tpu_torch.distance import mash_cuda
+from dipper_tpu_torch.nj import neighbor_joining, nj_tree_newick
 from dipper_tpu_torch.placement import kclosest as tk
 from dipper_tpu_torch.sketch.native import sketch_sequences_native
+from dipper_tpu_torch.utils.treecmp import rf_distance
 
-from datagen import simulate_unaligned
+from datagen import random_tree_edges, simulate_unaligned
 
 pytestmark = pytest.mark.cuda
 
@@ -87,3 +90,157 @@ def test_cuda_build_equals_cpu_build(cuda, dtype):
     a, b = tk.tree_state_to_numpy(cpu), tk.tree_state_to_numpy(gpu)
     for f in tk.STATE_FIELDS:
         assert np.array_equal(a[f], b[f]), f
+
+
+def _table(k, ss, dtype, dev):
+    return torch.from_numpy(tm._dist_table(k, ss, dtype)).to(dev)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("k, ss", [(12, 128), (11, 100), (15, 1000)])
+def test_rows_dist_kernel_equals_plain(cuda, k, ss, dtype):
+    r = torch.from_numpy(_ranks(300, 3000, 8, k, ss)).to(cuda)
+    q = r[17:170].contiguous()  # 153 queries: not a multiple of 8
+    before = mash_cuda.ROWS_DIST_LAUNCHES
+    got = mash_cuda.mash_rows_dist_cuda(r, q, _table(k, ss, dtype, cuda),
+                                        sketch_size=ss)
+    torch.cuda.synchronize()
+    assert mash_cuda.ROWS_DIST_LAUNCHES == before + 1
+    want = tm.mash_rows_vs_bank(r, q, k=k, sketch_size=ss, dtype_name=dtype)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_rows_dist_kernel_adversarial_rows(cuda, dtype):
+    rng = np.random.default_rng(2)
+    bank = torch.from_numpy(_adversarial(257, 100, 128, rng)).to(cuda)
+    qry = torch.from_numpy(_adversarial(19, 100, 128, rng)).to(cuda)
+    got = mash_cuda.mash_rows_dist_cuda(bank, qry, _table(9, 100, dtype, cuda),
+                                        sketch_size=100)
+    assert torch.equal(got, tm.mash_rows_vs_bank(
+        bank, qry, k=9, sketch_size=100, dtype_name=dtype))
+
+
+def test_rows_dist_kernel_writes_through_row_stride(cuda):
+    """`out` may be a block of rows of a wider matrix: only that block
+    changes."""
+    r = torch.from_numpy(_ranks(90, 1500, 9, 12, 128)).to(cuda)
+    big = torch.full((40, 97), float("nan"), device=cuda)
+    got = mash_cuda.mash_rows_dist_cuda(r, r[5:35], _table(12, 128, "float32",
+                                                           cuda),
+                                        sketch_size=128, out=big[3:33, :90])
+    assert got.data_ptr() == big[3:33].data_ptr()
+    assert torch.equal(big[3:33, :90], tm.mash_rows_vs_bank(
+        r, r[5:35], k=12, sketch_size=128, dtype_name="float32"))
+    assert big[:3].isnan().all() and big[33:].isnan().all()
+    assert big[:, 90:].isnan().all()
+
+
+def test_rows_dist_wrapper_rejects_bad_inputs(cuda):
+    r = torch.from_numpy(_ranks(20, 800, 3, 12, 128)).to(cuda)
+    tab = _table(12, 128, "float32", cuda)
+    before = mash_cuda.ROWS_DIST_LAUNCHES
+    with pytest.raises(ValueError, match="table is on cpu"):
+        mash_cuda.mash_rows_dist_cuda(r, r, tab.cpu(), sketch_size=128)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        mash_cuda.mash_rows_dist_cuda(r, r, tab.half(), sketch_size=128)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        mash_cuda.mash_rows_dist_cuda(
+            r, r, tab, sketch_size=128,
+            out=torch.empty((20, 20), device=cuda).T)
+    wide = torch.zeros((4, 8192), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="sketch_size 4096 is too large"):
+        mash_cuda.mash_rows_dist_cuda(wide, wide,
+                                      _table(15, 4096, "float64", cuda),
+                                      sketch_size=4096)
+    assert mash_cuda.ROWS_DIST_LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_distance_matrix_cuda_equals_cpu(cuda, dtype, monkeypatch):
+    """The whole [N, N] matrix, filled in row blocks on the card, is the
+    CPU's bit for bit."""
+    monkeypatch.setattr(tm, "MATRIX_ROW_BLOCK", 48)  # several launches
+    r = _ranks(150, 2000, 5, 12, 100)
+    cpu = tm.mash_distance_matrix(r, 12, 100, dtype, "cpu")
+    gpu = tm.mash_distance_matrix(r, 12, 100, dtype, cuda)
+    assert torch.equal(gpu.cpu(), cpu)
+
+
+def _side_inputs(E, cap, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    cid = rng.integers(0, cap, (E, tk.K)).astype(np.int32)
+    cid[rng.random((E, tk.K)) < 0.3] = -1
+    cid[::7] = -1                       # edges with no witness at all
+    cdis = rng.random((E, tk.K)).astype(dtype)
+    row = rng.random(cap).astype(dtype)
+    row[::97] = np.nan                  # NaN distances propagate
+    return tuple(torch.from_numpy(a).to(dev) for a in (cid, cdis, row))
+
+
+def _same_bits(a, b):
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a[~a.isnan()], b[~b.isnan()]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_side_vector_kernel_equals_plain(cuda, dtype):
+    cid, cdis, row = _side_inputs(4001, 1000, dtype, cuda, 3)
+    before = tk.SIDE_VECTOR_LAUNCHES
+    got = tk.side_vector(cid, cdis, row)
+    torch.cuda.synchronize()
+    assert tk.SIDE_VECTOR_LAUNCHES == before + 1
+    want = tk._side_vector(cid, cdis, row)
+    assert got.dtype == want.dtype and _same_bits(got, want)
+    assert got.isnan().any() and (got[::7] == 0).all()
+
+
+def test_side_vector_wrapper_rejects_bad_inputs(cuda):
+    cid, cdis, row = _side_inputs(64, 50, "float32", cuda, 4)
+    before = tk.SIDE_VECTOR_LAUNCHES
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.side_vector_cuda(cid.T.contiguous().T, cdis, row)
+    with pytest.raises(ValueError, match="dtype"):
+        tk.side_vector_cuda(cid, cdis.double(), row)
+    with pytest.raises(ValueError, match="unit stride"):
+        tk.side_vector_cuda(cid, cdis, torch.cat([row, row])[::2])
+    with pytest.raises(ValueError, match="one device"):
+        tk.side_vector_cuda(cid.cpu(), cdis, row)
+    assert tk.SIDE_VECTOR_LAUNCHES == before
+
+
+def _additive(n, seed):
+    """Leaf-to-leaf path lengths of a random tree (an additive matrix)."""
+    parent, blen, _ = random_tree_edges(n, np.random.default_rng(seed))
+    up = {}
+    for leaf in range(n):
+        path, v, d = {}, leaf, 0.0
+        while True:
+            path[v] = d
+            if v not in parent:
+                break
+            d += blen[v]
+            v = parent[v]
+        up[leaf] = path
+    D = np.zeros((n, n))
+    for i in range(n):
+        for j in range(i):
+            lca = min((v for v in up[i] if v in up[j]),
+                      key=lambda v: up[i][v])
+            D[i, j] = D[j, i] = up[i][lca] + up[j][lca]
+    return D
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_nj_cuda_equals_cpu(cuda, dtype):
+    """NJ on the card joins what the CPU joins: nRF = 0 (here the join
+    sequences are the same too)."""
+    D = _additive(300, 7)
+    names = [f"T{i}" for i in range(300)]
+    cpu = neighbor_joining(D, dtype_name=dtype, device="cpu")
+    gpu = neighbor_joining(D, dtype_name=dtype, device=cuda)
+    assert ([[c for c, _ in ch] for ch in gpu[0]]
+            == [[c for c, _ in ch] for ch in cpu[0]])
+    rf, _ = rf_distance(nj_tree_newick(*gpu, names),
+                        nj_tree_newick(*cpu, names))
+    assert rf == 0

@@ -245,3 +245,49 @@ def test_rows_past_the_bank_raise():
     D = torch.from_numpy(_noisy(25))
     with pytest.raises(ValueError, match="run past"):
         tk._rows((D[:8, :8],), "matrix", (), "float64", 4, 9)
+
+
+def _side_inputs(dtype, seed):
+    """Witness lists with empty slots, edges with no witness at all, and a
+    NaN distance."""
+    rng = np.random.default_rng(seed)
+    E, cap = 300, 80
+    cid = rng.integers(0, cap, (E, tk.K)).astype(np.int32)
+    cid[rng.random((E, tk.K)) < 0.3] = -1
+    cid[::9] = -1
+    cdis = rng.random((E, tk.K)).astype(dtype)
+    row = rng.random(cap).astype(dtype)
+    row[[5, 41]] = np.nan
+    return cid, cdis, row
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_side_vector_matches_jax(dtype):
+    """The side-vector kernel's plain version vs the JAX package's, NaN
+    included (same NaN positions, same bits elsewhere)."""
+    cid, cdis, row = _side_inputs(dtype, 11)
+    got = tk._side_vector(*map(torch.from_numpy, (cid, cdis, row))).numpy()
+    want = np.asarray(jk._side_vector(jnp.asarray(cid), jnp.asarray(cdis),
+                                      jnp.asarray(row)))
+    assert got.dtype == want.dtype
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got).any() and (got[::9] == 0).all()
+    ok = ~np.isnan(got)
+    assert np.array_equal(got[ok].view(f"i{got.itemsize}"),
+                          want[ok].view(f"i{want.itemsize}"))
+
+
+def test_side_vector_cpu_takes_the_plain_version():
+    cid, cdis, row = map(torch.from_numpy, _side_inputs("float32", 12))
+    before = tk.SIDE_VECTOR_LAUNCHES
+    got = tk.side_vector(cid, cdis, row)
+    assert tk.SIDE_VECTOR_LAUNCHES == before
+    want = tk._side_vector(cid, cdis, row)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got[~got.isnan()], want[~want.isnan()])
+
+
+def test_side_vector_kernel_wrapper_rejects_cpu_tensors():
+    cid, cdis, row = map(torch.from_numpy, _side_inputs("float32", 13))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tk.side_vector_cuda(cid, cdis, row)

@@ -1,8 +1,8 @@
-"""Mash intersection counts and distances: the port vs the JAX package
-and the serial-walk oracle. Counts are integers and must be bitwise
-equal; distances come from the same host table, so they are bitwise
-equal given equal counts. The kernel-vs-plain checks are in
-tests/test_torch_cuda.py."""
+"""Mash intersection counts, distances and the NJ distance matrix: the
+port vs the JAX package and the serial-walk oracle. Counts are integers
+and must be bitwise equal; distances come from the same host table, so
+they are bitwise equal given equal counts, and so is the matrix. The
+kernel-vs-plain checks are in tests/test_torch_cuda.py."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from dipper_tpu.distance import mash as jm
-from dipper_tpu.distance.mash_pallas import mash_inter_pallas
+from dipper_tpu.distance.mash_pallas import (mash_inter_pallas,
+                                             mash_rows_vs_bank_pallas)
 from dipper_tpu.sketch.minhash import sketch_sequences
 from dipper_tpu_torch.distance import mash as tm
 from dipper_tpu_torch.distance import mash_cuda
@@ -111,3 +112,72 @@ def test_kernel_wrapper_rejects_bad_inputs():
     r = torch.from_numpy(_ranks(10, 500, 7, 11, 100))
     with pytest.raises(ValueError, match="CUDA tensor"):
         mash_cuda.mash_inter_cuda(r, r, sketch_size=100)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("k, ss", SKETCHES)
+def test_rows_vs_bank_match_pallas_interpret(k, ss, dtype):
+    """The distance kernel's plain version against the TPU kernel it
+    ports, run in interpret mode: [Q, M] queries and a single [M] row."""
+    r = _ranks(24, 700, 8, k, ss)
+    bank, qry = r, r[[3, 0, 22, 9, 14, 6, 17, 1, 20]]  # 9: not a multiple of 8
+    for q in (qry, qry[4]):
+        got = tm.mash_rows_vs_bank(torch.from_numpy(bank), torch.from_numpy(q),
+                                   k=k, sketch_size=ss, dtype_name=dtype)
+        want = np.asarray(mash_rows_vs_bank_pallas(
+            jnp.asarray(bank), jnp.asarray(q), k=k, sketch_size=ss,
+            dtype_name=dtype, interpret=True))
+        assert got.numpy().dtype == want.dtype
+        assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("k, ss", SKETCHES)
+def test_distance_matrix_matches_jax_device(k, ss, dtype):
+    """The port ranks on the host (rank_compress_host), the JAX NJ path on
+    the device (rank_compress): the matrices are bitwise equal."""
+    _, seqs = simulate_unaligned(45, 900, np.random.default_rng(9))
+    sk = np.asarray(sketch_sequences(seqs, k, ss))
+    want = np.asarray(jm.mash_distance_matrix_device(sk, k, ss, dtype=dtype))
+    ranks = tm.pad_ranks(tm.rank_compress_host(sk))
+    got = tm.mash_distance_matrix(ranks, k, ss, dtype, "cpu")
+    assert got.numpy().dtype == want.dtype
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(np.diag(want), np.zeros(45))
+
+
+def test_distance_matrix_row_blocks_are_exact(monkeypatch):
+    """Filling the matrix in blocks of query rows changes nothing."""
+    r = _ranks(30, 600, 10, 11, 100)
+    whole = tm.mash_distance_matrix(r, 11, 100, "float32", "cpu")
+    monkeypatch.setattr(tm, "MATRIX_ROW_BLOCK", 7)
+    assert torch.equal(tm.mash_distance_matrix(r, 11, 100, "float32", "cpu"),
+                       whole)
+
+
+def test_cpu_distances_take_the_plain_version():
+    r = torch.from_numpy(_ranks(10, 500, 7, 11, 100))
+    before = mash_cuda.ROWS_DIST_LAUNCHES
+    out = torch.full((10, 10), -1.0)
+    got = tm.mash_pairwise(r, r, k=11, sketch_size=100, dtype_name="float32",
+                           out=out)
+    assert got is out and mash_cuda.ROWS_DIST_LAUNCHES == before
+    assert torch.equal(out, tm.mash_rows_vs_bank(r, r, k=11, sketch_size=100,
+                                                 dtype_name="float32"))
+
+
+def test_distance_kernel_wrapper_rejects_cpu_tensors():
+    r = torch.from_numpy(_ranks(10, 500, 7, 11, 100))
+    table = torch.from_numpy(tm._dist_table(11, 100, "float32"))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        mash_cuda.mash_rows_dist_cuda(r, r, table, sketch_size=100)
+
+
+@pytest.mark.parametrize("dtype, limit", [(None, 12288), ("float32", 6143),
+                                          ("float64", 4095)])
+def test_kernel_sketch_size_limits(dtype, limit):
+    """One query row (and the distance table) in 48 KB of shared memory."""
+    assert mash_cuda.max_sketch_size(dtype) == limit
+    item = 0 if dtype is None else np.dtype(dtype).itemsize
+    assert 4 * limit + item * (limit + 1) <= 48 * 1024
+    assert 4 * (limit + 1) + item * (limit + 2) > 48 * 1024
