@@ -16,15 +16,19 @@ launch in the process):
      merged_inter_count_ref on the card, torch.equal required, on (a) real
      S=1000 sketches (bank 4,096 x 259 queries), (b) S=128 (pow2, no
      pads), (c) adversarial duplicate- and sentinel-heavy rank rows, (d)
-     the main path's bank width (every taxon) with 64 queries; median of
-     5 timed runs after a warm-up; and the placement main path's largest
-     call (every taxon x 8,192 queries), every 128th query row compared;
+     the main path's bank width (every taxon) with 64 queries, (e)-(h)
+     ragged shapes (neither side a multiple of the kernel's tile, one row
+     a side, S = 33 and S = 1); and the main paths' largest calls (every
+     taxon x 8,192 queries, 20,000 x 4,096), every 128th query row
+     compared. Times are CUDA-event means after a warm-up, each beside its
+     bound (see mash_bound) and the share of the bound reached;
   6. distance kernel vs plain: mash_rows_dist_cuda against
-     mash_rows_vs_bank on the four cases of phase 3, in f32 and f64,
-     torch.equal required, with times;
+     mash_rows_vs_bank on the cases and calls of phase 3, in f32 and f64,
+     torch.equal required, with times, bounds and shares;
   7. side-vector kernel vs plain: side_vector_cuda against _side_vector at
      cap 16,384 with 65,536 edges and at cap 30,000 with 120,000 edges, in
-     f32 and f64, equal bits required, with CUDA-event times;
+     f32 and f64, equal bits required, with CUDA-event times and the bound
+     from its bytes;
   4. GPU port vs CPU port, placement: the CLI at N=512 (-i r -m 1) with
      --device cuda and --device cpu, nRF = 0 required;
   8. GPU port vs CPU port, NJ: the mash matrix of N=2,048 taxa written by
@@ -60,7 +64,6 @@ import io
 import json
 import os
 import re
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -89,6 +92,15 @@ ALL_PHASES = (1, 2, 3, 6, 7, 4, 5, 9, 8)
 # every SAMPLE-th query row of a large kernel call is compared with the
 # plain version (which takes ~10 ms per query row at 30,000 bank rows)
 SAMPLE = 128
+# The card's peaks that the bounds divide by (H100 SXM data sheet): device
+# memory rate, and the int32 rate outside the tensor cores: 132
+# multiprocessors x 64 int32 lanes x 1.98 GHz, one operation a lane a
+# clock (half the lanes of the 67 TFLOP/s float32 figure, no FMA's two).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT32_PER_S = 132 * 64 * 1.98e9
+# integer operations of one step of the mash walk: a compare, a pointer
+# advance, two counter updates
+OPS_PER_WALK_STEP = 4
 
 
 def emit(obj) -> None:
@@ -116,20 +128,6 @@ def ranks_of(seqs, k: int, s: int) -> np.ndarray:
     sk = sketch_sequences_native(seqs, k, s)
     check(sk is not None, "native sketcher unavailable")
     return pad_ranks(rank_compress_host(sk))
-
-
-def timed_ms(fn, reps: int = 5) -> float:
-    """Median wall ms of `reps` runs after one warm-up, each bracketed by
-    torch.cuda.synchronize()."""
-    fn()
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
 
 
 def host_cpu() -> str:
@@ -172,7 +170,7 @@ def phase_build() -> None:
 
 def event_ms(fn, reps: int = 200) -> float:
     """Mean ms per call over `reps` back-to-back calls between two CUDA
-    events, after a warm-up: for kernels too short for the host clock."""
+    events, after a warm-up."""
     fn()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     torch.cuda.synchronize()
@@ -182,6 +180,42 @@ def event_ms(fn, reps: int = 200) -> float:
     ev[1].record()
     torch.cuda.synchronize()
     return ev[0].elapsed_time(ev[1]) / reps
+
+
+def bound_of(ops: float, nbytes: float,
+             ops_per_s: float = PEAK_INT32_PER_S) -> dict:
+    """The least time the card could take: the larger of the operations
+    over their peak rate and the bytes over the memory rate."""
+    by_ops = ops / ops_per_s * 1e3
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(by_ops, by_bytes),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "ops": ops, "bytes": nbytes}
+
+
+def mash_bound(inter: torch.Tensor, n_query: int, n_bank: int, s: int,
+               item: int, table: bool) -> dict:
+    """Bound of one mash kernel call of n_query x n_bank pairs from this
+    run's data. A pair's walk takes s + inter steps (every step raises
+    uni or inter, and it ends at uni == s), OPS_PER_WALK_STEP integer
+    operations each; `inter` holds the counts of the call's pairs, all of
+    them or some of its query rows (then scaled up). Bytes: the first s
+    ranks of every bank and query row once, the table, the [Q, N] output
+    of `item`-byte values once."""
+    pairs = n_query * n_bank
+    steps = pairs * s + float(inter.sum()) * (pairs / inter.numel())
+    nbytes = (n_bank + n_query) * s * 4 + pairs * item
+    if table:
+        nbytes += (s + 1) * item
+    out = bound_of(OPS_PER_WALK_STEP * steps, nbytes)
+    out["steps"] = steps
+    return out
+
+
+def with_share(rec: dict, bound: dict) -> dict:
+    rec.update(bound)
+    rec["share_of_bound"] = bound["bound_ms"] / rec["ms"]
+    return rec
 
 
 def _adversarial(n: int, s: int, m: int, rng) -> np.ndarray:
@@ -197,10 +231,10 @@ def _adversarial(n: int, s: int, m: int, rng) -> np.ndarray:
     return np.concatenate([rows, pad], axis=1).astype(np.int32)
 
 
-def check_sampled(name: str, got, bank, qry, s: int) -> dict:
+def check_sampled(name: str, got, bank, qry, s: int) -> tuple:
     """Holds every SAMPLE-th row of the kernel's output `got` (or `got`
     itself when it holds only those rows) against the plain version of
-    the same query rows."""
+    the same query rows; returns (record, the plain counts)."""
     from dipper_tpu_torch.distance.mash import merged_inter_count_ref
 
     if got.shape[0] == qry.shape[0]:
@@ -215,9 +249,9 @@ def check_sampled(name: str, got, bank, qry, s: int) -> dict:
     err = int((got.long() - want.long()).abs().max())
     check(torch.equal(got, want), f"{name}: kernel != plain on every "
           f"{SAMPLE}th query row (max abs err {err})")
-    return {"bank": bank.shape[0], "queries": qry.shape[0], "s": s,
-            "rows_checked": want.shape[0], "equal": True, "max_abs_err": err,
-            "plain_ms_checked_rows": plain_ms}
+    return ({"bank": bank.shape[0], "queries": qry.shape[0], "s": s,
+             "rows_checked": want.shape[0], "equal": True, "max_abs_err": err,
+             "plain_ms_checked_rows": plain_ms}, want)
 
 
 def kernel_cases(fa: str) -> tuple[dict, np.ndarray, float]:
@@ -239,12 +273,34 @@ def kernel_cases(fa: str) -> tuple[dict, np.ndarray, float]:
         "c_adversarial_s100": (_adversarial(777, 100, 128, rng),
                                _adversarial(67, 100, 128, rng), 100),
         f"d_s1000_bank{n}_q64": (r1000, r1000[-64:], 1000),
+        # ragged: neither side a multiple of the kernel's tile (at most 16
+        # rows at S = 1000, 64 at S <= 128), one row a side, S = 33, S = 1
+        "e_s1000_bank333_q77": (r1000[1000:1333], r1000[77:154], 1000),
+        "f_s1000_bank1_q1": (r1000[:1], r1000[1:2], 1000),
+        "g_adversarial_s33_bank65_q129": (_adversarial(65, 33, 64, rng),
+                                          _adversarial(129, 33, 64, rng), 33),
+        "h_adversarial_s1_bank67_q5": (_adversarial(67, 1, 2, rng),
+                                       _adversarial(5, 1, 2, rng), 1),
     }
     return cases, r1000, sketch_s
 
 
+def main_calls(r1000: torch.Tensor) -> dict:
+    """The main paths' largest kernel calls, as views of the rank bank on
+    the card: placement's range call (every taxon x 8,192 queries) and
+    NJ's row block (20,000 x 4,096)."""
+    n = r1000.shape[0]
+    return {f"range_call_bank{n}_q8192": (r1000, r1000[-min(8192, n):]),
+            "nj_call_bank20000_q4096": (r1000[:20000], r1000[:4096])}
+
+
 def _on_card(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays]
+
+
+def _reps(pairs: int) -> int:
+    """Timed launches of a mash call: fewer for the large ones."""
+    return 3 if pairs > 10**7 else 20 if pairs > 10**5 else 100
 
 
 def phase_kernel_vs_plain(inputs) -> dict:
@@ -265,32 +321,56 @@ def phase_kernel_vs_plain(inputs) -> dict:
         check(torch.equal(got, want), f"{name}: kernel != plain "
               f"(max abs err {err})")
         worst = max(worst, err)
-        ms = timed_ms(lambda: mash_inter_cuda(bank, qry, sketch_size=s))
-        plain_ms = timed_ms(
-            lambda: merged_inter_count_ref(bank, qry, sketch_size=s))
         pairs = bank.shape[0] * qry.shape[0]
-        out[name] = {"bank": bank.shape[0], "queries": qry.shape[0], "s": s,
-                     "M": bank.shape[1], "equal": True, "ms": ms,
-                     "plain_ms": plain_ms, "pairs_per_s": pairs / ms * 1e3,
-                     "plain_pairs_per_s": pairs / plain_ms * 1e3}
-    # the placement main path's largest call: one insert range (8,192
-    # queries) against the whole bank; the plain version of all of it would
-    # take minutes, so it is compared on every SAMPLE-th query row
-    (bank,) = _on_card(r1000)
-    qry = bank[-min(8192, n):]
-    rc = check_sampled("range call",
-                       mash_inter_cuda(bank, qry, sketch_size=1000),
-                       bank, qry, 1000)
-    worst = max(worst, rc["max_abs_err"])
-    rc["ms"] = timed_ms(lambda: mash_inter_cuda(bank, qry, sketch_size=1000),
-                        reps=3)
-    rc["pairs_per_s"] = bank.shape[0] * qry.shape[0] / rc["ms"] * 1e3
+        ms = event_ms(lambda: mash_inter_cuda(bank, qry, sketch_size=s),
+                      _reps(pairs))
+        plain_ms = event_ms(
+            lambda: merged_inter_count_ref(bank, qry, sketch_size=s), 3)
+        out[name] = with_share(
+            {"bank": bank.shape[0], "queries": qry.shape[0], "s": s,
+             "M": bank.shape[1], "equal": True, "ms": ms,
+             "plain_ms": plain_ms, "pairs_per_s": pairs / ms * 1e3,
+             "plain_pairs_per_s": pairs / plain_ms * 1e3,
+             "mean_inter": float(want.float().mean())},
+            mash_bound(want, qry.shape[0], bank.shape[0], s, 4, False))
+    # the main paths' largest calls; the plain version of all of one would
+    # take minutes, so they are compared on every SAMPLE-th query row
+    (bank_all,) = _on_card(r1000)
+    calls = {}
+    for name, (bank, qry) in main_calls(bank_all).items():
+        bank, qry = bank.contiguous(), qry.contiguous()
+        rc, want = check_sampled(
+            name, mash_inter_cuda(bank, qry, sketch_size=1000), bank, qry,
+            1000)
+        worst = max(worst, rc["max_abs_err"])
+        rc["ms"] = event_ms(
+            lambda: mash_inter_cuda(bank, qry, sketch_size=1000), 3)
+        rc["pairs_per_s"] = bank.shape[0] * qry.shape[0] / rc["ms"] * 1e3
+        calls[name] = with_share(rc, mash_bound(
+            want, qry.shape[0], bank.shape[0], 1000, 4, False))
     emit({"phase": "kernel_vs_plain", "kernel": "mash_merge_count",
+          "timing": "CUDA events, mean of back-to-back launches after a "
+                    "warm-up",
+          "bound": {"ops_per_step": OPS_PER_WALK_STEP,
+                    "int32_ops_per_s": PEAK_INT32_PER_S,
+                    "bytes_per_s": PEAK_BYTES_PER_S},
           "sketch_all_s": sketch_s, "cases": out, "max_abs_err": worst,
-          "range_call": rc})
-    main_case = out[f"d_s1000_bank{n}_q64"]
-    return {"max_abs_err": worst, "ms": main_case["ms"],
-            "plain_ms": main_case["plain_ms"]}
+          "main_calls": calls})
+    return _mash_record(out[f"d_s1000_bank{n}_q64"], calls, worst)
+
+
+def _mash_record(main_case: dict, calls: dict, worst) -> dict:
+    """A mash kernel's entry in the `kernels` line: the main path's bank
+    with 64 queries (the largest shape at which the plain version of the
+    whole call is timed), and the main paths' own calls beside it."""
+    rec = {k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "share_of_bound")}
+    rec.update(max_abs_err=worst, library_ms=None,
+               shape=[main_case["bank"], main_case["queries"]],
+               main_calls={name: {k: c[k] for k in (
+                   "ms", "bound_ms", "bound_by", "share_of_bound")}
+                   for name, c in calls.items()})
+    return rec
 
 
 def _max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -305,14 +385,18 @@ def _max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def phase_rows_dist_vs_plain(inputs, k: int = 15) -> dict:
-    from dipper_tpu_torch.distance.mash import _dist_table, mash_rows_vs_bank
+    from dipper_tpu_torch.distance.mash import (_dist_table, mash_rows_vs_bank,
+                                                merged_inter_count_ref)
     from dipper_tpu_torch.distance.mash_cuda import mash_rows_dist_cuda
 
     cases, r1000, _ = inputs
     n = r1000.shape[0]
     worst = 0.0
     out = {}
+    calls = {}
+    (bank_all,) = _on_card(r1000)
     for dtype in ("float32", "float64"):
+        item = np.dtype(dtype).itemsize
         for name, (bank, qry, s) in cases.items():
             bank, qry = _on_card(bank, qry)
             table = torch.from_numpy(_dist_table(k, s, dtype)).cuda()
@@ -331,17 +415,45 @@ def phase_rows_dist_vs_plain(inputs, k: int = 15) -> dict:
                   f"mash_rows_dist {dtype} {name}: kernel != plain "
                   f"(max abs err {err})")
             worst = max(worst, err)
-            ms, plain_ms = timed_ms(kernel), timed_ms(plain)
             pairs = bank.shape[0] * qry.shape[0]
-            out[f"{dtype}/{name}"] = {
-                "bank": bank.shape[0], "queries": qry.shape[0], "s": s,
-                "equal": True, "ms": ms, "plain_ms": plain_ms,
-                "pairs_per_s": pairs / ms * 1e3}
+            ms, plain_ms = event_ms(kernel, _reps(pairs)), event_ms(plain, 3)
+            out[f"{dtype}/{name}"] = with_share(
+                {"bank": bank.shape[0], "queries": qry.shape[0], "s": s,
+                 "equal": True, "ms": ms, "plain_ms": plain_ms,
+                 "pairs_per_s": pairs / ms * 1e3},
+                mash_bound(merged_inter_count_ref(bank, qry, sketch_size=s),
+                           qry.shape[0], bank.shape[0], s, item, True))
+        table = torch.from_numpy(_dist_table(k, 1000, dtype)).cuda()
+        for name, (bank, qry) in main_calls(bank_all).items():
+            bank, qry = bank.contiguous(), qry.contiguous()
+
+            def kernel():
+                return mash_rows_dist_cuda(bank, qry, table, sketch_size=1000)
+
+            got = kernel()[::SAMPLE]
+            inter = merged_inter_count_ref(bank, qry[::SAMPLE].contiguous(),
+                                           sketch_size=1000)
+            want = table[inter.long()]
+            torch.cuda.synchronize()
+            err = _max_abs_err(got, want)
+            check(torch.equal(got, want), f"mash_rows_dist {dtype} {name}: "
+                  f"kernel != plain on every {SAMPLE}th query row (max abs "
+                  f"err {err})")
+            worst = max(worst, err)
+            ms = event_ms(kernel, 3)
+            calls[f"{dtype}/{name}"] = with_share(
+                {"bank": bank.shape[0], "queries": qry.shape[0], "s": 1000,
+                 "rows_checked": want.shape[0], "equal": True, "ms": ms,
+                 "pairs_per_s": bank.shape[0] * qry.shape[0] / ms * 1e3},
+                mash_bound(inter, qry.shape[0], bank.shape[0], 1000, item,
+                           True))
     emit({"phase": "kernel_vs_plain", "kernel": "mash_rows_dist", "k": k,
-          "cases": out, "max_abs_err": worst})
-    main_case = out[f"float32/d_s1000_bank{n}_q64"]
-    return {"max_abs_err": worst, "ms": main_case["ms"],
-            "plain_ms": main_case["plain_ms"]}
+          "timing": "CUDA events, mean of back-to-back launches after a "
+                    "warm-up",
+          "cases": out, "max_abs_err": worst, "main_calls": calls})
+    return _mash_record(out[f"float32/d_s1000_bank{n}_q64"],
+                        {nm: c for nm, c in calls.items()
+                         if nm.startswith("float32/")}, worst)
 
 
 def _side_inputs(cap: int, E: int, dtype: str, seed: int):
@@ -375,16 +487,24 @@ def phase_side_vector_vs_plain() -> dict:
                   f"side_vector {dtype} cap {cap}: kernel != plain "
                   f"(max abs err {err})")
             worst = max(worst, err)
-            out[f"{dtype}/cap{cap}_E{E}"] = {
-                "cap": cap, "edges": E, "k": cid.shape[1], "equal": True,
-                "ms": event_ms(lambda: side_vector_cuda(cid, cdis, row)),
-                "plain_ms": event_ms(lambda: _side_vector(cid, cdis, row))}
+            # bytes: the witness ids and distances and the row once, the
+            # [E] output once; operations: a subtract and a max a witness,
+            # at half the 67 TFLOP/s float32 figure (which counts an FMA
+            # as two)
+            nbytes = sum(x.numel() * x.element_size()
+                         for x in (cid, cdis, row, got))
+            out[f"{dtype}/cap{cap}_E{E}"] = with_share(
+                {"cap": cap, "edges": E, "k": cid.shape[1], "equal": True,
+                 "ms": event_ms(lambda: side_vector_cuda(cid, cdis, row)),
+                 "plain_ms": event_ms(lambda: _side_vector(cid, cdis, row))},
+                bound_of(2 * cid.numel(), nbytes, 33.5e12))
     emit({"phase": "kernel_vs_plain", "kernel": "side_vector",
           "timing": "CUDA events, mean of 200 back-to-back calls",
           "cases": out, "max_abs_err": worst})
     main_case = out["float32/cap30000_E120000"]
-    return {"max_abs_err": worst, "ms": main_case["ms"],
-            "plain_ms": main_case["plain_ms"]}
+    return {"max_abs_err": worst, "library_ms": None,
+            **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "share_of_bound")}}
 
 
 def run_cli(argv) -> tuple[int, str, float]:
@@ -538,9 +658,10 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
           f"{counts['mash_merge_count']} launches")
     checked = []
     for j, (bank, qry, s, got, ev) in enumerate(calls):
-        c = check_sampled(f"main-path launch {j}", got, bank, qry, s)
+        c, want = check_sampled(f"main-path launch {j}", got, bank, qry, s)
         c["ms"] = ev[0].elapsed_time(ev[1])
-        checked.append(c)
+        checked.append(with_share(c, mash_bound(
+            want, qry.shape[0], bank.shape[0], s, 4, False)))
     side_err = 0.0
     for j, (cid, cdis, row, got) in enumerate(side_calls):
         err = _max_abs_err(got, kclosest._side_vector(cid, cdis, row))
@@ -674,25 +795,29 @@ def phase_nj_main_path(tmp: str, n: int) -> dict:
           f"{len(calls)} recorded kernel calls, "
           f"{counts['mash_rows_dist']} launches")
     rf, nrf = check_tree(open(out).read().strip(), n, true_nwk, NJ_NRF_LIMIT)
-    from dipper_tpu_torch.distance.mash import mash_rows_vs_bank
+    from dipper_tpu_torch.distance.mash import (inter_to_dist,
+                                                merged_inter_count_ref)
 
     k, s = 15, 1000
     worst = 0.0
     checked = []
     for j, (bank, qry, table, ss, got, ev) in enumerate(calls):
         t1 = time.perf_counter()
-        want = mash_rows_vs_bank(bank, qry[::SAMPLE].contiguous(), k=k,
-                                 sketch_size=ss, dtype_name="float32")
+        inter = merged_inter_count_ref(bank, qry[::SAMPLE].contiguous(),
+                                       sketch_size=ss)
+        want = inter_to_dist(inter, k, ss, "float32")
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t1) * 1e3
         err = _max_abs_err(got, want)
         check(torch.equal(got, want), f"NJ main-path launch {j}: kernel != "
               f"plain on every {SAMPLE}th row (max abs err {err})")
         worst = max(worst, err)
-        checked.append({"bank": bank.shape[0], "queries": qry.shape[0],
-                        "rows_checked": want.shape[0], "max_abs_err": err,
-                        "ms": ev[0].elapsed_time(ev[1]),
-                        "plain_ms_checked_rows": plain_ms})
+        checked.append(with_share(
+            {"bank": bank.shape[0], "queries": qry.shape[0],
+             "rows_checked": want.shape[0], "max_abs_err": err,
+             "ms": ev[0].elapsed_time(ev[1]),
+             "plain_ms_checked_rows": plain_ms},
+            mash_bound(inter, qry.shape[0], bank.shape[0], ss, 4, True)))
     check(len(matrices) == 1, "the NJ main path built no mash matrix")
     D = matrices[0]
     check(D.shape == (n, n) and D.dtype == torch.float32

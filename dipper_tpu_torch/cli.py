@@ -15,9 +15,9 @@ src/tree_generation.cu:33-99) plus --device:
   -a/--add  -t/--input-tree PATH
   --device {cuda,cpu}         where tensors live (default cuda; asking for
                               cuda without a GPU raises; on cuda the mash
-                              kernels take sketch sizes up to 12,288 for
-                              placement, 6,143 (f32) or 4,095 (f64) for NJ
-                              and -o d)
+                              kernels take sketch sizes up to 19,367 for
+                              placement, 14,523 (f32) or 11,619 (f64) for
+                              NJ and -o d)
 
 Ported so far, from -i r and -i d: conventional NJ (-m 2, or auto mode
 below 30,000 taxa), k-closest placement (-m 1, or auto mode at N >=
@@ -57,7 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="device of the build (default cuda; no silent "
                         "fallback to the CPU). cuda takes --sketch-size up "
-                        "to 12288 for placement, 6143 (f32) or 4095 (f64) "
+                        "to 19367 for placement, 14523 (f32) or 11619 (f64) "
                         "for NJ and -o d (the kernels' shared memory)")
     p.add_argument("--precision", default="f32", choices=["f32", "f64"])
     p.add_argument("--seed", type=int, default=42,

@@ -13,8 +13,9 @@ sketchSize; then
 u64 hashes are rank-compressed once on the host (order- and
 equality-preserving) so every comparison is int32, and rank rows are
 padded to a power of two with ranks that sort last. For CUDA tensors,
-the Hopper kernels of distance/mash_cuda.py run the walk: one returns
-intersection counts (`mash_pairwise_inter`), the other the distances
+the Hopper kernels of distance/mash_cuda.py run the walk, a warp per
+pair (`partitioned_walk_inter` models how): one returns intersection
+counts (`mash_pairwise_inter`), the other the distances
 (`mash_pairwise`, `mash_distance_matrix`). CPU tensors take
 `merged_inter_count_ref`, the plain PyTorch restatement of the walk as a
 bitonic merge plus scans (dipper_tpu/distance/mash.py::
@@ -164,6 +165,113 @@ def merged_inter_count_ref(bank_ranks: torch.Tensor,
             a_keys.unsqueeze(0).expand(c, N, M),
             b_keys.unsqueeze(1).expand(c, N, M), sketch_size)
     return out
+
+
+# csrc/mash_walk.cuh's kMaxStepsPerLane and kRoundMargin
+_MAX_STEPS_PER_LANE = 26
+_ROUND_MARGIN = 16
+
+
+def _select_bit(mask: int, k: int) -> int:
+    """Position of the k-th (1-based) set bit of the 32-bit `mask`, which
+    has at least k set bits: a binary search on popcounts, as
+    csrc/mash_walk.cuh::select_bit does it."""
+    p, half = 0, 16
+    while half:
+        c = bin((mask >> p) & ((1 << half) - 1)).count("1")
+        if c < k:
+            k -= c
+            p += half
+        half //= 2
+    return p
+
+
+def _round_steps_per_lane(need: int, uni: int, inter: int, lanes: int,
+                         max_steps: int) -> int:
+    """Steps each lane takes in the next round of the partitioned walk:
+    the `need` steps that are certain to run, plus the matches they are
+    expected to bring at the rate seen so far and a margin, spread over
+    the lanes and capped by `max_steps`."""
+    est = need
+    if uni + inter > 0:
+        est += need * inter // max(uni, 1) + _ROUND_MARGIN
+    return min(max_steps, (est + lanes - 1) // lanes)
+
+
+def partitioned_walk_inter(a, b, sketch_size: int, lanes: int = 32,
+                           max_steps: int = _MAX_STEPS_PER_LANE) -> int:
+    """Slow per-pair model of the algorithm of csrc/mash_walk.cuh, for
+    tests: the serial walk's `inter` for bank row `a` and query row `b`
+    (ascending ints, at least sketch_size long), computed the way one
+    warp of `lanes` lanes computes it.
+
+    The walk's steps are the merged order of A and B with B first on
+    equal values; step t stands on diagonal ai + bi = t. A round covers
+    lanes * w consecutive steps. Each lane finds the split (ai, bi) of
+    its first diagonal by binary search, walks its w steps, and keeps one
+    bit a step: the step is a B element equal to the A head (a match).
+    Every other step raises `uni`. While the round's steps leave uni
+    below sketch_size they all ran in the serial walk too, and the next
+    round starts where this one ended. In the round where uni reaches
+    sketch_size, a prefix sum over the lanes gives each lane the uni
+    count at its first step, and the lane in which it crosses counts only
+    the matches up to its (sketch_size - uni)-th raising step: a match
+    that stands at uni == sketch_size does not count."""
+    s = sketch_size
+    if not 1 <= max_steps <= 32:
+        raise ValueError(f"max_steps {max_steps} outside [1, 32], the step "
+                         "bits a lane keeps")
+    a = [int(v) for v in a[:s]] + [2**31 - 1]  # a[s]: the head of an
+    b = [int(v) for v in b[:s]] + [2**31 - 1]  # exhausted side
+    uni = inter = t0 = bi0 = 0
+    while True:
+        w = _round_steps_per_lane(s - uni, uni, inter, lanes, max_steps)
+        masks, counts, ends = [], [], []
+        for lane in range(lanes):
+            t = t0 + lane * w
+            n = max(0, min(w, 2 * s - t))
+            mm = bi = 0
+            if n:
+                lo = max(0, t - s, bi0)
+                hi = min(t, s, bi0 + (t - t0))
+                while lo < hi:
+                    mid = (lo + hi) // 2
+                    if b[mid] <= a[t - mid - 1]:
+                        lo = mid + 1
+                    else:
+                        hi = mid
+                bi, ai = lo, t - lo
+                for j in range(n):
+                    take_b = b[bi] <= a[ai] and bi < s
+                    if take_b and b[bi] == a[ai]:
+                        mm |= 1 << j
+                    if take_b:
+                        bi += 1
+                    else:
+                        ai += 1
+            masks.append(mm)
+            counts.append(n)
+            ends.append(bi)
+        lm = [bin(m).count("1") for m in masks]
+        lu = [n - c for n, c in zip(counts, lm)]
+        if uni + sum(lu) < s:
+            inter += sum(lm)
+            uni += sum(lu)
+            t0 += lanes * w
+            bi0 = ends[-1]
+            continue
+        base = 0
+        for lane in range(lanes):
+            k = s - uni - base
+            if k > 0:
+                if lu[lane] < k:
+                    inter += lm[lane]
+                else:
+                    raising = ~masks[lane] & ((1 << counts[lane]) - 1)
+                    p = _select_bit(raising, k)
+                    inter += bin(masks[lane] & ((2 << p) - 1)).count("1")
+            base += lu[lane]
+        return inter
 
 
 def mash_pairwise_inter(bank_ranks: torch.Tensor, query_ranks: torch.Tensor,

@@ -6,11 +6,12 @@
   mash_rows_vs_bank_pallas: the distances those counts index in the host
   table, written directly (f32 or f64).
 
-Both run the same serial walk (csrc/mash_walk.cuh) and are built from the
-repository's sources at first use (csrc/build.py). They take rank rows,
-not the Pallas kernel's tagged keys (2r+1 / 2r): the walk compares ranks
-directly, with equal values resolved B-first. Their plain PyTorch
-versions are distance/mash.py::merged_inter_count_ref and
+Both are one tile kernel (csrc/mash_walk.cuh: rows staged in shared
+memory, a warp per pair, the walk split over the lanes by merge path) and
+are built from the repository's sources at first use (csrc/build.py).
+They take rank rows, not the Pallas kernel's tagged keys (2r+1 / 2r): the
+walk compares ranks directly, with equal values resolved B-first. Their
+plain PyTorch versions are distance/mash.py::merged_inter_count_ref and
 mash_rows_vs_bank.
 """
 
@@ -32,8 +33,8 @@ ROWS_DIST_LAUNCHES = 0  # mash_rows_dist
 # the launchers' return code for a sketch_size whose shared-memory staging
 # does not fit (kSketchTooLarge in the .cu files)
 _SKETCH_TOO_LARGE = -1
-# the kernels' static shared-memory budget (kSmemBytes)
-_SMEM_BYTES = 48 * 1024
+# the kernels' dynamic shared-memory budget (mash::kSmemBudget)
+_SMEM_BYTES = 232448
 
 _MERGE_COUNT_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -44,15 +45,25 @@ _ROWS_DIST_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p]
 
 
+def _smem_bytes(sketch_size: int, item: int | None) -> int:
+    """Shared memory of the smallest tile (one row a side), as
+    mash::launch_tiles reckons it: the [s+1] table of `item`-byte values
+    (none for the counts), one query row and two bank rows of s + 1 ranks,
+    each part rounded up to 16 bytes, and one result."""
+    table = 0 if item is None else -(-item * (sketch_size + 1) // 16) * 16
+    row = -(-(sketch_size + 1) // 4) * 16
+    return table + 3 * row + (4 if item is None else item)
+
+
 def max_sketch_size(dtype_name: str | None = None) -> int:
     """Largest sketch_size the merge-count kernel (dtype_name None) or the
-    distance kernel in `dtype_name` takes: one query row of int32 ranks,
-    plus the [s+1] table for the distance kernel, in 48 KB of shared
-    memory."""
-    if dtype_name is None:
-        return _SMEM_BYTES // 4
-    item = np.dtype(dtype_name).itemsize
-    return (_SMEM_BYTES - item) // (4 + item)
+    distance kernel in `dtype_name` takes: the smallest tile must fit the
+    block's 232,448 bytes of shared memory."""
+    item = None if dtype_name is None else np.dtype(dtype_name).itemsize
+    s = _SMEM_BYTES // 12
+    while _smem_bytes(s, item) > _SMEM_BYTES:
+        s -= 1
+    return s
 
 
 def _check_ranks(bank_ranks: torch.Tensor, query_ranks: torch.Tensor,
@@ -80,7 +91,8 @@ def _check_ranks(bank_ranks: torch.Tensor, query_ranks: torch.Tensor,
 def _too_large(sketch_size: int, what: str, limit: int) -> ValueError:
     return ValueError(
         f"sketch_size {sketch_size} is too large for the CUDA kernel: {what} "
-        f"must fit its 48 KB of shared memory (sketch_size <= {limit}); use "
+        f"must fit a block's {_SMEM_BYTES:,} bytes of shared memory "
+        f"(sketch_size <= {limit}); use "
         "--device cpu")
 
 
@@ -104,7 +116,8 @@ def mash_inter_cuda(bank_ranks: torch.Tensor, query_ranks: torch.Tensor, *,
             bank_ranks.data_ptr(), query_ranks.data_ptr(), out.data_ptr(),
             N, Q, M, sketch_size, stream)
     if rc == _SKETCH_TOO_LARGE:
-        raise _too_large(sketch_size, "one query row", max_sketch_size())
+        raise _too_large(sketch_size, "one query row and two bank rows",
+                         max_sketch_size())
     check_launch(lib, "mash_merge_count", rc)
     LAUNCHES += 1
     return out
@@ -153,7 +166,8 @@ def mash_rows_dist_cuda(bank_ranks: torch.Tensor, query_ranks: torch.Tensor,
             out.data_ptr(), N, Q, M, sketch_size, max(out.stride(0), N),
             int(table.dtype == torch.float64), stream)
     if rc == _SKETCH_TOO_LARGE:
-        raise _too_large(sketch_size, "the distance table and one query row",
+        raise _too_large(sketch_size,
+                         "the distance table, one query row and two bank rows",
                          max_sketch_size(str(table.dtype).split(".")[1]))
     check_launch(lib, "mash_rows_dist", rc)
     ROWS_DIST_LAUNCHES += 1

@@ -46,7 +46,7 @@ def _adversarial(n, S, M, rng):
 @pytest.mark.parametrize("k, ss", [(12, 128), (11, 100), (15, 1000)])
 def test_kernel_equals_plain(cuda, k, ss):
     r = torch.from_numpy(_ranks(300, 3000, 8, k, ss)).to(cuda)
-    q = r[17:170].contiguous()  # 153 queries: not a multiple of 8
+    q = r[17:170].contiguous()  # 153 queries: not a multiple of the tile
     before = mash_cuda.LAUNCHES
     got = mash_cuda.mash_inter_cuda(r, q, sketch_size=ss)
     torch.cuda.synchronize()
@@ -70,11 +70,92 @@ def test_wrapper_rejects_non_contiguous(cuda):
 
 
 def test_wrapper_rejects_sketch_over_shared_memory(cuda):
-    r = torch.zeros((4, 16384), dtype=torch.int32, device=cuda)
+    r = torch.zeros((4, 32768), dtype=torch.int32, device=cuda)
     before = mash_cuda.LAUNCHES
-    with pytest.raises(ValueError, match="sketch_size 12289 is too large"):
-        mash_cuda.mash_inter_cuda(r, r, sketch_size=12289)
+    with pytest.raises(ValueError, match="sketch_size 19368 is too large"):
+        mash_cuda.mash_inter_cuda(r, r, sketch_size=19368)
     assert mash_cuda.LAUNCHES == before
+
+
+def _sorted_rows(n, ss, M, universe, seed):
+    """n ascending rows of ss ranks below `universe`, padded to M."""
+    rng = np.random.default_rng(seed)
+    rows = np.sort(rng.integers(0, universe, (n, ss)), axis=1)
+    pad = np.full((n, M - ss), (tm._PAD_KEY - 1) // 2)
+    return np.concatenate([rows, pad], axis=1).astype(np.int32)
+
+
+# bank rows, query rows, sketch size: neither count a multiple of the tile
+# (at most 16 rows a side at s = 1000 and 64 at s <= 128, fewer where the
+# problem is small), down to one row a side
+RAGGED = [(333, 77, 1000), (17, 1, 1000), (1, 1, 1000), (1, 19, 1000),
+          (130, 70, 128), (65, 129, 33), (200, 3, 31), (67, 5, 1)]
+
+
+@pytest.mark.parametrize("n, q, ss", RAGGED)
+def test_kernel_ragged_tiles(cuda, n, q, ss):
+    M = tm._pad_pow2(ss)
+    bank = torch.from_numpy(_sorted_rows(n, ss, M, 3 * ss, 1)).to(cuda)
+    qry = torch.from_numpy(_sorted_rows(q, ss, M, 3 * ss, 2)).to(cuda)
+    got = mash_cuda.mash_inter_cuda(bank, qry, sketch_size=ss)
+    want = tm.merged_inter_count_ref(bank, qry, sketch_size=ss)
+    assert torch.equal(got, want)
+    assert want.max() > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n, q, ss", RAGGED)
+def test_rows_dist_kernel_ragged_tiles(cuda, n, q, ss, dtype):
+    """Ragged tiles written through a row stride: only the block changes."""
+    M = tm._pad_pow2(ss)
+    bank = torch.from_numpy(_sorted_rows(n, ss, M, 3 * ss, 3)).to(cuda)
+    qry = torch.from_numpy(_sorted_rows(q, ss, M, 3 * ss, 4)).to(cuda)
+    big = torch.full((q + 2, n + 5), float("nan"), device=cuda,
+                     dtype=getattr(torch, dtype))
+    mash_cuda.mash_rows_dist_cuda(bank, qry, _table(13, ss, dtype, cuda),
+                                  sketch_size=ss, out=big[1:q + 1, :n])
+    assert torch.equal(big[1:q + 1, :n], tm.mash_rows_vs_bank(
+        bank, qry, k=13, sketch_size=ss, dtype_name=dtype))
+    assert big[0].isnan().all() and big[q + 1].isnan().all()
+    assert big[:, n:].isnan().all()
+
+
+@pytest.mark.parametrize("dtype", [None, "float32", "float64"])
+def test_kernels_at_largest_sketch_size(cuda, dtype):
+    """One row a side fills the block's shared memory at the largest
+    sketch_size; one more and the wrapper raises before any launch."""
+    ss = mash_cuda.max_sketch_size(dtype)
+    M = tm._pad_pow2(ss + 1)
+    bank = torch.from_numpy(_sorted_rows(3, ss, M, 3 * ss, 5)).to(cuda)
+    qry = torch.from_numpy(_sorted_rows(2, ss, M, 3 * ss, 6)).to(cuda)
+    want = tm.merged_inter_count_ref(bank, qry, sketch_size=ss)
+    before = (mash_cuda.LAUNCHES, mash_cuda.ROWS_DIST_LAUNCHES)
+    if dtype is None:
+        assert torch.equal(
+            mash_cuda.mash_inter_cuda(bank, qry, sketch_size=ss), want)
+        with pytest.raises(ValueError, match=f"sketch_size {ss + 1} is too"):
+            mash_cuda.mash_inter_cuda(bank, qry, sketch_size=ss + 1)
+        assert mash_cuda.LAUNCHES == before[0] + 1
+    else:
+        tab = _table(15, ss, dtype, cuda)
+        got = mash_cuda.mash_rows_dist_cuda(bank, qry, tab, sketch_size=ss)
+        assert torch.equal(got, tab[want.long()])
+        with pytest.raises(ValueError, match=f"sketch_size {ss + 1} is too"):
+            mash_cuda.mash_rows_dist_cuda(
+                bank, qry, _table(15, ss + 1, dtype, cuda),
+                sketch_size=ss + 1)
+        assert mash_cuda.ROWS_DIST_LAUNCHES == before[1] + 1
+
+
+def test_kernel_rows_not_16_byte_aligned(cuda):
+    """Row widths that are no multiple of 4 ranks take the 4-byte copies."""
+    bank = torch.from_numpy(_sorted_rows(50, 1000, 1024, 3000, 7)).to(cuda)
+    qry = torch.from_numpy(_sorted_rows(20, 1000, 1024, 3000, 8)).to(cuda)
+    want = tm.merged_inter_count_ref(bank, qry, sketch_size=1000)
+    got = mash_cuda.mash_inter_cuda(bank[:, :1001].contiguous(),
+                                    qry[:, :1001].contiguous(),
+                                    sketch_size=1000)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -100,7 +181,7 @@ def _table(k, ss, dtype, dev):
 @pytest.mark.parametrize("k, ss", [(12, 128), (11, 100), (15, 1000)])
 def test_rows_dist_kernel_equals_plain(cuda, k, ss, dtype):
     r = torch.from_numpy(_ranks(300, 3000, 8, k, ss)).to(cuda)
-    q = r[17:170].contiguous()  # 153 queries: not a multiple of 8
+    q = r[17:170].contiguous()  # 153 queries: not a multiple of the tile
     before = mash_cuda.ROWS_DIST_LAUNCHES
     got = mash_cuda.mash_rows_dist_cuda(r, q, _table(k, ss, dtype, cuda),
                                         sketch_size=ss)
@@ -148,11 +229,11 @@ def test_rows_dist_wrapper_rejects_bad_inputs(cuda):
         mash_cuda.mash_rows_dist_cuda(
             r, r, tab, sketch_size=128,
             out=torch.empty((20, 20), device=cuda).T)
-    wide = torch.zeros((4, 8192), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="sketch_size 4096 is too large"):
+    wide = torch.zeros((4, 16384), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="sketch_size 11620 is too large"):
         mash_cuda.mash_rows_dist_cuda(wide, wide,
-                                      _table(15, 4096, "float64", cuda),
-                                      sketch_size=4096)
+                                      _table(15, 11620, "float64", cuda),
+                                      sketch_size=11620)
     assert mash_cuda.ROWS_DIST_LAUNCHES == before
 
 

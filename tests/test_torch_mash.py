@@ -8,6 +8,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from dipper_tpu.distance import mash as jm
 from dipper_tpu.distance.mash_pallas import (mash_inter_pallas,
@@ -16,8 +18,10 @@ from dipper_tpu.sketch.minhash import sketch_sequences
 from dipper_tpu_torch.distance import mash as tm
 from dipper_tpu_torch.distance import mash_cuda
 
+import oracle
 from datagen import simulate_unaligned
 from test_mash import _walk_inter
+from test_torch_cuda import _adversarial
 
 torch.set_num_threads(2)
 
@@ -173,11 +177,114 @@ def test_distance_kernel_wrapper_rejects_cpu_tensors():
         mash_cuda.mash_rows_dist_cuda(r, r, table, sketch_size=100)
 
 
-@pytest.mark.parametrize("dtype, limit", [(None, 12288), ("float32", 6143),
-                                          ("float64", 4095)])
+@pytest.mark.parametrize("dtype, limit", [(None, 19367), ("float32", 14523),
+                                          ("float64", 11619)])
 def test_kernel_sketch_size_limits(dtype, limit):
-    """One query row (and the distance table) in 48 KB of shared memory."""
+    """The distance table, one query row and two bank rows of s + 1 ranks
+    and one result in a block's 232,448 bytes of shared memory."""
     assert mash_cuda.max_sketch_size(dtype) == limit
-    item = 0 if dtype is None else np.dtype(dtype).itemsize
-    assert 4 * limit + item * (limit + 1) <= 48 * 1024
-    assert 4 * (limit + 1) + item * (limit + 2) > 48 * 1024
+    item = None if dtype is None else np.dtype(dtype).itemsize
+    assert mash_cuda._smem_bytes(limit, item) <= 232448
+    assert mash_cuda._smem_bytes(limit + 1, item) > 232448
+    table = 0 if item is None else 16 * -(-item * (limit + 1) // 16)
+    assert mash_cuda._smem_bytes(limit, item) == (
+        table + 3 * 16 * -(-(limit + 1) // 4) + (item or 4))
+
+
+# The kernels' algorithm (csrc/mash_walk.cuh: the walk split over the lanes
+# of a warp by merge path, rounds of steps that are certain to run, the stop
+# found from the lanes' step bits) as tm.partitioned_walk_inter, against
+# the serial walk. Exact equality everywhere.
+
+LANES = [1, 2, 32]
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("seed", range(6))
+def test_partitioned_walk_matches_serial_walk(seed, lanes):
+    a, b, _, _ = _adversarial_pair(seed)
+    assert (tm.partitioned_walk_inter(a, b, 100, lanes)
+            == _walk_inter(a, b, 100))
+
+
+@pytest.mark.parametrize("k, ss", SKETCHES + [pytest.param(15, 1000,
+                                                           id="s1000")])
+def test_partitioned_walk_on_real_sketches(k, ss):
+    """Real sketches: the model, the serial-walk oracle and the plain
+    PyTorch version agree on every pair, and the oracle's distance is the
+    table entry of the model's count."""
+    n = 6 if ss == 1000 else 12
+    r = _ranks(n, 3000 if ss == 1000 else 900, 11, k, ss)
+    plain = tm.merged_inter_count_ref(torch.from_numpy(r), torch.from_numpy(r),
+                                      sketch_size=ss).numpy()
+    table = tm._dist_table(k, ss, "float64")
+    for q in range(n):
+        for a in range(n):
+            got = tm.partitioned_walk_inter(r[a], r[q], ss)
+            assert got == _walk_inter(r[a], r[q], ss) == plain[q, a]
+            assert np.isclose(table[got],
+                              oracle.mash_distance(r[a], r[q], k, ss),
+                              rtol=1e-12, atol=0)
+    assert plain.max() == ss and plain.min() < ss
+
+
+@pytest.mark.parametrize("lanes", LANES)
+def test_partitioned_walk_adversarial_rows(lanes):
+    """The card tests' duplicate- and sentinel-heavy rows, pads included."""
+    rng = np.random.default_rng(1)
+    bank = _adversarial(9, 100, 128, rng)
+    qry = _adversarial(5, 100, 128, rng)
+    plain = tm.merged_inter_count_ref(torch.from_numpy(bank),
+                                      torch.from_numpy(qry),
+                                      sketch_size=100).numpy()
+    for q in range(5):
+        for a in range(9):
+            assert (tm.partitioned_walk_inter(bank[a], qry[q], 100, lanes)
+                    == plain[q, a] == _walk_inter(bank[a], qry[q], 100))
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("ss", [1, 31, 32, 33, 100, 1000])
+def test_partitioned_walk_equal_runs_straddle_splits(ss, lanes):
+    """Runs of one value on both sides, longer than a lane's steps, so that
+    lanes' splits fall inside them; B all equal to A's head (every B copy
+    matches and uni stays 0 for sketch_size steps); identical rows."""
+    run = max(1, ss // 3)
+    a = np.sort(np.concatenate([np.arange(ss - run), np.full(run, ss // 2)]))
+    b = np.sort(np.concatenate([np.arange(0, 2 * (ss - run), 2),
+                                np.full(run, ss // 2)]))
+    pad = (tm._PAD_KEY - 1) // 2
+    for x, y in ((a, b), (b, a), (a, a), (a, np.full(ss, a[0])),
+                 (np.full(ss, 7), np.full(ss, 7)),
+                 (np.full(ss, pad), np.full(ss, pad)),
+                 (a, np.full(ss, pad)), (np.full(ss, pad), b)):
+        assert (tm.partitioned_walk_inter(x, y, ss, lanes)
+                == _walk_inter(x, y, ss))
+
+
+def _rows(draw, ss):
+    """Two ascending rows of ss ranks from a universe small enough for
+    duplicates and cross-duplicates, each with a tail of pad ranks."""
+    hi = draw(st.sampled_from([2, 7, max(2, ss // 2), 4 * ss + 5, 2**30 - 1]))
+    seed = draw(st.integers(0, 2**32 - 1))
+    rng = np.random.default_rng(seed)
+    rows = np.sort(rng.integers(0, hi, (2, ss)), axis=1)
+    for row in rows:
+        pads = draw(st.integers(0, ss)) if draw(st.booleans()) else 0
+        row[ss - pads:] = (tm._PAD_KEY - 1) // 2
+    if draw(st.booleans()):  # a shared run of one value
+        v, n = int(rows[0, ss // 2]), draw(st.integers(1, ss))
+        rows[1, :n] = v
+        rows[1].sort()
+    return rows[0], rows[1]
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("ss", [1, 31, 32, 33, 100, 1000])
+@settings(max_examples=20, deadline=None)
+@given(data=st.data())
+def test_partitioned_walk_hypothesis(ss, lanes, data):
+    a, b = data.draw(st.composite(_rows)(ss))
+    max_steps = data.draw(st.sampled_from([26, 32, 1, 5]))
+    assert (tm.partitioned_walk_inter(a, b, ss, lanes, max_steps)
+            == _walk_inter(a, b, ss))
