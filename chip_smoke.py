@@ -25,23 +25,37 @@ launch in the process):
   6. distance kernel vs plain: mash_rows_dist_cuda against
      mash_rows_vs_bank on the cases and calls of phase 3, in f32 and f64,
      torch.equal required, with times, bounds and shares;
-  7. side-vector kernel vs plain: side_vector_cuda against _side_vector at
-     cap 16,384 with 65,536 edges and at cap 30,000 with 120,000 edges, in
-     f32 and f64, equal bits required, with CUDA-event times and the bound
-     from its bytes;
+  7. the scorer's kernels vs plain, equal bits required throughout:
+     side_vector_cuda against _side_vector at cap 16,384 with 65,536 edges
+     and at cap 30,000 with 120,000 edges, in f32 and f64; score_edges_cuda
+     against _score_edges_plain (all six outputs) on made-up states (a tie
+     between two valid edges, every valid score above 2.0, used slots up to
+     and short of the arrays' end, NaN and +inf in the row, a state of four
+     edges), f32 and f64, and on a real tree state: the port's placement
+     built on the card to N = 4,096, then the rows of 256 taxa that were
+     not inserted. For both entry points, side by side: the kernel's own
+     time on the card (a captured CUDA graph of 200 launches, replayed),
+     the wrapper's host time per call, the bound from its bytes, and the
+     plain version's time;
   4. GPU port vs CPU port, placement: the CLI at N=512 (-i r -m 1) with
      --device cuda and --device cpu, nRF = 0 required;
   8. GPU port vs CPU port, NJ: the mash matrix of N=2,048 taxa written by
      the card (-i r -o d), then -i d -m 2 on both devices in f32 and f64,
      nRF = 0 required; then one NJ on the card under torch.profiler
-     (launches per merge step, device busy time);
+     (launches per merge step, device busy time), and the launches,
+     copies and syncs of one scorer call, kernel and plain;
   5. the placement main path: scripts/make_dataset.py's generator (seed
      1, L=10,000) and the CLI with default flags, which take k-closest
      placement at N >= 30,000; requires rc 0, a complete Newick, launches
-     of the merge-count and side-vector kernels, the tree state on the
-     card and nRF vs the true tree < 0.35. Every merge-count launch of the
-     run is then held against the plain version on its own inputs, every
-     128th query row of it, and a sample of the side-vector calls too;
+     of the merge-count kernel, one score_edges launch per insertion and
+     no standalone side-vector launch, the tree state on the card and nRF
+     vs the true tree < 0.35. Every merge-count launch of the run is then
+     held against the plain version on its own inputs, every 128th query
+     row of it; every 997th scorer call is held against the plain version
+     on its own inputs as it happens, and before the last insert range
+     its first 300 rows (taxa not yet inserted) are scored by kernel and
+     plain version on the state as it stands, where the kernel is also
+     timed (those launches are taken out of the count);
   9. the NJ main path: the generator at N=20,000 (seed 1) and the CLI
      with default flags, which take conventional NJ below 30,000 taxa;
      requires rc 0, a complete Newick, distance-kernel launches, every
@@ -76,18 +90,23 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # each kernel: its source and the TPU kernel it replaces
 KERNELS = {
     "mash_merge_count": ("dipper_tpu_torch/csrc/mash_merge_count.cu",
-                         "dipper_tpu/distance/mash_pallas.py:124"),
+                         "dipper_tpu/distance/mash_pallas.py:143"),
     "mash_rows_dist": ("dipper_tpu_torch/csrc/mash_rows_dist.cu",
                        "dipper_tpu/distance/mash_pallas.py:191"),
     "side_vector": ("dipper_tpu_torch/csrc/side_vector.cu",
+                    "scripts/gather_micro.py:74"),
+    "score_edges": ("dipper_tpu_torch/csrc/score_edges.cu",
                     "scripts/gather_micro.py:74"),
 }
 NRF_LIMIT = 0.35
 # a sanity bound for NJ on the generator's 20K set (no JAX figure exists)
 NJ_NRF_LIMIT = 0.45
-# every SIDE_SAMPLE-th side-vector call of the placement main path is kept
-# and held against the plain version
+# every SIDE_SAMPLE-th scorer call of the placement main path is held
+# against the plain version
 SIDE_SAMPLE = 997
+# rows scored on the real states (phase 7's N = 4,096 build, phase 5's
+# state before its last range)
+SCORE_ROWS = (256, 300)
 ALL_PHASES = (1, 2, 3, 6, 7, 4, 5, 9, 8)
 # every SAMPLE-th query row of a large kernel call is compared with the
 # plain version (which takes ~10 ms per query row at 30,000 bank rows)
@@ -180,6 +199,42 @@ def event_ms(fn, reps: int = 200) -> float:
     ev[1].record()
     torch.cuda.synchronize()
     return ev[0].elapsed_time(ev[1]) / reps
+
+
+def graph_ms(fn, reps: int = 200, replays: int = 5) -> float:
+    """Mean ms per launch on the card alone: `fn` (launches only, no host
+    sync) is captured `reps` times into one CUDA graph, and the graph's
+    replays are timed between two CUDA events. No Python runs between
+    the launches, so this is the kernel's own duration plus the card's
+    gap between two dependent kernels."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(replays):
+        graph.replay()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / (reps * replays)
+
+
+def host_ms(fn, reps: int = 200) -> float:
+    """Mean ms of host time per call of `fn` (launches only): what the
+    wrapper costs before the card sees the kernel."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e3
 
 
 def bound_of(ops: float, nbytes: float,
@@ -493,18 +548,172 @@ def phase_side_vector_vs_plain() -> dict:
             # as two)
             nbytes = sum(x.numel() * x.element_size()
                          for x in (cid, cdis, row, got))
+
+            def kernel():
+                return side_vector_cuda(cid, cdis, row)
+
             out[f"{dtype}/cap{cap}_E{E}"] = with_share(
                 {"cap": cap, "edges": E, "k": cid.shape[1], "equal": True,
-                 "ms": event_ms(lambda: side_vector_cuda(cid, cdis, row)),
+                 "ms": graph_ms(kernel),
+                 "wrapper_host_ms": host_ms(kernel),
+                 "back_to_back_calls_ms": event_ms(kernel),
                  "plain_ms": event_ms(lambda: _side_vector(cid, cdis, row))},
                 bound_of(2 * cid.numel(), nbytes, 33.5e12))
     emit({"phase": "kernel_vs_plain", "kernel": "side_vector",
-          "timing": "CUDA events, mean of 200 back-to-back calls",
+          "timing": "ms: a captured CUDA graph of 200 launches, replayed 5 "
+                    "times between CUDA events; wrapper_host_ms: host "
+                    "clock over 200 launches; back_to_back_calls_ms and "
+                    "plain_ms: CUDA events around 200 calls from Python",
           "cases": out, "max_abs_err": worst})
     main_case = out["float32/cap30000_E120000"]
     return {"max_abs_err": worst, "library_ms": None,
-            **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "share_of_bound")}}
+            **{k: main_case[k] for k in (
+                "ms", "wrapper_host_ms", "back_to_back_calls_ms", "plain_ms",
+                "bound_ms", "bound_by", "share_of_bound")}}
+
+
+def _six_err(got, want) -> float:
+    """0.0 when score_edges' six values agree bit for bit (NaN with NaN),
+    else the larger absolute difference of frac and add, inf when the
+    ints differ."""
+    if tuple(got[:4]) != tuple(want[:4]):
+        return float("inf")
+    return max(_max_abs_err(g.reshape(1), w.reshape(1))
+               for g, w in zip(got[4:], want[4:]))
+
+
+def _kernel_six(st, row, keep: bool = True) -> tuple:
+    """score_edges_cuda's launch and readback (not looked up through the
+    module, where phase 5 records calls); `keep` clones frac and add out
+    of the state's output buffer."""
+    from dipper_tpu_torch.placement import kclosest
+
+    sc = kclosest.score_edges_launch(st, row)
+    ints = sc.out_i.tolist()
+    return ((*ints, sc.frac.clone(), sc.add.clone()) if keep
+            else (*ints, sc.frac, sc.add))
+
+
+def _score_both(st, row) -> tuple:
+    """(kernel's six values, plain version's) for one state and row."""
+    from dipper_tpu_torch.placement import kclosest
+
+    return _kernel_six(st, row), kclosest._score_edges_plain(st, row)
+
+
+def score_bound(st, row) -> dict:
+    """Bound of one score_edges launch: the six arrays over the used slots
+    and the row once, the outputs once; operations: per scored edge two
+    sides (a subtract and a max a witness) and the clamp sequence (23
+    operations), at half the 67 TFLOP/s float32 figure."""
+    item = row.element_size()
+    k = st.cid.shape[1]
+    nbytes = (st.idx * (k * 4 + k * item + 3 * 4 + item)
+              + row.numel() * item + 4 * 4 + 2 * item)
+    return bound_of(st.idx / 2 * (4 * k + 23), nbytes, 33.5e12)
+
+
+def time_scorer(st, row) -> dict:
+    """The scorer's times on one state and row, with the bound."""
+    from dipper_tpu_torch.placement import kclosest
+
+    def launch():
+        kclosest.score_edges_launch(st, row)
+
+    # the insertion loop looks its stream up once per insert range
+    stream = torch.cuda.current_stream().cuda_stream
+    return with_share(
+        {"edge_slots": st.e.shape[0], "used_slots": st.idx,
+         "cap": row.numel(), "ms": graph_ms(launch),
+         "wrapper_host_ms": host_ms(
+             lambda: kclosest.score_edges_launch(st, row, stream)),
+         "call_with_readback_ms": event_ms(
+             lambda: _kernel_six(st, row, keep=False)),
+         "plain_ms": event_ms(
+             lambda: kclosest._score_edges_plain(st, row), 50)},
+        score_bound(st, row))
+
+
+def built_state(tmp: str, n: int, extra: int):
+    """The port's placement of the first n taxa of an (n + extra)-taxon
+    generated set, on the card, at the arrays' size for the whole set;
+    returns (state, the distance rows of the extra taxa)."""
+    from dipper_tpu_torch.driver import _load_sequences
+    from dipper_tpu_torch.placement import kclosest
+    from dipper_tpu_torch.placement.api import _mash_frontend
+    from dipper_tpu_torch.utils.params import Param
+
+    total = n + extra
+    fa, _ = make_dataset(total, os.path.join(tmp, f"score{total}"), seed=4)
+    params = Param()
+    _, seqs = _load_sequences(params, fa)
+    front, static = _mash_frontend(seqs, params, torch.device("cuda"))
+    kw = dict(frontend="mash", frontend_static=static,
+              dtype_name=params.dtype)
+    st = kclosest.init_placement_state(front, num_sequences=total, **kw)
+    rows = kclosest._rows(front, "mash", static, params.dtype, 2, total)
+    kclosest._insert_range(st, 2, n, rows, total)
+    return st, rows[n - 2:]
+
+
+def phase_score_edges_vs_plain(tmp: str, n: int = 4096) -> dict:
+    from dipper_tpu_torch.placement import kclosest, score_model
+
+    cases = {}
+    worst = 0.0
+    for dtype in ("float32", "float64"):
+        for name, d, row, expected in score_model.made_up_cases(dtype):
+            st = kclosest.tree_state_from_numpy(d, "cuda")
+            got, want = _score_both(st, torch.from_numpy(row).cuda())
+            err = _six_err(got, want)
+            worst = max(worst, err)
+            check(err == 0.0, f"score_edges {dtype} {name}: kernel {got} != "
+                  f"plain {want}")
+            check(score_model.meets(expected, got), f"score_edges {dtype} "
+                  f"{name}: {got} is not the case's {expected}")
+            cases[f"{dtype}/{name}"] = {
+                "edge_slots": st.e.shape[0], "used_slots": st.idx,
+                "eid": got[0], "frac": float(got[4]), "add": float(got[5]),
+                "equal": True}
+    t0 = time.time()
+    st, rows = built_state(tmp, n, SCORE_ROWS[0])
+    build_s = time.time() - t0
+    for j in range(rows.shape[0]):
+        got, want = _score_both(st, rows[j])
+        err = _six_err(got, want)
+        worst = max(worst, err)
+        check(err == 0.0, f"score_edges on the N={n} state, row {j}: kernel "
+              f"{got} != plain {want}")
+    built = {"n": n, "rows_scored": rows.shape[0], "equal": True,
+             "build_s": build_s, **time_scorer(st, rows[0])}
+    del st, rows
+    # times at the insertion loop's sizes: random pairings through rev (as
+    # far apart as a real tree's), every slot of the last insertion used
+    timed = {}
+    for cap, slots in ((16384, 65536), (30000, 120000)):
+        for dtype in ("float32", "float64"):
+            rng = np.random.default_rng(cap)
+            d = score_model.made_up_state(slots // 2 - 2, slots, cap, dtype,
+                                          rng)
+            st = kclosest.tree_state_from_numpy(d, "cuda")
+            row = torch.from_numpy(rng.random(cap).astype(dtype)).cuda()
+            got, want = _score_both(st, row)
+            check(_six_err(got, want) == 0.0, f"score_edges {dtype} cap "
+                  f"{cap}: kernel {got} != plain {want}")
+            timed[f"{dtype}/cap{cap}_E{slots}"] = time_scorer(st, row)
+    emit({"phase": "kernel_vs_plain", "kernel": "score_edges",
+          "timing": "ms: a captured CUDA graph of 200 launches, replayed 5 "
+                    "times between CUDA events; wrapper_host_ms: host "
+                    "clock over 200 launches without the readback; "
+                    "call_with_readback_ms and plain_ms: CUDA events "
+                    "around back-to-back calls from Python",
+          "made_up_cases": cases, "built_state": built, "timed": timed,
+          "max_abs_err": worst})
+    main_case = timed["float32/cap30000_E120000"]
+    return {"max_abs_err": worst, "library_ms": None,
+            **{k: main_case[k] for k in (
+                "ms", "wrapper_host_ms", "call_with_readback_ms", "plain_ms",
+                "bound_ms", "bound_by", "share_of_bound")}}
 
 
 def run_cli(argv) -> tuple[int, str, float]:
@@ -559,6 +768,7 @@ def reset_counts() -> None:
     mash_cuda.LAUNCHES = 0
     mash_cuda.ROWS_DIST_LAUNCHES = 0
     kclosest.SIDE_VECTOR_LAUNCHES = 0
+    kclosest.SCORE_EDGES_LAUNCHES = 0
 
 
 def read_counts() -> dict:
@@ -567,7 +777,8 @@ def read_counts() -> dict:
 
     return {"mash_merge_count": mash_cuda.LAUNCHES,
             "mash_rows_dist": mash_cuda.ROWS_DIST_LAUNCHES,
-            "side_vector": kclosest.SIDE_VECTOR_LAUNCHES}
+            "side_vector": kclosest.SIDE_VECTOR_LAUNCHES,
+            "score_edges": kclosest.SCORE_EDGES_LAUNCHES}
 
 
 def check_tree(nwk: str, n: int, true_nwk: str, limit: float) -> tuple:
@@ -612,22 +823,44 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
         calls.append((bank, qry, sketch_size, got[::SAMPLE].clone(), ev))
         return got
 
-    # every SIDE_SAMPLE-th side-vector call: copies of its inputs and output
-    side_calls = []
-    side_kernel = kclosest.side_vector_cuda
-    n_side = [0]
+    # every SIDE_SAMPLE-th scorer call is held against the plain version
+    # on its own inputs, as it happens (the plain version launches none
+    # of the port's kernels)
+    scorer = kclosest.score_edges_cuda
+    score_errs = []
+    n_scored = [0]
 
-    def side_recorded(cid, cdis, row):
-        got = side_kernel(cid, cdis, row)
-        if n_side[0] % SIDE_SAMPLE == 0:
-            side_calls.append((cid.clone(), cdis.clone(), row.clone(),
-                               got.clone()))
-        n_side[0] += 1
+    def score_recorded(st, row, stream=None):
+        got = scorer(st, row, stream)
+        if n_scored[0] % SIDE_SAMPLE == 0:
+            got = (*got[:4], got[4].clone(), got[5].clone())
+            score_errs.append(
+                (n_scored[0], _six_err(got, kclosest._score_edges_plain(
+                    st, row))))
+        n_scored[0] += 1
         return got
+
+    # before the last insert range: its first rows (taxa not yet inserted)
+    # through kernel and plain version on the state as it stands, and the
+    # kernel's times there; these launches are taken out of the count
+    insert_range = kclosest._insert_range
+    last_range = {}
+
+    def range_recorded(st, lo, hi, rows, num_sequences):
+        if hi == num_sequences and not last_range:
+            count = kclosest.SCORE_EDGES_LAUNCHES
+            errs = [_six_err(*_score_both(st, rows[j]))
+                    for j in range(min(SCORE_ROWS[1], rows.shape[0]))]
+            last_range.update(lo=lo, rows_scored=len(errs),
+                              max_abs_err=max(errs),
+                              **time_scorer(st, rows[0]))
+            kclosest.SCORE_EDGES_LAUNCHES = count
+        return insert_range(st, lo, hi, rows, num_sequences)
 
     kclosest.run_placement_chunked = keep_state
     mash_cuda.mash_inter_cuda = recorded
-    kclosest.side_vector_cuda = side_recorded
+    kclosest.score_edges_cuda = score_recorded
+    kclosest._insert_range = range_recorded
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     try:
@@ -638,15 +871,21 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
     finally:
         kclosest.run_placement_chunked = chunked
         mash_cuda.mash_inter_cuda = kernel
-        kclosest.side_vector_cuda = side_kernel
+        kclosest.score_edges_cuda = scorer
+        kclosest._insert_range = insert_range
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
 
     check(rc == 0, f"main path CLI returned {rc}")
     check(counts["mash_merge_count"] > 0,
           "the placement main path launched no mash_merge_count kernel")
-    check(counts["side_vector"] > 0,
-          "the placement main path launched no side_vector kernel")
+    check(counts["score_edges"] == n - 2,
+          f"the placement main path launched score_edges "
+          f"{counts['score_edges']} times for {n - 2} insertions")
+    check(counts["side_vector"] == 0,
+          f"the placement main path launched the standalone side_vector "
+          f"kernel {counts['side_vector']} times")
+    check(n_scored[0] == n - 2, f"{n_scored[0]} scorer calls recorded")
     check(len(states) == 1, "the main path did not run run_placement_chunked")
     st = states[0]
     for f in ("e", "belong", "length", "rev", "cdis", "cid", "adj"):
@@ -662,12 +901,12 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
         c["ms"] = ev[0].elapsed_time(ev[1])
         checked.append(with_share(c, mash_bound(
             want, qry.shape[0], bank.shape[0], s, 4, False)))
-    side_err = 0.0
-    for j, (cid, cdis, row, got) in enumerate(side_calls):
-        err = _max_abs_err(got, kclosest._side_vector(cid, cdis, row))
-        check(err == 0.0, f"main-path side_vector call {j * SIDE_SAMPLE}: "
-              f"kernel != plain (max abs err {err})")
-        side_err = max(side_err, err)
+    for j, err in score_errs:
+        check(err == 0.0, f"main-path score_edges call {j}: kernel != plain "
+              f"(max abs err {err})")
+    check(last_range and last_range["max_abs_err"] == 0.0,
+          f"score_edges before the last insert range: kernel != plain "
+          f"({last_range})")
     emit({"phase": "main_path", "path": "placement", "n": n, "L": 10000,
           "k": 15, "s": 1000, "precision": "f32", "chunk": 8192,
           "phases_ms": {
@@ -682,11 +921,12 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
               r"steady ([\d.]+) ms/insertion", log),
           "dense_bfs_fallbacks": int(st.nfb),
           "kernel_launches": counts, "kernel_calls": checked,
-          "side_vector_calls_checked": len(side_calls),
+          "score_edges_calls_checked": len(score_errs),
+          "score_edges_before_last_range": last_range,
           "max_memory_allocated": peak,
           "rf": rf, "nrf_vs_true": nrf, "nrf_limit": NRF_LIMIT})
     return {"counts": counts, "merge_count_calls": checked,
-            "side_vector_max_abs_err": side_err}
+            "score_edges_last_range": last_range}
 
 
 def phase_nj_gpu_vs_cpu(tmp: str, n: int = 2048) -> dict:
@@ -742,6 +982,50 @@ def phase_nj_gpu_vs_cpu(tmp: str, n: int = 2048) -> dict:
             ((e.key, e.self_device_time_total / 1e3) for e in on_dev),
             key=lambda kv: -kv[1])[:8]}
     emit({"phase": "nj_gpu_vs_cpu", "n": n, **res})
+    return res
+
+
+def phase_scorer_profiled(calls: int = 50) -> dict:
+    """One scorer call under torch.profiler, kernel and plain version, at
+    the 30K build's last shape: launches, copies and stream syncs per
+    call, device time per call, and the kernel's own duration from the
+    profiler's device-side events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dipper_tpu_torch.placement import kclosest, score_model
+
+    rng = np.random.default_rng(30000)
+    st = kclosest.tree_state_from_numpy(
+        score_model.made_up_state(59998, 120000, 30000, "float32", rng),
+        "cuda")
+    row = torch.from_numpy(rng.random(30000).astype("float32")).cuda()
+    res = {}
+    for name, fn in (("kernel", lambda: _kernel_six(st, row, keep=False)),
+                     ("plain", lambda: kclosest._score_edges_plain(st, row))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ka = prof.key_averages()
+        count = {e.key: e.count for e in ka}
+        on_dev = [e for e in ka if e.device_type != DeviceType.CPU]
+        res[name] = {
+            "launches_per_call": count.get("cudaLaunchKernel", 0) / calls,
+            "memcpys_per_call": count.get("cudaMemcpyAsync", 0) / calls,
+            "stream_syncs_per_call":
+                count.get("cudaStreamSynchronize", 0) / calls,
+            "device_ms_per_call":
+                sum(e.self_device_time_total for e in on_dev) / 1e3 / calls}
+        for e in on_dev:
+            if "score_edges_kernel" in e.key:
+                res[name]["kernel_device_ms"] = (
+                    e.self_device_time_total / 1e3 / e.count)
+    emit({"phase": "scorer_profiled", "edge_slots": 120000, "cap": 30000,
+          "calls": calls, **res})
     return res
 
 
@@ -889,19 +1173,24 @@ def main() -> int:
             del inputs
         if 7 in phases:
             records["side_vector"].update(phase_side_vector_vs_plain())
+            records["score_edges"].update(phase_score_edges_vs_plain(tmp))
         if 4 in phases:
             phase_gpu_vs_cpu(tmp)
         if 5 in phases:
             res = phase_main_path(tmp, args.n, *data)
             mc, sv = records["mash_merge_count"], records["side_vector"]
+            se = records["score_edges"]
             mc["launches"] = res["counts"]["mash_merge_count"]
             mc["main_path_calls"] = res["merge_count_calls"]
             mc["max_abs_err"] = max(
                 [mc.get("max_abs_err", 0)]
                 + [c["max_abs_err"] for c in res["merge_count_calls"]])
+            # the scorer's kernel carries the side vector on this path;
+            # the standalone entry point is held to its plain version in
+            # phase 7 only
             sv["launches"] = res["counts"]["side_vector"]
-            sv["max_abs_err"] = max(sv.get("max_abs_err", 0.0),
-                                    res["side_vector_max_abs_err"])
+            se["launches"] = res["counts"]["score_edges"]
+            se["main_path_state"] = res["score_edges_last_range"]
         if 9 in phases:
             res = phase_nj_main_path(tmp, args.nj_n)
             rd = records["mash_rows_dist"]
@@ -910,6 +1199,10 @@ def main() -> int:
                                     res["max_abs_err"])
         if 8 in phases:
             phase_nj_gpu_vs_cpu(tmp)
+            prof = phase_scorer_profiled()
+            records["score_edges"].update(
+                plain_launches=prof["plain"]["launches_per_call"],
+                profiler_kernel_ms=prof["kernel"].get("kernel_device_ms"))
     check(not any(m == "jax" or m.startswith("jax.") or m == "dipper_tpu"
                   or m.startswith("dipper_tpu.") for m in sys.modules),
           "JAX or the JAX package was imported")

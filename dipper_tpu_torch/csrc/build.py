@@ -27,6 +27,7 @@ KERNELS = {
     "mash_merge_count": "mash_merge_count.cu",
     "mash_rows_dist": "mash_rows_dist.cu",
     "side_vector": "side_vector.cu",
+    "score_edges": "score_edges.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -11,8 +11,9 @@
 //
 // with -inf (then 0) for an edge whose K slots are all empty. It is
 // bitwise equal to the plain version, torch.where(...).amax(-1).clamp(min=0)
-// in placement/kclosest.py::_side_vector, NaN included: amax and clamp
-// propagate NaN where fmax would drop it, so NaN is tested for explicitly.
+// in placement/kclosest.py::_side_vector, NaN included (side_vector.cuh).
+// The insertion loop's scorer runs the same side inside score_edges.cu;
+// this entry point is the [E] vector on its own, for other consumers.
 //
 // Types: cid int32 [E, K] and cdis T [E, K], contiguous; row T [cap] with
 // every cid < cap (witness ids are leaves already placed); side T [E];
@@ -20,16 +21,16 @@
 //
 // What bounds it: memory. Each edge reads 20 bytes of ids, 20 or 40 bytes
 // of witness distances and 5 scattered row entries (the row, at most
-// 240 KB, stays in L2), and writes one value.
+// 240 KB, stays in L2), and writes one value. A warp stages its 32 edges'
+// lists in shared memory with coalesced 16-byte reads (side_vector.cuh):
+// read edge by edge at a 20-byte stride, each of a warp's loads would
+// touch 640 bytes for 128 useful ones.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "side_vector.cuh"
 
 namespace {
 
-constexpr int kK = 5;  // placement/kclosest.py::K
-constexpr int kThreads = 256;
+using namespace dipper;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -38,23 +39,15 @@ side_vector_kernel(const int32_t* __restrict__ cid,
                    const T* __restrict__ row,
                    T* __restrict__ side, int n_edges)
 {
-    const int e = blockIdx.x * kThreads + threadIdx.x;
-    if (e >= n_edges) return;
-    T best = -INFINITY;
-    bool has_nan = false;
-    T nan_value = 0;
-    for (int j = 0; j < kK; ++j) {
-        const int c = cid[(size_t)e * kK + j];
-        if (c == -1) continue;
-        const T v = row[c] - cdis[(size_t)e * kK + j];
-        if (v != v) {
-            if (!has_nan) nan_value = v;
-            has_nan = true;
-        } else if (v > best) {
-            best = v;
-        }
-    }
-    side[e] = has_nan ? nan_value : (best > T(0) ? best : T(0));
+    __shared__ __align__(16) int32_t s_id[kWarps][kTile];
+    __shared__ __align__(16) T s_dis[kWarps][kTile];
+    const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+    const int e0 = (blockIdx.x * kWarps + warp) * kWarp;
+    if (e0 >= n_edges) return;
+    stage_lists(cid, s_id[warp], e0, n_edges, lane);
+    stage_lists(cdis, s_dis[warp], e0, n_edges, lane);
+    const int e = e0 + lane;
+    if (e < n_edges) side[e] = side_staged(s_id[warp], s_dis[warp], lane, row);
 }
 
 template <typename T>

@@ -25,14 +25,15 @@ dipper_tpu/placement/kclosest.py:
 PyTorch design: the tree state is a dataclass of tensors updated in
 place (a splice writes a few slots, a BFS level a few rows; copying the
 [4N] arrays per insertion would dominate). Each insertion is eager
-tensor code with a handful of host syncs: the argmin's edge id, the
-chosen edge's endpoints, and one per BFS level, whose frontier is
-compacted with `nonzero` (that sync also decides whether the loop goes
-on). Distance rows of a whole insert range are computed before its loop
-(distance/mash.py: the Hopper merge-count kernel on CUDA), and the
-scorer's side vector is the Hopper kernel csrc/side_vector.cu. The float
-operations and their order are the reference's, so trees are bitwise
-equal to the JAX package's on the same rows.
+tensor code with a handful of host syncs: the chosen edge with its
+endpoints, and one per BFS level, whose frontier is compacted with
+`nonzero` (that sync also decides whether the loop goes on). Distance rows of a whole insert range are computed before its loop
+(distance/mash.py: the Hopper merge-count kernel on CUDA). On CUDA the
+scorer is one launch of the Hopper kernel csrc/score_edges.cu, which also
+reads the chosen edge's endpoints, so scoring and splice share one host
+sync; csrc/side_vector.cu is the scorer's side vector on its own. The
+float operations and their order are the reference's, so trees are
+bitwise equal to the JAX package's on the same rows.
 """
 
 from __future__ import annotations
@@ -72,13 +73,18 @@ class TreeState:
     adj: torch.Tensor | None = None
     # compact-BFS frontier overflows that fell back to the dense BFS
     nfb: int = 0
+    # the CUDA scorer's checked pointers, outputs and scratch (`_Scorer`,
+    # made by prepare_scorer); not a constructor argument, so
+    # dataclasses.replace never carries it over to other arrays
+    scorer: "_Scorer | None" = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
 
 def init_state(num_sequences: int, dtype: torch.dtype,
                device: torch.device) -> TreeState:
     E = 4 * num_sequences
     i32 = dict(dtype=torch.int32, device=device)
-    return TreeState(
+    return prepare_scorer(TreeState(
         e=torch.full((E,), -1, **i32),
         belong=torch.full((E,), -1, **i32),
         length=torch.zeros((E,), dtype=dtype, device=device),
@@ -88,7 +94,7 @@ def init_state(num_sequences: int, dtype: torch.dtype,
         idx=0,
         adj=torch.full((2 * num_sequences, 3), -1, **i32),
         nfb=0,
-    )
+    ))
 
 
 def _i32(values, device) -> torch.Tensor:
@@ -339,11 +345,151 @@ def _finish_score(st: TreeState, side, dis2):
     return eid, frac[eid], score[eid]
 
 
-def score_edges(st: TreeState, dist_row):
-    """Vectorized calculateBranchLength (src/placement_close_k.cu:309-358).
-    Returns (eid, fracLen, addLen); ties -> lowest eid."""
-    side = side_vector(st.cid, st.cdis, dist_row)      # [E]
-    return _finish_score(st, side, side[st.rev])
+def _score_edges_plain(st: TreeState, dist_row):
+    """The plain PyTorch version of csrc/score_edges.cu: the side vector,
+    its reread through `rev`, the clamp sequence and the argmin as separate
+    tensor operations, then the chosen edge's endpoints. Returns what
+    `score_edges` returns."""
+    side = _side_vector(st.cid, st.cdis, dist_row)     # [E]
+    eid, frac, add = _finish_score(st, side, side[st.rev])
+    x, y, ye = torch.stack(
+        (st.belong[eid], st.e[eid], st.rev[eid])).tolist()  # host sync
+    return eid, x, y, ye, frac, add
+
+
+# most blocks of one score_edges launch (4 on each of an H100's 132
+# multiprocessors), and so the partial minima its last block reduces
+SCORE_EDGES_MAX_BLOCKS = 528
+
+# score_edges kernel launches made by this process (chip_smoke.py resets
+# it and reads it)
+SCORE_EDGES_LAUNCHES = 0
+
+
+class _Scorer:
+    """What one TreeState's score_edges launches share: the state's six
+    arrays as checked (held so that a swapped array is noticed), the
+    kernel's entry point with its per-state arguments, the outputs and
+    the scratch. Launches through one _Scorer must be ordered on one
+    stream: they share the outputs and the ticket."""
+
+    __slots__ = ("arrays", "dtype", "device", "lib", "fn", "args", "out_i",
+                 "out_f", "frac", "add", "scratch_i", "scratch_f")
+
+    def owns(self, st: TreeState) -> bool:
+        a = self.arrays
+        return (st.cid is a[0] and st.cdis is a[1] and st.belong is a[2]
+                and st.e is a[3] and st.rev is a[4] and st.length is a[5])
+
+
+def prepare_scorer(st: TreeState) -> TreeState:
+    """Checks a CUDA state's arrays against what csrc/score_edges.cu takes
+    and gives the state its `_Scorer`; a CPU state is left as it is.
+    Called wherever a state is made or its arrays are replaced, so that
+    no check runs per insertion. Returns `st`."""
+    dev = st.cid.device
+    if dev.type != "cuda":
+        st.scorer = None
+        return st
+    arrays = (st.cid, st.cdis, st.belong, st.e, st.rev, st.length)
+    names = ("cid", "cdis", "belong", "e", "rev", "length")
+    for name, a in zip(names, arrays):
+        if a.device != dev:
+            raise ValueError(f"score_edges needs the state's arrays on one "
+                             f"CUDA device: {name} is on {a.device}, cid on "
+                             f"{dev}")
+        if not a.is_contiguous():
+            raise ValueError(f"score_edges needs contiguous arrays: {name} "
+                             f"has strides {a.stride()}")
+    E = st.e.shape[0]
+    dtype = st.length.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"length must be float32 or float64, got {dtype}")
+    for name, a, want in zip(names, arrays, (
+            torch.int32, dtype, torch.int32, torch.int32, torch.int32,
+            dtype)):
+        shape = (E, K) if name in ("cid", "cdis") else (E,)
+        if a.dtype != want or tuple(a.shape) != shape:
+            raise ValueError(f"{name} must be {want} {shape}, got {a.dtype} "
+                             f"{tuple(a.shape)}")
+    if not 1 <= E < 2**30:
+        raise ValueError(f"score_edges takes 1 to 2**30 - 1 edge slots, got "
+                         f"{E}")
+    sc = _Scorer()
+    sc.arrays, sc.dtype, sc.device = arrays, dtype, dev
+    sc.out_i = torch.empty((4,), dtype=torch.int32, device=dev)
+    sc.out_f = torch.empty((2,), dtype=dtype, device=dev)
+    sc.frac, sc.add = sc.out_f[0], sc.out_f[1]
+    sc.scratch_i = torch.zeros((1 + SCORE_EDGES_MAX_BLOCKS,),
+                               dtype=torch.int32, device=dev)
+    sc.scratch_f = torch.empty((2 * SCORE_EDGES_MAX_BLOCKS,), dtype=dtype,
+                               device=dev)
+    sc.lib = load("score_edges", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                  + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    sc.fn = sc.lib.score_edges
+    sc.args = (*(a.data_ptr() for a in arrays), sc.scratch_f.data_ptr(),
+               sc.scratch_i.data_ptr(), sc.out_i.data_ptr(),
+               sc.out_f.data_ptr(), E, SCORE_EDGES_MAX_BLOCKS,
+               int(dtype == torch.float64), dev.index)
+    st.scorer = sc
+    return st
+
+
+def score_edges_launch(st: TreeState, dist_row, stream: int | None = None):
+    """Launches csrc/score_edges.cu for a CUDA state on `stream` (a raw
+    CUDA stream handle; default: the device's current stream) without
+    synchronizing, and returns the state's `_Scorer`, whose `out_i` (eid,
+    belong[eid], e[eid], rev[eid]) and `frac`, `add` the launch fills.
+    dist_row [cap]: the state's float type and device, unit stride, every
+    witness id < cap. The state's first `st.idx` slots are scored; the
+    rest must be unused."""
+    global SCORE_EDGES_LAUNCHES
+    sc = st.scorer
+    if sc is None or not sc.owns(st):
+        if st.cid.device.type != "cuda":
+            raise ValueError(f"score_edges_cuda needs a CUDA state, got one "
+                             f"on {st.cid.device}")
+        sc = prepare_scorer(st).scorer
+    if (dist_row.dtype != sc.dtype or dist_row.device != sc.device
+            or dist_row.dim() != 1
+            or (dist_row.shape[0] > 1 and dist_row.stride(0) != 1)):
+        raise ValueError(
+            f"dist_row must be a 1-D {sc.dtype} tensor with unit stride on "
+            f"{sc.device}, got {dist_row.dtype} {tuple(dist_row.shape)} "
+            f"strides {dist_row.stride()} on {dist_row.device}")
+    if stream is None:
+        stream = torch.cuda.current_stream(sc.device).cuda_stream
+    rc = sc.fn(*sc.args, dist_row.data_ptr(), st.idx, stream)
+    if rc != 0:
+        check_launch(sc.lib, "score_edges", rc)
+    SCORE_EDGES_LAUNCHES += 1
+    return sc
+
+
+def score_edges_cuda(st: TreeState, dist_row, stream: int | None = None):
+    """`score_edges` by the Hopper kernel: one launch, then one copy of
+    four ints to the host (the insertion's only sync for scoring and
+    splice). frac and add are 0-d views of the state's output buffer,
+    which the state's next launch overwrites: use them (on the launch's
+    stream) or clone them before scoring again. Equal to
+    `_score_edges_plain` in all six values, bit for bit."""
+    sc = score_edges_launch(st, dist_row, stream)
+    eid, x, y, ye = sc.out_i.tolist()  # host sync
+    return eid, x, y, ye, sc.frac, sc.add
+
+
+def score_edges(st: TreeState, dist_row, stream: int | None = None):
+    """Vectorized calculateBranchLength (src/placement_close_k.cu:309-358)
+    on the device of dist_row: the kernel for CUDA tensors, the plain
+    version for CPU tensors. Returns (eid, x, y, ye, fracLen, addLen):
+    the chosen edge (ties -> lowest eid) as host ints with its source
+    node, destination node and reverse edge, and the two lengths as 0-d
+    tensors."""
+    if dist_row.device.type == "cuda":
+        return score_edges_cuda(st, dist_row, stream)
+    if dist_row.device.type == "cpu":
+        return _score_edges_plain(st, dist_row)
+    raise ValueError(f"unsupported device {dist_row.device}")
 
 
 def _insert_merge_lists(cd1, id1, cd2, id2):
@@ -357,16 +503,20 @@ def _insert_merge_lists(cd1, id1, cd2, id2):
 
 
 def splice(st: TreeState, eid: int, frac, add, place_id: int,
-           num_sequences: int) -> None:
+           num_sequences: int, ends=None) -> None:
     """updateTreeStructure (src/placement_close_k.cu:446-528), in place:
     taxon place_id attaches through middle node N+place_id-1 onto edge
-    eid at fracLen `frac` with pendant length `add`."""
+    eid at fracLen `frac` with pendant length `add`. `ends` is edge eid's
+    (source node, destination node, reverse edge) as host ints where the
+    scorer has read them; without it they are read here."""
     dev = st.e.device
     N = num_sequences
     middle = place_id + N - 1
     outside = place_id
-    x, y, ye = torch.stack(
-        (st.belong[eid], st.e[eid], st.rev[eid])).tolist()  # host sync
+    if ends is None:
+        ends = torch.stack(
+            (st.belong[eid], st.e[eid], st.rev[eid])).tolist()  # host sync
+    x, y, ye = ends
     xe = eid
     i0 = st.idx
     i1, i2, i3 = i0 + 1, i0 + 2, i0 + 3
@@ -406,10 +556,11 @@ def splice(st: TreeState, eid: int, frac, add, place_id: int,
 
 
 def insertion_step(st: TreeState, row: torch.Tensor, i: int,
-                   num_sequences: int) -> None:
-    """Place taxon i given its distance row to the bank (in place)."""
-    eid, frac, add = score_edges(st, row)
-    splice(st, eid, frac, add, i, num_sequences)
+                   num_sequences: int, stream: int | None = None) -> None:
+    """Place taxon i given its distance row to the bank (in place).
+    `stream`: see score_edges_launch."""
+    eid, x, y, ye, frac, add = score_edges(st, row, stream)
+    splice(st, eid, frac, add, i, num_sequences, (x, y, ye))
     update_closest_bfs(st, i, 2 * num_sequences)
 
 
@@ -479,9 +630,11 @@ def init_placement_state(frontend_args, *, num_sequences: int, frontend: str,
 def _insert_range(st: TreeState, lo: int, hi: int, rows: torch.Tensor,
                   num_sequences: int) -> None:
     """Insertions lo..hi-1; rows[j] is the distance row of insertion
-    lo+j."""
+    lo+j. The range runs on the stream that is current at its start."""
+    stream = (torch.cuda.current_stream(rows.device).cuda_stream
+              if rows.device.type == "cuda" else None)
     for i in range(lo, hi):
-        insertion_step(st, rows[i - lo], i, num_sequences)
+        insertion_step(st, rows[i - lo], i, num_sequences, stream)
 
 
 def run_placement_full(frontend_args, *, num_sequences: int, frontend: str,
@@ -541,12 +694,12 @@ def tree_state_from_numpy(d, device) -> TreeState:
 
     adj = get("adj")
     nfb = get("nfb")
-    return TreeState(
+    return prepare_scorer(TreeState(
         e=t(d["e"], np.int32), belong=t(d["belong"], np.int32),
         length=t(d["length"]), rev=t(d["rev"], np.int32),
         cdis=t(d["cdis"]), cid=t(d["cid"], np.int32), idx=int(d["idx"]),
         adj=None if adj is None else t(adj, np.int32),
-        nfb=0 if nfb is None else int(nfb))
+        nfb=0 if nfb is None else int(nfb)))
 
 
 def save_tree_state(path: str, st: TreeState, next_i: int, num_sequences: int,
@@ -611,7 +764,7 @@ def load_tree_state(path: str, num_sequences: int, dtype_name: str,
     dtype = torch_dtype(dtype_name)
     st.length = st.length.to(dtype)
     st.cdis = st.cdis.to(dtype)
-    return st, int(d["next_i"])
+    return prepare_scorer(st), int(d["next_i"])
 
 
 # ---------------------------------------------------------------------------
@@ -647,19 +800,19 @@ def _resize_state(st: TreeState, E: int) -> TreeState:
     if cur == E:
         return st
     if cur > E:
-        return dataclasses.replace(
+        return prepare_scorer(dataclasses.replace(
             st, e=st.e[:E], belong=st.belong[:E], length=st.length[:E],
-            rev=st.rev[:E], cdis=st.cdis[:E], cid=st.cid[:E])
+            rev=st.rev[:E], cdis=st.cdis[:E], cid=st.cid[:E]))
     p = E - cur
 
     def pad(x, fill):
         return torch.cat([x, torch.full((p,) + x.shape[1:], fill,
                                         dtype=x.dtype, device=x.device)])
 
-    return dataclasses.replace(
+    return prepare_scorer(dataclasses.replace(
         st, e=pad(st.e, -1), belong=pad(st.belong, -1),
         length=pad(st.length, 0), rev=pad(st.rev, -1),
-        cdis=pad(st.cdis, SENT_DIS), cid=pad(st.cid, -1))
+        cdis=pad(st.cdis, SENT_DIS), cid=pad(st.cid, -1)))
 
 
 def run_placement_chunked(frontend_args, *, num_sequences: int, frontend: str,

@@ -12,9 +12,10 @@ insertions each, at the full cap:
      insertion (one per BFS level, the last, empty level included);
   C. torch.profiler over the loop with no extra syncs: device busy ms
      per insertion (kernels and copies, from device-side events only),
-     device ops, kernel launches, syncs and copies per insertion. The
-     device's busy share is C's busy ms over A's wall ms, since the
-     profiler slows the host.
+     device ops, kernel launches (all, and those of the port's own
+     scorer kernels), syncs and copies per insertion. The device's busy
+     share is C's busy ms over A's wall ms, since the profiler slows the
+     host.
 Each result is one JSON line on stdout; the profiler's tables go to
 OUT/profile_table.txt.
 
@@ -149,9 +150,15 @@ def main() -> int:
     acts = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
+    hand = {"score_edges": "SCORE_EDGES_LAUNCHES",
+            "side_vector": "SIDE_VECTOR_LAUNCHES"}
+    before = {k: getattr(tk, v) for k, v in hand.items()}
     t, prof = run(a0 + W, N, lambda: profile(activities=acts))
     ka = prof.key_averages()
     rec = {"insertions": W, "ms_per_insertion": t / W * 1e3}
+    for k, v in hand.items():
+        rec[f"{k}_kernel_launches_per_insertion"] = (
+            getattr(tk, v) - before[k]) / W
     if dev.type == "cuda":
         # aten ops also carry their kernels' device time: count only the
         # device-side events, as the table's "Self CUDA time total" does

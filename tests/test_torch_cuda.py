@@ -1,8 +1,10 @@
 """The port on an NVIDIA GPU: the hand-written kernels (mash merge count,
-mash distance rows, side vector) against their plain PyTorch versions,
-and CUDA builds (placement, the mash matrix, NJ) against CPU builds.
-Every test skips without CUDA. The file imports no JAX, so it also runs on a machine
-without it (the repo's conftest imports JAX, hence --noconftest):
+mash distance rows, side vector, the edge scorer) against their plain
+PyTorch versions, and CUDA builds (placement, the mash matrix, NJ) against
+CPU builds. Every test that takes the `cuda` fixture skips without CUDA;
+test_scorer_sources_and_rounding reads the sources only and runs anywhere.
+The file imports no JAX, so it also runs on a machine without it (the
+repo's conftest imports JAX, hence --noconftest):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -14,7 +16,9 @@ import torch
 from dipper_tpu_torch.distance import mash as tm
 from dipper_tpu_torch.distance import mash_cuda
 from dipper_tpu_torch.nj import neighbor_joining, nj_tree_newick
+from dipper_tpu_torch.csrc import build as kernel_build
 from dipper_tpu_torch.placement import kclosest as tk
+from dipper_tpu_torch.placement import score_model as sm
 from dipper_tpu_torch.sketch.native import sketch_sequences_native
 from dipper_tpu_torch.utils.treecmp import rf_distance
 
@@ -288,6 +292,144 @@ def test_side_vector_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="one device"):
         tk.side_vector_cuda(cid.cpu(), cdis, row)
     assert tk.SIDE_VECTOR_LAUNCHES == before
+
+
+def test_side_vector_kernel_unaligned_base(cuda):
+    """Lists that start 60 bytes into an allocation take the 4-byte
+    copies; a last tile of fewer than 32 edges too."""
+    cid, cdis, row = _side_inputs(1000, 300, "float32", cuda, 5)
+    for lo, hi in ((3, 1000), (0, 31), (1, 2), (32, 96)):
+        got = tk.side_vector_cuda(cid[lo:hi], cdis[lo:hi], row)
+        assert _same_bits(got, tk._side_vector(cid[lo:hi], cdis[lo:hi], row))
+
+
+def _same_six(got, want):
+    assert tuple(got[:4]) == tuple(want[:4])
+    for g, w in zip(got[4:], want[4:]):
+        assert g.dtype == w.dtype and _same_bits(g.reshape(1), w.reshape(1))
+
+
+SCORE_CASES = [c[0] for c in sm.made_up_cases("float32")]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name", SCORE_CASES)
+def test_score_edges_kernel_equals_plain(cuda, name, dtype):
+    _, d, row, expected = next(c for c in sm.made_up_cases(dtype)
+                               if c[0] == name)
+    st = tk.tree_state_from_numpy(d, cuda)
+    row = torch.from_numpy(row).to(cuda)
+    before = tk.SCORE_EDGES_LAUNCHES
+    got = tk.score_edges(st, row)
+    got = (*got[:4], got[4].clone(), got[5].clone())
+    assert tk.SCORE_EDGES_LAUNCHES == before + 1
+    _same_six(got, tk._score_edges_plain(st, row))
+    assert sm.meets(expected, got), (expected, got)
+    # a second launch finds the ticket reset by the first
+    _same_six(tk.score_edges(st, row), got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_score_edges_kernel_many_blocks(cuda, dtype):
+    """More slots than one pass of the largest grid (528 blocks of 256):
+    the grid-stride loop and the last block's reduction of 528 partials."""
+    rng = np.random.default_rng(6)
+    d = sm.made_up_state(100_000, 262_144, 5000, dtype, rng)
+    st = tk.tree_state_from_numpy(d, cuda)
+    for j in range(8):
+        row = rng.random(5000).astype(dtype)
+        if j % 2:
+            row += 4.0
+            keep = rng.integers(0, d["idx"])
+            row[d["cid"][keep][d["cid"][keep] >= 0]] = 0.5
+        row = torch.from_numpy(row).to(cuda)
+        _same_six(tk.score_edges(st, row), tk._score_edges_plain(st, row))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_score_edges_kernel_on_built_states(cuda, dtype):
+    """A state from a build on the card (unused tail, real witness
+    lists), scored with the rows of taxa not yet placed."""
+    n = 300
+    rng = np.random.default_rng(9)
+    D = rng.random((n, n))
+    D = torch.from_numpy(((D + D.T) / 2.2).astype(dtype)).to(cuda)
+    st = tk.init_placement_state((D,), num_sequences=n, frontend="matrix",
+                                 dtype_name=dtype)
+    assert st.scorer is not None
+    tk._insert_range(st, 2, n - 40, D[2:], n)
+    for i in range(n - 40, n):
+        _same_six(tk.score_edges(st, D[i]), tk._score_edges_plain(st, D[i]))
+
+
+def test_score_edges_wrapper_rejects_bad_inputs(cuda):
+    """The state's arrays are checked where a state is made and again when
+    one of them is swapped; the row at every call."""
+    _, d, row, _ = sm.made_up_cases("float32")[1]
+    row = torch.from_numpy(row).to(cuda)
+    before = tk.SCORE_EDGES_LAUNCHES
+
+    def state():
+        return tk.tree_state_from_numpy(d, cuda)
+
+    st = state()
+    st.cdis = st.cdis.double()
+    with pytest.raises(ValueError, match="cdis must be torch.float32"):
+        tk.prepare_scorer(st)
+    with pytest.raises(ValueError, match="cdis must be torch.float32"):
+        tk.score_edges(st, row)
+    st = state()
+    st.cid = st.cid.T.contiguous().T
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.score_edges(st, row)
+    st = state()
+    st.belong = st.belong.cpu()
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tk.score_edges(st, row)
+    st = state()
+    st.rev = st.rev.long()
+    with pytest.raises(ValueError, match="rev must be torch.int32"):
+        tk.score_edges(st, row)
+    with pytest.raises(ValueError, match="rev must be torch.int32"):
+        tk._resize_state(st, 2 * st.e.shape[0])
+    st = state()
+    with pytest.raises(ValueError, match="dist_row must be"):
+        tk.score_edges_cuda(st, row.double())
+    with pytest.raises(ValueError, match="dist_row must be"):
+        tk.score_edges_cuda(st, torch.cat([row, row])[::2])
+    with pytest.raises(ValueError, match="dist_row must be"):
+        tk.score_edges_cuda(st, row.cpu())
+    with pytest.raises(ValueError, match="needs a CUDA state"):
+        tk.score_edges_cuda(tk.tree_state_from_numpy(d, "cpu"), row)
+    assert tk.SCORE_EDGES_LAUNCHES == before
+
+
+def test_scorer_sources_and_rounding():
+    """Runs without a GPU: both entry points of TPU kernel 3 are built,
+    from one shared header, and the scorer's clamp sequence cannot
+    contract a multiply and an add into an FMA (it rounds once where the
+    plain version rounds twice)."""
+    import os
+    import re
+
+    assert kernel_build.KERNELS["side_vector"] == "side_vector.cu"
+    assert kernel_build.KERNELS["score_edges"] == "score_edges.cu"
+    src = {}
+    for name in ("side_vector.cu", "score_edges.cu", "side_vector.cuh"):
+        with open(os.path.join(kernel_build.CSRC_DIR, name)) as f:
+            src[name] = f.read()
+    for name in ("side_vector.cu", "score_edges.cu"):
+        assert '#include "side_vector.cuh"' in src[name]
+    kernel = src["score_edges.cu"]
+    if "-fmad=false" not in kernel_build.NVCC_FLAGS:
+        for fn in ("__fadd_rn", "__fsub_rn", "__fmul_rn", "__dadd_rn",
+                   "__dsub_rn", "__dmul_rn"):
+            assert fn in kernel
+        body = kernel[kernel.index("// _finish_score"):
+                      kernel.index("if (before(c, best))")]
+        code = re.sub(r"//.*", "", body)
+        assert not re.search(r"[^,(]\s[-+*]\s", code), \
+            "a bare arithmetic operator in the clamp sequence"
 
 
 def _additive(n, seed):

@@ -291,3 +291,167 @@ def test_side_vector_kernel_wrapper_rejects_cpu_tensors():
     cid, cdis, row = map(torch.from_numpy, _side_inputs("float32", 13))
     with pytest.raises(ValueError, match="CUDA tensors"):
         tk.side_vector_cuda(cid, cdis, row)
+
+
+# ---------------------------------------------------------------------------
+# The scorer: plain version vs the JAX package, the kernel's model vs the
+# plain version
+# ---------------------------------------------------------------------------
+
+from hypothesis import given, settings  # noqa: E402
+from hypothesis import strategies as hst  # noqa: E402
+
+from dipper_tpu_torch.placement import score_model as sm  # noqa: E402
+
+DTYPES = ["float64", "float32"]
+CASE_NAMES = [c[0] for c in sm.made_up_cases("float32")]
+
+
+def _bits(x):
+    """A 0-d float (torch, jax or numpy) as (is NaN, its bits)."""
+    a = np.asarray(x)
+    return bool(np.isnan(a)), (None if np.isnan(a)
+                               else a.view(f"i{a.itemsize}").item())
+
+
+def _same_six(got, want):
+    assert tuple(got[:4]) == tuple(want[:4])
+    for g, w in zip(got[4:], want[4:]):
+        g, w = np.asarray(g), np.asarray(w)
+        assert g.dtype == w.dtype
+        assert _bits(g) == _bits(w)
+
+
+def _jax_score(d, row):
+    """dipper_tpu's score_edges on a state given as numpy arrays."""
+    st = jk.TreeState(
+        e=jnp.asarray(d["e"]), belong=jnp.asarray(d["belong"]),
+        length=jnp.asarray(d["length"]), rev=jnp.asarray(d["rev"]),
+        cdis=jnp.asarray(d["cdis"]), cid=jnp.asarray(d["cid"]),
+        idx=jnp.asarray(d["idx"], jnp.int32), adj=None,
+        nfb=jnp.asarray(0, jnp.int32))
+    eid, frac, add = jk.score_edges(st, jnp.asarray(row))
+    return int(eid), np.asarray(frac), np.asarray(add)
+
+
+def _assert_plain_matches_jax(d, row):
+    """eid equal, frac and add bitwise (tolerance 0; NaN matches NaN)."""
+    st = tk.tree_state_from_numpy(d, CPU)
+    got = tk.score_edges(st, torch.from_numpy(row))
+    eid, frac, add = _jax_score(d, row)
+    assert got[0] == eid
+    assert got[1:4] == (int(d["belong"][eid]), int(d["e"][eid]),
+                        int(d["rev"][eid]))
+    for g, w in ((got[4], frac), (got[5], add)):
+        assert g.numpy().dtype == w.dtype and _bits(g.numpy()) == _bits(w)
+    return got
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", CASE_NAMES)
+def test_score_edges_matches_jax_made_up(name, dtype):
+    _, d, row, expected = next(c for c in sm.made_up_cases(dtype)
+                               if c[0] == name)
+    got = _assert_plain_matches_jax(d, row)
+    assert sm.meets(expected, got), (expected, got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [64, 300])
+def test_score_edges_matches_jax_on_built_states(n, dtype):
+    """States taken from a build of n - 20 taxa (full [4n] arrays, so the
+    tail is unused), scored with the rows of the 20 taxa not yet placed."""
+    D = _noisy(n).astype(dtype)
+    st = tk.init_placement_state((torch.from_numpy(D),), num_sequences=n,
+                                 frontend="matrix", dtype_name=dtype)
+    tk._insert_range(st, 2, n - 20, torch.from_numpy(D)[2:], n)
+    d = {k: v for k, v in tk.tree_state_to_numpy(st).items()
+         if v is not None}
+    for i in range(n - 20, n):
+        got = _assert_plain_matches_jax(d, D[i])
+        _same_six(sm.score_edges_model(st, torch.from_numpy(D[i])), got)
+
+
+def test_score_edges_tie_is_a_tie():
+    """The tie case's two edges really score the same: with the lower
+    slot made invalid, the higher one wins with the same bits."""
+    for dtype in DTYPES:
+        _, d, row, expected = next(c for c in sm.made_up_cases(dtype)
+                                   if c[0] == "tie")
+        first = tk.score_edges(tk.tree_state_from_numpy(d, CPU),
+                               torch.from_numpy(row))
+        a = expected["eid"]
+        d["belong"][a], d["e"][a] = d["e"][a], d["belong"][a]
+        second = tk.score_edges(tk.tree_state_from_numpy(d, CPU),
+                                torch.from_numpy(row))
+        assert first[0] == a and second[0] > a
+        assert _bits(first[4]) == _bits(second[4])
+        assert _bits(first[5]) == _bits(second[5]) and float(first[5]) < 2.0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", CASE_NAMES)
+@settings(max_examples=15, deadline=None)
+@given(data=hst.data())
+def test_score_model_equals_plain_hypothesis(name, dtype, data):
+    """The kernel's algorithm (valid slots only, both sides per slot,
+    partial minima over any split into blocks in any order, one candidate
+    for the unused slots) gives the plain version's six values."""
+    seed = data.draw(hst.integers(0, 2**16))
+    _, d, row, _ = next(c for c in sm.made_up_cases(dtype, seed)
+                        if c[0] == name)
+    st = tk.tree_state_from_numpy(d, CPU)
+    n_blocks = data.draw(hst.sampled_from([1, 2, 3, 8, 528]))
+    rng = np.random.default_rng(seed)
+    block_of = (rng.integers(0, n_blocks, st.idx) if data.draw(hst.booleans())
+                else np.arange(st.idx) // 32 % n_blocks)
+    order = (rng.permutation(st.idx) if data.draw(hst.booleans())
+             else np.arange(st.idx))
+    r = torch.from_numpy(row)
+    _same_six(sm.score_edges_model(st, r, block_of, order),
+              tk._score_edges_plain(st, r))
+
+
+def test_score_edges_cpu_takes_the_plain_version():
+    _, d, row, _ = sm.made_up_cases("float32")[0]
+    st = tk.tree_state_from_numpy(d, CPU)
+    assert st.scorer is None
+    before = tk.SCORE_EDGES_LAUNCHES
+    got = tk.score_edges(st, torch.from_numpy(row))
+    assert tk.SCORE_EDGES_LAUNCHES == before and st.scorer is None
+    _same_six(got, tk._score_edges_plain(st, torch.from_numpy(row)))
+
+
+def test_score_edges_kernel_wrapper_rejects_cpu_state():
+    _, d, row, _ = sm.made_up_cases("float32")[0]
+    st = tk.tree_state_from_numpy(d, CPU)
+    with pytest.raises(ValueError, match="needs a CUDA state"):
+        tk.score_edges_cuda(st, torch.from_numpy(row))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tk.score_edges(st, torch.from_numpy(row).to("meta"))
+
+
+def test_resized_state_gets_its_own_scorer_slot():
+    """dataclasses.replace must not carry a scorer over to other arrays."""
+    _, d, _, _ = sm.made_up_cases("float32")[1]  # 300 of 512 slots used
+    st = tk.tree_state_from_numpy(d, CPU)
+    st.scorer = object()
+    assert tk._resize_state(st, 2 * st.e.shape[0]).scorer is None
+    assert tk._resize_state(st, st.idx).scorer is None
+
+
+def test_splice_with_ends_equals_splice_without():
+    D = torch.from_numpy(_noisy(12))
+    states = []
+    for use_ends in (False, True):
+        st = tk.init_placement_state((D,), num_sequences=12,
+                                     frontend="matrix", dtype_name="float64")
+        for i in range(2, 12):
+            eid, x, y, ye, frac, add = tk.score_edges(st, D[i])
+            tk.splice(st, eid, frac, add, i, 12,
+                      (x, y, ye) if use_ends else None)
+            tk.update_closest_bfs(st, i, 24)
+        states.append(st)
+    for f in FIELDS:
+        a, b = getattr(states[0], f), getattr(states[1], f)
+        assert (a == b if isinstance(a, int) else torch.equal(a, b)), f
