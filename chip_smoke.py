@@ -7,8 +7,8 @@ Runs on one NVIDIA GPU, from the root of a checkout:
     python3 chip_smoke.py --phases 1,2,3,6,7 --n 4400   # kernel checks only
 
 Phases, each printing one line of its own (run in the order 1, 2, 3, 6,
-7, 4, 5, 9, 8: phase 8 runs the profiler, which slows every later
-launch in the process):
+7, 4, 5, 9, 10, 11, 12, 14, 13, 8: phases 13 and 8 run the profiler,
+which slows every later launch in the process):
   1. device: torch's device name and nvidia-smi's name and power limit;
   2. build: compile the hand-written kernels from dipper_tpu_torch/csrc/,
      one nvcc per source, all started together;
@@ -62,8 +62,43 @@ launch in the process):
      launch's every 128th row equal to the plain version, a symmetric
      matrix with a zero diagonal whose lower triangle is the kernel's
      rows, and nRF vs the true tree < 0.45.
-Every kernel counter is set to 0 just before a main path (phases 5 and 9)
-and read just after it.
+  10. MSA pair counts and distances on an aligned set (the generator
+     with --aligned at N=20,000, L=10,000, 5% gaps, seed 1): the card's
+     counts of 4,096 queries x the bank's first 4,096 rows against an
+     int64 count on the host for sampled pairs, bitwise; the six models in
+     f32 and f64 against the port's CPU result, NaN and inf in the same
+     places, on 256 close relatives (branch scale 0.1: rtol 2e-6 and 1e-12
+     with an atol of 64 ulps of 1) and on the set's first 256 sequences,
+     mostly saturated pairs next to the models' poles (rtol 1e-3 and
+     1e-9); the time of one row
+     block's product (torch._int_mm, no hand kernel: the reference leaves
+     this product to its compiler too) beside its bound, and of its
+     formulas;
+  11. the -i m main path: the CLI with default flags on that alignment
+     (auto mode takes NJ, -d 1); requires rc 0, a complete Newick and nRF
+     vs the true tree under MSA_NJ_NRF_LIMIT;
+  12. -i m -m 1 on the alignment's first 4,096 sequences: one score_edges
+     launch per insertion, nRF vs the true tree restricted to them under
+     MSA_PLACE_NRF_LIMIT;
+  14. --add: a backbone built by the port from the first 2,048 sequences
+     of the placement set (-i r -m 1), then --add of the next 512: every
+     backbone split survives, score_edges launches = 512, merge-count
+     launches > 0; and the same Newick from the card and the CPU at a
+     backbone of 256 with 64 queries;
+  13. exact placement on the card in f64, through
+     build_placement_tree_from_seqs(exact=True) on the alignment's first
+     1,024 sequences and build_placement_tree_from_matrix(exact=True) on
+     their distance matrix: the same Newick as the port's CPU build, the
+     tree's greatest depth, ms per insertion, and the launches, copies and
+     syncs per insertion of the matrix build's last 32 insertions under
+     torch.profiler.
+The sizes of phases 12, 14 and 13 are half of what a 600 s budget for the
+whole script would not hold (8,192; 4,096 + 1,024; 2,048): their loops
+are the host's, and the 30K and 20K paths keep their sizes.
+Every kernel counter is set to 0 just before a main path (phases 5, 9, 11,
+12, 14) and read just after it; `launches` in the kernels' record is the
+count of phases 5 (placement) and 9 (NJ), `launches_by_path` has every
+path's.
 
 The last two lines are the kernels' record and {"ok": true, "device":
 {...}}. Any failed check raises, so the script exits non-zero and prints no
@@ -107,7 +142,11 @@ SIDE_SAMPLE = 997
 # rows scored on the real states (phase 7's N = 4,096 build, phase 5's
 # state before its last range)
 SCORE_ROWS = (256, 300)
-ALL_PHASES = (1, 2, 3, 6, 7, 4, 5, 9, 8)
+# sanity bounds for the aligned set (uncorrected distances saturate along
+# the generator's long paths; no JAX figure exists)
+MSA_NJ_NRF_LIMIT = 0.35
+MSA_PLACE_NRF_LIMIT = 0.45
+ALL_PHASES = (1, 2, 3, 6, 7, 4, 5, 9, 10, 11, 12, 14, 13, 8)
 # every SAMPLE-th query row of a large kernel call is compared with the
 # plain version (which takes ~10 ms per query row at 30,000 bank rows)
 SAMPLE = 128
@@ -117,6 +156,8 @@ SAMPLE = 128
 # clock (half the lanes of the 67 TFLOP/s float32 figure, no FMA's two).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_PER_S = 132 * 64 * 1.98e9
+# dense int8 rate of the tensor cores (the MSA pair-count product)
+PEAK_INT8_PER_S = 1979e12
 # integer operations of one step of the mash walk: a compare, a pointer
 # advance, two counter updates
 OPS_PER_WALK_STEP = 4
@@ -131,13 +172,27 @@ def check(cond: bool, msg: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def make_dataset(n: int, prefix: str, seed: int) -> tuple[str, str]:
-    """scripts/make_dataset.py (unaligned, L=10,000) -> (.fa, .true.nwk)."""
+def make_dataset(n: int, prefix: str, seed: int, aligned: bool = False,
+                 blen_scale: float | None = None) -> tuple[str, str]:
+    """scripts/make_dataset.py (L=10,000; unaligned with 2% indels, or
+    aligned with 5% gaps; the generator's branch scale unless one is
+    given) -> (.fa, .true.nwk)."""
     subprocess.run(
         [sys.executable, os.path.join(REPO, "scripts", "make_dataset.py"),
-         "-n", str(n), "-L", "10000", "-o", prefix, "--seed", str(seed)],
+         "-n", str(n), "-L", "10000", "-o", prefix, "--seed", str(seed)]
+        + (["--aligned"] if aligned else [])
+        + (["--blen-scale", str(blen_scale)] if blen_scale else []),
         check=True, stdout=subprocess.DEVNULL, timeout=600)
     return prefix + ".fa", prefix + ".true.nwk"
+
+
+def head_fasta(fa: str, n: int, out: str) -> str:
+    """The first n records of a generated FASTA (two lines a record)."""
+    import itertools
+
+    with open(fa, "rb") as f, open(out, "wb") as g:
+        g.writelines(itertools.islice(f, 2 * n))
+    return out
 
 
 def ranks_of(seqs, k: int, s: int) -> np.ndarray:
@@ -1133,6 +1188,412 @@ def phase_nj_main_path(tmp: str, n: int) -> dict:
     return {"counts": counts, "max_abs_err": worst}
 
 
+def restricted_rf(nwk: str, true_nwk: str) -> tuple:
+    """RF and nRF of `nwk` against the true tree restricted to nwk's
+    leaves (a subset of the true tree's)."""
+    from dipper_tpu_torch.utils.treecmp import _splits_from_newick
+
+    got, leaves = _splits_from_newick(nwk)
+    true, all_leaves = _splits_from_newick(true_nwk)
+    check(leaves <= all_leaves, "the tree has leaves the true tree lacks")
+    ref = min(leaves)
+    want = set()
+    for s in true:
+        side = s & leaves
+        if ref in side:
+            side = leaves - side
+        if 1 < len(side) < len(leaves) - 1:
+            want.add(frozenset(side))
+    rf = len(got ^ want)
+    return rf, rf / max(len(got) + len(want), 1)
+
+
+def load_codes(fa: str, n: int | None = None) -> np.ndarray:
+    """uint8 [n, L] 4-bit codes of an aligned FASTA's first n records."""
+    from dipper_tpu_torch.io.encode import batch_codes, encode_4bit_codes
+    from dipper_tpu_torch.io.fasta import read_fasta
+
+    _, seqs = read_fasta(fa)
+    return batch_codes(seqs[:n], encode_4bit_codes, pad_value=4)[0]
+
+
+def phase_msa_counts(codes: np.ndarray, close: np.ndarray, q: int = 4096,
+                     block: int = 256, sampled: int = 256) -> dict:
+    """`codes`: the aligned set; `close`: the codes of a small set of close
+    relatives (see the models' comparison below)."""
+    from dipper_tpu_torch.distance import msa
+
+    n, L = codes.shape
+    q = min(q, n)
+    codes_d = torch.from_numpy(codes).cuda()
+    phi = msa.one_hot_channels(codes_d[:q])
+    P = msa.pair_counts(phi, phi)
+    torch.cuda.synchronize()
+    check(P.dtype == torch.int32 and tuple(P.shape) == (q, 5, q, 5),
+          f"pair counts {P.dtype} {tuple(P.shape)}")
+    rng = np.random.default_rng(0)
+    pairs = rng.integers(0, q, (sampled, 2))
+    pairs[0] = (0, 0)
+    pairs[1] = (q - 1, 0)
+    got = P[pairs[:, 0], :, pairs[:, 1], :].cpu().numpy()
+    chan = msa.build_channels(
+        codes[np.unique(pairs)]).astype(np.int64)
+    at = {int(v): k for k, v in enumerate(np.unique(pairs))}
+    want = np.stack([chan[at[int(i)]] @ chan[at[int(j)]].T
+                     for i, j in pairs])
+    err = int(np.abs(got.astype(np.int64) - want).max())
+    check(np.array_equal(got, want), f"MSA pair counts: card != int64 host "
+          f"count on sampled pairs (max abs err {err})")
+    del P, phi
+
+    # the six models, card vs the port's CPU result, on two blocks: `close`
+    # (a set of close relatives, every model well away from its poles) at
+    # the stated tolerance, and the first `block` of this set, whose pairs
+    # are mostly saturated (NaN, inf, and finite values next to a pole,
+    # where one last place of a log's argument moves the result by
+    # 1/argument times as much) at a loose one. Failures are raised after
+    # the phase's line is printed.
+    models, failed = {}, []
+    blocks = {"close": (torch.from_numpy(close), {"float32": 2e-6,
+                                                  "float64": 1e-12}, 64),
+              "saturated": (torch.from_numpy(codes[:block]),
+                            {"float32": 1e-3, "float64": 1e-9}, 0)}
+    for name, (cb, rtols, atol_eps) in blocks.items():
+        for dtype, rtol in rtols.items():
+            atol = atol_eps * torch.finfo(getattr(torch, dtype)).eps
+            for dt in range(1, 7):
+                kw = dict(distance_type=dt, dtype_name=dtype)
+                ng = msa.nongap_counts(cb, dtype)
+                cpu = msa.msa_tiled_block(cb, ng, cb, ng, **kw)
+                gpu = msa.msa_tiled_block(cb.cuda(), ng.cuda(), cb.cuda(),
+                                          ng.cuda(), **kw).cpu()
+                same_specials = (
+                    torch.equal(gpu.isnan(), cpu.isnan())
+                    and torch.equal(gpu.isposinf(), cpu.isposinf())
+                    and torch.equal(gpu.isneginf(), cpu.isneginf()))
+                ok = ~(cpu.isnan() | cpu.isinf() | gpu.isnan() | gpu.isinf())
+                diff = (gpu[ok].double() - cpu[ok].double()).abs()
+                rel = diff / cpu[ok].double().abs().clamp(min=1e-300)
+                close_enough = torch.allclose(gpu, cpu, rtol=rtol, atol=atol,
+                                              equal_nan=True)
+                if not (same_specials and close_enough):
+                    failed.append(
+                        f"MSA model {dt} {dtype} on the {name} block: card "
+                        f"vs CPU max abs err {diff.max().item()}, max rel "
+                        f"err {rel.max().item()} (rtol {rtol}, atol {atol}),"
+                        f" NaN and inf in the same places: {same_specials}")
+                models[f"{name}/{dtype}/d{dt}"] = {
+                    "max_abs_err": diff.max().item(),
+                    "max_rel_err": rel.max().item(), "rtol": rtol,
+                    "atol": atol, "same_nan_inf_places": same_specials,
+                    "bitwise": bool(torch.equal(gpu.nan_to_num(),
+                                                cpu.nan_to_num())),
+                    "nan": int(cpu.isnan().sum()),
+                    "inf": int(cpu.isinf().sum())}
+    cb = blocks["saturated"][0]
+    # JC's steps on both devices, f32: which one differs first, if any
+    # (all but the log are single IEEE operations)
+    steps = {}
+    for dev in ("cpu", "cuda"):
+        c, ng = cb.to(dev), msa.nongap_counts(cb, "float32").to(dev)
+        uncor = msa.msa_tiled_block(c, ng, c, ng, distance_type=1,
+                                    dtype_name="float32")
+        t = uncor / torch.full((), 0.75, device=dev)
+        x = 1.0 - t
+        steps[dev] = [v.cpu() for v in (uncor, t, x, torch.log(x))]
+    jc_steps = {name: int((a.nan_to_num() != b.nan_to_num()).sum())
+                for name, a, b in zip(("uncor", "over_0.75", "one_minus",
+                                       "log"), steps["cpu"], steps["cuda"])}
+
+    # one row block of the matrix path: the product alone, then with the
+    # formulas (f32, -d 1 and -d 5: the fewest and the most slices read)
+    rb = min(msa._fit_rows(None, n), n)
+    phi = msa.one_hot_channels(codes_d)
+    torch.cuda.synchronize()
+    ng = msa.nongap_counts(codes_d, "float32")
+    product_ms = event_ms(lambda: msa.pair_counts(phi[:rb], phi), 5)
+    block_ms = {
+        f"d{dt}": event_ms(lambda: msa._block_distance(
+            phi[:rb], phi, ng[:rb], ng, distance_type=dt,
+            dtype_name="float32"), 5) for dt in (1, 5)}
+    expand_ms = event_ms(lambda: msa.one_hot_channels(codes_d), 3)
+    ops = 2.0 * 25 * rb * n * L
+    nbytes = (rb + n) * 5 * L + rb * n * 25 * 4
+    rec = with_share({"row_block": rb, "bank": n, "L": L, "ms": product_ms,
+                      "tops": ops / product_ms / 1e9},
+                     bound_of(ops, nbytes, PEAK_INT8_PER_S))
+    emit({"phase": "msa_counts", "n": n, "L": L,
+          "route": "torch._int_mm (int8 x int8 -> int32)",
+          "counts_checked": {"queries": q, "bank": q, "sampled_pairs": sampled,
+                             "equal": True, "max_abs_err": err},
+          "models_card_vs_cpu": models,
+          "jc_steps_entries_differing_card_vs_cpu": jc_steps,
+          "row_block_product": rec,
+          "row_block_with_formulas_ms": block_ms,
+          "formulas_ms": {k: v - product_ms for k, v in block_ms.items()},
+          "one_hot_expand_all_ms": expand_ms,
+          "row_blocks_of_the_matrix": -(-n // rb)})
+    check(not failed, "; ".join(failed))
+    return rec
+
+
+def phase_msa_nj_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
+    from dipper_tpu_torch.distance import msa
+
+    out = os.path.join(tmp, f"msa{n}.nj.nwk")
+    matrices = []
+    build_matrix = msa.msa_distance_matrix
+
+    def keep_matrix(*a, **kw):
+        D = build_matrix(*a, **kw)
+        matrices.append(D)
+        return D
+
+    msa.msa_distance_matrix = keep_matrix
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        rc, log, wall = run_cli(["-i", "m", "-I", fa, "-O", out])
+    finally:
+        msa.msa_distance_matrix = build_matrix
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"-i m main path CLI returned {rc}")
+    check("Using conventional NJ" in log, "auto mode did not take NJ")
+    check(len(matrices) == 1, "the -i m main path built no MSA matrix")
+    D = matrices[0]
+    check(D.shape == (n, n) and D.dtype == torch.float32
+          and D.device.type == "cuda", f"matrix {tuple(D.shape)} {D.dtype} "
+          f"on {D.device}")
+    check(bool((D.diagonal() == 0).all()), "the MSA matrix diagonal is not 0")
+    check(torch.equal(D, D.T), "the MSA matrix is not symmetric")
+    check(not bool(D.isnan().any()), "the -d 1 matrix holds NaN")
+    rf, nrf = check_tree(open(out).read().strip(), n, true_nwk,
+                         MSA_NJ_NRF_LIMIT)
+    emit({"phase": "main_path", "path": "msa_nj", "n": n, "L": 10000,
+          "distance_type": 1, "precision": "f32",
+          "phases_ms": {
+              "input": _ms(r"Input in: (\d+) ms", log),
+              "encode": _ms(r"Encoded in: (\d+) ms", log),
+              "distance_matrix": _ms(r"Distance matrix in: (\d+) ms", log),
+              "nj": _ms(r"NJ in: (\d+) ms", log),
+              "tree_created": _ms(r"Tree Created in: (\d+) ms", log),
+              "total_wall": wall * 1e3},
+          "kernel_launches": counts, "max_memory_allocated": peak,
+          "rf": rf, "nrf_vs_true": nrf, "nrf_limit": MSA_NJ_NRF_LIMIT})
+    return {"counts": counts}
+
+
+def phase_msa_placement(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
+    sub = head_fasta(fa, n, os.path.join(tmp, f"msa_first{n}.fa"))
+    out = os.path.join(tmp, f"msa_first{n}.nwk")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    rc, log, wall = run_cli(["-i", "m", "-I", sub, "-O", out, "-m", "1"])
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"-i m -m 1 CLI returned {rc}")
+    check(counts["score_edges"] == n - 2,
+          f"-i m -m 1 launched score_edges {counts['score_edges']} times for "
+          f"{n - 2} insertions")
+    nwk = open(out).read().strip()
+    check(nwk.count(",") == n - 1, f"Newick has {nwk.count(',')} commas, "
+          f"want {n - 1}")
+    rf, nrf = restricted_rf(nwk, open(true_nwk).read())
+    check(nrf < MSA_PLACE_NRF_LIMIT, f"-i m -m 1: nRF vs the true tree {nrf} "
+          f">= {MSA_PLACE_NRF_LIMIT}")
+    emit({"phase": "main_path", "path": "msa_placement", "n": n, "L": 10000,
+          "distance_type": 1, "precision": "f32",
+          "phases_ms": {
+              "input": _ms(r"Input in: (\d+) ms", log),
+              "rows": _ms(r"Placement rows: ([\d.]+) ms", log),
+              "insertions": _ms(r"insertions: ([\d.]+) ms", log),
+              "tree_created": _ms(r"Tree Created in: (\d+) ms", log),
+              "total_wall": wall * 1e3},
+          "steady_ms_per_insertion": _ms(
+              r"steady ([\d.]+) ms/insertion", log),
+          "kernel_launches": counts, "max_memory_allocated": peak,
+          "rf": rf, "nrf_vs_true_restricted": nrf,
+          "nrf_limit": MSA_PLACE_NRF_LIMIT})
+    return {"counts": counts}
+
+
+def backbone_splits_survive(out_nwk: str, back_nwk: str) -> tuple:
+    """(every split of the backbone is a split of the combined tree
+    restricted to the backbone's leaves, the combined tree's leaves)."""
+    from dipper_tpu_torch.utils.treecmp import _splits_from_newick
+
+    back, back_leaves = _splits_from_newick(back_nwk)
+    splits, leaves = _splits_from_newick(out_nwk)
+    ref = min(back_leaves)
+    restricted = set()
+    for s in splits:
+        side = s & back_leaves
+        if ref in side:
+            side = back_leaves - side
+        if 1 < len(side) < len(back_leaves) - 1:
+            restricted.add(frozenset(side))
+    return back <= restricted, leaves
+
+
+def phase_add(tmp: str, fa: str, backbone: int, queries: int,
+              small: tuple = (256, 64)) -> dict:
+    def add_run(b: int, q: int, dev: str, tag: str):
+        back_fa = head_fasta(fa, b, os.path.join(tmp, f"{tag}.back.fa"))
+        all_fa = head_fasta(fa, b + q, os.path.join(tmp, f"{tag}.all.fa"))
+        back_nwk = os.path.join(tmp, f"{tag}.back.{dev}.nwk")
+        out = os.path.join(tmp, f"{tag}.out.{dev}.nwk")
+        rc, blog, _ = run_cli(["-i", "r", "-I", back_fa, "-O", back_nwk,
+                               "-m", "1", "--device", dev])
+        check(rc == 0, f"backbone build --device {dev} returned {rc}")
+        reset_counts()
+        rc, log, wall = run_cli(["-i", "r", "-I", all_fa, "-O", out, "--add",
+                                 "-t", back_nwk, "--device", dev])
+        counts = read_counts()
+        check(rc == 0, f"--add --device {dev} returned {rc}")
+        return open(back_nwk).read(), open(out).read(), counts, log, wall
+
+    back, out, counts, log, wall = add_run(backbone, queries, "cuda", "add")
+    check(counts["score_edges"] == queries,
+          f"--add launched score_edges {counts['score_edges']} times for "
+          f"{queries} queries")
+    check(counts["mash_merge_count"] > 0,
+          "--add launched no mash_merge_count kernel")
+    survive, leaves = backbone_splits_survive(out, back)
+    check(leaves == {f"S{i}" for i in range(backbone + queries)},
+          "--add: the tree's leaves are not the input's")
+    check(survive, "--add: a backbone split did not survive")
+    b, q = small
+    outs = {dev: add_run(b, q, dev, f"add{b}")[:2] for dev in ("cuda", "cpu")}
+    check(outs["cuda"] == outs["cpu"], "--add: the card's backbone or "
+          f"combined Newick differs from the CPU's at {b} + {q}")
+    emit({"phase": "main_path", "path": "add", "backbone": backbone,
+          "queries": queries, "precision": "f32",
+          "phases_ms": {
+              "sketch": _ms(r"Sketch in: (\d+) ms", log),
+              "seeding": _ms(r"seeded in: ([\d.]+) ms", log),
+              "rows": _ms(r"queries: rows ([\d.]+) ms", log),
+              "insertions": _ms(r"insertions ([\d.]+) ms", log),
+              "tree_created": _ms(r"Tree Created in: (\d+) ms", log),
+              "total_wall": wall * 1e3},
+          "seeding_ms_per_backbone_leaf":
+              _ms(r"seeded in: ([\d.]+) ms", log) / backbone,
+          "ms_per_query": _ms(r"insertions ([\d.]+) ms", log) / queries,
+          "kernel_launches": counts, "backbone_splits_survive": True,
+          "gpu_vs_cpu": {"backbone": b, "queries": q,
+                         "newick_identical": True}})
+    return {"counts": counts}
+
+
+def phase_exact(tmp: str, fa: str, n: int, window: int = 32) -> dict:
+    """Exact placement of the alignment's first n sequences on the card
+    and on the CPU, f64, from the sequences and from their matrix."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dipper_tpu_torch.distance import msa
+    from dipper_tpu_torch.io.fasta import read_fasta
+    from dipper_tpu_torch.placement import api, exact
+    from dipper_tpu_torch.utils.params import Param
+
+    names, seqs = read_fasta(fa)
+    names, seqs = names[:n], seqs[:n]
+    D = msa.msa_distance_matrix(load_codes(fa, n), 1, "float64",
+                                "cuda").cpu().numpy()
+
+    states = []
+    chunked = exact.run_exact_chunked
+
+    def keep_state(*a, **kw):
+        st = chunked(*a, **kw)
+        states.append(st)
+        return st
+
+    # the matrix build on the card ends with `window` insertions in a range
+    # of their own, which run under the profiler
+    prof_box = []
+    run_range = exact.run_exact_range
+
+    def range_profiled(st, lo, hi, rows, num_sequences):
+        if st.e.device.type != "cuda" or hi - lo != window or prof_box:
+            return run_range(st, lo, hi, rows, num_sequences)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run_range(st, lo, hi, rows, num_sequences)
+            torch.cuda.synchronize()
+        prof_box.append((prof, (time.perf_counter() - t0) * 1e3))
+
+    def build(frontend: str, dev: str, chunk: int) -> tuple:
+        logs = []
+        p = Param(in_format="m" if frontend == "msa" else "d",
+                  dtype="float64", state_chunk=chunk)
+        t0 = time.time()
+        if frontend == "msa":
+            nwk = api.build_placement_tree_from_seqs(
+                seqs, names, p, device=torch.device(dev), exact=True,
+                log=logs.append)
+        else:
+            nwk = api.build_placement_tree_from_matrix(
+                D, names, p, device=torch.device(dev), exact=True,
+                log=logs.append)
+        wall = time.time() - t0
+        per = [float(m.group(1)) for ln in logs
+               for m in [re.search(r"\(([\d.]+) ms/insertion\)", ln)] if m]
+        return nwk, wall, per[0]
+
+    exact.run_exact_chunked = keep_state
+    exact.run_exact_range = range_profiled
+    res, trees = {}, {}
+    try:
+        for frontend in ("msa", "matrix"):
+            # ranges [2, n - window) and [n - window, n)
+            chunk = n - 2 - window if frontend == "matrix" else n
+            del states[:]
+            reset_counts()
+            gpu, gpu_s, gpu_ms = build(frontend, "cuda", chunk)
+            check(states and states[0].e.device.type == "cuda",
+                  "exact placement did not keep its state on the card")
+            depth = exact._max_depth(states[0])
+            cpu, cpu_s, cpu_ms = build(frontend, "cpu", chunk)
+            check(gpu == cpu, f"exact placement ({frontend}, f64): the "
+                  "card's Newick differs from the CPU's")
+            check(gpu.count(",") == n - 1, "exact placement: incomplete tree")
+            trees[frontend] = gpu
+            res[frontend] = {
+                "newick_identical_gpu_cpu": True, "greatest_depth": depth,
+                "ms_per_insertion": {"cuda": gpu_ms, "cpu": cpu_ms},
+                "wall_s": {"cuda": gpu_s, "cpu": cpu_s},
+                "kernel_launches": read_counts()}
+    finally:
+        exact.run_exact_chunked = chunked
+        exact.run_exact_range = run_range
+    # the same distances row by row (the matrix's diagonal is zeroed)
+    res["same_newick_from_both_frontends"] = trees["msa"] == trees["matrix"]
+    check(len(prof_box) == 1, "the profiled window of exact placement did "
+          "not run")
+    prof, wall_ms = prof_box[0]
+    ka = prof.key_averages()
+    count = {e.key: e.count for e in ka}
+    on_dev = [e for e in ka if e.device_type != DeviceType.CPU]
+    res["profiled_window"] = {
+        "insertions": window, "first": n - window,
+        "ms_per_insertion_under_profiler": wall_ms / window,
+        "launches_per_insertion": count.get("cudaLaunchKernel", 0) / window,
+        "memcpys_per_insertion": count.get("cudaMemcpyAsync", 0) / window,
+        "stream_syncs_per_insertion":
+            count.get("cudaStreamSynchronize", 0) / window,
+        "device_busy_ms_per_insertion":
+            sum(e.self_device_time_total for e in on_dev) / 1e3 / window,
+        "top_device_ops": sorted(
+            ((e.key, e.self_device_time_total / 1e3 / window) for e in on_dev),
+            key=lambda kv: -kv[1])[:6]}
+    emit({"phase": "exact_placement", "n": n, "precision": "f64",
+          "distance_type": 1, **res})
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=30000,
@@ -1140,6 +1601,10 @@ def main() -> int:
                          "the kernel phases' inputs")
     ap.add_argument("--nj-n", type=int, default=20000,
                     help="taxa of the NJ main path (phase 9)")
+    ap.add_argument("--msa-n", type=int, default=20000,
+                    help="taxa of the aligned set (phases 10 and 11); "
+                         "phase 12 places its first min(4096, msa-n), phase "
+                         "13 its first min(1024, msa-n)")
     ap.add_argument("--phases", default=",".join(map(str, sorted(ALL_PHASES))),
                     help="comma-separated subset of phases to run")
     args = ap.parse_args()
@@ -1156,8 +1621,14 @@ def main() -> int:
     records = {name: {"name": name, "route": "cuda", "source": src,
                       "replaces": rep}
                for name, (src, rep) in KERNELS.items()}
+
+    def note(path: str, counts: dict) -> None:
+        """A main path's launch counts into every kernel's record."""
+        for name, c in counts.items():
+            records[name].setdefault("launches_by_path", {})[path] = c
+
     with tempfile.TemporaryDirectory() as tmp:
-        if phases & {3, 5, 6}:
+        if phases & {3, 5, 6, 14}:
             t0 = time.time()
             data = make_dataset(args.n, os.path.join(tmp, f"n{args.n}"),
                                 seed=1)
@@ -1178,6 +1649,7 @@ def main() -> int:
             phase_gpu_vs_cpu(tmp)
         if 5 in phases:
             res = phase_main_path(tmp, args.n, *data)
+            note("placement", res["counts"])
             mc, sv = records["mash_merge_count"], records["side_vector"]
             se = records["score_edges"]
             mc["launches"] = res["counts"]["mash_merge_count"]
@@ -1193,10 +1665,33 @@ def main() -> int:
             se["main_path_state"] = res["score_edges_last_range"]
         if 9 in phases:
             res = phase_nj_main_path(tmp, args.nj_n)
+            note("nj", res["counts"])
             rd = records["mash_rows_dist"]
             rd["launches"] = res["counts"]["mash_rows_dist"]
             rd["max_abs_err"] = max(rd.get("max_abs_err", 0.0),
                                     res["max_abs_err"])
+        if phases & {10, 11, 12, 13}:
+            t0 = time.time()
+            msa_fa, msa_true = make_dataset(
+                args.msa_n, os.path.join(tmp, f"msa{args.msa_n}"), seed=1,
+                aligned=True)
+            emit({"phase": "dataset", "aligned": True, "n": args.msa_n,
+                  "L": 10000, "seed": 1, "gen_s": time.time() - t0})
+        if 10 in phases:
+            close_fa, _ = make_dataset(256, os.path.join(tmp, "close256"),
+                                       seed=6, aligned=True, blen_scale=0.1)
+            phase_msa_counts(load_codes(msa_fa), load_codes(close_fa))
+        if 11 in phases:
+            note("msa_nj", phase_msa_nj_main_path(
+                tmp, args.msa_n, msa_fa, msa_true)["counts"])
+        if 12 in phases:
+            note("msa_placement", phase_msa_placement(
+                tmp, min(4096, args.msa_n), msa_fa, msa_true)["counts"])
+        if 14 in phases:
+            note("add", phase_add(tmp, data[0], min(2048, args.n // 2),
+                                  min(512, args.n // 8))["counts"])
+        if 13 in phases:
+            phase_exact(tmp, msa_fa, min(1024, args.msa_n))
         if 8 in phases:
             phase_nj_gpu_vs_cpu(tmp)
             prof = phase_scorer_profiled()

@@ -19,13 +19,15 @@ src/tree_generation.cu:33-99) plus --device:
                               placement, 14,523 (f32) or 11,619 (f64) for
                               NJ and -o d)
 
-Ported so far, from -i r and -i d: conventional NJ (-m 2, or auto mode
-below 30,000 taxa), k-closest placement (-m 1, or auto mode at N >=
-30,000) and the mash distance matrix as PHYLIP (-i r -o d), with
---precision, --seed, --save/--load-sketches, and for placement
---save/--load-state, --state-chunk and --no-prefix-caps. Exact
-placement, divide-and-conquer, --add, -i m, --profile, --devices > 1 and
-the multi-host flags exit 1 with a "not yet ported" message.
+Ported so far, from -i r, -i m and -i d: conventional NJ (-m 2, or auto
+mode below 30,000 taxa), k-closest placement (-m 1, or auto mode at N >=
+30,000), exact placement (the -m value 0: auto mode, so only at N >=
+30,000), the distance matrix as PHYLIP (-i r or -i m with -o d) and --add
+(from -i r and -i m), with --precision, --seed, --save/--load-sketches,
+and for placement --save/--load-state, --state-chunk and
+--no-prefix-caps. Divide-and-conquer (-m 3, or auto mode at N >=
+1,000,000), --profile, --devices > 1 and the multi-host flags exit 1 with
+a "not yet ported" message.
 """
 
 from __future__ import annotations

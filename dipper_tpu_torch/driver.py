@@ -2,14 +2,16 @@
 
 Auto-mode thresholds (tree_generation.cu:247-248): NJ for N < 30_000,
 placement for 30_000 <= N < 1_000_000, divide-and-conquer above. The
-port runs conventional NJ and k-closest placement from unaligned FASTA
-(-i r, through mash distances) and PHYLIP matrices (-i d), and writes
-the mash distance matrix (-i r -o d); every other mode stops with
-NotYetPorted.
+port runs conventional NJ and placement (k-closest, or exact where the
+-m value is 0) from unaligned FASTA (-i r, mash distances), aligned
+FASTA (-i m, the six MSA models) and PHYLIP matrices (-i d), writes the
+distance matrix (-i r/-i m with -o d) and places queries onto a backbone
+tree (--add); divide-and-conquer stops with NotYetPorted.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 import time
 
@@ -51,10 +53,13 @@ def _choose_mode(algo: str, n: int) -> str:
     return "nj"
 
 
-def _check_placement(placemode: str) -> None:
-    if placemode == "0":
-        raise _not_ported("exact placement (-m 0 at N >= "
-                          f"{PLACEMENT_THRESHOLD})")
+def _log_placement(placemode: str) -> bool:
+    """Logs the placement mode; True for exact placement (the -m value
+    0, which auto mode reaches at N >= PLACEMENT_THRESHOLD)."""
+    exact = placemode == "0"
+    _log("Using exact placement mode" if exact
+         else "Using k-closest placement mode")
+    return exact
 
 
 def _log_nj(n: int) -> None:
@@ -89,13 +94,11 @@ def run_pipeline(params: Param, algo: str, placemode: str, args,
                  device) -> None:
     """Runs the CLI's request on `device` (a torch.device)."""
     if args.add:
-        raise _not_ported("--add (placing queries onto a backbone tree)")
-    if params.in_format == "d":
+        _run_add(params, args, device)
+    elif params.in_format == "d":
         _run_matrix(params, algo, placemode, args, device)
-    elif params.in_format == "r":
+    elif params.in_format in ("r", "m"):
         _run_sequences(params, algo, placemode, args, device)
-    elif params.in_format == "m":
-        raise _not_ported("aligned-FASTA input (-i m, MSA distances)")
     else:
         raise SystemExit("Invalid input-output combination")
 
@@ -115,10 +118,9 @@ def _run_matrix(params: Param, algo: str, placemode: str, args, device):
         _log_nj(n)
         _write_nj(D, names, params, device, args.output_file)
         return
-    _check_placement(placemode)
-    _log("Using k-closest placement mode")
-    nwk = build_placement_tree_from_matrix(D, names, params, device=device,
-                                           log=_log)
+    nwk = build_placement_tree_from_matrix(
+        D, names, params, device=device, exact=_log_placement(placemode),
+        log=_log)
     _write_tree(nwk, args.output_file)
 
 
@@ -145,24 +147,35 @@ def _run_sequences(params: Param, algo: str, placemode: str, args, device):
         D = _distance_matrix(params, seqs, device)
         _write_nj(D, names, params, device, args.output_file)
     elif mode == "placement":
-        _check_placement(placemode)
-        _log("Using k-closest placement mode")
-        nwk = build_placement_tree_from_seqs(seqs, names, params,
-                                             device=device, log=_log)
+        nwk = build_placement_tree_from_seqs(
+            seqs, names, params, device=device,
+            exact=_log_placement(placemode), log=_log)
         _write_tree(nwk, args.output_file)
     else:
         raise _not_ported("divide-and-conquer mode")
 
 
 def _distance_matrix(params: Param, seqs, device):
-    """The [N, N] mash distance matrix on `device`, in params.dtype."""
-    from dipper_tpu_torch.distance.mash import (mash_distance_matrix,
-                                                mash_rank_bank)
+    """The [N, N] distance matrix on `device`, in params.dtype: MSA
+    distances of aligned sequences (-i m), else mash distances."""
+    if params.in_format == "m":
+        from dipper_tpu_torch.distance.msa import msa_distance_matrix
+        from dipper_tpu_torch.io.encode import batch_codes, encode_4bit_codes
 
-    ranks = mash_rank_bank(seqs, params, device, log=_log)
-    t0 = time.time()
-    D = mash_distance_matrix(ranks, params.kmer_size, params.sketch_size,
-                             params.dtype, device)
+        t0 = time.time()
+        codes, _ = batch_codes(seqs, encode_4bit_codes, pad_value=4)
+        _log(f"Encoded in: {int((time.time() - t0) * 1000)} ms")
+        t0 = time.time()
+        D = msa_distance_matrix(codes, params.distance_type, params.dtype,
+                                device)
+    else:
+        from dipper_tpu_torch.distance.mash import (mash_distance_matrix,
+                                                    mash_rank_bank)
+
+        ranks = mash_rank_bank(seqs, params, device, log=_log)
+        t0 = time.time()
+        D = mash_distance_matrix(ranks, params.kmer_size, params.sketch_size,
+                                 params.dtype, device)
     synchronize(device)
     _log(f"Distance matrix in: {int((time.time() - t0) * 1000)} ms")
     return D
@@ -176,3 +189,36 @@ def _write_nj(D, names, params: Param, device, out_path: str):
                                       device=device)
     _log(f"NJ in: {int((time.time() - t0) * 1000)} ms")
     _write_tree(nj_tree_newick(children, root, names), out_path)
+
+
+def _run_add(params: Param, args, device):
+    """--add: place query tips onto an existing backbone tree
+    (tree_generation.cu:252-332)."""
+    from dipper_tpu_torch.io.newick import parse_newick
+    from dipper_tpu_torch.placement import add_queries_to_backbone
+
+    names_dump, seqs = _load_sequences(
+        # --add path does NOT shuffle in the reference
+        dataclasses.replace(params, shuffle_seed=None), args.input_file
+    )
+    with open(args.input_tree) as f:
+        newick = f.readline().strip()
+    tree = parse_newick(newick, total_leaves=len(seqs))
+    backbone_size = tree.num_leaves
+    # remap: backbone leaves keep their tree ids; queries appended
+    names = [""] * backbone_size
+    id_map = {}
+    for i, nm in enumerate(names_dump):
+        node = tree.all_nodes.get(nm)
+        if node is None or not node.is_leaf():
+            names.append(nm)
+            id_map[i] = len(names) - 1
+        else:
+            names[node.idx] = nm
+            id_map[i] = node.idx
+    seqs_re = [b""] * len(seqs)
+    for i, s in enumerate(seqs):
+        seqs_re[id_map[i]] = s
+    nwk = add_queries_to_backbone(tree, seqs_re, names, params, backbone_size,
+                                  device=device, log=_log)
+    _write_tree(nwk, args.output_file)

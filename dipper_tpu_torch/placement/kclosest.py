@@ -54,13 +54,12 @@ from dipper_tpu_torch.utils.device import synchronize, torch_dtype
 K = 5
 SENT_DIS = 2.0
 
-# checkpoint arrays, in the reference TreeState's field order
-STATE_FIELDS = ("e", "belong", "length", "rev", "cdis", "cid", "idx", "adj",
-                "nfb")
-
-
 @dataclasses.dataclass
 class TreeState:
+    # checkpoint arrays, in the reference TreeState's field order
+    FIELDS = ("e", "belong", "length", "rev", "cdis", "cid", "idx", "adj",
+              "nfb")
+
     e: torch.Tensor        # [E] int32 dst node (-1 unused)
     belong: torch.Tensor   # [E] int32 src node (-1 unused)
     length: torch.Tensor   # [E] f    branch length
@@ -78,6 +77,10 @@ class TreeState:
     # dataclasses.replace never carries it over to other arrays
     scorer: "_Scorer | None" = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
+
+    @classmethod
+    def from_numpy(cls, d, device) -> "TreeState":
+        return tree_state_from_numpy(d, device)
 
 
 def init_state(num_sequences: int, dtype: torch.dtype,
@@ -594,7 +597,15 @@ def _rows(frontend_args, frontend: str, frontend_static, dtype_name: str,
         inter = mash_pairwise_inter(ranks, ranks[lo:hi],
                                     sketch_size=sketch_size)
         return inter_to_dist(inter, k, sketch_size, dtype_name)
-    raise ValueError(f"frontend {frontend!r} is not ported")
+    if frontend == "msa":
+        from dipper_tpu_torch.distance.msa import msa_tiled_block
+
+        codes, nongap = frontend_args
+        (distance_type,) = frontend_static
+        return msa_tiled_block(codes[lo:hi], nongap[lo:hi], codes, nongap,
+                               distance_type=distance_type,
+                               dtype_name=dtype_name)
+    raise ValueError(f"unknown frontend {frontend!r}")
 
 
 def _slice_frontend(frontend_args, frontend: str, cap: int):
@@ -604,7 +615,10 @@ def _slice_frontend(frontend_args, frontend: str, cap: int):
     if frontend == "matrix":
         (D,) = frontend_args
         return (D[:cap, :cap],)
-    raise ValueError(f"frontend {frontend!r} is not ported")
+    if frontend == "msa":
+        codes, nongap = frontend_args
+        return (codes[:cap], nongap[:cap])
+    raise ValueError(f"unknown frontend {frontend!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -670,14 +684,17 @@ def run_placement(frontend_args, *, num_sequences: int, frontend: str,
 # ---------------------------------------------------------------------------
 
 
-def tree_state_to_numpy(st: TreeState) -> dict:
-    """TreeState -> dict of host numpy arrays named as the reference's
-    TreeState fields (idx and nfb as 0-d int32; adj None if absent)."""
-    out = {f: getattr(st, f).cpu().numpy()
-           for f in ("e", "belong", "length", "rev", "cdis", "cid")}
-    out["idx"] = np.asarray(st.idx, dtype=np.int32)
-    out["adj"] = None if st.adj is None else st.adj.cpu().numpy()
-    out["nfb"] = np.asarray(st.nfb, dtype=np.int32)
+def tree_state_to_numpy(st) -> dict:
+    """A state (TreeState, or exact.ExactState) -> dict of host numpy
+    arrays named as the reference's fields: tensors as arrays, host
+    counters (idx, nfb) as 0-d int32, an absent adj as None."""
+    out = {}
+    for f in type(st).FIELDS:
+        v = getattr(st, f)
+        if isinstance(v, torch.Tensor):
+            out[f] = v.cpu().numpy()
+        else:
+            out[f] = None if v is None else np.asarray(v, dtype=np.int32)
     return out
 
 
@@ -702,11 +719,12 @@ def tree_state_from_numpy(d, device) -> TreeState:
         nfb=0 if nfb is None else int(nfb)))
 
 
-def save_tree_state(path: str, st: TreeState, next_i: int, num_sequences: int,
+def save_tree_state(path: str, st, next_i: int, num_sequences: int,
                     fingerprint: dict | None = None) -> None:
-    """Persist a build state atomically (temp file + os.replace, so a
-    crash mid-write cannot destroy the previous good checkpoint) with a
-    run fingerprint so a resume on mismatched inputs is refused."""
+    """Persist a build state (TreeState here, exact.ExactState likewise)
+    atomically (temp file + os.replace, so a crash mid-write cannot
+    destroy the previous good checkpoint) with a run fingerprint so a
+    resume on mismatched inputs is refused."""
     host = tree_state_to_numpy(st)
     fd, tmp = tempfile.mkstemp(
         dir=os.path.dirname(os.path.abspath(path)) or ".",
@@ -715,10 +733,9 @@ def save_tree_state(path: str, st: TreeState, next_i: int, num_sequences: int,
         with os.fdopen(fd, "wb") as f:
             np.savez_compressed(
                 f, next_i=next_i, num_sequences=num_sequences,
-                state_kind="TreeState",
+                state_kind=type(st).__name__,
                 fingerprint=json.dumps(fingerprint or {}, sort_keys=True),
-                **{f2: host[f2] for f2 in STATE_FIELDS
-                   if host[f2] is not None})
+                **{f2: v for f2, v in host.items() if v is not None})
         os.replace(tmp, path)
     except BaseException:
         if os.path.exists(tmp):
@@ -727,17 +744,19 @@ def save_tree_state(path: str, st: TreeState, next_i: int, num_sequences: int,
 
 
 def load_tree_state(path: str, num_sequences: int, dtype_name: str,
-                    fingerprint: dict | None = None, *, device):
-    """Checkpoint -> (TreeState on `device`, next insertion id)."""
+                    fingerprint: dict | None = None, *, device,
+                    cls=TreeState):
+    """Checkpoint -> (state of class `cls` on `device`, next insertion
+    id)."""
     d = np.load(path)
     if int(d["num_sequences"]) != num_sequences:
         raise SystemExit(
             f"tree-state mismatch: checkpoint has N={int(d['num_sequences'])},"
             f" run wants N={num_sequences}")
-    if "state_kind" in d and str(d["state_kind"]) != "TreeState":
+    if "state_kind" in d and str(d["state_kind"]) != cls.__name__:
         raise SystemExit(
             f"tree-state mismatch: checkpoint holds {d['state_kind']}, "
-            "run wants TreeState (exact vs k-closest placement "
+            f"run wants {cls.__name__} (exact vs k-closest placement "
             "states are not interchangeable)")
     if fingerprint is not None:
         saved = json.loads(str(d["fingerprint"])) if "fingerprint" in d else {}
@@ -747,12 +766,12 @@ def load_tree_state(path: str, num_sequences: int, dtype_name: str,
                 "tree-state mismatch: checkpoint fingerprint "
                 f"{saved!r} != run fingerprint {want!r}; refusing to "
                 "resume on mismatched inputs")
-    missing = [f for f in STATE_FIELDS
+    missing = [f for f in cls.FIELDS
                if f not in d and f not in ("adj", "nfb")]
     if missing:
         raise SystemExit(f"tree-state file is missing arrays: {missing}")
-    st = tree_state_from_numpy(d, device)
-    if st.adj is None:
+    st = cls.from_numpy(d, device)
+    if cls is TreeState and st.adj is None:
         # pre-adjacency checkpoint: rebuild the out-edge table — only
         # if out-degree <= 3 everywhere (a multifurcating backbone
         # would overflow the 3-slot rows; the dense BFS handles it)
@@ -762,9 +781,10 @@ def load_tree_state(path: str, num_sequences: int, dtype_name: str,
         if deg_ok:
             st.adj = adjacency_from_edges(st.belong, 2 * num_sequences)
     dtype = torch_dtype(dtype_name)
-    st.length = st.length.to(dtype)
-    st.cdis = st.cdis.to(dtype)
-    return prepare_scorer(st), int(d["next_i"])
+    for f in ("length", "cdis"):
+        if f in cls.FIELDS:
+            setattr(st, f, getattr(st, f).to(dtype))
+    return (prepare_scorer(st) if cls is TreeState else st), int(d["next_i"])
 
 
 # ---------------------------------------------------------------------------
@@ -892,6 +912,67 @@ def run_placement_chunked(frontend_args, *, num_sequences: int, frontend: str,
             f"{ins_s * 1e3:.1f} ms (steady {steady:.3f} ms/insertion), "
             f"{st.nfb} dense-BFS fallbacks")
     return _resize_state(st, 4 * N)
+
+
+# ---------------------------------------------------------------------------
+# --add: queries onto a loaded backbone
+# ---------------------------------------------------------------------------
+
+
+def run_add_queries(frontend_args, e0, belong0, length0, rev0, *,
+                    num_sequences: int, backbone_size: int, frontend: str,
+                    frontend_static=(), dtype_name: str, use_adj: bool = True,
+                    log=None):
+    """--add: seed closest lists from the loaded backbone (one BFS per
+    backbone leaf, initializeDeviceArrays :241-260), then insert queries
+    i = B..N-1 with the edge cursor at 4B-4 (addQuery :887). e0, belong0,
+    length0, rev0: the backbone's [4N] edge arrays
+    (api.backbone_tree_to_arrays) on the frontend's device. Returns the
+    final (e, belong, length).
+
+    `use_adj=False` skips the [M,3] adjacency table and runs the dense
+    BFS throughout — required for multifurcating backbones (parse_newick
+    accepts them), whose out-degree > 3 would overflow the 3-slot table.
+    The caller checks degrees host-side."""
+    N = num_sequences
+    B = backbone_size
+    dev = frontend_args[0].device
+    dtype = torch_dtype(dtype_name)
+    E = 4 * N
+    # copies: the state is updated in place, the caller's arrays are not
+    st = prepare_scorer(TreeState(
+        e=e0.clone(), belong=belong0.clone(),
+        length=length0.to(dtype, copy=True), rev=rev0.clone(),
+        cdis=torch.full((E, K), SENT_DIS, dtype=dtype, device=dev),
+        cid=torch.full((E, K), -1, dtype=torch.int32, device=dev),
+        idx=4 * B - 4,
+        adj=adjacency_from_edges(belong0, 2 * N) if use_adj else None))
+    t0 = time.time()
+    for i in range(B):
+        update_closest_bfs(st, i, 2 * N)
+    synchronize(dev)
+    t_seed = time.time() - t0
+    # rows of a block of queries against the whole bank, sized as an
+    # insert range's
+    step = max(ROW_BLOCK, (_ROWS_BYTES // (st.length.element_size() * N))
+               // ROW_BLOCK * ROW_BLOCK)
+    rows_s = ins_s = 0.0
+    for lo in range(B, N, step):
+        hi = min(N, lo + step)
+        t0 = time.time()
+        rows = _rows(frontend_args, frontend, frontend_static, dtype_name,
+                     lo, hi)
+        synchronize(dev)
+        t1 = time.time()
+        _insert_range(st, lo, hi, rows, N)
+        synchronize(dev)
+        rows_s += t1 - t0
+        ins_s += time.time() - t1
+    if log:
+        log(f"Backbone of {B} seeded in: {t_seed * 1e3:.1f} ms; {N - B} "
+            f"queries: rows {rows_s * 1e3:.1f} ms, insertions "
+            f"{ins_s * 1e3:.1f} ms, {st.nfb} dense-BFS fallbacks")
+    return st.e, st.belong, st.length
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,12 @@ tests/test_cli_placement.py: identical Newick bytes in f64 (bitwise
 equal builds), nRF = 0 in f32 (the trees are bitwise equal there too, but
 nRF is the contract the f32 path is held to), for k-closest placement and
 conventional NJ; identical PHYLIP bytes for the mash matrix (-i r -o d).
-Unported modes exit 1 with a "not yet ported" message."""
+From aligned FASTA (-i m) the distances are each package's own log and
+sqrt results, so trees are held to `assert_newick_close` (the same tree,
+branch lengths to rtol 1e-9 in f64) and matrices to rtol 1e-12. Unported
+modes exit 1 with a "not yet ported" message."""
+
+import re
 
 import numpy as np
 import pytest
@@ -14,7 +19,7 @@ from dipper_tpu.io.phylip import write_phylip_lower_triangular
 from dipper_tpu_torch.cli import main as port_main
 from dipper_tpu_torch.utils.treecmp import rf_distance
 
-from datagen import simulate_unaligned, write_fasta
+from datagen import simulate_alignment, simulate_unaligned, write_fasta
 from test_nj import random_additive_matrix
 
 torch.set_num_threads(2)
@@ -36,6 +41,26 @@ def fasta(tmp_path):
     path = tmp_path / "in.fa"
     write_fasta(str(path), names, seqs)
     return str(path)
+
+
+_LENGTH = re.compile(r":(nan|-?inf|-?[0-9][0-9.eE+-]*)")
+
+
+def assert_newick_close(got: str, want: str, rtol: float = 1e-9):
+    """The same tree written the same way (so nRF = 0), its branch
+    lengths within rtol: what -i m outputs are held to where a distance's
+    last digit differs between the packages' log and sqrt."""
+    if got == want:
+        return
+    # a NaN length (a model that is undefined on some pair poisons the
+    # tree in both packages) is NaN in the same places; its sign bit, which
+    # no operation defines, is not compared
+    got, want = got.replace("-nan", "nan"), want.replace("-nan", "nan")
+    assert _LENGTH.sub(":", got) == _LENGTH.sub(":", want)
+    a = np.array(_LENGTH.findall(got), dtype=np.float64)
+    b = np.array(_LENGTH.findall(want), dtype=np.float64)
+    assert np.allclose(a, b, rtol=rtol, atol=1e-12, equal_nan=True), \
+        np.nanmax(np.abs(a - b))
 
 
 def _both(tmp_path, args):
@@ -140,9 +165,7 @@ def test_nj_log_lines(tmp_path, fasta, capsys):
 
 @pytest.mark.parametrize("args, what", [
     (["-i", "r", "-m", "3"], "divide-and-conquer"),
-    (["-i", "m", "-m", "1"], "-i m"),
-    (["-i", "m", "-m", "2"], "-i m"),
-    (["-i", "r", "--add", "-t", "TREE"], "--add"),
+    (["-i", "m", "-m", "3"], "divide-and-conquer"),
     (["-i", "r", "-m", "1", "--profile", "/tmp/x"], "--profile"),
     (["-i", "r", "-m", "1", "--devices", "2"], "--devices"),
     (["-i", "r", "-m", "1", "--coordinator", "localhost:1"], "multi-host"),
@@ -157,13 +180,114 @@ def test_unported_modes_exit_1(tmp_path, phylip, fasta, capsys, args, what):
     assert "not yet ported" in err and what in err, err
 
 
-def test_exact_placement_not_ported():
-    from dipper_tpu_torch.placement import build_placement_tree_from_matrix
-    from dipper_tpu_torch.utils.params import Param
+@pytest.fixture(scope="module")
+def aligned(tmp_path_factory):
+    names, seqs = simulate_alignment(25, 300, np.random.default_rng(9),
+                                     gap_frac=0.05)
+    path = tmp_path_factory.mktemp("msa") / "aligned.fa"
+    write_fasta(str(path), names, seqs)
+    return str(path)
 
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_placement_tree_from_matrix(np.zeros((4, 4)), list("abcd"),
-                                         Param(), device="cpu", exact=True)
+
+# -i m modes: auto (NJ below 30,000 taxa), forced NJ, k-closest placement
+MSA_MODES = [pytest.param([], id="auto"), pytest.param(["-m", "2"], id="m2"),
+             pytest.param(["-m", "1"], id="m1")]
+
+
+@pytest.mark.parametrize("seed", ["-1", "42"])
+@pytest.mark.parametrize("mode", MSA_MODES)
+def test_msa_f64_same_tree(tmp_path, aligned, mode, seed):
+    want, got = _both(tmp_path, ["-i", "m", "-I", aligned, "-d", "2",
+                                 "--precision", "f64", "--seed", seed] + mode)
+    assert_newick_close(got, want)
+
+
+@pytest.mark.parametrize("dt", ["1", "2", "3", "4", "5", "6"])
+@pytest.mark.parametrize("mode", MSA_MODES[1:])
+def test_msa_every_model_f64_same_tree(tmp_path, aligned, mode, dt):
+    want, got = _both(tmp_path, ["-i", "m", "-I", aligned, "-d", dt,
+                                 "--precision", "f64"] + mode)
+    assert_newick_close(got, want)
+
+
+@pytest.mark.parametrize("mode", MSA_MODES)
+def test_msa_f32_nrf_zero(tmp_path, aligned, mode):
+    want, got = _both(tmp_path, ["-i", "m", "-I", aligned, "-d", "2"] + mode)
+    assert rf_distance(got, want)[0] == 0
+
+
+@pytest.mark.parametrize("extra", [[], ["--precision", "f64"],
+                                   ["-d", "5", "--precision", "f64"]])
+def test_msa_matrix_output(tmp_path, aligned, extra):
+    """-i m -o d: the MSA matrix NJ would use, widened to f64; equal to
+    the reference's to rtol 1e-12 (f64) or 2e-6 (f32), names and layout
+    the same."""
+    from dipper_tpu_torch.io.phylip import read_phylip_lower_triangular
+
+    want, got = _both(tmp_path, ["-i", "m", "-I", aligned, "-o", "d", "-d",
+                                 "2"] + extra)
+    if got != want:
+        (wn, wd), (gn, gd) = (read_phylip_lower_triangular(
+            str(tmp_path / f)) for f in ("jax.nwk", "port.nwk"))
+        assert gn == wn
+        rtol = 1e-12 if "f64" in extra else 2e-6
+        assert np.allclose(gd, wd, rtol=rtol, atol=0)
+
+
+def test_msa_nj_log_lines(tmp_path, aligned, capsys):
+    assert port_main(["-i", "m", "-I", aligned, "-O", str(tmp_path / "o.nwk"),
+                      "--device", "cpu"]) == 0
+    err = capsys.readouterr().err
+    for line in ("Input in:", "Using conventional NJ", "Distance matrix in:",
+                 "NJ in:", "Tree Created in:"):
+        assert line in err, err
+
+
+@pytest.mark.parametrize("fmt", ["d", "r", "m"])
+def test_exact_placement_through_the_cli(tmp_path, phylip, fasta, aligned,
+                                         fmt, monkeypatch, capsys):
+    """The -m value 0 is auto mode with exact placement, reached at N >=
+    the placement threshold, which is lowered here in both packages."""
+    import dipper_tpu.driver as jdrv
+    import dipper_tpu_torch.driver as pdrv
+
+    monkeypatch.setattr(jdrv, "PLACEMENT_THRESHOLD", 10)
+    monkeypatch.setattr(pdrv, "PLACEMENT_THRESHOLD", 10)
+    inp = {"d": phylip, "r": fasta, "m": aligned}[fmt]
+    want, got = _both(tmp_path, ["-i", fmt, "-I", inp, "-m", "0", "-k", "12",
+                                 "-s", "150", "-d", "2", "--precision",
+                                 "f64"])
+    assert "Using exact placement mode" in capsys.readouterr().err
+    if fmt == "m":
+        assert_newick_close(got, want)
+    else:
+        assert got == want
+
+
+def test_exact_state_checkpoint_through_the_cli(tmp_path, phylip,
+                                                monkeypatch):
+    """--save-state/--load-state with exact placement: the port's
+    checkpoint resumes in the reference's CLI and the other way round, to
+    the plain run's bytes."""
+    import dipper_tpu.driver as jdrv
+    import dipper_tpu_torch.driver as pdrv
+
+    monkeypatch.setattr(jdrv, "PLACEMENT_THRESHOLD", 10)
+    monkeypatch.setattr(pdrv, "PLACEMENT_THRESHOLD", 10)
+    base = ["-i", "d", "-I", phylip, "-m", "0", "--precision", "f64",
+            "--state-chunk", "9"]
+    want, got = _both(tmp_path, base)
+    assert got == want
+    for saver, loader, extra in ((port_main, jax_main, ["--device", "cpu"]),
+                                 (jax_main, port_main, [])):
+        ck = str(tmp_path / f"ck{len(extra)}.npz")
+        out = tmp_path / f"resumed{len(extra)}.nwk"
+        assert saver(base + ["--save-state", ck, "-O",
+                             str(tmp_path / "s.nwk")] + extra) == 0
+        other = ["--device", "cpu"] if not extra else []
+        assert loader(base + ["--load-state", ck, "-O", str(out)]
+                      + other) == 0
+        assert out.read_text() == want
 
 
 def test_device_cuda_without_cuda_raises(tmp_path, phylip):

@@ -1,7 +1,8 @@
 """The port on an NVIDIA GPU: the hand-written kernels (mash merge count,
 mash distance rows, side vector, the edge scorer) against their plain
-PyTorch versions, and CUDA builds (placement, the mash matrix, NJ) against
-CPU builds. Every test that takes the `cuda` fixture skips without CUDA;
+PyTorch versions, the MSA pair counts and distances, and CUDA builds
+(k-closest and exact placement, --add, the mash matrix, NJ) against CPU
+builds. Every test that takes the `cuda` fixture skips without CUDA;
 test_scorer_sources_and_rounding reads the sources only and runs anywhere.
 The file imports no JAX, so it also runs on a machine without it (the
 repo's conftest imports JAX, hence --noconftest):
@@ -22,7 +23,7 @@ from dipper_tpu_torch.placement import score_model as sm
 from dipper_tpu_torch.sketch.native import sketch_sequences_native
 from dipper_tpu_torch.utils.treecmp import rf_distance
 
-from datagen import random_tree_edges, simulate_unaligned
+from datagen import random_tree_edges, simulate_alignment, simulate_unaligned
 
 pytestmark = pytest.mark.cuda
 
@@ -173,7 +174,7 @@ def test_cuda_build_equals_cpu_build(cuda, dtype):
     gpu = tk.run_placement_chunked((torch.from_numpy(r).to(cuda),), **kw)
     assert gpu.e.device.type == "cuda"
     a, b = tk.tree_state_to_numpy(cpu), tk.tree_state_to_numpy(gpu)
-    for f in tk.STATE_FIELDS:
+    for f in tk.TreeState.FIELDS:
         assert np.array_equal(a[f], b[f]), f
 
 
@@ -467,3 +468,96 @@ def test_nj_cuda_equals_cpu(cuda, dtype):
     rf, _ = rf_distance(nj_tree_newick(*gpu, names),
                         nj_tree_newick(*cpu, names))
     assert rf == 0
+
+
+def _aligned_codes(n, L, seed, gap_frac=0.05, blen_scale=1.0):
+    from dipper_tpu_torch.io.encode import batch_codes, encode_4bit_codes
+
+    _, seqs = simulate_alignment(n, L, np.random.default_rng(seed),
+                                 gap_frac=gap_frac, blen_scale=blen_scale)
+    return batch_codes(seqs, encode_4bit_codes, pad_value=4)[0]
+
+
+@pytest.mark.parametrize("n, q, L", [(300, 37, 1003), (9, 2, 64), (1, 1, 5)])
+def test_msa_pair_counts_cuda_equal_cpu(cuda, n, q, L):
+    """The card's int8 product gives the CPU's counts bit for bit, also
+    where its operands are padded (few rows, L and 5 * Bj not multiples
+    of 8)."""
+    from dipper_tpu_torch.distance import msa
+
+    codes = torch.from_numpy(_aligned_codes(n, L, 5))
+    phi = msa.one_hot_channels(codes)
+    want = msa.pair_counts(phi[:q], phi)
+    got = msa.pair_counts(phi[:q].to(cuda), phi.to(cuda))
+    assert got.dtype == torch.int32 and got.shape == (q, 5, n, 5)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("dt", [1, 2, 3, 4, 5, 6])
+def test_msa_distances_cuda_close_to_cpu(cuda, dt, dtype):
+    """Equal counts, then the same formulas: the card's log and sqrt may
+    differ from the CPU's in the last place (rtol 1e-12 in f64, 2e-6 in
+    f32, with an atol of 64 ulps of 1 for the formulas' O(1)
+    intermediates), NaN and inf in the same places. Close relatives
+    (branch scale 0.3), so that no pair sits next to a model's pole, where
+    a last place is amplified without bound."""
+    from dipper_tpu_torch.distance import msa
+
+    codes = _aligned_codes(150, 500, 6, blen_scale=0.3)
+    cpu = msa.msa_distance_matrix(codes, dt, dtype, "cpu")
+    gpu = msa.msa_distance_matrix(codes, dt, dtype, cuda).cpu()
+    assert torch.equal(gpu.isnan(), cpu.isnan())
+    assert torch.equal(gpu.isinf(), cpu.isinf())
+    rtol = 1e-12 if dtype == "float64" else 2e-6
+    atol = 64 * torch.finfo(cpu.dtype).eps
+    assert torch.allclose(gpu, cpu, rtol=rtol, atol=atol, equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_exact_cuda_build_equals_cpu_build(cuda, dtype):
+    """Exact placement of 256 taxa from a matrix: the card's final state
+    is the CPU's, bit for bit."""
+    from dipper_tpu_torch.placement import exact
+
+    D = _additive(256, 9)
+    D = torch.from_numpy(D / (D.max() * 1.05)).to(getattr(torch, dtype))
+    kw = dict(num_sequences=256, frontend="matrix", dtype_name=dtype,
+              chunk=100)
+    cpu = exact.run_exact_chunked((D,), **kw)
+    gpu = exact.run_exact_chunked((D.to(cuda),), **kw)
+    assert gpu.e.device.type == "cuda"
+    a, b = tk.tree_state_to_numpy(cpu), tk.tree_state_to_numpy(gpu)
+    for f in exact.ExactState.FIELDS:
+        assert np.array_equal(a[f], b[f]), f
+
+
+@pytest.mark.parametrize("use_adj", [True, False])
+def test_add_queries_cuda_equals_cpu(cuda, use_adj):
+    """--add of 64 queries onto a 192-leaf backbone (mash rows, f64): the
+    card's final edge arrays are the CPU's, bit for bit, and the scorer
+    kernel ran once per query."""
+    from dipper_tpu_torch.io.newick import parse_newick
+    from dipper_tpu_torch.placement.api import backbone_tree_to_arrays
+
+    n, B = 256, 192
+    r = torch.from_numpy(_ranks(n, 2000, 4, 12, 100))
+    kw = dict(frontend="mash", frontend_static=(12, 100),
+              dtype_name="float64")
+    e, belong, length = tk.run_placement((r[:B],), num_sequences=B, **kw)
+    nwk = tk.edges_to_newick(e, belong, length, [f"L{i}" for i in range(B)],
+                             B)
+    tree = parse_newick(nwk, n)
+    order = [int(nm[1:]) for nm in tree.leaf_names_in_idx_order()]
+    r = r[order + list(range(B, n))].contiguous()
+    arrays = backbone_tree_to_arrays(tree, n)
+    out = {}
+    for dev in ("cpu", cuda):
+        before = tk.SCORE_EDGES_LAUNCHES
+        out[str(dev)] = tk.run_add_queries(
+            (r.to(dev),), *(torch.from_numpy(a).to(dev) for a in arrays),
+            num_sequences=n, backbone_size=B, use_adj=use_adj, **kw)
+        launched = tk.SCORE_EDGES_LAUNCHES - before
+        assert launched == (n - B if dev == cuda else 0)
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(g.cpu(), w)
