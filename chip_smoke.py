@@ -7,8 +7,8 @@ Runs on one NVIDIA GPU, from the root of a checkout:
     python3 chip_smoke.py --phases 1,2,3,6,7 --n 4400   # kernel checks only
 
 Phases, each printing one line of its own (run in the order 1, 2, 3, 6,
-7, 4, 5, 9, 10, 11, 12, 14, 13, 8: phases 13 and 8 run the profiler,
-which slows every later launch in the process):
+15, 7, 4, 17, 5, 16, 9, 10, 11, 12, 14, 13, 8, 18: phases 13, 8 and 18
+run the profiler, which slows every later launch in the process):
   1. device: torch's device name and nvidia-smi's name and power limit;
   2. build: compile the hand-written kernels from dipper_tpu_torch/csrc/,
      one nvcc per source, all started together;
@@ -25,6 +25,11 @@ which slows every later launch in the process):
   6. distance kernel vs plain: mash_rows_dist_cuda against
      mash_rows_vs_bank on the cases and calls of phase 3, in f32 and f64,
      torch.equal required, with times, bounds and shares;
+  15. per-cluster count kernel vs plain: mash_cluster_inter_cuda against
+     cluster_inter_ref, torch.equal required, on 13 clusters of the
+     placement set's S = 1000 sketches with ragged sizes (the repeat pad)
+     up to cmax 8, 16, 64, 128 and 1,023, on adversarial rows at S = 100,
+     33 and 1, and on one cluster; CUDA-event times beside their bounds;
   7. the scorer's kernels vs plain, equal bits required throughout:
      side_vector_cuda against _side_vector at cap 16,384 with 65,536 edges
      and at cap 30,000 with 120,000 edges, in f32 and f64; score_edges_cuda
@@ -39,6 +44,9 @@ which slows every later launch in the process):
      plain version's time;
   4. GPU port vs CPU port, placement: the CLI at N=512 (-i r -m 1) with
      --device cuda and --device cpu, nRF = 0 required;
+  17. GPU port vs CPU port, D&C: the CLI with -m 3 at N = 600 (B = 30,
+     seed 4) in f64 with streamed clusters (16 members and up, rows 5 at a
+     time) and several builds a bucket forced: the same Newick bytes;
   8. GPU port vs CPU port, NJ: the mash matrix of N=2,048 taxa written by
      the card (-i r -o d), then -i d -m 2 on both devices in f32 and f64,
      nRF = 0 required; then one NJ on the card under torch.profiler
@@ -56,6 +64,17 @@ which slows every later launch in the process):
      its first 300 rows (taxa not yet inserted) are scored by kernel and
      plain version on the state as it stands, where the kernel is also
      timed (those launches are taken out of the count);
+  16. the D&C main path: the CLI with -m 3 on phase 5's set (B = N // 20
+     = 1,500): rc 0, a complete Newick with nRF vs the true tree under
+     DC_NRF_LIMIT, launches of the per-cluster count kernel and of the
+     merge-count kernel, one score_edges launch per backbone insertion (B
+     - 2); every per-cluster count launch held against the plain version
+     on its every 16th cluster, the widest batched bucket's launch timed
+     whole beside its bound and its plain version; phase times, bucket
+     lines, cluster sizes, host syncs per phase-3 step;
+  18. launches and host syncs per phase-3 step of one batched build at 64
+     and 1,024 clusters under torch.profiler (made-up inputs): the
+     launches of a step must not grow with the clusters;
   9. the NJ main path: the generator at N=20,000 (seed 1) and the CLI
      with default flags, which take conventional NJ below 30,000 taxa;
      requires rc 0, a complete Newick, distance-kernel launches, every
@@ -95,10 +114,10 @@ which slows every later launch in the process):
 The sizes of phases 12, 14 and 13 are half of what a 600 s budget for the
 whole script would not hold (8,192; 4,096 + 1,024; 2,048): their loops
 are the host's, and the 30K and 20K paths keep their sizes.
-Every kernel counter is set to 0 just before a main path (phases 5, 9, 11,
-12, 14) and read just after it; `launches` in the kernels' record is the
-count of phases 5 (placement) and 9 (NJ), `launches_by_path` has every
-path's.
+Every kernel counter is set to 0 just before a main path (phases 5, 16,
+9, 11, 12, 14) and read just after it; `launches` in the kernels' record
+is the count of phases 5 (placement), 16 (D&C: the per-cluster count
+kernel) and 9 (NJ), `launches_by_path` has every path's.
 
 The last two lines are the kernels' record and {"ok": true, "device":
 {...}}. Any failed check raises, so the script exits non-zero and prints no
@@ -132,6 +151,8 @@ KERNELS = {
                     "scripts/gather_micro.py:74"),
     "score_edges": ("dipper_tpu_torch/csrc/score_edges.cu",
                     "scripts/gather_micro.py:74"),
+    "mash_cluster_inter": ("dipper_tpu_torch/csrc/mash_cluster_inter.cu",
+                           "dipper_tpu/dc/pipeline.py:1093"),
 }
 NRF_LIMIT = 0.35
 # a sanity bound for NJ on the generator's 20K set (no JAX figure exists)
@@ -146,7 +167,14 @@ SCORE_ROWS = (256, 300)
 # the generator's long paths; no JAX figure exists)
 MSA_NJ_NRF_LIMIT = 0.35
 MSA_PLACE_NRF_LIMIT = 0.45
-ALL_PHASES = (1, 2, 3, 6, 7, 4, 5, 9, 10, 11, 12, 14, 13, 8)
+# a sanity bound for D&C on the placement set (N = 30,000, B = 1,500),
+# set from the first card run (nRF 0.5832); no JAX figure exists at that
+# size
+DC_NRF_LIMIT = 0.65
+# every DC_SAMPLE-th cluster of each per-cluster count launch of the D&C
+# main path is held against the plain version
+DC_SAMPLE = 16
+ALL_PHASES = (1, 2, 3, 6, 15, 7, 4, 17, 5, 16, 9, 10, 11, 12, 14, 13, 8, 18)
 # every SAMPLE-th query row of a large kernel call is compared with the
 # plain version (which takes ~10 ms per query row at 30,000 bank rows)
 SAMPLE = 128
@@ -822,6 +850,7 @@ def reset_counts() -> None:
 
     mash_cuda.LAUNCHES = 0
     mash_cuda.ROWS_DIST_LAUNCHES = 0
+    mash_cuda.CLUSTER_LAUNCHES = 0
     kclosest.SIDE_VECTOR_LAUNCHES = 0
     kclosest.SCORE_EDGES_LAUNCHES = 0
 
@@ -833,7 +862,8 @@ def read_counts() -> dict:
     return {"mash_merge_count": mash_cuda.LAUNCHES,
             "mash_rows_dist": mash_cuda.ROWS_DIST_LAUNCHES,
             "side_vector": kclosest.SIDE_VECTOR_LAUNCHES,
-            "score_edges": kclosest.SCORE_EDGES_LAUNCHES}
+            "score_edges": kclosest.SCORE_EDGES_LAUNCHES,
+            "mash_cluster_inter": mash_cuda.CLUSTER_LAUNCHES}
 
 
 def check_tree(nwk: str, n: int, true_nwk: str, limit: float) -> tuple:
@@ -974,7 +1004,6 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
               "total_wall": wall * 1e3},
           "steady_ms_per_insertion": _ms(
               r"steady ([\d.]+) ms/insertion", log),
-          "dense_bfs_fallbacks": int(st.nfb),
           "kernel_launches": counts, "kernel_calls": checked,
           "score_edges_calls_checked": len(score_errs),
           "score_edges_before_last_range": last_range,
@@ -1485,6 +1514,269 @@ def phase_add(tmp: str, fa: str, backbone: int, queries: int,
     return {"counts": counts}
 
 
+def cluster_lists(n_rows: int, c: int, cmax: int, rng) -> tuple:
+    """Index lists of c clusters as D&C's phase 3 makes them: ragged sizes
+    1..cmax (the first 1, the last cmax), members padded by repeating the
+    last one, witnesses 10 backbone heads and then the members; int32 on
+    the card."""
+    sz = rng.integers(1, cmax + 1, c)
+    sz[0], sz[-1] = 1, cmax
+    mem = np.empty((c, cmax), np.int32)
+    for i in range(c):
+        ids = rng.choice(n_rows, min(int(sz[i]), n_rows), replace=False)
+        mem[i] = ids[np.minimum(np.arange(cmax), len(ids) - 1)]
+    wit = np.concatenate([rng.integers(0, n_rows, (c, 10)), mem], axis=1)
+    return tuple(_on_card(wit.astype(np.int32), mem))
+
+
+def cluster_bound(got: torch.Tensor, s: int) -> dict:
+    """Bound of one per-cluster count launch from this run's counts `got`
+    [c, Q, W]: mash_bound's walk steps (s + inter a pair); bytes, the
+    first s ranks of every member and witness row of every cluster once,
+    the index lists and the [c, Q, W] counts."""
+    c, Q, W = got.shape
+    steps = got.numel() * s + float(got.sum())
+    nbytes = c * (Q + W) * (s + 1) * 4 + got.numel() * 4
+    out = bound_of(OPS_PER_WALK_STEP * steps, nbytes)
+    out["steps"] = steps
+    return out
+
+
+def phase_cluster_vs_plain(r1000: np.ndarray) -> dict:
+    """Kernel 4 (mash_cluster_inter_cuda) against cluster_inter_ref on the
+    card, torch.equal required: real S = 1000 sketches of the placement
+    set, 13 clusters of ragged sizes up to cmax in {8, 16, 64, 128, 1023};
+    adversarial duplicate- and sentinel-heavy rows; S = 33 and S = 1; one
+    cluster. Clusters wider than 32 are compared on every (cmax // 32)-th
+    member row (the plain version holds a [Q, W, 2M] transient a
+    cluster)."""
+    from dipper_tpu_torch.distance.mash import cluster_inter_ref
+    from dipper_tpu_torch.distance.mash_cuda import mash_cluster_inter_cuda
+
+    rng = np.random.default_rng(15)
+    (bank,) = _on_card(r1000)
+    n = bank.shape[0]
+    cases = {f"s1000_c13_cmax{cm}": (bank, *cluster_lists(n, 13, cm, rng),
+                                     1000)
+             for cm in (8, 16, 64, 128, 1023)}
+    cases["one_cluster_s1000_cmax200"] = (
+        bank, *cluster_lists(n, 1, 200, rng), 1000)
+    for name, rows, S, M in (("adversarial_s100", 600, 100, 128),
+                             ("adversarial_s33", 300, 33, 64),
+                             ("adversarial_s1", 200, 1, 2)):
+        (adv,) = _on_card(_adversarial(rows, S, M, rng))
+        cases[f"{name}_c13_cmax24"] = (adv, *cluster_lists(rows, 13, 24, rng),
+                                       S)
+    out, worst = {}, 0
+    for name, (r, wit, mem, S) in cases.items():
+        c, cm = mem.shape
+        got = mash_cluster_inter_cuda(r, wit, mem, sketch_size=S)
+        step = max(1, cm // 32)
+        t0 = time.perf_counter()
+        want = cluster_inter_ref(r, wit, mem[:, ::step].contiguous(),
+                                 sketch_size=S)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        sub = got[:, ::step]
+        err = int((sub.long() - want.long()).abs().max())
+        check(torch.equal(sub, want), f"mash_cluster_inter {name}: kernel != "
+              f"plain (max abs err {err})")
+        worst = max(worst, err)
+        ms = event_ms(lambda: mash_cluster_inter_cuda(r, wit, mem,
+                                                      sketch_size=S), 20)
+        out[name] = with_share(
+            {"clusters": c, "cmax": cm, "s": S, "member_rows_checked":
+             want.shape[1], "equal": True, "ms": ms,
+             "plain_ms_checked_rows": plain_ms}, cluster_bound(got, S))
+    emit({"phase": "kernel_vs_plain", "kernel": "mash_cluster_inter",
+          "timing": "CUDA events, mean of 20 launches after a warm-up",
+          "cases": out, "max_abs_err": worst})
+    return {"max_abs_err": worst, "cases": out}
+
+
+def _dc_log(log: str) -> dict:
+    return {
+        "phases_ms": {
+            "input": _ms(r"Input in: (\d+) ms", log),
+            "sketch": _ms(r"Sketch in: (\d+) ms", log),
+            "rank_bank": _ms(r"Rank bank in: (\d+) ms", log),
+            "phase1_backbone": _ms(r"DC phase 1 in: (\d+) ms", log),
+            "phase2_assign": _ms(r"DC phase 2 in: (\d+) ms", log),
+            "phase3_clusters": _ms(r"DC phase 3 in: (\d+) ms", log),
+            "tree_created": _ms(r"Tree Created in: (\d+) ms", log)},
+        "clusters": re.search(r"DC phase 3: (\d+ clusters, size .*)",
+                              log).group(1),
+        "buckets": re.findall(r"DC phase 3: (bucket .*)", log)}
+
+
+def phase_dc_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
+    """-m 3 through the CLI on the placement set (B = n // 20): every
+    per-cluster count launch recorded and its every DC_SAMPLE-th cluster
+    held against the plain version afterwards; the widest batched
+    bucket's launch timed again beside its bound and the plain version."""
+    from dipper_tpu_torch.dc import cluster
+    from dipper_tpu_torch.distance import mash_cuda
+    from dipper_tpu_torch.distance.mash import cluster_inter_ref
+
+    out = os.path.join(tmp, f"dc{n}.nwk")
+    calls = []
+    kernel = mash_cuda.mash_cluster_inter_cuda
+
+    def recorded(ranks, wit, mem, *, sketch_size):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        got = kernel(ranks, wit, mem, sketch_size=sketch_size)
+        ev[1].record()
+        calls.append((ranks, wit, mem, sketch_size,
+                      got[::DC_SAMPLE].clone(), ev))
+        return got
+
+    mash_cuda.mash_cluster_inter_cuda = recorded
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    cluster.STEPS = cluster.BFS_LEVELS = 0
+    try:
+        rc, log, wall = run_cli(["-i", "r", "-I", fa, "-O", out, "-m", "3"])
+    finally:
+        mash_cuda.mash_cluster_inter_cuda = kernel
+    counts = read_counts()
+    steps, levels = cluster.STEPS, cluster.BFS_LEVELS
+    peak = torch.cuda.max_memory_allocated()
+    B = n // 20
+    check(rc == 0, f"D&C CLI returned {rc}")
+    check("Using divide-and-conquer mode" in log, "D&C mode not logged")
+    check(counts["mash_cluster_inter"] > 0,
+          "the D&C main path launched no mash_cluster_inter kernel")
+    check(counts["mash_merge_count"] > 0,
+          "the D&C main path launched no mash_merge_count kernel")
+    check(counts["score_edges"] == B - 2,
+          f"the D&C backbone launched score_edges {counts['score_edges']} "
+          f"times for its {B - 2} insertions")
+    check(len(calls) == counts["mash_cluster_inter"],
+          f"{len(calls)} recorded calls, {counts['mash_cluster_inter']} "
+          "launches")
+    rf, nrf = check_tree(open(out).read().strip(), n, true_nwk, DC_NRF_LIMIT)
+    checked, worst = [], 0
+    for j, (ranks, wit, mem, S, got, ev) in enumerate(calls):
+        want = cluster_inter_ref(ranks, wit[::DC_SAMPLE].contiguous(),
+                                 mem[::DC_SAMPLE].contiguous(),
+                                 sketch_size=S)
+        err = int((got.long() - want.long()).abs().max())
+        check(torch.equal(got, want), f"D&C launch {j}: mash_cluster_inter "
+              f"!= plain on every {DC_SAMPLE}th cluster (max abs err {err})")
+        worst = max(worst, err)
+        checked.append({"clusters": wit.shape[0], "cmax": mem.shape[1],
+                        "clusters_checked": want.shape[0],
+                        "ms": ev[0].elapsed_time(ev[1])})
+    # the widest batched bucket's launch, timed again whole
+    ranks, wit, mem, S, _, _ = max(calls, key=lambda c: c[2].shape[1])
+    full = kernel(ranks, wit, mem, sketch_size=S)
+    ms = event_ms(lambda: kernel(ranks, wit, mem, sketch_size=S), 20)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    plain = cluster_inter_ref(ranks, wit, mem, sketch_size=S)
+    ev[1].record()
+    torch.cuda.synchronize()
+    check(torch.equal(full, plain), "the widest D&C launch: kernel != plain")
+    largest = with_share({"clusters": wit.shape[0], "cmax": mem.shape[1],
+                          "W": wit.shape[1], "s": S, "ms": ms,
+                          "plain_ms": ev[0].elapsed_time(ev[1])},
+                         cluster_bound(full, S))
+    res = {"counts": counts, "largest_bucket": largest, "max_abs_err": worst}
+    emit({"phase": "main_path", "path": "dc", "n": n, "backbone": B,
+          "L": 10000, "k": 15, "s": 1000, "precision": "f32",
+          **_dc_log(log), "total_wall_ms": wall * 1e3,
+          "phase3_steps": steps, "phase3_bfs_levels": levels,
+          "host_syncs_per_phase3_step": levels / max(steps, 1),
+          "kernel_launches": counts, "mash_cluster_inter_calls": checked,
+          "largest_bucket_launch": largest, "max_memory_allocated": peak,
+          "rf": rf, "nrf_vs_true": nrf, "nrf_limit": DC_NRF_LIMIT})
+    return res
+
+
+def phase_dc_gpu_vs_cpu(tmp: str, n: int = 600) -> None:
+    """-m 3 at N = 600 (B = 30) on the card and on the CPU, f64, with
+    streamed clusters (16 members and up, rows 5 at a time) and several
+    builds a bucket forced: the same Newick bytes."""
+    from dipper_tpu_torch.dc import pipeline as dc
+
+    fa, _ = make_dataset(n, os.path.join(tmp, f"dc{n}"), seed=4)
+    knobs = {"_STREAM_CLUSTER_MIN": 16, "_STREAM_ROW_BLOCK": 5,
+             "PHASE3_BUDGET": 64}
+    saved = {k: getattr(dc, k) for k in knobs}
+    outs, walls, logs = {}, {}, {}
+    try:
+        for k, v in knobs.items():
+            setattr(dc, k, v)
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(tmp, f"dc{n}.{dev}.nwk")
+            rc, logs[dev], walls[dev] = run_cli(
+                ["-i", "r", "-I", fa, "-O", out, "-m", "3", "--precision",
+                 "f64", "--device", dev])
+            check(rc == 0, f"D&C --device {dev} returned {rc}")
+            outs[dev] = open(out).read()
+    finally:
+        for k, v in saved.items():
+            setattr(dc, k, v)
+    check("path=stream" in logs["cuda"] and "path=batch" in logs["cuda"],
+          "D&C at N = 600 did not take both the streamed and batched paths")
+    check(outs["cuda"] == outs["cpu"],
+          f"D&C at N = {n}: the card's f64 Newick differs from the CPU's")
+    emit({"phase": "dc_gpu_vs_cpu", "n": n, "backbone": n // 20,
+          "knobs": knobs, "newick_identical": True, "wall_s": walls,
+          "buckets": _dc_log(logs["cuda"])["buckets"]})
+
+
+def phase_dc_step_profiled(cmax: int = 16) -> dict:
+    """Launches and host syncs per phase-3 step of one batched build at
+    64 and at 1,024 clusters (made-up distances and witness lists) under
+    torch.profiler: a step's launches do not grow with the clusters."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dipper_tpu_torch.dc import cluster
+
+    rng = np.random.default_rng(18)
+    res = {}
+    for C in (64, 1024):
+        W = 10 + cmax
+        Dq, cd, lens = _on_card(
+            rng.uniform(0.05, 0.6, (C, cmax, W)).astype(np.float32),
+            np.sort(rng.uniform(0, 0.3, (C, 2, 5)), axis=-1).astype(
+                np.float32),
+            np.repeat(rng.uniform(0.01, 0.2, (C, 1)), 2, axis=1).astype(
+                np.float32))
+        (cid,) = _on_card(np.tile(np.arange(10, dtype=np.int32).reshape(
+            2, 5), (C, 1, 1)))
+        sizes = np.full(C, cmax)
+
+        def build():
+            return cluster.build_clusters(Dq, cd, cid, lens, sizes, cmax)
+
+        build()
+        torch.cuda.synchronize()
+        steps0, levels0 = cluster.STEPS, cluster.BFS_LEVELS
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            build()
+            torch.cuda.synchronize()
+        steps = cluster.STEPS - steps0
+        levels = cluster.BFS_LEVELS - levels0
+        count = {e.key: e.count for e in prof.key_averages()}
+        res[C] = {"steps": steps, "bfs_levels": levels,
+                  "launches_per_step": count.get("cudaLaunchKernel", 0)
+                  / steps,
+                  "stream_syncs_per_step":
+                      count.get("cudaStreamSynchronize", 0) / steps,
+                  "memcpys_per_step": count.get("cudaMemcpyAsync", 0) / steps,
+                  "bfs_levels_per_step": levels / steps}
+    lo, hi = res[64]["launches_per_step"], res[1024]["launches_per_step"]
+    check(hi < 2 * lo, f"launches per phase-3 step grew with the clusters: "
+          f"{lo} at 64, {hi} at 1,024")
+    emit({"phase": "dc_step_profiled", "cmax": cmax,
+          "by_clusters": {str(k): v for k, v in res.items()}})
+    return res
+
+
 def phase_exact(tmp: str, fa: str, n: int, window: int = 32) -> dict:
     """Exact placement of the alignment's first n sequences on the card
     and on the CPU, f64, from the sequences and from their matrix."""
@@ -1628,25 +1920,30 @@ def main() -> int:
             records[name].setdefault("launches_by_path", {})[path] = c
 
     with tempfile.TemporaryDirectory() as tmp:
-        if phases & {3, 5, 6, 14}:
+        if phases & {3, 5, 6, 14, 15, 16}:
             t0 = time.time()
             data = make_dataset(args.n, os.path.join(tmp, f"n{args.n}"),
                                 seed=1)
             emit({"phase": "dataset", "n": args.n, "L": 10000, "seed": 1,
                   "gen_s": time.time() - t0})
-        if phases & {3, 6}:
+        if phases & {3, 6, 15}:
             inputs = kernel_cases(data[0])
         if 3 in phases:
             records["mash_merge_count"].update(phase_kernel_vs_plain(inputs))
         if 6 in phases:
             records["mash_rows_dist"].update(phase_rows_dist_vs_plain(inputs))
-        if phases & {3, 6}:
+        if 15 in phases:
+            records["mash_cluster_inter"].update(
+                max_abs_err=phase_cluster_vs_plain(inputs[1])["max_abs_err"])
+        if phases & {3, 6, 15}:
             del inputs
         if 7 in phases:
             records["side_vector"].update(phase_side_vector_vs_plain())
             records["score_edges"].update(phase_score_edges_vs_plain(tmp))
         if 4 in phases:
             phase_gpu_vs_cpu(tmp)
+        if 17 in phases:
+            phase_dc_gpu_vs_cpu(tmp)
         if 5 in phases:
             res = phase_main_path(tmp, args.n, *data)
             note("placement", res["counts"])
@@ -1663,6 +1960,18 @@ def main() -> int:
             sv["launches"] = res["counts"]["side_vector"]
             se["launches"] = res["counts"]["score_edges"]
             se["main_path_state"] = res["score_edges_last_range"]
+        if 16 in phases:
+            res = phase_dc_main_path(tmp, args.n, *data)
+            note("dc", res["counts"])
+            ci = records["mash_cluster_inter"]
+            big = res["largest_bucket"]
+            ci.update(launches=res["counts"]["mash_cluster_inter"],
+                      max_abs_err=max(ci.get("max_abs_err", 0),
+                                      res["max_abs_err"]),
+                      library_ms=None, shape=[big["clusters"], big["cmax"],
+                                              big["W"]],
+                      **{k: big[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "share_of_bound")})
         if 9 in phases:
             res = phase_nj_main_path(tmp, args.nj_n)
             note("nj", res["counts"])
@@ -1698,6 +2007,8 @@ def main() -> int:
             records["score_edges"].update(
                 plain_launches=prof["plain"]["launches_per_call"],
                 profiler_kernel_ms=prof["kernel"].get("kernel_device_ms"))
+        if 18 in phases:
+            phase_dc_step_profiled()
     check(not any(m == "jax" or m.startswith("jax.") or m == "dipper_tpu"
                   or m.startswith("dipper_tpu.") for m in sys.modules),
           "JAX or the JAX package was imported")

@@ -19,15 +19,17 @@ src/tree_generation.cu:33-99) plus --device:
                               placement, 14,523 (f32) or 11,619 (f64) for
                               NJ and -o d)
 
-Ported so far, from -i r, -i m and -i d: conventional NJ (-m 2, or auto
-mode below 30,000 taxa), k-closest placement (-m 1, or auto mode at N >=
-30,000), exact placement (the -m value 0: auto mode, so only at N >=
-30,000), the distance matrix as PHYLIP (-i r or -i m with -o d) and --add
-(from -i r and -i m), with --precision, --seed, --save/--load-sketches,
-and for placement --save/--load-state, --state-chunk and
---no-prefix-caps. Divide-and-conquer (-m 3, or auto mode at N >=
-1,000,000), --profile, --devices > 1 and the multi-host flags exit 1 with
-a "not yet ported" message.
+Ported, from -i r, -i m and -i d: conventional NJ (-m 2, or auto mode
+below 30,000 taxa), k-closest placement (-m 1, or auto mode from 30,000
+to 1,000,000 taxa), exact placement (the -m value 0: auto mode, so only
+at N >= 30,000), divide-and-conquer (-m 3, or auto mode at N >=
+1,000,000; from -i r and -i m only, a matrix is refused as by the
+reference), the distance matrix as PHYLIP (-i r or -i m with -o d) and
+--add (from -i r and -i m), with --precision, --seed,
+--save/--load-sketches, and for placement and D&C's backbone
+--save/--load-state, --state-chunk and --no-prefix-caps. --profile,
+--devices > 1 and the multi-host flags exit 1 with a "not yet ported"
+message.
 """
 
 from __future__ import annotations
@@ -122,7 +124,7 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
 
-    from dipper_tpu_torch.driver import NotYetPorted, run_pipeline
+    from dipper_tpu_torch.driver import run_pipeline
     from dipper_tpu_torch.io.errors import InputFormatError
     from dipper_tpu_torch.utils.params import Param
 
@@ -149,7 +151,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     try:
         run_pipeline(params, algo, placemode, args, device)
-    except (InputFormatError, NotYetPorted) as e:
+    except InputFormatError as e:
         print(f"ERROR: {e}", file=sys.stderr)
         return 1
     print(f"Tree Created in: {int((time.time() - t0) * 1000)} ms", file=sys.stderr)

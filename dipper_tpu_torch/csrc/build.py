@@ -28,6 +28,7 @@ KERNELS = {
     "mash_rows_dist": "mash_rows_dist.cu",
     "side_vector": "side_vector.cu",
     "score_edges": "score_edges.cu",
+    "mash_cluster_inter": "mash_cluster_inter.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

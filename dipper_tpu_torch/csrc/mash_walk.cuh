@@ -123,6 +123,26 @@ __device__ __forceinline__ void stage_rows(int32_t* dst, const int32_t* src,
         dst[r * sp + s] = kExhausted;
 }
 
+// stage_rows for rows picked by index: row r of the tile is device row
+// idx[r] of `src` (m ints apart). The gather happens in the copy itself, so
+// the picked rows are never assembled in device memory.
+__device__ __forceinline__ void stage_rows_gathered(
+    int32_t* dst, const int32_t* src, const int32_t* idx, int rows, int m,
+    int s, int sp, int nvec)
+{
+    const int tail0 = nvec * 4, ntail = s - tail0;
+    for (int i = threadIdx.x; i < rows * nvec; i += kThreads) {
+        const int r = i / nvec, c = (i - r * nvec) * 4;
+        cp_async16(dst + r * sp + c, src + (size_t)__ldg(idx + r) * m + c);
+    }
+    for (int i = threadIdx.x; i < rows * ntail; i += kThreads) {
+        const int r = i / ntail, c = tail0 + (i - r * ntail);
+        cp_async4(dst + r * sp + c, src + (size_t)__ldg(idx + r) * m + c);
+    }
+    for (int r = threadIdx.x; r < rows; r += kThreads)
+        dst[r * sp + s] = kExhausted;
+}
+
 // Position of the k-th (1-based) set bit of m, which has at least k set
 // bits: a binary search on popcounts.
 __device__ __forceinline__ int select_bit(unsigned m, int k)

@@ -290,6 +290,44 @@ def mash_pairwise_inter(bank_ranks: torch.Tensor, query_ranks: torch.Tensor,
     raise ValueError(f"unsupported device {bank_ranks.device}")
 
 
+def cluster_inter_ref(ranks: torch.Tensor, wit: torch.Tensor,
+                      mem: torch.Tensor, *, sketch_size: int) -> torch.Tensor:
+    """Plain PyTorch version of the per-cluster count kernel (csrc/
+    mash_cluster_inter.cu): ranks int32 [N, M], wit int32 [c, W], mem int32
+    [c, Q] -> int32 [c, Q, W], cluster i's member rows ranks[mem[i]] as
+    queries against its witness rows ranks[wit[i]] as the bank: the
+    merged_inter_count_ref walk on the gathered rows, clusters chunked to
+    bound the [chunk, Q, W, 2M] transient."""
+    c, W = wit.shape
+    Q = mem.shape[1]
+    M = ranks.shape[1]
+    out = torch.empty((c, Q, W), dtype=torch.int32, device=ranks.device)
+    step = max(1, _REF_CHUNK_BYTES // max(1, Q * W * 2 * M * 4))
+    for c0 in range(0, c, step):
+        a_keys = ranks[wit[c0:c0 + step].long()] * 2 + 1     # [n, W, M]
+        b_keys = ranks[mem[c0:c0 + step].long()] * 2         # [n, Q, M]
+        n = a_keys.shape[0]
+        out[c0:c0 + n] = _merged_inter_count(
+            a_keys.unsqueeze(1).expand(n, Q, W, M),
+            b_keys.unsqueeze(2).expand(n, Q, W, M), sketch_size)
+    return out
+
+
+def mash_cluster_inter(ranks: torch.Tensor, wit: torch.Tensor,
+                       mem: torch.Tensor, *, sketch_size: int) -> torch.Tensor:
+    """Per-cluster counts [c, Q, W] (see cluster_inter_ref). CUDA tensors
+    go to the Hopper kernel (which raises on failure), CPU tensors to the
+    plain version."""
+    if ranks.device.type == "cuda":
+        from dipper_tpu_torch.distance.mash_cuda import mash_cluster_inter_cuda
+
+        return mash_cluster_inter_cuda(ranks, wit, mem,
+                                       sketch_size=sketch_size)
+    if ranks.device.type == "cpu":
+        return cluster_inter_ref(ranks, wit, mem, sketch_size=sketch_size)
+    raise ValueError(f"unsupported device {ranks.device}")
+
+
 def mash_rows_vs_bank(bank_ranks: torch.Tensor, query_ranks: torch.Tensor,
                       *, k: int, sketch_size: int,
                       dtype_name: str) -> torch.Tensor:

@@ -4,15 +4,20 @@
   mash_pallas.py::mash_inter_pallas: int32 intersection counts;
 - csrc/mash_rows_dist.cu, the port of mash_pallas.py::
   mash_rows_vs_bank_pallas: the distances those counts index in the host
-  table, written directly (f32 or f64).
+  table, written directly (f32 or f64);
+- csrc/mash_cluster_inter.cu, the port of dipper_tpu/dc/pipeline.py::
+  _inter_blockdiag_pallas: for every cluster of a bucket, its members'
+  counts against its own witnesses, rows picked from the rank bank by
+  index lists inside the kernel.
 
-Both are one tile kernel (csrc/mash_walk.cuh: rows staged in shared
+The first two are one tile kernel (csrc/mash_walk.cuh: rows staged in shared
 memory, a warp per pair, the walk split over the lanes by merge path) and
 are built from the repository's sources at first use (csrc/build.py).
-They take rank rows, not the Pallas kernel's tagged keys (2r+1 / 2r): the
-walk compares ranks directly, with equal values resolved B-first. Their
-plain PyTorch versions are distance/mash.py::merged_inter_count_ref and
-mash_rows_vs_bank.
+The third walks pairs the same way. They take rank rows, not the Pallas
+kernel's tagged keys (2r+1 / 2r): the walk compares ranks directly, with
+equal values resolved B-first. Their plain PyTorch versions are
+distance/mash.py::merged_inter_count_ref, mash_rows_vs_bank and
+cluster_inter_ref.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from dipper_tpu_torch.csrc.build import check_launch, load
 # through the kernels.
 LAUNCHES = 0            # mash_merge_count
 ROWS_DIST_LAUNCHES = 0  # mash_rows_dist
+CLUSTER_LAUNCHES = 0    # mash_cluster_inter
 
 # the launchers' return code for a sketch_size whose shared-memory staging
 # does not fit (kSketchTooLarge in the .cu files)
@@ -39,6 +45,7 @@ _SMEM_BYTES = 232448
 _MERGE_COUNT_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                      ctypes.c_void_p]
+_CLUSTER_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _ROWS_DIST_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
@@ -171,4 +178,42 @@ def mash_rows_dist_cuda(bank_ranks: torch.Tensor, query_ranks: torch.Tensor,
                          max_sketch_size(str(table.dtype).split(".")[1]))
     check_launch(lib, "mash_rows_dist", rc)
     ROWS_DIST_LAUNCHES += 1
+    return out
+
+
+def mash_cluster_inter_cuda(ranks: torch.Tensor, wit: torch.Tensor,
+                            mem: torch.Tensor, *,
+                            sketch_size: int) -> torch.Tensor:
+    """ranks int32 [N, M] (rows ascending), wit int32 [c, W] and mem int32
+    [c, Q] (every index in [0, N)), all contiguous on one CUDA device, M >=
+    sketch_size -> int32 [c, Q, W]: out[i, q, w] the intersection count of
+    bank row ranks[wit[i, w]] and query row ranks[mem[i, q]]. Launches on
+    the current stream and returns without synchronizing."""
+    global CLUSTER_LAUNCHES
+    _check_ranks(ranks, ranks, sketch_size)
+    for nm, t in (("wit", wit), ("mem", mem)):
+        if t.device != ranks.device:
+            raise ValueError(f"{nm} is on {t.device}, ranks on {ranks.device}")
+        if t.dtype != torch.int32 or t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{nm} must be a contiguous 2-D int32 tensor, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    if wit.shape[0] != mem.shape[0]:
+        raise ValueError(f"wit has {wit.shape[0]} clusters, mem "
+                         f"{mem.shape[0]}")
+    N, M = ranks.shape
+    (c, W), Q = wit.shape, mem.shape[1]
+    out = torch.empty((c, Q, W), dtype=torch.int32, device=ranks.device)
+    if N == 0 or out.numel() == 0:
+        return out
+    lib = load("mash_cluster_inter", _CLUSTER_ARGS)
+    with torch.cuda.device(ranks.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mash_cluster_inter(
+            ranks.data_ptr(), wit.data_ptr(), mem.data_ptr(), out.data_ptr(),
+            N, c, W, Q, M, sketch_size, stream)
+    if rc == _SKETCH_TOO_LARGE:
+        raise _too_large(sketch_size, "one member row and two witness rows",
+                         max_sketch_size())
+    check_launch(lib, "mash_cluster_inter", rc)
+    CLUSTER_LAUNCHES += 1
     return out

@@ -5,8 +5,9 @@ placement for 30_000 <= N < 1_000_000, divide-and-conquer above. The
 port runs conventional NJ and placement (k-closest, or exact where the
 -m value is 0) from unaligned FASTA (-i r, mash distances), aligned
 FASTA (-i m, the six MSA models) and PHYLIP matrices (-i d), writes the
-distance matrix (-i r/-i m with -o d) and places queries onto a backbone
-tree (--add); divide-and-conquer stops with NotYetPorted.
+distance matrix (-i r/-i m with -o d), places queries onto a backbone
+tree (--add) and runs divide-and-conquer from -i r and -i m (a matrix is
+refused in that mode, as by the reference).
 """
 
 from __future__ import annotations
@@ -19,15 +20,6 @@ import numpy as np
 
 from dipper_tpu_torch.utils.device import synchronize
 from dipper_tpu_torch.utils.params import Param, PLACEMENT_THRESHOLD, DC_THRESHOLD
-
-
-class NotYetPorted(Exception):
-    """A mode of the JAX package that this port does not run yet."""
-
-
-def _not_ported(what: str) -> NotYetPorted:
-    return NotYetPorted(f"{what} is not yet ported to dipper_tpu_torch "
-                        "(see ROADMAP.md)")
 
 
 def _log(msg: str):
@@ -152,7 +144,18 @@ def _run_sequences(params: Param, algo: str, placemode: str, args, device):
             exact=_log_placement(placemode), log=_log)
         _write_tree(nwk, args.output_file)
     else:
-        raise _not_ported("divide-and-conquer mode")
+        _run_dc(seqs, names, params, args.output_file, device)
+
+
+def _run_dc(seqs, names, params: Param, out_path: str, device):
+    from dipper_tpu_torch.dc import build_dc_tree
+
+    _log("Using divide-and-conquer mode")
+    backbone = len(seqs) // 20
+    params = dataclasses.replace(params, backbone_size=backbone,
+                                 batch_size=backbone)
+    _write_tree(build_dc_tree(seqs, names, params, device=device, log=_log),
+                out_path)
 
 
 def _distance_matrix(params: Param, seqs, device):

@@ -1,20 +1,18 @@
 """ctypes bindings for the native FASTA reader (native/fastio.cpp).
 
-Auto-builds libfastio.so with `make` on first use if a toolchain is
-available; falls back silently to the pure-Python reader otherwise.
+Builds native/libfastio.so at first use (utils/native_lib.py) if a
+toolchain is available; falls back silently to the pure-Python reader
+otherwise.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 from typing import List, Optional, Tuple
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
-_LIB_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libfastio.so"))
+from dipper_tpu_torch.utils.native_lib import native_library
 
 _lib = None
 _tried = False
@@ -25,21 +23,11 @@ def _load() -> Optional[ctypes.CDLL]:
     if _tried:
         return _lib
     _tried = True
-    src = os.path.join(os.path.abspath(_NATIVE_DIR), "fastio.cpp")
-    stale = (not os.path.exists(_LIB_PATH)
-             or (os.path.exists(src)
-                 and os.path.getmtime(src) > os.path.getmtime(_LIB_PATH)))
-    if stale:
-        try:
-            subprocess.run(
-                ["make", "-C", os.path.abspath(_NATIVE_DIR)],
-                check=True, capture_output=True, timeout=120,
-            )
-        except Exception:
-            if not os.path.exists(_LIB_PATH):
-                return None
+    path = native_library("libfastio.so", "fastio.cpp")
+    if path is None:
+        return None
     try:
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(path)
     except OSError:
         return None
     lib.fastio_read_fasta.restype = ctypes.c_int

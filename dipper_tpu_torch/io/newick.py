@@ -222,19 +222,12 @@ def _native_emit(starts, dst, ln, names, root):
 
     if not _nwlib_tried:
         _nwlib_tried = True
-        import os
-        import subprocess
+        from dipper_tpu_torch.utils.native_lib import native_library
 
-        nd = os.path.abspath(os.path.join(
-            os.path.dirname(__file__), "..", "..", "native"))
-        so = os.path.join(nd, "libnewick.so")
-        src = os.path.join(nd, "newick.cpp")
         try:
-            if (not os.path.exists(so)
-                    or (os.path.exists(src)
-                        and os.path.getmtime(src) > os.path.getmtime(so))):
-                subprocess.run(["make", "-C", nd, "libnewick.so"],
-                               check=True, capture_output=True, timeout=120)
+            so = native_library("libnewick.so", "newick.cpp")
+            if so is None:
+                raise OSError("native/libnewick.so could not be built")
             lib = ctypes.CDLL(so)
             lib.newick_emit.restype = ctypes.c_int64
             lib.newick_emit.argtypes = [

@@ -49,7 +49,7 @@ import torch
 
 from dipper_tpu_torch.placement.kclosest import (
     ROW_BLOCK, SENT_DIS, _ROWS_BYTES, _i32, _rows, _slice_frontend,
-    load_tree_state, save_tree_state)
+    load_tree_state, nan_minimum, save_tree_state)
 from dipper_tpu_torch.utils.device import synchronize, torch_dtype
 
 # depth of a node that is not in the tree; part of the checkpoint, as is
@@ -206,8 +206,8 @@ def _score_exact(st: ExactState, lim: torch.Tensor):
     dis1 = (dis1 - addi).clamp(min=0.0)
     dis2 = (dis2 - addi).clamp(min=0.0)
     addi = addi + (dis1 - L).clamp(min=0.0) + (dis2 - L).clamp(min=0.0)
-    dis1 = torch.minimum(dis1, L)
-    dis2 = torch.minimum(dis2, L)
+    dis1 = nan_minimum(dis1, L)
+    dis2 = nan_minimum(dis2, L)
     rest = L - dis1 - dis2
     dis1 = dis1 + rest * 0.5
     score = torch.where(valid, addi, SENT_DIS)

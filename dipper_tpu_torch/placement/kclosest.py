@@ -70,7 +70,9 @@ class TreeState:
     # [2N, 3] int32 out-edge ids per node (-1 empty); a splice rewrites
     # only the two new nodes' rows. None forces the dense BFS.
     adj: torch.Tensor | None = None
-    # compact-BFS frontier overflows that fell back to the dense BFS
+    # the JAX state's count of compact-BFS frontier overflows. The port's
+    # compact BFS has no frontier cap, so this reads 0 by construction; it
+    # is kept for the checkpoint schema and the state comparisons
     nfb: int = 0
     # the CUDA scorer's checked pointers, outputs and scratch (`_Scorer`,
     # made by prepare_scorer); not a constructor argument, so
@@ -136,41 +138,62 @@ def _insert_sorted(cd, ids, pos, d, label: int):
     return new_cd, new_id
 
 
-def update_closest_bfs(st: TreeState, leaf: int, num_nodes: int) -> None:
+def update_closest_bfs(st: TreeState, leaf: int, num_nodes: int,
+                       label=None, blocked_nodes=()) -> None:
     """Frontier equivalent of updateClosestNodes
-    (src/placement_close_k.cu:86-124), in place. States with an
-    adjacency table run the frontier-compact BFS, others the dense
-    edge-parallel one; both give bitwise-identical states (each visited
-    edge receives the same insert, and inserts into distinct edges
-    commute)."""
+    (src/placement_close_k.cu:86-124), in place. `leaf` is the BFS
+    source node; `label` is the id recorded in witness lists (default:
+    the node; D&C's cluster builds use local nodes with witness-space
+    labels); `blocked_nodes` (host ints or 0-d tensors) are dequeued but
+    not expanded (the cluster edge's endpoints in
+    updateClosestNodesInClusterDC :334). States with an adjacency table
+    run the frontier-compact BFS, others the dense edge-parallel one;
+    both give bitwise-identical states (each visited edge receives the
+    same insert, and inserts into distinct edges commute)."""
     if st.adj is not None:
-        _update_closest_bfs_compact(st, leaf, num_nodes)
+        _update_closest_bfs_compact(st, leaf, num_nodes, label, blocked_nodes)
     else:
-        _update_closest_bfs_dense(st, leaf, num_nodes)
+        _update_closest_bfs_dense(st, leaf, num_nodes, label, blocked_nodes)
 
 
-def _update_closest_bfs_dense(st: TreeState, leaf: int,
-                              num_nodes: int) -> None:
-    """Edge-parallel BFS: every level tests all E edge slots. The
-    overflow fallback of the compact BFS and the adj-less path."""
+def _blocked_ids(blocked_nodes, device) -> torch.Tensor | None:
+    """The blocked nodes as one int64 tensor on `device` (no host sync
+    for tensor entries), or None."""
+    if len(blocked_nodes) == 0:
+        return None
+    return torch.stack([torch.as_tensor(b, device=device).long().reshape(())
+                        for b in blocked_nodes])
+
+
+def _update_closest_bfs_dense(st: TreeState, leaf: int, num_nodes: int,
+                              label=None, blocked_nodes=()) -> None:
+    """Edge-parallel BFS: every level tests all E edge slots. The path of
+    adj-less states (multifurcating --add backbones)."""
     M = num_nodes
     dev = st.e.device
+    label = leaf if label is None else label
     frontier = torch.zeros((M,), dtype=torch.bool, device=dev)
     frontier[leaf] = True
+    bids = _blocked_ids(blocked_nodes, dev)
+    if bids is not None:
+        # (index_fill_ takes the scalar as an argument: no copy, no sync)
+        open_ = torch.ones((M,), dtype=torch.bool, device=dev)
+        open_.index_fill_(0, bids, False)
     from_node = torch.full((M,), -1, dtype=torch.int32, device=dev)
     distx = torch.zeros((M,), dtype=st.length.dtype, device=dev)
     src = st.belong
     used = src >= 0
     srcc = src.clamp(min=0)
     while True:
-        act = used & frontier[srcc] & (st.e != from_node[srcc])
+        expand = frontier if bids is None else frontier & open_
+        act = used & expand[srcc] & (st.e != from_node[srcc])
         d = distx[srcc]
         pos = (st.cdis <= d[:, None]).sum(dim=1)
         sel = (act & (pos < K)).nonzero().squeeze(1)  # host sync
         if sel.numel() == 0:
             return
         new_cd, new_id = _insert_sorted(st.cdis[sel], st.cid[sel], pos[sel],
-                                        d[sel], leaf)
+                                        d[sel], label)
         st.cdis[sel] = new_cd
         st.cid[sel] = new_id
         # in a tree each node is reached along its unique path, so the
@@ -182,49 +205,36 @@ def _update_closest_bfs_dense(st: TreeState, leaf: int,
         distx[dst] = d[sel] + st.length[sel]
 
 
-# Frontier width of the compact BFS. A wider level (possible only in
-# pathologically bushy regions that also defeat the K=5 pruning) undoes
-# the BFS's writes and re-runs it dense, so the cap changes speed, never
-# results; it is kept from the reference so that `nfb` counts the same.
-_FRONTIER_CAP = 256
-
-
-def _update_closest_bfs_compact(st: TreeState, leaf: int,
-                                num_nodes: int) -> None:
+def _update_closest_bfs_compact(st: TreeState, leaf: int, num_nodes: int,
+                                label=None, blocked_nodes=()) -> None:
     """Frontier-compact BFS: each level gathers only the <=3 out-edges
     of each frontier node through the adjacency rows, so its work is
-    O(frontier), not O(E). Rows are written in place; their old values
-    are kept so that an overflow can restore the pre-BFS state before
-    the dense re-run."""
+    O(frontier), not O(E). Each level's width comes from `nonzero`, so
+    no level is too wide: the JAX package's fixed frontier cap, its undo
+    log and its dense re-run have no counterpart here."""
     dev = st.e.device
+    label = leaf if label is None else label
+    bids = _blocked_ids(blocked_nodes, dev)
     ids = _i32([leaf], dev)                 # frontier nodes
     frm = _i32([-1], dev)                   # node each was reached from
     dist = torch.zeros((1,), dtype=st.length.dtype, device=dev)
-    undo = []
     while True:
         eids = st.adj[ids]                               # [F, 3]
         eidsc = eids.clamp(min=0)
         dstn = st.e[eidsc]                               # [F, 3]
         emask = (eids >= 0) & (dstn != frm[:, None])     # no backtracking
+        if bids is not None:
+            expand = ~(ids[:, None].long() == bids[None, :]).any(dim=1)
+            emask = emask & expand[:, None]
         cd = st.cdis[eidsc]                              # [F, 3, K]
         pos = (cd <= dist[:, None, None]).sum(dim=-1)    # [F, 3]
         sel = (emask & (pos < K)).reshape(-1).nonzero().squeeze(1)  # sync
-        if sel.numel() > _FRONTIER_CAP:
-            for rows, old_cd, old_id in reversed(undo):
-                st.cdis[rows] = old_cd
-                st.cid[rows] = old_id
-            st.nfb += 1
-            _update_closest_bfs_dense(st, leaf, num_nodes)
-            return
         if sel.numel() == 0:
             return
         rows = eidsc.reshape(-1)[sel]
-        old_cd = cd.reshape(-1, K)[sel]
-        old_id = st.cid[rows]
         d = dist.repeat_interleave(3)[sel]
-        new_cd, new_id = _insert_sorted(old_cd, old_id,
-                                        pos.reshape(-1)[sel], d, leaf)
-        undo.append((rows, old_cd, old_id))
+        new_cd, new_id = _insert_sorted(cd.reshape(-1, K)[sel], st.cid[rows],
+                                        pos.reshape(-1)[sel], d, label)
         # distinct frontier nodes => distinct out-edges: rows are unique
         st.cdis[rows] = new_cd
         st.cid[rows] = new_id
@@ -323,22 +333,36 @@ def side_vector(cid, cdis, dist_row):
     raise ValueError(f"unsupported device {dist_row.device}")
 
 
+def clamp_sequence(dis1, dis2, L):
+    """The clamp sequence of calculateBranchLength
+    (src/placement_close_k.cu:346-355) on the witness maxima of an edge
+    (dis1) and of its reverse (dis2) and its length L, elementwise:
+    returns (additional_dis, fracLen)."""
+    addi = ((dis1 + dis2 - L) * 0.5).clamp(min=0.0)
+    dis1 = (dis1 - addi).clamp(min=0.0)
+    dis2 = (dis2 - addi).clamp(min=0.0)
+    addi = addi + (dis1 - L).clamp(min=0.0) + (dis2 - L).clamp(min=0.0)
+    dis1 = nan_minimum(dis1, L)
+    dis2 = nan_minimum(dis2, L)
+    rest = L - dis1 - dis2
+    return addi, dis1 + rest * 0.5
+
+
+def nan_minimum(a, b):
+    """jnp.minimum: the smaller value, or the NaN operand itself (a's if
+    both are NaN). torch.minimum on the CPU returns an all-ones NaN (sign
+    bit set) instead, which the Newick shows as -nan where the JAX
+    package writes nan."""
+    return torch.where(a.isnan() | (a <= b), a, b)
+
+
 def _finish_score(st: TreeState, side, dis2):
     """Clamp sequence + first-minimum argmin of calculateBranchLength
     (src/placement_close_k.cu:346-355, :807). `side`/`dis2` are the
     per-directed-edge witness maxima (dis1 of the edge, dis1 of its
     reverse). Returns (eid as a host int, frac, add as 0-d tensors)."""
     valid = st.belong > st.e
-    dis1 = side
-    L = st.length
-    addi = ((dis1 + dis2 - L) * 0.5).clamp(min=0.0)
-    dis1 = (dis1 - addi).clamp(min=0.0)
-    dis2 = (dis2 - addi).clamp(min=0.0)
-    addi = addi + (dis1 - L).clamp(min=0.0) + (dis2 - L).clamp(min=0.0)
-    dis1 = torch.minimum(dis1, L)
-    dis2 = torch.minimum(dis2, L)
-    rest = L - dis1 - dis2
-    dis1 = dis1 + rest * 0.5
+    addi, dis1 = clamp_sequence(side, dis2, st.length)
     # invalid slots carry the sentinel (frac=0, addi=2): if no real
     # candidate beats 2.0 the argmin lands on slot 0, as
     # thrust::min_element over the sentinel-filled minPos buffer does
@@ -358,6 +382,19 @@ def _score_edges_plain(st: TreeState, dist_row):
     x, y, ye = torch.stack(
         (st.belong[eid], st.e[eid], st.rev[eid])).tolist()  # host sync
     return eid, x, y, ye, frac, add
+
+
+def score_edges_rows(st: TreeState, rows: torch.Tensor) -> torch.Tensor:
+    """The chosen edge of each of many rows on one state, the tree
+    untouched (D&C's phase 2): rows [Q, cap] -> int64 eid [Q], on the
+    rows' device, equal to score_edges' eid row by row (the same
+    elementwise operations; ties -> lowest eid). Tensor code over the
+    [Q, E, K] witness gather; callers bound Q."""
+    dv = torch.where(st.cid != -1, rows[:, st.cid.clamp(min=0)] - st.cdis,
+                     float("-inf"))
+    side = dv.amax(dim=-1).clamp(min=0.0)                # [Q, E]
+    addi, _ = clamp_sequence(side, side[:, st.rev], st.length)
+    return torch.argmin(torch.where(st.belong > st.e, addi, SENT_DIS), dim=1)
 
 
 # most blocks of one score_edges launch (4 on each of an H100's 132
@@ -391,7 +428,9 @@ def prepare_scorer(st: TreeState) -> TreeState:
     Called wherever a state is made or its arrays are replaced, so that
     no check runs per insertion. Returns `st`."""
     dev = st.cid.device
-    if dev.type != "cuda":
+    if dev.type != "cuda" or st.e.dim() != 1:
+        # CPU states, and D&C's cluster states ([C, E] arrays), which the
+        # kernel does not score
         st.scorer = None
         return st
     arrays = (st.cid, st.cdis, st.belong, st.e, st.rev, st.length)
@@ -506,16 +545,20 @@ def _insert_merge_lists(cd1, id1, cd2, id2):
 
 
 def splice(st: TreeState, eid: int, frac, add, place_id: int,
-           num_sequences: int, ends=None) -> None:
+           num_sequences: int, ends=None, middle: int | None = None,
+           outside: int | None = None) -> None:
     """updateTreeStructure (src/placement_close_k.cu:446-528), in place:
     taxon place_id attaches through middle node N+place_id-1 onto edge
     eid at fracLen `frac` with pendant length `add`. `ends` is edge eid's
     (source node, destination node, reverse edge) as host ints where the
-    scorer has read them; without it they are read here."""
+    scorer has read them; without it they are read here. `middle` and
+    `outside` override the node numbering (D&C's cluster builds)."""
     dev = st.e.device
     N = num_sequences
-    middle = place_id + N - 1
-    outside = place_id
+    if middle is None:
+        middle = place_id + N - 1
+    if outside is None:
+        outside = place_id
     if ends is None:
         ends = torch.stack(
             (st.belong[eid], st.e[eid], st.rev[eid])).tolist()  # host sync
@@ -701,7 +744,10 @@ def tree_state_to_numpy(st) -> dict:
 def tree_state_from_numpy(d, device) -> TreeState:
     """The reference's TreeState as numpy arrays (jax.device_get of it,
     or its checkpoint .npz) -> TreeState on `device`. adj and nfb are
-    optional."""
+    optional. A D&C cluster state (dipper_tpu/dc/pipeline.py's vmapped
+    build: a leading cluster axis on every array, idx one per cluster)
+    gives a TreeState with [C, E] and [C, E, K] arrays; its clusters must
+    have taken the same number of steps, so that idx is one int."""
     def t(a, dtype=None):
         # np.array copies: the input may be a read-only device_get view
         return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
@@ -714,9 +760,16 @@ def tree_state_from_numpy(d, device) -> TreeState:
     return prepare_scorer(TreeState(
         e=t(d["e"], np.int32), belong=t(d["belong"], np.int32),
         length=t(d["length"]), rev=t(d["rev"], np.int32),
-        cdis=t(d["cdis"]), cid=t(d["cid"], np.int32), idx=int(d["idx"]),
+        cdis=t(d["cdis"]), cid=t(d["cid"], np.int32), idx=_one_idx(d["idx"]),
         adj=None if adj is None else t(adj, np.int32),
         nfb=0 if nfb is None else int(nfb)))
+
+
+def _one_idx(idx) -> int:
+    idx = np.unique(np.asarray(idx))
+    if idx.size != 1:
+        raise ValueError(f"cluster states at different steps (idx {idx})")
+    return int(idx[0])
 
 
 def save_tree_state(path: str, st, next_i: int, num_sequences: int,
@@ -898,7 +951,7 @@ def run_placement_chunked(frontend_args, *, num_sequences: int, frontend: str,
             per = (t_rows + t_ins) / max(hi - lo, 1) * 1e3
             rows_ms = t_rows / max(hi - lo, 1) * 1e3
             log(f"Inserted {hi}/{N} ({per:.2f} ms/insertion, rows "
-                f"{rows_ms:.2f}, {st.nfb} dense-BFS fallbacks)")
+                f"{rows_ms:.2f})")
         # checkpoint when a range crosses the chunk grid (ranges can be
         # shorter than `chunk` under the rows-buffer budget); checkpoints
         # always hold the full [4N] layout
@@ -909,8 +962,7 @@ def run_placement_chunked(frontend_args, *, num_sequences: int, frontend: str,
         lo = hi
     if log:
         log(f"Placement rows: {rows_s * 1e3:.1f} ms, insertions: "
-            f"{ins_s * 1e3:.1f} ms (steady {steady:.3f} ms/insertion), "
-            f"{st.nfb} dense-BFS fallbacks")
+            f"{ins_s * 1e3:.1f} ms (steady {steady:.3f} ms/insertion)")
     return _resize_state(st, 4 * N)
 
 
@@ -971,7 +1023,7 @@ def run_add_queries(frontend_args, e0, belong0, length0, rev0, *,
     if log:
         log(f"Backbone of {B} seeded in: {t_seed * 1e3:.1f} ms; {N - B} "
             f"queries: rows {rows_s * 1e3:.1f} ms, insertions "
-            f"{ins_s * 1e3:.1f} ms, {st.nfb} dense-BFS fallbacks")
+            f"{ins_s * 1e3:.1f} ms")
     return st.e, st.belong, st.length
 
 

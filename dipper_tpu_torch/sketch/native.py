@@ -1,8 +1,9 @@
 """ctypes bindings for the native host sketcher (native/sketchnat.cpp).
 
-Auto-builds libsketchnat.so with `make` on first use. The port has no
-device sketcher: the mash frontend hashes on the host, rank-compresses
-the u64 bank with np.unique and uploads the int32 ranks once, so
+Builds native/libsketchnat.so at first use (utils/native_lib.py). The
+port has no device sketcher: the mash frontend hashes on the host,
+rank-compresses the u64 bank with np.unique and uploads the int32 ranks
+once, so
 `sketch.bank.get_sketch_bank` raises when this library cannot be
 loaded.
 """
@@ -11,13 +12,11 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 from typing import Optional
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
-_LIB_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libsketchnat.so"))
+from dipper_tpu_torch.utils.native_lib import native_library
 
 _lib = None
 _tried = False
@@ -28,22 +27,11 @@ def _load() -> Optional[ctypes.CDLL]:
     if _tried:
         return _lib
     _tried = True
-    src = os.path.join(os.path.abspath(_NATIVE_DIR), "sketchnat.cpp")
-    stale = (not os.path.exists(_LIB_PATH)
-             or (os.path.exists(src)
-                 and os.path.getmtime(src) > os.path.getmtime(_LIB_PATH)))
-    if stale:
-        try:
-            subprocess.run(
-                ["make", "-C", os.path.abspath(_NATIVE_DIR),
-                 "libsketchnat.so"],
-                check=True, capture_output=True, timeout=120,
-            )
-        except Exception:
-            if not os.path.exists(_LIB_PATH):
-                return None
+    path = native_library("libsketchnat.so", "sketchnat.cpp")
+    if path is None:
+        return None
     try:
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(path)
     except OSError:
         return None
     lib.sketchnat_sketch.restype = ctypes.c_int

@@ -1,0 +1,124 @@
+#!/usr/bin/env python3
+"""Divide-and-conquer (-m 3) of the PyTorch port on one GPU, at the JAX
+package's own operating point (N = 100,000, B = N // 20 = 5,000), with
+its phase times, the bucket lines and the per-cluster count kernel's
+share of its bound.
+
+    python3 scripts/profile_dc_torch.py                 # N = 100,000
+    python3 scripts/profile_dc_torch.py --n 30000 --out out/dc30k
+
+Generates scripts/make_dataset.py's set (L = 10,000, seed 1), runs the
+CLI with -m 3 on it (default flags otherwise: f32, k = 15, s = 1000) and
+records every launch of csrc/mash_cluster_inter.cu (CUDA-event time,
+and its bound as chip_smoke.py's cluster_bound reckons it). Prints JSON
+lines: the dataset, the run (phase times, clusters, buckets, host syncs
+per phase-3 step, nRF vs the true tree), and the kernel's launches (the
+total, the widest bucket's, the sum of times beside the sum of bounds).
+The card's name and power limit go first. Needs CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--n", type=int, default=100_000)
+    ap.add_argument("--out", default=None,
+                    help="directory for the tree and the CLI log (default: "
+                         "a temporary one)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_dc_torch: CUDA is not available", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from dipper_tpu_torch.dc import cluster
+    from dipper_tpu_torch.distance import mash_cuda
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    emit({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = args.out or tmp
+        os.makedirs(out_dir, exist_ok=True)
+        t0 = time.time()
+        fa, true_nwk = cs.make_dataset(args.n, os.path.join(tmp, "dc"),
+                                       seed=1)
+        emit({"dataset": {"n": args.n, "L": 10000, "seed": 1,
+                          "gen_s": time.time() - t0}})
+        calls = []
+        kernel = mash_cuda.mash_cluster_inter_cuda
+
+        def recorded(ranks, wit, mem, *, sketch_size):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            got = kernel(ranks, wit, mem, sketch_size=sketch_size)
+            ev[1].record()
+            calls.append((got, sketch_size, ev))
+            return got
+
+        mash_cuda.mash_cluster_inter_cuda = recorded
+        cs.reset_counts()
+        cluster.STEPS = cluster.BFS_LEVELS = 0
+        out = os.path.join(out_dir, f"dc{args.n}.nwk")
+        try:
+            rc, log, wall = cs.run_cli(["-i", "r", "-I", fa, "-O", out,
+                                        "-m", "3"])
+        finally:
+            mash_cuda.mash_cluster_inter_cuda = kernel
+        counts = cs.read_counts()
+        with open(os.path.join(out_dir, f"dc{args.n}.log"), "w") as f:
+            f.write(log)
+        if rc != 0:
+            print(f"profile_dc_torch: the CLI returned {rc}", file=sys.stderr)
+            return 1
+        from dipper_tpu_torch.utils.treecmp import rf_distance
+
+        rf, nrf = rf_distance(open(out).read(), open(true_nwk).read())
+        torch.cuda.synchronize()
+        launches = []
+        for got, s, ev in calls:
+            c, Q, W = got.shape
+            b = cs.cluster_bound(got, s)
+            launches.append({"clusters": c, "cmax": Q, "W": W,
+                             "ms": ev[0].elapsed_time(ev[1]),
+                             "bound_ms": b["bound_ms"],
+                             "bound_by": b["bound_by"]})
+        emit({"run": {"n": args.n, "backbone": args.n // 20,
+                      **cs._dc_log(log), "total_wall_ms": wall * 1e3,
+                      "phase3_steps": cluster.STEPS,
+                      "phase3_bfs_levels": cluster.BFS_LEVELS,
+                      "host_syncs_per_phase3_step":
+                          cluster.BFS_LEVELS / max(cluster.STEPS, 1),
+                      "kernel_launches": counts,
+                      "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                      "rf": rf, "nrf_vs_true": nrf}})
+        ms = sum(x["ms"] for x in launches)
+        bound = sum(x["bound_ms"] for x in launches)
+        widest = max(launches, key=lambda x: x["cmax"]) if launches else None
+        emit({"mash_cluster_inter": {
+            "launches": len(launches), "sum_ms": ms, "sum_bound_ms": bound,
+            "share_of_bound": bound / ms if ms else None,
+            "widest_bucket": widest, "by_launch": launches}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,7 +6,9 @@ conventional NJ; identical PHYLIP bytes for the mash matrix (-i r -o d).
 From aligned FASTA (-i m) the distances are each package's own log and
 sqrt results, so trees are held to `assert_newick_close` (the same tree,
 branch lengths to rtol 1e-9 in f64) and matrices to rtol 1e-12. Unported
-modes exit 1 with a "not yet ported" message."""
+modes exit 1 with a "not yet ported" message. Divide-and-conquer (-m 3,
+and auto mode at the threshold) gives the JAX CLI's f64 bytes from -i r
+and -i m and refuses a matrix as it does."""
 
 import re
 
@@ -53,9 +55,7 @@ def assert_newick_close(got: str, want: str, rtol: float = 1e-9):
     if got == want:
         return
     # a NaN length (a model that is undefined on some pair poisons the
-    # tree in both packages) is NaN in the same places; its sign bit, which
-    # no operation defines, is not compared
-    got, want = got.replace("-nan", "nan"), want.replace("-nan", "nan")
+    # tree in both packages) is NaN in the same places, with the same sign
     assert _LENGTH.sub(":", got) == _LENGTH.sub(":", want)
     a = np.array(_LENGTH.findall(got), dtype=np.float64)
     b = np.array(_LENGTH.findall(want), dtype=np.float64)
@@ -164,8 +164,6 @@ def test_nj_log_lines(tmp_path, fasta, capsys):
 
 
 @pytest.mark.parametrize("args, what", [
-    (["-i", "r", "-m", "3"], "divide-and-conquer"),
-    (["-i", "m", "-m", "3"], "divide-and-conquer"),
     (["-i", "r", "-m", "1", "--profile", "/tmp/x"], "--profile"),
     (["-i", "r", "-m", "1", "--devices", "2"], "--devices"),
     (["-i", "r", "-m", "1", "--coordinator", "localhost:1"], "multi-host"),
@@ -208,6 +206,10 @@ def test_msa_every_model_f64_same_tree(tmp_path, aligned, mode, dt):
     want, got = _both(tmp_path, ["-i", "m", "-I", aligned, "-d", dt,
                                  "--precision", "f64"] + mode)
     assert_newick_close(got, want)
+    if dt == "3":
+        # Tajima-Nei is NaN on some pair here and every length of the
+        # tree NaN: the same bytes, NaN signs included
+        assert "nan" in got and got == want
 
 
 @pytest.mark.parametrize("mode", MSA_MODES)
@@ -288,6 +290,75 @@ def test_exact_state_checkpoint_through_the_cli(tmp_path, phylip,
         assert loader(base + ["--load-state", ck, "-O", str(out)]
                       + other) == 0
         assert out.read_text() == want
+
+
+@pytest.fixture(scope="module")
+def dc_fasta(tmp_path_factory):
+    """tests/test_cli_dc.py's input."""
+    names, seqs = simulate_unaligned(100, 1200, np.random.default_rng(99))
+    path = tmp_path_factory.mktemp("dc") / "in.fa"
+    write_fasta(str(path), names, seqs)
+    return str(path)
+
+
+def test_dc_mash_f64_identical_bytes(tmp_path, dc_fasta, capsys):
+    """-i r -m 3 (B = N // 20 = 5): the JAX CLI's Newick bytes."""
+    want, got = _both(tmp_path, ["-i", "r", "-I", dc_fasta, "-m", "3", "-k",
+                                 "12", "-s", "150", "--precision", "f64",
+                                 "--seed", "7"])
+    assert got == want
+    assert "Using divide-and-conquer mode" in capsys.readouterr().err
+
+
+def test_dc_msa_f64_identical_bytes(tmp_path, aligned):
+    """-i m -m 3 from 25 aligned sequences is refused in both packages
+    (B = 1 < 4), and 120 give the JAX CLI's Newick bytes."""
+    names, seqs = simulate_alignment(120, 400, np.random.default_rng(12),
+                                     gap_frac=0.03, blen_scale=0.5)
+    path = tmp_path / "a120.fa"
+    write_fasta(str(path), names, seqs)
+    want, got = _both(tmp_path, ["-i", "m", "-I", str(path), "-m", "3",
+                                 "-d", "2", "--precision", "f64"])
+    assert got == want
+    for main in (jax_main, port_main):
+        with pytest.raises(SystemExit, match="backbone too small"):
+            main(["-i", "m", "-I", aligned, "-m", "3", "-O",
+                  str(tmp_path / "x.nwk")]
+                 + (["--device", "cpu"] if main is port_main else []))
+
+
+def test_dc_matrix_input_refused_as_in_jax(tmp_path, phylip):
+    for main in (jax_main, port_main):
+        with pytest.raises(SystemExit, match="not supported with input "
+                                             "matrix"):
+            main(["-i", "d", "-I", phylip, "-m", "3", "-O",
+                  str(tmp_path / "x.nwk")]
+                 + (["--device", "cpu"] if main is port_main else []))
+
+
+def test_dc_auto_mode_at_the_threshold(tmp_path, dc_fasta, monkeypatch,
+                                       capsys):
+    """Auto mode takes D&C at N >= DC_THRESHOLD (1,000,000; lowered here
+    to the input's 100 taxa): the same tree as -m 3."""
+    from dipper_tpu_torch import driver
+
+    base = ["-i", "r", "-I", dc_fasta, "-k", "12", "-s", "150",
+            "--precision", "f64", "--device", "cpu"]
+    assert port_main(base + ["-m", "3", "-O", str(tmp_path / "m3.nwk")]) == 0
+    monkeypatch.setattr(driver, "DC_THRESHOLD", 100)
+    capsys.readouterr()
+    assert port_main(base + ["-O", str(tmp_path / "auto.nwk")]) == 0
+    assert "Using divide-and-conquer mode" in capsys.readouterr().err
+    assert ((tmp_path / "auto.nwk").read_text()
+            == (tmp_path / "m3.nwk").read_text())
+
+
+def test_dc_device_cuda_without_cuda_raises(tmp_path, dc_fasta):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_main(["-i", "r", "-I", dc_fasta, "-O", str(tmp_path / "o.nwk"),
+                   "-m", "3", "--device", "cuda"])
 
 
 def test_device_cuda_without_cuda_raises(tmp_path, phylip):

@@ -561,3 +561,109 @@ def test_add_queries_cuda_equals_cpu(cuda, use_adj):
         assert launched == (n - B if dev == cuda else 0)
     for g, w in zip(out["cuda"], out["cpu"]):
         assert torch.equal(g.cpu(), w)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 4 (csrc/mash_cluster_inter.cu) and divide-and-conquer
+# ---------------------------------------------------------------------------
+
+
+def _cluster_lists(n_rows, c, cmax, seed):
+    """c clusters of ragged sizes 1..cmax (members padded by repeating the
+    last), witnesses 10 heads then the members, as D&C's phase 3 makes
+    them."""
+    rng = np.random.default_rng(seed)
+    sz = rng.integers(1, cmax + 1, c)
+    sz[0], sz[-1] = 1, cmax
+    mem = np.empty((c, cmax), np.int32)
+    for i in range(c):
+        ids = rng.choice(n_rows, min(sz[i], n_rows), replace=False)
+        mem[i] = ids[np.minimum(np.arange(cmax), len(ids) - 1)]
+    wit = np.concatenate([rng.integers(0, n_rows, (c, 10)), mem],
+                         axis=1).astype(np.int32)
+    return wit, mem
+
+
+@pytest.mark.parametrize("c, cmax", [(13, 8), (13, 16), (13, 64), (5, 128),
+                                     (1, 300), (9, 1)])
+@pytest.mark.parametrize("ss", [1000, 100, 33, 1])
+def test_cluster_kernel_equals_plain(cuda, c, cmax, ss):
+    """mash_cluster_inter_cuda == cluster_inter_ref, bitwise: real
+    sketches (S = 1000 and 100), sorted rows of a small universe (S = 33,
+    S = 1), ragged sizes with the repeat pad, c not a multiple of 8, one
+    cluster."""
+    if ss in (1000, 100):
+        r = _ranks(400, 3000, 8, 15 if ss == 1000 else 12, ss)
+    else:
+        r = _sorted_rows(400, ss, tm._pad_pow2(ss), 3 * ss, 4)
+    wit, mem = _cluster_lists(400, c, cmax, c * cmax + ss)
+    r, wit, mem = (torch.from_numpy(a).to(cuda) for a in (r, wit, mem))
+    before = mash_cuda.CLUSTER_LAUNCHES
+    got = mash_cuda.mash_cluster_inter_cuda(r, wit, mem, sketch_size=ss)
+    torch.cuda.synchronize()
+    assert mash_cuda.CLUSTER_LAUNCHES == before + 1
+    want = tm.cluster_inter_ref(r, wit, mem, sketch_size=ss)
+    assert torch.equal(got, want)
+    # and kernel 1 on the gathered rows of one cluster
+    k1 = mash_cuda.mash_inter_cuda(r[wit[-1].long()].contiguous(),
+                                   r[mem[-1].long()].contiguous(),
+                                   sketch_size=ss)
+    assert torch.equal(got[-1], k1)
+
+
+def test_cluster_kernel_adversarial_rows(cuda):
+    rng = np.random.default_rng(3)
+    r = torch.from_numpy(_adversarial(300, 100, 128, rng)).to(cuda)
+    wit, mem = (torch.from_numpy(a).to(cuda)
+                for a in _cluster_lists(300, 11, 24, 9))
+    got = mash_cuda.mash_cluster_inter_cuda(r, wit, mem, sketch_size=100)
+    assert torch.equal(got, tm.cluster_inter_ref(r, wit, mem,
+                                                 sketch_size=100))
+
+
+@pytest.mark.parametrize("frontend", ["mash", "matrix"])
+def test_dc_cuda_equals_cpu(cuda, frontend, monkeypatch):
+    """D&C on the card gives the CPU's f64 Newick bytes, with several
+    buckets, chunked builds and streamed clusters; the mash path launches
+    the per-cluster count kernel."""
+    from dipper_tpu_torch.dc import pipeline as dc
+    from dipper_tpu_torch.utils.params import Param
+
+    names, seqs = simulate_unaligned(300, 900, np.random.default_rng(17))
+    monkeypatch.setattr(dc, "_STREAM_CLUSTER_MIN", 32)
+    monkeypatch.setattr(dc, "_STREAM_ROW_BLOCK", 5)
+    monkeypatch.setattr(dc, "PHASE3_BUDGET", 100)
+    if frontend == "mash":
+        p = Param(in_format="r", kmer_size=12, sketch_size=100,
+                  dtype="float64", backbone_size=15)
+        run = lambda dev: dc.build_dc_tree(seqs, names, p, device=dev,
+                                           log=lambda m: None)
+    else:
+        D = tm.mash_distance_matrix(_ranks(300, 900, 17, 12, 100), 12, 100,
+                                    "float64", "cpu").numpy()
+        p = Param(in_format="d", dtype="float64", backbone_size=15)
+        run = lambda dev: dc.build_dc_tree_from_matrix(
+            D, names, p, device=dev, log=lambda m: None)
+    want = run(torch.device("cpu"))
+    before = mash_cuda.CLUSTER_LAUNCHES
+    got = run(cuda)
+    assert got == want
+    assert (mash_cuda.CLUSTER_LAUNCHES > before) == (frontend == "mash")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_score_edges_rows_cuda_equals_kernel_loop(cuda, dtype):
+    """D&C's phase-2 scorer (tensor code over [Q, B] rows) on the card:
+    the eids of the scorer kernel called row by row, and of the plain
+    scorer on the CPU."""
+    r = torch.from_numpy(_ranks(200, 2000, 6, 12, 100))
+    kw = dict(num_sequences=150, frontend="mash", frontend_static=(12, 100),
+              dtype_name=dtype)
+    st = tk.run_placement_full((r[:150].to(cuda),), **kw)
+    rows = tm.mash_pairwise(r[:150].to(cuda), r[150:].to(cuda), k=12,
+                            sketch_size=100, dtype_name=dtype)
+    got = tk.score_edges_rows(st, rows)
+    want = [tk.score_edges(st, rows[i])[0] for i in range(rows.shape[0])]
+    assert got.tolist() == want
+    cpu = tk.tree_state_from_numpy(tk.tree_state_to_numpy(st), "cpu")
+    assert tk.score_edges_rows(cpu, rows.cpu()).tolist() == want

@@ -190,4 +190,70 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 21
+    assert int(res.stdout.strip()) >= 25
+
+
+@pytest.mark.parametrize("cmax", [1, 8, 13, 64])
+def test_dc_mask_order_and_group_flags(cmax):
+    from dipper_tpu.dc import pipeline as jpl
+    from dipper_tpu_torch.dc import cluster as tc
+
+    got, want = tc.mask_order_perm(cmax), jpl._mask_order_perm(cmax)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert np.array_equal(tc.new_group_scoreable(), jpl._new_group_scoreable())
+
+
+def test_dc_global_numbering():
+    """bb_final_vec and assemble's numbering (backbone internals -> N +
+    v - B, middle k of cluster c -> N + B - 1 + prefix[c] + k, slots from
+    4B - 4): the global edge arrays of a matrix build with buckets of
+    several widths, one of them streamed, equal dipper_tpu.dc's."""
+    from dipper_tpu.dc import pipeline as jpl
+    from dipper_tpu.utils.params import Param as JP
+    from dipper_tpu_torch.dc import pipeline as tpl
+
+    n, b = 200, 12
+    D = random_additive_matrix(n, np.random.default_rng(8))
+    D = D / (D.max() * 1.05)
+    names = [f"L{i}" for i in range(n)]
+    kw = dict(in_format="d", dtype="float64", backbone_size=b)
+    jpl.build_dc_tree_from_matrix(D, names, JP(**kw))
+    tpl._STREAM_CLUSTER_MIN, saved = 20, tpl._STREAM_CLUSTER_MIN
+    logs = []
+    try:
+        tpl.build_dc_tree_from_matrix(D, names, Param(**kw),
+                                      device=torch.device("cpu"),
+                                      log=logs.append)
+    finally:
+        tpl._STREAM_CLUSTER_MIN = saved
+    assert any("path=stream" in m for m in logs)
+    assert sum("path=batch" in m for m in logs) >= 2
+    for k in ("e", "belong", "len"):
+        assert np.array_equal(tpl.last_debug[k], jpl.last_debug[k]), k
+    used = tpl.last_debug["belong"] >= 0
+    assert used.sum() == 4 * n - 4
+
+
+def test_native_library_parallel_first_use(tmp_path):
+    """Four processes loading the sketcher at once from a native/ copy
+    with no library: each gets a working library (one builds it under the
+    lock, the others wait and load the renamed file)."""
+    import shutil
+
+    nat = tmp_path / "native"
+    nat.mkdir()
+    for f in ("Makefile", "sketchnat.cpp"):
+        shutil.copy(os.path.join(REPO, "native", f), nat / f)
+    code = ("import ctypes, sys\n"
+            "from dipper_tpu_torch.utils.native_lib import native_library\n"
+            "p = native_library('libsketchnat.so', 'sketchnat.cpp', "
+            "sys.argv[1])\n"
+            "print(p is not None and hasattr(ctypes.CDLL(p), "
+            "'sketchnat_sketch'))\n")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(nat)],
+                              cwd=REPO, stdout=subprocess.PIPE, text=True)
+             for _ in range(4)]
+    outs = [p.communicate(timeout=300)[0].strip() for p in procs]
+    assert outs == ["True"] * 4
+    assert sorted(os.listdir(nat)) == [".build.lock", "Makefile",
+                                       "libsketchnat.so", "sketchnat.cpp"]

@@ -130,24 +130,76 @@ def test_chunked_caps_match_oneshot_and_jax(monkeypatch):
         capped)
 
 
-def test_compact_bfs_overflow_equals_dense(monkeypatch):
-    """A frontier cap of 1 forces the compact BFS to overflow on most
-    insertions: each overflow restores the pre-BFS rows and re-runs the
-    dense BFS, giving the same state as without overflows (and as the
-    JAX build); nfb counts the fallbacks."""
-    D = _noisy(40)
-    base = tk.run_placement_full((torch.from_numpy(D),), num_sequences=40,
-                                 frontend="matrix", dtype_name="float64")
-    monkeypatch.setattr(tk, "_FRONTIER_CAP", 1)
-    forced = tk.run_placement_full((torch.from_numpy(D),), num_sequences=40,
-                                   frontend="matrix", dtype_name="float64")
-    assert forced.nfb > 0 and base.nfb == 0
-    for f in FIELDS[:-1]:
-        a, b = getattr(base, f), getattr(forced, f)
-        assert (a == b if isinstance(a, int) else torch.equal(a, b)), f
-    js = jk.run_placement_full((jnp.asarray(D),), num_sequences=40,
-                               frontend="matrix", dtype_name="float64")
-    _assert_same_state(js, forced, FIELDS[:-1])
+def _balanced_newick(n_leaves, rng):
+    """A balanced binary tree over L0..L{n-1} with random lengths."""
+    def sub(lo, hi):
+        if hi - lo == 1:
+            return f"L{lo}"
+        mid = (lo + hi) // 2
+        return (f"({sub(lo, mid)}:{rng.uniform(0.01, 0.1):.4f},"
+                f"{sub(mid, hi)}:{rng.uniform(0.01, 0.1):.4f})")
+    return sub(0, n_leaves) + ";"
+
+
+def _widest_level(belong, e, leaf):
+    """Most directed edges at one hop count from `leaf` (what one level
+    of a witness BFS over empty lists visits)."""
+    out = {}
+    for i, b in enumerate(belong):
+        if b >= 0:
+            out.setdefault(int(b), []).append(int(e[i]))
+    front, seen, widest = [leaf], {leaf}, 0
+    while front:
+        nxt = [v for u in front for v in out.get(u, []) if v not in seen]
+        widest = max(widest, len(nxt))
+        seen.update(nxt)
+        front = nxt
+    return widest
+
+
+def test_compact_bfs_wide_levels_equal_dense_and_jax():
+    """Seeding the witness lists of a balanced 1,024-leaf backbone (a
+    BFS from every leaf over lists that start empty) crosses levels far
+    wider than the JAX package's frontier cap of 256. The compact BFS
+    sizes each level with `nonzero` and has no cap: its state is bitwise
+    the dense BFS's and the JAX package's (which re-runs those BFS calls
+    dense), and nfb stays 0."""
+    from dipper_tpu_torch.io.newick import parse_newick
+    from dipper_tpu_torch.placement import api as tapi
+
+    B = n = 1024
+    tree = parse_newick(_balanced_newick(B, np.random.default_rng(3)), n)
+    e0, belong0, length0, rev0 = tapi.backbone_tree_to_arrays(tree, n)
+    assert _widest_level(belong0, e0, 0) > jk._FRONTIER_CAP
+    states = {}
+    for use_adj in (True, False):
+        st = tk.TreeState(
+            e=torch.from_numpy(e0), belong=torch.from_numpy(belong0),
+            length=torch.from_numpy(length0), rev=torch.from_numpy(rev0),
+            cdis=torch.full((4 * n, tk.K), tk.SENT_DIS, dtype=torch.float64),
+            cid=torch.full((4 * n, tk.K), -1, dtype=torch.int32),
+            idx=4 * B - 4,
+            adj=(tk.adjacency_from_edges(torch.from_numpy(belong0), 2 * n)
+                 if use_adj else None))
+        for i in range(B):
+            tk.update_closest_bfs(st, i, 2 * n)
+        states[use_adj] = st
+    assert states[True].nfb == 0
+    for f in ("cdis", "cid"):
+        assert torch.equal(getattr(states[True], f),
+                           getattr(states[False], f)), f
+    js = jk.TreeState(
+        e=jnp.asarray(e0), belong=jnp.asarray(belong0),
+        length=jnp.asarray(length0), rev=jnp.asarray(rev0),
+        cdis=jnp.full((4 * n, jk.K), jk.SENT_DIS, jnp.float64),
+        cid=jnp.full((4 * n, jk.K), -1, jnp.int32),
+        idx=jnp.int32(4 * B - 4),
+        adj=jk.adjacency_from_edges(jnp.asarray(belong0), 2 * n),
+        nfb=jnp.int32(0))
+    js = jax.jit(lambda s: jax.lax.fori_loop(
+        0, B, lambda i, s: jk.update_closest_bfs(s, i, 2 * n), s))(js)
+    assert int(js.nfb) > 0  # the JAX build overflowed and re-ran dense
+    _assert_same_state(js, states[True], FIELDS[:-1])
 
 
 def test_dense_bfs_only_matches():
