@@ -26,10 +26,14 @@ run the profiler, which slows every later launch in the process):
      mash_rows_vs_bank on the cases and calls of phase 3, in f32 and f64,
      torch.equal required, with times, bounds and shares;
   15. per-cluster count kernel vs plain: mash_cluster_inter_cuda against
-     cluster_inter_ref, torch.equal required, on 13 clusters of the
-     placement set's S = 1000 sketches with ragged sizes (the repeat pad)
-     up to cmax 8, 16, 64, 128 and 1,023, on adversarial rows at S = 100,
-     33 and 1, and on one cluster; CUDA-event times beside their bounds;
+     cluster_inter_ref, torch.equal required, on the placement set's S =
+     1000 sketches: D&C's bucket shapes (the 100K run's five, 3,113 x 8
+     to 39 x 128, every 16th cluster compared; 17 x 128, the 30K run's
+     widest), 13 clusters of ragged sizes (the repeat pad) up to cmax 8,
+     16, 32, 64, 128 and 1,023, one cluster, a witness tail that is not
+     the member list; on adversarial rows at S = 100, 33 and 1; the wrapper's
+     and the card's own times beside their bounds (with --parent DIR, an
+     earlier checkout's kernel timed in turns on the same inputs);
   7. the scorer's kernels vs plain, equal bits required throughout:
      side_vector_cuda against _side_vector at cap 16,384 with 65,536 edges
      and at cap 30,000 with 120,000 edges, in f32 and f64; score_edges_cuda
@@ -1518,15 +1522,49 @@ def cluster_lists(n_rows: int, c: int, cmax: int, rng) -> tuple:
     """Index lists of c clusters as D&C's phase 3 makes them: ragged sizes
     1..cmax (the first 1, the last cmax), members padded by repeating the
     last one, witnesses 10 backbone heads and then the members; int32 on
-    the card."""
+    the card, the members a view of the witness lists' tail (as
+    dc/pipeline.py::_pair_distances passes them)."""
     sz = rng.integers(1, cmax + 1, c)
     sz[0], sz[-1] = 1, cmax
     mem = np.empty((c, cmax), np.int32)
     for i in range(c):
         ids = rng.choice(n_rows, min(int(sz[i]), n_rows), replace=False)
         mem[i] = ids[np.minimum(np.arange(cmax), len(ids) - 1)]
-    wit = np.concatenate([rng.integers(0, n_rows, (c, 10)), mem], axis=1)
-    return tuple(_on_card(wit.astype(np.int32), mem))
+    (wit,) = _on_card(np.concatenate([rng.integers(0, n_rows, (c, 10)), mem],
+                                     axis=1).astype(np.int32))
+    return wit, wit[:, 10:]
+
+
+def parent_cluster_kernel(parent: str):
+    """Kernel 4 of an earlier checkout at `parent`, called through that
+    checkout's own wrapper (its distance/mash_cuda.py::
+    mash_cluster_inter_cuda, which builds its csrc/mash_cluster_inter.cu
+    into its own build/ and passes its launcher's own arguments), as
+    fn(ranks, wit, mem, s) -> out. The checkout's package stands in for
+    this one's only while that module is imported."""
+    import importlib
+
+    pkg = "dipper_tpu_torch"
+
+    def ours():
+        return [k for k in sys.modules if k == pkg or k.startswith(pkg + ".")]
+
+    saved = {k: sys.modules.pop(k) for k in ours()}
+    root = os.path.abspath(parent)
+    sys.path.insert(0, root)
+    try:
+        mod = importlib.import_module(f"{pkg}.distance.mash_cuda")
+    finally:
+        sys.path.remove(root)
+        for k in ours():
+            del sys.modules[k]
+        sys.modules.update(saved)
+    check(os.path.abspath(mod.__file__).startswith(root + os.sep),
+          f"{pkg} of {parent} was not the one imported")
+
+    def run(ranks, wit, mem, s):
+        return mod.mash_cluster_inter_cuda(ranks, wit, mem, sketch_size=s)
+    return run
 
 
 def cluster_bound(got: torch.Tensor, s: int) -> dict:
@@ -1542,55 +1580,109 @@ def cluster_bound(got: torch.Tensor, s: int) -> dict:
     return out
 
 
-def phase_cluster_vs_plain(r1000: np.ndarray) -> dict:
+def phase_cluster_vs_plain(r1000: np.ndarray, parent: str | None) -> dict:
     """Kernel 4 (mash_cluster_inter_cuda) against cluster_inter_ref on the
     card, torch.equal required: real S = 1000 sketches of the placement
-    set, 13 clusters of ragged sizes up to cmax in {8, 16, 64, 128, 1023};
-    adversarial duplicate- and sentinel-heavy rows; S = 33 and S = 1; one
-    cluster. Clusters wider than 32 are compared on every (cmax // 32)-th
-    member row (the plain version holds a [Q, W, 2M] transient a
-    cluster)."""
+    set; D&C's bucket shapes (the 100K run's five, 3,113 clusters of up
+    to 8 members, 1,426 of 16, 1,401 of 32, 497 of 64, 39 of 128; 17 of
+    128, the 30K run's widest), 13 clusters of
+    ragged sizes up to cmax in {8, 16, 32, 64, 128, 1023}, one cluster; a
+    witness tail that is not the member list (the generic contract);
+    adversarial duplicate- and sentinel-heavy rows; S = 33 and S = 1.
+    Every 16th cluster of the wide buckets is compared, and of clusters
+    wider than 32 every (cmax // 32)-th member row (the plain version
+    holds a [Q, W, 2M] transient a cluster). Times: `ms`, CUDA events
+    around 20 back-to-back wrapper calls; `kernel_ms`, a captured CUDA
+    graph of 20 launches (the card alone). With `parent` (a checkout of an
+    earlier commit), its kernel is timed the same way on the same inputs
+    in turns (parent, this, this, parent) and held bitwise to this one;
+    it is handed the members as a contiguous copy (the first wrapper took
+    no view), so a parent that stages the witness tail once takes its
+    generic layout there."""
     from dipper_tpu_torch.distance.mash import cluster_inter_ref
     from dipper_tpu_torch.distance.mash_cuda import mash_cluster_inter_cuda
 
     rng = np.random.default_rng(15)
     (bank,) = _on_card(r1000)
     n = bank.shape[0]
-    cases = {f"s1000_c13_cmax{cm}": (bank, *cluster_lists(n, 13, cm, rng),
-                                     1000)
-             for cm in (8, 16, 64, 128, 1023)}
+    cases = {f"s1000_c{c}_cmax{cm}": (bank, *cluster_lists(n, c, cm, rng),
+                                      1000)
+             for c, cm in ((3113, 8), (1426, 16), (1401, 32), (497, 64),
+                           (39, 128), (17, 128), (13, 8), (13, 16), (13, 32),
+                           (13, 64), (13, 128), (13, 1023))}
     cases["one_cluster_s1000_cmax200"] = (
         bank, *cluster_lists(n, 1, 200, rng), 1000)
+    wit, mem = cluster_lists(n, 400, 8, rng)
+    mem = mem.clone()
+    (wit[:, 10:],) = _on_card(rng.integers(0, n, (400, 8)).astype(np.int32))
+    cases["generic_s1000_c400_cmax8"] = (bank, wit, mem, 1000)
     for name, rows, S, M in (("adversarial_s100", 600, 100, 128),
                              ("adversarial_s33", 300, 33, 64),
                              ("adversarial_s1", 200, 1, 2)):
         (adv,) = _on_card(_adversarial(rows, S, M, rng))
         cases[f"{name}_c13_cmax24"] = (adv, *cluster_lists(rows, 13, 24, rng),
                                        S)
-    out, worst = {}, 0
+    old = parent_cluster_kernel(parent) if parent else None
+    out, worst, first = {}, 0, None
     for name, (r, wit, mem, S) in cases.items():
         c, cm = mem.shape
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         got = mash_cluster_inter_cuda(r, wit, mem, sketch_size=S)
+        torch.cuda.synchronize()
+        if first is None:
+            # the process's first call: the library's load and the
+            # kernel's module load ride on it
+            first = {"case": name,
+                     "ms": (time.perf_counter() - t0) * 1e3}
+        cstep = DC_SAMPLE if c >= 256 else 1
         step = max(1, cm // 32)
         t0 = time.perf_counter()
-        want = cluster_inter_ref(r, wit, mem[:, ::step].contiguous(),
+        want = cluster_inter_ref(r, wit[::cstep].contiguous(),
+                                 mem[::cstep, ::step].contiguous(),
                                  sketch_size=S)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        sub = got[:, ::step]
+        sub = got[::cstep, ::step]
         err = int((sub.long() - want.long()).abs().max())
         check(torch.equal(sub, want), f"mash_cluster_inter {name}: kernel != "
               f"plain (max abs err {err})")
         worst = max(worst, err)
-        ms = event_ms(lambda: mash_cluster_inter_cuda(r, wit, mem,
-                                                      sketch_size=S), 20)
-        out[name] = with_share(
-            {"clusters": c, "cmax": cm, "s": S, "member_rows_checked":
-             want.shape[1], "equal": True, "ms": ms,
-             "plain_ms_checked_rows": plain_ms}, cluster_bound(got, S))
+
+        def new():
+            return mash_cluster_inter_cuda(r, wit, mem, sketch_size=S)
+
+        ms = event_ms(new, 20)
+        rec = {"clusters": c, "cmax": cm, "W": wit.shape[1], "s": S,
+               "clusters_checked": want.shape[0],
+               "member_rows_checked": want.shape[1], "equal": True,
+               "ms": ms, "plain_ms_checked": plain_ms}
+        if old is None:
+            rec["kernel_ms"] = graph_ms(new, 20, 3)
+        else:
+            mem_c = mem.contiguous()
+
+            def prev():
+                return old(r, wit, mem_c, S)
+
+            check(torch.equal(prev(), got), f"mash_cluster_inter {name}: "
+                  "the parent's kernel disagrees")
+            p1, k1, k2, p2 = (graph_ms(f, 20, 3)
+                              for f in (prev, new, new, prev))
+            rec.update(kernel_ms=(k1 + k2) / 2, parent_kernel_ms=(p1 + p2) / 2,
+                       turns_ms=[p1, k1, k2, p2])
+        bound = cluster_bound(got, S)
+        rec.update(bound)
+        rec["share_of_bound"] = bound["bound_ms"] / rec["kernel_ms"]
+        if old is not None:
+            rec["parent_share_of_bound"] = (bound["bound_ms"]
+                                            / rec["parent_kernel_ms"])
+        out[name] = rec
     emit({"phase": "kernel_vs_plain", "kernel": "mash_cluster_inter",
-          "timing": "CUDA events, mean of 20 launches after a warm-up",
-          "cases": out, "max_abs_err": worst})
+          "timing": "ms: CUDA events around 20 back-to-back calls after a "
+                    "warm-up; kernel_ms: a CUDA graph of 20 launches, "
+                    "replayed 3 times", "first_call": first,
+          "parent": parent, "cases": out, "max_abs_err": worst})
     return {"max_abs_err": worst, "cases": out}
 
 
@@ -1899,6 +1991,10 @@ def main() -> int:
                          "13 its first min(1024, msa-n)")
     ap.add_argument("--phases", default=",".join(map(str, sorted(ALL_PHASES))),
                     help="comma-separated subset of phases to run")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of an earlier commit (e.g. from git "
+                         "archive): phase 15 builds its per-cluster count "
+                         "kernel and times it beside this one's")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -1933,8 +2029,13 @@ def main() -> int:
         if 6 in phases:
             records["mash_rows_dist"].update(phase_rows_dist_vs_plain(inputs))
         if 15 in phases:
+            res = phase_cluster_vs_plain(inputs[1], args.parent)
+            narrow = res["cases"]["s1000_c3113_cmax8"]
             records["mash_cluster_inter"].update(
-                max_abs_err=phase_cluster_vs_plain(inputs[1])["max_abs_err"])
+                max_abs_err=res["max_abs_err"],
+                narrow_bucket={k: narrow[k] for k in (
+                    "clusters", "cmax", "W", "kernel_ms", "bound_ms",
+                    "share_of_bound")})
         if phases & {3, 6, 15}:
             del inputs
         if 7 in phases:

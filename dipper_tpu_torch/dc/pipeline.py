@@ -116,16 +116,21 @@ def _phase2_rows(frontend, payload, bb_args, params: Param, q0: int,
 
 def _pair_distances(frontend, payload, params: Param, wit, mem, device):
     """[c, cmax, W] distances Dq[c, k, w] = d(witness w placed, member k
-    new) of a chunk of clusters; wit [c, W], mem [c, cmax] host ids."""
+    new) of a chunk of clusters; wit [c, W], mem [c, cmax] host ids, the
+    witness lists ending with the member lists (wit = [head, mem], as
+    phase 3 builds them)."""
     dtype = params.dtype
     if frontend == "mash":
         from dipper_tpu_torch.distance.mash import (inter_to_dist,
                                                     mash_cluster_inter)
 
-        inter = mash_cluster_inter(
-            payload, torch.from_numpy(wit.astype(np.int32)).to(device),
-            torch.from_numpy(mem.astype(np.int32)).to(device),
-            sketch_size=params.sketch_size)
+        Q = mem.shape[1]
+        assert wit.shape[1] >= Q, (wit.shape, mem.shape)
+        wit_d = torch.from_numpy(wit.astype(np.int32)).to(device)
+        # mem as a view of the witness lists' tail: the kernel then
+        # stages those rows once
+        inter = mash_cluster_inter(payload, wit_d, wit_d[:, -Q:],
+                                   sketch_size=params.sketch_size)
         return inter_to_dist(inter, params.kmer_size, params.sketch_size,
                              dtype)
     if frontend == "matrix":

@@ -45,7 +45,7 @@ _SMEM_BYTES = 232448
 _MERGE_COUNT_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                      ctypes.c_void_p]
-_CLUSTER_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_CLUSTER_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _ROWS_DIST_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
@@ -185,23 +185,31 @@ def mash_cluster_inter_cuda(ranks: torch.Tensor, wit: torch.Tensor,
                             mem: torch.Tensor, *,
                             sketch_size: int) -> torch.Tensor:
     """ranks int32 [N, M] (rows ascending), wit int32 [c, W] and mem int32
-    [c, Q] (every index in [0, N)), all contiguous on one CUDA device, M >=
-    sketch_size -> int32 [c, Q, W]: out[i, q, w] the intersection count of
-    bank row ranks[wit[i, w]] and query row ranks[mem[i, q]]. Launches on
-    the current stream and returns without synchronizing."""
+    [c, Q] (every index in [0, N)), on one CUDA device, M >= sketch_size
+    -> int32 [c, Q, W]: out[i, q, w] the intersection count of bank row
+    ranks[wit[i, w]] and query row ranks[mem[i, q]]. ranks and wit are
+    contiguous; mem's rows are contiguous at any row stride, so that mem
+    may be wit[:, W - Q:], a view of the witness lists' tail, as D&C's
+    phase 3 builds them: the kernel then stages those rows once. Launches on the
+    current stream and returns without synchronizing."""
     global CLUSTER_LAUNCHES
     _check_ranks(ranks, ranks, sketch_size)
     for nm, t in (("wit", wit), ("mem", mem)):
         if t.device != ranks.device:
             raise ValueError(f"{nm} is on {t.device}, ranks on {ranks.device}")
-        if t.dtype != torch.int32 or t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"{nm} must be a contiguous 2-D int32 tensor, "
-                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.dtype != torch.int32 or t.dim() != 2:
+            raise ValueError(f"{nm} must be a 2-D int32 tensor, got "
+                             f"{t.dtype} {tuple(t.shape)}")
     if wit.shape[0] != mem.shape[0]:
         raise ValueError(f"wit has {wit.shape[0]} clusters, mem "
                          f"{mem.shape[0]}")
     N, M = ranks.shape
     (c, W), Q = wit.shape, mem.shape[1]
+    ld_mem = mem.stride(0) if c > 1 else Q
+    if not wit.is_contiguous() or (Q > 1 and mem.stride(1) != 1) \
+            or ld_mem < Q:
+        raise ValueError("wit must be contiguous and mem's rows contiguous, "
+                         f"got strides {wit.stride()} and {mem.stride()}")
     out = torch.empty((c, Q, W), dtype=torch.int32, device=ranks.device)
     if N == 0 or out.numel() == 0:
         return out
@@ -210,7 +218,7 @@ def mash_cluster_inter_cuda(ranks: torch.Tensor, wit: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mash_cluster_inter(
             ranks.data_ptr(), wit.data_ptr(), mem.data_ptr(), out.data_ptr(),
-            N, c, W, Q, M, sketch_size, stream)
+            N, c, W, Q, ld_mem, M, sketch_size, stream)
     if rc == _SKETCH_TOO_LARGE:
         raise _too_large(sketch_size, "one member row and two witness rows",
                          max_sketch_size())

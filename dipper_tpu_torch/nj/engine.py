@@ -39,7 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dipper_tpu_torch.utils.device import torch_dtype
+from dipper_tpu_torch.utils.device import resolve_device, torch_dtype
 
 # the JAX engine's smallest bucket: it stops halving (and recomputing U)
 # at this many active rows
@@ -76,12 +76,14 @@ def _recomputes_u(n: int, N: int) -> bool:
 
 
 def neighbor_joining(D_host, *, dtype_name: str = "float32",
-                     device="cpu"):
+                     device="cuda"):
     """NJ of the [N, N] distance matrix `D_host` (a host array or a
-    tensor on any device; not modified) on `device`, in `dtype_name`.
-    Returns (children, root) like dipper_tpu.nj.neighbor_joining_device:
-    children[v] = [(child_id, branch_length), ...], leaves 0..N-1, the
-    node of join s is N+s, root 2N-2."""
+    tensor on any device; not modified) on `device` (the card unless the
+    caller asks for the CPU; asking for CUDA without it raises), in
+    `dtype_name`. Returns (children, root) like dipper_tpu.nj.
+    neighbor_joining_device: children[v] = [(child_id, branch_length),
+    ...], leaves 0..N-1, the node of join s is N+s, root 2N-2."""
+    device = resolve_device(device)
     N = int(D_host.shape[0])
     if N < 2:
         raise ValueError("need at least 2 taxa")
@@ -93,7 +95,6 @@ def neighbor_joining(D_host, *, dtype_name: str = "float32",
         return children, root
 
     dtype = torch_dtype(dtype_name)
-    device = torch.device(device)
     if isinstance(D_host, torch.Tensor):
         D = D_host.to(device=device, dtype=dtype, copy=True)
     else:  # cast on the host, as the JAX engine does

@@ -584,20 +584,30 @@ def _cluster_lists(n_rows, c, cmax, seed):
     return wit, mem
 
 
+# (400, 8), (300, 16), (200, 32): the narrow path over more than one wave
+# of blocks; (100, 33): just above its crossover (32 members)
 @pytest.mark.parametrize("c, cmax", [(13, 8), (13, 16), (13, 64), (5, 128),
-                                     (1, 300), (9, 1)])
+                                     (1, 300), (9, 1), (400, 8), (300, 16),
+                                     (200, 32), (100, 33)])
 @pytest.mark.parametrize("ss", [1000, 100, 33, 1])
-def test_cluster_kernel_equals_plain(cuda, c, cmax, ss):
+@pytest.mark.parametrize("layout", ["tail", "generic"])
+def test_cluster_kernel_equals_plain(cuda, c, cmax, ss, layout):
     """mash_cluster_inter_cuda == cluster_inter_ref, bitwise: real
     sketches (S = 1000 and 100), sorted rows of a small universe (S = 33,
     S = 1), ragged sizes with the repeat pad, c not a multiple of 8, one
-    cluster."""
+    cluster. "tail": the members passed as a view of the witness lists'
+    tail, as D&C passes them; "generic": a witness tail that is not the
+    member list, the members a tensor of their own."""
     if ss in (1000, 100):
         r = _ranks(400, 3000, 8, 15 if ss == 1000 else 12, ss)
     else:
         r = _sorted_rows(400, ss, tm._pad_pow2(ss), 3 * ss, 4)
     wit, mem = _cluster_lists(400, c, cmax, c * cmax + ss)
+    if layout == "generic":
+        wit[:, 10:] = np.random.default_rng(ss).integers(0, 400, (c, cmax))
     r, wit, mem = (torch.from_numpy(a).to(cuda) for a in (r, wit, mem))
+    if layout == "tail":
+        mem = wit[:, 10:]
     before = mash_cuda.CLUSTER_LAUNCHES
     got = mash_cuda.mash_cluster_inter_cuda(r, wit, mem, sketch_size=ss)
     torch.cuda.synchronize()
@@ -609,6 +619,14 @@ def test_cluster_kernel_equals_plain(cuda, c, cmax, ss):
                                    r[mem[-1].long()].contiguous(),
                                    sketch_size=ss)
     assert torch.equal(got[-1], k1)
+
+
+def test_cluster_wrapper_rejects_strided_members(cuda):
+    r = torch.from_numpy(_ranks(20, 800, 3, 12, 128)).to(cuda)
+    wit = torch.zeros((3, 12), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="rows contiguous"):
+        mash_cuda.mash_cluster_inter_cuda(r, wit, wit[:, ::2],
+                                          sketch_size=128)
 
 
 def test_cluster_kernel_adversarial_rows(cuda):

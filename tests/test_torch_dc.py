@@ -268,6 +268,35 @@ def test_cluster_inter_ref_equals_jax_vmap():
             torch.from_numpy(mem), sketch_size=100)
 
 
+def test_pair_distances_pass_members_as_witness_tail(monkeypatch):
+    """Phase 3's mash distances hand kernel 4 the members as a view of
+    the witness lists' tail (the lists end with them as phase 3 builds
+    them; the kernel then stages those rows once); the distances are
+    those of the counts on the lists as given."""
+    from dipper_tpu_torch.distance import mash as tm
+
+    ranks = torch.from_numpy(_rank_bank(80, 800, 4))
+    wit, mem, _ = _cluster_lists(80, 13, 9, 5)
+    seen = []
+    plain = tm.mash_cluster_inter
+
+    def spy(r, w, m, *, sketch_size):
+        seen.append((w, m))
+        return plain(r, w, m, sketch_size=sketch_size)
+
+    monkeypatch.setattr(tm, "mash_cluster_inter", spy)
+    p = Param(in_format="r", kmer_size=12, sketch_size=100, dtype="float64")
+    got = tpl._pair_distances("mash", ranks, p, wit, mem, CPU)
+    ((w, m),) = seen
+    assert m.data_ptr() == w.data_ptr() + 4 * 10 and m.stride() == (19, 1)
+    assert torch.equal(m, torch.from_numpy(mem))
+    want = tm.inter_to_dist(
+        tm.cluster_inter_ref(ranks, torch.from_numpy(wit),
+                             torch.from_numpy(mem), sketch_size=100),
+        12, 100, "float64")
+    assert got.shape == (13, 9, 19) and torch.equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # The batched phase-2 scorer and the cluster step
 # ---------------------------------------------------------------------------

@@ -97,20 +97,31 @@ def test_newick_matches_jax():
     D = random_additive_matrix(40, np.random.default_rng(3))
     names = [f"L{i}" for i in range(40)]
     cj, rj = neighbor_joining_device(D, dtype="float64")
-    cp, rp = neighbor_joining(D, dtype_name="float64")
+    cp, rp = neighbor_joining(D, dtype_name="float64", device="cpu")
     assert nj_tree_newick(cp, rp, names) == jax_newick(cj, rj, names)
 
 
 def test_fewer_than_two_taxa_raise():
     with pytest.raises(ValueError, match="at least 2 taxa"):
-        neighbor_joining(np.zeros((1, 1)))
+        neighbor_joining(np.zeros((1, 1)), device="cpu")
 
 
 def test_input_matrix_is_not_modified():
     D = torch.from_numpy(random_additive_matrix(20, np.random.default_rng(4)))
     before = D.clone()
-    neighbor_joining(D, dtype_name="float64")
+    neighbor_joining(D, dtype_name="float64", device="cpu")
     assert torch.equal(D, before)
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """Called without a device, NJ asks for the card: on a machine
+    without CUDA it raises instead of building on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    D = random_additive_matrix(6, np.random.default_rng(5))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        neighbor_joining(D)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        neighbor_joining(D[:2, :2])
 
 
 def _jax_recompute_points(N):
