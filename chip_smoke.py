@@ -7,8 +7,9 @@ Runs on one NVIDIA GPU, from the root of a checkout:
     python3 chip_smoke.py --phases 1,2,3,6,7 --n 4400   # kernel checks only
 
 Phases, each printing one line of its own (run in the order 1, 2, 3, 6,
-15, 7, 4, 17, 5, 16, 9, 10, 11, 12, 14, 13, 8, 18: phases 13, 8 and 18
-run the profiler, which slows every later launch in the process):
+15, 7, 19, 4, 17, 5, 16, 9, 10, 11, 12, 14, 13, 8, 18, 20, 21, 22, 23:
+phases 13, 8 and 18 run the profiler, which slows every later launch in
+the process; phases 20 to 22 run in processes of their own):
   1. device: torch's device name and nvidia-smi's name and power limit;
   2. build: compile the hand-written kernels from dipper_tpu_torch/csrc/,
      one nvcc per source, all started together;
@@ -46,7 +47,7 @@ run the profiler, which slows every later launch in the process):
      time on the card (a captured CUDA graph of 200 launches, replayed),
      the wrapper's host time per call, the bound from its bytes, and the
      plain version's time;
-  4. GPU port vs CPU port, placement: the CLI at N=512 (-i r -m 1) with
+  4. GPU port vs CPU port, placement: the CLI at N=256 (-i r -m 1) with
      --device cuda and --device cpu, nRF = 0 required;
   17. GPU port vs CPU port, D&C: the CLI with -m 3 at N = 600 (B = 30,
      seed 4) in f64 with streamed clusters (16 members and up, rows 5 at a
@@ -67,7 +68,9 @@ run the profiler, which slows every later launch in the process):
      on its own inputs as it happens, and before the last insert range
      its first 300 rows (taxa not yet inserted) are scored by kernel and
      plain version on the state as it stands, where the kernel is also
-     timed (those launches are taken out of the count);
+     timed, and three rows (one with NaN at the witnesses of the first
+     used slots) are scored by slot ranges as in phase 19, each range
+     launch timed (those launches are taken out of the count);
   16. the D&C main path: the CLI with -m 3 on phase 5's set (B = N // 20
      = 1,500): rc 0, a complete Newick with nRF vs the true tree under
      DC_NRF_LIMIT, launches of the per-cluster count kernel and of the
@@ -110,18 +113,50 @@ run the profiler, which slows every later launch in the process):
      backbone of 256 with 64 queries;
   13. exact placement on the card in f64, through
      build_placement_tree_from_seqs(exact=True) on the alignment's first
-     1,024 sequences and build_placement_tree_from_matrix(exact=True) on
+     512 sequences and build_placement_tree_from_matrix(exact=True) on
      their distance matrix: the same Newick as the port's CPU build, the
      tree's greatest depth, ms per insertion, and the launches, copies and
      syncs per insertion of the matrix build's last 32 insertions under
      torch.profiler.
+  19. the scorer by slot ranges (a rank's share of a sharded build): the
+     made-up states of phase 7, f32 and f64, split 2 and 3 ways and at
+     borders on the winning slot, between two tied edges, at n_used and
+     in the unused tail; every range launch equal to the plain version on
+     its range and the ranges' choices, merged in the kernel's order,
+     equal to the one-launch result, bit for bit; each range launch timed
+     at 120,000 slots;
+  20. two ranks on the one card, NJ: two processes of the CLI with
+     --coordinator 127.0.0.1:P --num-processes 2 --process-id r --devices
+     2 -m 2 on phase 9's set: the Newick byte-equal to phase 9's; each
+     rank's backend, time to tree, ms per merge step and host syncs per
+     step; every distance-kernel launch of each rank sampled against the
+     plain version;
+  21. two ranks on the one card, D&C: the same with -m 3 on phase 5's set:
+     byte-equal to phase 16's tree; each rank's phase times; kernels 1, 2,
+     3 and 4 sampled on each rank's launches;
+  22. sharded_mash_matrix and sharded_placement_build over two ranks on the
+     first 4,096 taxa of phase 5's set: equal to the single-process matrix
+     and placement arrays; kernels 1, 2 and 3 sampled on the ranks'
+     launches; whether gloo takes CUDA tensors;
+  23. --profile on a small build (-i r -m 2 at N = 512, the CLI in a
+     process of its own): a trace holding the port's mash kernel among
+     its CUDA kernel events, and the same tree as without it.
+Two ranks on one card share it by time-slicing two CUDA contexts; their
+times are those of two processes sharing one card, not of sharding. Each
+rank of phases 20 to 22 is a process of this script (--worker-cli,
+--worker-sharded), checks that it imported no JAX, and is killed with its
+group past RANK_TIMEOUT_S.
 The sizes of phases 12, 14 and 13 are half of what a 600 s budget for the
-whole script would not hold (8,192; 4,096 + 1,024; 2,048): their loops
-are the host's, and the 30K and 20K paths keep their sizes.
+whole script would not hold (8,192; 4,096 + 1,024; 2,048), and phases 13
+and 4 were halved again (1,024 and 512 before) to make room for phases 19
+to 23 in the 1,200 s limit: their loops are the host's, and the 30K and
+20K paths keep their sizes.
 Every kernel counter is set to 0 just before a main path (phases 5, 16,
-9, 11, 12, 14) and read just after it; `launches` in the kernels' record
-is the count of phases 5 (placement), 16 (D&C: the per-cluster count
-kernel) and 9 (NJ), `launches_by_path` has every path's.
+9, 11, 12, 14, and in each rank of 20, 21 and 22) and read just after it;
+`launches` in the kernels' record is the count of phases 5 (placement), 16
+(D&C: the per-cluster count kernel) and 9 (NJ), `launches_by_path` has
+every path's (one count a rank for the multi-rank paths), and
+score_edges's `range_launches` the sharded placement's range launches.
 
 The last two lines are the kernels' record and {"ok": true, "device":
 {...}}. Any failed check raises, so the script exits non-zero and prints no
@@ -178,7 +213,8 @@ DC_NRF_LIMIT = 0.65
 # every DC_SAMPLE-th cluster of each per-cluster count launch of the D&C
 # main path is held against the plain version
 DC_SAMPLE = 16
-ALL_PHASES = (1, 2, 3, 6, 15, 7, 4, 17, 5, 16, 9, 10, 11, 12, 14, 13, 8, 18)
+ALL_PHASES = (1, 2, 3, 6, 15, 7, 19, 4, 17, 5, 16, 9, 10, 11, 12, 14, 13, 8,
+              18, 20, 21, 22, 23)
 # every SAMPLE-th query row of a large kernel call is compared with the
 # plain version (which takes ~10 ms per query row at 30,000 bank rows)
 SAMPLE = 128
@@ -669,13 +705,14 @@ def _six_err(got, want) -> float:
                for g, w in zip(got[4:], want[4:]))
 
 
-def _kernel_six(st, row, keep: bool = True) -> tuple:
-    """score_edges_cuda's launch and readback (not looked up through the
-    module, where phase 5 records calls); `keep` clones frac and add out
-    of the state's output buffer."""
+def _kernel_six(st, row, keep: bool = True, lo: int = 0,
+                hi: int | None = None) -> tuple:
+    """score_edges_cuda's launch over the slots [lo, hi) and readback (not
+    looked up through the module, where phase 5 records calls); `keep`
+    clones frac and add out of the state's output buffer."""
     from dipper_tpu_torch.placement import kclosest
 
-    sc = kclosest.score_edges_launch(st, row)
+    sc = kclosest.score_edges_launch(st, row, lo=lo, hi=hi)
     ints = sc.out_i.tolist()
     return ((*ints, sc.frac.clone(), sc.add.clone()) if keep
             else (*ints, sc.frac, sc.add))
@@ -826,18 +863,18 @@ def run_cli(argv) -> tuple[int, str, float]:
 def phase_gpu_vs_cpu(tmp: str) -> None:
     from dipper_tpu_torch.utils.treecmp import rf_distance
 
-    fa, _ = make_dataset(512, os.path.join(tmp, "n512"), seed=2)
+    fa, _ = make_dataset(256, os.path.join(tmp, "n256"), seed=2)
     outs = {}
     walls = {}
     for dev in ("cuda", "cpu"):
-        out = os.path.join(tmp, f"n512.{dev}.nwk")
+        out = os.path.join(tmp, f"n256.{dev}.nwk")
         rc, _, walls[dev] = run_cli(["-i", "r", "-I", fa, "-O", out,
                                      "-m", "1", "--device", dev])
         check(rc == 0, f"CLI --device {dev} returned {rc}")
         outs[dev] = open(out).read()
     rf, nrf = rf_distance(outs["cuda"], outs["cpu"])
     check(rf == 0, f"GPU vs CPU port trees differ: RF {rf} (nRF {nrf})")
-    emit({"phase": "gpu_vs_cpu", "n": 512, "rf": rf, "nrf": nrf,
+    emit({"phase": "gpu_vs_cpu", "n": 256, "rf": rf, "nrf": nrf,
           "newick_identical": outs["cuda"] == outs["cpu"],
           "wall_s": walls})
 
@@ -919,8 +956,8 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
     score_errs = []
     n_scored = [0]
 
-    def score_recorded(st, row, stream=None):
-        got = scorer(st, row, stream)
+    def score_recorded(st, row, stream=None, lo=0, hi=None):
+        got = scorer(st, row, stream, lo, hi)
         if n_scored[0] % SIDE_SAMPLE == 0:
             got = (*got[:4], got[4].clone(), got[5].clone())
             score_errs.append(
@@ -943,6 +980,14 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
             last_range.update(lo=lo, rows_scored=len(errs),
                               max_abs_err=max(errs),
                               **time_scorer(st, rows[0]))
+            # kernel 3 by slot ranges on the real state: rows of taxa
+            # not yet inserted, and one with NaN at a witness of each of
+            # the first 16 used slots
+            nan_row = rows[1].clone()
+            wit = st.cid[:16].reshape(-1)
+            nan_row[wit[wit >= 0].long()] = float("nan")
+            last_range["slot_ranges"] = ranges_check(
+                st, [rows[0], rows[2], nan_row], time_ranges=True)
             kclosest.SCORE_EDGES_LAUNCHES = count
         return insert_range(st, lo, hi, rows, num_sequences)
 
@@ -993,7 +1038,8 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
     for j, err in score_errs:
         check(err == 0.0, f"main-path score_edges call {j}: kernel != plain "
               f"(max abs err {err})")
-    check(last_range and last_range["max_abs_err"] == 0.0,
+    check(last_range and last_range["max_abs_err"] == 0.0
+          and last_range["slot_ranges"]["max_abs_err"] == 0.0,
           f"score_edges before the last insert range: kernel != plain "
           f"({last_range})")
     emit({"phase": "main_path", "path": "placement", "n": n, "L": 10000,
@@ -1218,7 +1264,9 @@ def phase_nj_main_path(tmp: str, n: int) -> dict:
           "kernel_launches": counts, "kernel_calls": checked,
           "max_memory_allocated": peak,
           "rf": rf, "nrf_vs_true": nrf, "nrf_limit": NJ_NRF_LIMIT})
-    return {"counts": counts, "max_abs_err": worst}
+    return {"counts": counts, "max_abs_err": worst, "fa": fa,
+            "true_nwk": true_nwk, "out": out,
+            "tree_created_ms": _ms(r"Tree Created in: (\d+) ms", log)}
 
 
 def restricted_rf(nwk: str, true_nwk: str) -> tuple:
@@ -1774,7 +1822,8 @@ def phase_dc_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
                           "W": wit.shape[1], "s": S, "ms": ms,
                           "plain_ms": ev[0].elapsed_time(ev[1])},
                          cluster_bound(full, S))
-    res = {"counts": counts, "largest_bucket": largest, "max_abs_err": worst}
+    res = {"counts": counts, "largest_bucket": largest, "max_abs_err": worst,
+           "out": out, **_dc_log(log)}
     emit({"phase": "main_path", "path": "dc", "n": n, "backbone": B,
           "L": 10000, "k": 15, "s": 1000, "precision": "f32",
           **_dc_log(log), "total_wall_ms": wall * 1e3,
@@ -1978,7 +2027,548 @@ def phase_exact(tmp: str, fa: str, n: int, window: int = 32) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Kernel 3 by slot ranges, and ranks sharing the card (phases 19 to 23)
+# ---------------------------------------------------------------------------
+
+# a group of ranks still running this long after it started is killed, and
+# the smoke fails
+RANK_TIMEOUT_S = 600
+# taxa of the sharded placement build and mash matrix (phase 22)
+SHARDED_N = 4096
+
+
+def range_bounds(E: int, n_used: int, extra=()) -> list:
+    """Splits of [0, E) into slot ranges: 2 and 3 even ones, borders at
+    the given slots (and just after them) and, where the state has an
+    unused tail, a range that ends at n_used and ranges with no used
+    slot."""
+    sets = [{0, -(-E // 2), E}, {0, -(-E // 3), 2 * -(-E // 3), E}]
+    sets += [{0, s, s + 1, E} for s in extra]
+    if n_used < E:
+        sets += [{0, n_used, E}, {0, max(1, n_used - 1), n_used + 1, E}]
+    return [sorted(b - {E + 1}) for b in sets]
+
+
+def ranges_check(st, rows, extra=(), time_ranges: bool = False) -> dict:
+    """Kernel 3 by slot ranges on one state, for each row: the full launch
+    against the plain version; every range launch of every split against
+    the plain version on its range; the split's choices, merged in the
+    kernel's order (parallel/sharded.py::merge_choices), against the full
+    launch. All bit for bit. With `time_ranges`, each range launch of the
+    2- and 3-way splits of the first row is timed on the card alone
+    (graph_ms) beside the full launch."""
+    from dipper_tpu_torch.parallel.sharded import merge_choices
+    from dipper_tpu_torch.placement import kclosest
+
+    E = st.e.shape[0]
+    worst, splits = 0.0, 0
+    for j, row in enumerate(rows):
+        full = _kernel_six(st, row)
+        worst = max(worst, _six_err(full, kclosest._score_edges_plain(st,
+                                                                      row)))
+        for bounds in range_bounds(E, st.idx,
+                                   [full[0], max(0, full[0] - 1), *extra]):
+            outs = []
+            for lo, hi in zip(bounds[:-1], bounds[1:]):
+                got = _kernel_six(st, row, lo=lo, hi=hi)
+                check(lo <= got[0] < hi, f"range [{lo}, {hi}) chose slot "
+                      f"{got[0]}")
+                worst = max(worst, _six_err(
+                    got, kclosest._score_edges_plain(st, row, lo, hi)))
+                outs.append(got)
+            w = merge_choices(np.array([[float(o[5]), o[0]] for o in outs]))
+            err = _six_err(outs[w], full)
+            check(err == 0.0, f"row {j}, ranges {bounds}: merged choice "
+                  f"{outs[w]} != the full launch's {full}")
+            splits += 1
+    check(worst == 0.0, f"score_edges by ranges: kernel != plain (max abs "
+          f"err {worst})")
+    res = {"rows": len(rows), "splits": splits, "edge_slots": E,
+           "used_slots": st.idx, "max_abs_err": worst}
+    if time_ranges:
+        row = rows[0]
+        res["full_ms"] = graph_ms(lambda: kclosest.score_edges_launch(st,
+                                                                      row))
+        res["range_ms"] = {
+            f"{lo}:{hi}": graph_ms(lambda lo=lo, hi=hi:
+                                   kclosest.score_edges_launch(st, row,
+                                                               lo=lo, hi=hi))
+            for bounds in range_bounds(E, st.idx)[:2]
+            for lo, hi in zip(bounds[:-1], bounds[1:])}
+    return res
+
+
+def phase_score_ranges() -> dict:
+    """Kernel 3 by slot ranges on the made-up states (ties split across
+    ranges, NaN and inf rows, unused tails), f32 and f64, and timed at the
+    insertion loop's size (120,000 slots)."""
+    from dipper_tpu_torch.placement import kclosest, score_model
+
+    worst, cases = 0.0, {}
+    for dtype in ("float32", "float64"):
+        for name, d, row, _ in score_model.made_up_cases(dtype):
+            st = kclosest.tree_state_from_numpy(d, "cuda")
+            # the tie cases: a border between the two tied edges
+            extra = ([int(np.flatnonzero(d["belong"] > d["e"])[60])]
+                     if name.startswith("tie") else [])
+            res = ranges_check(st, [torch.from_numpy(row).cuda()], extra)
+            worst = max(worst, res["max_abs_err"])
+            cases[f"{dtype}/{name}"] = res["splits"]
+    rng = np.random.default_rng(30000)
+    d = score_model.made_up_state(59998, 120000, 30000, "float32", rng)
+    st = kclosest.tree_state_from_numpy(d, "cuda")
+    timed = ranges_check(
+        st, [torch.from_numpy(rng.random(30000).astype("float32")).cuda()],
+        time_ranges=True)
+    emit({"phase": "score_edges_ranges", "splits_by_case": cases,
+          "timing": "graph_ms: a captured CUDA graph of 200 launches, "
+                    "replayed 5 times between CUDA events",
+          "timed_f32_E120000": timed, "max_abs_err": worst})
+    return {"max_abs_err": worst, "timed": timed}
+
+
+class Samplers:
+    """Wraps the port's kernel entry points in this process so that their
+    launches during a run are held against the plain versions: every
+    SAMPLE-th query row of each mash_merge_count and mash_rows_dist launch,
+    every DC_SAMPLE-th cluster of each mash_cluster_inter launch (compared
+    after the run, on the launch's own inputs), and every SIDE_SAMPLE-th
+    score_edges call on its slot range (compared as it happens). The
+    plain versions launch none of the port's kernels."""
+
+    def __init__(self):
+        from dipper_tpu_torch.distance import mash_cuda
+        from dipper_tpu_torch.placement import kclosest
+
+        self.mc, self.kc = mash_cuda, kclosest
+        self.orig = (mash_cuda.mash_inter_cuda, mash_cuda.mash_rows_dist_cuda,
+                     mash_cuda.mash_cluster_inter_cuda,
+                     kclosest.score_edges_cuda)
+        inter, rows_dist, cluster, score = self.orig
+        self.calls = {"mash_merge_count": [], "mash_rows_dist": [],
+                      "mash_cluster_inter": []}
+        self.score = {"calls": 0, "checked": 0, "max_abs_err": 0.0}
+
+        def inter_rec(bank, qry, *, sketch_size):
+            got = inter(bank, qry, sketch_size=sketch_size)
+            self.calls["mash_merge_count"].append(
+                (bank, qry[::SAMPLE].contiguous(), sketch_size,
+                 got[::SAMPLE].clone()))
+            return got
+
+        def rows_rec(bank, qry, table, *, sketch_size, out=None):
+            got = rows_dist(bank, qry, table, sketch_size=sketch_size,
+                            out=out)
+            self.calls["mash_rows_dist"].append(
+                (bank, qry[::SAMPLE].contiguous(), table, sketch_size,
+                 got[::SAMPLE].clone()))
+            return got
+
+        def cluster_rec(ranks, wit, mem, *, sketch_size):
+            got = cluster(ranks, wit, mem, sketch_size=sketch_size)
+            self.calls["mash_cluster_inter"].append(
+                (ranks, wit[::DC_SAMPLE].contiguous(),
+                 mem[::DC_SAMPLE].contiguous(), sketch_size,
+                 got[::DC_SAMPLE].clone()))
+            return got
+
+        def score_rec(st, row, stream=None, lo=0, hi=None):
+            got = score(st, row, stream, lo, hi)
+            if self.score["calls"] % SIDE_SAMPLE == 0:
+                got = (*got[:4], got[4].clone(), got[5].clone())
+                err = _six_err(got, kclosest._score_edges_plain(
+                    st, row, lo, st.e.shape[0] if hi is None else hi))
+                self.score["checked"] += 1
+                self.score["max_abs_err"] = max(self.score["max_abs_err"],
+                                                err)
+            self.score["calls"] += 1
+            return got
+
+        (mash_cuda.mash_inter_cuda, mash_cuda.mash_rows_dist_cuda,
+         mash_cuda.mash_cluster_inter_cuda, kclosest.score_edges_cuda) = (
+            inter_rec, rows_rec, cluster_rec, score_rec)
+
+    def finish(self) -> dict:
+        """Restores the entry points and compares the recorded launches;
+        returns per kernel the launches checked and the largest
+        difference."""
+        from dipper_tpu_torch.distance.mash import (cluster_inter_ref,
+                                                    merged_inter_count_ref)
+
+        (self.mc.mash_inter_cuda, self.mc.mash_rows_dist_cuda,
+         self.mc.mash_cluster_inter_cuda, self.kc.score_edges_cuda) = self.orig
+        out = {}
+        worst = 0.0
+        for bank, qry, s, got in self.calls["mash_merge_count"]:
+            want = merged_inter_count_ref(bank, qry, sketch_size=s)
+            worst = max(worst, _max_abs_err(got, want))
+        out["mash_merge_count"] = {
+            "launches_checked": len(self.calls["mash_merge_count"]),
+            "max_abs_err": worst}
+        worst = 0.0
+        for bank, qry, table, s, got in self.calls["mash_rows_dist"]:
+            want = table[merged_inter_count_ref(bank, qry, sketch_size=s)
+                         .long()]
+            worst = max(worst, _max_abs_err(got, want))
+        out["mash_rows_dist"] = {
+            "launches_checked": len(self.calls["mash_rows_dist"]),
+            "max_abs_err": worst}
+        worst = 0.0
+        for ranks, wit, mem, s, got in self.calls["mash_cluster_inter"]:
+            want = cluster_inter_ref(ranks, wit, mem, sketch_size=s)
+            worst = max(worst, _max_abs_err(got, want))
+        out["mash_cluster_inter"] = {
+            "launches_checked": len(self.calls["mash_cluster_inter"]),
+            "max_abs_err": worst}
+        out["score_edges"] = dict(self.score)
+        return out
+
+
+def _jax_free() -> bool:
+    return not any(m == "jax" or m.startswith("jax.") or m == "dipper_tpu"
+                   or m.startswith("dipper_tpu.") for m in sys.modules)
+
+
+def worker_cli(result: str, argv: list) -> int:
+    """One rank of a two-rank CLI run (`--worker-cli RESULT ARGS...`):
+    the kernels' counts set to 0, the CLI's main on ARGS with every
+    kernel sampled against its plain version, the counts read, and the
+    result written to RESULT as JSON."""
+    samplers = Samplers()
+    reset_counts()
+    rc, log, wall = run_cli(argv)
+    counts = read_counts()
+    samples = samplers.finish()
+    with open(result, "w") as f:
+        json.dump({"rc": rc, "counts": counts, "wall_s": wall, "log": log,
+                   "samples": samples, "jax_free": _jax_free()}, f)
+    return rc
+
+
+def gloo_cuda_probe(mesh) -> dict:
+    """Whether this PyTorch's gloo takes CUDA tensors in all_gather and
+    broadcast (the port stages them through pinned host memory either
+    way, parallel/sharded.py::Mesh.all_gather)."""
+    import torch.distributed as dist
+
+    t = torch.full((4,), float(mesh.rank), device=mesh.device)
+    ops = {"all_gather": lambda: dist.all_gather(
+               [torch.empty_like(t) for _ in range(mesh.size)], t,
+               group=mesh.group),
+           "broadcast": lambda: dist.broadcast(t.clone(), src=0,
+                                               group=mesh.group)}
+    out = {}
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            out[name] = "accepted"
+        except (RuntimeError, ValueError) as e:
+            out[name] = "refused: " + str(e).splitlines()[0][:200]
+    return out
+
+
+def worker_sharded(result: str, coord: str, rank: int, world: int, fa: str,
+                   out_npz: str) -> int:
+    """One rank of the sharded library builds (`--worker-sharded`):
+    sharded_mash_matrix and sharded_placement_build of FASTA's sequences
+    (k 15, s 1,000, f32) over `world` ranks, kernels sampled, counts set
+    to 0 before each and read after; rank 0 writes the results to
+    OUT_NPZ, every rank their digests to RESULT."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from dipper_tpu_torch.distance.mash import pad_ranks, rank_compress_host
+    from dipper_tpu_torch.io.fasta import read_fasta
+    from dipper_tpu_torch.parallel.distributed import init_distributed
+    from dipper_tpu_torch.parallel.sharded import (make_mesh,
+                                                   sharded_mash_matrix,
+                                                   sharded_placement_build)
+    from dipper_tpu_torch.sketch.bank import get_sketch_bank
+    from dipper_tpu_torch.utils.params import Param
+
+    init_distributed(coord, world, rank)
+    logs = []
+    mesh = make_mesh(world, "cuda", log=logs.append)
+    probe = gloo_cuda_probe(mesh)
+    _, seqs = read_fasta(fa)
+    sk = np.asarray(get_sketch_bank(seqs, Param()))
+    ranks = pad_ranks(rank_compress_host(sk))
+    samplers = Samplers()
+    reset_counts()
+    t0 = time.time()
+    D = sharded_mash_matrix(ranks, 15, 1000, mesh, "float32")
+    torch.cuda.synchronize()
+    matrix_s = time.time() - t0
+    matrix_counts = read_counts()
+    reset_counts()
+    t0 = time.time()
+    e, b, length = sharded_placement_build(sk, 15, 1000, mesh, "float32")
+    placement_s = time.time() - t0
+    placement_counts = read_counts()
+    samples = samplers.finish()
+    D = D.cpu().numpy()
+    if rank == 0:
+        np.savez(out_npz, D=D, e=e, belong=b, length=length)
+    with open(result, "w") as f:
+        json.dump({"rank": rank, "backend": mesh.backend, "log": logs,
+                   "gloo_cuda_tensors": probe, "matrix_s": matrix_s,
+                   "placement_s": placement_s,
+                   "matrix_counts": matrix_counts,
+                   "placement_counts": placement_counts,
+                   "samples": samples, "jax_free": _jax_free(),
+                   "digests": {k: hashlib.md5(v.tobytes()).hexdigest()
+                               for k, v in (("D", D), ("e", e),
+                                            ("belong", b),
+                                            ("length", length))}}, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(tmp: str, tag: str, args_of_rank, world: int = 2) -> list:
+    """Starts `world` processes of this script, rank r with
+    args_of_rank(r, coordinator, result_path), and waits for them under
+    one deadline (RANK_TIMEOUT_S): a group still running then is killed
+    and fails the smoke, as does any rank that exits non-zero. Returns
+    each rank's JSON result."""
+    from dipper_tpu_torch.parallel.distributed import free_port
+
+    coord = f"127.0.0.1:{free_port()}"
+    procs, paths = [], []
+    for r in range(world):
+        res = os.path.join(tmp, f"{tag}.rank{r}.json")
+        logf = open(os.path.join(tmp, f"{tag}.rank{r}.log"), "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             *args_of_rank(r, coord, res)],
+            stdout=logf, stderr=subprocess.STDOUT, cwd=REPO))
+        logf.close()
+        paths.append(res)
+    deadline = time.time() + RANK_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        check(False, f"{tag}: a rank ran past {RANK_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(tmp, f"{tag}.rank{r}.log")) as f:
+                sys.stderr.write(f.read()[-6000:])
+        check(p.returncode == 0, f"{tag}: rank {r} exited {p.returncode}")
+    out = []
+    for res in paths:
+        with open(res) as f:
+            out.append(json.load(f))
+    for r, got in enumerate(out):
+        check(got["jax_free"], f"{tag}: rank {r} imported JAX or the JAX "
+              "package")
+    return out
+
+
+def _check_samples(tag: str, r: int, samples: dict, want: tuple) -> None:
+    for name in want:
+        s = samples[name]
+        n = s.get("launches_checked", s.get("checked"))
+        check(n > 0, f"{tag}: rank {r} checked no {name} launch")
+        check(s["max_abs_err"] == 0.0, f"{tag}: rank {r}: {name} != plain "
+              f"on its own launches (max abs err {s['max_abs_err']})")
+
+
+def _cli_ranks(tmp: str, tag: str, argv: list, out: str) -> list:
+    return run_ranks(tmp, tag, lambda r, coord, res: [
+        "--worker-cli", res, *argv, "-O", out, "--devices", "2",
+        "--coordinator", coord, "--num-processes", "2", "--process-id",
+        str(r)])
+
+
+def _rank_line(got: dict) -> dict:
+    """What every rank of a CLI run reports: its backend, time to tree
+    and launches."""
+    log = got["log"]
+    m = re.search(r"Collectives over 2 ranks: (\w+)", log)
+    check(m is not None and "Sharding over 2 devices" in log,
+          "a rank did not shard over 2 devices")
+    return {"backend": m.group(1), "wall_s": got["wall_s"],
+            "tree_created_ms": _ms(r"Tree Created in: (\d+) ms", log),
+            "kernel_launches": got["counts"], "samples": got["samples"]}
+
+
+def phase_nj_two_ranks(tmp: str, nj: dict) -> dict:
+    """Two CLI processes on the one card, -m 2 --devices 2 on phase 9's
+    set: the Newick byte-equal to phase 9's single-process tree."""
+    out = os.path.join(tmp, "nj.2ranks.nwk")
+    ranks = _cli_ranks(tmp, "nj2", ["-i", "r", "-I", nj["fa"], "-m", "2"],
+                       out)
+    check(open(out).read() == open(nj["out"]).read(),
+          "two-rank NJ tree != the single-process tree")
+    lines = []
+    for r, got in enumerate(ranks):
+        check(got["counts"]["mash_rows_dist"] > 0,
+              f"NJ rank {r} launched no mash_rows_dist kernel")
+        _check_samples("nj2", r, got["samples"], ("mash_rows_dist",))
+        m = re.search(r"NJ sharded over 2 ranks \((\w+)\): (\d+) merge steps, "
+                      r"([\d.]+) ms a step, (\d+) host syncs a step",
+                      got["log"])
+        check(m is not None, f"NJ rank {r} logged no sharded merge steps")
+        lines.append({**_rank_line(got), "merge_steps": int(m.group(2)),
+                      "ms_per_merge_step": float(m.group(3)),
+                      "host_syncs_per_step": int(m.group(4)),
+                      "nj_ms": _ms(r"NJ in: (\d+) ms", got["log"]),
+                      "distance_matrix_ms": _ms(
+                          r"Distance matrix in: (\d+) ms", got["log"])})
+    emit({"phase": "two_ranks", "path": "nj", "n": nj["n"],
+          "note": "two processes sharing one card (time-sliced CUDA "
+                  "contexts): not a measure of sharding's speed",
+          "newick_equal_single": True,
+          "single_tree_created_ms": nj.get("tree_created_ms"),
+          "ranks": lines})
+    return {"counts": [got["counts"] for got in ranks]}
+
+
+def phase_dc_two_ranks(tmp: str, n: int, fa: str, dc: dict) -> dict:
+    """Two CLI processes on the one card, -m 3 --devices 2 on phase 5's
+    set: the Newick byte-equal to phase 16's single-process tree."""
+    out = os.path.join(tmp, "dc.2ranks.nwk")
+    ranks = _cli_ranks(tmp, "dc2", ["-i", "r", "-I", fa, "-m", "3"], out)
+    check(open(out).read() == open(dc["out"]).read(),
+          "two-rank D&C tree != the single-process tree")
+    B = n // 20
+    lines = []
+    for r, got in enumerate(ranks):
+        c = got["counts"]
+        for name in ("mash_merge_count", "mash_rows_dist",
+                     "mash_cluster_inter"):
+            check(c[name] > 0, f"D&C rank {r} launched no {name} kernel")
+        check(c["score_edges"] == B - 2, f"D&C rank {r}: score_edges "
+              f"{c['score_edges']} launches for {B - 2} backbone insertions")
+        _check_samples("dc2", r, got["samples"],
+                       ("mash_merge_count", "mash_rows_dist",
+                        "mash_cluster_inter", "score_edges"))
+        lines.append({**_rank_line(got), **_dc_log(got["log"])})
+    emit({"phase": "two_ranks", "path": "dc", "n": n, "backbone": B,
+          "note": "two processes sharing one card (time-sliced CUDA "
+                  "contexts): not a measure of sharding's speed",
+          "newick_equal_single": True,
+          "single_phases_ms": dc.get("phases_ms"), "ranks": lines})
+    return {"counts": [got["counts"] for got in ranks]}
+
+
+def phase_sharded_library(tmp: str, fa: str, n: int = SHARDED_N,
+                          world: int = 2) -> dict:
+    """sharded_mash_matrix and sharded_placement_build over `world` ranks
+    (two on the one card in the smoke), on the first n taxa of phase 5's
+    set: equal to the single-process matrix and placement arrays."""
+    from dipper_tpu_torch.distance.mash import (mash_distance_matrix,
+                                                mash_rank_bank)
+    from dipper_tpu_torch.io.fasta import read_fasta
+    from dipper_tpu_torch.placement import kclosest
+    from dipper_tpu_torch.utils.params import Param
+
+    head = head_fasta(fa, n, os.path.join(tmp, f"head{n}.fa"))
+    npz = os.path.join(tmp, "sharded.npz")
+    ranks = run_ranks(tmp, "sharded", lambda r, coord, res: [
+        "--worker-sharded", res, coord, str(r), str(world), head, npz],
+        world=world)
+    for r, got in enumerate(ranks):
+        check(got["digests"] == ranks[0]["digests"],
+              f"sharded builds: rank {r}'s results differ from rank 0's")
+        check(got["matrix_counts"]["mash_rows_dist"] > 0,
+              f"sharded matrix: rank {r} launched no mash_rows_dist kernel")
+        for name in ("mash_merge_count", "score_edges"):
+            check(got["placement_counts"][name] > 0,
+                  f"sharded placement: rank {r} launched no {name} kernel")
+        check(got["placement_counts"]["score_edges"] == n - 2,
+              f"sharded placement: rank {r} scored "
+              f"{got['placement_counts']['score_edges']} times for "
+              f"{n - 2} insertions")
+        _check_samples("sharded", r, got["samples"],
+                       ("mash_merge_count", "mash_rows_dist", "score_edges"))
+    _, seqs = read_fasta(head)
+    bank = mash_rank_bank(seqs, Param(), torch.device("cuda"))
+    t0 = time.time()
+    D = mash_distance_matrix(bank, 15, 1000, "float32", torch.device("cuda"))
+    torch.cuda.synchronize()
+    single_matrix_s = time.time() - t0
+    t0 = time.time()
+    e, b, length = kclosest.run_placement(
+        (bank,), num_sequences=n, frontend="mash", frontend_static=(15, 1000),
+        dtype_name="float32")
+    e, b, length = (x.cpu().numpy() for x in (e, b, length))
+    single_placement_s = time.time() - t0
+    with np.load(npz) as z:
+        check(np.array_equal(z["D"], D.cpu().numpy()),
+              "the sharded mash matrix != the single-process matrix")
+        for name, want in (("e", e), ("belong", b), ("length", length)):
+            check(np.array_equal(z[name], want), f"sharded placement {name} "
+                  "!= the single-process build's")
+    emit({"phase": "two_ranks", "path": "sharded_library", "n": n,
+          "ranks_n": world, "cards": torch.cuda.device_count(),
+          "note": "ranks sharing one card (time-sliced CUDA contexts) "
+                  "measure no speed of sharding",
+          "matrix_equal_single": True, "placement_equal_single": True,
+          "single_matrix_s": single_matrix_s,
+          "single_placement_s": single_placement_s,
+          "ranks": [{k: got[k] for k in (
+              "backend", "gloo_cuda_tensors", "matrix_s", "placement_s",
+              "matrix_counts", "placement_counts", "samples")}
+              for got in ranks]})
+    return {"counts": [{"matrix": got["matrix_counts"],
+                        "placement": got["placement_counts"]}
+                       for got in ranks],
+            "backend": ranks[0]["backend"],
+            "gloo_cuda_tensors": ranks[0]["gloo_cuda_tensors"]}
+
+
+def phase_profile(tmp: str) -> None:
+    """--profile on a small build on the card (-i r -m 2 at N = 512), in
+    a process of its own as a user runs it (in this process the earlier
+    phases' profiler sessions leave a new session's first kernels out of
+    its trace): a trace with the NJ matrix's mash tile kernel among its
+    CUDA kernel events, and the tree of the same build without it."""
+    fa, _ = make_dataset(512, os.path.join(tmp, "prof512"), seed=2)
+    outs = {}
+    for tag, extra in (("plain", []),
+                       ("profiled", ["--profile",
+                                     os.path.join(tmp, "trace")])):
+        out = os.path.join(tmp, f"prof512.{tag}.nwk")
+        res = subprocess.run(
+            [sys.executable, "-m", "dipper_tpu_torch.cli", "-i", "r", "-I",
+             fa, "-O", out, "-m", "2", *extra], cwd=REPO,
+            capture_output=True, text=True, timeout=600)
+        check(res.returncode == 0, f"--profile phase: CLI ({tag}) returned "
+              f"{res.returncode}: {res.stderr[-2000:]}")
+        outs[tag] = open(out).read()
+    check(outs["plain"] == outs["profiled"], "--profile changed the tree")
+    trace = os.path.join(tmp, "trace", "trace.rank0.json")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    # the mash kernels' tile kernel (csrc/mash_walk.cuh): the NJ matrix's
+    # one launch
+    tile = sum("tile_kernel" in e.get("name", "") for e in kernels)
+    check(tile > 0, "the --profile trace has no event of the port's mash "
+          "kernel")
+    emit({"phase": "profile", "n": 512, "trace_bytes": os.path.getsize(trace),
+          "events": len(events), "kernel_events": len(kernels),
+          "mash_tile_kernel_events": tile, "tree_unchanged": True})
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] in ("--worker-cli",
+                                             "--worker-sharded"):
+        # a rank started by run_ranks (phases 20 to 22)
+        sys.path.insert(0, REPO)
+        if sys.argv[1] == "--worker-cli":
+            return worker_cli(sys.argv[2], sys.argv[3:])
+        res, coord, rank, world, fa, npz = sys.argv[2:8]
+        return worker_sharded(res, coord, int(rank), int(world), fa, npz)
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=30000,
                     help="taxa of the placement main path (phase 5) and of "
@@ -1988,7 +2578,7 @@ def main() -> int:
     ap.add_argument("--msa-n", type=int, default=20000,
                     help="taxa of the aligned set (phases 10 and 11); "
                          "phase 12 places its first min(4096, msa-n), phase "
-                         "13 its first min(1024, msa-n)")
+                         "13 its first min(512, msa-n)")
     ap.add_argument("--phases", default=",".join(map(str, sorted(ALL_PHASES))),
                     help="comma-separated subset of phases to run")
     ap.add_argument("--parent", default=None,
@@ -2010,13 +2600,16 @@ def main() -> int:
                       "replaces": rep}
                for name, (src, rep) in KERNELS.items()}
 
-    def note(path: str, counts: dict) -> None:
-        """A main path's launch counts into every kernel's record."""
+    def note(path: str, counts) -> None:
+        """A main path's launch counts (a dict, or one dict a rank) into
+        every kernel's record."""
+        if isinstance(counts, list):
+            counts = {name: [c[name] for c in counts] for name in counts[0]}
         for name, c in counts.items():
             records[name].setdefault("launches_by_path", {})[path] = c
 
     with tempfile.TemporaryDirectory() as tmp:
-        if phases & {3, 5, 6, 14, 15, 16}:
+        if phases & {3, 5, 6, 14, 15, 16, 21, 22}:
             t0 = time.time()
             data = make_dataset(args.n, os.path.join(tmp, f"n{args.n}"),
                                 seed=1)
@@ -2041,6 +2634,12 @@ def main() -> int:
         if 7 in phases:
             records["side_vector"].update(phase_side_vector_vs_plain())
             records["score_edges"].update(phase_score_edges_vs_plain(tmp))
+        if 19 in phases:
+            se = records["score_edges"]
+            res = phase_score_ranges()
+            se["slot_ranges"] = res["timed"]
+            se["max_abs_err"] = max(se.get("max_abs_err", 0.0),
+                                    res["max_abs_err"])
         if 4 in phases:
             phase_gpu_vs_cpu(tmp)
         if 17 in phases:
@@ -2062,7 +2661,7 @@ def main() -> int:
             se["launches"] = res["counts"]["score_edges"]
             se["main_path_state"] = res["score_edges_last_range"]
         if 16 in phases:
-            res = phase_dc_main_path(tmp, args.n, *data)
+            res = dc_single = phase_dc_main_path(tmp, args.n, *data)
             note("dc", res["counts"])
             ci = records["mash_cluster_inter"]
             big = res["largest_bucket"]
@@ -2074,7 +2673,7 @@ def main() -> int:
                       **{k: big[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "share_of_bound")})
         if 9 in phases:
-            res = phase_nj_main_path(tmp, args.nj_n)
+            res = nj_single = phase_nj_main_path(tmp, args.nj_n)
             note("nj", res["counts"])
             rd = records["mash_rows_dist"]
             rd["launches"] = res["counts"]["mash_rows_dist"]
@@ -2101,7 +2700,7 @@ def main() -> int:
             note("add", phase_add(tmp, data[0], min(2048, args.n // 2),
                                   min(512, args.n // 8))["counts"])
         if 13 in phases:
-            phase_exact(tmp, msa_fa, min(1024, args.msa_n))
+            phase_exact(tmp, msa_fa, min(512, args.msa_n))
         if 8 in phases:
             phase_nj_gpu_vs_cpu(tmp)
             prof = phase_scorer_profiled()
@@ -2110,6 +2709,29 @@ def main() -> int:
                 profiler_kernel_ms=prof["kernel"].get("kernel_device_ms"))
         if 18 in phases:
             phase_dc_step_profiled()
+        # the multi-rank paths: each rank sets its counts to 0 just before
+        # its run and reads them just after
+        if 20 in phases:
+            check(9 in phases, "phase 20 compares with phase 9's tree")
+            note("nj_2ranks", phase_nj_two_ranks(
+                tmp, {**nj_single, "n": args.nj_n})["counts"])
+        if 21 in phases:
+            check(16 in phases, "phase 21 compares with phase 16's tree")
+            note("dc_2ranks", phase_dc_two_ranks(tmp, args.n, data[0],
+                                                 dc_single)["counts"])
+        if 22 in phases:
+            res = phase_sharded_library(tmp, data[0], min(SHARDED_N, args.n))
+            note("sharded_matrix_2ranks",
+                 [c["matrix"] for c in res["counts"]])
+            note("sharded_placement_2ranks",
+                 [c["placement"] for c in res["counts"]])
+            # kernel 3's range launches: each rank scores its slot range
+            records["score_edges"]["range_launches"] = [
+                c["placement"]["score_edges"] for c in res["counts"]]
+            info["multi_rank_backend"] = res["backend"]
+            info["gloo_cuda_tensors"] = res["gloo_cuda_tensors"]
+        if 23 in phases:
+            phase_profile(tmp)
     check(not any(m == "jax" or m.startswith("jax.") or m == "dipper_tpu"
                   or m.startswith("dipper_tpu.") for m in sys.modules),
           "JAX or the JAX package was imported")

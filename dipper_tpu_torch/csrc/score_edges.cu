@@ -16,7 +16,8 @@
 //   reverse edge's lists are two scattered runs of 20 (or 40) bytes, a
 //   third of the list bytes; they go through ld.global.nc and hit L2;
 // - slots at or above n_used need no thread: they are all invalid and score
-//   (2.0, slot), so the one candidate (2.0, n_used) stands for them;
+//   (2.0, slot), so the one candidate (2.0, max(lo, n_used)) stands for
+//   them;
 // - the result is the lexicographic minimum of (score, slot), a NaN score
 //   before every number, as torch.argmin gives it: warp shuffles, then the
 //   block's warps through shared memory, one partial a block. The last
@@ -29,10 +30,18 @@
 //   one FMA (which rounds once where the plain version rounds twice), and
 //   with clamp and minimum that propagate NaN as torch's do.
 //
+// A launch scores the slots of one range [lo, hi) of [0, E) and returns
+// global slot ids, so that ranks holding the same state can each score a
+// range and merge their candidates in the same order (parallel/
+// sharded.py); the full range [0, E) is the single-process scorer. The
+// range's first unused slot, max(lo, n_used) if it is below hi, stands for
+// all of its unused slots; in the range that holds n_used that is n_used.
+//
 // Inputs: cid int32 [E, 5], cdis T [E, 5], belong, e, rev int32 [E],
 // length T [E], all contiguous; row T [cap] with every witness id < cap;
 // n_used <= E slots in use (every slot at or above it has belong <= e);
-// rev[s] in [0, E) for every valid slot. T = float or double.
+// rev[s] in [0, E) for every valid slot; 0 <= lo < hi <= E. T = float or
+// double.
 // Outputs: out_i int32 [4] = eid, belong[eid], e[eid], rev[eid];
 // out_f T [2] = frac[eid], score[eid].
 // Scratch: scratch_i int32 [1 + scratch_blocks] (the ticket, zero before
@@ -132,7 +141,7 @@ score_edges_kernel(const int32_t* __restrict__ cid,
                    const T* __restrict__ row,
                    T* scratch_f, int32_t* scratch_i,
                    int32_t* __restrict__ out_i, T* __restrict__ out_f,
-                   int n_edges, int n_used)
+                   int n_used, int lo, int hi)
 {
     __shared__ __align__(16) int32_t s_id[kWarps][kTile];
     __shared__ __align__(16) T s_dis[kWarps][kTile];
@@ -140,21 +149,26 @@ score_edges_kernel(const int32_t* __restrict__ cid,
     __shared__ bool s_last;
     const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
 
+    // tiles start on multiples of 32 slots (16-byte aligned lists); the
+    // slots of the first tile below lo are staged but not scored
+    const int end = min(hi, n_used);
+    const int base = lo & ~(kWarp - 1);
     Cand<T> best = {T(INFINITY), T(0), INT_MAX};
-    for (int s0 = (blockIdx.x * kWarps + warp) * kWarp; s0 < n_used;
+    for (int s0 = base + (blockIdx.x * kWarps + warp) * kWarp; s0 < end;
          s0 += gridDim.x * kThreads) {
         const int s = s0 + lane;
+        const bool mine = s >= lo && s < end;
         bool valid = false;
         int r = 0;
         T len = 0;
-        if (s < n_used) {
+        if (mine) {
             valid = belong[s] > dst[s];
             r = rev[s];
             len = length[s];
         }
-        stage_lists(cid, s_id[warp], s0, n_used, lane);
-        stage_lists(cdis, s_dis[warp], s0, n_used, lane);
-        if (s < n_used) {
+        stage_lists(cid, s_id[warp], s0, end, lane);
+        stage_lists(cdis, s_dis[warp], s0, end, lane);
+        if (mine) {
             Cand<T> c = {T(2), T(0), s};
             if (valid) {
                 T dis1 = side_staged(s_id[warp], s_dis[warp], lane, row);
@@ -199,9 +213,10 @@ score_edges_kernel(const int32_t* __restrict__ cid,
     }
     best = block_min(best, s_part);
     if (threadIdx.x == 0) {
-        // the slots at and above n_used, all invalid
-        const Cand<T> unused = {T(2), T(0), n_used};
-        if (n_used < n_edges && before(unused, best)) best = unused;
+        // the range's slots at and above n_used, all invalid
+        const int first_unused = max(lo, n_used);
+        const Cand<T> unused = {T(2), T(0), first_unused};
+        if (first_unused < hi && before(unused, best)) best = unused;
         const int eid = best.slot;
         out_i[0] = eid;
         out_i[1] = belong[eid];
@@ -217,16 +232,18 @@ template <typename T>
 int launch(const void* cid, const void* cdis, const void* belong,
            const void* dst, const void* rev, const void* length,
            const void* row, void* scratch_f, void* scratch_i, void* out_i,
-           void* out_f, int n_edges, int n_used, int scratch_blocks,
+           void* out_f, int n_used, int lo, int hi, int scratch_blocks,
            cudaStream_t stream)
 {
-    int blocks = (n_used + kThreads - 1) / kThreads;
+    const int end = n_used < hi ? n_used : hi;
+    const int base = lo & ~(kWarp - 1);
+    int blocks = end > base ? (end - base + kThreads - 1) / kThreads : 1;
     blocks = blocks < 1 ? 1 : (blocks > scratch_blocks ? scratch_blocks : blocks);
     score_edges_kernel<T><<<blocks, kThreads, 0, stream>>>(
         (const int32_t*)cid, (const T*)cdis, (const int32_t*)belong,
         (const int32_t*)dst, (const int32_t*)rev, (const T*)length,
         (const T*)row, (T*)scratch_f, (int32_t*)scratch_i, (int32_t*)out_i,
-        (T*)out_f, n_edges, n_used);
+        (T*)out_f, n_used, lo, hi);
     return (int)cudaGetLastError();
 }
 
@@ -234,17 +251,19 @@ int launch(const void* cid, const void* cdis, const void* belong,
 
 // Launches on `stream` of `device` without synchronizing; returns the CUDA
 // error code (0 on success). Pointers are device pointers of the shapes
-// and types in the header comment, float (is_f64 == 0) or double. The
-// calling thread's current device is left as it was.
+// and types in the header comment, float (is_f64 == 0) or double; the
+// slots [lo, hi) are scored. The calling thread's current device is left
+// as it was.
 extern "C" int score_edges(const void* cid, const void* cdis,
                            const void* belong, const void* dst,
                            const void* rev, const void* length,
                            void* scratch_f, void* scratch_i, void* out_i,
                            void* out_f, int n_edges, int scratch_blocks,
                            int is_f64, int device, const void* row,
-                           int n_used, void* stream)
+                           int n_used, int lo, int hi, void* stream)
 {
-    if (n_edges < 1 || n_used < 0 || n_used > n_edges || scratch_blocks < 1)
+    if (n_edges < 1 || n_used < 0 || n_used > n_edges || scratch_blocks < 1
+        || lo < 0 || lo >= hi || hi > n_edges)
         return (int)cudaErrorInvalidValue;
     int current = -1;
     cudaError_t err = cudaGetDevice(&current);
@@ -256,11 +275,11 @@ extern "C" int score_edges(const void* cid, const void* cdis,
     cudaStream_t st = (cudaStream_t)stream;
     const int rc =
         is_f64 ? launch<double>(cid, cdis, belong, dst, rev, length, row,
-                                scratch_f, scratch_i, out_i, out_f, n_edges,
-                                n_used, scratch_blocks, st)
+                                scratch_f, scratch_i, out_i, out_f, n_used,
+                                lo, hi, scratch_blocks, st)
                : launch<float>(cid, cdis, belong, dst, rev, length, row,
-                               scratch_f, scratch_i, out_i, out_f, n_edges,
-                               n_used, scratch_blocks, st);
+                               scratch_f, scratch_i, out_i, out_f, n_used,
+                               lo, hi, scratch_blocks, st);
     if (current != device) cudaSetDevice(current);
     return rc;
 }

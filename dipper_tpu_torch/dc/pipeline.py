@@ -22,6 +22,16 @@ gather, for aligned sequences codes staged from the host. Clusters of
 _STREAM_CLUSTER_MIN members and more build one at a time with rows
 streamed _STREAM_ROW_BLOCK at a time. Assembly and Newick are host NumPy,
 as in the JAX package.
+
+Sharded (mesh, parallel/sharded.py; the JAX package's _shard_batch over
+the same two phases): phase 1 runs on every rank alike. In phase 2 each
+rank scores a contiguous share of each chunk's queries and the cluster
+ids are all-gathered. In phase 3 each rank takes a contiguous share of
+each size bucket's clusters, batched or streamed (streamed clusters are
+dealt out whole), builds them, and the buckets' edge arrays are
+all-gathered in cluster order; assembly runs on every rank, so every rank
+holds the same tree. A cluster's build does not depend on which clusters
+share its batch, so the bytes are the single-process build's.
 """
 
 from __future__ import annotations
@@ -58,11 +68,11 @@ def _log(m):
 
 
 def build_dc_tree_from_matrix(D, names, params: Param, *, device,
-                              log=None) -> str:
+                              log=None, mesh=None) -> str:
     """D&C from a distance matrix (an extension over the reference, which
     rejects matrix input in D&C mode, as the CLI does)."""
     return build_dc_tree(None, names, params, matrix=D, device=device,
-                         log=log)
+                         log=log, mesh=mesh)
 
 
 def _frontend(seqs, params: Param, matrix, device, dtype, log):
@@ -199,11 +209,15 @@ def _buckets(szs: np.ndarray, cmax: int):
 
 
 def build_dc_tree(seqs, names, params: Param, matrix=None, *, device,
-                  log=None) -> str:
+                  log=None, mesh=None) -> str:
     """The D&C tree (Newick) of `seqs` (params.in_format "r" or "m") or of
-    a host distance `matrix`, built on `device`."""
+    a host distance `matrix`, built on `device`, or with phases 2 and 3
+    split over the ranks of `mesh` (parallel.sharded.Mesh) on
+    mesh.device; every rank returns the same tree."""
     global last_debug
     log = log or _log
+    if mesh is not None:
+        device = mesh.device
     N = len(names)
     B = params.backbone_size
     if B < 4:
@@ -237,9 +251,16 @@ def build_dc_tree(seqs, names, params: Param, matrix=None, *, device,
     chunk = max(1, min(PHASE2_CHUNK, PHASE2_BYTES // per_row))
     for q0 in range(B, N, chunk):
         q1 = min(N, q0 + chunk)
-        rows = _phase2_rows(frontend, payload, bb_args, params, q0, q1,
-                            device)
-        cluster_id[q0:q1] = kclosest.score_edges_rows(state, rows).cpu().numpy()
+        a, b = q0, q1
+        if mesh is not None:    # this rank's share of the chunk
+            lo, hi = mesh.share(q1 - q0)
+            a, b = q0 + lo, q0 + hi
+        ids = np.empty(0, dtype=np.int64)
+        if b > a:
+            rows = _phase2_rows(frontend, payload, bb_args, params, a, b,
+                                device)
+            ids = kclosest.score_edges_rows(state, rows).cpu().numpy()
+        cluster_id[q0:q1] = ids if mesh is None else mesh.all_gather_host(ids)
     log(f"DC phase 2 in: {int((time.time() - t) * 1000)} ms "
         f"[assign {hashlib.md5(cluster_id[B:N].tobytes()).hexdigest()[:10]}]")
     t = time.time()
@@ -337,8 +358,13 @@ def build_dc_tree(seqs, names, params: Param, matrix=None, *, device,
             tb = time.time()
             steps0, levels0 = cluster.STEPS, cluster.BFS_LEVELS
             launches = 0
+            # this rank's share of the bucket's clusters, all of them
+            # without a mesh; their edge arrays, in cluster order
+            j0, j1 = (0, len(rows)) if mesh is None else mesh.share(len(rows))
+            parts = []
             if stream:
-                for j, ci in enumerate(rows):
+                for j in range(j0, j1):
+                    ci = rows[j]
                     fn = _stream_block_fn(frontend, payload, params,
                                           wit_b[j], mem_b[j], device)
                     le, lb, ll = cluster.build_streamed(
@@ -347,22 +373,25 @@ def build_dc_tree(seqs, names, params: Param, matrix=None, *, device,
                         int(sizes[ci]), cmax_b,
                         min(_STREAM_ROW_BLOCK, cmax_b))
                     launches += -(-int(sizes[ci]) // _STREAM_ROW_BLOCK)
-                    assemble(np.array([ci]), le.cpu().numpy()[None],
-                             lb.cpu().numpy()[None], ll.cpu().numpy()[None],
-                             cmax_b, mem_b[j][None])
+                    parts.append((le[None], lb[None], ll[None]))
             else:
                 c_in = max(1, PHASE3_BUDGET // cmax_b)
-                for s in range(0, len(rows), c_in):
-                    rr = rows[s:s + c_in]
-                    sl = slice(s, s + len(rr))
+                for s in range(j0, j1, c_in):
+                    sl = slice(s, min(j1, s + c_in))
+                    rr = rows[sl]
                     Dq = _pair_distances(frontend, payload, params,
                                          wit_b[sl], mem_b[sl], device)
                     launches += 1
-                    le, lb, ll = cluster.build_clusters(
+                    parts.append(cluster.build_clusters(
                         Dq, dev(cd_init[rr]), dev(cid_init[rr], torch.int32),
-                        dev(lens_init[rr]), sizes[rr], cmax_b)
-                    assemble(rr, le.cpu().numpy(), lb.cpu().numpy(),
-                             ll.cpu().numpy(), cmax_b, mem_b[sl])
+                        dev(lens_init[rr]), sizes[rr], cmax_b))
+            arrays = []
+            for f, dt in enumerate((np.int32, np.int32, params.dtype)):
+                arr = (np.concatenate([p[f].cpu().numpy() for p in parts])
+                       if parts else np.empty((0, 2 + 4 * cmax_b), dt))
+                arrays.append(arr if mesh is None
+                              else mesh.all_gather_host(arr))
+            assemble(rows, *arrays, cmax_b, mem_b)
             log(f"DC phase 3: bucket cmax_b={cmax_b} clusters={len(rows)} "
                 f"path={'stream' if stream else 'batch'} "
                 f"launches={launches} steps={cluster.STEPS - steps0} "

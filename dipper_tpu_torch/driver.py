@@ -7,7 +7,10 @@ port runs conventional NJ and placement (k-closest, or exact where the
 FASTA (-i m, the six MSA models) and PHYLIP matrices (-i d), writes the
 distance matrix (-i r/-i m with -o d), places queries onto a backbone
 tree (--add) and runs divide-and-conquer from -i r and -i m (a matrix is
-refused in that mode, as by the reference).
+refused in that mode, as by the reference). In a multi-process run every
+rank reads, shuffles and sketches the input itself; NJ and D&C split
+their work over `--devices` ranks (parallel/sharded.py), the other modes
+run whole on every rank, and rank 0 alone writes the output.
 """
 
 from __future__ import annotations
@@ -27,6 +30,12 @@ def _log(msg: str):
 
 
 def _write_tree(nwk: str, out_path: str):
+    """Writes the Newick output (rank 0 only in a multi-process run: every
+    rank holds the same tree; one writer suffices)."""
+    from dipper_tpu_torch.parallel.distributed import is_primary
+
+    if not is_primary():
+        return
     with open(out_path, "w") as f:
         f.write(nwk + "\n")
 
@@ -128,9 +137,12 @@ def _run_sequences(params: Param, algo: str, placemode: str, args, device):
         # distance-matrix output: the matrix NJ would use, widened to f64
         from dipper_tpu_torch.io.phylip import write_phylip_lower_triangular
 
+        from dipper_tpu_torch.parallel.distributed import is_primary
+
         D = _distance_matrix(params, seqs, device)
-        write_phylip_lower_triangular(
-            names, D.cpu().numpy().astype(np.float64), args.output_file)
+        if is_primary():
+            write_phylip_lower_triangular(
+                names, D.cpu().numpy().astype(np.float64), args.output_file)
         return
 
     mode = _choose_mode(algo, n)
@@ -147,6 +159,27 @@ def _run_sequences(params: Param, algo: str, placemode: str, args, device):
         _run_dc(seqs, names, params, args.output_file, device)
 
 
+def _make_mesh(params: Param, device):
+    """The Mesh of the first min(--devices, ranks) ranks of the
+    multi-process group, or None (one rank, or --devices 1): the
+    single-device build. Every rank calls it."""
+    if params.devices <= 1:
+        return None
+    from dipper_tpu_torch.parallel.distributed import world
+
+    nd = min(params.devices, world()[1])
+    if nd <= 1:
+        _log(f"--devices {params.devices}: one device here ({device}), "
+             "building unsharded")
+        return None
+    from dipper_tpu_torch.parallel.sharded import make_mesh
+
+    mesh = make_mesh(nd, device, log=_log)
+    if mesh is not None:
+        _log(f"Sharding over {nd} devices")
+    return mesh
+
+
 def _run_dc(seqs, names, params: Param, out_path: str, device):
     from dipper_tpu_torch.dc import build_dc_tree
 
@@ -154,8 +187,9 @@ def _run_dc(seqs, names, params: Param, out_path: str, device):
     backbone = len(seqs) // 20
     params = dataclasses.replace(params, backbone_size=backbone,
                                  batch_size=backbone)
-    _write_tree(build_dc_tree(seqs, names, params, device=device, log=_log),
-                out_path)
+    mesh = _make_mesh(params, device)
+    _write_tree(build_dc_tree(seqs, names, params, device=device, log=_log,
+                              mesh=mesh), out_path)
 
 
 def _distance_matrix(params: Param, seqs, device):
@@ -187,9 +221,10 @@ def _distance_matrix(params: Param, seqs, device):
 def _write_nj(D, names, params: Param, device, out_path: str):
     from dipper_tpu_torch.nj import neighbor_joining, nj_tree_newick
 
+    mesh = _make_mesh(params, device)
     t0 = time.time()
     children, root = neighbor_joining(D, dtype_name=params.dtype,
-                                      device=device)
+                                      device=device, mesh=mesh, log=_log)
     _log(f"NJ in: {int((time.time() - t0) * 1000)} ms")
     _write_tree(nj_tree_newick(children, root, names), out_path)
 

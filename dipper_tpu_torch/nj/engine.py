@@ -23,6 +23,19 @@ max(128, pow2 >= N)), and so are this one's, since f32 drift depends on
 those points. x, y and the join log stay on the device: a merge step
 makes no host sync, and the log comes back once at the end.
 
+Sharded (mesh): every rank holds the whole matrix and runs every O(n)
+update; only the Q pass is split, each rank taking a contiguous block of
+the active rows and its first minimum as (value, flat index). The ranks'
+pairs are all-gathered into a [ranks, 2] tensor and torch.argmin over
+their values, in rank order, picks the global first minimum (NaN first,
+the lowest index at ties), so the join sequence and the branch lengths
+are the single-process build's, bit for bit. The JAX package row-shards
+D itself under GSPMD and promises the join sequence only
+(dipper_tpu/nj/engine.py:134-136); here D stays whole because the
+compaction moves row `last` into row y every step, which a row-sharded D
+would move across ranks. Over NCCL the merge stays on the card (no host
+sync a step); over gloo a step syncs once, to stage its pair.
+
 Sums: Q ties are structural in the last steps (on 4 active nodes, Q of
 a pair always equals Q of the complementary pair), so the join sequence
 there is decided by the rounding of U. Once n <= 128 (the JAX engine's
@@ -36,10 +49,13 @@ differ.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
-from dipper_tpu_torch.utils.device import resolve_device, torch_dtype
+from dipper_tpu_torch.utils.device import (resolve_device, synchronize,
+                                           torch_dtype)
 
 # the JAX engine's smallest bucket: it stops halving (and recomputing U)
 # at this many active rows
@@ -76,14 +92,19 @@ def _recomputes_u(n: int, N: int) -> bool:
 
 
 def neighbor_joining(D_host, *, dtype_name: str = "float32",
-                     device="cuda"):
+                     device="cuda", mesh=None, log=None):
     """NJ of the [N, N] distance matrix `D_host` (a host array or a
     tensor on any device; not modified) on `device` (the card unless the
     caller asks for the CPU; asking for CUDA without it raises), in
     `dtype_name`. Returns (children, root) like dipper_tpu.nj.
     neighbor_joining_device: children[v] = [(child_id, branch_length),
-    ...], leaves 0..N-1, the node of join s is N+s, root 2N-2."""
-    device = resolve_device(device)
+    ...], leaves 0..N-1, the node of join s is N+s, root 2N-2.
+
+    `mesh` (parallel.sharded.Mesh): the Q pass split over its ranks (see
+    the module docstring), on mesh.device; every rank returns the same
+    result. `log`, if given, receives a line on the sharded merge steps:
+    their count, ms a step and host syncs a step."""
+    device = mesh.device if mesh is not None else resolve_device(device)
     N = int(D_host.shape[0])
     if N < 2:
         raise ValueError("need at least 2 taxa")
@@ -105,8 +126,10 @@ def neighbor_joining(D_host, *, dtype_name: str = "float32",
     denom = torch.arange(N + 1, dtype=dtype, device=device) - 2  # [n] = n-2
     log_ids = torch.empty((N - 2, 2), dtype=torch.int32, device=device)
     log_bl = torch.empty((N - 2, 2), dtype=dtype, device=device)
-    qbuf = torch.empty(N * N, dtype=dtype, device=device)
+    rows_q = N if mesh is None else -(-N // mesh.size)
+    qbuf = torch.empty(rows_q * N, dtype=dtype, device=device)
     big = torch.finfo(dtype).max
+    t0 = time.time()
 
     for step in range(N - 2):
         n = N - step
@@ -117,11 +140,10 @@ def neighbor_joining(D_host, *, dtype_name: str = "float32",
         # a 0-d CUDA divisor keeps this a true division (a host scalar
         # would become a multiplication by its reciprocal)
         Un = U[:n] / denom[n]
-        Q = qbuf[:n * n].view(n, n)
-        torch.sub(Dv, Un[:, None], out=Q)
-        Q.sub_(Un[None, :])
-        Q.diagonal().fill_(big)
-        flat = torch.argmin(Q).view(1)
+        if mesh is None:
+            flat = torch.argmin(_q_rows(Dv, Un, qbuf, big, 0, n)).view(1)
+        else:
+            flat = _sharded_argmin(Dv, Un, qbuf, big, mesh)
         a = flat // n
         b = flat - a * n
         x, y = torch.minimum(a, b), torch.maximum(a, b)
@@ -160,6 +182,12 @@ def neighbor_joining(D_host, *, dtype_name: str = "float32",
         real.index_copy_(0, xy, torch.cat([new_ids[step:step + 1],
                                            real[last:last + 1]]))
 
+    if mesh is not None and log is not None:
+        synchronize(device)
+        syncs = int(mesh.backend == "gloo" and device.type == "cuda")
+        log(f"NJ sharded over {mesh.size} ranks ({mesh.backend}): {N - 2} "
+            f"merge steps, {(time.time() - t0) * 1000 / (N - 2):.4f} ms a "
+            f"step, {syncs} host syncs a step")
     ids = log_ids.cpu().tolist()
     bls = log_bl.double().cpu().tolist()
     r0, r1 = real[:2].cpu().tolist()
@@ -170,6 +198,38 @@ def neighbor_joining(D_host, *, dtype_name: str = "float32",
     children[root].append((r0, d01 * 0.5))
     children[root].append((r1, d01 * 0.5))
     return children, root
+
+
+def _q_rows(Dv, Un, qbuf, big, r0: int, r1: int) -> torch.Tensor:
+    """Rows r0..r1 of Q over the [n, n] active block, in `qbuf`: (D -
+    U/(n-2))_i - U/(n-2)_j, the diagonal at `big`."""
+    n = Dv.shape[0]
+    Q = qbuf[:(r1 - r0) * n].view(r1 - r0, n)
+    torch.sub(Dv[r0:r1], Un[r0:r1, None], out=Q)
+    Q.sub_(Un[None, :])
+    Q.diagonal(offset=r0).fill_(big)
+    return Q
+
+
+def _sharded_argmin(Dv, Un, qbuf, big, mesh) -> torch.Tensor:
+    """The flat index [1] int64 of the first minimum of Q over the whole
+    [n, n] active block, each rank scanning its block of rows."""
+    n = Dv.shape[0]
+    r0, r1 = mesh.share(n)
+    if r1 > r0:
+        Q = _q_rows(Dv, Un, qbuf, big, r0, r1)
+        # index_select, not indexing by a tensor: no host sync on the card
+        li = torch.argmin(Q).view(1)
+        pair = torch.cat([Q.view(-1).index_select(0, li).double(),
+                          (li + r0 * n).double()])
+    else:  # no rows here: a pair that every real one beats
+        pair = torch.tensor([float("inf"), 2.0 ** 62], dtype=torch.float64,
+                            device=Dv.device)
+    pairs = mesh.all_gather(pair)                      # [ranks, 2]
+    # rank order is row order, so argmin's first minimum over the ranks'
+    # values (NaN first) is the global one
+    w = torch.argmin(pairs[:, 0]).view(1)
+    return pairs[:, 1].index_select(0, w).long()
 
 
 def nj_tree_newick(children, root, names) -> str:

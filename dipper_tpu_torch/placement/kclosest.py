@@ -356,11 +356,13 @@ def nan_minimum(a, b):
     return torch.where(a.isnan() | (a <= b), a, b)
 
 
-def _finish_score(st: TreeState, side, dis2):
+def _finish_score(st: TreeState, side, dis2, lo: int = 0,
+                  hi: int | None = None):
     """Clamp sequence + first-minimum argmin of calculateBranchLength
-    (src/placement_close_k.cu:346-355, :807). `side`/`dis2` are the
-    per-directed-edge witness maxima (dis1 of the edge, dis1 of its
-    reverse). Returns (eid as a host int, frac, add as 0-d tensors)."""
+    (src/placement_close_k.cu:346-355, :807) over the slots [lo, hi)
+    (default: all). `side`/`dis2` are the per-directed-edge witness
+    maxima (dis1 of the edge, dis1 of its reverse). Returns (eid, a global
+    slot id as a host int, frac, add as 0-d tensors)."""
     valid = st.belong > st.e
     addi, dis1 = clamp_sequence(side, dis2, st.length)
     # invalid slots carry the sentinel (frac=0, addi=2): if no real
@@ -368,17 +370,19 @@ def _finish_score(st: TreeState, side, dis2):
     # thrust::min_element over the sentinel-filled minPos buffer does
     score = torch.where(valid, addi, SENT_DIS)
     frac = torch.where(valid, dis1, 0.0)
-    eid = int(torch.argmin(score))  # first minimum == lowest eid; host sync
+    # first minimum == lowest eid; host sync
+    eid = lo + int(torch.argmin(score[lo:hi]))
     return eid, frac[eid], score[eid]
 
 
-def _score_edges_plain(st: TreeState, dist_row):
+def _score_edges_plain(st: TreeState, dist_row, lo: int = 0,
+                       hi: int | None = None):
     """The plain PyTorch version of csrc/score_edges.cu: the side vector,
-    its reread through `rev`, the clamp sequence and the argmin as separate
-    tensor operations, then the chosen edge's endpoints. Returns what
-    `score_edges` returns."""
+    its reread through `rev`, the clamp sequence and the argmin over the
+    slots [lo, hi) (default: all) as separate tensor operations, then the
+    chosen edge's endpoints. Returns what `score_edges` returns."""
     side = _side_vector(st.cid, st.cdis, dist_row)     # [E]
-    eid, frac, add = _finish_score(st, side, side[st.rev])
+    eid, frac, add = _finish_score(st, side, side[st.rev], lo, hi)
     x, y, ye = torch.stack(
         (st.belong[eid], st.e[eid], st.rev[eid])).tolist()  # host sync
     return eid, x, y, ye, frac, add
@@ -467,7 +471,8 @@ def prepare_scorer(st: TreeState) -> TreeState:
     sc.scratch_f = torch.empty((2 * SCORE_EDGES_MAX_BLOCKS,), dtype=dtype,
                                device=dev)
     sc.lib = load("score_edges", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
-                  + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+                  + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                  + [ctypes.c_void_p])
     sc.fn = sc.lib.score_edges
     sc.args = (*(a.data_ptr() for a in arrays), sc.scratch_f.data_ptr(),
                sc.scratch_i.data_ptr(), sc.out_i.data_ptr(),
@@ -477,14 +482,24 @@ def prepare_scorer(st: TreeState) -> TreeState:
     return st
 
 
-def score_edges_launch(st: TreeState, dist_row, stream: int | None = None):
+def _slot_range(st: TreeState, lo: int, hi: int | None) -> tuple[int, int]:
+    E = st.e.shape[0]
+    hi = E if hi is None else hi
+    if not 0 <= lo < hi <= E:
+        raise ValueError(f"slot range [{lo}, {hi}) is not a non-empty range "
+                         f"of [0, {E})")
+    return lo, hi
+
+
+def score_edges_launch(st: TreeState, dist_row, stream: int | None = None,
+                       lo: int = 0, hi: int | None = None):
     """Launches csrc/score_edges.cu for a CUDA state on `stream` (a raw
     CUDA stream handle; default: the device's current stream) without
     synchronizing, and returns the state's `_Scorer`, whose `out_i` (eid,
     belong[eid], e[eid], rev[eid]) and `frac`, `add` the launch fills.
     dist_row [cap]: the state's float type and device, unit stride, every
-    witness id < cap. The state's first `st.idx` slots are scored; the
-    rest must be unused."""
+    witness id < cap. The slots [lo, hi) (default: all) are scored; of
+    them, those below `st.idx` are used, the rest must be unused."""
     global SCORE_EDGES_LAUNCHES
     sc = st.scorer
     if sc is None or not sc.owns(st):
@@ -499,38 +514,45 @@ def score_edges_launch(st: TreeState, dist_row, stream: int | None = None):
             f"dist_row must be a 1-D {sc.dtype} tensor with unit stride on "
             f"{sc.device}, got {dist_row.dtype} {tuple(dist_row.shape)} "
             f"strides {dist_row.stride()} on {dist_row.device}")
+    lo, hi = _slot_range(st, lo, hi)
     if stream is None:
         stream = torch.cuda.current_stream(sc.device).cuda_stream
-    rc = sc.fn(*sc.args, dist_row.data_ptr(), st.idx, stream)
+    rc = sc.fn(*sc.args, dist_row.data_ptr(), st.idx, lo, hi, stream)
     if rc != 0:
         check_launch(sc.lib, "score_edges", rc)
     SCORE_EDGES_LAUNCHES += 1
     return sc
 
 
-def score_edges_cuda(st: TreeState, dist_row, stream: int | None = None):
+def score_edges_cuda(st: TreeState, dist_row, stream: int | None = None,
+                     lo: int = 0, hi: int | None = None):
     """`score_edges` by the Hopper kernel: one launch, then one copy of
     four ints to the host (the insertion's only sync for scoring and
     splice). frac and add are 0-d views of the state's output buffer,
     which the state's next launch overwrites: use them (on the launch's
     stream) or clone them before scoring again. Equal to
-    `_score_edges_plain` in all six values, bit for bit."""
-    sc = score_edges_launch(st, dist_row, stream)
+    `_score_edges_plain` in all six values, bit for bit, on any slot
+    range."""
+    sc = score_edges_launch(st, dist_row, stream, lo, hi)
     eid, x, y, ye = sc.out_i.tolist()  # host sync
     return eid, x, y, ye, sc.frac, sc.add
 
 
-def score_edges(st: TreeState, dist_row, stream: int | None = None):
+def score_edges(st: TreeState, dist_row, stream: int | None = None,
+                lo: int = 0, hi: int | None = None):
     """Vectorized calculateBranchLength (src/placement_close_k.cu:309-358)
     on the device of dist_row: the kernel for CUDA tensors, the plain
     version for CPU tensors. Returns (eid, x, y, ye, fracLen, addLen):
     the chosen edge (ties -> lowest eid) as host ints with its source
     node, destination node and reverse edge, and the two lengths as 0-d
-    tensors."""
+    tensors. With a slot range [lo, hi) the choice is among its slots
+    (a rank's share of a sharded build: parallel/sharded.py merges the
+    ranges' choices in the same order)."""
     if dist_row.device.type == "cuda":
-        return score_edges_cuda(st, dist_row, stream)
+        return score_edges_cuda(st, dist_row, stream, lo, hi)
     if dist_row.device.type == "cpu":
-        return _score_edges_plain(st, dist_row)
+        lo, hi = _slot_range(st, lo, hi)
+        return _score_edges_plain(st, dist_row, lo, hi)
     raise ValueError(f"unsupported device {dist_row.device}")
 
 

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from dipper_tpu_torch.placement.kclosest import (K, SENT_DIS, TreeState,
-                                                 _side_vector)
+                                                 _side_vector, nan_minimum)
 
 
 def _before(a, b) -> bool:
@@ -31,16 +31,20 @@ def _before(a, b) -> bool:
     return a[0] < b[0]
 
 
-def score_edges_model(st: TreeState, dist_row, block_of=None, order=None):
-    """What csrc/score_edges.cu computes, its way. `block_of[s]` is the
-    block that scores slot s < st.idx (default: one block); `order` is a
-    permutation of those slots, the order in which candidates meet inside
-    a block (default: ascending). Returns what `score_edges` returns."""
+def score_edges_model(st: TreeState, dist_row, block_of=None, order=None,
+                      lo: int = 0, hi: int | None = None):
+    """What csrc/score_edges.cu computes, its way, over the slots [lo, hi)
+    (default: all). `block_of[s]` is the block that scores slot s <
+    st.idx (default: one block); `order` is a permutation of the used
+    slots of the range, the order in which candidates meet inside a block
+    (default: ascending). Returns what `score_edges` returns."""
     n_used, E = st.idx, st.e.shape[0]
+    hi = E if hi is None else hi
+    end = max(lo, min(hi, n_used))
     dtype = st.length.dtype
     block_of = (np.zeros(n_used, dtype=np.int64) if block_of is None
                 else np.asarray(block_of))
-    order = np.arange(n_used) if order is None else np.asarray(order)
+    order = np.arange(lo, end) if order is None else np.asarray(order)
     belong, dst = st.belong[:n_used], st.e[:n_used]
     slots = (belong > dst).nonzero().squeeze(1)       # valid slots only
     rev = st.rev[slots].long()
@@ -51,8 +55,8 @@ def score_edges_model(st: TreeState, dist_row, block_of=None, order=None):
     dis1 = (dis1 - addi).clamp(min=0.0)
     dis2 = (dis2 - addi).clamp(min=0.0)
     addi = addi + (dis1 - L).clamp(min=0.0) + (dis2 - L).clamp(min=0.0)
-    dis1 = torch.minimum(dis1, L)
-    dis2 = torch.minimum(dis2, L)
+    dis1 = nan_minimum(dis1, L)
+    dis2 = nan_minimum(dis2, L)
     frac = dis1 + (L - dis1 - dis2) * 0.5
     score = torch.full((n_used,), SENT_DIS, dtype=dtype)
     fracs = torch.zeros((n_used,), dtype=dtype)
@@ -71,8 +75,10 @@ def score_edges_model(st: TreeState, dist_row, block_of=None, order=None):
     for b in sorted(partial, reverse=True):  # any order gives the same
         if _before(partial[b], best):
             best = partial[b]
-    if n_used < E:
-        unused = (torch.tensor(SENT_DIS, dtype=dtype), n_used,
+    # the range's first unused slot stands for its unused slots
+    first_unused = max(lo, n_used)
+    if first_unused < hi:
+        unused = (torch.tensor(SENT_DIS, dtype=dtype), first_unused,
                   torch.tensor(0.0, dtype=dtype))
         if _before(unused, best):
             best = unused

@@ -5,10 +5,11 @@ nRF is the contract the f32 path is held to), for k-closest placement and
 conventional NJ; identical PHYLIP bytes for the mash matrix (-i r -o d).
 From aligned FASTA (-i m) the distances are each package's own log and
 sqrt results, so trees are held to `assert_newick_close` (the same tree,
-branch lengths to rtol 1e-9 in f64) and matrices to rtol 1e-12. Unported
-modes exit 1 with a "not yet ported" message. Divide-and-conquer (-m 3,
-and auto mode at the threshold) gives the JAX CLI's f64 bytes from -i r
-and -i m and refuses a matrix as it does."""
+branch lengths to rtol 1e-9 in f64) and matrices to rtol 1e-12.
+Divide-and-conquer (-m 3, and auto mode at the threshold) gives the JAX
+CLI's f64 bytes from -i r and -i m and refuses a matrix as it does. Runs
+over two processes (--coordinator, --devices 2) give the single-process
+bytes; --profile writes a trace and the same tree."""
 
 import re
 
@@ -163,19 +164,128 @@ def test_nj_log_lines(tmp_path, fasta, capsys):
         assert line in err, err
 
 
-@pytest.mark.parametrize("args, what", [
-    (["-i", "r", "-m", "1", "--profile", "/tmp/x"], "--profile"),
-    (["-i", "r", "-m", "1", "--devices", "2"], "--devices"),
-    (["-i", "r", "-m", "1", "--coordinator", "localhost:1"], "multi-host"),
-])
-def test_unported_modes_exit_1(tmp_path, phylip, fasta, capsys, args, what):
-    args = [phylip if a == "TREE" else a for a in args]
-    inp = phylip if args[1] == "d" else fasta
-    rc = port_main(args + ["-I", inp, "-O", str(tmp_path / "o.nwk"),
-                           "--device", "cpu"])
+def _ranks(tmp_path, args, world=2, timeout=120):
+    """The port's CLI as `world` processes of one group (--coordinator on
+    a free localhost port, --device cpu); every process is killed past
+    `timeout` seconds. Returns the output path and each rank's stderr."""
+    import os
+    import subprocess
+    import sys
+    import time
+
+    from dipper_tpu_torch.parallel.distributed import free_port
+
+    out = tmp_path / "ranks.nwk"
+    coord = f"127.0.0.1:{free_port()}"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "dipper_tpu_torch.cli", *args, "-O", str(out),
+         "--device", "cpu", "--coordinator", coord, "--num-processes",
+         str(world), "--process-id", str(r)],
+        cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(world)]
+    errs = []
+    deadline = time.time() + timeout
+    try:
+        for p in procs:
+            errs.append(p.communicate(
+                timeout=max(1.0, deadline - time.time()))[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, err) in enumerate(zip(procs, errs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{err[-3000:]}"
+        assert not re.search(r"\bjax\b", err)
+    return out, errs
+
+
+def _single(tmp_path, args):
+    out = tmp_path / "single.nwk"
+    assert port_main(args + ["-O", str(out), "--device", "cpu"]) == 0
+    return out.read_text()
+
+
+def test_two_ranks_nj_from_a_matrix_equal_single(tmp_path, phylip):
+    """-i d -m 2 over two processes, --devices 2: the Q scan split by rows
+    gives the single-process Newick bytes (f32 and f64 alike)."""
+    for prec in ("f32", "f64"):
+        args = ["-i", "d", "-I", phylip, "-m", "2", "--precision", prec]
+        out, errs = _ranks(tmp_path, args + ["--devices", "2"])
+        assert out.read_text() == _single(tmp_path, args)
+        for r, err in enumerate(errs):
+            assert f"Joined distributed runtime: process {r}/2" in err
+            assert "Collectives over 2 ranks: gloo" in err
+            assert "Sharding over 2 devices" in err
+            assert re.search(r"NJ sharded over 2 ranks \(gloo\): 33 merge "
+                             r"steps, [0-9.]+ ms a step, 0 host syncs", err)
+
+
+def test_two_ranks_dc_from_fasta_equal_single(tmp_path, dc_fasta):
+    """-i r -m 3 over two processes, --devices 2: phases 2 and 3 split by
+    rank give the single-process Newick bytes; each rank logs its own
+    phase times."""
+    args = ["-i", "r", "-I", dc_fasta, "-m", "3", "-k", "12", "-s", "150",
+            "--precision", "f64", "--seed", "7"]
+    out, errs = _ranks(tmp_path, args + ["--devices", "2"])
+    assert out.read_text() == _single(tmp_path, args)
+    for err in errs:
+        assert "Sharding over 2 devices" in err
+        for phase in (1, 2, 3):
+            assert f"DC phase {phase} in:" in err
+
+
+def test_two_ranks_placement_runs_whole_on_each(tmp_path, phylip):
+    """Placement ignores --devices, as in the JAX package: each rank builds
+    the whole tree and rank 0 writes it."""
+    args = ["-i", "d", "-I", phylip, "-m", "1", "--precision", "f64"]
+    out, errs = _ranks(tmp_path, args + ["--devices", "2"])
+    assert out.read_text() == _single(tmp_path, args)
+    assert not any("Sharding" in err for err in errs)
+
+
+def test_profile_writes_a_trace_and_the_same_tree(tmp_path, phylip, capsys):
+    import json
+
+    args = ["-i", "d", "-I", phylip, "-m", "2"]
+    want = _single(tmp_path, args)
+    out, trace_dir = tmp_path / "prof.nwk", tmp_path / "trace"
+    assert port_main(args + ["-O", str(out), "--device", "cpu", "--profile",
+                             str(trace_dir)]) == 0
+    assert out.read_text() == want
+    trace = trace_dir / "trace.rank0.json"
+    assert "Profile trace:" in capsys.readouterr().err
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+
+
+def test_devices_on_one_cpu_build_unsharded(tmp_path, phylip, capsys):
+    """--device cpu --devices 2 with no coordinator has one device: the
+    single-process tree, and a log line that says so."""
+    args = ["-i", "d", "-I", phylip, "-m", "2"]
+    want = _single(tmp_path, args)
+    capsys.readouterr()
+    got = _single(tmp_path, args + ["--devices", "2"])
+    assert got == want
     err = capsys.readouterr().err
+    assert "--devices 2: one device here (cpu), building unsharded" in err
+    assert "Sharding" not in err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--coordinator", "127.0.0.1:1"],
+    ["--num-processes", "2"],
+    ["--coordinator", "127.0.0.1:1", "--num-processes", "2",
+     "--process-id", "2"],
+])
+def test_incomplete_multi_process_flags_exit_1(tmp_path, phylip, capsys,
+                                               flags):
+    rc = port_main(["-i", "d", "-I", phylip, "-O", str(tmp_path / "o.nwk"),
+                    "--device", "cpu"] + flags)
     assert rc == 1
-    assert "not yet ported" in err and what in err, err
+    assert "ERROR:" in capsys.readouterr().err
 
 
 @pytest.fixture(scope="module")

@@ -4,6 +4,7 @@ PyTorch versions, the MSA pair counts and distances, and CUDA builds
 (k-closest and exact placement, --add, the mash matrix, NJ) against CPU
 builds. Every test that takes the `cuda` fixture skips without CUDA;
 test_scorer_sources_and_rounding reads the sources only and runs anywhere.
+Kernel 3 is also held by slot ranges (a rank's share of a sharded build).
 The file imports no JAX, so it also runs on a machine without it (the
 repo's conftest imports JAX, hence --noconftest):
 
@@ -361,6 +362,64 @@ def test_score_edges_kernel_on_built_states(cuda, dtype):
     tk._insert_range(st, 2, n - 40, D[2:], n)
     for i in range(n - 40, n):
         _same_six(tk.score_edges(st, D[i]), tk._score_edges_plain(st, D[i]))
+
+
+def _slot_ranges(E, n_used, extra=()):
+    """Splits of [0, E) into ranges: 2 and 3 even ones, borders off the
+    kernel's 32-slot tiles, borders at the given slots, and, where the
+    state has an unused tail, a range that holds n_used and ranges with
+    no used slot."""
+    sets = [{0, -(-E // 2), E}, {0, -(-E // 3), 2 * -(-E // 3), E},
+            {0, 7, 45, E}]
+    sets += [{0, s, s + 1, E} for s in extra]
+    if n_used < E:
+        sets += [{0, n_used, E}, {0, max(1, n_used - 1), n_used + 1, E},
+                 {0, n_used, (n_used + E) // 2, E}]
+    return [sorted(x for x in b if x <= E) for b in sets]
+
+
+def _check_ranges(st, row, extra=()):
+    """Every range launch equals the plain version on its range, and the
+    ranges' choices, merged as the sharded build merges them, equal the
+    full launch."""
+    from dipper_tpu_torch.parallel.sharded import merge_choices
+
+    full = tk.score_edges(st, row)
+    full = (*full[:4], full[4].clone(), full[5].clone())
+    E = st.e.shape[0]
+    for bounds in _slot_ranges(E, st.idx, [full[0], max(0, full[0] - 1),
+                                           *extra]):
+        outs = []
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            got = tk.score_edges(st, row, lo=lo, hi=hi)
+            got = (*got[:4], got[4].clone(), got[5].clone())
+            assert lo <= got[0] < hi
+            _same_six(got, tk._score_edges_plain(st, row, lo, hi))
+            outs.append(got)
+        trios = np.array([[float(o[5]), o[0]] for o in outs])
+        _same_six(outs[merge_choices(trios)], full)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name", SCORE_CASES)
+def test_score_edges_kernel_by_ranges_equals_plain(cuda, name, dtype):
+    _, d, row, _ = next(c for c in sm.made_up_cases(dtype) if c[0] == name)
+    st = tk.tree_state_from_numpy(d, cuda)
+    extra = ([int(np.flatnonzero(d["belong"] > d["e"])[60])]
+             if name.startswith("tie") else [])
+    _check_ranges(st, torch.from_numpy(row).to(cuda), extra)
+
+
+def test_score_edges_kernel_by_ranges_on_a_built_state(cuda):
+    n = 300
+    rng = np.random.default_rng(10)
+    D = rng.random((n, n))
+    D = torch.from_numpy((D + D.T) / 2.2).to(cuda)
+    st = tk.init_placement_state((D,), num_sequences=n, frontend="matrix",
+                                 dtype_name="float64")
+    tk._insert_range(st, 2, n - 10, D[2:], n)
+    for i in range(n - 10, n):
+        _check_ranges(st, D[i])
 
 
 def test_score_edges_wrapper_rejects_bad_inputs(cuda):
