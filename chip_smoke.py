@@ -7,7 +7,7 @@ Runs on one NVIDIA GPU, from the root of a checkout:
     python3 chip_smoke.py --phases 1,2,3,6,7 --n 4400   # kernel checks only
 
 Phases, each printing one line of its own (run in the order 1, 2, 3, 6,
-15, 7, 19, 4, 17, 5, 16, 9, 10, 11, 12, 14, 13, 8, 18, 20, 21, 22, 23:
+15, 7, 19, 4, 17, 5, 16, 9, 24, 10, 11, 12, 14, 13, 8, 18, 20, 21, 22, 23:
 phases 13, 8 and 18 run the profiler, which slows every later launch in
 the process; phases 20 to 22 run in processes of their own):
   1. device: torch's device name and nvidia-smi's name and power limit;
@@ -53,8 +53,10 @@ the process; phases 20 to 22 run in processes of their own):
      seed 4) in f64 with streamed clusters (16 members and up, rows 5 at a
      time) and several builds a bucket forced: the same Newick bytes;
   8. GPU port vs CPU port, NJ: the mash matrix of N=2,048 taxa written by
-     the card (-i r -o d), then -i d -m 2 on both devices in f32 and f64,
-     nRF = 0 required; then one NJ on the card under torch.profiler
+     the card (-i r -o d), and -i r -o d of its first 512 on both devices
+     (device sketcher, device ranks and kernel 2 on the card, their plain
+     versions on the CPU: the same PHYLIP bytes), then -i d -m 2 on both
+     devices in f32 and f64, nRF = 0 required; then one NJ on the card under torch.profiler
      (launches per merge step, device busy time), and the launches,
      copies and syncs of one scorer call, kernel and plain;
   5. the placement main path: scripts/make_dataset.py's generator (seed
@@ -64,7 +66,9 @@ the process; phases 20 to 22 run in processes of their own):
      no standalone side-vector launch, the tree state on the card and nRF
      vs the true tree < 0.35. Every merge-count launch of the run is then
      held against the plain version on its own inputs, every 128th query
-     row of it; every 997th scorer call is held against the plain version
+     row of it; no sketch-kernel launch (placement sketches on the host,
+     as in the JAX package), and at N = 30,000 the nRF of every earlier
+     smoke (PLACEMENT_NRF_30K); every 997th scorer call is held against the plain version
      on its own inputs as it happens, and before the last insert range
      its first 300 rows (taxa not yet inserted) are scored by kernel and
      plain version on the state as it stands, where the kernel is also
@@ -84,10 +88,31 @@ the process; phases 20 to 22 run in processes of their own):
      launches of a step must not grow with the clusters;
   9. the NJ main path: the generator at N=20,000 (seed 1) and the CLI
      with default flags, which take conventional NJ below 30,000 taxa;
-     requires rc 0, a complete Newick, distance-kernel launches, every
-     launch's every 128th row equal to the plain version, a symmetric
-     matrix with a zero diagonal whose lower triangle is the kernel's
-     rows, and nRF vs the true tree < 0.45.
+     requires rc 0, a complete Newick, distance-kernel and sketch-kernel
+     launches (the NJ matrix sketches on the card, as in the JAX
+     package), every distance launch's every 128th row equal to the plain
+     version, a symmetric matrix with a zero diagonal whose lower
+     triangle is the kernel's rows and which equals, entry for entry,
+     the host route's (native sketches, np.unique ranks), and nRF vs the
+     true tree < 0.45 (at N = 20,000 the value of every earlier smoke,
+     NJ_NRF_20K); "Sketch in" and "Rank bank in" beside the host route's;
+  24. the sketch kernel (csrc/minhash_sketch.cu) against its plain
+     version on the card and the native host sketcher, equal bits
+     required throughout: phase 5's set (every row against the native
+     bank and the plain version, the first 512 also on their own) and
+     phase 9's, and adversarial rows (lengths 0, k-1, k, k+1, around the
+     4,096-window tile edge, 10,000 and 2,000,000; N, lowercase and U
+     bytes; a repeat-heavy row; k 4, 11, 15; s 1, 100, 1000, 1024 and the
+     kernel's largest); device rank_compress equal to the first-of-run
+     rule computed on the host, and kernel 2's distances through it equal
+     to those through rank_compress_host; for both sets the kernel's own
+     time by CUDA events (stages (a) and (b), and (a) without its sort),
+     M k-mers/s, its bound from operations and bytes and the share
+     reached, the host's encode/pack and the H2D copy, rank_compress
+     against rank_compress_host, the native sketcher with the host's CPU
+     and threads, and as a yardstick torch.sort along rows of the set's
+     [rows, windows] hash matrix (whose first s columns must equal the
+     kernel's rows);
   10. MSA pair counts and distances on an aligned set (the generator
      with --aligned at N=20,000, L=10,000, 5% gaps, seed 1): the card's
      counts of 4,096 queries x the bank's first 4,096 rows against an
@@ -129,8 +154,8 @@ the process; phases 20 to 22 run in processes of their own):
      --coordinator 127.0.0.1:P --num-processes 2 --process-id r --devices
      2 -m 2 on phase 9's set: the Newick byte-equal to phase 9's; each
      rank's backend, time to tree, ms per merge step and host syncs per
-     step; every distance-kernel launch of each rank sampled against the
-     plain version;
+     step; every distance-kernel and sketch-kernel launch of each rank
+     sampled against the plain version (each rank sketches on the card);
   21. two ranks on the one card, D&C: the same with -m 3 on phase 5's set:
      byte-equal to phase 16's tree; each rank's phase times; kernels 1, 2,
      3 and 4 sampled on each rank's launches;
@@ -154,7 +179,8 @@ to 23 in the 1,200 s limit: their loops are the host's, and the 30K and
 Every kernel counter is set to 0 just before a main path (phases 5, 16,
 9, 11, 12, 14, and in each rank of 20, 21 and 22) and read just after it;
 `launches` in the kernels' record is the count of phases 5 (placement), 16
-(D&C: the per-cluster count kernel) and 9 (NJ), `launches_by_path` has
+(D&C: the per-cluster count kernel) and 9 (NJ; also the sketch
+kernel's), `launches_by_path` has
 every path's (one count a rank for the multi-rank paths), and
 score_edges's `range_launches` the sharded placement's range launches.
 
@@ -192,8 +218,20 @@ KERNELS = {
                     "scripts/gather_micro.py:74"),
     "mash_cluster_inter": ("dipper_tpu_torch/csrc/mash_cluster_inter.cu",
                            "dipper_tpu/dc/pipeline.py:1093"),
+    "minhash_sketch": ("dipper_tpu_torch/csrc/minhash_sketch.cu",
+                       "dipper_tpu/sketch/minhash.py:274 (XLA program, no "
+                       "Pallas)"),
 }
 NRF_LIMIT = 0.35
+# nRF vs the true tree of the full-size sets (seed 1) in every smoke so
+# far: placement at 30,000 (the JAX package's value) and NJ at 20,000;
+# the device sketcher must leave both unchanged
+PLACEMENT_NRF_30K = 0.2948961562822949
+NJ_NRF_20K = 0.32029804470670603
+# NJ 20K's "Sketch in" and "Rank bank in" (ms) on the host route (native
+# sketcher, np.unique), the final smoke of the commit before the device
+# sketcher
+HOST_ROUTE_NJ_20K_MS = {"sketch": 1820, "rank_bank": 2893}
 # a sanity bound for NJ on the generator's 20K set (no JAX figure exists)
 NJ_NRF_LIMIT = 0.45
 # every SIDE_SAMPLE-th scorer call of the placement main path is held
@@ -213,8 +251,8 @@ DC_NRF_LIMIT = 0.65
 # every DC_SAMPLE-th cluster of each per-cluster count launch of the D&C
 # main path is held against the plain version
 DC_SAMPLE = 16
-ALL_PHASES = (1, 2, 3, 6, 15, 7, 19, 4, 17, 5, 16, 9, 10, 11, 12, 14, 13, 8,
-              18, 20, 21, 22, 23)
+ALL_PHASES = (1, 2, 3, 6, 15, 7, 19, 4, 17, 5, 16, 9, 24, 10, 11, 12, 14, 13,
+              8, 18, 20, 21, 22, 23)
 # every SAMPLE-th query row of a large kernel call is compared with the
 # plain version (which takes ~10 ms per query row at 30,000 bank rows)
 SAMPLE = 128
@@ -229,6 +267,19 @@ PEAK_INT8_PER_S = 1979e12
 # integer operations of one step of the mash walk: a compare, a pointer
 # advance, two counter updates
 OPS_PER_WALK_STEP = 4
+# 32-bit integer operations of one window of the sketch kernel at k > 8,
+# counted from csrc/minhash_sketch.cu (a 64-bit multiply as 3, a 64-bit
+# shift, rotate, xor or add as 2): the window's codes from two words and
+# its canonical form 17; the key bytes 26 (two nibble spreads, the pads,
+# four byte permutes, the two words); the murmur tail 64 (two key blocks
+# of two multiplies, a rotate and an xor; the length; two adds; two
+# finalisers of three shift-xors and two multiplies; the last add); the
+# length mask and one 64-bit compare of the bottom-k 5
+SKETCH_OPS_PER_WINDOW = 17 + 26 + 64 + 5
+# the sketch kernel's plain version on the card: its tiles of windows and
+# row chunks (its bits do not depend on them)
+PLAIN_SKETCH_TILE = 2**16
+PLAIN_SKETCH_CHUNK_BYTES = 2**31
 
 
 def emit(obj) -> None:
@@ -273,11 +324,19 @@ def ranks_of(seqs, k: int, s: int) -> np.ndarray:
 
 
 def host_cpu() -> str:
+    """The host's CPU model from /proc/cpuinfo, or its vendor, family and
+    model numbers where the model name reads "unknown" (as on the card's
+    virtual machines)."""
+    info = {}
     with open("/proc/cpuinfo") as f:
         for ln in f:
-            if ln.startswith("model name"):
-                return ln.split(":", 1)[1].strip()
-    return "unknown"
+            key, _, val = ln.partition(":")
+            info.setdefault(key.strip(), val.strip())
+    name = info.get("model name", "unknown")
+    if name == "unknown":
+        name = (f"{info.get('vendor_id', '?')} family "
+                f"{info.get('cpu family', '?')} model {info.get('model', '?')}")
+    return name
 
 
 def phase_device() -> dict:
@@ -888,23 +947,27 @@ def reset_counts() -> None:
     """Every kernel counter to 0 (just before a main path)."""
     from dipper_tpu_torch.distance import mash_cuda
     from dipper_tpu_torch.placement import kclosest
+    from dipper_tpu_torch.sketch import minhash_cuda
 
     mash_cuda.LAUNCHES = 0
     mash_cuda.ROWS_DIST_LAUNCHES = 0
     mash_cuda.CLUSTER_LAUNCHES = 0
     kclosest.SIDE_VECTOR_LAUNCHES = 0
     kclosest.SCORE_EDGES_LAUNCHES = 0
+    minhash_cuda.LAUNCHES = 0
 
 
 def read_counts() -> dict:
     from dipper_tpu_torch.distance import mash_cuda
     from dipper_tpu_torch.placement import kclosest
+    from dipper_tpu_torch.sketch import minhash_cuda
 
     return {"mash_merge_count": mash_cuda.LAUNCHES,
             "mash_rows_dist": mash_cuda.ROWS_DIST_LAUNCHES,
             "side_vector": kclosest.SIDE_VECTOR_LAUNCHES,
             "score_edges": kclosest.SCORE_EDGES_LAUNCHES,
-            "mash_cluster_inter": mash_cuda.CLUSTER_LAUNCHES}
+            "mash_cluster_inter": mash_cuda.CLUSTER_LAUNCHES,
+            "minhash_sketch": minhash_cuda.LAUNCHES}
 
 
 def check_tree(nwk: str, n: int, true_nwk: str, limit: float) -> tuple:
@@ -1019,6 +1082,10 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
     check(counts["side_vector"] == 0,
           f"the placement main path launched the standalone side_vector "
           f"kernel {counts['side_vector']} times")
+    # placement's ingest is the host sketcher's, as in the JAX package
+    check(counts["minhash_sketch"] == 0,
+          f"the placement main path launched the sketch kernel "
+          f"{counts['minhash_sketch']} times")
     check(n_scored[0] == n - 2, f"{n_scored[0]} scorer calls recorded")
     check(len(states) == 1, "the main path did not run run_placement_chunked")
     st = states[0]
@@ -1026,6 +1093,8 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
         check(getattr(st, f).device.type == "cuda", f"tree state {f} on "
               f"{getattr(st, f).device}")
     rf, nrf = check_tree(open(out).read().strip(), n, true_nwk, NRF_LIMIT)
+    check(n != 30000 or nrf == PLACEMENT_NRF_30K, f"placement nRF {nrf} != "
+          f"{PLACEMENT_NRF_30K}, every earlier smoke's")
     check(len(calls) == counts["mash_merge_count"],
           f"{len(calls)} recorded kernel calls, "
           f"{counts['mash_merge_count']} launches")
@@ -1073,7 +1142,20 @@ def phase_nj_gpu_vs_cpu(tmp: str, n: int = 2048) -> dict:
     phy = os.path.join(tmp, f"nj{n}.phy")
     rc, _, _ = run_cli(["-i", "r", "-I", fa, "-O", phy, "-o", "d"])
     check(rc == 0, f"-i r -o d returned {rc}")
-    res = {}
+    # -i r -o d at 512 taxa: the device sketcher, device ranks and kernel
+    # 2 on the card, their plain versions on the CPU; equal PHYLIP bytes
+    head = head_fasta(fa, 512, os.path.join(tmp, "nj512.fa"))
+    res, phys = {"o_d_512": {"wall_s": {}}}, {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(tmp, f"nj512.{dev}.phy")
+        rc, _, wall = run_cli(["-i", "r", "-I", head, "-O", out, "-o", "d",
+                               "--device", dev])
+        check(rc == 0, f"-i r -o d --device {dev} returned {rc}")
+        phys[dev] = open(out, "rb").read()
+        res["o_d_512"]["wall_s"][dev] = wall
+    check(phys["cuda"] == phys["cpu"], "-i r -o d at 512: the card's PHYLIP "
+          "bytes != the CPU's")
+    res["o_d_512"]["phylip_identical"] = True
     for prec in ("f32", "f64"):
         outs, nj_ms = {}, {}
         for dev in ("cuda", "cpu"):
@@ -1209,10 +1291,15 @@ def phase_nj_main_path(tmp: str, n: int) -> dict:
     check("Using conventional NJ" in log, "auto mode did not take NJ")
     check(counts["mash_rows_dist"] > 0,
           "the NJ main path launched no mash_rows_dist kernel")
+    # the NJ matrix's ingest is the device sketcher's, as in the JAX package
+    check(counts["minhash_sketch"] > 0,
+          "the NJ main path launched no minhash_sketch kernel")
     check(len(calls) == counts["mash_rows_dist"],
           f"{len(calls)} recorded kernel calls, "
           f"{counts['mash_rows_dist']} launches")
     rf, nrf = check_tree(open(out).read().strip(), n, true_nwk, NJ_NRF_LIMIT)
+    check(n != 20000 or nrf == NJ_NRF_20K, f"NJ nRF {nrf} != {NJ_NRF_20K}, "
+          "every earlier smoke's")
     from dipper_tpu_torch.distance.mash import (inter_to_dist,
                                                 merged_inter_count_ref)
 
@@ -1251,6 +1338,17 @@ def phase_nj_main_path(tmp: str, n: int) -> dict:
             check(torch.equal(D[i, :i], got[r, :i]),
                   f"matrix row {i} differs from the kernel's row")
         q0 += qry.shape[0]
+    # the device route's matrix (device sketches, device ranks) is the
+    # host route's (native sketches, np.unique ranks), entry for entry
+    from dipper_tpu_torch.driver import _load_sequences
+    from dipper_tpu_torch.utils.params import Param
+
+    _, seqs = _load_sequences(Param(), fa)
+    D_host = mash.mash_distance_matrix(ranks_of(seqs, k, s), k, s, "float32",
+                                       torch.device("cuda"))
+    check(torch.equal(D, D_host), "the NJ matrix from the device sketcher "
+          "!= the host route's")
+    del D_host, seqs
     emit({"phase": "main_path", "path": "nj", "n": n, "L": 10000, "k": k,
           "s": s, "precision": "f32", "dataset_gen_s": gen_s,
           "phases_ms": {
@@ -1261,6 +1359,8 @@ def phase_nj_main_path(tmp: str, n: int) -> dict:
               "nj": _ms(r"NJ in: (\d+) ms", log),
               "tree_created": _ms(r"Tree Created in: (\d+) ms", log),
               "total_wall": wall * 1e3},
+          "host_route_ms_before": HOST_ROUTE_NJ_20K_MS,
+          "matrix_equal_host_route": True,
           "kernel_launches": counts, "kernel_calls": checked,
           "max_memory_allocated": peak,
           "rf": rf, "nrf_vs_true": nrf, "nrf_limit": NJ_NRF_LIMIT})
@@ -2142,12 +2242,16 @@ class Samplers:
         from dipper_tpu_torch.placement import kclosest
 
         self.mc, self.kc = mash_cuda, kclosest
+        from dipper_tpu_torch.sketch import minhash_cuda
+
+        self.sk = minhash_cuda
         self.orig = (mash_cuda.mash_inter_cuda, mash_cuda.mash_rows_dist_cuda,
                      mash_cuda.mash_cluster_inter_cuda,
-                     kclosest.score_edges_cuda)
-        inter, rows_dist, cluster, score = self.orig
+                     kclosest.score_edges_cuda,
+                     minhash_cuda.minhash_sketch_cuda)
+        inter, rows_dist, cluster, score, sketch = self.orig
         self.calls = {"mash_merge_count": [], "mash_rows_dist": [],
-                      "mash_cluster_inter": []}
+                      "mash_cluster_inter": [], "minhash_sketch": []}
         self.score = {"calls": 0, "checked": 0, "max_abs_err": 0.0}
 
         def inter_rec(bank, qry, *, sketch_size):
@@ -2185,9 +2289,17 @@ class Samplers:
             self.score["calls"] += 1
             return got
 
+        def sketch_rec(words, lengths, *, k, sketch_size, **kw):
+            got = sketch(words, lengths, k=k, sketch_size=sketch_size, **kw)
+            self.calls["minhash_sketch"].append(
+                (words[::SAMPLE].contiguous(), lengths[::SAMPLE].contiguous(),
+                 k, sketch_size, got[::SAMPLE].clone()))
+            return got
+
         (mash_cuda.mash_inter_cuda, mash_cuda.mash_rows_dist_cuda,
-         mash_cuda.mash_cluster_inter_cuda, kclosest.score_edges_cuda) = (
-            inter_rec, rows_rec, cluster_rec, score_rec)
+         mash_cuda.mash_cluster_inter_cuda, kclosest.score_edges_cuda,
+         minhash_cuda.minhash_sketch_cuda) = (
+            inter_rec, rows_rec, cluster_rec, score_rec, sketch_rec)
 
     def finish(self) -> dict:
         """Restores the entry points and compares the recorded launches;
@@ -2195,9 +2307,11 @@ class Samplers:
         difference."""
         from dipper_tpu_torch.distance.mash import (cluster_inter_ref,
                                                     merged_inter_count_ref)
+        from dipper_tpu_torch.sketch.minhash import sketch_batch_plain
 
         (self.mc.mash_inter_cuda, self.mc.mash_rows_dist_cuda,
-         self.mc.mash_cluster_inter_cuda, self.kc.score_edges_cuda) = self.orig
+         self.mc.mash_cluster_inter_cuda, self.kc.score_edges_cuda,
+         self.sk.minhash_sketch_cuda) = self.orig
         out = {}
         worst = 0.0
         for bank, qry, s, got in self.calls["mash_merge_count"]:
@@ -2220,6 +2334,13 @@ class Samplers:
             worst = max(worst, _max_abs_err(got, want))
         out["mash_cluster_inter"] = {
             "launches_checked": len(self.calls["mash_cluster_inter"]),
+            "max_abs_err": worst}
+        worst = 0.0
+        for words, lengths, k, s, got in self.calls["minhash_sketch"]:
+            worst = max(worst, u64_err(got, sketch_batch_plain(
+                words, lengths, k=k, sketch_size=s)))
+        out["minhash_sketch"] = {
+            "launches_checked": len(self.calls["minhash_sketch"]),
             "max_abs_err": worst}
         out["score_edges"] = dict(self.score)
         return out
@@ -2410,9 +2531,11 @@ def phase_nj_two_ranks(tmp: str, nj: dict) -> dict:
           "two-rank NJ tree != the single-process tree")
     lines = []
     for r, got in enumerate(ranks):
-        check(got["counts"]["mash_rows_dist"] > 0,
-              f"NJ rank {r} launched no mash_rows_dist kernel")
-        _check_samples("nj2", r, got["samples"], ("mash_rows_dist",))
+        for name in ("mash_rows_dist", "minhash_sketch"):
+            check(got["counts"][name] > 0,
+                  f"NJ rank {r} launched no {name} kernel")
+        _check_samples("nj2", r, got["samples"],
+                       ("mash_rows_dist", "minhash_sketch"))
         m = re.search(r"NJ sharded over 2 ranks \((\w+)\): (\d+) merge steps, "
                       r"([\d.]+) ms a step, (\d+) host syncs a step",
                       got["log"])
@@ -2560,6 +2683,284 @@ def phase_profile(tmp: str) -> None:
           "mash_tile_kernel_events": tile, "tree_unchanged": True})
 
 
+def pack_rows(seqs, k: int) -> tuple:
+    """Host-packed int32 words and int32 lengths of `seqs` as one batch,
+    padded as sketch/minhash.py::sketch_sequences pads a batch."""
+    from dipper_tpu_torch.io.encode import encode_pack_2bit_matrix
+
+    lens = np.array([len(s) for s in seqs], dtype=np.int32)
+    L = -(-max(int(lens.max()), k) // 16) * 16
+    ascii_mat = np.zeros((len(seqs), L), dtype=np.uint8)
+    for r, s in enumerate(seqs):
+        ascii_mat[r, :len(s)] = np.frombuffer(s, np.uint8)
+    return encode_pack_2bit_matrix(ascii_mat), lens
+
+
+def plain_sketch_on_card(seqs, k: int, s: int) -> tuple:
+    """The sketch kernel's plain version (sketch_batch_plain) on the card
+    for `seqs` in one batch; returns (bank, host ms)."""
+    from dipper_tpu_torch.sketch.minhash import sketch_batch_plain
+
+    words, lens = _on_card(*pack_rows(seqs, k))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sketch_batch_plain(words, lens, k=k, sketch_size=s,
+                             tile=PLAIN_SKETCH_TILE,
+                             chunk_bytes=PLAIN_SKETCH_CHUNK_BYTES)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def u64_err(got: torch.Tensor, want) -> float:
+    """0.0 where two banks of u64 bit patterns (int64 tensors or a uint64
+    array) are equal, else the largest |difference| of their u64 values
+    (inf where the shapes differ)."""
+    g = got.cpu().numpy().view(np.uint64)
+    w = (want.cpu().numpy().view(np.uint64)
+         if isinstance(want, torch.Tensor) else want)
+    if g.shape != w.shape:
+        return float("inf")
+    if np.array_equal(g, w):
+        return 0.0
+    return float(np.where(g > w, g - w, w - g).max())
+
+
+def first_of_run_ranks_host(host_ranks: np.ndarray) -> np.ndarray:
+    """The device rank rule computed on the host another way, from
+    rank_compress_host's consecutive ranks: a value's rank is the count
+    of bank values below it (the sorted position where its run of equal
+    values starts), the sum of the counts of the smaller ranks."""
+    counts = np.bincount(host_ranks.reshape(-1))
+    return (np.cumsum(counts) - counts)[host_ranks].astype(np.int32)
+
+
+def sketch_adversarial() -> dict:
+    """The sketch kernel against its plain version on the card and the
+    native sketcher on ragged and adversarial rows: lengths 0, k-1, k,
+    k+1, 4,095 to 4,097 bases and windows (the tile edge), 10,000 and
+    2,000,000 (489 tiles); N, lowercase and U bytes; a repeat-heavy row;
+    in a ragged order; k 4, 11, 15 and s 1, 100, 1000, 1024 and the
+    kernel's largest."""
+    from dipper_tpu_torch.sketch import minhash, minhash_cuda
+    from dipper_tpu_torch.sketch.native import sketch_sequences_native
+
+    rng = np.random.default_rng(24)
+    long_row = bytes(rng.choice(list(b"ACGTNacgtU"), 2_000_000)
+                     .astype(np.uint8))
+    cases = {}
+    for k in (4, 11, 15):
+        seqs = [bytes(rng.choice(list(b"ACGTNacgtU"), L).astype(np.uint8))
+                for L in (0, k - 1, k, k + 1, 4095, 4096, 4097, 4094 + k,
+                          4095 + k, 4096 + k, 10000)]
+        seqs += [b"ACGT" * 2500, long_row]
+        seqs = [seqs[i] for i in rng.permutation(len(seqs))]
+        for s in (1, 100, 1000, 1024, minhash_cuda.MAX_SKETCH_SIZE):
+            got = minhash.sketch_sequences(seqs, k, s, device="cuda",
+                                           as_device=True)
+            plain, plain_ms = plain_sketch_on_card(seqs, k, s)
+            native = sketch_sequences_native(seqs, k, s)
+            check(native is not None, "native sketcher unavailable")
+            err = max(u64_err(got, plain), u64_err(got, native))
+            check(err == 0.0, f"sketch kernel k={k} s={s}: != plain or "
+                  f"native on the adversarial rows (max abs err {err})")
+            cases[f"k{k}_s{s}"] = {"rows": len(seqs), "equal": True,
+                                   "plain_ms": plain_ms}
+    return cases
+
+
+def time_sketch_set(tag: str, seqs, k: int = 15, s: int = 1000,
+                    check_rank_rule: bool = False) -> dict:
+    """The device ingest of one set, as the NJ path runs it, and its parts
+    on their own: sketch_sequences (host wall, synchronized), the host's
+    encode/pack, each batch's H2D copy, the kernel's own time by CUDA
+    events (both stages; stage (a); stage (b) on (a)'s tile lists; (a)
+    without its sort), the device rank_compress; beside them the native
+    host sketcher and rank_compress_host, the plain version on the card
+    and torch.sort along rows of the set's [rows, windows] hash matrix
+    (the yardstick). The bank is held bitwise to the native one, to the
+    plain version and to the sorted hash matrix's first s columns; the
+    device ranks give kernel 2's distances bit for bit as the host ranks
+    do (and, with check_rank_rule, equal the rule computed on the host)."""
+    from dipper_tpu_torch.distance.mash import (mash_pairwise, pad_ranks,
+                                                rank_compress,
+                                                rank_compress_host)
+    from dipper_tpu_torch.io import encode
+    from dipper_tpu_torch.sketch import minhash, minhash_cuda
+    from dipper_tpu_torch.sketch.native import sketch_sequences_native
+
+    calls, enc_s = [], []
+    kernel = minhash_cuda.minhash_sketch_cuda
+    pack = encode.encode_pack_2bit_matrix
+
+    def kernel_rec(words, lengths, **kw):
+        calls.append((words, lengths))
+        return kernel(words, lengths, **kw)
+
+    def pack_rec(a):
+        t0 = time.perf_counter()
+        w = pack(a)
+        enc_s.append(time.perf_counter() - t0)
+        return w
+
+    minhash_cuda.minhash_sketch_cuda = kernel_rec
+    encode.encode_pack_2bit_matrix = pack_rec
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bank = minhash.sketch_sequences(seqs, k, s, device="cuda",
+                                        as_device=True)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        minhash_cuda.minhash_sketch_cuda = kernel
+        encode.encode_pack_2bit_matrix = pack
+    t0 = time.perf_counter()
+    native = sketch_sequences_native(seqs, k, s)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    check(native is not None, "native sketcher unavailable")
+    worst = u64_err(bank, native)
+    check(worst == 0.0, f"{tag}: sketch kernel != native sketcher (max abs "
+          f"err {worst})")
+    plain, plain_ms = plain_sketch_on_card(seqs, k, s)
+    err = u64_err(bank, plain)
+    check(err == 0.0, f"{tag}: sketch kernel != plain on the card (max abs "
+          f"err {err})")
+    # each batch: the kernel's stages, its H2D copy, the sort yardstick
+    stage_ms = {"both": 0.0, "a": 0.0, "b": 0.0, "a_hash_only": 0.0}
+    h2d_ms = sort_ms = 0.0
+    nbytes = windows = 0
+    for words, lengths in calls:
+        B, W = words.shape
+        scr = torch.empty(minhash_cuda.scratch_elems(B, W, k, s),
+                          dtype=torch.int64, device="cuda")
+        out = torch.empty((B, s), dtype=torch.int64, device="cuda")
+        for name, st in (("both", 3), ("a", 1), ("b", 2),
+                         ("a_hash_only", 5)):
+            stage_ms[name] += event_ms(lambda: kernel(
+                words, lengths, k=k, sketch_size=s, stages=st, scratch=scr,
+                out=out), 5)
+        host = np.concatenate([words.cpu().numpy().reshape(-1),
+                               lengths.cpu().numpy(), lengths.cpu().numpy()])
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.from_numpy(host).to("cuda")
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        h2d_ms += best
+        lens = lengths.long()
+        windows += int((lens - k + 1).clamp(min=0).sum())
+        nbytes += words.numel() * 4 + B * 4 + B * s * 8
+        # the [rows, windows] hash matrix of the batch (plain hash on the
+        # card), sorted along rows by one torch.sort
+        P = 16 * W - k + 1
+        keys = torch.empty((B, P), dtype=torch.int64, device="cuda")
+        step = max(1, 2**28 // (24 * 8 * P))
+        for r0 in range(0, B, step):
+            keys[r0:r0 + step] = minhash.window_keys(
+                minhash.unpack_codes(words[r0:r0 + step]),
+                lengths[r0:r0 + step], k, 0, P)
+        sort_ms += event_ms(lambda: torch.sort(keys, dim=1), 3)
+        if P >= s:
+            top = torch.sort(keys, dim=1).values[:, :s] ^ torch.iinfo(
+                torch.int64).min
+            check(torch.equal(top, kernel(words, lengths, k=k,
+                                          sketch_size=s)),
+                  f"{tag}: sketch kernel != the sorted hash matrix")
+        del keys
+    # ranks: the card's against the host's
+    ranks = rank_compress(bank)
+    rank_ms = event_ms(lambda: rank_compress(bank), 5)
+    t0 = time.perf_counter()
+    host_ranks = rank_compress_host(native)
+    host_rank_ms = (time.perf_counter() - t0) * 1e3
+    rule = None
+    if check_rank_rule:
+        rule = bool(np.array_equal(ranks.cpu().numpy(),
+                                   first_of_run_ranks_host(host_ranks)))
+        check(rule, f"{tag}: device ranks != the first-of-run rule on the "
+              "host")
+    dev_pad = pad_ranks(ranks)
+    host_pad = torch.from_numpy(pad_ranks(host_ranks)).cuda()
+    q = min(4096, dev_pad.shape[0])
+    same = all(torch.equal(
+        mash_pairwise(dev_pad, dev_pad[:q], k=k, sketch_size=s,
+                      dtype_name=dt),
+        mash_pairwise(host_pad, host_pad[:q], k=k, sketch_size=s,
+                      dtype_name=dt)) for dt in ("float32", "float64"))
+    check(same, f"{tag}: kernel-2 distances through device ranks != through "
+          "host ranks")
+    bound = bound_of(windows * SKETCH_OPS_PER_WINDOW, nbytes)
+    select_ms = stage_ms["a"] - stage_ms["a_hash_only"]
+    return {"rows": len(seqs), "k": k, "s": s, "batches": len(calls),
+            "windows": windows, "equal_native": True, "equal_plain": True,
+            "max_abs_err": 0.0,
+            "sketch_sequences_wall_ms": wall_ms,
+            "encode_pack_ms": sum(enc_s) * 1e3, "h2d_ms": h2d_ms,
+            "kernel_ms": stage_ms, "ms": stage_ms["both"],
+            "mkmers_per_s": windows / stage_ms["both"] / 1e3,
+            **bound, "share_of_bound": bound["bound_ms"] / stage_ms["both"],
+            "plain_ms": plain_ms,
+            "torch_sort_rows_ms": sort_ms,
+            "select_in_a_plus_b_ms": select_ms + stage_ms["b"],
+            "rank_compress_ms": rank_ms, "rank_compress_host_ms": host_rank_ms,
+            "rank_rule_equal_host": rule,
+            "distances_equal_host_ranks": True,
+            "native_ms": native_ms,
+            "native_threads": min(32, os.cpu_count() or 1)}
+
+
+def phase_sketch(fa30: str, fa20: str) -> dict:
+    """Phase 24: the sketch kernel against its plain version and the
+    native sketcher, bitwise, on the placement set (all 30K rows against
+    the native bank, the first 512 against the plain version), the NJ
+    set (every row against both) and adversarial rows; device rank
+    compression; times."""
+    from dipper_tpu_torch.driver import _load_sequences
+    from dipper_tpu_torch.sketch import minhash
+    from dipper_tpu_torch.utils.params import Param
+
+    t0 = time.time()
+    parts_s = {}
+    _, seqs30 = _load_sequences(Param(), fa30)
+    bank = minhash.sketch_sequences(seqs30[:512], 15, 1000, device="cuda",
+                                    as_device=True)
+    plain, _ = plain_sketch_on_card(seqs30[:512], 15, 1000)
+    err = u64_err(bank, plain)
+    check(err == 0.0, f"sketch kernel != plain on the placement set's first "
+          f"512 rows (max abs err {err})")
+    parts_s["load_and_first_512"] = time.time() - t0
+    set30 = time_sketch_set("placement set", seqs30, check_rank_rule=True)
+    del seqs30
+    parts_s["placement_set"] = time.time() - t0 - sum(parts_s.values())
+    _, seqs20 = _load_sequences(Param(), fa20)
+    set20 = time_sketch_set("NJ set", seqs20)
+    del seqs20
+    parts_s["nj_set"] = time.time() - t0 - sum(parts_s.values())
+    adv = sketch_adversarial()
+    parts_s["adversarial"] = time.time() - t0 - sum(parts_s.values())
+    res = {"placement_30k": set30, "nj_20k": set20}
+    emit({"phase": "sketch_vs_plain", "kernel": "minhash_sketch",
+          "timing": "kernel: CUDA events, mean of 5 back-to-back calls a "
+                    "batch after a warm-up, summed over the batches; host "
+                    "parts: host clock",
+          "bound": {"int32_ops_per_window": SKETCH_OPS_PER_WINDOW,
+                    "int32_ops_per_s": PEAK_INT32_PER_S,
+                    "bytes_per_s": PEAK_BYTES_PER_S},
+          "host_cpu": host_cpu(), **res, "adversarial": adv,
+          "parts_s": parts_s, "phase_s": time.time() - t0})
+    nj = set20
+    return {"ms": nj["ms"], "plain_ms": nj["plain_ms"],
+            "bound_ms": nj["bound_ms"], "bound_by": nj["bound_by"],
+            "share_of_bound": nj["share_of_bound"],
+            "library_ms": nj["torch_sort_rows_ms"], "max_abs_err": 0.0,
+            "shape": [nj["rows"], 10000], "mkmers_per_s": nj["mkmers_per_s"],
+            "placement_30k": {key: set30[key] for key in (
+                "ms", "bound_ms", "share_of_bound", "mkmers_per_s",
+                "torch_sort_rows_ms", "rank_compress_ms")}}
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] in ("--worker-cli",
                                              "--worker-sharded"):
@@ -2609,7 +3010,7 @@ def main() -> int:
             records[name].setdefault("launches_by_path", {})[path] = c
 
     with tempfile.TemporaryDirectory() as tmp:
-        if phases & {3, 5, 6, 14, 15, 16, 21, 22}:
+        if phases & {3, 5, 6, 14, 15, 16, 21, 22, 24}:
             t0 = time.time()
             data = make_dataset(args.n, os.path.join(tmp, f"n{args.n}"),
                                 seed=1)
@@ -2679,6 +3080,12 @@ def main() -> int:
             rd["launches"] = res["counts"]["mash_rows_dist"]
             rd["max_abs_err"] = max(rd.get("max_abs_err", 0.0),
                                     res["max_abs_err"])
+            records["minhash_sketch"]["launches"] = res["counts"][
+                "minhash_sketch"]
+        if 24 in phases:
+            nj_fa = (nj_single["fa"] if 9 in phases else make_dataset(
+                args.nj_n, os.path.join(tmp, f"n{args.nj_n}"), seed=1)[0])
+            records["minhash_sketch"].update(phase_sketch(data[0], nj_fa))
         if phases & {10, 11, 12, 13}:
             t0 = time.time()
             msa_fa, msa_true = make_dataset(

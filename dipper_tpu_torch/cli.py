@@ -17,7 +17,8 @@ src/tree_generation.cu:33-99) plus --device:
                               cuda without a GPU raises; on cuda the mash
                               kernels take sketch sizes up to 19,367 for
                               placement, 14,523 (f32) or 11,619 (f64) for
-                              NJ and -o d)
+                              NJ and -o d, the sketch kernel of NJ and -o
+                              d up to 1,048,576)
   --devices N                 split NJ's Q scan and D&C's phases 2 and 3
                               over N ranks (one process and one card each)
   --coordinator HOST:PORT --num-processes P --process-id I
@@ -77,7 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="device of the build (default cuda; no silent "
                         "fallback to the CPU). cuda takes --sketch-size up "
                         "to 19367 for placement, 14523 (f32) or 11619 (f64) "
-                        "for NJ and -o d (the kernels' shared memory)")
+                        "for NJ and -o d (the kernels' shared memory); the "
+                        "sketch kernel takes up to 1048576")
     p.add_argument("--precision", default="f32", choices=["f32", "f64"])
     p.add_argument("--seed", type=int, default=42,
                    help="input shuffle seed; -1 = keep input order")

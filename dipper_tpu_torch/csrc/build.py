@@ -29,6 +29,7 @@ KERNELS = {
     "side_vector": "side_vector.cu",
     "score_edges": "score_edges.cu",
     "mash_cluster_inter": "mash_cluster_inter.cu",
+    "minhash_sketch": "minhash_sketch.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

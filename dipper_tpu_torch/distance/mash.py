@@ -10,9 +10,12 @@ sketchSize; then
     j = max(inter, 1) / sketchSize
     d = min(1, |ln(2j / (1+j))| / k)
 
-u64 hashes are rank-compressed once on the host (order- and
-equality-preserving) so every comparison is int32, and rank rows are
-padded to a power of two with ranks that sort last. For CUDA tensors,
+u64 hashes are rank-compressed once (order- and equality-preserving) so
+every comparison is int32, and rank rows are padded to a power of two
+with ranks that sort last: on the host by np.unique for placement, D&C
+and --add (`mash_rank_bank`), on the device by `rank_compress` for the
+NJ matrix and -o d (`mash_rank_bank_device`), as the JAX package routes
+them. For CUDA tensors,
 the Hopper kernels of distance/mash_cuda.py run the walk, a warp per
 pair (`partitioned_walk_inter` models how): one returns intersection
 counts (`mash_pairwise_inter`), the other the distances
@@ -50,14 +53,39 @@ def rank_compress_host(sketches_u64: np.ndarray) -> np.ndarray:
     return inv.astype(np.int32).reshape(sketches_u64.shape)
 
 
+def rank_compress(sketches: torch.Tensor) -> torch.Tensor:
+    """int64 [N, S] sketch bank (u64 bit patterns) -> int32 ranks [N, S]
+    on its device, preserving order and equality globally: each value's
+    rank is the sorted position of the first element of its run of equal
+    values, dipper_tpu/distance/mash.py::rank_compress's ranks bit for bit
+    (its pow2 sentinel pad sorts after every real element and moves no
+    run's start). Raises when N*S >= 2^30: the ranks, below N*S, must
+    leave the tagged keys 2r+1 and the pad rank in int32."""
+    N, S = sketches.shape
+    P = N * S
+    if P >= 2**30:
+        raise ValueError(f"sketch bank of {N} x {S} = {P} values: device "
+                         "rank compression takes fewer than 2^30")
+    flat = sketches.reshape(-1) ^ torch.iinfo(torch.int64).min
+    vals, order = torch.sort(flat, stable=True)
+    newseg = torch.ones(P, dtype=torch.bool, device=flat.device)
+    newseg[1:] = vals[1:] != vals[:-1]
+    iota = torch.arange(P, dtype=torch.int32, device=flat.device)
+    rank_sorted = torch.cummax(torch.where(newseg, iota, 0), 0).values
+    ranks = torch.empty(P, dtype=torch.int32, device=flat.device)
+    ranks[order] = rank_sorted
+    return ranks.view(N, S)
+
+
 def mash_rank_bank(seqs, params, device, log=None) -> torch.Tensor:
     """Host sketch bank (sketch/bank.py) -> host ranks -> one upload of
-    the padded int32 rank bank [N, M] to `device`. `log`, if given,
-    receives the CLI's "Sketch in" and "Rank bank in" lines."""
+    the padded int32 rank bank [N, M] to `device`: the ingest of
+    placement, D&C and --add. `log`, if given, receives the CLI's
+    "Sketch in" and "Rank bank in" lines."""
     from dipper_tpu_torch.sketch.bank import get_sketch_bank
 
     t0 = time.time()
-    sk = get_sketch_bank(seqs, params)
+    sk = get_sketch_bank(seqs, params, device=device)
     if log:
         log(f"Sketch in: {int((time.time() - t0) * 1000)} ms")
     t0 = time.time()
@@ -69,18 +97,47 @@ def mash_rank_bank(seqs, params, device, log=None) -> torch.Tensor:
     return ranks
 
 
+def mash_rank_bank_device(seqs, params, device, log=None) -> torch.Tensor:
+    """The padded int32 rank bank [N, M] of the NJ matrix and -o d, as
+    dipper_tpu/driver.py::_distance_matrix makes it: the device sketch
+    bank (a host bank uploaded where --save-sketches or --load-sketches
+    asks for the host route), then `rank_compress` and `pad_ranks` on
+    `device`. `log` receives "Sketch in" and "Rank bank in", each after
+    a synchronize."""
+    from dipper_tpu_torch.sketch.bank import get_sketch_bank
+
+    t0 = time.time()
+    sk = get_sketch_bank(seqs, params, as_device=True, device=device)
+    if isinstance(sk, np.ndarray):
+        sk = torch.from_numpy(np.ascontiguousarray(sk).view(np.int64))
+    sk = sk.to(device)
+    synchronize(device)
+    if log:
+        log(f"Sketch in: {int((time.time() - t0) * 1000)} ms")
+    t0 = time.time()
+    ranks = pad_ranks(rank_compress(sk))
+    synchronize(device)
+    if log:
+        log(f"Rank bank in: {int((time.time() - t0) * 1000)} ms")
+    return ranks
+
+
 def _pad_pow2(S: int) -> int:
     return int(2 ** np.ceil(np.log2(max(S, 2))))
 
 
-def pad_ranks(ranks: np.ndarray) -> np.ndarray:
-    """Pad host rank rows to the next power of two with PAD_KEY//2 so
-    that tagged keys (2r, 2r+1) stay below int32 max and pads sort
-    last."""
+def pad_ranks(ranks):
+    """Pad rank rows to the next power of two with PAD_KEY//2 so that
+    tagged keys (2r, 2r+1) stay below int32 max and pads sort last. A
+    host np.ndarray gives np, a tensor a tensor on its device."""
     N, S = ranks.shape
     M = _pad_pow2(S)
     if M == S:
         return ranks
+    if isinstance(ranks, torch.Tensor):
+        pad = torch.full((N, M - S), int((_PAD_KEY - 1) // 2),
+                         dtype=torch.int32, device=ranks.device)
+        return torch.cat([ranks, pad], dim=1)
     pad = np.full((N, M - S), (_PAD_KEY - 1) // 2, np.int32)
     return np.concatenate([ranks, pad], axis=1)
 

@@ -206,10 +206,12 @@ def _distance_matrix(params: Param, seqs, device):
         D = msa_distance_matrix(codes, params.distance_type, params.dtype,
                                 device)
     else:
+        # the device sketch bank and device ranks, as dipper_tpu/driver.py
+        # routes the NJ matrix and -o d
         from dipper_tpu_torch.distance.mash import (mash_distance_matrix,
-                                                    mash_rank_bank)
+                                                    mash_rank_bank_device)
 
-        ranks = mash_rank_bank(seqs, params, device, log=_log)
+        ranks = mash_rank_bank_device(seqs, params, device, log=_log)
         t0 = time.time()
         D = mash_distance_matrix(ranks, params.kmer_size, params.sketch_size,
                                  params.dtype, device)

@@ -13,11 +13,24 @@ import numpy as np
 from dipper_tpu_torch.utils.params import Param
 
 
-def get_sketch_bank(seqs, params: Param):
-    """Returns the host [N, sketch_size] u64 sketch bank, loaded from
-    `params.load_sketches` or hashed by the native sketcher. Raises when
-    the native sketcher cannot be built or loaded: the port has no
-    device sketcher to fall back to."""
+def get_sketch_bank(seqs, params: Param, as_device: bool = False,
+                    device=None):
+    """Returns the [N, sketch_size] u64 sketch bank, as dipper_tpu/
+    sketch/bank.py::get_sketch_bank does. With `as_device=True` and no
+    checkpoint I/O asked for, the device sketcher's int64 bank (u64 bit
+    patterns) on `device`, for callers that rank-compress it there.
+    Otherwise a host uint64 array: loaded from `params.load_sketches`, or
+    hashed by the native sketcher, or, where that cannot be built or
+    loaded, by the device sketcher on `device` (one log line says so).
+    `device` defaults to the card."""
+    from dipper_tpu_torch.utils.device import resolve_device
+
+    if as_device and not params.load_sketches and not params.save_sketches:
+        from dipper_tpu_torch.sketch.minhash import sketch_sequences
+
+        return sketch_sequences(seqs, params.kmer_size, params.sketch_size,
+                                device=resolve_device(device or "cuda"),
+                                as_device=True)
     if params.load_sketches:
         data = np.load(params.load_sketches)
         sk = data["sketches"]
@@ -37,10 +50,14 @@ def get_sketch_bank(seqs, params: Param):
         sk = sketch_sequences_native(seqs, params.kmer_size,
                                      params.sketch_size)
         if sk is None:
-            raise RuntimeError(
-                "native sketcher unavailable: native/libsketchnat.so could "
-                "not be built or loaded (needs make and a C++17 compiler; "
-                "try `make -C native libsketchnat.so`)")
+            from dipper_tpu_torch.sketch.minhash import sketch_sequences
+
+            dev = resolve_device(device or "cuda")
+            print("Native sketcher unavailable (native/libsketchnat.so "
+                  f"could not be built or loaded): sketching on {dev}",
+                  file=sys.stderr)
+            sk = sketch_sequences(seqs, params.kmer_size,
+                                  params.sketch_size, device=dev)
     if params.save_sketches:
         np.savez_compressed(
             params.save_sketches, sketches=sk,

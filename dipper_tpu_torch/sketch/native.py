@@ -1,11 +1,10 @@
 """ctypes bindings for the native host sketcher (native/sketchnat.cpp).
 
 Builds native/libsketchnat.so at first use (utils/native_lib.py). The
-port has no device sketcher: the mash frontend hashes on the host,
-rank-compresses the u64 bank with np.unique and uploads the int32 ranks
-once, so
-`sketch.bank.get_sketch_bank` raises when this library cannot be
-loaded.
+ingest of placement, D&C and --add hashes here, rank-compresses the u64
+bank with np.unique and uploads the int32 ranks once; where this library
+cannot be loaded, `sketch.bank.get_sketch_bank` sketches with the device
+sketcher (sketch/minhash.py) instead.
 """
 
 from __future__ import annotations

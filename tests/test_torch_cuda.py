@@ -1,5 +1,6 @@
 """The port on an NVIDIA GPU: the hand-written kernels (mash merge count,
-mash distance rows, side vector, the edge scorer) against their plain
+mash distance rows, side vector, the edge scorer, the MinHash sketcher,
+with device rank compression beside it) against their plain
 PyTorch versions, the MSA pair counts and distances, and CUDA builds
 (k-closest and exact placement, --add, the mash matrix, NJ) against CPU
 builds. Every test that takes the `cuda` fixture skips without CUDA;
@@ -744,3 +745,105 @@ def test_score_edges_rows_cuda_equals_kernel_loop(cuda, dtype):
     assert got.tolist() == want
     cpu = tk.tree_state_from_numpy(tk.tree_state_to_numpy(st), "cpu")
     assert tk.score_edges_rows(cpu, rows.cpu()).tolist() == want
+
+
+def _sketch_rows(k, seed):
+    """Ragged and adversarial rows: lengths 0, k-1, k, k+1, around the
+    kernel's tile edge (4,095 to 4,097 windows and bases), 10,000; N,
+    lowercase and U bytes; a repeat-heavy row; in a ragged order."""
+    rng = np.random.default_rng(seed)
+    lens = (0, k - 1, k, k + 1, 4095, 4096, 4097, 4095 + k, 4096 + k,
+            10000)
+    seqs = [bytes(rng.choice(list(b"ACGTNacgtU"), L).astype(np.uint8))
+            for L in lens]
+    seqs.append(b"ACGT" * 2500)
+    return [seqs[i] for i in rng.permutation(len(seqs))]
+
+
+@pytest.mark.parametrize("ss", [1, 100, 1000, 1024, 5000])
+@pytest.mark.parametrize("k", [4, 11, 15])
+def test_sketch_kernel_equals_plain(cuda, k, ss):
+    from dipper_tpu_torch.sketch import minhash, minhash_cuda
+
+    seqs = _sketch_rows(k, 100 * k + ss)
+    before = minhash_cuda.LAUNCHES
+    got = minhash.sketch_sequences(seqs, k, ss, device=cuda, as_device=True)
+    torch.cuda.synchronize()
+    assert minhash_cuda.LAUNCHES > before
+    want = minhash.sketch_sequences(seqs, k, ss, device="cpu",
+                                    as_device=True)
+    assert torch.equal(got.cpu(), want)
+    assert np.array_equal(got.cpu().numpy().view(np.uint64),
+                          sketch_sequences_native(seqs, k, ss))
+
+
+def test_sketch_kernel_long_row_and_largest_sketch(cuda):
+    """A 2 Mbp row (489 tiles, nine merge rounds) at s = 1000, and the
+    kernel's largest sketch size on a 100 kb row (every window kept, the
+    rest sentinels): the kernel against the plain version on the card."""
+    from dipper_tpu_torch.io.encode import encode_2bit_codes
+    from dipper_tpu_torch.sketch import minhash, minhash_cuda
+
+    rng = np.random.default_rng(4)
+    long_row = bytes(rng.choice(list(b"ACGT"), 2_000_000).astype(np.uint8))
+    for seqs, ss in (([long_row, long_row[:5000]], 1000),
+                     ([long_row[:100_000], long_row[:33]],
+                      minhash_cuda.MAX_SKETCH_SIZE)):
+        got = minhash.sketch_sequences(seqs, 15, ss, device=cuda,
+                                       as_device=True)
+        codes = np.zeros((len(seqs), max(map(len, seqs))), np.uint8)
+        for i, s in enumerate(seqs):
+            codes[i, :len(s)] = encode_2bit_codes(s)
+        words = minhash.pack_codes(torch.from_numpy(codes).to(cuda))
+        lens = torch.tensor([len(s) for s in seqs], dtype=torch.int32,
+                            device=cuda)
+        want = minhash.sketch_batch_plain(words, lens, k=15, sketch_size=ss)
+        assert torch.equal(got, want)
+
+
+def test_sketch_wrapper_rejects_bad_inputs(cuda):
+    from dipper_tpu_torch.sketch import minhash_cuda as mc
+
+    words = torch.zeros((4, 64), dtype=torch.int32, device=cuda)
+    lens = torch.full((4,), 1000, dtype=torch.int32, device=cuda)
+    before = mc.LAUNCHES
+    bad = [((words[:, ::2], lens), dict(k=15, sketch_size=100), "contiguous"),
+           ((words.long(), lens), dict(k=15, sketch_size=100), "int32"),
+           ((words, lens), dict(k=16, sketch_size=100), "k 16"),
+           ((words, lens), dict(k=15, sketch_size=mc.MAX_SKETCH_SIZE + 1),
+            "the sketch kernel's limit"),
+           ((words.cpu(), lens), dict(k=15, sketch_size=100), "CUDA")]
+    for args, kw, msg in bad:
+        with pytest.raises(ValueError, match=msg):
+            mc.minhash_sketch_cuda(*args, **kw)
+    assert mc.LAUNCHES == before
+
+
+def test_sketch_launches_count_one_a_batch(cuda, monkeypatch):
+    """sketch_sequences makes one kernel call a batch: three batches,
+    three launches, and the rows come back in input order."""
+    from dipper_tpu_torch.sketch import minhash, minhash_cuda
+
+    _, seqs = simulate_unaligned(30, 3000, np.random.default_rng(12))
+    per_row = minhash._row_bytes(np.array([max(map(len, seqs))]), 15,
+                                 1000)[0]
+    monkeypatch.setattr(minhash, "_BATCH_BYTES", int(per_row * 10))
+    before = minhash_cuda.LAUNCHES
+    got = minhash.sketch_sequences(seqs, 15, 1000, device=cuda)
+    assert minhash_cuda.LAUNCHES - before == 3
+    assert np.array_equal(got, sketch_sequences_native(seqs, 15, 1000))
+
+
+def test_rank_compress_cuda_equals_cpu(cuda):
+    from dipper_tpu_torch.sketch import minhash
+
+    _, seqs = simulate_unaligned(64, 2000, np.random.default_rng(13))
+    sk = minhash.sketch_sequences(seqs, 12, 300, device=cuda, as_device=True)
+    got = tm.rank_compress(sk)
+    assert torch.equal(got.cpu(), tm.rank_compress(sk.cpu()))
+    host = torch.from_numpy(tm.pad_ranks(tm.rank_compress_host(
+        sk.cpu().numpy().view(np.uint64)))).to(cuda)
+    for dtype in ("float32", "float64"):
+        a = tm.mash_distance_matrix(tm.pad_ranks(got), 12, 300, dtype, cuda)
+        b = tm.mash_distance_matrix(host, 12, 300, dtype, cuda)
+        assert torch.equal(a, b)

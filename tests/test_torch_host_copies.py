@@ -137,13 +137,27 @@ def test_native_sketch_bank(seqs_fasta, k, ss):
     assert np.array_equal(got, np.asarray(sketch_sequences(seqs, k, ss)))
 
 
-def test_sketch_bank_raises_without_native(seqs_fasta, monkeypatch):
+def test_sketch_bank_raises_without_native(seqs_fasta, monkeypatch,
+                                           capsys):
+    """Without the native library the bank falls back to the device
+    sketcher on the caller's device, as dipper_tpu/sketch/bank.py does:
+    on the default device, the card, it raises where there is no card
+    (no silent move to the CPU); on --device cpu it gives the native
+    bank's bits and logs the fallback."""
+    import torch
+
     from dipper_tpu_torch.sketch import native
 
     monkeypatch.setattr(native, "sketch_sequences_native",
                         lambda *a, **kw: None)
-    with pytest.raises(RuntimeError, match="native sketcher unavailable"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_bank.get_sketch_bank(seqs_fasta[1], Param())
+    got = port_bank.get_sketch_bank(seqs_fasta[1], Param(), device="cpu")
+    assert "Native sketcher unavailable" in capsys.readouterr().err
+    assert got.dtype == np.uint64
+    assert np.array_equal(got, np.asarray(sketch_sequences(
+        seqs_fasta[1], 15, 1000)))
 
 
 @pytest.mark.parametrize("ss", [100, 128])
