@@ -7,7 +7,8 @@ Runs on one NVIDIA GPU, from the root of a checkout:
     python3 chip_smoke.py --phases 1,2,3,6,7 --n 4400   # kernel checks only
 
 Phases, each printing one line of its own (run in the order 1, 2, 3, 6,
-15, 7, 19, 4, 17, 5, 16, 9, 24, 10, 11, 12, 14, 13, 8, 18, 20, 21, 22, 23:
+15, 7, 25, 19, 4, 17, 5, 16, 9, 24, 10, 11, 12, 14, 13, 8, 18, 20, 21, 22,
+23:
 phases 13, 8 and 18 run the profiler, which slows every later launch in
 the process; phases 20 to 22 run in processes of their own):
   1. device: torch's device name and nvidia-smi's name and power limit;
@@ -47,8 +48,18 @@ the process; phases 20 to 22 run in processes of their own):
      time on the card (a captured CUDA graph of 200 launches, replayed),
      the wrapper's host time per call, the bound from its bytes, and the
      plain version's time;
-  4. GPU port vs CPU port, placement: the CLI at N=256 (-i r -m 1) with
-     --device cuda and --device cpu, nRF = 0 required;
+  25. the insertion-step kernel (csrc/insert_step.cu: splice and witness
+     BFS) vs plain, the seven state arrays bit for bit after every launch:
+     made-up splices (ties, empty entries and NaN in the ten-way merge, f32
+     and f64), whole builds from made-up matrices (random, a caterpillar,
+     NaN pairs, all-NaN f64), phase 7's 4,096-taxon build, --add's seeding
+     of a placement backbone and of a balanced 1,024-leaf backbone (levels
+     wider than the kernel's block), D&C's streamed cluster (label, blocked
+     slot, scoreable cleared from the kernel's output) against its plain
+     route on the card; and one BFS level's latency (a BFS of ~2,049
+     levels on a caterpillar, CUDA events);
+  4. GPU port vs CPU port, placement: the CLI at N=512 (-i r -m 1) with
+     --device cuda and --device cpu, the same Newick bytes required;
   17. GPU port vs CPU port, D&C: the CLI with -m 3 at N = 600 (B = 30,
      seed 4) in f64 with streamed clusters (16 members and up, rows 5 at a
      time) and several builds a bucket forced: the same Newick bytes;
@@ -62,24 +73,32 @@ the process; phases 20 to 22 run in processes of their own):
   5. the placement main path: scripts/make_dataset.py's generator (seed
      1, L=10,000) and the CLI with default flags, which take k-closest
      placement at N >= 30,000; requires rc 0, a complete Newick, launches
-     of the merge-count kernel, one score_edges launch per insertion and
-     no standalone side-vector launch, the tree state on the card and nRF
+     of the merge-count kernel, one score_edges and one insert_step launch
+     per insertion, the BFS alone twice and no standalone side-vector
+     launch, the tree state on the card and nRF
      vs the true tree < 0.35. Every merge-count launch of the run is then
      held against the plain version on its own inputs, every 128th query
      row of it; no sketch-kernel launch (placement sketches on the host,
      as in the JAX package), and at N = 30,000 the nRF of every earlier
-     smoke (PLACEMENT_NRF_30K); every 997th scorer call is held against the plain version
-     on its own inputs as it happens, and before the last insert range
-     its first 300 rows (taxa not yet inserted) are scored by kernel and
-     plain version on the state as it stands, where the kernel is also
-     timed, and three rows (one with NaN at the witnesses of the first
-     used slots) are scored by slot ranges as in phase 19, each range
-     launch timed (those launches are taken out of the count);
+     smoke (PLACEMENT_NRF_30K); every 997th insertion is held against the
+     plain version as it happens (the scorer's six values, then the seven
+     state arrays against a copy stepped by the plain version), and before
+     the last insert range its first 300 rows (taxa not yet inserted) are
+     scored by kernel and plain version on the state as it stands, where
+     the scorer is also timed, three rows (one with NaN at the witnesses
+     of the first used slots) are scored by slot ranges as in phase 19,
+     each range launch timed, and its first 300 insertions are run by the
+     kernels (each launch timed by CUDA events, queued behind a device
+     sleep), by the plain version and by insert_model, to the same state,
+     which is then put back (those launches are taken out of the count);
+     the last range itself then runs under
+     torch.cuda.set_sync_debug_mode("error") at 2 launches per insertion;
   16. the D&C main path: the CLI with -m 3 on phase 5's set (B = N // 20
      = 1,500): rc 0, a complete Newick with nRF vs the true tree under
      DC_NRF_LIMIT, launches of the per-cluster count kernel and of the
      merge-count kernel, one score_edges launch per backbone insertion (B
-     - 2); every per-cluster count launch held against the plain version
+     - 2), one insert_step launch per backbone insertion and streamed
+     member; every per-cluster count launch held against the plain version
      on its every 16th cluster, the widest batched bucket's launch timed
      whole beside its bound and its plain version; phase times, bucket
      lines, cluster sizes, host syncs per phase-3 step;
@@ -128,12 +147,13 @@ the process; phases 20 to 22 run in processes of their own):
   11. the -i m main path: the CLI with default flags on that alignment
      (auto mode takes NJ, -d 1); requires rc 0, a complete Newick and nRF
      vs the true tree under MSA_NJ_NRF_LIMIT;
-  12. -i m -m 1 on the alignment's first 4,096 sequences: one score_edges
-     launch per insertion, nRF vs the true tree restricted to them under
-     MSA_PLACE_NRF_LIMIT;
-  14. --add: a backbone built by the port from the first 2,048 sequences
-     of the placement set (-i r -m 1), then --add of the next 512: every
-     backbone split survives, score_edges launches = 512, merge-count
+  12. -i m -m 1 on the alignment's first 8,192 sequences: one score_edges
+     and one insert_step launch per insertion, nRF vs the true tree
+     restricted to them under MSA_PLACE_NRF_LIMIT;
+  14. --add: a backbone built by the port from the first 4,096 sequences
+     of the placement set (-i r -m 1), then --add of the next 1,024: every
+     backbone split survives, score_edges launches = 1,024, insert_step
+     launches = 1,024 and the BFS alone once a backbone leaf, merge-count
      launches > 0; and the same Newick from the card and the CPU at a
      backbone of 256 with 64 queries;
   13. exact placement on the card in f64, through
@@ -171,16 +191,16 @@ times are those of two processes sharing one card, not of sharding. Each
 rank of phases 20 to 22 is a process of this script (--worker-cli,
 --worker-sharded), checks that it imported no JAX, and is killed with its
 group past RANK_TIMEOUT_S.
-The sizes of phases 12, 14 and 13 are half of what a 600 s budget for the
-whole script would not hold (8,192; 4,096 + 1,024; 2,048), and phases 13
-and 4 were halved again (1,024 and 512 before) to make room for phases 19
-to 23 in the 1,200 s limit: their loops are the host's, and the 30K and
-20K paths keep their sizes.
+Phase 13's size, 512, is a quarter of what a 600 s budget for the whole
+script would not hold (2,048): exact placement's sweeps are the host's
+tensor code. Phases 12, 14 and 4 are back at 8,192, 4,096 + 1,024 and
+512, since the insertion-step kernel took their insertion loops off the
+host.
 Every kernel counter is set to 0 just before a main path (phases 5, 16,
 9, 11, 12, 14, and in each rank of 20, 21 and 22) and read just after it;
-`launches` in the kernels' record is the count of phases 5 (placement), 16
-(D&C: the per-cluster count kernel) and 9 (NJ; also the sketch
-kernel's), `launches_by_path` has
+`launches` in the kernels' record is the count of phases 5 (placement;
+insert_step's counts both its entry points), 16 (D&C: the per-cluster
+count kernel) and 9 (NJ; also the sketch kernel's), `launches_by_path` has
 every path's (one count a rank for the multi-rank paths), and
 score_edges's `range_launches` the sharded placement's range launches.
 
@@ -221,6 +241,9 @@ KERNELS = {
     "minhash_sketch": ("dipper_tpu_torch/csrc/minhash_sketch.cu",
                        "dipper_tpu/sketch/minhash.py:274 (XLA program, no "
                        "Pallas)"),
+    "insert_step": ("dipper_tpu_torch/csrc/insert_step.cu",
+                    "dipper_tpu/placement/kclosest.py:857 (XLA program, no "
+                    "Pallas)"),
 }
 NRF_LIMIT = 0.35
 # nRF vs the true tree of the full-size sets (seed 1) in every smoke so
@@ -234,9 +257,18 @@ NJ_NRF_20K = 0.32029804470670603
 HOST_ROUTE_NJ_20K_MS = {"sketch": 1820, "rank_bank": 2893}
 # a sanity bound for NJ on the generator's 20K set (no JAX figure exists)
 NJ_NRF_LIMIT = 0.45
-# every SIDE_SAMPLE-th scorer call of the placement main path is held
-# against the plain version
+# every SIDE_SAMPLE-th insertion of the placement main path is held
+# against the plain version (the scorer's six values, the seven state
+# arrays after the insert step)
 SIDE_SAMPLE = 997
+# insertions of the placement state before its last range timed launch by
+# launch and held against the plain version and insert_model
+INSERT_WINDOW = 300
+# a device sleep (clock cycles, ~10 ms) that QUEUE_CHUNK insertions' launches
+# wait behind, so that the card runs them back to back and CUDA events
+# time the kernels and not the host's gaps
+QUEUE_SLEEP_CYCLES = 20_000_000
+QUEUE_CHUNK = 32
 # rows scored on the real states (phase 7's N = 4,096 build, phase 5's
 # state before its last range)
 SCORE_ROWS = (256, 300)
@@ -251,8 +283,8 @@ DC_NRF_LIMIT = 0.65
 # every DC_SAMPLE-th cluster of each per-cluster count launch of the D&C
 # main path is held against the plain version
 DC_SAMPLE = 16
-ALL_PHASES = (1, 2, 3, 6, 15, 7, 19, 4, 17, 5, 16, 9, 24, 10, 11, 12, 14, 13,
-              8, 18, 20, 21, 22, 23)
+ALL_PHASES = (1, 2, 3, 6, 15, 7, 25, 19, 4, 17, 5, 16, 9, 24, 10, 11, 12, 14,
+              13, 8, 18, 20, 21, 22, 23)
 # every SAMPLE-th query row of a large kernel call is compared with the
 # plain version (which takes ~10 ms per query row at 30,000 bank rows)
 SAMPLE = 128
@@ -817,17 +849,20 @@ def time_scorer(st, row) -> dict:
         score_bound(st, row))
 
 
-def built_state(tmp: str, n: int, extra: int):
+def built_state(tmp: str, n: int, extra: int, compare: bool = False):
     """The port's placement of the first n taxa of an (n + extra)-taxon
     generated set, on the card, at the arrays' size for the whole set;
-    returns (state, the distance rows of the extra taxa)."""
+    returns (state, the distance rows of the extra taxa). With `compare`
+    every insertion is held against the plain version (compare_build)."""
     from dipper_tpu_torch.driver import _load_sequences
     from dipper_tpu_torch.placement import kclosest
     from dipper_tpu_torch.placement.api import _mash_frontend
     from dipper_tpu_torch.utils.params import Param
 
     total = n + extra
-    fa, _ = make_dataset(total, os.path.join(tmp, f"score{total}"), seed=4)
+    fa = os.path.join(tmp, f"score{total}.fa")
+    if not os.path.exists(fa):
+        make_dataset(total, os.path.join(tmp, f"score{total}"), seed=4)
     params = Param()
     _, seqs = _load_sequences(params, fa)
     front, static = _mash_frontend(seqs, params, torch.device("cuda"))
@@ -835,7 +870,10 @@ def built_state(tmp: str, n: int, extra: int):
               dtype_name=params.dtype)
     st = kclosest.init_placement_state(front, num_sequences=total, **kw)
     rows = kclosest._rows(front, "mash", static, params.dtype, 2, total)
-    kclosest._insert_range(st, 2, n, rows, total)
+    if compare:
+        compare_build(st, rows, 2, n, total, f"the N={n} build")
+    else:
+        kclosest._insert_range(st, 2, n, rows, total)
     return st, rows[n - 2:]
 
 
@@ -899,6 +937,394 @@ def phase_score_edges_vs_plain(tmp: str, n: int = 4096) -> dict:
                 "bound_ms", "bound_by", "share_of_bound")}}
 
 
+# ---------------------------------------------------------------------------
+# The insertion-step kernel (csrc/insert_step.cu)
+# ---------------------------------------------------------------------------
+
+
+def state_clone(st):
+    """A TreeState with copies of the seven arrays (no kernel pointers)."""
+    import dataclasses
+
+    from dipper_tpu_torch.placement.insert_model import FIELDS
+
+    return dataclasses.replace(st, **{f: getattr(st, f).clone()
+                                      for f in FIELDS})
+
+
+def state_diff(a, b) -> list:
+    """What two states differ in, bit for bit (floats by their bits, so
+    NaN payloads count): idx and the names of the arrays."""
+    from dipper_tpu_torch.placement.insert_model import FIELDS
+
+    out = [] if a.idx == b.idx else ["idx"]
+    for f in FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype != y.dtype or x.shape != y.shape:
+            out.append(f)
+            continue
+        if x.is_floating_point():
+            bits = torch.int32 if x.dtype == torch.float32 else torch.int64
+            x, y = x.view(bits), y.view(bits)
+        if not torch.equal(x, y):
+            out.append(f)
+    return out
+
+
+def restore(st, snap) -> None:
+    """st's arrays and idx back to a clone's, in place."""
+    from dipper_tpu_torch.placement.insert_model import FIELDS
+
+    for f in FIELDS:
+        getattr(st, f).copy_(getattr(snap, f))
+    st.idx = snap.idx
+
+
+def plain_step(st, row, i: int, N: int):
+    """Insertion i by the plain version: the scorer, splice and compact
+    BFS as tensor code (the kernels' yardstick). Returns the scorer's
+    six values."""
+    from dipper_tpu_torch.placement import kclosest
+
+    six = kclosest._score_edges_plain(st, row)
+    eid, x, y, ye, frac, add = six
+    kclosest.splice(st, eid, frac, add, i, N, (x, y, ye))
+    kclosest._update_closest_bfs_compact(st, i, 2 * N)
+    return six
+
+
+def compare_build(st, rows, lo: int, hi: int, N: int, tag: str) -> int:
+    """Insertions lo..hi-1 (rows[j]: insertion lo + j) by the kernels on
+    `st` and by the plain version on a copy, the seven arrays compared
+    bit for bit after each; returns the insertions compared."""
+    from dipper_tpu_torch.placement import kclosest
+
+    stream = torch.cuda.current_stream().cuda_stream
+    pl = state_clone(st)
+    for i in range(lo, hi):
+        kclosest.kernel_insertion_step(st, rows[i - lo], i, N, stream)
+        plain_step(pl, rows[i - lo], i, N)
+        diff = state_diff(st, pl)
+        check(not diff, f"{tag}: insert_step != plain at insertion {i}: "
+              f"{diff}")
+    return hi - lo
+
+
+def compare_seeding(st, leaves, tag: str) -> int:
+    """closest_bfs from each leaf (--add's seeding) on `st` and the plain
+    compact BFS on a copy, compared after each; returns the leaves."""
+    from dipper_tpu_torch.placement import insert_cuda, kclosest
+
+    pl = state_clone(st)
+    M = st.adj.shape[0]
+    for leaf in leaves:
+        insert_cuda.closest_bfs(st, leaf)
+        kclosest._update_closest_bfs_compact(pl, leaf, M)
+        diff = state_diff(st, pl)
+        check(not diff, f"{tag}: closest_bfs != plain from leaf {leaf}: "
+              f"{diff}")
+    return len(leaves)
+
+
+def backbone_state(nwk: str, n: int, dtype: str):
+    """--add's state of a Newick backbone over n taxa (lists empty), on
+    the card, as run_add_queries makes it; returns (state, B)."""
+    from dipper_tpu_torch.io.newick import parse_newick
+    from dipper_tpu_torch.placement import api, kclosest
+
+    tree = parse_newick(nwk, n)
+    e0, belong0, length0, rev0 = api.backbone_tree_to_arrays(tree, n)
+    B = len(tree.leaf_names_in_idx_order())
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    st = kclosest.prepare_kernels(kclosest.TreeState(
+        e=torch.from_numpy(e0).to(dev), belong=torch.from_numpy(belong0).to(dev),
+        length=torch.from_numpy(length0).to(dev, dt),
+        rev=torch.from_numpy(rev0).to(dev),
+        cdis=torch.full((4 * n, kclosest.K), kclosest.SENT_DIS, dtype=dt,
+                        device=dev),
+        cid=torch.full((4 * n, kclosest.K), -1, dtype=torch.int32,
+                       device=dev),
+        idx=4 * B - 4,
+        adj=kclosest.adjacency_from_edges(
+            torch.from_numpy(belong0).to(dev), 2 * n)))
+    return st, B
+
+
+def kernel_window(st, rows, lo: int, hi: int, N: int) -> dict:
+    """Insertions lo..hi-1 by the kernel path (one score_edges and one
+    insert_step launch each), every launch between CUDA events, queued
+    QUEUE_CHUNK insertions at a time behind a device sleep so that the
+    card runs them back to back: the device ms of each launch, and the
+    host ms per insertion of enqueueing them (the wrappers' cost)."""
+    from dipper_tpu_torch.placement import insert_cuda, kclosest
+
+    stream = torch.cuda.current_stream().cuda_stream
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    ev[1].record()
+    torch.cuda.synchronize()
+    sleep_ms = ev[0].elapsed_time(ev[1])
+    score, insert, host_s, starved = [], [], 0.0, 0
+    for c0 in range(lo, hi, QUEUE_CHUNK):
+        ids = range(c0, min(hi, c0 + QUEUE_CHUNK))
+        evs = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+               for _ in ids]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        for e, i in zip(evs, ids):
+            e[0].record()
+            sc = kclosest.score_edges_launch(st, rows[i - lo], stream)
+            e[1].record()
+            insert_cuda.insert_step(st, sc.eid, sc.frac, sc.add,
+                                    middle=i + N - 1, outside=i, label=i,
+                                    stream=stream)
+            e[2].record()
+        dt = time.perf_counter() - t0
+        host_s += dt
+        starved += dt * 1e3 > sleep_ms
+        torch.cuda.synchronize()
+        score += [e[0].elapsed_time(e[1]) for e in evs]
+        insert += [e[1].elapsed_time(e[2]) for e in evs]
+    return {"score_ms": score, "insert_ms": insert,
+            "host_ms_per_insertion": host_s / (hi - lo) * 1e3,
+            "sleep_ms": sleep_ms, "chunks_not_queued": starved}
+
+
+def insert_bound(stats: dict, n_ins: int, item: int) -> dict:
+    """Bound of n_ins insert_step launches from the model's counts of what
+    they read and write (insert_model.bfs's `stats`), each byte once:
+    per insertion the choice, the chosen edge's fields and both halves'
+    lists, the two rewired slots, the four new slots and two adjacency
+    rows; per frontier entry the entry and its adjacency row; per edge
+    whose destination is read 4 bytes; per list read its K distances;
+    per insert the ids read, both lists written, the length and the next
+    frontier entry. Operations: two a list entry (a compare, a count),
+    at half the 67 TFLOP/s float32 figure."""
+    K = 5
+    splice = ((4 + 2 * item) + (item + 12) + 2 * K * (item + 4)
+              + 2 * (8 + item) + 4 * (12 + item) + 4 * K * (item + 4)
+              + 2 * 12 + 8)
+    nbytes = (n_ins * splice + stats["entries"] * (8 + item + 12)
+              + stats["edges"] * 4 + stats["lists"] * K * item
+              + stats["inserts"] * (K * 4 + K * (item + 4) + 2 * item + 8))
+    return bound_of(2 * K * stats["lists"], nbytes, 33.5e12)
+
+
+def time_insert_window(st, rows, lo: int, N: int,
+                       window: int = INSERT_WINDOW) -> dict:
+    """On the state before an insert range, left as it was found: its
+    first `window` insertions by the kernels (kernel_window), again by
+    the plain version on a copy (splice and compact BFS timed by CUDA
+    events) and by insert_model on host copies (what they read and
+    write); the three must end in the same state. Returns the kernel's
+    and the plain version's mean times, the bound from the model's
+    counts, and levels per insertion."""
+    from dipper_tpu_torch.placement import insert_model, kclosest
+
+    window = min(window, rows.shape[0])
+    snap = state_clone(st)
+    times = kernel_window(st, rows, lo, lo + window, N)
+    after = state_clone(st)
+    pl = state_clone(snap)
+    model = {f: getattr(snap, f).cpu().numpy()
+             for f in insert_model.FIELDS}
+    stats, plain_ms = {}, 0.0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for i in range(lo, lo + window):
+        eid, x, y, ye, frac, add = kclosest._score_edges_plain(
+            pl, rows[i - lo])
+        i0 = pl.idx
+        torch.cuda.synchronize()
+        ev[0].record()
+        kclosest.splice(pl, eid, frac, add, i, N, (x, y, ye))
+        kclosest._update_closest_bfs_compact(pl, i, 2 * N)
+        ev[1].record()
+        torch.cuda.synchronize()
+        plain_ms += ev[0].elapsed_time(ev[1])
+        insert_model.insert_step(model, eid, frac.cpu().numpy(),
+                                 add.cpu().numpy(), i0, i + N - 1, i, i,
+                                 stats=stats)
+    diff = state_diff(after, pl)
+    check(not diff, f"insert window at {lo}: kernels != plain in {diff}")
+    mdiff = [f for f in insert_model.FIELDS
+             if getattr(after, f).cpu().numpy().tobytes()
+             != model[f].tobytes()]
+    check(not mdiff, f"insert window at {lo}: kernels != model in {mdiff}")
+    restore(st, snap)
+    ms = sum(times["insert_ms"]) / window
+    rec = {"lo": lo, "insertions": window, "ms": ms,
+           "score_edges_ms": sum(times["score_ms"]) / window,
+           "plain_ms": plain_ms / window,
+           "host_ms_per_insertion": times["host_ms_per_insertion"],
+           "sleep_ms": times["sleep_ms"],
+           "chunks_not_queued": times["chunks_not_queued"],
+           "levels_per_insertion": stats["levels"] / window,
+           "per_insertion": {k: v / window for k, v in stats.items()},
+           "equal_plain_and_model": True}
+    bound = insert_bound(stats, window, st.length.element_size())
+    bound["bound_ms"] /= window
+    return with_share(rec, bound)
+
+
+def phase_insert_vs_plain(tmp: str, n: int = 4096) -> dict:
+    """csrc/insert_step.cu against its plain version on the card, the
+    seven state arrays bit for bit after every launch; and the latency
+    of one BFS level."""
+    import dataclasses
+
+    from dipper_tpu_torch.dc import cluster
+    from dipper_tpu_torch.placement import insert_cuda, insert_model as im
+    from dipper_tpu_torch.placement import kclosest
+
+    dev = torch.device("cuda")
+    cases = {}
+    # (a) made-up splices: ties, empty entries and NaN in the ten-way merge
+    for dtype in ("float32", "float64"):
+        dt = getattr(torch, dtype)
+        for name, (cd_x, id_x, cd_y, id_y, orig, frac) in (
+                im.SPLICE_CASES.items()):
+            st = kclosest.init_state(4, dt, dev)
+            kclosest.build_initial_tree(
+                st, torch.tensor(2 * orig, dtype=dt, device=dev), 4)
+            st.cdis[0] = torch.tensor(cd_x, dtype=dt)
+            st.cid[0] = torch.tensor(id_x, dtype=torch.int32)
+            st.cdis[2] = torch.tensor(cd_y, dtype=dt)
+            st.cid[2] = torch.tensor(id_y, dtype=torch.int32)
+            pl = state_clone(st)
+            f = torch.tensor([frac], dtype=dt, device=dev)
+            a = torch.tensor([im.SPLICE_ADD], dtype=dt, device=dev)
+            xy = insert_cuda.insert_step(
+                st, torch.zeros((1,), dtype=torch.int32, device=dev), f, a,
+                middle=5, outside=2, label=2).tolist()
+            kclosest.splice(pl, 0, f[0], a[0], 2, 4)
+            kclosest._update_closest_bfs_compact(pl, 2, 8)
+            diff = state_diff(st, pl)
+            check(not diff and xy == [0, 2], f"made-up splice {dtype} "
+                  f"{name}: insert_step != plain in {diff} (xy {xy})")
+            cases[f"splice/{dtype}/{name}"] = {"equal": True}
+    # (b) whole builds from made-up matrices, every insertion compared
+    for kind, m, dtype in (("random", 300, "float32"),
+                           ("random", 300, "float64"),
+                           ("caterpillar", 256, "float32"),
+                           ("some_nan", 200, "float64"),
+                           ("all_nan", 64, "float64")):
+        D = torch.from_numpy(im.made_up_matrix(kind, m, seed=m)
+                             .astype(dtype)).to(dev)
+        st = kclosest.init_placement_state((D,), num_sequences=m,
+                                           frontend="matrix",
+                                           dtype_name=dtype)
+        pl = kclosest.init_state(m, getattr(torch, dtype), dev)
+        kclosest.build_initial_tree(pl, D[1, 0], m)
+        for leaf in (0, 1):
+            kclosest._update_closest_bfs_compact(pl, leaf, 2 * m)
+        diff = state_diff(st, pl)
+        check(not diff, f"{kind} {m} {dtype}: the two first BFSs differ in "
+              f"{diff}")
+        cases[f"build/{kind}{m}/{dtype}"] = {
+            "insertions": compare_build(st, D[2:], 2, m, m,
+                                        f"{kind} {m} {dtype}")}
+    # (c) the 4,096-taxon build of phase 7's set (mash rows, f32)
+    t0 = time.time()
+    st, _ = built_state(tmp, n, SCORE_ROWS[0], compare=True)
+    cases[f"build/mash{n}/float32"] = {"insertions": n - 2,
+                                      "s": time.time() - t0}
+    del st
+    # (d) --add's seeding of a placement backbone of 1,024 taxa, and (e) of
+    # a balanced 1,024-leaf backbone (levels wider than the block)
+    D = torch.from_numpy(im.made_up_matrix("random", 1024, seed=11)).to(dev)
+    e, b, length = kclosest.run_placement((D,), num_sequences=1024,
+                                          frontend="matrix",
+                                          dtype_name="float64")
+    place_nwk = kclosest.edges_to_newick(
+        e, b, length, [f"L{i}" for i in range(1024)], 1024)
+    for tag, nwk, dtype in (
+            ("placement1024", place_nwk, "float32"),
+            ("balanced1024", im.balanced_newick(1024,
+                                                np.random.default_rng(3)),
+             "float64")):
+        st, B = backbone_state(nwk, 1280, dtype)
+        cases[f"seeding/{tag}/{dtype}"] = {
+            "leaves": compare_seeding(st, range(B), f"seeding {tag}")}
+    # (f) D&C's streamed cluster: label, middle, blocked slot 0, scoreable
+    # cleared from the launch's (xe, ye); the plain route on the card
+    for dtype in ("float32", "float64"):
+        rng = np.random.default_rng(12)
+        cmax, W, rb = 300, 310, 64
+        Dq = torch.from_numpy(rng.uniform(0.05, 0.6, (cmax, W))
+                              .astype(dtype)).to(dev)
+        cd = np.sort(rng.uniform(0, 0.3, (2, 5)), axis=-1).astype(dtype)
+        cid = np.arange(10, dtype=np.int32).reshape(2, 5)
+        cid[1, 3:], cd[1, 3:] = -1, 2.0
+        lens = rng.uniform(0.01, 0.2, 2).astype(dtype)
+        lens[1] = lens[0]
+        init = tuple(torch.from_numpy(x).to(dev) for x in (cd, cid, lens))
+        states = {}
+        make = cluster.cluster_init_state
+
+        def keep(route):
+            def init_state(*a, **kw):
+                st_, sc_ = make(*a, **kw)
+                states[route] = st_
+                return st_, sc_
+            return init_state
+
+        uses = kclosest.uses_insert_kernel
+        before = insert_cuda.INSERT_STEP_LAUNCHES
+        try:
+            cluster.cluster_init_state = keep("kernel")
+            got = cluster.build_streamed(lambda s0: Dq[s0:s0 + rb], *init,
+                                         cmax, cmax, rb)
+            launches = insert_cuda.INSERT_STEP_LAUNCHES - before
+            cluster.cluster_init_state = keep("plain")
+            kclosest.uses_insert_kernel = lambda st_: False
+            want = cluster.build_streamed(lambda s0: Dq[s0:s0 + rb], *init,
+                                          cmax, cmax, rb)
+        finally:
+            cluster.cluster_init_state = make
+            kclosest.uses_insert_kernel = uses
+        diff = state_diff(states["kernel"], states["plain"])
+        check(not diff and launches == cmax
+              and all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"streamed cluster {dtype}: insert_step != plain in {diff} "
+              f"({launches} launches for {cmax} members)")
+        cases[f"dc_streamed/cmax{cmax}/{dtype}"] = {"members": cmax,
+                                                    "launches": launches}
+    # (g) one BFS level's latency: a BFS from leaf 0 of a 2,048-taxon
+    # caterpillar over empty lists, about 2,049 levels of width <= 2
+    D = torch.from_numpy(im.made_up_matrix("caterpillar", 2048)
+                         .astype("float32")).to(dev)
+    st = kclosest.run_placement_full((D,), num_sequences=2048,
+                                     frontend="matrix", dtype_name="float32")
+    st.cdis.fill_(kclosest.SENT_DIS)
+    st.cid.fill_(-1)
+    stats = {}
+    im.bfs({f: getattr(st, f).cpu().numpy() for f in im.FIELDS}, 0, 0,
+           stats=stats)
+    snap = state_clone(st)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    runs = []
+    for _ in range(6):
+        restore(st, snap)
+        torch.cuda.synchronize()
+        ev[0].record()
+        insert_cuda.closest_bfs(st, 0)
+        ev[1].record()
+        torch.cuda.synchronize()
+        runs.append(ev[0].elapsed_time(ev[1]))
+    level_ms = sorted(runs[1:])[len(runs[1:]) // 2] / stats["levels"]
+    res = {"cases": cases, "level_latency_ms": level_ms,
+           "caterpillar_bfs": {"levels": stats["levels"], "ms": runs}}
+    emit({"phase": "kernel_vs_plain", "kernel": "insert_step",
+          "comparison": "the seven state arrays bit for bit after every "
+                        "launch (floats by their bits)", **res,
+          "max_abs_err": 0.0})
+    return res
+
+
 def run_cli(argv) -> tuple[int, str, float]:
     """dipper_tpu_torch.cli.main(argv) with its stderr captured (and
     echoed); returns (rc, stderr text, wall seconds)."""
@@ -919,23 +1345,24 @@ def run_cli(argv) -> tuple[int, str, float]:
     return rc, tee.buf.getvalue(), time.time() - t0
 
 
-def phase_gpu_vs_cpu(tmp: str) -> None:
+def phase_gpu_vs_cpu(tmp: str, n: int = 512) -> None:
     from dipper_tpu_torch.utils.treecmp import rf_distance
 
-    fa, _ = make_dataset(256, os.path.join(tmp, "n256"), seed=2)
+    fa, _ = make_dataset(n, os.path.join(tmp, f"n{n}"), seed=2)
     outs = {}
     walls = {}
     for dev in ("cuda", "cpu"):
-        out = os.path.join(tmp, f"n256.{dev}.nwk")
+        out = os.path.join(tmp, f"n{n}.{dev}.nwk")
         rc, _, walls[dev] = run_cli(["-i", "r", "-I", fa, "-O", out,
                                      "-m", "1", "--device", dev])
         check(rc == 0, f"CLI --device {dev} returned {rc}")
         outs[dev] = open(out).read()
     rf, nrf = rf_distance(outs["cuda"], outs["cpu"])
     check(rf == 0, f"GPU vs CPU port trees differ: RF {rf} (nRF {nrf})")
-    emit({"phase": "gpu_vs_cpu", "n": 256, "rf": rf, "nrf": nrf,
-          "newick_identical": outs["cuda"] == outs["cpu"],
-          "wall_s": walls})
+    check(outs["cuda"] == outs["cpu"], "GPU vs CPU port: the same tree in "
+          "other bytes")
+    emit({"phase": "gpu_vs_cpu", "n": n, "rf": rf, "nrf": nrf,
+          "newick_identical": True, "wall_s": walls})
 
 
 def _ms(pattern: str, text: str) -> float | None:
@@ -946,7 +1373,7 @@ def _ms(pattern: str, text: str) -> float | None:
 def reset_counts() -> None:
     """Every kernel counter to 0 (just before a main path)."""
     from dipper_tpu_torch.distance import mash_cuda
-    from dipper_tpu_torch.placement import kclosest
+    from dipper_tpu_torch.placement import insert_cuda, kclosest
     from dipper_tpu_torch.sketch import minhash_cuda
 
     mash_cuda.LAUNCHES = 0
@@ -955,11 +1382,15 @@ def reset_counts() -> None:
     kclosest.SIDE_VECTOR_LAUNCHES = 0
     kclosest.SCORE_EDGES_LAUNCHES = 0
     minhash_cuda.LAUNCHES = 0
+    insert_cuda.INSERT_STEP_LAUNCHES = 0
+    insert_cuda.CLOSEST_BFS_LAUNCHES = 0
 
 
 def read_counts() -> dict:
+    """Every kernel's launches since reset_counts: insert_step's are those
+    of its two entry points, "insert_step.closest_bfs" the BFS alone's."""
     from dipper_tpu_torch.distance import mash_cuda
-    from dipper_tpu_torch.placement import kclosest
+    from dipper_tpu_torch.placement import insert_cuda, kclosest
     from dipper_tpu_torch.sketch import minhash_cuda
 
     return {"mash_merge_count": mash_cuda.LAUNCHES,
@@ -967,7 +1398,10 @@ def read_counts() -> dict:
             "side_vector": kclosest.SIDE_VECTOR_LAUNCHES,
             "score_edges": kclosest.SCORE_EDGES_LAUNCHES,
             "mash_cluster_inter": mash_cuda.CLUSTER_LAUNCHES,
-            "minhash_sketch": minhash_cuda.LAUNCHES}
+            "minhash_sketch": minhash_cuda.LAUNCHES,
+            "insert_step": (insert_cuda.INSERT_STEP_LAUNCHES
+                            + insert_cuda.CLOSEST_BFS_LAUNCHES),
+            "insert_step.closest_bfs": insert_cuda.CLOSEST_BFS_LAUNCHES}
 
 
 def check_tree(nwk: str, n: int, true_nwk: str, limit: float) -> tuple:
@@ -987,7 +1421,7 @@ def check_tree(nwk: str, n: int, true_nwk: str, limit: float) -> tuple:
 
 def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
     from dipper_tpu_torch.distance import mash_cuda
-    from dipper_tpu_torch.placement import kclosest
+    from dipper_tpu_torch.placement import insert_cuda, kclosest
 
     out = os.path.join(tmp, f"n{n}.nwk")
 
@@ -1012,51 +1446,86 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
         calls.append((bank, qry, sketch_size, got[::SAMPLE].clone(), ev))
         return got
 
-    # every SIDE_SAMPLE-th scorer call is held against the plain version
-    # on its own inputs, as it happens (the plain version launches none
-    # of the port's kernels)
-    scorer = kclosest.score_edges_cuda
-    score_errs = []
-    n_scored = [0]
+    # every SIDE_SAMPLE-th insertion is held against the plain version on
+    # its own inputs, as it happens: the scorer's six values, and the seven
+    # state arrays after the kernel's insert step against a copy of the
+    # state that the plain version stepped (which launches none of the
+    # port's kernels); none in the range run under the sync check
+    step = kclosest.kernel_insertion_step
+    step_errs = []
+    n_steps = [0]
+    sampling = [True]
 
-    def score_recorded(st, row, stream=None, lo=0, hi=None):
-        got = scorer(st, row, stream, lo, hi)
-        if n_scored[0] % SIDE_SAMPLE == 0:
-            got = (*got[:4], got[4].clone(), got[5].clone())
-            score_errs.append(
-                (n_scored[0], _six_err(got, kclosest._score_edges_plain(
-                    st, row))))
-        n_scored[0] += 1
-        return got
+    def step_recorded(st, row, i, N, stream):
+        if not (sampling[0] and n_steps[0] % SIDE_SAMPLE == 0):
+            n_steps[0] += 1
+            return step(st, row, i, N, stream)
+        n_steps[0] += 1
+        pl = state_clone(st)
+        sc = kclosest.score_edges_launch(st, row, stream)
+        got = (*sc.out_i.tolist(), sc.frac.clone(), sc.add.clone())
+        insert_cuda.insert_step(st, sc.eid, sc.frac, sc.add, middle=i + N - 1,
+                                outside=i, label=i, stream=stream)
+        want = plain_step(pl, row, i, N)
+        step_errs.append((i, _six_err(got, want), state_diff(st, pl)))
 
     # before the last insert range: its first rows (taxa not yet inserted)
     # through kernel and plain version on the state as it stands, and the
-    # kernel's times there; these launches are taken out of the count
+    # kernels' times there; these launches are taken out of the count.
+    # Then the range itself runs with torch's sync check set to raise
     insert_range = kclosest._insert_range
     last_range = {}
+    sync_range = {}
 
     def range_recorded(st, lo, hi, rows, num_sequences):
-        if hi == num_sequences and not last_range:
-            count = kclosest.SCORE_EDGES_LAUNCHES
-            errs = [_six_err(*_score_both(st, rows[j]))
-                    for j in range(min(SCORE_ROWS[1], rows.shape[0]))]
-            last_range.update(lo=lo, rows_scored=len(errs),
-                              max_abs_err=max(errs),
-                              **time_scorer(st, rows[0]))
-            # kernel 3 by slot ranges on the real state: rows of taxa
-            # not yet inserted, and one with NaN at a witness of each of
-            # the first 16 used slots
-            nan_row = rows[1].clone()
-            wit = st.cid[:16].reshape(-1)
-            nan_row[wit[wit >= 0].long()] = float("nan")
-            last_range["slot_ranges"] = ranges_check(
-                st, [rows[0], rows[2], nan_row], time_ranges=True)
-            kclosest.SCORE_EDGES_LAUNCHES = count
-        return insert_range(st, lo, hi, rows, num_sequences)
+        if hi != num_sequences or last_range:
+            return insert_range(st, lo, hi, rows, num_sequences)
+        t_checks = time.perf_counter()
+        count = (kclosest.SCORE_EDGES_LAUNCHES,
+                 insert_cuda.INSERT_STEP_LAUNCHES,
+                 insert_cuda.CLOSEST_BFS_LAUNCHES)
+        errs = [_six_err(*_score_both(st, rows[j]))
+                for j in range(min(SCORE_ROWS[1], rows.shape[0]))]
+        last_range.update(lo=lo, rows_scored=len(errs),
+                          max_abs_err=max(errs),
+                          **time_scorer(st, rows[0]))
+        # kernel 3 by slot ranges on the real state: rows of taxa
+        # not yet inserted, and one with NaN at a witness of each of
+        # the first 16 used slots
+        nan_row = rows[1].clone()
+        wit = st.cid[:16].reshape(-1)
+        nan_row[wit[wit >= 0].long()] = float("nan")
+        last_range["slot_ranges"] = ranges_check(
+            st, [rows[0], rows[2], nan_row], time_ranges=True)
+        last_range["insert_window"] = time_insert_window(
+            st, rows, lo, num_sequences)
+        (kclosest.SCORE_EDGES_LAUNCHES, insert_cuda.INSERT_STEP_LAUNCHES,
+         insert_cuda.CLOSEST_BFS_LAUNCHES) = count
+        # the CLI's log times the range with these checks inside
+        last_range["checks_s"] = time.perf_counter() - t_checks
+        sampling[0] = False
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            insert_range(st, lo, hi, rows, num_sequences)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sampling[0] = True
+        launches = {
+            "score_edges": kclosest.SCORE_EDGES_LAUNCHES - count[0],
+            "insert_step": insert_cuda.INSERT_STEP_LAUNCHES - count[1],
+            "closest_bfs": insert_cuda.CLOSEST_BFS_LAUNCHES - count[2]}
+        sync_range.update(
+            lo=lo, hi=hi, sync_debug_mode="error", launches=launches,
+            launches_per_insertion=sum(launches.values()) / (hi - lo),
+            ms_per_insertion=wall / (hi - lo) * 1e3)
 
     kclosest.run_placement_chunked = keep_state
     mash_cuda.mash_inter_cuda = recorded
-    kclosest.score_edges_cuda = score_recorded
+    kclosest.kernel_insertion_step = step_recorded
     kclosest._insert_range = range_recorded
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1068,7 +1537,7 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
     finally:
         kclosest.run_placement_chunked = chunked
         mash_cuda.mash_inter_cuda = kernel
-        kclosest.score_edges_cuda = scorer
+        kclosest.kernel_insertion_step = step
         kclosest._insert_range = insert_range
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1079,6 +1548,11 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
     check(counts["score_edges"] == n - 2,
           f"the placement main path launched score_edges "
           f"{counts['score_edges']} times for {n - 2} insertions")
+    check(counts["insert_step"] == n
+          and counts["insert_step.closest_bfs"] == 2,
+          f"the placement main path launched insert_step "
+          f"{counts['insert_step']} times ({counts['insert_step.closest_bfs']}"
+          f" of them the BFS alone) for {n - 2} insertions and two seeds")
     check(counts["side_vector"] == 0,
           f"the placement main path launched the standalone side_vector "
           f"kernel {counts['side_vector']} times")
@@ -1086,7 +1560,9 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
     check(counts["minhash_sketch"] == 0,
           f"the placement main path launched the sketch kernel "
           f"{counts['minhash_sketch']} times")
-    check(n_scored[0] == n - 2, f"{n_scored[0]} scorer calls recorded")
+    check(n_steps[0] == n - 2, f"{n_steps[0]} kernel insertions recorded")
+    check(sync_range and sync_range["launches_per_insertion"] == 2,
+          f"the last insert range under the sync check: {sync_range}")
     check(len(states) == 1, "the main path did not run run_placement_chunked")
     st = states[0]
     for f in ("e", "belong", "length", "rev", "cdis", "cid", "adj"):
@@ -1104,9 +1580,9 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
         c["ms"] = ev[0].elapsed_time(ev[1])
         checked.append(with_share(c, mash_bound(
             want, qry.shape[0], bank.shape[0], s, 4, False)))
-    for j, err in score_errs:
-        check(err == 0.0, f"main-path score_edges call {j}: kernel != plain "
-              f"(max abs err {err})")
+    for i, err, diff in step_errs:
+        check(err == 0.0 and not diff, f"main-path insertion {i}: kernels "
+              f"!= plain (scorer's max abs err {err}, arrays {diff})")
     check(last_range and last_range["max_abs_err"] == 0.0
           and last_range["slot_ranges"]["max_abs_err"] == 0.0,
           f"score_edges before the last insert range: kernel != plain "
@@ -1123,13 +1599,17 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
               "total_wall": wall * 1e3},
           "steady_ms_per_insertion": _ms(
               r"steady ([\d.]+) ms/insertion", log),
+          "insertions_ms_without_checks": _ms(
+              r"insertions: ([\d.]+) ms", log)
+          - last_range["checks_s"] * 1e3,
           "kernel_launches": counts, "kernel_calls": checked,
-          "score_edges_calls_checked": len(score_errs),
+          "insertions_checked": len(step_errs),
           "score_edges_before_last_range": last_range,
+          "last_range_no_sync": sync_range,
           "max_memory_allocated": peak,
           "rf": rf, "nrf_vs_true": nrf, "nrf_limit": NRF_LIMIT})
     return {"counts": counts, "merge_count_calls": checked,
-            "score_edges_last_range": last_range}
+            "score_edges_last_range": last_range, "sync_range": sync_range}
 
 
 def phase_nj_gpu_vs_cpu(tmp: str, n: int = 2048) -> dict:
@@ -1577,6 +2057,10 @@ def phase_msa_placement(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
     check(counts["score_edges"] == n - 2,
           f"-i m -m 1 launched score_edges {counts['score_edges']} times for "
           f"{n - 2} insertions")
+    check(counts["insert_step"] == n
+          and counts["insert_step.closest_bfs"] == 2,
+          f"-i m -m 1 launched insert_step {counts['insert_step']} times "
+          f"for {n - 2} insertions and two seeds")
     nwk = open(out).read().strip()
     check(nwk.count(",") == n - 1, f"Newick has {nwk.count(',')} commas, "
           f"want {n - 1}")
@@ -1638,6 +2122,11 @@ def phase_add(tmp: str, fa: str, backbone: int, queries: int,
     check(counts["score_edges"] == queries,
           f"--add launched score_edges {counts['score_edges']} times for "
           f"{queries} queries")
+    check(counts["insert_step.closest_bfs"] == backbone
+          and counts["insert_step"] == backbone + queries,
+          f"--add launched insert_step {counts['insert_step']} times "
+          f"({counts['insert_step.closest_bfs']} the BFS alone) for "
+          f"{backbone} backbone leaves and {queries} queries")
     check(counts["mash_merge_count"] > 0,
           "--add launched no mash_merge_count kernel")
     survive, leaves = backbone_splits_survive(out, back)
@@ -1892,6 +2381,17 @@ def phase_dc_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
     check(counts["score_edges"] == B - 2,
           f"the D&C backbone launched score_edges {counts['score_edges']} "
           f"times for its {B - 2} insertions")
+    # one insert_step launch a backbone insertion and a streamed member,
+    # the BFS alone for the backbone's two seeds
+    streamed = sum(int(m) for m in re.findall(
+        r"DC phase 3: bucket \S+ clusters=\d+ path=stream members=(\d+)",
+        log))
+    check(counts["insert_step"] - counts["insert_step.closest_bfs"]
+          == B - 2 + streamed and counts["insert_step.closest_bfs"] == 2,
+          f"the D&C main path launched insert_step {counts['insert_step']} "
+          f"times ({counts['insert_step.closest_bfs']} the BFS alone) for "
+          f"{B - 2} backbone insertions, {streamed} streamed members and "
+          "two seeds")
     check(len(calls) == counts["mash_cluster_inter"],
           f"{len(calls)} recorded calls, {counts['mash_cluster_inter']} "
           "launches")
@@ -2233,26 +2733,30 @@ class Samplers:
     launches during a run are held against the plain versions: every
     SAMPLE-th query row of each mash_merge_count and mash_rows_dist launch,
     every DC_SAMPLE-th cluster of each mash_cluster_inter launch (compared
-    after the run, on the launch's own inputs), and every SIDE_SAMPLE-th
-    score_edges call on its slot range (compared as it happens). The
+    after the run, on the launch's own inputs), every SIDE_SAMPLE-th
+    score_edges launch on its slot range and every SIDE_SAMPLE-th
+    insert_step launch (the seven state arrays against a copy that the
+    plain splice and BFS stepped; both compared as they happen). The
     plain versions launch none of the port's kernels."""
 
     def __init__(self):
         from dipper_tpu_torch.distance import mash_cuda
-        from dipper_tpu_torch.placement import kclosest
+        from dipper_tpu_torch.placement import insert_cuda, kclosest
 
-        self.mc, self.kc = mash_cuda, kclosest
+        self.mc, self.kc, self.ic = mash_cuda, kclosest, insert_cuda
         from dipper_tpu_torch.sketch import minhash_cuda
 
         self.sk = minhash_cuda
         self.orig = (mash_cuda.mash_inter_cuda, mash_cuda.mash_rows_dist_cuda,
                      mash_cuda.mash_cluster_inter_cuda,
-                     kclosest.score_edges_cuda,
-                     minhash_cuda.minhash_sketch_cuda)
-        inter, rows_dist, cluster, score, sketch = self.orig
+                     kclosest.score_edges_launch,
+                     minhash_cuda.minhash_sketch_cuda,
+                     insert_cuda.insert_step)
+        inter, rows_dist, cluster, score, sketch, insert = self.orig
         self.calls = {"mash_merge_count": [], "mash_rows_dist": [],
                       "mash_cluster_inter": [], "minhash_sketch": []}
         self.score = {"calls": 0, "checked": 0, "max_abs_err": 0.0}
+        self.insert = {"calls": 0, "checked": 0, "max_abs_err": 0.0}
 
         def inter_rec(bank, qry, *, sketch_size):
             got = inter(bank, qry, sketch_size=sketch_size)
@@ -2278,16 +2782,36 @@ class Samplers:
             return got
 
         def score_rec(st, row, stream=None, lo=0, hi=None):
-            got = score(st, row, stream, lo, hi)
+            sc = score(st, row, stream, lo, hi)
             if self.score["calls"] % SIDE_SAMPLE == 0:
-                got = (*got[:4], got[4].clone(), got[5].clone())
+                got = (*sc.out_i.tolist(), sc.frac.clone(), sc.add.clone())
                 err = _six_err(got, kclosest._score_edges_plain(
                     st, row, lo, st.e.shape[0] if hi is None else hi))
                 self.score["checked"] += 1
                 self.score["max_abs_err"] = max(self.score["max_abs_err"],
                                                 err)
             self.score["calls"] += 1
-            return got
+            return sc
+
+        def insert_rec(st, eid, frac, add, *, middle, outside, label,
+                       block_slot=-1, stream=None):
+            sample = self.insert["calls"] % SIDE_SAMPLE == 0
+            self.insert["calls"] += 1
+            pl = state_clone(st) if sample else None
+            xy = insert(st, eid, frac, add, middle=middle, outside=outside,
+                        label=label, block_slot=block_slot, stream=stream)
+            if sample:
+                kclosest.splice(pl, int(eid.reshape(())), frac.reshape(()),
+                                add.reshape(()), 0, 0, middle=middle,
+                                outside=outside)
+                blocked = ((pl.belong[block_slot], pl.e[block_slot])
+                           if block_slot >= 0 else ())
+                kclosest._update_closest_bfs_compact(
+                    pl, outside, pl.adj.shape[0], label, blocked)
+                self.insert["checked"] += 1
+                if state_diff(st, pl):
+                    self.insert["max_abs_err"] = float("inf")
+            return xy
 
         def sketch_rec(words, lengths, *, k, sketch_size, **kw):
             got = sketch(words, lengths, k=k, sketch_size=sketch_size, **kw)
@@ -2297,9 +2821,10 @@ class Samplers:
             return got
 
         (mash_cuda.mash_inter_cuda, mash_cuda.mash_rows_dist_cuda,
-         mash_cuda.mash_cluster_inter_cuda, kclosest.score_edges_cuda,
-         minhash_cuda.minhash_sketch_cuda) = (
-            inter_rec, rows_rec, cluster_rec, score_rec, sketch_rec)
+         mash_cuda.mash_cluster_inter_cuda, kclosest.score_edges_launch,
+         minhash_cuda.minhash_sketch_cuda, insert_cuda.insert_step) = (
+            inter_rec, rows_rec, cluster_rec, score_rec, sketch_rec,
+            insert_rec)
 
     def finish(self) -> dict:
         """Restores the entry points and compares the recorded launches;
@@ -2310,8 +2835,8 @@ class Samplers:
         from dipper_tpu_torch.sketch.minhash import sketch_batch_plain
 
         (self.mc.mash_inter_cuda, self.mc.mash_rows_dist_cuda,
-         self.mc.mash_cluster_inter_cuda, self.kc.score_edges_cuda,
-         self.sk.minhash_sketch_cuda) = self.orig
+         self.mc.mash_cluster_inter_cuda, self.kc.score_edges_launch,
+         self.sk.minhash_sketch_cuda, self.ic.insert_step) = self.orig
         out = {}
         worst = 0.0
         for bank, qry, s, got in self.calls["mash_merge_count"]:
@@ -2343,6 +2868,7 @@ class Samplers:
             "launches_checked": len(self.calls["minhash_sketch"]),
             "max_abs_err": worst}
         out["score_edges"] = dict(self.score)
+        out["insert_step"] = dict(self.insert)
         return out
 
 
@@ -2573,7 +3099,7 @@ def phase_dc_two_ranks(tmp: str, n: int, fa: str, dc: dict) -> dict:
               f"{c['score_edges']} launches for {B - 2} backbone insertions")
         _check_samples("dc2", r, got["samples"],
                        ("mash_merge_count", "mash_rows_dist",
-                        "mash_cluster_inter", "score_edges"))
+                        "mash_cluster_inter", "score_edges", "insert_step"))
         lines.append({**_rank_line(got), **_dc_log(got["log"])})
     emit({"phase": "two_ranks", "path": "dc", "n": n, "backbone": B,
           "note": "two processes sharing one card (time-sliced CUDA "
@@ -2612,7 +3138,8 @@ def phase_sharded_library(tmp: str, fa: str, n: int = SHARDED_N,
               f"{got['placement_counts']['score_edges']} times for "
               f"{n - 2} insertions")
         _check_samples("sharded", r, got["samples"],
-                       ("mash_merge_count", "mash_rows_dist", "score_edges"))
+                       ("mash_merge_count", "mash_rows_dist", "score_edges",
+                        "insert_step"))
     _, seqs = read_fasta(head)
     bank = mash_rank_bank(seqs, Param(), torch.device("cuda"))
     t0 = time.time()
@@ -2978,7 +3505,7 @@ def main() -> int:
                     help="taxa of the NJ main path (phase 9)")
     ap.add_argument("--msa-n", type=int, default=20000,
                     help="taxa of the aligned set (phases 10 and 11); "
-                         "phase 12 places its first min(4096, msa-n), phase "
+                         "phase 12 places its first min(8192, msa-n), phase "
                          "13 its first min(512, msa-n)")
     ap.add_argument("--phases", default=",".join(map(str, sorted(ALL_PHASES))),
                     help="comma-separated subset of phases to run")
@@ -3007,7 +3534,8 @@ def main() -> int:
         if isinstance(counts, list):
             counts = {name: [c[name] for c in counts] for name in counts[0]}
         for name, c in counts.items():
-            records[name].setdefault("launches_by_path", {})[path] = c
+            if name in records:
+                records[name].setdefault("launches_by_path", {})[path] = c
 
     with tempfile.TemporaryDirectory() as tmp:
         if phases & {3, 5, 6, 14, 15, 16, 21, 22, 24}:
@@ -3035,6 +3563,11 @@ def main() -> int:
         if 7 in phases:
             records["side_vector"].update(phase_side_vector_vs_plain())
             records["score_edges"].update(phase_score_edges_vs_plain(tmp))
+        if 25 in phases:
+            res = phase_insert_vs_plain(tmp)
+            records["insert_step"].update(
+                max_abs_err=0.0, library_ms=None,
+                level_latency_ms=res["level_latency_ms"])
         if 19 in phases:
             se = records["score_edges"]
             res = phase_score_ranges()
@@ -3060,7 +3593,23 @@ def main() -> int:
             # phase 7 only
             sv["launches"] = res["counts"]["side_vector"]
             se["launches"] = res["counts"]["score_edges"]
-            se["main_path_state"] = res["score_edges_last_range"]
+            se["main_path_state"] = {
+                k: v for k, v in res["score_edges_last_range"].items()
+                if k != "insert_window"}
+            # insert_step's times: the window of the 30K state before its
+            # last range; the latency chain from phase 25's level latency
+            ins = records["insert_step"]
+            win = res["score_edges_last_range"]["insert_window"]
+            ins.update(launches=res["counts"]["insert_step"],
+                       max_abs_err=ins.get("max_abs_err", 0.0),
+                       library_ms=None, main_path_window=win,
+                       last_range_no_sync=res["sync_range"],
+                       **{k: win[k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "share_of_bound")})
+            if "level_latency_ms" in ins:
+                chain = win["levels_per_insertion"] * ins["level_latency_ms"]
+                ins.update(latency_chain_ms=chain,
+                           share_of_latency_chain=chain / win["ms"])
         if 16 in phases:
             res = dc_single = phase_dc_main_path(tmp, args.n, *data)
             note("dc", res["counts"])
@@ -3102,10 +3651,10 @@ def main() -> int:
                 tmp, args.msa_n, msa_fa, msa_true)["counts"])
         if 12 in phases:
             note("msa_placement", phase_msa_placement(
-                tmp, min(4096, args.msa_n), msa_fa, msa_true)["counts"])
+                tmp, min(8192, args.msa_n), msa_fa, msa_true)["counts"])
         if 14 in phases:
-            note("add", phase_add(tmp, data[0], min(2048, args.n // 2),
-                                  min(512, args.n // 8))["counts"])
+            note("add", phase_add(tmp, data[0], min(4096, args.n // 2),
+                                  min(1024, args.n // 8))["counts"])
         if 13 in phases:
             phase_exact(tmp, msa_fa, min(512, args.msa_n))
         if 8 in phases:

@@ -30,6 +30,7 @@ KERNELS = {
     "score_edges": "score_edges.cu",
     "mash_cluster_inter": "mash_cluster_inter.cu",
     "minhash_sketch": "minhash_sketch.cu",
+    "insert_step": "insert_step.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

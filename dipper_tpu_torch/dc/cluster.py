@@ -21,8 +21,9 @@ level for the whole bucket. Clusters come sorted by size, so the ones
 still inserting at step kq are a suffix, stepped as views; the others
 are left as they are (the JAX package's `kq < sz` mask). Clusters of
 _STREAM_CLUSTER_MIN members and more run `build_streamed`: one at a time,
-distance rows a block at a time, an adjacency table and the compact BFS
-of placement/kclosest.py.
+distance rows a block at a time, an adjacency table, and on the card one
+launch of the insertion-step kernel a member (csrc/insert_step.cu; on
+the CPU the compact BFS of placement/kclosest.py).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from dipper_tpu_torch.placement import kclosest
+from dipper_tpu_torch.placement import insert_cuda, kclosest
 from dipper_tpu_torch.placement.kclosest import K, SENT_DIS, TreeState
 
 # host syncs (BFS levels) and steps of this process's batched builds;
@@ -284,13 +285,18 @@ def build_streamed(block_fn, cd_init, cid_init, lens_init, size: int,
     (_cluster_build_stream, _stream_range_run): `block_fn(start)` gives
     the [<= row_block, W] rows of members start.. (the last block
     ragged), computed when the loop reaches them, so no [cmax, W] tensor
-    is held. The state has an adjacency table and runs kclosest's
-    compact BFS with the cluster's label and blocked nodes; scoring is
-    `_score_masked` on the one cluster, with one host sync for the chosen
-    edge. cd_init/cid_init [2, K], lens_init [2]. Returns the local
-    (e, belong, length), each [2 + 4 cmax]."""
+    is held. Scoring is `_score_masked` on the one cluster (tensor code,
+    no host sync). The state has an adjacency table: on the card one
+    csrc/insert_step.cu launch a member reads the choice where the scorer
+    left it and runs splice and BFS with the cluster's label, not
+    expanding the cluster edge's endpoints (slot 0), so the host syncs
+    only in `block_fn`; on the CPU the plain splice and compact BFS run,
+    with one host sync for the chosen edge. cd_init/cid_init [2, K],
+    lens_init [2]. Returns the local (e, belong, length), each
+    [2 + 4 cmax]."""
     st, scoreable = cluster_init_state(cd_init[None], cid_init[None],
                                        lens_init[None], cmax, with_adj=True)
+    on_card = kclosest.uses_insert_kernel(st)
     order = _Order.of(cmax, cd_init.device)
     Mn = 2 + 2 * cmax
     blk = None
@@ -303,10 +309,17 @@ def build_streamed(block_fn, cd_init, cid_init, lens_init, size: int,
             rev=st.rev[None], cdis=st.cdis[None], cid=st.cid[None], adj=None)
         eid, frac, add = _score_masked(batched, scoreable[None], row[None],
                                        kq, order)
+        base = st.idx
+        if on_card:
+            xy = insert_cuda.insert_step(
+                st, eid.to(torch.int32), frac, add, middle=2 + cmax + kq,
+                outside=2 + kq, label=10 + kq, block_slot=0)
+            scoreable.index_fill_(0, xy.long(), False)
+            scoreable[base:base + 4] = order.grp
+            continue
         e0 = eid[0]
         xe, x, y, ye = torch.stack(
             (e0, st.belong[e0], st.e[e0], st.rev[e0])).tolist()  # host sync
-        base = st.idx
         kclosest.splice(st, xe, frac[0], add[0], 0, 0, (x, y, ye),
                         middle=2 + cmax + kq, outside=2 + kq)
         scoreable[xe] = False

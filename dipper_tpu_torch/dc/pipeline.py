@@ -394,6 +394,7 @@ def build_dc_tree(seqs, names, params: Param, matrix=None, *, device,
             assemble(rows, *arrays, cmax_b, mem_b)
             log(f"DC phase 3: bucket cmax_b={cmax_b} clusters={len(rows)} "
                 f"path={'stream' if stream else 'batch'} "
+                f"members={int(sizes[rows].sum())} "
                 f"launches={launches} steps={cluster.STEPS - steps0} "
                 f"bfs_levels={cluster.BFS_LEVELS - levels0} "
                 f"in {time.time() - tb:.3f}s")

@@ -17,7 +17,8 @@ as the single-process build:
   replicated; per insertion each rank scores its range of edge slots
   (csrc/score_edges.cu over [lo, hi)), the ranks' choices are
   all-gathered and merged in the kernel's own order, and every rank
-  splices and updates the witness lists alike, so the replicas stay
+  splices and updates the witness lists alike (on the card one launch of
+  csrc/insert_step.cu on the winning choice), so the replicas stay
   equal;
 - nj/engine.py and dc/pipeline.py take a Mesh and split NJ's Q scan by
   rows and D&C's phases 2 and 3 by rank.
@@ -210,7 +211,7 @@ def sharded_placement_build(sketches_u64, k: int, sketch_size: int,
                                                 mash_pairwise_inter,
                                                 pad_ranks,
                                                 rank_compress_host)
-    from dipper_tpu_torch.placement import kclosest
+    from dipper_tpu_torch.placement import insert_cuda, kclosest
 
     dtype_name = str(dtype)
     tdtype = getattr(torch, dtype_name)
@@ -263,7 +264,13 @@ def sharded_placement_build(sketches_u64, k: int, sketch_size: int,
             eid, x, y, ye = int(eid), int(x), int(y), int(ye)
             frac = torch.tensor(frac_w, dtype=torch.float64).to(tdtype).to(dev)
             add = torch.tensor(add_w, dtype=torch.float64).to(tdtype).to(dev)
-        kclosest.splice(st, eid, frac, add, i, N, (x, y, ye))
-        kclosest.update_closest_bfs(st, i, 2 * N)
+        if kclosest.uses_insert_kernel(st):
+            # every rank runs the same kernel on the winning choice
+            insert_cuda.insert_step(
+                st, torch.full((1,), eid, dtype=torch.int32, device=dev),
+                frac, add, middle=i + N - 1, outside=i, label=i)
+        else:
+            kclosest.splice(st, eid, frac, add, i, N, (x, y, ye))
+            kclosest.update_closest_bfs(st, i, 2 * N)
     return tuple(getattr(st, f).cpu().numpy()
                  for f in ("e", "belong", "length"))

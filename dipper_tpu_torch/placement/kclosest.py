@@ -24,16 +24,21 @@ dipper_tpu/placement/kclosest.py:
 
 PyTorch design: the tree state is a dataclass of tensors updated in
 place (a splice writes a few slots, a BFS level a few rows; copying the
-[4N] arrays per insertion would dominate). Each insertion is eager
-tensor code with a handful of host syncs: the chosen edge with its
-endpoints, and one per BFS level, whose frontier is compacted with
-`nonzero` (that sync also decides whether the loop goes on). Distance rows of a whole insert range are computed before its loop
-(distance/mash.py: the Hopper merge-count kernel on CUDA). On CUDA the
-scorer is one launch of the Hopper kernel csrc/score_edges.cu, which also
-reads the chosen edge's endpoints, so scoring and splice share one host
-sync; csrc/side_vector.cu is the scorer's side vector on its own. The
-float operations and their order are the reference's, so trees are
-bitwise equal to the JAX package's on the same rows.
+[4N] arrays per insertion would dominate). Distance rows of a whole
+insert range are computed before its loop (distance/mash.py: the Hopper
+merge-count kernel on CUDA). On the card an insertion of a state with an
+adjacency table is two launches and no host sync: the scorer
+csrc/score_edges.cu leaves the chosen edge and its two lengths on the
+card, and csrc/insert_step.cu (placement/insert_cuda.py) reads them there
+and runs the splice and the witness BFS, as the JAX package's jitted
+insert loop does on its device. The same kernel's BFS alone seeds states
+(init_placement_state, --add's backbone). The tensor code below (splice,
+the compact and dense BFS, insertion_step) is the plain version: the CPU
+path and the kernel's yardstick; its compact BFS sizes each level with
+`nonzero`, a host sync a level. csrc/side_vector.cu is the scorer's side
+vector on its own. The float operations and their order are the
+reference's, so trees are bitwise equal to the JAX package's on the same
+rows.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ import numpy as np
 import torch
 
 from dipper_tpu_torch.csrc.build import check_launch, load
+from dipper_tpu_torch.placement import insert_cuda
 from dipper_tpu_torch.utils.device import synchronize, torch_dtype
 
 K = 5
@@ -79,6 +85,10 @@ class TreeState:
     # dataclasses.replace never carries it over to other arrays
     scorer: "_Scorer | None" = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
+    # the insertion-step kernel's checked pointers and scratch
+    # (insert_cuda._Inserter, made by insert_cuda.prepare_inserter), alike
+    inserter: "insert_cuda._Inserter | None" = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @classmethod
     def from_numpy(cls, d, device) -> "TreeState":
@@ -89,7 +99,7 @@ def init_state(num_sequences: int, dtype: torch.dtype,
                device: torch.device) -> TreeState:
     E = 4 * num_sequences
     i32 = dict(dtype=torch.int32, device=device)
-    return prepare_scorer(TreeState(
+    return prepare_kernels(TreeState(
         e=torch.full((E,), -1, **i32),
         belong=torch.full((E,), -1, **i32),
         length=torch.zeros((E,), dtype=dtype, device=device),
@@ -147,22 +157,42 @@ def update_closest_bfs(st: TreeState, leaf: int, num_nodes: int,
     labels); `blocked_nodes` (host ints or 0-d tensors) are dequeued but
     not expanded (the cluster edge's endpoints in
     updateClosestNodesInClusterDC :334). States with an adjacency table
-    run the frontier-compact BFS, others the dense edge-parallel one;
-    both give bitwise-identical states (each visited edge receives the
-    same insert, and inserts into distinct edges commute)."""
+    run the frontier-compact BFS (on the card: insert_cuda.closest_bfs,
+    one launch, no host sync), others the dense edge-parallel one; all
+    give bitwise-identical states (each visited edge receives the same
+    insert, and inserts into distinct edges commute)."""
+    if uses_insert_kernel(st):
+        insert_cuda.closest_bfs(
+            st, leaf, label,
+            _blocked_ids(blocked_nodes, st.e.device, torch.int32))
+    else:
+        _update_closest_bfs_plain(st, leaf, num_nodes, label, blocked_nodes)
+
+
+def _update_closest_bfs_plain(st: TreeState, leaf: int, num_nodes: int,
+                              label=None, blocked_nodes=()) -> None:
+    """update_closest_bfs by tensor code alone: the compact BFS for
+    states with an adjacency table, the dense one for the others."""
     if st.adj is not None:
         _update_closest_bfs_compact(st, leaf, num_nodes, label, blocked_nodes)
     else:
         _update_closest_bfs_dense(st, leaf, num_nodes, label, blocked_nodes)
 
 
-def _blocked_ids(blocked_nodes, device) -> torch.Tensor | None:
-    """The blocked nodes as one int64 tensor on `device` (no host sync
-    for tensor entries), or None."""
+def uses_insert_kernel(st: TreeState) -> bool:
+    """Whether the state's insertions and BFSs go to csrc/insert_step.cu:
+    a CUDA state with an adjacency table."""
+    return st.adj is not None and st.e.device.type == "cuda"
+
+
+def _blocked_ids(blocked_nodes, device,
+                 dtype=torch.int64) -> torch.Tensor | None:
+    """The blocked nodes as one tensor on `device` (no host sync for
+    tensor entries), or None."""
     if len(blocked_nodes) == 0:
         return None
-    return torch.stack([torch.as_tensor(b, device=device).long().reshape(())
-                        for b in blocked_nodes])
+    return torch.stack([torch.as_tensor(b, device=device).to(dtype)
+                        .reshape(()) for b in blocked_nodes])
 
 
 def _update_closest_bfs_dense(st: TreeState, leaf: int, num_nodes: int,
@@ -418,12 +448,18 @@ class _Scorer:
     stream: they share the outputs and the ticket."""
 
     __slots__ = ("arrays", "dtype", "device", "lib", "fn", "args", "out_i",
-                 "out_f", "frac", "add", "scratch_i", "scratch_f")
+                 "out_f", "eid", "frac", "add", "scratch_i", "scratch_f")
 
     def owns(self, st: TreeState) -> bool:
         a = self.arrays
         return (st.cid is a[0] and st.cdis is a[1] and st.belong is a[2]
                 and st.e is a[3] and st.rev is a[4] and st.length is a[5])
+
+
+def prepare_kernels(st: TreeState) -> TreeState:
+    """prepare_scorer, then insert_cuda.prepare_inserter: a state's
+    checks for both per-insertion kernels. Returns `st`."""
+    return insert_cuda.prepare_inserter(prepare_scorer(st))
 
 
 def prepare_scorer(st: TreeState) -> TreeState:
@@ -465,7 +501,7 @@ def prepare_scorer(st: TreeState) -> TreeState:
     sc.arrays, sc.dtype, sc.device = arrays, dtype, dev
     sc.out_i = torch.empty((4,), dtype=torch.int32, device=dev)
     sc.out_f = torch.empty((2,), dtype=dtype, device=dev)
-    sc.frac, sc.add = sc.out_f[0], sc.out_f[1]
+    sc.eid, sc.frac, sc.add = sc.out_i[0], sc.out_f[0], sc.out_f[1]
     sc.scratch_i = torch.zeros((1 + SCORE_EDGES_MAX_BLOCKS,),
                                dtype=torch.int32, device=dev)
     sc.scratch_f = torch.empty((2 * SCORE_EDGES_MAX_BLOCKS,), dtype=dtype,
@@ -625,11 +661,24 @@ def splice(st: TreeState, eid: int, frac, add, place_id: int,
 
 def insertion_step(st: TreeState, row: torch.Tensor, i: int,
                    num_sequences: int, stream: int | None = None) -> None:
-    """Place taxon i given its distance row to the bank (in place).
-    `stream`: see score_edges_launch."""
+    """Place taxon i given its distance row to the bank (in place), by
+    the plain version of splice and BFS (the CPU path, adj-less states,
+    and the kernels' yardstick on the card). `stream`: see
+    score_edges_launch."""
     eid, x, y, ye, frac, add = score_edges(st, row, stream)
     splice(st, eid, frac, add, i, num_sequences, (x, y, ye))
-    update_closest_bfs(st, i, 2 * num_sequences)
+    _update_closest_bfs_plain(st, i, 2 * num_sequences)
+
+
+def kernel_insertion_step(st: TreeState, row: torch.Tensor, i: int,
+                          num_sequences: int, stream: int) -> None:
+    """insertion_step on the card, for a state with an adjacency table:
+    one score_edges launch, then one insert_step launch that reads the
+    choice where the scorer left it. No host sync."""
+    sc = score_edges_launch(st, row, stream)
+    insert_cuda.insert_step(st, sc.eid, sc.frac, sc.add,
+                            middle=i + num_sequences - 1, outside=i, label=i,
+                            stream=stream)
 
 
 # ---------------------------------------------------------------------------
@@ -709,11 +758,14 @@ def init_placement_state(frontend_args, *, num_sequences: int, frontend: str,
 def _insert_range(st: TreeState, lo: int, hi: int, rows: torch.Tensor,
                   num_sequences: int) -> None:
     """Insertions lo..hi-1; rows[j] is the distance row of insertion
-    lo+j. The range runs on the stream that is current at its start."""
+    lo+j. The range runs on the stream that is current at its start; on
+    the card, a state with an adjacency table runs it with no host sync
+    between its first insertion and its last."""
     stream = (torch.cuda.current_stream(rows.device).cuda_stream
               if rows.device.type == "cuda" else None)
+    step = kernel_insertion_step if uses_insert_kernel(st) else insertion_step
     for i in range(lo, hi):
-        insertion_step(st, rows[i - lo], i, num_sequences, stream)
+        step(st, rows[i - lo], i, num_sequences, stream)
 
 
 def run_placement_full(frontend_args, *, num_sequences: int, frontend: str,
@@ -779,7 +831,7 @@ def tree_state_from_numpy(d, device) -> TreeState:
 
     adj = get("adj")
     nfb = get("nfb")
-    return prepare_scorer(TreeState(
+    return prepare_kernels(TreeState(
         e=t(d["e"], np.int32), belong=t(d["belong"], np.int32),
         length=t(d["length"]), rev=t(d["rev"], np.int32),
         cdis=t(d["cdis"]), cid=t(d["cid"], np.int32), idx=_one_idx(d["idx"]),
@@ -859,7 +911,7 @@ def load_tree_state(path: str, num_sequences: int, dtype_name: str,
     for f in ("length", "cdis"):
         if f in cls.FIELDS:
             setattr(st, f, getattr(st, f).to(dtype))
-    return (prepare_scorer(st) if cls is TreeState else st), int(d["next_i"])
+    return (prepare_kernels(st) if cls is TreeState else st), int(d["next_i"])
 
 
 # ---------------------------------------------------------------------------
@@ -895,7 +947,7 @@ def _resize_state(st: TreeState, E: int) -> TreeState:
     if cur == E:
         return st
     if cur > E:
-        return prepare_scorer(dataclasses.replace(
+        return prepare_kernels(dataclasses.replace(
             st, e=st.e[:E], belong=st.belong[:E], length=st.length[:E],
             rev=st.rev[:E], cdis=st.cdis[:E], cid=st.cid[:E]))
     p = E - cur
@@ -904,7 +956,7 @@ def _resize_state(st: TreeState, E: int) -> TreeState:
         return torch.cat([x, torch.full((p,) + x.shape[1:], fill,
                                         dtype=x.dtype, device=x.device)])
 
-    return prepare_scorer(dataclasses.replace(
+    return prepare_kernels(dataclasses.replace(
         st, e=pad(st.e, -1), belong=pad(st.belong, -1),
         length=pad(st.length, 0), rev=pad(st.rev, -1),
         cdis=pad(st.cdis, SENT_DIS), cid=pad(st.cid, -1)))
@@ -1014,7 +1066,7 @@ def run_add_queries(frontend_args, e0, belong0, length0, rev0, *,
     dtype = torch_dtype(dtype_name)
     E = 4 * N
     # copies: the state is updated in place, the caller's arrays are not
-    st = prepare_scorer(TreeState(
+    st = prepare_kernels(TreeState(
         e=e0.clone(), belong=belong0.clone(),
         length=length0.to(dtype, copy=True), rev=rev0.clone(),
         cdis=torch.full((E, K), SENT_DIS, dtype=dtype, device=dev),

@@ -1,6 +1,6 @@
 """The port on an NVIDIA GPU: the hand-written kernels (mash merge count,
 mash distance rows, side vector, the edge scorer, the MinHash sketcher,
-with device rank compression beside it) against their plain
+with device rank compression beside it, the insertion step) against their plain
 PyTorch versions, the MSA pair counts and distances, and CUDA builds
 (k-closest and exact placement, --add, the mash matrix, NJ) against CPU
 builds. Every test that takes the `cuda` fixture skips without CUDA;
@@ -847,3 +847,157 @@ def test_rank_compress_cuda_equals_cpu(cuda):
         a = tm.mash_distance_matrix(tm.pad_ranks(got), 12, 300, dtype, cuda)
         b = tm.mash_distance_matrix(host, 12, 300, dtype, cuda)
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The insertion-step kernel (csrc/insert_step.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _clone7(st):
+    import dataclasses
+
+    from dipper_tpu_torch.placement.insert_model import FIELDS
+
+    return dataclasses.replace(st, **{f: getattr(st, f).clone()
+                                      for f in FIELDS})
+
+
+def _same7(a, b):
+    """The seven state arrays and idx equal bit for bit."""
+    from dipper_tpu_torch.placement.insert_model import FIELDS
+
+    assert a.idx == b.idx
+    for f in FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.is_floating_point():
+            bits = torch.int32 if x.dtype == torch.float32 else torch.int64
+            x, y = x.view(bits), y.view(bits)
+        assert torch.equal(x, y), f
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("kind, n", [("random", 200), ("caterpillar", 128),
+                                     ("some_nan", 120), ("all_nan", 40)])
+def test_insert_step_kernel_equals_plain_on_builds(cuda, kind, n, dtype):
+    """A build on the card whose every insertion is the kernel path, held
+    after each insertion against a copy stepped by the plain version."""
+    from dipper_tpu_torch.placement import insert_cuda
+    from dipper_tpu_torch.placement import insert_model as im
+
+    D = torch.from_numpy(im.made_up_matrix(kind, n, seed=n)
+                         .astype(dtype)).to(cuda)
+    st = tk.init_placement_state((D,), num_sequences=n, frontend="matrix",
+                                 dtype_name=dtype)
+    assert st.inserter is not None and tk.uses_insert_kernel(st)
+    pl = _clone7(st)
+    stream = torch.cuda.current_stream().cuda_stream
+    before = insert_cuda.INSERT_STEP_LAUNCHES
+    for i in range(2, n):
+        tk.kernel_insertion_step(st, D[i], i, n, stream)
+        eid, x, y, ye, frac, add = tk._score_edges_plain(pl, D[i])
+        tk.splice(pl, eid, frac, add, i, n, (x, y, ye))
+        tk._update_closest_bfs_compact(pl, i, 2 * n)
+        _same7(st, pl)
+    assert insert_cuda.INSERT_STEP_LAUNCHES - before == n - 2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_insert_step_kernel_made_up_splices(cuda, dtype):
+    from dipper_tpu_torch.placement import insert_cuda
+    from dipper_tpu_torch.placement import insert_model as im
+
+    dt = getattr(torch, dtype)
+    for name, (cd_x, id_x, cd_y, id_y, orig, frac) in im.SPLICE_CASES.items():
+        st = tk.init_state(4, dt, cuda)
+        tk.build_initial_tree(st, torch.tensor(2 * orig, dtype=dt,
+                                               device=cuda), 4)
+        st.cdis[0] = torch.tensor(cd_x, dtype=dt)
+        st.cid[0] = torch.tensor(id_x, dtype=torch.int32)
+        st.cdis[2] = torch.tensor(cd_y, dtype=dt)
+        st.cid[2] = torch.tensor(id_y, dtype=torch.int32)
+        pl = _clone7(st)
+        f = torch.tensor([frac], dtype=dt, device=cuda)
+        a = torch.tensor([im.SPLICE_ADD], dtype=dt, device=cuda)
+        xy = insert_cuda.insert_step(
+            st, torch.zeros((1,), dtype=torch.int32, device=cuda), f, a,
+            middle=5, outside=2, label=2)
+        assert xy.tolist() == [0, 2], name
+        tk.splice(pl, 0, f[0], a[0], 2, 4)
+        tk._update_closest_bfs_compact(pl, 2, 8)
+        _same7(st, pl)
+
+
+def test_closest_bfs_kernel_seeding_wide_backbone(cuda):
+    """--add's seeding of a balanced 1,024-leaf backbone (levels wider
+    than the kernel's block), leaf by leaf against the plain BFS."""
+    from dipper_tpu_torch.io.newick import parse_newick
+    from dipper_tpu_torch.placement import api as tapi
+    from dipper_tpu_torch.placement import insert_cuda
+    from dipper_tpu_torch.placement import insert_model as im
+
+    n = B = 1024
+    tree = parse_newick(im.balanced_newick(B, np.random.default_rng(3)), n)
+    e0, belong0, length0, rev0 = tapi.backbone_tree_to_arrays(tree, n)
+    st = tk.prepare_kernels(tk.TreeState(
+        e=torch.from_numpy(e0).to(cuda),
+        belong=torch.from_numpy(belong0).to(cuda),
+        length=torch.from_numpy(length0).to(cuda),
+        rev=torch.from_numpy(rev0).to(cuda),
+        cdis=torch.full((4 * n, tk.K), tk.SENT_DIS, dtype=torch.float64,
+                        device=cuda),
+        cid=torch.full((4 * n, tk.K), -1, dtype=torch.int32, device=cuda),
+        idx=4 * B - 4,
+        adj=tk.adjacency_from_edges(torch.from_numpy(belong0).to(cuda),
+                                    2 * n)))
+    pl = _clone7(st)
+    for i in range(B):
+        insert_cuda.closest_bfs(st, i)
+        tk._update_closest_bfs_compact(pl, i, 2 * n)
+        if i % 64 == 0 or i == B - 1:
+            _same7(st, pl)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_streamed_cluster_kernel_equals_plain_route(cuda, dtype, monkeypatch):
+    """D&C's streamed cluster on the card (label, blocked slot 0, scoreable
+    cleared from the kernel's output) against its plain route."""
+    from dipper_tpu_torch.dc import cluster as tc
+
+    rng = np.random.default_rng(4)
+    cmax, W, rb = 60, 70, 16
+    Dq = torch.from_numpy(rng.uniform(0.05, 0.6, (cmax, W)).astype(dtype)
+                          ).to(cuda)
+    cd = np.sort(rng.uniform(0, 0.3, (2, 5)), axis=-1).astype(dtype)
+    cid = np.arange(10, dtype=np.int32).reshape(2, 5)
+    cid[1, 3:], cd[1, 3:] = -1, 2.0
+    lens = rng.uniform(0.01, 0.2, 2).astype(dtype)
+    lens[1] = lens[0]
+    init = tuple(torch.from_numpy(x).to(cuda) for x in (cd, cid, lens))
+    got = tc.build_streamed(lambda s: Dq[s:s + rb], *init, cmax, cmax, rb)
+    monkeypatch.setattr(tk, "uses_insert_kernel", lambda st: False)
+    want = tc.build_streamed(lambda s: Dq[s:s + rb], *init, cmax, cmax, rb)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_insert_step_wrapper_rejects_bad_inputs(cuda):
+    from dipper_tpu_torch.placement import insert_cuda
+
+    D = torch.rand((20, 20), dtype=torch.float64, device=cuda)
+    st = tk.init_placement_state((D,), num_sequences=20, frontend="matrix",
+                                 dtype_name="float64")
+    one = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    f = torch.zeros((1,), dtype=torch.float64, device=cuda)
+    kw = dict(middle=25, outside=3, label=3)
+    with pytest.raises(ValueError, match="frac must be one torch.float64"):
+        insert_cuda.insert_step(st, one, f.float(), f, **kw)
+    with pytest.raises(ValueError, match="eid must be one torch.int32"):
+        insert_cuda.insert_step(st, one.cpu(), f, f, **kw)
+    with pytest.raises(ValueError, match="must be nodes"):
+        insert_cuda.insert_step(st, one, f, f, middle=40, outside=3, label=3)
+    with pytest.raises(ValueError, match="blocked must be"):
+        insert_cuda.closest_bfs(st, 0, blocked=one.long())
+    st.cdis = st.cdis.float()
+    with pytest.raises(ValueError, match="cdis must be torch.float64"):
+        insert_cuda.closest_bfs(st, 0)
