@@ -50,16 +50,27 @@ the process; phases 20 to 22 run in processes of their own):
      plain version's time;
   25. the insertion-step kernel (csrc/insert_step.cu: splice and witness
      BFS) vs plain, the seven state arrays bit for bit after every launch:
-     made-up splices (ties, empty entries and NaN in the ten-way merge, f32
-     and f64), whole builds from made-up matrices (random, a caterpillar,
-     NaN pairs, all-NaN f64), phase 7's 4,096-taxon build, --add's seeding
-     of a placement backbone and of a balanced 1,024-leaf backbone (levels
-     wider than the kernel's block), D&C's streamed cluster (label, blocked
-     slot, scoreable cleared from the kernel's output) against its plain
-     route on the card; and one BFS level's latency (a BFS of ~2,049
-     levels on a caterpillar, CUDA events);
+     made-up splices (ties, empty entries and NaN in the ten-way merge, a
+     choice whose writes overlap; f32 and f64), whole builds from made-up
+     matrices (random, a caterpillar, NaN pairs, all-NaN f64), phase 7's
+     4,096-taxon build, each build also by the cursor route (replayed
+     graphs and a remainder) and by insert_model, to the same state;
+     --add's seeding of a placement backbone and of a balanced
+     1,024-leaf backbone (levels of 512 nodes: the frontier spills past
+     the kernel's shared buffers), insertions onto that backbone with its
+     lists empty (spills, and switches between a warp's narrow levels and
+     the block's wide ones, counted by insert_model), D&C's streamed
+     cluster (label, blocked slot, scoreable cleared from the kernel's
+     output) against its plain route on the card; one narrow BFS level's
+     latency (a BFS of ~2,049 levels on a caterpillar, CUDA events) and
+     one dependent L2 round trip (a pointer chase through 4 MB), the unit
+     of the kernel's latency floor;
   4. GPU port vs CPU port, placement: the CLI at N=512 (-i r -m 1) with
-     --device cuda and --device cpu, the same Newick bytes required;
+     --device cuda and --device cpu, the same Newick bytes required; and
+     run_placement_chunked on a 4,096-taxon set's mash rows (computed on
+     the card) in insert ranges of 1,000 on both devices: the card's
+     cursor route replays graphs with remainders and captures again at
+     each of two prefix caps; the same Newick bytes required;
   17. GPU port vs CPU port, D&C: the CLI with -m 3 at N = 600 (B = 30,
      seed 4) in f64 with streamed clusters (16 members and up, rows 5 at a
      time) and several builds a bucket forced: the same Newick bytes;
@@ -80,19 +91,30 @@ the process; phases 20 to 22 run in processes of their own):
      held against the plain version on its own inputs, every 128th query
      row of it; no sketch-kernel launch (placement sketches on the host,
      as in the JAX package), and at N = 30,000 the nRF of every earlier
-     smoke (PLACEMENT_NRF_30K); every 997th insertion is held against the
-     plain version as it happens (the scorer's six values, then the seven
-     state arrays against a copy stepped by the plain version), and before
-     the last insert range its first 300 rows (taxa not yet inserted) are
+     smoke (PLACEMENT_NRF_30K). The insert ranges run by the cursor
+     route (replays of a captured graph of 64 insertions, the remainder
+     by direct cursor launches): the graph captures of the build (the
+     log's count), its replays, and the host's replays and direct
+     launches an insertion; at each graph border before every 997th
+     insertion the state is copied, the graph replayed, and the copy
+     stepped through the same insertions by the plain version (the seven
+     state arrays, and the scorer's six values of the last). Before the
+     last insert range its first 300 rows (taxa not yet inserted) are
      scored by kernel and plain version on the state as it stands, where
      the scorer is also timed, three rows (one with NaN at the witnesses
      of the first used slots) are scored by slot ranges as in phase 19,
-     each range launch timed, and its first 300 insertions are run by the
-     kernels (each launch timed by CUDA events, queued behind a device
-     sleep), by the plain version and by insert_model, to the same state,
-     which is then put back (those launches are taken out of the count);
-     the last range itself then runs under
-     torch.cuda.set_sync_debug_mode("error") at 2 launches per insertion;
+     each range launch timed, and its first 300 insertions are run by
+     direct kernel launches (each timed by CUDA events, queued behind a
+     device sleep), by the plain version, by insert_model and by the
+     cursor route, to the same state (with --parent, an earlier
+     checkout's insert_step too, timed in turns: parent, this, this,
+     parent), which is then put back (those launches are taken out of
+     the count); the last range itself then runs under
+     torch.cuda.set_sync_debug_mode("error") at 2 launches per insertion
+     and no capture. After the profiler phases, the cursor route over
+     2 x 64 + 7 of that range's insertions (a copy of the state) under
+     torch.profiler: 2.0 kernel launches an insertion on the card, one
+     cursor write;
   16. the D&C main path: the CLI with -m 3 on phase 5's set (B = N // 20
      = 1,500): rc 0, a complete Newick with nRF vs the true tree under
      DC_NRF_LIMIT, launches of the per-cluster count kernel and of the
@@ -269,6 +291,9 @@ INSERT_WINDOW = 300
 # time the kernels and not the host's gaps
 QUEUE_SLEEP_CYCLES = 20_000_000
 QUEUE_CHUNK = 32
+# phase 5's state before its last range and the rows of a window of its
+# insertions (two graphs' and 7 more), profiled after the profiler phases
+PROFILE_WINDOW: dict = {}
 # rows scored on the real states (phase 7's N = 4,096 build, phase 5's
 # state before its last range)
 SCORE_ROWS = (256, 300)
@@ -993,20 +1018,109 @@ def plain_step(st, row, i: int, N: int):
     return six
 
 
-def compare_build(st, rows, lo: int, hi: int, N: int, tag: str) -> int:
-    """Insertions lo..hi-1 (rows[j]: insertion lo + j) by the kernels on
-    `st` and by the plain version on a copy, the seven arrays compared
-    bit for bit after each; returns the insertions compared."""
-    from dipper_tpu_torch.placement import kclosest
+class RouteSampler:
+    """While installed, holds the cursor route of insert ranges
+    (kclosest._insert_range on a state that takes the kernels: replayed
+    graphs) against the plain version: at each graph border before an
+    insertion i with (i - 2) a multiple of SIDE_SAMPLE, the state is
+    copied, the graph replayed once, and the copy stepped through the
+    same insertions by the plain version (which launches none of the
+    port's kernels); the seven state arrays must agree, and the scorer's
+    six values of the replay's last insertion. `errs`: (last insertion,
+    the scorer's max abs err, the arrays that differ) a border;
+    `checks_s`: the host time of the checks, queued work first; no check
+    while `sampling` is false."""
+
+    def __init__(self):
+        from dipper_tpu_torch.placement import insert_cuda, kclosest
+
+        self.ic, self.kc = insert_cuda, kclosest
+        self.orig = (insert_cuda.replay, kclosest._insert_range)
+        self.errs, self.checks_s, self.sampling, self.cur = [], 0.0, True, {}
+        insert_cuda.replay, kclosest._insert_range = (self.replay,
+                                                      self.insert_range)
+
+    def restore(self) -> None:
+        self.ic.replay, self.kc._insert_range = self.orig
+
+    def begin(self, st, lo: int, rows, N: int) -> None:
+        """A range of st from insertion lo starts (rows[j]: insertion
+        lo + j)."""
+        self.cur.update(st=st, rows=rows, lo=lo, N=N, pos=lo, idx=st.idx)
+
+    def insert_range(self, st, lo, hi, rows, num_sequences):
+        self.begin(st, lo, rows, num_sequences)
+        return self.orig[1](st, lo, hi, rows, num_sequences)
+
+    def replay(self, g, times: int) -> None:
+        replay, cur = self.orig[0], self.cur
+        if not (self.sampling and g.steps and cur):
+            replay(g, times)
+            cur["pos"] = cur.get("pos", 0) + g.steps * times
+            return
+        st, rows, lo, N = cur["st"], cur["rows"], cur["lo"], cur["N"]
+        for _ in range(times):
+            pos = cur["pos"]
+            first = -(-(pos - 2) // SIDE_SAMPLE) * SIDE_SAMPLE + 2
+            if first >= pos + g.steps:
+                replay(g, 1)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pl = state_clone(st)
+                # st.idx advances at the range's end; the plain copy's as it
+                # goes, from the slots in use at this border
+                pl.idx = cur["idx"] + 4 * (pos - lo)
+                replay(g, 1)
+                sc = st.scorer
+                got = (*sc.out_i.tolist(), sc.frac.clone(), sc.add.clone())
+                for i in range(pos, pos + g.steps):
+                    want = plain_step(pl, rows[i - lo], i, N)
+                diff = [f for f in state_diff(st, pl) if f != "idx"]
+                if pl.idx != cur["idx"] + 4 * (pos + g.steps - lo):
+                    diff.append("idx")
+                self.errs.append((pos + g.steps - 1, _six_err(got, want),
+                                  diff))
+                self.checks_s += time.perf_counter() - t0
+            cur["pos"] = pos + g.steps
+
+
+def compare_build(st, rows, lo: int, hi: int, N: int, tag: str,
+                  stats: dict | None = None) -> int:
+    """Insertions lo..hi-1 (rows[j]: insertion lo + j) by direct kernel
+    launches on `st` and by the plain version on a copy, the seven arrays
+    compared bit for bit after each, and by the cursor route
+    (kclosest._insert_range: replayed graphs and a remainder) on another
+    copy, compared at the end. With `stats`, insert_model also steps a
+    host copy (its counts go to `stats`: levels, spills, switches between
+    narrow and wide levels) and must end in the same state. Returns the
+    insertions compared."""
+    from dipper_tpu_torch.placement import insert_model, kclosest
 
     stream = torch.cuda.current_stream().cuda_stream
     pl = state_clone(st)
+    route = state_clone(st)
+    model = ({f: getattr(st, f).cpu().numpy() for f in insert_model.FIELDS}
+             if stats is not None else None)
     for i in range(lo, hi):
         kclosest.kernel_insertion_step(st, rows[i - lo], i, N, stream)
-        plain_step(pl, rows[i - lo], i, N)
+        i0 = pl.idx
+        eid, _, _, _, frac, add = plain_step(pl, rows[i - lo], i, N)
         diff = state_diff(st, pl)
         check(not diff, f"{tag}: insert_step != plain at insertion {i}: "
               f"{diff}")
+        if model is not None:
+            insert_model.insert_step(model, eid, frac.cpu().numpy(),
+                                     add.cpu().numpy(), i0, i + N - 1, i, i,
+                                     stats=stats)
+    kclosest._insert_range(route, lo, hi, rows, N)
+    diff = state_diff(route, st)
+    check(not diff, f"{tag}: the cursor route != direct launches in {diff}")
+    if model is not None:
+        mdiff = [f for f in insert_model.FIELDS
+                 if getattr(st, f).cpu().numpy().tobytes()
+                 != model[f].tobytes()]
+        check(not mdiff, f"{tag}: insert_step != insert_model in {mdiff}")
     return hi - lo
 
 
@@ -1051,14 +1165,21 @@ def backbone_state(nwk: str, n: int, dtype: str):
     return st, B
 
 
-def kernel_window(st, rows, lo: int, hi: int, N: int) -> dict:
-    """Insertions lo..hi-1 by the kernel path (one score_edges and one
-    insert_step launch each), every launch between CUDA events, queued
-    QUEUE_CHUNK insertions at a time behind a device sleep so that the
-    card runs them back to back: the device ms of each launch, and the
-    host ms per insertion of enqueueing them (the wrappers' cost)."""
+def kernel_window(st, rows, lo: int, hi: int, N: int, step=None) -> dict:
+    """Insertions lo..hi-1 by direct launches (one score_edges and one
+    insert_step launch each; `step(st, sc, i, stream)` in insert_step's
+    place, e.g. an earlier commit's kernel), every launch between CUDA
+    events, queued QUEUE_CHUNK insertions at a time behind a device sleep
+    so that the card runs them back to back: the device ms of each
+    launch, and the host ms per insertion of enqueueing them (the
+    wrappers' cost)."""
     from dipper_tpu_torch.placement import insert_cuda, kclosest
 
+    if step is None:
+        def step(st_, sc, i, stream):
+            insert_cuda.insert_step(st_, sc.eid, sc.frac, sc.add,
+                                    middle=i + N - 1, outside=i, label=i,
+                                    stream=stream)
     stream = torch.cuda.current_stream().cuda_stream
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     torch.cuda.synchronize()
@@ -1079,9 +1200,7 @@ def kernel_window(st, rows, lo: int, hi: int, N: int) -> dict:
             e[0].record()
             sc = kclosest.score_edges_launch(st, rows[i - lo], stream)
             e[1].record()
-            insert_cuda.insert_step(st, sc.eid, sc.frac, sc.add,
-                                    middle=i + N - 1, outside=i, label=i,
-                                    stream=stream)
+            step(st, sc, i, stream)
             e[2].record()
         dt = time.perf_counter() - t0
         host_s += dt
@@ -1114,15 +1233,89 @@ def insert_bound(stats: dict, n_ins: int, item: int) -> dict:
     return bound_of(2 * K * stats["lists"], nbytes, 33.5e12)
 
 
+def parent_module(parent: str, name: str):
+    """Module `name` of the port in an earlier checkout at `parent` (which
+    builds its kernels from its own csrc/ into its own build/). The
+    checkout's package stands in for this one's only while the module is
+    imported."""
+    import importlib
+
+    pkg = "dipper_tpu_torch"
+
+    def ours():
+        return [k for k in sys.modules if k == pkg or k.startswith(pkg + ".")]
+
+    saved = {k: sys.modules.pop(k) for k in ours()}
+    root = os.path.abspath(parent)
+    sys.path.insert(0, root)
+    try:
+        mod = importlib.import_module(f"{pkg}.{name}")
+    finally:
+        sys.path.remove(root)
+        for k in ours():
+            del sys.modules[k]
+        sys.modules.update(saved)
+    check(os.path.abspath(mod.__file__).startswith(root + os.sep),
+          f"{pkg} of {parent} was not the one imported")
+    return mod
+
+
+def parent_insert_step(parent: str, N: int):
+    """insert_step of an earlier checkout, as a kernel_window step: its
+    placement/insert_cuda.py on a TreeState that shares the state's arrays
+    (so that its own wrapper prepares its own library and scratch), the
+    slot counter carried across."""
+    import dataclasses
+
+    mod = parent_module(parent, "placement.insert_cuda")
+    alias = {}
+
+    def step(st, sc, i, stream):
+        pst = alias.get(id(st))
+        if pst is None or pst[0] is not st:
+            pst = alias[id(st)] = (st, dataclasses.replace(st))
+        pst = pst[1]
+        pst.idx = st.idx
+        mod.insert_step(pst, sc.eid, sc.frac, sc.add, middle=i + N - 1,
+                        outside=i, label=i, stream=stream)
+        st.idx = pst.idx
+    return step
+
+
+def route_window(st, rows, lo: int, hi: int, N: int) -> dict:
+    """Insertions lo..hi-1 by the cursor route (kclosest._insert_range: a
+    cursor write, replayed graphs, the remainder by direct cursor
+    launches), queued behind a device sleep and timed by CUDA events: the
+    card's ms per insertion, and the host's."""
+    from dipper_tpu_torch.placement import kclosest
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    ev[0].record()
+    kclosest._replay_insertions(st, lo, hi, rows, N)
+    ev[1].record()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return {"ms": ev[0].elapsed_time(ev[1]) / (hi - lo),
+            "host_ms": host / (hi - lo) * 1e3}
+
+
 def time_insert_window(st, rows, lo: int, N: int,
-                       window: int = INSERT_WINDOW) -> dict:
+                       window: int = INSERT_WINDOW,
+                       parent: str | None = None) -> dict:
     """On the state before an insert range, left as it was found: its
-    first `window` insertions by the kernels (kernel_window), again by
-    the plain version on a copy (splice and compact BFS timed by CUDA
-    events) and by insert_model on host copies (what they read and
-    write); the three must end in the same state. Returns the kernel's
-    and the plain version's mean times, the bound from the model's
-    counts, and levels per insertion."""
+    first `window` insertions by direct kernel launches (kernel_window),
+    again by the plain version on a copy (splice and compact BFS timed by
+    CUDA events) and by insert_model on host copies (what they read and
+    write); the three must end in the same state. Then the same window by
+    the cursor route (replayed graphs and a remainder), which must end
+    there too, and the route's replays alone (whole graphs), timed. With
+    `parent` (an earlier checkout), its insert_step is timed on the same
+    window in turns (parent, this, this, parent) and must end in the same
+    state. Returns the times, the bound from the model's counts, and
+    levels per insertion."""
     from dipper_tpu_torch.placement import insert_model, kclosest
 
     window = min(window, rows.shape[0])
@@ -1154,7 +1347,18 @@ def time_insert_window(st, rows, lo: int, N: int,
              if getattr(after, f).cpu().numpy().tobytes()
              != model[f].tobytes()]
     check(not mdiff, f"insert window at {lo}: kernels != model in {mdiff}")
+    # the cursor route on the same window (once to capture the state's
+    # graph if no range has, once timed), and its replays alone
+    for _ in range(2):
+        restore(st, snap)
+        route = route_window(st, rows, lo, lo + window, N)
+        diff = state_diff(st, after)
+        check(not diff, f"insert window at {lo}: the cursor route != direct "
+              f"launches in {diff}")
+    G = kclosest.GRAPH_INSERTIONS
+    whole = window // G * G
     restore(st, snap)
+    replays = route_window(st, rows, lo, lo + whole, N) if whole else None
     ms = sum(times["insert_ms"]) / window
     rec = {"lo": lo, "insertions": window, "ms": ms,
            "score_edges_ms": sum(times["score_ms"]) / window,
@@ -1162,12 +1366,68 @@ def time_insert_window(st, rows, lo: int, N: int,
            "host_ms_per_insertion": times["host_ms_per_insertion"],
            "sleep_ms": times["sleep_ms"],
            "chunks_not_queued": times["chunks_not_queued"],
+           "cursor_route": {"graph_insertions": G, **route,
+                            "equal_direct_launches": True},
+           "replays_alone": {"insertions": whole, **(replays or {})},
            "levels_per_insertion": stats["levels"] / window,
            "per_insertion": {k: v / window for k, v in stats.items()},
            "equal_plain_and_model": True}
+    if parent:
+        old = parent_insert_step(parent, N)
+        # the parent's library is built and loaded at its first launch,
+        # which no turn times
+        restore(st, snap)
+        kernel_window(st, rows, lo, lo + 1, N, old)
+        turns = []
+        for who in ("parent", "this", "this", "parent"):
+            restore(st, snap)
+            got = kernel_window(st, rows, lo, lo + window, N,
+                                old if who == "parent" else None)
+            diff = state_diff(st, after)
+            check(not diff, f"insert window at {lo}: the parent's kernel "
+                  f"!= this one's in {diff}")
+            turns.append(sum(got["insert_ms"]) / window)
+        rec["parent"] = {"turns_ms": turns, "parent_ms": (turns[0]
+                                                         + turns[3]) / 2,
+                         "this_ms": (turns[1] + turns[2]) / 2,
+                         "equal": True}
+    restore(st, snap)
     bound = insert_bound(stats, window, st.length.element_size())
     bound["bound_ms"] /= window
     return with_share(rec, bound)
+
+
+def l2_round_trip_ms(n: int = 1 << 20, steps: int = 100_000) -> float:
+    """One dependent L2 round trip on this card: insert_step.cu's pointer
+    chase (one thread, loads past L1) through a random cycle of n int32
+    (4 MB: in L2, not in L1), `steps` links between CUDA events."""
+    import ctypes
+
+    from dipper_tpu_torch.csrc.build import check_launch, load
+    from dipper_tpu_torch.placement import insert_cuda
+
+    lib = load("insert_step", insert_cuda._STEP_ARGS)
+    fn = lib.insert_step_chase
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p]
+    perm = np.random.default_rng(0).permutation(n)
+    nxt = np.empty(n, np.int32)
+    nxt[perm] = np.roll(perm, -1)
+    (link,) = _on_card(nxt)
+    out = torch.empty(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    dev = torch.cuda.current_device()
+    check_launch(lib, "insert_step", fn(link.data_ptr(), n, out.data_ptr(),
+                                        dev, stream))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    check_launch(lib, "insert_step", fn(link.data_ptr(), steps,
+                                        out.data_ptr(), dev, stream))
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / steps
 
 
 def phase_insert_vs_plain(tmp: str, n: int = 4096) -> dict:
@@ -1206,6 +1466,24 @@ def phase_insert_vs_plain(tmp: str, n: int = 4096) -> dict:
             check(not diff and xy == [0, 2], f"made-up splice {dtype} "
                   f"{name}: insert_step != plain in {diff} (xy {xy})")
             cases[f"splice/{dtype}/{name}"] = {"equal": True}
+        # a choice whose writes overlap: the plain version's later
+        # statement wins
+        d, eid, frac, add, middle, outside = im.overlap_state(dtype)
+        st = kclosest.tree_state_from_numpy(d, dev)
+        pl = state_clone(st)
+        xy = insert_cuda.insert_step(
+            st, torch.full((1,), eid, dtype=torch.int32, device=dev),
+            torch.tensor([frac], dtype=dt, device=dev),
+            torch.tensor([add], dtype=dt, device=dev), middle=middle,
+            outside=outside, label=outside).tolist()
+        kclosest.splice(pl, eid, torch.tensor(frac, dtype=dt, device=dev),
+                        torch.tensor(add, dtype=dt, device=dev), outside, 4,
+                        middle=middle, outside=outside)
+        kclosest._update_closest_bfs_compact(pl, outside, 8)
+        diff = state_diff(st, pl)
+        check(not diff and xy == [eid, 15], f"overlapping splice {dtype}: "
+              f"insert_step != plain in {diff} (xy {xy})")
+        cases[f"splice/{dtype}/overlap"] = {"equal": True}
     # (b) whole builds from made-up matrices, every insertion compared
     for kind, m, dtype in (("random", 300, "float32"),
                            ("random", 300, "float64"),
@@ -1224,9 +1502,11 @@ def phase_insert_vs_plain(tmp: str, n: int = 4096) -> dict:
         diff = state_diff(st, pl)
         check(not diff, f"{kind} {m} {dtype}: the two first BFSs differ in "
               f"{diff}")
+        stats = {}
         cases[f"build/{kind}{m}/{dtype}"] = {
             "insertions": compare_build(st, D[2:], 2, m, m,
-                                        f"{kind} {m} {dtype}")}
+                                        f"{kind} {m} {dtype}", stats),
+            "model": stats}
     # (c) the 4,096-taxon build of phase 7's set (mash rows, f32)
     t0 = time.time()
     st, _ = built_state(tmp, n, SCORE_ROWS[0], compare=True)
@@ -1241,14 +1521,34 @@ def phase_insert_vs_plain(tmp: str, n: int = 4096) -> dict:
                                           dtype_name="float64")
     place_nwk = kclosest.edges_to_newick(
         e, b, length, [f"L{i}" for i in range(1024)], 1024)
+    balanced = im.balanced_newick(1024, np.random.default_rng(3))
     for tag, nwk, dtype in (
             ("placement1024", place_nwk, "float32"),
-            ("balanced1024", im.balanced_newick(1024,
-                                                np.random.default_rng(3)),
-             "float64")):
+            ("balanced1024", balanced, "float64")):
         st, B = backbone_state(nwk, 1280, dtype)
+        stats = {}
+        host = {f: getattr(st, f).cpu().numpy() for f in im.FIELDS}
+        for leaf in range(B):
+            im.closest_bfs(host, leaf, stats=stats)
         cases[f"seeding/{tag}/{dtype}"] = {
-            "leaves": compare_seeding(st, range(B), f"seeding {tag}")}
+            "leaves": compare_seeding(st, range(B), f"seeding {tag}"),
+            "model": stats}
+    check(cases["seeding/balanced1024/float64"]["model"]["spilled"] > 0,
+          "the balanced backbone's seeding spilled no frontier entry")
+    # (e2) insertions onto the balanced backbone, its lists empty: levels
+    # of 512 nodes (frontiers spill) after narrow ones, in insert_step
+    for dtype in ("float32", "float64"):
+        st, B = backbone_state(balanced, 1280, dtype)
+        rows = torch.from_numpy(np.random.default_rng(25).uniform(
+            0.05, 0.5, (24, 1280)).astype(dtype)).to(dev)
+        stats = {}
+        cases[f"insert/balanced1024/{dtype}"] = {
+            "insertions": compare_build(st, rows, B, B + 24, 1280,
+                                        f"balanced backbone {dtype}", stats),
+            "model": stats}
+        check(stats["spilled"] > 0 and stats["switches"] > 0,
+              f"insertions onto the balanced backbone {dtype}: no spill or "
+              f"no switch between narrow and wide levels ({stats})")
     # (f) D&C's streamed cluster: label, middle, blocked slot 0, scoreable
     # cleared from the launch's (xe, ye); the plain route on the card
     for dtype in ("float32", "float64"):
@@ -1317,7 +1617,8 @@ def phase_insert_vs_plain(tmp: str, n: int = 4096) -> dict:
         runs.append(ev[0].elapsed_time(ev[1]))
     level_ms = sorted(runs[1:])[len(runs[1:]) // 2] / stats["levels"]
     res = {"cases": cases, "level_latency_ms": level_ms,
-           "caterpillar_bfs": {"levels": stats["levels"], "ms": runs}}
+           "caterpillar_bfs": {"levels": stats["levels"], "ms": runs},
+           "l2_round_trip_ms": l2_round_trip_ms()}
     emit({"phase": "kernel_vs_plain", "kernel": "insert_step",
           "comparison": "the seven state arrays bit for bit after every "
                         "launch (floats by their bits)", **res,
@@ -1361,8 +1662,57 @@ def phase_gpu_vs_cpu(tmp: str, n: int = 512) -> None:
     check(rf == 0, f"GPU vs CPU port trees differ: RF {rf} (nRF {nrf})")
     check(outs["cuda"] == outs["cpu"], "GPU vs CPU port: the same tree in "
           "other bytes")
+    caps = gpu_vs_cpu_across_caps(tmp)
     emit({"phase": "gpu_vs_cpu", "n": n, "rf": rf, "nrf": nrf,
-          "newick_identical": True, "wall_s": walls})
+          "newick_identical": True, "wall_s": walls, "across_caps": caps})
+
+
+def gpu_vs_cpu_across_caps(tmp: str, n: int = 4096, chunk: int = 1000):
+    """The placement of an n-taxon set (the card's mash rows as a matrix)
+    by run_placement_chunked in insert ranges of `chunk` on the card (the
+    cursor route: graphs replayed with remainders, captured again at each
+    prefix cap) and on the CPU (the plain loop): the same Newick bytes."""
+    from dipper_tpu_torch.driver import _load_sequences
+    from dipper_tpu_torch.placement import insert_cuda, kclosest
+    from dipper_tpu_torch.placement.api import _mash_frontend
+    from dipper_tpu_torch.utils.params import Param
+
+    fa, _ = make_dataset(n, os.path.join(tmp, f"caps{n}"), seed=5)
+    params = Param()
+    _, seqs = _load_sequences(params, fa)
+    front, static = _mash_frontend(seqs, params, torch.device("cuda"))
+    D = kclosest._rows(front, "mash", static, "float32", 0, n).contiguous()
+    kw = dict(num_sequences=n, frontend="matrix", dtype_name="float32",
+              chunk=chunk)
+    ranges = [(lo, min(n, lo + chunk)) for lo in range(2, n, chunk)]
+    G = kclosest.GRAPH_INSERTIONS
+    c0, r0 = insert_cuda.GRAPH_CAPTURES, insert_cuda.GRAPH_REPLAYS
+    t0 = time.time()
+    st = kclosest.run_placement_chunked((D,), **kw)
+    torch.cuda.synchronize()
+    gpu_s = time.time() - t0
+    captures = insert_cuda.GRAPH_CAPTURES - c0
+    replays = insert_cuda.GRAPH_REPLAYS - r0
+    names = [f"T{i}" for i in range(n)]
+    nwk = {"cuda": kclosest.edges_to_newick(st.e, st.belong, st.length,
+                                            names, n)}
+    t0 = time.time()
+    st = kclosest.run_placement_chunked((D.cpu(),), **kw)
+    cpu_s = time.time() - t0
+    nwk["cpu"] = kclosest.edges_to_newick(st.e, st.belong, st.length, names,
+                                          n)
+    caps = sorted({kclosest._cap_for(hi, n) for _, hi in ranges})
+    check(captures == len(caps) >= 2
+          and replays == sum((hi - lo) // G for lo, hi in ranges)
+          and any((hi - lo) % G for lo, hi in ranges),
+          f"across caps: {captures} captures and {replays} replays for "
+          f"ranges {ranges} at caps {caps}")
+    check(nwk["cuda"] == nwk["cpu"], f"GPU vs CPU port across caps at {n}: "
+          f"the Newick bytes differ")
+    return {"n": n, "chunk": chunk, "caps": caps, "graph_captures": captures,
+            "graph_replays": replays,
+            "remainders": [(hi - lo) % G for lo, hi in ranges],
+            "newick_identical": True, "gpu_s": gpu_s, "cpu_s": cpu_s}
 
 
 def _ms(pattern: str, text: str) -> float | None:
@@ -1384,11 +1734,15 @@ def reset_counts() -> None:
     minhash_cuda.LAUNCHES = 0
     insert_cuda.INSERT_STEP_LAUNCHES = 0
     insert_cuda.CLOSEST_BFS_LAUNCHES = 0
+    insert_cuda.GRAPH_CAPTURES = 0
+    insert_cuda.GRAPH_REPLAYS = 0
 
 
 def read_counts() -> dict:
     """Every kernel's launches since reset_counts: insert_step's are those
-    of its two entry points, "insert_step.closest_bfs" the BFS alone's."""
+    of its entry points (direct or replayed), "insert_step.closest_bfs"
+    the BFS alone's; and the CUDA graphs of the cursor route captured and
+    replayed."""
     from dipper_tpu_torch.distance import mash_cuda
     from dipper_tpu_torch.placement import insert_cuda, kclosest
     from dipper_tpu_torch.sketch import minhash_cuda
@@ -1401,7 +1755,9 @@ def read_counts() -> dict:
             "minhash_sketch": minhash_cuda.LAUNCHES,
             "insert_step": (insert_cuda.INSERT_STEP_LAUNCHES
                             + insert_cuda.CLOSEST_BFS_LAUNCHES),
-            "insert_step.closest_bfs": insert_cuda.CLOSEST_BFS_LAUNCHES}
+            "insert_step.closest_bfs": insert_cuda.CLOSEST_BFS_LAUNCHES,
+            "graph_captures": insert_cuda.GRAPH_CAPTURES,
+            "graph_replays": insert_cuda.GRAPH_REPLAYS}
 
 
 def check_tree(nwk: str, n: int, true_nwk: str, limit: float) -> tuple:
@@ -1419,7 +1775,8 @@ def check_tree(nwk: str, n: int, true_nwk: str, limit: float) -> tuple:
     return rf, nrf
 
 
-def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
+def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str,
+                    parent: str | None = None) -> dict:
     from dipper_tpu_torch.distance import mash_cuda
     from dipper_tpu_torch.placement import insert_cuda, kclosest
 
@@ -1446,44 +1803,20 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
         calls.append((bank, qry, sketch_size, got[::SAMPLE].clone(), ev))
         return got
 
-    # every SIDE_SAMPLE-th insertion is held against the plain version on
-    # its own inputs, as it happens: the scorer's six values, and the seven
-    # state arrays after the kernel's insert step against a copy of the
-    # state that the plain version stepped (which launches none of the
-    # port's kernels); none in the range run under the sync check
-    step = kclosest.kernel_insertion_step
-    step_errs = []
-    n_steps = [0]
-    sampling = [True]
-
-    def step_recorded(st, row, i, N, stream):
-        if not (sampling[0] and n_steps[0] % SIDE_SAMPLE == 0):
-            n_steps[0] += 1
-            return step(st, row, i, N, stream)
-        n_steps[0] += 1
-        pl = state_clone(st)
-        sc = kclosest.score_edges_launch(st, row, stream)
-        got = (*sc.out_i.tolist(), sc.frac.clone(), sc.add.clone())
-        insert_cuda.insert_step(st, sc.eid, sc.frac, sc.add, middle=i + N - 1,
-                                outside=i, label=i, stream=stream)
-        want = plain_step(pl, row, i, N)
-        step_errs.append((i, _six_err(got, want), state_diff(st, pl)))
-
     # before the last insert range: its first rows (taxa not yet inserted)
     # through kernel and plain version on the state as it stands, and the
     # kernels' times there; these launches are taken out of the count.
     # Then the range itself runs with torch's sync check set to raise
-    insert_range = kclosest._insert_range
     last_range = {}
     sync_range = {}
 
     def range_recorded(st, lo, hi, rows, num_sequences):
         if hi != num_sequences or last_range:
-            return insert_range(st, lo, hi, rows, num_sequences)
+            return route.insert_range(st, lo, hi, rows, num_sequences)
+        route.begin(st, lo, rows, num_sequences)
+        route.sampling = False
         t_checks = time.perf_counter()
-        count = (kclosest.SCORE_EDGES_LAUNCHES,
-                 insert_cuda.INSERT_STEP_LAUNCHES,
-                 insert_cuda.CLOSEST_BFS_LAUNCHES)
+        count = read_counts()
         errs = [_six_err(*_score_both(st, rows[j]))
                 for j in range(min(SCORE_ROWS[1], rows.shape[0]))]
         last_range.update(lo=lo, rows_scored=len(errs),
@@ -1498,12 +1831,23 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
         last_range["slot_ranges"] = ranges_check(
             st, [rows[0], rows[2], nan_row], time_ranges=True)
         last_range["insert_window"] = time_insert_window(
-            st, rows, lo, num_sequences)
+            st, rows, lo, num_sequences, parent=parent)
+        # the state and the rows of a window, for the graph route's
+        # profile after the CLI's run (whose own launches stay unprofiled)
+        w = 2 * kclosest.GRAPH_INSERTIONS + 7
+        PROFILE_WINDOW.update(st=state_clone(st), rows=rows[:w].clone(),
+                              lo=lo, N=num_sequences)
+        # (a capture here is the state's, which the range would make:
+        # the build's count keeps it)
         (kclosest.SCORE_EDGES_LAUNCHES, insert_cuda.INSERT_STEP_LAUNCHES,
-         insert_cuda.CLOSEST_BFS_LAUNCHES) = count
+         insert_cuda.CLOSEST_BFS_LAUNCHES, insert_cuda.GRAPH_REPLAYS) = (
+            count["score_edges"],
+            count["insert_step"] - count["insert_step.closest_bfs"],
+            count["insert_step.closest_bfs"], count["graph_replays"])
+        count = read_counts()
         # the CLI's log times the range with these checks inside
         last_range["checks_s"] = time.perf_counter() - t_checks
-        sampling[0] = False
+        route.begin(st, lo, rows, num_sequences)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         torch.cuda.set_sync_debug_mode("error")
@@ -1513,19 +1857,25 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        sampling[0] = True
-        launches = {
-            "score_edges": kclosest.SCORE_EDGES_LAUNCHES - count[0],
-            "insert_step": insert_cuda.INSERT_STEP_LAUNCHES - count[1],
-            "closest_bfs": insert_cuda.CLOSEST_BFS_LAUNCHES - count[2]}
+        route.sampling = True
+        after = read_counts()
+        launches = {k: after[k] - count[k] for k in (
+            "score_edges", "insert_step", "insert_step.closest_bfs",
+            "graph_captures", "graph_replays")}
         sync_range.update(
             lo=lo, hi=hi, sync_debug_mode="error", launches=launches,
-            launches_per_insertion=sum(launches.values()) / (hi - lo),
+            launches_per_insertion=(launches["score_edges"]
+                                    + launches["insert_step"]) / (hi - lo),
+            graph_replays_per_insertion=launches["graph_replays"] / (hi - lo),
+            direct_launches_per_insertion=2 * (
+                hi - lo - launches["graph_replays"]
+                * kclosest.GRAPH_INSERTIONS) / (hi - lo),
             ms_per_insertion=wall / (hi - lo) * 1e3)
 
     kclosest.run_placement_chunked = keep_state
     mash_cuda.mash_inter_cuda = recorded
-    kclosest.kernel_insertion_step = step_recorded
+    route = RouteSampler()
+    insert_range = route.orig[1]
     kclosest._insert_range = range_recorded
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1537,8 +1887,7 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
     finally:
         kclosest.run_placement_chunked = chunked
         mash_cuda.mash_inter_cuda = kernel
-        kclosest.kernel_insertion_step = step
-        kclosest._insert_range = insert_range
+        route.restore()
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
 
@@ -1560,9 +1909,23 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
     check(counts["minhash_sketch"] == 0,
           f"the placement main path launched the sketch kernel "
           f"{counts['minhash_sketch']} times")
-    check(n_steps[0] == n - 2, f"{n_steps[0]} kernel insertions recorded")
-    check(sync_range and sync_range["launches_per_insertion"] == 2,
+    G = kclosest.GRAPH_INSERTIONS
+    replayed = G * counts["graph_replays"]
+    captures = int(_ms(r"graph captures (\d+)", log) or 0)
+    check(0 < replayed <= n - 2 and counts["graph_captures"] == captures
+          and captures >= 1,
+          f"the placement main path replayed {counts['graph_replays']} "
+          f"graphs of {G} insertions for {n - 2} insertions, "
+          f"{counts['graph_captures']} captures (log: {captures})")
+    check(sync_range and sync_range["launches_per_insertion"] == 2
+          and sync_range["launches"]["graph_captures"] == 0,
           f"the last insert range under the sync check: {sync_range}")
+    # sample points before the last range, at most half of them in a
+    # range's remainder (direct launches, not checked)
+    before_last = (sync_range["lo"] - 2 + SIDE_SAMPLE - 1) // SIDE_SAMPLE
+    check(len(route.errs) >= before_last // 2,
+          f"{len(route.errs)} graph borders checked of {before_last} sample "
+          f"points before the last range")
     check(len(states) == 1, "the main path did not run run_placement_chunked")
     st = states[0]
     for f in ("e", "belong", "length", "rev", "cdis", "cid", "adj"):
@@ -1580,7 +1943,7 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
         c["ms"] = ev[0].elapsed_time(ev[1])
         checked.append(with_share(c, mash_bound(
             want, qry.shape[0], bank.shape[0], s, 4, False)))
-    for i, err, diff in step_errs:
+    for i, err, diff in route.errs:
         check(err == 0.0 and not diff, f"main-path insertion {i}: kernels "
               f"!= plain (scorer's max abs err {err}, arrays {diff})")
     check(last_range and last_range["max_abs_err"] == 0.0
@@ -1601,15 +1964,25 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
               r"steady ([\d.]+) ms/insertion", log),
           "insertions_ms_without_checks": _ms(
               r"insertions: ([\d.]+) ms", log)
-          - last_range["checks_s"] * 1e3,
+          - (last_range["checks_s"] + route.checks_s) * 1e3,
+          "graph_border_checks_s": route.checks_s,
           "kernel_launches": counts, "kernel_calls": checked,
-          "insertions_checked": len(step_errs),
+          "graph_route": {
+              "graph_insertions": G, "captures_per_build": captures,
+              "replays": counts["graph_replays"],
+              "replays_per_insertion": counts["graph_replays"] / (n - 2),
+              "direct_launches_per_insertion":
+                  2 * (n - 2 - replayed) / (n - 2)},
+          "graph_borders_checked": [i for i, _, _ in route.errs],
           "score_edges_before_last_range": last_range,
           "last_range_no_sync": sync_range,
           "max_memory_allocated": peak,
           "rf": rf, "nrf_vs_true": nrf, "nrf_limit": NRF_LIMIT})
     return {"counts": counts, "merge_count_calls": checked,
-            "score_edges_last_range": last_range, "sync_range": sync_range}
+            "score_edges_last_range": last_range, "sync_range": sync_range,
+            "graph_route": {"captures_per_build": captures,
+                            "replays": counts["graph_replays"],
+                            "graph_insertions": G}}
 
 
 def phase_nj_gpu_vs_cpu(tmp: str, n: int = 2048) -> dict:
@@ -1723,6 +2096,68 @@ def phase_scorer_profiled(calls: int = 50) -> dict:
     emit({"phase": "scorer_profiled", "edge_slots": 120000, "cap": 30000,
           "calls": calls, **res})
     return res
+
+
+def phase_graph_route_profiled() -> dict:
+    """The cursor route (kclosest._insert_range) over PROFILE_WINDOW's
+    insertions of the main path's state under torch.profiler, after a
+    warm-up run that captures the state's graph: the card's kernel
+    launches an insertion by name (2.0: score_edges and insert_step; the
+    cursor write once a range), the host's graph launches and kernel
+    launches, syncs and copies, the device busy time an insertion."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dipper_tpu_torch.placement import kclosest
+
+    w = PROFILE_WINDOW
+    st, rows, lo, N = w["st"], w["rows"], w["lo"], w["N"]
+    n = rows.shape[0]
+    snap = state_clone(st)
+    kclosest._insert_range(st, lo, lo + n, rows, N)
+    torch.cuda.synchronize()
+    warm = state_clone(st)
+    restore(st, snap)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        kclosest._insert_range(st, lo, lo + n, rows, N)
+        torch.cuda.synchronize()
+    diff = state_diff(st, warm)
+    check(not diff, f"the profiled window differs from its warm-up in {diff}")
+    ka = prof.key_averages()
+    count = {e.key: e.count for e in ka}
+    on_dev = [e for e in ka if e.device_type != DeviceType.CPU]
+    by_kernel, kernel_ms = {}, {}
+    for e in on_dev:
+        for name in ("score_edges_kernel", "insert_step_kernel",
+                     "cursor_set_kernel"):
+            if name in e.key:
+                by_kernel[name] = by_kernel.get(name, 0) + e.count
+                kernel_ms[name] = (kernel_ms.get(name, 0.0)
+                                   + e.self_device_time_total / 1e3)
+    per = {k: v / n for k, v in by_kernel.items()}
+    device_launches = (by_kernel.get("score_edges_kernel", 0)
+                       + by_kernel.get("insert_step_kernel", 0)) / n
+    check(device_launches == 2.0 and by_kernel.get("cursor_set_kernel") == 1,
+          f"the cursor route launched {by_kernel} on the card for {n} "
+          f"insertions")
+    G = kclosest.GRAPH_INSERTIONS
+    rec = {"phase": "graph_route_profiled", "lo": lo, "insertions": n,
+           "graph_insertions": G,
+           "device_kernel_launches_per_insertion": device_launches,
+           "device_launches_by_kernel_per_insertion": per,
+           # each kernel's own duration on the card (profiler), a launch
+           "kernel_device_ms": {k: v / by_kernel[k]
+                                for k, v in kernel_ms.items()},
+           "cudaGraphLaunch": count.get("cudaGraphLaunch", 0),
+           "cudaLaunchKernel_per_insertion":
+               count.get("cudaLaunchKernel", 0) / n,
+           "stream_syncs": count.get("cudaStreamSynchronize", 0),
+           "memcpys": count.get("cudaMemcpyAsync", 0),
+           "device_busy_ms_per_insertion":
+               sum(e.self_device_time_total for e in on_dev) / 1e3 / n}
+    emit(rec)
+    return rec
 
 
 def phase_nj_main_path(tmp: str, n: int) -> dict:
@@ -2177,27 +2612,8 @@ def parent_cluster_kernel(parent: str):
     checkout's own wrapper (its distance/mash_cuda.py::
     mash_cluster_inter_cuda, which builds its csrc/mash_cluster_inter.cu
     into its own build/ and passes its launcher's own arguments), as
-    fn(ranks, wit, mem, s) -> out. The checkout's package stands in for
-    this one's only while that module is imported."""
-    import importlib
-
-    pkg = "dipper_tpu_torch"
-
-    def ours():
-        return [k for k in sys.modules if k == pkg or k.startswith(pkg + ".")]
-
-    saved = {k: sys.modules.pop(k) for k in ours()}
-    root = os.path.abspath(parent)
-    sys.path.insert(0, root)
-    try:
-        mod = importlib.import_module(f"{pkg}.distance.mash_cuda")
-    finally:
-        sys.path.remove(root)
-        for k in ours():
-            del sys.modules[k]
-        sys.modules.update(saved)
-    check(os.path.abspath(mod.__file__).startswith(root + os.sep),
-          f"{pkg} of {parent} was not the one imported")
+    fn(ranks, wit, mem, s) -> out."""
+    mod = parent_module(parent, "distance.mash_cuda")
 
     def run(ranks, wit, mem, s):
         return mod.mash_cluster_inter_cuda(ranks, wit, mem, sketch_size=s)
@@ -2736,8 +3152,10 @@ class Samplers:
     after the run, on the launch's own inputs), every SIDE_SAMPLE-th
     score_edges launch on its slot range and every SIDE_SAMPLE-th
     insert_step launch (the seven state arrays against a copy that the
-    plain splice and BFS stepped; both compared as they happen). The
-    plain versions launch none of the port's kernels."""
+    plain splice and BFS stepped; both compared as they happen), and the
+    cursor route's replays at graph borders (RouteSampler: each border
+    checked counts as a launch of both kernels checked). The plain
+    versions launch none of the port's kernels."""
 
     def __init__(self):
         from dipper_tpu_torch.distance import mash_cuda
@@ -2757,6 +3175,7 @@ class Samplers:
                       "mash_cluster_inter": [], "minhash_sketch": []}
         self.score = {"calls": 0, "checked": 0, "max_abs_err": 0.0}
         self.insert = {"calls": 0, "checked": 0, "max_abs_err": 0.0}
+        self.route = RouteSampler()
 
         def inter_rec(bank, qry, *, sketch_size):
             got = inter(bank, qry, sketch_size=sketch_size)
@@ -2837,6 +3256,13 @@ class Samplers:
         (self.mc.mash_inter_cuda, self.mc.mash_rows_dist_cuda,
          self.mc.mash_cluster_inter_cuda, self.kc.score_edges_launch,
          self.sk.minhash_sketch_cuda, self.ic.insert_step) = self.orig
+        self.route.restore()
+        for _, err, diff in self.route.errs:
+            self.score["checked"] += 1
+            self.score["max_abs_err"] = max(self.score["max_abs_err"], err)
+            self.insert["checked"] += 1
+            if diff:
+                self.insert["max_abs_err"] = float("inf")
         out = {}
         worst = 0.0
         for bank, qry, s, got in self.calls["mash_merge_count"]:
@@ -3512,7 +3938,8 @@ def main() -> int:
     ap.add_argument("--parent", default=None,
                     help="a checkout of an earlier commit (e.g. from git "
                          "archive): phase 15 builds its per-cluster count "
-                         "kernel and times it beside this one's")
+                         "kernel and phase 5 its insert_step, and each is "
+                         "timed beside this one's")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -3567,7 +3994,8 @@ def main() -> int:
             res = phase_insert_vs_plain(tmp)
             records["insert_step"].update(
                 max_abs_err=0.0, library_ms=None,
-                level_latency_ms=res["level_latency_ms"])
+                level_latency_ms=res["level_latency_ms"],
+                l2_round_trip_ms=res["l2_round_trip_ms"])
         if 19 in phases:
             se = records["score_edges"]
             res = phase_score_ranges()
@@ -3579,7 +4007,7 @@ def main() -> int:
         if 17 in phases:
             phase_dc_gpu_vs_cpu(tmp)
         if 5 in phases:
-            res = phase_main_path(tmp, args.n, *data)
+            res = phase_main_path(tmp, args.n, *data, parent=args.parent)
             note("placement", res["counts"])
             mc, sv = records["mash_merge_count"], records["side_vector"]
             se = records["score_edges"]
@@ -3604,12 +4032,24 @@ def main() -> int:
                        max_abs_err=ins.get("max_abs_err", 0.0),
                        library_ms=None, main_path_window=win,
                        last_range_no_sync=res["sync_range"],
+                       graph_route=res["graph_route"],
                        **{k: win[k] for k in ("ms", "plain_ms", "bound_ms",
                                               "bound_by", "share_of_bound")})
+            if "parent" in win:
+                ins["parent_ms"] = win["parent"]["parent_ms"]
             if "level_latency_ms" in ins:
+                # the latency floor beside the byte bound: the levels, each
+                # one dependent L2 round trip (the chase), and the levels
+                # at the measured narrow level
                 chain = win["levels_per_insertion"] * ins["level_latency_ms"]
-                ins.update(latency_chain_ms=chain,
+                ins.update(latency_floor_ms=win["levels_per_insertion"]
+                           * ins["l2_round_trip_ms"],
+                           latency_chain_ms=chain,
                            share_of_latency_chain=chain / win["ms"])
+            # the first profiler session of the process: after another
+            # one, the profiler missed a few of the replayed graphs' kernels
+            ins["graph_route_profiled"] = phase_graph_route_profiled()
+            PROFILE_WINDOW.clear()
         if 16 in phases:
             res = dc_single = phase_dc_main_path(tmp, args.n, *data)
             note("dc", res["counts"])

@@ -49,6 +49,14 @@
 // [2 * scratch_blocks] (the partials' scores and fracs). Launches that
 // share scratch must be ordered on one stream.
 //
+// score_edges_cursor takes n_used and the row from the cursor of an insert
+// range (csrc/insert_step.cu: int64 [5] = insertion i, slots in use, the
+// address of the range's first row, the rows' stride in elements, the
+// range's first insertion), read on the card, so that one launch captured
+// in a CUDA graph scores every insertion the graph is replayed for. Its
+// grid is fixed by the slot range alone; the grid-stride loop covers any
+// n_used with any grid.
+//
 // What bounds it: memory, and at the insertion loop's sizes latency: 56
 // (f64: 96) bytes a used slot and the row, 6.8 MB at 120,000 slots in f32,
 // all of it resident in L2 from one insertion to the next.
@@ -141,8 +149,19 @@ score_edges_kernel(const int32_t* __restrict__ cid,
                    const T* __restrict__ row,
                    T* scratch_f, int32_t* scratch_i,
                    int32_t* __restrict__ out_i, T* __restrict__ out_f,
-                   int n_used, int lo, int hi)
+                   int n_used, int lo, int hi,
+                   const long long* __restrict__ cursor)
 {
+    if (cursor != nullptr) {
+        // the insert range's cursor (csrc/insert_step.cu): row i - lo of
+        // the rows, and the slots in use, clamped to [0, hi]
+        const long long used = __ldg(cursor + 1);
+        n_used = used < 0 ? 0 : (used > hi ? hi : (int)used);
+        row = reinterpret_cast<const T*>(
+            __ldg(cursor + 2)
+            + (__ldg(cursor) - __ldg(cursor + 4)) * __ldg(cursor + 3)
+                  * (long long)sizeof(T));
+    }
     __shared__ __align__(16) int32_t s_id[kWarps][kTile];
     __shared__ __align__(16) T s_dis[kWarps][kTile];
     __shared__ Cand<T> s_part[kWarps];
@@ -228,14 +247,16 @@ score_edges_kernel(const int32_t* __restrict__ cid,
     }
 }
 
+// with a cursor, n_used and row are read on the card, and the grid covers
+// the whole slot range
 template <typename T>
 int launch(const void* cid, const void* cdis, const void* belong,
            const void* dst, const void* rev, const void* length,
            const void* row, void* scratch_f, void* scratch_i, void* out_i,
            void* out_f, int n_used, int lo, int hi, int scratch_blocks,
-           cudaStream_t stream)
+           const void* cursor, cudaStream_t stream)
 {
-    const int end = n_used < hi ? n_used : hi;
+    const int end = cursor != nullptr ? hi : (n_used < hi ? n_used : hi);
     const int base = lo & ~(kWarp - 1);
     int blocks = end > base ? (end - base + kThreads - 1) / kThreads : 1;
     blocks = blocks < 1 ? 1 : (blocks > scratch_blocks ? scratch_blocks : blocks);
@@ -243,8 +264,33 @@ int launch(const void* cid, const void* cdis, const void* belong,
         (const int32_t*)cid, (const T*)cdis, (const int32_t*)belong,
         (const int32_t*)dst, (const int32_t*)rev, (const T*)length,
         (const T*)row, (T*)scratch_f, (int32_t*)scratch_i, (int32_t*)out_i,
-        (T*)out_f, n_used, lo, hi);
+        (T*)out_f, n_used, lo, hi, (const long long*)cursor);
     return (int)cudaGetLastError();
+}
+
+int launch_any(const void* cid, const void* cdis, const void* belong,
+               const void* dst, const void* rev, const void* length,
+               void* scratch_f, void* scratch_i, void* out_i, void* out_f,
+               int scratch_blocks, int is_f64, int device, const void* row,
+               int n_used, int lo, int hi, const void* cursor,
+               cudaStream_t stream)
+{
+    int current = -1;
+    cudaError_t err = cudaGetDevice(&current);
+    if (err != cudaSuccess) return (int)err;
+    if (current != device) {
+        err = cudaSetDevice(device);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const int rc =
+        is_f64 ? launch<double>(cid, cdis, belong, dst, rev, length, row,
+                                scratch_f, scratch_i, out_i, out_f, n_used,
+                                lo, hi, scratch_blocks, cursor, stream)
+               : launch<float>(cid, cdis, belong, dst, rev, length, row,
+                               scratch_f, scratch_i, out_i, out_f, n_used,
+                               lo, hi, scratch_blocks, cursor, stream);
+    if (current != device) cudaSetDevice(current);
+    return rc;
 }
 
 }  // namespace
@@ -265,23 +311,29 @@ extern "C" int score_edges(const void* cid, const void* cdis,
     if (n_edges < 1 || n_used < 0 || n_used > n_edges || scratch_blocks < 1
         || lo < 0 || lo >= hi || hi > n_edges)
         return (int)cudaErrorInvalidValue;
-    int current = -1;
-    cudaError_t err = cudaGetDevice(&current);
-    if (err != cudaSuccess) return (int)err;
-    if (current != device) {
-        err = cudaSetDevice(device);
-        if (err != cudaSuccess) return (int)err;
-    }
-    cudaStream_t st = (cudaStream_t)stream;
-    const int rc =
-        is_f64 ? launch<double>(cid, cdis, belong, dst, rev, length, row,
-                                scratch_f, scratch_i, out_i, out_f, n_used,
-                                lo, hi, scratch_blocks, st)
-               : launch<float>(cid, cdis, belong, dst, rev, length, row,
-                               scratch_f, scratch_i, out_i, out_f, n_used,
-                               lo, hi, scratch_blocks, st);
-    if (current != device) cudaSetDevice(current);
-    return rc;
+    return launch_any(cid, cdis, belong, dst, rev, length, scratch_f,
+                      scratch_i, out_i, out_f, scratch_blocks, is_f64, device,
+                      row, n_used, lo, hi, nullptr, (cudaStream_t)stream);
+}
+
+// score_edges with n_used and the row read from `cursor` on the card (an
+// insert range's cursor, int64 [5]; see the header comment); the state's
+// arguments as score_edges'.
+extern "C" int score_edges_cursor(const void* cid, const void* cdis,
+                                  const void* belong, const void* dst,
+                                  const void* rev, const void* length,
+                                  void* scratch_f, void* scratch_i,
+                                  void* out_i, void* out_f, int n_edges,
+                                  int scratch_blocks, int is_f64, int device,
+                                  const void* cursor, int lo, int hi,
+                                  void* stream)
+{
+    if (n_edges < 1 || cursor == nullptr || scratch_blocks < 1 || lo < 0
+        || lo >= hi || hi > n_edges)
+        return (int)cudaErrorInvalidValue;
+    return launch_any(cid, cdis, belong, dst, rev, length, scratch_f,
+                      scratch_i, out_i, out_f, scratch_blocks, is_f64, device,
+                      nullptr, 0, lo, hi, cursor, (cudaStream_t)stream);
 }
 
 extern "C" const char* score_edges_error_string(int code)

@@ -9,10 +9,19 @@ plan.
 A CUDA TreeState with an adjacency table carries an `_Inserter` (made by
 `prepare_inserter` where the state is made or its arrays are swapped,
 and re-made by a launch that finds them swapped): the seven arrays as
-checked, the frontier scratch, the (xe, ye) output and the kernel's
-per-state arguments. Both entry points launch on a stream without
-synchronizing, so an insert range of score_edges + insert_step launches
-makes no host round trip.
+checked, the frontier spill, the (xe, ye) output, the range's cursor,
+the kernel's per-state arguments and the state's captured graphs. Every
+entry point launches on a stream without synchronizing.
+
+Two ways to launch. `insert_step` and `closest_bfs` take the insertion
+from the host (D&C's streamed clusters, the sharded build, a state's two
+first BFSs). The cursor entry points (`insert_step_cursor`,
+`closest_bfs_cursor`) read the insertion or leaf, and the slots in use,
+from the state's cursor on the card and advance it, so that a CUDA graph
+of them captured once (`range_graph`) replays any stretch of an insert
+range or of --add's seeding: kclosest._insert_range writes the cursor
+once (`set_cursor`), replays, and runs the remainder by direct cursor
+launches. A capture, an instantiation or a replay that fails raises.
 """
 
 from __future__ import annotations
@@ -23,10 +32,15 @@ import torch
 
 from dipper_tpu_torch.csrc.build import check_launch, load
 
-# Launches made by this process of each entry point (chip_smoke.py
-# resets them and reads them to show that a run went through the kernel)
+# Launches made by this process of each kernel, direct or by a graph's
+# replay (chip_smoke.py resets them and reads them to show that a run went
+# through the kernel): insert_step and insert_step_cursor, closest_bfs and
+# closest_bfs_cursor
 INSERT_STEP_LAUNCHES = 0
 CLOSEST_BFS_LAUNCHES = 0
+# CUDA graphs captured and replayed by this process (range_graph, replay)
+GRAPH_CAPTURES = 0
+GRAPH_REPLAYS = 0
 
 # nodes a BFS may dequeue without expanding (insert_step.cu's kMaxBlocked)
 MAX_BLOCKED = 2
@@ -37,6 +51,19 @@ _STEP_ARGS = _STATE_ARGS + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
 _BFS_ARGS = _STATE_ARGS + [ctypes.c_int] * 2 + [ctypes.c_void_p,
                                                 ctypes.c_int,
                                                 ctypes.c_void_p]
+_STEP_CURSOR_ARGS = _STATE_ARGS + [ctypes.c_void_p] * 3 + [ctypes.c_int,
+                                                           ctypes.c_void_p]
+_BFS_CURSOR_ARGS = _STATE_ARGS + [ctypes.c_void_p] * 2
+_CURSOR_SET_ARGS = ([ctypes.c_void_p] + [ctypes.c_longlong] * 5
+                    + [ctypes.c_int, ctypes.c_void_p])
+
+# the cursor's entries (int64): insertion or leaf i, slots in use, the
+# address of the range's first distance row, the rows' stride in elements,
+# the range's first insertion
+CURSOR_LEN = 5
+
+# devices whose kernels this process has loaded (insert_step_preload)
+_preloaded: set = set()
 
 _NAMES = ("e", "belong", "length", "rev", "cdis", "cid", "adj")
 
@@ -49,7 +76,9 @@ class _Inserter:
     stream: they share the scratch and the output."""
 
     __slots__ = ("arrays", "dtype", "device", "n_edges", "n_nodes", "lib",
-                 "step", "bfs", "args", "f_ids", "f_frm", "f_dist", "out_xy")
+                 "step", "bfs", "step_cursor", "bfs_cursor", "cursor_set",
+                 "args", "f_ids", "f_frm", "f_dist", "out_xy", "cursor",
+                 "graphs")
 
     def owns(self, st) -> bool:
         return all(getattr(st, f) is a for f, a in zip(_NAMES, self.arrays))
@@ -114,17 +143,31 @@ def prepare_inserter(st):
     ins.f_frm = torch.empty((2, M), dtype=torch.int32, device=dev)
     ins.f_dist = torch.empty((2, M), dtype=dtype, device=dev)
     ins.out_xy = torch.full((2,), -1, dtype=torch.int32, device=dev)
+    ins.cursor = torch.zeros((CURSOR_LEN,), dtype=torch.int64, device=dev)
+    ins.graphs = {}
     ins.lib = load("insert_step", _STEP_ARGS)
     ins.step = ins.lib.insert_step
-    ins.bfs = ins.lib.closest_bfs
-    ins.bfs.restype = ctypes.c_int
-    ins.bfs.argtypes = _BFS_ARGS
+    ins.bfs = _entry(ins.lib, "closest_bfs", _BFS_ARGS)
+    ins.step_cursor = _entry(ins.lib, "insert_step_cursor", _STEP_CURSOR_ARGS)
+    ins.bfs_cursor = _entry(ins.lib, "closest_bfs_cursor", _BFS_CURSOR_ARGS)
+    ins.cursor_set = _entry(ins.lib, "insert_cursor_set", _CURSOR_SET_ARGS)
+    if dev.index not in _preloaded:
+        preload = _entry(ins.lib, "insert_step_preload", [ctypes.c_int])
+        check_launch(ins.lib, "insert_step", preload(dev.index))
+        _preloaded.add(dev.index)
     ins.args = (*(a.data_ptr() for a in arrays), ins.f_ids.data_ptr(),
                 ins.f_frm.data_ptr(), ins.f_dist.data_ptr(),
                 ins.out_xy.data_ptr(), E, M, int(dtype == torch.float64),
                 dev.index)
     st.inserter = ins
     return st
+
+
+def _entry(lib, name: str, argtypes):
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return fn
 
 
 def inserter(st) -> _Inserter:
@@ -210,3 +253,121 @@ def closest_bfs(st, leaf: int, label: int | None = None,
     if rc != 0:
         check_launch(ins.lib, "insert_step", rc)
     CLOSEST_BFS_LAUNCHES += 1
+
+
+# ---------------------------------------------------------------------------
+# The cursor route: an insert range (or --add's seeding) as replays of one
+# captured CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def set_cursor(st, i: int, rows: torch.Tensor | None = None, lo: int = 0,
+               stream: int | None = None) -> None:
+    """Launches the write of the state's cursor: insertion (or leaf) i,
+    the slots in use (st.idx), and, for an insert range, the address and
+    row stride of its distance rows `rows` (row j: insertion lo + j; the
+    state's float type on its card, unit stride along a row). One small
+    launch, no host sync."""
+    ins = inserter(st)
+    base, stride = 0, 0
+    if rows is not None:
+        if (rows.device != ins.device or rows.dtype != ins.dtype
+                or rows.dim() != 2
+                or (rows.shape[1] > 1 and rows.stride(1) != 1)):
+            raise ValueError(f"rows must be a 2-D {ins.dtype} tensor with "
+                             f"unit stride along a row on {ins.device}, got "
+                             f"{rows.dtype} {tuple(rows.shape)} strides "
+                             f"{rows.stride()} on {rows.device}")
+        base, stride = rows.data_ptr(), rows.stride(0)
+    rc = ins.cursor_set(ins.cursor.data_ptr(), i, st.idx, base, stride, lo,
+                        ins.device.index, _stream(ins, stream))
+    check_launch(ins.lib, "insert_step", rc)
+
+
+def insert_step_cursor(st, sc, *, num_sequences: int,
+                       stream: int | None = None, count: bool = True):
+    """Launches the insertion i that the state's cursor holds: the splice
+    of taxon i through middle i + num_sequences - 1 onto the edge that the
+    scorer `sc` (kclosest._Scorer: out_i holds the edge and its ends, out_f
+    frac and add) left on the card, at the slots the cursor holds, then
+    the BFS from i; the cursor advances by one insertion. st.idx is the
+    caller's to advance. `count=False` for a launch being captured (a
+    replay counts its launches)."""
+    global INSERT_STEP_LAUNCHES
+    ins = inserter(st)
+    rc = ins.step_cursor(*ins.args, sc.out_i.data_ptr(), sc.out_f.data_ptr(),
+                         ins.cursor.data_ptr(), num_sequences,
+                         _stream(ins, stream))
+    if rc != 0:
+        check_launch(ins.lib, "insert_step", rc)
+    if count:
+        INSERT_STEP_LAUNCHES += 1
+
+
+def closest_bfs_cursor(st, stream: int | None = None,
+                       count: bool = True) -> None:
+    """Launches the BFS from leaf i = the cursor's insertion, recording i;
+    the cursor advances by one leaf."""
+    global CLOSEST_BFS_LAUNCHES
+    ins = inserter(st)
+    rc = ins.bfs_cursor(*ins.args, ins.cursor.data_ptr(),
+                        _stream(ins, stream))
+    if rc != 0:
+        check_launch(ins.lib, "insert_step", rc)
+    if count:
+        CLOSEST_BFS_LAUNCHES += 1
+
+
+class _Graph:
+    """A captured CUDA graph of cursor launches, with the launches of each
+    entry point one replay makes and what its pointers point into."""
+
+    __slots__ = ("graph", "steps", "bfs", "keep")
+
+
+# a side stream per device to capture on (a capture needs a stream other
+# than the default one)
+_capture_streams: dict = {}
+
+
+def range_graph(st, key, launch, steps: int = 0, bfs: int = 0,
+                keep=()) -> _Graph:
+    """The state's CUDA graph `key`, captured at its first use: `launch`
+    (stream) makes the launches of one replay with count=False, `steps`
+    insert_step_cursor and `bfs` closest_bfs_cursor launches. `keep`:
+    objects whose memory the launches use (the scorer), held as long as
+    the graph. Captured once per state (a state whose arrays were
+    replaced has a new _Inserter, and so new graphs) and per key; a failed
+    capture raises."""
+    global GRAPH_CAPTURES
+    ins = inserter(st)
+    g = ins.graphs.get(key)
+    if g is not None:
+        return g
+    side = _capture_streams.get(ins.device.index)
+    if side is None:
+        side = _capture_streams[ins.device.index] = torch.cuda.Stream(
+            ins.device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            launch(side.cuda_stream)
+        finally:
+            graph.capture_end()
+    g = _Graph()
+    g.graph, g.steps, g.bfs, g.keep = graph, steps, bfs, tuple(keep)
+    ins.graphs[key] = g
+    GRAPH_CAPTURES += 1
+    return g
+
+
+def replay(g, times: int) -> None:
+    """Replays the graph `times` times on the current stream, counting its
+    launches."""
+    global GRAPH_REPLAYS, INSERT_STEP_LAUNCHES, CLOSEST_BFS_LAUNCHES
+    for _ in range(times):
+        g.graph.replay()
+    GRAPH_REPLAYS += times
+    INSERT_STEP_LAUNCHES += g.steps * times
+    CLOSEST_BFS_LAUNCHES += g.bfs * times

@@ -27,12 +27,15 @@ place (a splice writes a few slots, a BFS level a few rows; copying the
 [4N] arrays per insertion would dominate). Distance rows of a whole
 insert range are computed before its loop (distance/mash.py: the Hopper
 merge-count kernel on CUDA). On the card an insertion of a state with an
-adjacency table is two launches and no host sync: the scorer
+adjacency table is two kernels and no host sync: the scorer
 csrc/score_edges.cu leaves the chosen edge and its two lengths on the
 card, and csrc/insert_step.cu (placement/insert_cuda.py) reads them there
 and runs the splice and the witness BFS, as the JAX package's jitted
-insert loop does on its device. The same kernel's BFS alone seeds states
-(init_placement_state, --add's backbone). The tensor code below (splice,
+insert loop does on its device. An insert range reads its insertions from
+a cursor on the card and replays a captured CUDA graph of them
+(_replay_insertions), the counterpart of the JAX package's fori_loop over
+the range. The same kernel's BFS alone seeds states
+(init_placement_state, --add's backbone, replayed likewise). The tensor code below (splice,
 the compact and dense BFS, insertion_step) is the plain version: the CPU
 path and the kernel's yardstick; its compact BFS sizes each level with
 `nonzero`, a host sync a level. csrc/side_vector.cu is the scorer's side
@@ -447,8 +450,9 @@ class _Scorer:
     the scratch. Launches through one _Scorer must be ordered on one
     stream: they share the outputs and the ticket."""
 
-    __slots__ = ("arrays", "dtype", "device", "lib", "fn", "args", "out_i",
-                 "out_f", "eid", "frac", "add", "scratch_i", "scratch_f")
+    __slots__ = ("arrays", "dtype", "device", "lib", "fn", "fn_cursor",
+                 "args", "out_i", "out_f", "eid", "frac", "add", "scratch_i",
+                 "scratch_f")
 
     def owns(self, st: TreeState) -> bool:
         a = self.arrays
@@ -510,6 +514,11 @@ def prepare_scorer(st: TreeState) -> TreeState:
                   + [ctypes.c_void_p] + [ctypes.c_int] * 3
                   + [ctypes.c_void_p])
     sc.fn = sc.lib.score_edges
+    sc.fn_cursor = sc.lib.score_edges_cursor
+    sc.fn_cursor.restype = ctypes.c_int
+    sc.fn_cursor.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                             + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                             + [ctypes.c_void_p])
     sc.args = (*(a.data_ptr() for a in arrays), sc.scratch_f.data_ptr(),
                sc.scratch_i.data_ptr(), sc.out_i.data_ptr(),
                sc.out_f.data_ptr(), E, SCORE_EDGES_MAX_BLOCKS,
@@ -527,6 +536,18 @@ def _slot_range(st: TreeState, lo: int, hi: int | None) -> tuple[int, int]:
     return lo, hi
 
 
+def scorer(st: TreeState) -> _Scorer:
+    """The state's `_Scorer`, re-made if the state's arrays were swapped
+    since it was made; raises for a state off the card."""
+    sc = st.scorer
+    if sc is None or not sc.owns(st):
+        if st.cid.device.type != "cuda":
+            raise ValueError(f"score_edges_cuda needs a CUDA state, got one "
+                             f"on {st.cid.device}")
+        sc = prepare_scorer(st).scorer
+    return sc
+
+
 def score_edges_launch(st: TreeState, dist_row, stream: int | None = None,
                        lo: int = 0, hi: int | None = None):
     """Launches csrc/score_edges.cu for a CUDA state on `stream` (a raw
@@ -537,12 +558,7 @@ def score_edges_launch(st: TreeState, dist_row, stream: int | None = None,
     witness id < cap. The slots [lo, hi) (default: all) are scored; of
     them, those below `st.idx` are used, the rest must be unused."""
     global SCORE_EDGES_LAUNCHES
-    sc = st.scorer
-    if sc is None or not sc.owns(st):
-        if st.cid.device.type != "cuda":
-            raise ValueError(f"score_edges_cuda needs a CUDA state, got one "
-                             f"on {st.cid.device}")
-        sc = prepare_scorer(st).scorer
+    sc = scorer(st)
     if (dist_row.dtype != sc.dtype or dist_row.device != sc.device
             or dist_row.dim() != 1
             or (dist_row.shape[0] > 1 and dist_row.stride(0) != 1)):
@@ -557,6 +573,27 @@ def score_edges_launch(st: TreeState, dist_row, stream: int | None = None,
     if rc != 0:
         check_launch(sc.lib, "score_edges", rc)
     SCORE_EDGES_LAUNCHES += 1
+    return sc
+
+
+def score_edges_cursor_launch(st: TreeState, stream: int | None = None,
+                              count: bool = True):
+    """score_edges_launch for the insertion that the state's insert-range
+    cursor holds (insert_cuda.set_cursor): n_used and the distance row are
+    read from the cursor on the card, and the grid covers every slot, so
+    one captured launch serves every insertion of a range. Returns the
+    state's `_Scorer`. `count=False` for a launch being captured."""
+    global SCORE_EDGES_LAUNCHES
+    sc = scorer(st)
+    ins = insert_cuda.inserter(st)
+    if stream is None:
+        stream = torch.cuda.current_stream(sc.device).cuda_stream
+    E = st.e.shape[0]
+    rc = sc.fn_cursor(*sc.args, ins.cursor.data_ptr(), 0, E, stream)
+    if rc != 0:
+        check_launch(sc.lib, "score_edges", rc)
+    if count:
+        SCORE_EDGES_LAUNCHES += 1
     return sc
 
 
@@ -660,12 +697,11 @@ def splice(st: TreeState, eid: int, frac, add, place_id: int,
 
 
 def insertion_step(st: TreeState, row: torch.Tensor, i: int,
-                   num_sequences: int, stream: int | None = None) -> None:
+                   num_sequences: int) -> None:
     """Place taxon i given its distance row to the bank (in place), by
     the plain version of splice and BFS (the CPU path, adj-less states,
-    and the kernels' yardstick on the card). `stream`: see
-    score_edges_launch."""
-    eid, x, y, ye, frac, add = score_edges(st, row, stream)
+    and the kernels' yardstick on the card)."""
+    eid, x, y, ye, frac, add = score_edges(st, row)
     splice(st, eid, frac, add, i, num_sequences, (x, y, ye))
     _update_closest_bfs_plain(st, i, 2 * num_sequences)
 
@@ -755,17 +791,96 @@ def init_placement_state(frontend_args, *, num_sequences: int, frontend: str,
     return st
 
 
+# insertions (or seeded leaves) one captured CUDA graph of the cursor
+# route holds: 2 kernel nodes an insertion (score_edges, insert_step), 1 a
+# leaf. A replay costs the host one graph launch, so 64 insertions keep the
+# host far ahead of the card; a capture runs once per state.
+GRAPH_INSERTIONS = 64
+
+
 def _insert_range(st: TreeState, lo: int, hi: int, rows: torch.Tensor,
                   num_sequences: int) -> None:
     """Insertions lo..hi-1; rows[j] is the distance row of insertion
-    lo+j. The range runs on the stream that is current at its start; on
-    the card, a state with an adjacency table runs it with no host sync
-    between its first insertion and its last."""
-    stream = (torch.cuda.current_stream(rows.device).cuda_stream
-              if rows.device.type == "cuda" else None)
-    step = kernel_insertion_step if uses_insert_kernel(st) else insertion_step
+    lo+j. The range runs on the stream that is current at its start. On
+    the card a state with an adjacency table takes the cursor route
+    (_replay_insertions): no host sync between its first insertion and
+    its last, and no host launch per insertion."""
+    if uses_insert_kernel(st):
+        _replay_insertions(st, lo, hi, rows, num_sequences)
+        return
     for i in range(lo, hi):
-        step(st, rows[i - lo], i, num_sequences, stream)
+        insertion_step(st, rows[i - lo], i, num_sequences)
+
+
+def _replay_insertions(st: TreeState, lo: int, hi: int, rows: torch.Tensor,
+                       num_sequences: int) -> None:
+    """The cursor route of an insert range, the counterpart of the JAX
+    package's fori_loop over one: the state's cursor is written once (lo,
+    st.idx, the rows), a captured CUDA graph of GRAPH_INSERTIONS
+    insertions (score_edges_cursor_launch, then
+    insert_cuda.insert_step_cursor, each reading the cursor on the card)
+    is replayed (hi - lo) // GRAPH_INSERTIONS times, and the remainder
+    runs by direct cursor launches. st.idx advances by 4 (hi - lo)."""
+    global SCORE_EDGES_LAUNCHES
+    n = hi - lo
+    if n <= 0:
+        return
+    E, M = st.e.shape[0], st.adj.shape[0]
+    if rows.shape[0] < n:
+        raise ValueError(f"{rows.shape[0]} rows for {n} insertions")
+    if lo < 0 or st.idx + 4 * n > E or hi + num_sequences - 2 >= M:
+        raise ValueError(f"insertions [{lo}, {hi}) at slot {st.idx} do not "
+                         f"fit {E} edge slots and {M} nodes")
+    dev = st.e.device
+    stream = (torch.cuda.current_stream(dev).cuda_stream
+              if dev.type == "cuda" else None)
+    insert_cuda.set_cursor(st, lo, rows, lo, stream)
+
+    def insertion(s, count):
+        sc = score_edges_cursor_launch(st, s, count)
+        insert_cuda.insert_step_cursor(st, sc, num_sequences=num_sequences,
+                                       stream=s, count=count)
+
+    G = GRAPH_INSERTIONS
+    reps, rest = divmod(n, G)
+    if reps:
+        sc = scorer(st) if dev.type == "cuda" else None
+        graph = insert_cuda.range_graph(
+            st, ("insert", num_sequences, G, id(sc)),
+            lambda s: [insertion(s, False) for _ in range(G)], steps=G,
+            keep=(sc,))
+        insert_cuda.replay(graph, reps)
+        SCORE_EDGES_LAUNCHES += reps * G
+    for _ in range(rest):
+        insertion(stream, True)
+    st.idx += 4 * n
+
+
+def _replay_seeding(st: TreeState, lo: int, hi: int) -> None:
+    """The BFS alone from each leaf lo..hi-1 (--add's seeding of a
+    backbone) by the cursor route: one cursor write, (hi - lo) //
+    GRAPH_INSERTIONS replays of a captured graph of that many
+    insert_cuda.closest_bfs_cursor launches, the remainder direct."""
+    n = hi - lo
+    if n <= 0:
+        return
+    if lo < 0 or hi > st.adj.shape[0]:
+        raise ValueError(f"leaves [{lo}, {hi}) are not nodes of "
+                         f"[0, {st.adj.shape[0]})")
+    dev = st.e.device
+    stream = (torch.cuda.current_stream(dev).cuda_stream
+              if dev.type == "cuda" else None)
+    insert_cuda.set_cursor(st, lo, None, lo, stream)
+    G = GRAPH_INSERTIONS
+    reps, rest = divmod(n, G)
+    if reps:
+        graph = insert_cuda.range_graph(
+            st, ("seed", G),
+            lambda s: [insert_cuda.closest_bfs_cursor(st, s, False)
+                       for _ in range(G)], bfs=G)
+        insert_cuda.replay(graph, reps)
+    for _ in range(rest):
+        insert_cuda.closest_bfs_cursor(st, stream, True)
 
 
 def run_placement_full(frontend_args, *, num_sequences: int, frontend: str,
@@ -1000,6 +1115,7 @@ def run_placement_chunked(frontend_args, *, num_sequences: int, frontend: str,
 
     cap = None
     fa_cap = frontend_args
+    captures = insert_cuda.GRAPH_CAPTURES
     rows_s = ins_s = 0.0
     steady = 0.0
     lo = i0
@@ -1036,7 +1152,8 @@ def run_placement_chunked(frontend_args, *, num_sequences: int, frontend: str,
         lo = hi
     if log:
         log(f"Placement rows: {rows_s * 1e3:.1f} ms, insertions: "
-            f"{ins_s * 1e3:.1f} ms (steady {steady:.3f} ms/insertion)")
+            f"{ins_s * 1e3:.1f} ms (steady {steady:.3f} ms/insertion); "
+            f"graph captures {insert_cuda.GRAPH_CAPTURES - captures}")
     return _resize_state(st, 4 * N)
 
 
@@ -1073,9 +1190,13 @@ def run_add_queries(frontend_args, e0, belong0, length0, rev0, *,
         cid=torch.full((E, K), -1, dtype=torch.int32, device=dev),
         idx=4 * B - 4,
         adj=adjacency_from_edges(belong0, 2 * N) if use_adj else None))
+    captures = insert_cuda.GRAPH_CAPTURES
     t0 = time.time()
-    for i in range(B):
-        update_closest_bfs(st, i, 2 * N)
+    if uses_insert_kernel(st):
+        _replay_seeding(st, 0, B)
+    else:
+        for i in range(B):
+            update_closest_bfs(st, i, 2 * N)
     synchronize(dev)
     t_seed = time.time() - t0
     # rows of a block of queries against the whole bank, sized as an
@@ -1097,7 +1218,8 @@ def run_add_queries(frontend_args, e0, belong0, length0, rev0, *,
     if log:
         log(f"Backbone of {B} seeded in: {t_seed * 1e3:.1f} ms; {N - B} "
             f"queries: rows {rows_s * 1e3:.1f} ms, insertions "
-            f"{ins_s * 1e3:.1f} ms")
+            f"{ins_s * 1e3:.1f} ms; graph captures "
+            f"{insert_cuda.GRAPH_CAPTURES - captures}")
     return st.e, st.belong, st.length
 
 

@@ -7,20 +7,23 @@ the CLI's input shuffle and Mash sketches) up to 5 * WINDOW insertions
 before the end, without timing. Then it measures five windows of WINDOW
 insertions each, at the full cap. On the card the loop is the kernel
 path (per insertion one score_edges and one insert_step launch, no host
-sync); the plain path, as every insertion ran before the insertion-step
-kernel (the scorer kernel with one readback, then splice and compact BFS
-as tensor code), is measured beside it for comparison:
+sync; a range is a cursor write, replays of a captured CUDA graph of
+kclosest.GRAPH_INSERTIONS insertions and a remainder of direct cursor
+launches); the plain path, as every insertion ran before the
+insertion-step kernel (the scorer kernel with one readback, then splice
+and compact BFS as tensor code), is measured beside it for comparison:
   A. the kernel loop, as the CLI runs it: wall ms per insertion;
-  B. the kernel loop with each launch between CUDA events, queued behind a
-     device sleep so that the card runs them back to back
+  B. the kernels by direct launches, each between CUDA events, queued
+     behind a device sleep so that the card runs them back to back
      (chip_smoke.kernel_window): device ms of the scorer and of
      insert_step per insertion, and the host's ms per insertion to
      enqueue them;
   C. torch.profiler over the kernel loop: device busy ms per insertion
-     (kernels and copies, from device-side events only), device ops,
-     kernel launches (all, and those of the port's own kernels), syncs
-     and copies per insertion. The device's busy share is C's busy ms
-     over A's wall ms, since the profiler slows the host;
+     (kernels and copies, from device-side events only), device ops and
+     the port's kernels by name on the card, the host's kernel and graph
+     launches (and the wrappers' counts), syncs and copies per insertion.
+     The device's busy share is C's busy ms over A's wall ms, since the
+     profiler slows the host;
   D. the plain loop: wall ms per insertion;
   E. torch.profiler over the plain loop, as C.
 On the CPU every window runs the plain loop (B is skipped). Each result
@@ -84,9 +87,16 @@ def profiled(run, lo: int, W: int, dev, plain_ms: float) -> tuple:
             device_busy_ms_per_insertion=busy_ms,
             device_busy_share_of_unprofiled_loop=busy_ms / plain_ms,
             device_ops_per_insertion=sum(e.count for e in on_dev) / W)
+        # the port's kernels by name, as the card ran them (a graph's
+        # replay runs its kernel nodes without a host launch each)
+        for name in ("score_edges_kernel", "insert_step_kernel",
+                     "cursor_set_kernel"):
+            rec[f"{name}_on_device_per_insertion"] = sum(
+                e.count for e in on_dev if name in e.key) / W
     by_name = {e.key: e.count for e in ka}
-    for key in ("cudaLaunchKernel", "cudaStreamSynchronize",
-                "cudaMemcpyAsync", "aten::to", "aten::nonzero"):
+    for key in ("cudaLaunchKernel", "cudaGraphLaunch",
+                "cudaStreamSynchronize", "cudaMemcpyAsync", "aten::to",
+                "aten::nonzero"):
         rec[f"{key}_per_insertion"] = by_name.get(key, 0) / W
     return rec, ka
 

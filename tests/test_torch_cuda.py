@@ -1001,3 +1001,126 @@ def test_insert_step_wrapper_rejects_bad_inputs(cuda):
     st.cdis = st.cdis.float()
     with pytest.raises(ValueError, match="cdis must be torch.float64"):
         insert_cuda.closest_bfs(st, 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_insert_step_kernel_overlapping_splice(cuda, dtype):
+    """A choice whose writes overlap (insert_model.overlap_state): the
+    warp's splice keeps the plain version's later write at each address."""
+    from dipper_tpu_torch.placement import insert_cuda
+    from dipper_tpu_torch.placement import insert_model as im
+
+    d, eid, frac, add, middle, outside = im.overlap_state(dtype)
+    st = tk.tree_state_from_numpy(d, cuda)
+    pl = _clone7(st)
+    dt = getattr(torch, dtype)
+    xy = insert_cuda.insert_step(
+        st, torch.full((1,), eid, dtype=torch.int32, device=cuda),
+        torch.tensor([frac], dtype=dt, device=cuda),
+        torch.tensor([add], dtype=dt, device=cuda), middle=middle,
+        outside=outside, label=outside)
+    assert xy.tolist() == [eid, 15]
+    tk.splice(pl, eid, torch.tensor(frac, dtype=dt, device=cuda),
+              torch.tensor(add, dtype=dt, device=cuda), outside, 4,
+              middle=middle, outside=outside)
+    tk._update_closest_bfs_compact(pl, outside, 8)
+    _same7(st, pl)
+
+
+def _balanced_backbone(cuda, dtype, n=1280, B=1024):
+    from dipper_tpu_torch.io.newick import parse_newick
+    from dipper_tpu_torch.placement import api as tapi
+    from dipper_tpu_torch.placement import insert_model as im
+
+    tree = parse_newick(im.balanced_newick(B, np.random.default_rng(3)), n)
+    e0, belong0, length0, rev0 = tapi.backbone_tree_to_arrays(tree, n)
+    dt = getattr(torch, dtype)
+    return tk.prepare_kernels(tk.TreeState(
+        e=torch.from_numpy(e0).to(cuda),
+        belong=torch.from_numpy(belong0).to(cuda),
+        length=torch.from_numpy(length0).to(cuda, dt),
+        rev=torch.from_numpy(rev0).to(cuda),
+        cdis=torch.full((4 * n, tk.K), tk.SENT_DIS, dtype=dt, device=cuda),
+        cid=torch.full((4 * n, tk.K), -1, dtype=torch.int32, device=cuda),
+        idx=4 * B - 4,
+        adj=tk.adjacency_from_edges(torch.from_numpy(belong0).to(cuda),
+                                    2 * n)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_insert_step_kernel_spills_on_a_balanced_backbone(cuda, dtype):
+    """Insertions onto a balanced 1,024-leaf backbone whose lists are
+    empty: the first BFSs have levels of 512 nodes, beyond the kernel's
+    shared frontier (they spill), after narrow levels; each insertion
+    equals the plain version."""
+    n, B = 1280, 1024
+    st = _balanced_backbone(cuda, dtype, n, B)
+    pl = _clone7(st)
+    rows = torch.from_numpy(np.random.default_rng(25).uniform(
+        0.05, 0.5, (12, n)).astype(dtype)).to(cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for j in range(rows.shape[0]):
+        i = B + j
+        tk.kernel_insertion_step(st, rows[j], i, n, stream)
+        eid, x, y, ye, frac, add = tk._score_edges_plain(pl, rows[j])
+        tk.splice(pl, eid, frac, add, i, n, (x, y, ye))
+        tk._update_closest_bfs_compact(pl, i, 2 * n)
+        _same7(st, pl)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_replayed_range_equals_direct_launches(cuda, dtype, monkeypatch):
+    """One insert range by the cursor route (a cursor write, replays of a
+    captured graph of 16 insertions, a remainder of 10 direct cursor
+    launches) against the same range by direct launches, bit for bit;
+    and --add's seeding by replays against direct BFS launches."""
+    from dipper_tpu_torch.placement import insert_cuda
+    from dipper_tpu_torch.placement import insert_model as im
+
+    monkeypatch.setattr(tk, "GRAPH_INSERTIONS", 16)
+    n = 300
+    D = torch.from_numpy(im.made_up_matrix("random", n, seed=7)
+                         .astype(dtype)).to(cuda)
+    st = tk.init_placement_state((D,), num_sequences=n, frontend="matrix",
+                                 dtype_name=dtype)
+    direct = _clone7(st)
+    tk.prepare_kernels(direct)
+    before = (insert_cuda.GRAPH_CAPTURES, insert_cuda.GRAPH_REPLAYS,
+              insert_cuda.INSERT_STEP_LAUNCHES)
+    tk._insert_range(st, 2, 300, D[2:], n)
+    assert (insert_cuda.GRAPH_CAPTURES - before[0],
+            insert_cuda.GRAPH_REPLAYS - before[1],
+            insert_cuda.INSERT_STEP_LAUNCHES - before[2]) == (1, 18, 298)
+    stream = torch.cuda.current_stream().cuda_stream
+    for i in range(2, n):
+        tk.kernel_insertion_step(direct, D[i], i, n, stream)
+    assert st.idx == direct.idx
+    _same7(st, direct)
+    seeded = _balanced_backbone(cuda, dtype)
+    direct = _clone7(seeded)
+    tk.prepare_kernels(direct)
+    tk._replay_seeding(seeded, 0, 1024)
+    for leaf in range(1024):
+        insert_cuda.closest_bfs(direct, leaf)
+    _same7(seeded, direct)
+
+
+def test_cursor_route_across_caps_equals_cpu(cuda, monkeypatch):
+    """run_placement_chunked on the card in ranges of 50 with prefix caps
+    from 64 (a graph captured again at each cap, replays and remainders)
+    against the CPU's plain loop: the same arrays."""
+    from dipper_tpu_torch.placement import insert_cuda
+    from dipper_tpu_torch.placement import insert_model as im
+
+    monkeypatch.setattr(tk, "GRAPH_INSERTIONS", 16)
+    monkeypatch.setattr(tk, "_CAP_MIN", 64)
+    n = 300
+    D = im.made_up_matrix("random", n, seed=8).astype("float64")
+    kw = dict(num_sequences=n, frontend="matrix", dtype_name="float64",
+              chunk=50)
+    c0 = insert_cuda.GRAPH_CAPTURES
+    got = tk.run_placement_chunked((torch.from_numpy(D).to(cuda),), **kw)
+    assert insert_cuda.GRAPH_CAPTURES - c0 == 4  # caps 64, 128, 256, 300
+    want = tk.run_placement_chunked((torch.from_numpy(D),), **kw)
+    for f in ("e", "belong", "length", "rev", "cdis", "cid", "adj"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f

@@ -1,17 +1,21 @@
 """The insertion-step kernel's plan on the CPU: placement/insert_model.py
-(a numpy model of csrc/insert_step.cu: the splice's stable NaN-last rank
-of ten, the BFS's chunked levels with scan compaction into [2, M]
-scratch, the blocked slot) against the port's tensor code (kclosest.splice
-+ _update_closest_bfs_compact, the kernel's plain version) and both
-against the JAX package (splice + update_closest_bfs, _cluster_build_stream).
+(a numpy model of csrc/insert_step.cu: the warp's splice with its stable
+NaN-last rank of ten, the BFS's first level written with it, narrow levels
+by one warp's ballot and wide ones in chunks with scan compaction, the
+frontier's shared buffers and their spill, the blocked slot) against the
+port's tensor code (kclosest.splice + _update_closest_bfs_compact, the
+kernel's plain version) and both against the JAX package (splice +
+update_closest_bfs, _cluster_build_stream).
 
 Tolerance: none. Every state array is compared bit for bit (floats by
 their bits, so NaN payloads and signs count), in f32 and f64.
 
-The tests that drive the routing (`_insert_range`, `run_add_queries`,
-`build_streamed` as they run on the card) put the model in the kernel's
-place on CPU tensors; the kernel itself runs only on the card
-(tests/test_torch_cuda.py, chip_smoke.py).
+The tests that drive the routing (`_insert_range`'s cursor route with
+its captured graphs, `run_add_queries`, `build_streamed` as they run on
+the card) put the model in the kernels' place on CPU tensors: a capture
+records the launches without running them, a replay runs them, and each
+launch reads the range's cursor when it runs. The kernel itself runs
+only on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
 import dataclasses
@@ -104,23 +108,25 @@ def _matrix(kind, n):
 # ---------------------------------------------------------------------------
 
 
-def _model_build(D, dtype, threads, check_each=None):
+def _model_build(D, dtype, threads, check_each=None, stats=None, **plan):
     """The placement of D's taxa with every splice and BFS by the model
     (the scorer's plain version on the model's arrays, shared through
-    numpy views). `check_each(i, st)` runs after each insertion."""
+    numpy views). `check_each(i, st)` runs after each insertion; `plan`
+    (cap, narrow) goes to the model, which adds up `stats`."""
     n = D.shape[0]
     Dt = torch.from_numpy(D.astype(dtype))
     st = tk.init_state(n, getattr(torch, dtype), torch.device("cpu"))
     tk.build_initial_tree(st, Dt[1, 0], n)
     s = im.arrays_of(st)
-    im.closest_bfs(s, 0, threads=threads)
-    im.closest_bfs(s, 1, threads=threads)
+    im.closest_bfs(s, 0, threads=threads, stats=stats, **plan)
+    im.closest_bfs(s, 1, threads=threads, stats=stats, **plan)
     if check_each:
         check_each(1, st)
     for i in range(2, n):
         eid, _, _, _, frac, add = tk._score_edges_plain(st, Dt[i])
         xy = im.insert_step(s, eid, frac.numpy(), add.numpy(), st.idx,
-                            i + n - 1, i, i, threads=threads)
+                            i + n - 1, i, i, threads=threads, stats=stats,
+                            **plan)
         assert xy[0] == eid
         st.idx += 4
         if check_each:
@@ -146,6 +152,38 @@ def test_model_build_equals_tensor_code_and_jax(kind, n, threads, dtype):
         _assert_same(st, plain, where=i)
 
     st = _model_build(D, dtype, threads, step_plain_and_compare)
+    js = jk.run_placement_full((jnp.asarray(D.astype(dtype)),),
+                               num_sequences=n, frontend="matrix",
+                               dtype_name=dtype)
+    _assert_same_as_jax(js, st)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind, n, threads, cap, narrow", [
+    ("additive", 40, 256, 2, 6), ("noisy", 33, 4, 3, 9),
+    ("caterpillar", 48, 256, 1, 3), ("some_nan", 30, 5, 2, 6),
+    ("all_nan", 12, 2, 1, 3)])
+def test_model_small_capacity_equals_tensor_code_and_jax(
+        kind, n, threads, cap, narrow, dtype):
+    """The model with frontier buffers of a few entries and narrow levels
+    of a few pairs, so that frontiers spill to the scratch and levels
+    switch between one warp and the block: every insertion equals the
+    tensor code, and the build JAX's."""
+    D = _matrix(kind, n)
+    Dt = torch.from_numpy(D.astype(dtype))
+    plain = tk.init_placement_state((Dt,), num_sequences=n,
+                                    frontend="matrix", dtype_name=dtype)
+
+    def step_plain_and_compare(i, st):
+        if i >= 2:
+            tk.insertion_step(plain, Dt[i], i, n)
+        _assert_same(st, plain, where=i)
+
+    stats = {}
+    st = _model_build(D, dtype, threads, step_plain_and_compare, stats,
+                      cap=cap, narrow=narrow)
+    assert stats["spilled"] > 0 and stats["switches"] > 0
+    assert stats["narrow_levels"] > 0 and stats["wide_levels"] > 0
     js = jk.run_placement_full((jnp.asarray(D.astype(dtype)),),
                                num_sequences=n, frontend="matrix",
                                dtype_name=dtype)
@@ -202,6 +240,56 @@ def test_model_splice_merge_equals_tensor_code_and_jax(case, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+def test_model_overlapping_splice_equals_tensor_code(dtype):
+    """A choice whose writes overlap (insert_model.overlap_state: an
+    unused slot, its reverse -1 read as the last slot, the new slots the
+    last four): where two of the plain version's statements write one
+    address the later one wins, in the model's warp splice as in the
+    tensor code; then the BFS over the malformed tree."""
+    d, eid, frac, add, middle, outside = im.overlap_state(dtype)
+    st = tk.tree_state_from_numpy(d, "cpu")
+    plain = _clone(st)
+    n = st.adj.shape[0] // 2
+    tk.splice(plain, eid, torch.tensor(frac), torch.tensor(add), outside,
+              n, middle=middle, outside=outside)
+    tk._update_closest_bfs_compact(plain, outside, 2 * n)
+    assert im.insert_step(im.arrays_of(st), eid, frac, add, st.idx, middle,
+                          outside, outside) == (eid, st.e.shape[0] - 1)
+    st.idx += 4
+    _assert_same(st, plain)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sort_keys_order_as_torch_sorts(dtype):
+    """The kernel's sort keys compare as its `before` does on every pair
+    of a pool of corner values: signed zeros, infinities, NaN, the
+    smallest subnormal, negative values."""
+    f = np.finfo(dtype)
+    pool = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan, 1.0, -1.0,
+                     2.0, 0.25, -0.25, f.tiny, -f.tiny, f.smallest_subnormal,
+                     -f.smallest_subnormal, f.max, -f.max], dtype)
+    for a in pool:
+        for b in pool:
+            assert (im.sort_key(a) < im.sort_key(b)) == im._before(a, b), \
+                (a, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_merge_ranks_with_zeros_and_infinities_equal_stable_argsort(dtype):
+    """The ranks from the sort keys against torch's and JAX's stable
+    argsort where signed zeros tie and infinities bound the numbers."""
+    rng = np.random.default_rng(6)
+    pool = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -0.5, 0.5, 2.0],
+                    dtype)
+    for _ in range(200):
+        v = rng.choice(pool, 10)
+        order = np.argsort(im.merge_ranks(list(v)))
+        want_t = torch.argsort(torch.from_numpy(v), stable=True).numpy()
+        want_j = np.asarray(jnp.argsort(jnp.asarray(v), stable=True))
+        assert np.array_equal(order, want_t) and np.array_equal(order, want_j)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_merge_ranks_equal_stable_argsort(dtype):
     """The kernel's rank of ten values against torch's and JAX's stable
     argsort on lists drawn from a few values, NaN and 2.0 among them."""
@@ -254,12 +342,14 @@ def test_model_seeding_wide_backbone_equals_tensor_code_and_jax(dtype):
     js = _jax_state(st)
     s = im.arrays_of(st)
     widest = 0
+    stats = {}
     for i in range(B):
         levels = []
-        im.bfs(s, i, i, levels=levels)
+        im.bfs(s, i, i, levels=levels, stats=stats)
         widest = max(widest, max(levels))
         tk._update_closest_bfs_compact(plain, i, 2 * n)
-    assert 3 * widest > im.THREADS
+    assert 3 * widest > im.THREADS and widest > im.CAP
+    assert stats["spilled"] > 0 and stats["switches"] > 0
     _assert_same(st, plain)
     _assert_same_as_jax(_jax_seed(js, B, n), st, SEVEN[:-1])
 
@@ -315,15 +405,102 @@ def _fake_score_edges_launch(st, row, stream=None, lo=0, hi=None):
                                  frac=frac, add=add)
 
 
+class _CursorRoute:
+    """The cursor route's entry points on CPU states, the model and the
+    scorer's plain version computing what the kernels would: each state's
+    cursor (i, slots in use, rows, lo) and scorer outputs live here; a
+    launch runs at once, or, inside a capture, is recorded and runs at
+    each replay, reading the cursor then."""
+
+    def __init__(self):
+        self.cursor, self.out, self.graphs = {}, {}, {}
+        self.recording = None
+        self.captures = 0
+        self.steps = []   # (i, i0) of each insert_step_cursor run
+        self.leaves = []  # leaf of each closest_bfs_cursor run
+
+    def _launch(self, fn):
+        if self.recording is None:
+            fn()
+        else:
+            self.recording.append(fn)
+
+    def set_cursor(self, st, i, rows=None, lo=0, stream=None):
+        self.cursor[id(st)] = [i, st.idx, rows, lo]
+
+    def score(self, st, stream=None, count=True):
+        out = self.out.setdefault(id(st), types.SimpleNamespace(
+            out_i=torch.zeros(4, dtype=torch.int32),
+            out_f=torch.zeros(2, dtype=st.length.dtype)))
+
+        def run():
+            i, _, rows, lo = self.cursor[id(st)]
+            eid, x, y, ye, frac, add = tk._score_edges_plain(st, rows[i - lo])
+            out.out_i[:] = torch.tensor([eid, x, y, ye], dtype=torch.int32)
+            out.out_f[0], out.out_f[1] = frac, add
+        self._launch(run)
+        if count:
+            tk.SCORE_EDGES_LAUNCHES += 1
+        return out
+
+    def step(self, st, sc, *, num_sequences, stream=None, count=True):
+        def run():
+            cur = self.cursor[id(st)]
+            i, i0 = cur[0], cur[1]
+            im.insert_step(im.arrays_of(st), int(sc.out_i[0]),
+                           sc.out_f[0].numpy(), sc.out_f[1].numpy(), i0,
+                           i + num_sequences - 1, i, i)
+            self.steps.append((i, i0))
+            cur[0], cur[1] = i + 1, i0 + 4
+        self._launch(run)
+        if count:
+            insert_cuda.INSERT_STEP_LAUNCHES += 1
+
+    def bfs(self, st, stream=None, count=True):
+        def run():
+            cur = self.cursor[id(st)]
+            im.closest_bfs(im.arrays_of(st), cur[0])
+            self.leaves.append(cur[0])
+            cur[0] += 1
+        self._launch(run)
+        if count:
+            insert_cuda.CLOSEST_BFS_LAUNCHES += 1
+
+    def range_graph(self, st, key, launch, steps=0, bfs=0, keep=()):
+        k = (id(st), key)
+        if k not in self.graphs:
+            self.recording = []
+            try:
+                launch(None)
+                runs = self.recording
+            finally:
+                self.recording = None
+            assert len(runs) == 2 * steps + bfs
+            graph = types.SimpleNamespace(
+                replay=lambda: [fn() for fn in runs])
+            # the state is held so that its id is not reused
+            self.graphs[k] = (st, types.SimpleNamespace(
+                graph=graph, steps=steps, bfs=bfs, keep=keep))
+            self.captures += 1
+        return self.graphs[k][1]
+
+
 @pytest.fixture
 def model_as_kernel(monkeypatch):
     """CPU states with an adjacency table take the card's route, with the
-    model in the kernel's place."""
+    model in the kernel's place; returns the cursor route's stand-in."""
+    route = _CursorRoute()
     monkeypatch.setattr(tk, "uses_insert_kernel",
                         lambda st: st.adj is not None)
     monkeypatch.setattr(insert_cuda, "insert_step", _fake_insert_step)
     monkeypatch.setattr(insert_cuda, "closest_bfs", _fake_closest_bfs)
     monkeypatch.setattr(tk, "score_edges_launch", _fake_score_edges_launch)
+    monkeypatch.setattr(insert_cuda, "set_cursor", route.set_cursor)
+    monkeypatch.setattr(tk, "score_edges_cursor_launch", route.score)
+    monkeypatch.setattr(insert_cuda, "insert_step_cursor", route.step)
+    monkeypatch.setattr(insert_cuda, "closest_bfs_cursor", route.bfs)
+    monkeypatch.setattr(insert_cuda, "range_graph", route.range_graph)
+    return route
 
 
 def _jax_stream_cluster(Dq, cd, cid, lens, sz, cmax, dtype):
@@ -387,30 +564,67 @@ def test_streamed_cluster_model_equals_tensor_code_and_jax(
 def test_insert_range_routes_to_the_kernel(model_as_kernel, monkeypatch,
                                            dtype):
     """_insert_range and init_placement_state on a state that takes the
-    kernel: one score and one insert_step a taxon, the BFS alone twice
-    at the start; the same state as the plain route and as JAX."""
+    kernel: one cursor score and one cursor insert_step a taxon (28, fewer
+    than a graph's insertions: all direct), the BFS alone twice at the
+    start; the same state as the plain route and as JAX."""
     n = 30
     D = _matrix("noisy", n).astype(dtype)
-    calls = []
-    step = insert_cuda.insert_step
-
-    def counted(st, *a, **kw):
-        calls.append(kw["outside"])
-        return step(st, *a, **kw)
-
     bfs_calls = []
 
     def bfs_counted(st, leaf, *a, **kw):
         bfs_calls.append(leaf)
         _fake_closest_bfs(st, leaf, *a, **kw)
 
-    monkeypatch.setattr(insert_cuda, "insert_step", counted)
     monkeypatch.setattr(insert_cuda, "closest_bfs", bfs_counted)
     st = tk.init_placement_state((torch.from_numpy(D),), num_sequences=n,
                                  frontend="matrix", dtype_name=dtype)
     tk._insert_range(st, 2, n, torch.from_numpy(D)[2:], n)
-    assert bfs_calls == [0, 1] and calls == list(range(2, n))
+    route = model_as_kernel
+    assert bfs_calls == [0, 1]
+    assert route.steps == [(i, 4 * i - 4) for i in range(2, n)]
+    assert route.captures == 0 and st.idx == 4 * n - 4
     js = jk.run_placement_full((jnp.asarray(D),), num_sequences=n,
+                               frontend="matrix", dtype_name=dtype)
+    _assert_same_as_jax(js, st)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("G, chunk, cap_min", [
+    (5, 7, 8),     # 7 = 5 + 2 a range: a replay and a remainder; 3 caps
+    (8, 3, 8),     # G > hi - lo: every range direct, no capture
+    (4, 12, 16),   # 12 = 3 x 4: replays only; two caps
+    (6, 40, 64)])  # one range, one cap
+def test_cursor_route_replays_insert_ranges(model_as_kernel, monkeypatch,
+                                            G, chunk, cap_min, dtype):
+    """The cursor route of run_placement_chunked with prefix caps: each
+    range writes the cursor once, replays a graph of G insertions (hi -
+    lo) // G times and runs the rest directly; a graph is captured once
+    per state, so again after each cap change. The state equals the plain
+    loop's and JAX's, bit for bit."""
+    n = 40
+    D = torch.from_numpy(_matrix("noisy", n).astype(dtype))
+    kw = dict(num_sequences=n, frontend="matrix", dtype_name=dtype,
+              chunk=chunk)
+    monkeypatch.setattr(tk, "_CAP_MIN", cap_min)
+    with monkeypatch.context() as m:
+        m.setattr(tk, "uses_insert_kernel", lambda st: False)
+        plain = tk.run_placement_chunked((D,), **kw)
+    monkeypatch.setattr(tk, "GRAPH_INSERTIONS", G)
+    route = model_as_kernel
+    counts = (tk.SCORE_EDGES_LAUNCHES, insert_cuda.INSERT_STEP_LAUNCHES,
+              insert_cuda.GRAPH_REPLAYS)
+    st = tk.run_placement_chunked((D,), **kw)
+    ranges = [(lo, min(n, lo + chunk)) for lo in range(2, n, chunk)]
+    caps = [tk._cap_for(hi, n) for _, hi in ranges]
+    replays = sum((hi - lo) // G for lo, hi in ranges)
+    assert route.steps == [(i, 4 * i - 4) for i in range(2, n)]
+    assert route.captures == len({c for c, (lo, hi) in zip(caps, ranges)
+                                  if hi - lo >= G})
+    assert (tk.SCORE_EDGES_LAUNCHES - counts[0],
+            insert_cuda.INSERT_STEP_LAUNCHES - counts[1],
+            insert_cuda.GRAPH_REPLAYS - counts[2]) == (n - 2, n - 2, replays)
+    _assert_same(st, plain)
+    js = jk.run_placement_full((jnp.asarray(D.numpy()),), num_sequences=n,
                                frontend="matrix", dtype_name=dtype)
     _assert_same_as_jax(js, st)
 
@@ -441,6 +655,46 @@ def test_run_add_queries_routes_to_the_kernel(model_as_kernel, dtype):
         torch.from_numpy(belong0),
         torch.from_numpy(length0).to(getattr(torch, dtype)),
         torch.from_numpy(rev0), **kw)
+    for g, w in zip(got, want):
+        assert g.numpy().tobytes() == np.asarray(w).tobytes()
+
+
+@pytest.mark.parametrize("G", [5, 12, 64])
+def test_seeding_replays_by_cursor(model_as_kernel, monkeypatch, G):
+    """--add's seeding on the card's route: one cursor write, B // G
+    replays of a graph of G BFS launches (the cursor's i as the leaf),
+    the rest direct; then the queries' range; the reference's arrays."""
+    monkeypatch.setattr(tk, "GRAPH_INSERTIONS", G)
+    n, B = 30, 12
+    D = _matrix("noisy", n)
+    e, belong, length = jax.device_get(jk.run_placement(
+        (jnp.asarray(D[:B, :B]),), num_sequences=B, frontend="matrix",
+        dtype_name="float64"))
+    nwk = jk.edges_to_newick(e, belong, length,
+                             [f"L{i}" for i in range(B)], B)
+    tree = parse_newick(nwk, n)
+    order = [int(nm[1:]) for nm in tree.leaf_names_in_idx_order()]
+    order += [i for i in range(n) if i not in order]
+    D = np.ascontiguousarray(D[np.ix_(order, order)])
+    e0, belong0, length0, rev0 = tapi.backbone_tree_to_arrays(tree, n)
+    kw = dict(num_sequences=n, backbone_size=B, frontend="matrix",
+              dtype_name="float64")
+    want = jax.device_get(jk.run_add_queries(
+        (jnp.asarray(D),), jnp.asarray(e0), jnp.asarray(belong0),
+        jnp.asarray(length0), jnp.asarray(rev0), **kw))
+    route = model_as_kernel
+    bfs = (insert_cuda.CLOSEST_BFS_LAUNCHES, insert_cuda.GRAPH_REPLAYS)
+    got = tk.run_add_queries(
+        (torch.from_numpy(D),), torch.from_numpy(e0),
+        torch.from_numpy(belong0), torch.from_numpy(length0),
+        torch.from_numpy(rev0), **kw)
+    assert route.leaves == list(range(B))
+    # the queries' one range replays too
+    assert (insert_cuda.CLOSEST_BFS_LAUNCHES - bfs[0],
+            insert_cuda.GRAPH_REPLAYS - bfs[1]) == (B, B // G
+                                                    + (n - B) // G)
+    assert route.captures == (B >= G) + (n - B >= G)
+    assert route.steps == [(i, 4 * i - 4) for i in range(B, n)]
     for g, w in zip(got, want):
         assert g.numpy().tobytes() == np.asarray(w).tobytes()
 
