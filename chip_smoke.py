@@ -89,8 +89,9 @@ the process; phases 20 to 22 run in processes of their own):
      launch, the tree state on the card and nRF
      vs the true tree < 0.35. Every merge-count launch of the run is then
      held against the plain version on its own inputs, every 128th query
-     row of it; no sketch-kernel launch (placement sketches on the host,
-     as in the JAX package), and at N = 30,000 the nRF of every earlier
+     row of it; the ingest's device route ("Rank bank route: device" in
+     the log, sketch-kernel launches, each held against the plain version
+     on its every 128th row), and at N = 30,000 the nRF of every earlier
      smoke (PLACEMENT_NRF_30K). The insert ranges run by the cursor
      route (replays of a captured graph of 64 insertions, the remainder
      by direct cursor launches): the graph captures of the build (the
@@ -120,7 +121,9 @@ the process; phases 20 to 22 run in processes of their own):
      DC_NRF_LIMIT, launches of the per-cluster count kernel and of the
      merge-count kernel, one score_edges launch per backbone insertion (B
      - 2), one insert_step launch per backbone insertion and streamed
-     member; every per-cluster count launch held against the plain version
+     member; the ingest's device route as in phase 5 (sketch-kernel
+     launches sampled against the plain version); every per-cluster count
+     launch held against the plain version
      on its every 16th cluster, the widest batched bucket's launch timed
      whole beside its bound and its plain version; phase times, bucket
      lines, cluster sizes, host syncs per phase-3 step;
@@ -141,19 +144,28 @@ the process; phases 20 to 22 run in processes of their own):
      version on the card and the native host sketcher, equal bits
      required throughout: phase 5's set (every row against the native
      bank and the plain version, the first 512 also on their own) and
-     phase 9's, and adversarial rows (lengths 0, k-1, k, k+1, around the
-     4,096-window tile edge, 10,000 and 2,000,000; N, lowercase and U
-     bytes; a repeat-heavy row; k 4, 11, 15; s 1, 100, 1000, 1024 and the
-     kernel's largest); device rank_compress equal to the first-of-run
-     rule computed on the host, and kernel 2's distances through it equal
-     to those through rank_compress_host; for both sets the kernel's own
-     time by CUDA events (stages (a) and (b), and (a) without its sort),
-     M k-mers/s, its bound from operations and bytes and the share
-     reached, the host's encode/pack and the H2D copy, rank_compress
-     against rank_compress_host, the native sketcher with the host's CPU
-     and threads, and as a yardstick torch.sort along rows of the set's
+     phase 9's; the select path's cases (one 200 kb row split into
+     segments, rows shorter than k, poly-A rows, one row; s 1, 1,000,
+     1,024 and 2^20, the tile path); adversarial rows (lengths 0, k-1, k,
+     k+1, around the 4,096-window tile edge, 10,000 and 2,000,000; N,
+     lowercase and U bytes; a repeat-heavy row; k 4, 11, 15; s 1, 100,
+     1000, 1024 and the kernel's largest); device rank_compress equal to
+     the first-of-run rule computed on the host, and kernel 2's distances
+     through it equal to those through rank_compress_host;
+     rank_compress_dense equal to rank_compress_host; distance/mash.py::
+     mash_rank_bank's device route on phase 5's set (what placement, D&C
+     and --add run) equal byte for byte to the host route's padded rank
+     bank, with its logged parts and peak device bytes a bank value
+     beside the host route's parts; for both sets the kernel's own time
+     by CUDA events (both stages; stage 1, the select kernel; stage 2, the
+     merge rounds; stage 1's hashing alone), M k-mers/s, its bound from
+     operations and bytes and the share reached, the host's encode/pack
+     and the H2D copy, rank_compress and rank_compress_dense against
+     rank_compress_host, the native sketcher with the host's CPU and
+     threads, and as a yardstick torch.sort along rows of the set's
      [rows, windows] hash matrix (whose first s columns must equal the
-     kernel's rows);
+     kernel's rows); with --parent DIR, that checkout's kernel timed in
+     turns on the same batches (parent, this, this, parent);
   10. MSA pair counts and distances on an aligned set (the generator
      with --aligned at N=20,000, L=10,000, 5% gaps, seed 1): the card's
      counts of 4,096 queries x the bank's first 4,096 rows against an
@@ -176,7 +188,7 @@ the process; phases 20 to 22 run in processes of their own):
      of the placement set (-i r -m 1), then --add of the next 1,024: every
      backbone split survives, score_edges launches = 1,024, insert_step
      launches = 1,024 and the BFS alone once a backbone leaf, merge-count
-     launches > 0; and the same Newick from the card and the CPU at a
+     launches > 0, the ingest's device route as in phase 5; and the same Newick from the card and the CPU at a
      backbone of 256 with 64 queries;
   13. exact placement on the card in f64, through
      build_placement_tree_from_seqs(exact=True) on the alignment's first
@@ -221,8 +233,8 @@ host.
 Every kernel counter is set to 0 just before a main path (phases 5, 16,
 9, 11, 12, 14, and in each rank of 20, 21 and 22) and read just after it;
 `launches` in the kernels' record is the count of phases 5 (placement;
-insert_step's counts both its entry points), 16 (D&C: the per-cluster
-count kernel) and 9 (NJ; also the sketch kernel's), `launches_by_path` has
+insert_step's counts both its entry points; the sketch kernel's), 16
+(D&C: the per-cluster count kernel) and 9 (NJ), `launches_by_path` has
 every path's (one count a rank for the multi-rank paths), and
 score_edges's `range_launches` the sharded placement's range launches.
 
@@ -239,6 +251,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -324,15 +337,20 @@ PEAK_INT8_PER_S = 1979e12
 # integer operations of one step of the mash walk: a compare, a pointer
 # advance, two counter updates
 OPS_PER_WALK_STEP = 4
-# 32-bit integer operations of one window of the sketch kernel at k > 8,
-# counted from csrc/minhash_sketch.cu (a 64-bit multiply as 3, a 64-bit
-# shift, rotate, xor or add as 2): the window's codes from two words and
-# its canonical form 17; the key bytes 26 (two nibble spreads, the pads,
-# four byte permutes, the two words); the murmur tail 64 (two key blocks
-# of two multiplies, a rotate and an xor; the length; two adds; two
-# finalisers of three shift-xors and two multiplies; the last add); the
-# length mask and one 64-bit compare of the bottom-k 5
-SKETCH_OPS_PER_WINDOW = 17 + 26 + 64 + 5
+# The sketch kernel's bound counts the instructions of one window in the
+# built kernel's SASS (sketch_window_sass): an H100 SM dispatches one warp
+# instruction a clock from each of its four schedulers, 128 thread
+# instructions; its int32 ALU pipe (logic, shifts, adds, compares,
+# selects, byte permutes, LEA) and its FMA pipe's integer multiply-adds
+# (IMAD, which the compiler also uses for moves, shifts and adds) run 64
+# a clock each (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0); 132 SMs at 1.98 GHz.
+SM_CLOCKS_PER_S = 132 * 1.98e9
+DISPATCH_PER_SM_CLOCK = 128
+INT_PIPE_PER_SM_CLOCK = 64
+SASS_ALU = ("IADD3", "LOP3", "SHF", "ISETP", "SEL", "PRMT", "LEA")
+# windows a thread hashes in one trip of the tile loop (minhash::kItems)
+SKETCH_ITEMS = 8
 # the sketch kernel's plain version on the card: its tiles of windows and
 # row chunks (its bits do not depend on them)
 PLAIN_SKETCH_TILE = 2**16
@@ -485,6 +503,61 @@ def bound_of(ops: float, nbytes: float,
     return {"bound_ms": max(by_ops, by_bytes),
             "bound_by": "operations" if by_ops >= by_bytes else "bytes",
             "ops": ops, "bytes": nbytes}
+
+
+def sketch_window_sass() -> dict:
+    """Instructions of one window of the sketch kernel, from the SASS of
+    the built library (cuobjdump): the tile loop of select_kernel<true>,
+    the hashing alone (the largest backward branch's span), is one trip
+    of SKETCH_ITEMS windows a thread, and at k > 8 every instruction of it
+    runs (its forward branches skip only the second key word's code, for
+    k <= 8). Returns the counts a window: all, the ALU pipe's, the FMA
+    pipe's IMAD, and each opcode's."""
+    from dipper_tpu_torch.csrc.build import BUILD_DIR
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run(
+        [tool, "-sass", os.path.join(BUILD_DIR, "libminhash_sketch.so")],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    parts = sass.split("select_kernelILb1E", 1)
+    check(len(parts) == 2, "no select_kernel<true> in the sketch library")
+    body = parts[1].split("Function :", 1)[0]
+    ins = []
+    for addr, text in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body):
+        text = re.sub(r"^@!?U?P[T0-9]+\s+", "", text.strip())
+        ins.append((int(addr, 16), text.split()[0].split(".")[0], text))
+    loops = [(a - int(m.group(1), 16), int(m.group(1), 16), a)
+             for a, op, text in ins if op == "BRA"
+             for m in [re.search(r"0x([0-9a-f]+)", text)]
+             if m and int(m.group(1), 16) < a]
+    check(bool(loops), "no loop in select_kernel<true>")
+    _, lo, hi = max(loops)
+    ops = [op for a, op, _ in ins if lo <= a <= hi]
+    per = {op: ops.count(op) / SKETCH_ITEMS for op in sorted(set(ops))}
+    check(per.get("BREV") == 1.0, f"the tile loop is not {SKETCH_ITEMS} "
+          f"windows of one __brev each: {per}")
+    return {"all": len(ops) / SKETCH_ITEMS,
+            "alu": sum(per.get(op, 0.0) for op in SASS_ALU),
+            "imad": per.get("IMAD", 0.0), "by_opcode": per}
+
+
+def sketch_bound(windows: int, nbytes: float, per_window: dict) -> dict:
+    """Bound of the sketch kernel over `windows` windows: each SM's clocks
+    for a window are the most of its instructions over the dispatch rate,
+    its ALU instructions and its IMAD over their pipes' rates; against
+    the bytes over the memory rate."""
+    rates = {"dispatch": per_window["all"] / DISPATCH_PER_SM_CLOCK,
+             "alu_pipe": per_window["alu"] / INT_PIPE_PER_SM_CLOCK,
+             "fma_pipe": per_window["imad"] / INT_PIPE_PER_SM_CLOCK}
+    limit = max(rates, key=rates.get)
+    out = bound_of(0, nbytes)
+    by_ops = windows * rates[limit] / SM_CLOCKS_PER_S * 1e3
+    if by_ops >= out["bound_ms"]:
+        out.update(bound_ms=by_ops, bound_by="operations")
+    out.update(ops=windows * per_window["all"], limited_by=limit,
+               sm_clocks_per_window=rates)
+    return out
 
 
 def mash_bound(inter: torch.Tensor, n_query: int, n_bank: int, s: int,
@@ -1760,6 +1833,59 @@ def read_counts() -> dict:
             "graph_replays": insert_cuda.GRAPH_REPLAYS}
 
 
+class SketchSampler:
+    """Every sketch-kernel launch of a run recorded (every SAMPLE-th row of
+    its inputs and output), to be held bitwise against the plain version
+    on the card on those rows after the run (`finish`)."""
+
+    def __init__(self):
+        from dipper_tpu_torch.sketch import minhash_cuda
+
+        self.mod, self.orig, self.calls = (
+            minhash_cuda, minhash_cuda.minhash_sketch_cuda, [])
+
+        def rec(words, lengths, *, k, sketch_size, **kw):
+            got = self.orig(words, lengths, k=k, sketch_size=sketch_size,
+                            **kw)
+            self.calls.append((words[::SAMPLE].contiguous(),
+                               lengths[::SAMPLE].contiguous(), k,
+                               sketch_size, got[::SAMPLE].clone()))
+            return got
+
+        minhash_cuda.minhash_sketch_cuda = rec
+
+    def restore(self) -> None:
+        self.mod.minhash_sketch_cuda = self.orig
+
+    def finish(self) -> dict:
+        """Restores the entry point; compares the recorded launches."""
+        from dipper_tpu_torch.sketch.minhash import sketch_batch_plain
+
+        self.restore()
+        worst, rows = 0.0, 0
+        for words, lengths, k, s, got in self.calls:
+            worst = max(worst, u64_err(got, sketch_batch_plain(
+                words, lengths, k=k, sketch_size=s)))
+            rows += words.shape[0]
+        return {"launches_checked": len(self.calls), "rows_checked": rows,
+                "max_abs_err": worst}
+
+
+def check_device_ingest(tag: str, counts: dict, log: str,
+                        sketches: SketchSampler) -> dict:
+    """A main path from -i r took the device route of the ingest: the
+    route's log line, sketch-kernel launches, each equal to the plain
+    version on its sampled rows."""
+    check("Rank bank route: device" in log,
+          f"{tag}: the ingest did not take the device route")
+    check(counts["minhash_sketch"] > 0,
+          f"{tag}: the main path launched no minhash_sketch kernel")
+    res = sketches.finish()
+    check(res["max_abs_err"] == 0.0, f"{tag}: a sketch-kernel launch != "
+          f"plain on its sampled rows (max abs err {res['max_abs_err']})")
+    return res
+
+
 def check_tree(nwk: str, n: int, true_nwk: str, limit: float) -> tuple:
     """A complete Newick over S0..S{n-1}, and its RF/nRF vs the true tree
     below `limit`."""
@@ -1877,6 +2003,7 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str,
     route = RouteSampler()
     insert_range = route.orig[1]
     kclosest._insert_range = range_recorded
+    sketches = SketchSampler()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     try:
@@ -1888,6 +2015,7 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str,
         kclosest.run_placement_chunked = chunked
         mash_cuda.mash_inter_cuda = kernel
         route.restore()
+        sketches.restore()
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
 
@@ -1905,10 +2033,9 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str,
     check(counts["side_vector"] == 0,
           f"the placement main path launched the standalone side_vector "
           f"kernel {counts['side_vector']} times")
-    # placement's ingest is the host sketcher's, as in the JAX package
-    check(counts["minhash_sketch"] == 0,
-          f"the placement main path launched the sketch kernel "
-          f"{counts['minhash_sketch']} times")
+    # placement's ingest: the device route (sketch kernel, dense ranks)
+    sketch_checked = check_device_ingest("placement", counts, log,
+                                         sketches)
     G = kclosest.GRAPH_INSERTIONS
     replayed = G * counts["graph_replays"]
     captures = int(_ms(r"graph captures (\d+)", log) or 0)
@@ -1967,6 +2094,7 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str,
           - (last_range["checks_s"] + route.checks_s) * 1e3,
           "graph_border_checks_s": route.checks_s,
           "kernel_launches": counts, "kernel_calls": checked,
+          "sketch_launches_checked": sketch_checked,
           "graph_route": {
               "graph_insertions": G, "captures_per_build": captures,
               "replays": counts["graph_replays"],
@@ -1979,6 +2107,7 @@ def phase_main_path(tmp: str, n: int, fa: str, true_nwk: str,
           "max_memory_allocated": peak,
           "rf": rf, "nrf_vs_true": nrf, "nrf_limit": NRF_LIMIT})
     return {"counts": counts, "merge_count_calls": checked,
+            "sketch_checked": sketch_checked,
             "score_edges_last_range": last_range, "sync_range": sync_range,
             "graph_route": {"captures_per_build": captures,
                             "replays": counts["graph_replays"],
@@ -2546,14 +2675,24 @@ def phase_add(tmp: str, fa: str, backbone: int, queries: int,
         rc, blog, _ = run_cli(["-i", "r", "-I", back_fa, "-O", back_nwk,
                                "-m", "1", "--device", dev])
         check(rc == 0, f"backbone build --device {dev} returned {rc}")
+        sketches = SketchSampler() if dev == "cuda" else None
         reset_counts()
-        rc, log, wall = run_cli(["-i", "r", "-I", all_fa, "-O", out, "--add",
-                                 "-t", back_nwk, "--device", dev])
+        try:
+            rc, log, wall = run_cli(["-i", "r", "-I", all_fa, "-O", out,
+                                     "--add", "-t", back_nwk, "--device",
+                                     dev])
+        finally:
+            if sketches:
+                sketches.restore()
         counts = read_counts()
         check(rc == 0, f"--add --device {dev} returned {rc}")
+        if sketches:
+            counts["sketch_checked"] = check_device_ingest(
+                "--add", counts, log, sketches)
         return open(back_nwk).read(), open(out).read(), counts, log, wall
 
     back, out, counts, log, wall = add_run(backbone, queries, "cuda", "add")
+    sketch_checked = counts.pop("sketch_checked")
     check(counts["score_edges"] == queries,
           f"--add launched score_edges {counts['score_edges']} times for "
           f"{queries} queries")
@@ -2576,6 +2715,7 @@ def phase_add(tmp: str, fa: str, backbone: int, queries: int,
           "queries": queries, "precision": "f32",
           "phases_ms": {
               "sketch": _ms(r"Sketch in: (\d+) ms", log),
+              "rank_bank": _ms(r"Rank bank in: (\d+) ms", log),
               "seeding": _ms(r"seeded in: ([\d.]+) ms", log),
               "rows": _ms(r"queries: rows ([\d.]+) ms", log),
               "insertions": _ms(r"insertions ([\d.]+) ms", log),
@@ -2585,6 +2725,7 @@ def phase_add(tmp: str, fa: str, backbone: int, queries: int,
               _ms(r"seeded in: ([\d.]+) ms", log) / backbone,
           "ms_per_query": _ms(r"insertions ([\d.]+) ms", log) / queries,
           "kernel_launches": counts, "backbone_splits_survive": True,
+          "sketch_launches_checked": sketch_checked,
           "gpu_vs_cpu": {"backbone": b, "queries": q,
                          "newick_identical": True}})
     return {"counts": counts}
@@ -2777,6 +2918,7 @@ def phase_dc_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
         return got
 
     mash_cuda.mash_cluster_inter_cuda = recorded
+    sketches = SketchSampler()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     cluster.STEPS = cluster.BFS_LEVELS = 0
@@ -2784,6 +2926,7 @@ def phase_dc_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
         rc, log, wall = run_cli(["-i", "r", "-I", fa, "-O", out, "-m", "3"])
     finally:
         mash_cuda.mash_cluster_inter_cuda = kernel
+        sketches.restore()
     counts = read_counts()
     steps, levels = cluster.STEPS, cluster.BFS_LEVELS
     peak = torch.cuda.max_memory_allocated()
@@ -2794,6 +2937,7 @@ def phase_dc_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
           "the D&C main path launched no mash_cluster_inter kernel")
     check(counts["mash_merge_count"] > 0,
           "the D&C main path launched no mash_merge_count kernel")
+    sketch_checked = check_device_ingest("D&C", counts, log, sketches)
     check(counts["score_edges"] == B - 2,
           f"the D&C backbone launched score_edges {counts['score_edges']} "
           f"times for its {B - 2} insertions")
@@ -2846,6 +2990,7 @@ def phase_dc_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
           "phase3_steps": steps, "phase3_bfs_levels": levels,
           "host_syncs_per_phase3_step": levels / max(steps, 1),
           "kernel_launches": counts, "mash_cluster_inter_calls": checked,
+          "sketch_launches_checked": sketch_checked,
           "largest_bucket_launch": largest, "max_memory_allocated": peak,
           "rf": rf, "nrf_vs_true": nrf, "nrf_limit": DC_NRF_LIMIT})
     return res
@@ -3162,17 +3307,13 @@ class Samplers:
         from dipper_tpu_torch.placement import insert_cuda, kclosest
 
         self.mc, self.kc, self.ic = mash_cuda, kclosest, insert_cuda
-        from dipper_tpu_torch.sketch import minhash_cuda
-
-        self.sk = minhash_cuda
         self.orig = (mash_cuda.mash_inter_cuda, mash_cuda.mash_rows_dist_cuda,
                      mash_cuda.mash_cluster_inter_cuda,
-                     kclosest.score_edges_launch,
-                     minhash_cuda.minhash_sketch_cuda,
-                     insert_cuda.insert_step)
-        inter, rows_dist, cluster, score, sketch, insert = self.orig
+                     kclosest.score_edges_launch, insert_cuda.insert_step)
+        inter, rows_dist, cluster, score, insert = self.orig
         self.calls = {"mash_merge_count": [], "mash_rows_dist": [],
-                      "mash_cluster_inter": [], "minhash_sketch": []}
+                      "mash_cluster_inter": []}
+        self.sketch = SketchSampler()
         self.score = {"calls": 0, "checked": 0, "max_abs_err": 0.0}
         self.insert = {"calls": 0, "checked": 0, "max_abs_err": 0.0}
         self.route = RouteSampler()
@@ -3232,18 +3373,10 @@ class Samplers:
                     self.insert["max_abs_err"] = float("inf")
             return xy
 
-        def sketch_rec(words, lengths, *, k, sketch_size, **kw):
-            got = sketch(words, lengths, k=k, sketch_size=sketch_size, **kw)
-            self.calls["minhash_sketch"].append(
-                (words[::SAMPLE].contiguous(), lengths[::SAMPLE].contiguous(),
-                 k, sketch_size, got[::SAMPLE].clone()))
-            return got
-
         (mash_cuda.mash_inter_cuda, mash_cuda.mash_rows_dist_cuda,
          mash_cuda.mash_cluster_inter_cuda, kclosest.score_edges_launch,
-         minhash_cuda.minhash_sketch_cuda, insert_cuda.insert_step) = (
-            inter_rec, rows_rec, cluster_rec, score_rec, sketch_rec,
-            insert_rec)
+         insert_cuda.insert_step) = (inter_rec, rows_rec, cluster_rec,
+                                     score_rec, insert_rec)
 
     def finish(self) -> dict:
         """Restores the entry points and compares the recorded launches;
@@ -3251,11 +3384,10 @@ class Samplers:
         difference."""
         from dipper_tpu_torch.distance.mash import (cluster_inter_ref,
                                                     merged_inter_count_ref)
-        from dipper_tpu_torch.sketch.minhash import sketch_batch_plain
 
         (self.mc.mash_inter_cuda, self.mc.mash_rows_dist_cuda,
          self.mc.mash_cluster_inter_cuda, self.kc.score_edges_launch,
-         self.sk.minhash_sketch_cuda, self.ic.insert_step) = self.orig
+         self.ic.insert_step) = self.orig
         self.route.restore()
         for _, err, diff in self.route.errs:
             self.score["checked"] += 1
@@ -3286,13 +3418,7 @@ class Samplers:
         out["mash_cluster_inter"] = {
             "launches_checked": len(self.calls["mash_cluster_inter"]),
             "max_abs_err": worst}
-        worst = 0.0
-        for words, lengths, k, s, got in self.calls["minhash_sketch"]:
-            worst = max(worst, u64_err(got, sketch_batch_plain(
-                words, lengths, k=k, sketch_size=s)))
-        out["minhash_sketch"] = {
-            "launches_checked": len(self.calls["minhash_sketch"]),
-            "max_abs_err": worst}
+        out["minhash_sketch"] = self.sketch.finish()
         out["score_edges"] = dict(self.score)
         out["insert_step"] = dict(self.insert)
         return out
@@ -3721,21 +3847,95 @@ def sketch_adversarial() -> dict:
     return cases
 
 
-def time_sketch_set(tag: str, seqs, k: int = 15, s: int = 1000,
-                    check_rank_rule: bool = False) -> dict:
-    """The device ingest of one set, as the NJ path runs it, and its parts
-    on their own: sketch_sequences (host wall, synchronized), the host's
-    encode/pack, each batch's H2D copy, the kernel's own time by CUDA
-    events (both stages; stage (a); stage (b) on (a)'s tile lists; (a)
-    without its sort), the device rank_compress; beside them the native
-    host sketcher and rank_compress_host, the plain version on the card
+def sketch_select_cases(parent_kernel=None) -> dict:
+    """The kernel's select-path cases, one batch each at k = 15, against
+    the plain version on the card and the native sketcher: one 200 kb row
+    (B = 1, split into segments), rows shorter than k beside normal ones,
+    poly-A rows (every window one hash) and a 4-periodic row, one 10 kb
+    row, one 2 Mbp row; s 1, 1,000, 1,024 and 2^20 (the tile path). Each
+    with the plan's path and lists a row, and its CUDA-event time; with
+    `parent_kernel` (an earlier checkout's minhash_cuda), that kernel's
+    result held to this one's and both timed in turns: parent, this,
+    this, parent, 5 calls each, with scratch and output made before."""
+    from dipper_tpu_torch.sketch import minhash_cuda
+    from dipper_tpu_torch.sketch.native import sketch_sequences_native
+
+    rng = np.random.default_rng(124)
+
+    def acgt(L):
+        return bytes(rng.choice(list(b"ACGT"), L).astype(np.uint8))
+
+    sets = {"row_200kb": [acgt(200_000)],
+            "short_rows": [b"", acgt(7), acgt(14), acgt(15), acgt(10_000)],
+            "poly_a": [b"A" * 10_000, b"A" * 4111, b"ACGT" * 2500],
+            "b1": [acgt(10_000)], "row_2mb": [acgt(2_000_000)]}
+    cases = {}
+    for name, seqs in sets.items():
+        words, lens = _on_card(*pack_rows(seqs, 15))
+        for s in (1, 1000, 1024, 1 << 20):
+            got = minhash_cuda.minhash_sketch_cuda(words, lens, k=15,
+                                                   sketch_size=s)
+            plain, plain_ms = plain_sketch_on_card(seqs, 15, s)
+            native = sketch_sequences_native(seqs, 15, s)
+            check(native is not None, "native sketcher unavailable")
+            err = max(u64_err(got, plain), u64_err(got, native))
+            check(err == 0.0, f"sketch kernel {name} s={s}: != plain or "
+                  f"native (max abs err {err})")
+            select, lists, _, rounds = minhash_cuda.plan(
+                words.shape[0], words.shape[1], 15, s)
+            cases[f"{name}_s{s}"] = rec = {
+                "rows": len(seqs), "path": "select" if select else "tiles",
+                "lists_a_row": lists, "merge_rounds": len(rounds),
+                "equal": True, "plain_ms": plain_ms,
+                "ms": event_ms(lambda: minhash_cuda.minhash_sketch_cuda(
+                    words, lens, k=15, sketch_size=s), 5)}
+            if parent_kernel is not None:
+                B, W = words.shape
+                runs = {}
+                for who, mod in (("this", minhash_cuda),
+                                 ("parent", parent_kernel)):
+                    scr = torch.empty(mod.scratch_elems(B, W, 15, s),
+                                      dtype=torch.int64, device="cuda")
+                    out = torch.empty((B, s), dtype=torch.int64,
+                                      device="cuda")
+                    runs[who] = (lambda fn=mod.minhash_sketch_cuda,
+                                 scratch=scr, o=out: fn(
+                                     words, lens, k=15, sketch_size=s,
+                                     scratch=scratch, out=o))
+                check(torch.equal(runs["parent"](), got),
+                      f"{name} s={s}: the parent's sketch kernel != this "
+                      "one")
+                turns = {"parent": 0.0, "this": 0.0}
+                for who in ("parent", "this", "this", "parent"):
+                    turns[who] += event_ms(runs[who], 5) / 2
+                rec["parent_ms"] = turns["parent"]
+                rec["this_ms_in_turns"] = turns["this"]
+                del runs
+    return cases
+
+
+def time_sketch_set(tag: str, seqs, sass: dict, k: int = 15,
+                    s: int = 1000, check_rank_rule: bool = False,
+                    parent_kernel=None) -> dict:
+    """The device ingest of one set and its parts on their own:
+    sketch_sequences (host wall, synchronized), the host's encode/pack,
+    each batch's H2D copy, the kernel's own time by CUDA events (both
+    stages; stage 1, the select kernel; stage 2, the merge rounds, none
+    at these shapes; stage 1's hashing alone), rank_compress and
+    rank_compress_dense; beside them the native host sketcher and
+    rank_compress_host (the host route), the plain version on the card
     and torch.sort along rows of the set's [rows, windows] hash matrix
-    (the yardstick). The bank is held bitwise to the native one, to the
-    plain version and to the sorted hash matrix's first s columns; the
-    device ranks give kernel 2's distances bit for bit as the host ranks
-    do (and, with check_rank_rule, equal the rule computed on the host)."""
+    (the yardstick). With `parent_kernel` (an earlier checkout's
+    minhash_sketch_cuda), that kernel timed in turns with this one on
+    each batch: parent, this, this, parent. The bank is held bitwise to
+    the native one, to the plain version and to the sorted hash matrix's
+    first s columns; the dense ranks to rank_compress_host's; the
+    first-of-run ranks give kernel 2's distances bit for bit as the host
+    ranks do (and, with check_rank_rule, equal the rule computed on the
+    host)."""
     from dipper_tpu_torch.distance.mash import (mash_pairwise, pad_ranks,
                                                 rank_compress,
+                                                rank_compress_dense,
                                                 rank_compress_host)
     from dipper_tpu_torch.io import encode
     from dipper_tpu_torch.sketch import minhash, minhash_cuda
@@ -3778,8 +3978,12 @@ def time_sketch_set(tag: str, seqs, k: int = 15, s: int = 1000,
     err = u64_err(bank, plain)
     check(err == 0.0, f"{tag}: sketch kernel != plain on the card (max abs "
           f"err {err})")
-    # each batch: the kernel's stages, its H2D copy, the sort yardstick
+    del plain
+    # each batch: the kernel's stages (and the parent's, in turns), its
+    # H2D copy, the sort yardstick
     stage_ms = {"both": 0.0, "a": 0.0, "b": 0.0, "a_hash_only": 0.0}
+    parent_ms = {"both": 0.0, "a": 0.0, "b": 0.0, "a_hash_only": 0.0}
+    turns_ms = {"parent": 0.0, "this": 0.0}
     h2d_ms = sort_ms = 0.0
     nbytes = windows = 0
     for words, lengths in calls:
@@ -3787,11 +3991,28 @@ def time_sketch_set(tag: str, seqs, k: int = 15, s: int = 1000,
         scr = torch.empty(minhash_cuda.scratch_elems(B, W, k, s),
                           dtype=torch.int64, device="cuda")
         out = torch.empty((B, s), dtype=torch.int64, device="cuda")
+
+        def run(st, fn=kernel, scratch=scr):
+            return lambda: fn(words, lengths, k=k, sketch_size=s, stages=st,
+                              scratch=scratch, out=out)
+
         for name, st in (("both", 3), ("a", 1), ("b", 2),
                          ("a_hash_only", 5)):
-            stage_ms[name] += event_ms(lambda: kernel(
-                words, lengths, k=k, sketch_size=s, stages=st, scratch=scr,
-                out=out), 5)
+            stage_ms[name] += event_ms(run(st), 5)
+        if parent_kernel is not None:
+            pscr = torch.empty(parent_kernel.scratch_elems(B, W, k, s),
+                               dtype=torch.int64, device="cuda")
+            pfn = parent_kernel.minhash_sketch_cuda
+            check(torch.equal(run(3, pfn, pscr)(),
+                              kernel(words, lengths, k=k, sketch_size=s)),
+                  f"{tag}: the parent's sketch kernel != this one")
+            for who in ("parent", "this", "this", "parent"):
+                turns_ms[who] += event_ms(
+                    run(3, pfn, pscr) if who == "parent" else run(3), 5) / 2
+            for name, st in (("both", 3), ("a", 1), ("b", 2),
+                             ("a_hash_only", 5)):
+                parent_ms[name] += event_ms(run(st, pfn, pscr), 5)
+            del pscr
         host = np.concatenate([words.cpu().numpy().reshape(-1),
                                lengths.cpu().numpy(), lengths.cpu().numpy()])
         best = float("inf")
@@ -3822,12 +4043,17 @@ def time_sketch_set(tag: str, seqs, k: int = 15, s: int = 1000,
                                           sketch_size=s)),
                   f"{tag}: sketch kernel != the sorted hash matrix")
         del keys
-    # ranks: the card's against the host's
+    # ranks: first-of-run (NJ) and dense (placement, D&C, --add) on the
+    # card against the host's
     ranks = rank_compress(bank)
     rank_ms = event_ms(lambda: rank_compress(bank), 5)
+    dense_ms = event_ms(lambda: rank_compress_dense(bank), 5)
     t0 = time.perf_counter()
     host_ranks = rank_compress_host(native)
     host_rank_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(rank_compress_dense(bank).cpu().numpy(),
+                         host_ranks),
+          f"{tag}: rank_compress_dense != rank_compress_host")
     rule = None
     if check_rank_rule:
         rule = bool(np.array_equal(ranks.cpu().numpy(),
@@ -3844,38 +4070,94 @@ def time_sketch_set(tag: str, seqs, k: int = 15, s: int = 1000,
                       dtype_name=dt)) for dt in ("float32", "float64"))
     check(same, f"{tag}: kernel-2 distances through device ranks != through "
           "host ranks")
-    bound = bound_of(windows * SKETCH_OPS_PER_WINDOW, nbytes)
-    select_ms = stage_ms["a"] - stage_ms["a_hash_only"]
-    return {"rows": len(seqs), "k": k, "s": s, "batches": len(calls),
-            "windows": windows, "equal_native": True, "equal_plain": True,
-            "max_abs_err": 0.0,
-            "sketch_sequences_wall_ms": wall_ms,
-            "encode_pack_ms": sum(enc_s) * 1e3, "h2d_ms": h2d_ms,
-            "kernel_ms": stage_ms, "ms": stage_ms["both"],
-            "mkmers_per_s": windows / stage_ms["both"] / 1e3,
-            **bound, "share_of_bound": bound["bound_ms"] / stage_ms["both"],
-            "plain_ms": plain_ms,
-            "torch_sort_rows_ms": sort_ms,
-            "select_in_a_plus_b_ms": select_ms + stage_ms["b"],
-            "rank_compress_ms": rank_ms, "rank_compress_host_ms": host_rank_ms,
-            "rank_rule_equal_host": rule,
-            "distances_equal_host_ranks": True,
-            "native_ms": native_ms,
-            "native_threads": min(32, os.cpu_count() or 1)}
+    del dev_pad, host_pad, ranks, bank
+    bound = sketch_bound(windows, nbytes, sass)
+    rec = {"rows": len(seqs), "k": k, "s": s, "batches": len(calls),
+           "windows": windows, "equal_native": True, "equal_plain": True,
+           "max_abs_err": 0.0,
+           "sketch_sequences_wall_ms": wall_ms,
+           "encode_pack_ms": sum(enc_s) * 1e3, "h2d_ms": h2d_ms,
+           "kernel_ms": stage_ms, "ms": stage_ms["both"],
+           "select_ms": stage_ms["a"] - stage_ms["a_hash_only"],
+           "select_share_of_ms": (stage_ms["a"] - stage_ms["a_hash_only"])
+           / stage_ms["both"],
+           "mkmers_per_s": windows / stage_ms["both"] / 1e3,
+           **bound, "share_of_bound": bound["bound_ms"] / stage_ms["both"],
+           "hash_only_share_of_bound": bound["bound_ms"]
+           / stage_ms["a_hash_only"],
+           "plain_ms": plain_ms,
+           "torch_sort_rows_ms": sort_ms,
+           "rank_compress_ms": rank_ms, "rank_compress_dense_ms": dense_ms,
+           "rank_compress_host_ms": host_rank_ms,
+           "rank_rule_equal_host": rule, "dense_ranks_equal_host": True,
+           "distances_equal_host_ranks": True,
+           "native_ms": native_ms,
+           "native_threads": min(32, os.cpu_count() or 1)}
+    if parent_kernel is not None:
+        rec["parent"] = {"kernel_ms": parent_ms, "turns_ms": turns_ms,
+                         "timing": "each batch: parent, this, this, parent "
+                                   "(5 calls each), the two turns averaged "
+                                   "and summed over batches"}
+    return rec, host_ranks
 
 
-def phase_sketch(fa30: str, fa20: str) -> dict:
+def device_route_vs_host(seqs, host_ranks: np.ndarray, native_ms: float,
+                         host_rank_ms: float) -> dict:
+    """distance/mash.py::mash_rank_bank, as placement, D&C and --add call
+    it, on the card: its device route's padded rank bank against the
+    host route's (native sketcher, np.unique: the same set's ranks from
+    time_sketch_set), byte for byte; the device route's logged parts and
+    peak device memory a bank value beside the host route's parts."""
+    from dipper_tpu_torch.distance import mash
+    from dipper_tpu_torch.utils.params import Param
+
+    lines = []
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = mash.mash_rank_bank(seqs, Param(), dev, log=lines.append)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    log = "\n".join(lines)
+    check("Rank bank route: device" in log, "mash_rank_bank did not take "
+          f"the device route: {lines}")
+    t0 = time.perf_counter()
+    want = torch.from_numpy(mash.pad_ranks(host_ranks)).to(dev)
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) * 1e3
+    same = bool(torch.equal(got, want))
+    check(same, "the device route's padded rank bank != the host route's")
+    N, S = host_ranks.shape
+    return {"route_line": lines[0], "bank_bytes_equal_host_route": same,
+            "device_route_ms": {
+                "sketch": _ms(r"Sketch in: (\d+) ms", log),
+                "rank_bank": _ms(r"Rank bank in: (\d+) ms", log),
+                "wall": wall_ms},
+            "host_route_ms": {"native_sketch": native_ms,
+                              "rank_compress_host": host_rank_ms,
+                              "upload": upload_ms,
+                              "sum": native_ms + host_rank_ms + upload_ms},
+            "peak_bytes_per_value": peak / (N * S),
+            "route_estimate_bytes_per_value": mash._DEVICE_ROUTE_BYTES}
+
+
+def phase_sketch(fa30: str, fa20: str, parent: str | None = None) -> dict:
     """Phase 24: the sketch kernel against its plain version and the
     native sketcher, bitwise, on the placement set (all 30K rows against
     the native bank, the first 512 against the plain version), the NJ
-    set (every row against both) and adversarial rows; device rank
-    compression; times."""
+    set (every row against both), the select path's cases and adversarial
+    rows; device rank compression (first-of-run and dense); the device
+    route's padded rank bank against the host route's; times, with an
+    earlier checkout's kernel in turns where `parent` is given."""
     from dipper_tpu_torch.driver import _load_sequences
     from dipper_tpu_torch.sketch import minhash
     from dipper_tpu_torch.utils.params import Param
 
     t0 = time.time()
     parts_s = {}
+    pk = parent_module(parent, "sketch.minhash_cuda") if parent else None
     _, seqs30 = _load_sequences(Param(), fa30)
     bank = minhash.sketch_sequences(seqs30[:512], 15, 1000, device="cuda",
                                     as_device=True)
@@ -3883,14 +4165,22 @@ def phase_sketch(fa30: str, fa20: str) -> dict:
     err = u64_err(bank, plain)
     check(err == 0.0, f"sketch kernel != plain on the placement set's first "
           f"512 rows (max abs err {err})")
+    del bank, plain
     parts_s["load_and_first_512"] = time.time() - t0
-    set30 = time_sketch_set("placement set", seqs30, check_rank_rule=True)
-    del seqs30
+    sass = sketch_window_sass()
+    set30, host_ranks = time_sketch_set("placement set", seqs30, sass,
+                                        check_rank_rule=True,
+                                        parent_kernel=pk)
+    route = device_route_vs_host(seqs30, host_ranks, set30["native_ms"],
+                                 set30["rank_compress_host_ms"])
+    del seqs30, host_ranks
     parts_s["placement_set"] = time.time() - t0 - sum(parts_s.values())
     _, seqs20 = _load_sequences(Param(), fa20)
-    set20 = time_sketch_set("NJ set", seqs20)
+    set20, _ = time_sketch_set("NJ set", seqs20, sass, parent_kernel=pk)
     del seqs20
     parts_s["nj_set"] = time.time() - t0 - sum(parts_s.values())
+    select = sketch_select_cases(pk)
+    parts_s["select_cases"] = time.time() - t0 - sum(parts_s.values())
     adv = sketch_adversarial()
     parts_s["adversarial"] = time.time() - t0 - sum(parts_s.values())
     res = {"placement_30k": set30, "nj_20k": set20}
@@ -3898,20 +4188,39 @@ def phase_sketch(fa30: str, fa20: str) -> dict:
           "timing": "kernel: CUDA events, mean of 5 back-to-back calls a "
                     "batch after a warm-up, summed over the batches; host "
                     "parts: host clock",
-          "bound": {"int32_ops_per_window": SKETCH_OPS_PER_WINDOW,
-                    "int32_ops_per_s": PEAK_INT32_PER_S,
+          "stages": "a: stage 1 (hash + select), a_hash_only: its hashing "
+                    "alone, b: the merge rounds (none where a row is one "
+                    "list), both: one call",
+          "bound": {"sass_instructions_per_window": sass,
+                    "sm_clocks_per_s": SM_CLOCKS_PER_S,
+                    "dispatch_per_sm_clock": DISPATCH_PER_SM_CLOCK,
+                    "int_pipe_per_sm_clock": INT_PIPE_PER_SM_CLOCK,
                     "bytes_per_s": PEAK_BYTES_PER_S},
-          "host_cpu": host_cpu(), **res, "adversarial": adv,
+          "host_cpu": host_cpu(), **res, "device_route_30k": route,
+          "select_cases": select, "adversarial": adv,
           "parts_s": parts_s, "phase_s": time.time() - t0})
-    nj = set20
-    return {"ms": nj["ms"], "plain_ms": nj["plain_ms"],
-            "bound_ms": nj["bound_ms"], "bound_by": nj["bound_by"],
-            "share_of_bound": nj["share_of_bound"],
-            "library_ms": nj["torch_sort_rows_ms"], "max_abs_err": 0.0,
-            "shape": [nj["rows"], 10000], "mkmers_per_s": nj["mkmers_per_s"],
-            "placement_30k": {key: set30[key] for key in (
-                "ms", "bound_ms", "share_of_bound", "mkmers_per_s",
-                "torch_sort_rows_ms", "rank_compress_ms")}}
+    main = set30
+    rec = {"ms": main["ms"], "plain_ms": main["plain_ms"],
+           "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+           "share_of_bound": main["share_of_bound"],
+           "hash_only_share_of_bound": main["hash_only_share_of_bound"],
+           "select_share_of_ms": main["select_share_of_ms"],
+           "library_ms": main["torch_sort_rows_ms"], "max_abs_err": 0.0,
+           "shape": [main["rows"], 10000],
+           "mkmers_per_s": main["mkmers_per_s"],
+           "kernel_ms": main["kernel_ms"],
+           "nj_20k": {key: set20[key] for key in (
+               "ms", "bound_ms", "share_of_bound", "hash_only_share_of_bound",
+               "select_share_of_ms", "mkmers_per_s", "kernel_ms",
+               "torch_sort_rows_ms", "rank_compress_ms")},
+           "device_route_30k": {key: route[key] for key in (
+               "device_route_ms", "host_route_ms",
+               "bank_bytes_equal_host_route")}}
+    if pk is not None:
+        rec["parent_ms"] = set30["parent"]["turns_ms"]["parent"]
+        rec["this_ms_in_turns"] = set30["parent"]["turns_ms"]["this"]
+        rec["nj_20k"]["parent_ms"] = set20["parent"]["turns_ms"]["parent"]
+    return rec
 
 
 def main() -> int:
@@ -3938,8 +4247,9 @@ def main() -> int:
     ap.add_argument("--parent", default=None,
                     help="a checkout of an earlier commit (e.g. from git "
                          "archive): phase 15 builds its per-cluster count "
-                         "kernel and phase 5 its insert_step, and each is "
-                         "timed beside this one's")
+                         "kernel, phase 5 its insert_step and phase 24 its "
+                         "sketch kernel, and each is timed beside this "
+                         "one's")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -4021,6 +4331,10 @@ def main() -> int:
             # phase 7 only
             sv["launches"] = res["counts"]["side_vector"]
             se["launches"] = res["counts"]["score_edges"]
+            # the ingest's kernel: placement is its main path
+            records["minhash_sketch"].update(
+                launches=res["counts"]["minhash_sketch"],
+                main_path_launches_checked=res["sketch_checked"])
             se["main_path_state"] = {
                 k: v for k, v in res["score_edges_last_range"].items()
                 if k != "insert_window"}
@@ -4069,12 +4383,13 @@ def main() -> int:
             rd["launches"] = res["counts"]["mash_rows_dist"]
             rd["max_abs_err"] = max(rd.get("max_abs_err", 0.0),
                                     res["max_abs_err"])
-            records["minhash_sketch"]["launches"] = res["counts"][
-                "minhash_sketch"]
+            records["minhash_sketch"].setdefault(
+                "launches", res["counts"]["minhash_sketch"])
         if 24 in phases:
             nj_fa = (nj_single["fa"] if 9 in phases else make_dataset(
                 args.nj_n, os.path.join(tmp, f"n{args.nj_n}"), seed=1)[0])
-            records["minhash_sketch"].update(phase_sketch(data[0], nj_fa))
+            records["minhash_sketch"].update(phase_sketch(data[0], nj_fa,
+                                                          args.parent))
         if phases & {10, 11, 12, 13}:
             t0 = time.time()
             msa_fa, msa_true = make_dataset(

@@ -12,10 +12,14 @@ sketchSize; then
 
 u64 hashes are rank-compressed once (order- and equality-preserving) so
 every comparison is int32, and rank rows are padded to a power of two
-with ranks that sort last: on the host by np.unique for placement, D&C
-and --add (`mash_rank_bank`), on the device by `rank_compress` for the
-NJ matrix and -o d (`mash_rank_bank_device`), as the JAX package routes
-them. For CUDA tensors,
+with ranks that sort last. Placement, D&C and --add (`mash_rank_bank`)
+sketch on the device and rank there by `rank_compress_dense`, whose
+consecutive ranks equal the host route's np.unique ranks bit for bit;
+the host route (native sketcher, `rank_compress_host`, one upload)
+serves --save-sketches/--load-sketches and banks whose transients would
+not fit the card. The NJ matrix and -o d (`mash_rank_bank_device`) rank
+on the device by `rank_compress` (first-of-run ranks), as the JAX package
+does. For CUDA tensors,
 the Hopper kernels of distance/mash_cuda.py run the walk, a warp per
 pair (`partitioned_walk_inter` models how): one returns intersection
 counts (`mash_pairwise_inter`), the other the distances
@@ -38,6 +42,15 @@ from dipper_tpu_torch.utils.device import synchronize, torch_dtype
 
 _PAD_KEY = np.int32(2**31 - 1)
 _BIG = 2**30
+
+# ranks of a bank stay below this: the tagged keys 2r+1 and the pad rank
+# must fit int32 (rank_compress_dense's rule)
+_RANK_LIMIT = 2**30
+# device bytes a bank value costs on mash_rank_bank's device route, an
+# upper estimate: the int64 bank, its sign-flipped copy, the sort's
+# values and int64 order with the radix sort's alternate buffers, the
+# cumulative count and the ranks
+_DEVICE_ROUTE_BYTES = 64
 
 # bytes of the [queries, bank, 2M] int32 transient of one
 # merged_inter_count_ref chunk (its scans hold a few such arrays)
@@ -77,20 +90,95 @@ def rank_compress(sketches: torch.Tensor) -> torch.Tensor:
     return ranks.view(N, S)
 
 
+def rank_compress_dense(sketches: torch.Tensor) -> torch.Tensor:
+    """int64 [N, S] sketch bank (u64 bit patterns) -> int32 ranks [N, S]
+    on its device: consecutive ranks 0..U-1 of the U distinct values,
+    rank_compress_host's np.unique inverse bit for bit. One stable sort of
+    the values with their sign bit flipped (signed order is unsigned
+    order), the starts of runs of equal values, their cumulative count
+    less one scattered back by the sort's order. Raises when U >=
+    _RANK_LIMIT (the tagged keys 2r+1 and the pad rank must stay in
+    int32): the host route's rule."""
+    N, S = sketches.shape
+    P = N * S
+    if P == 0:
+        return torch.empty((N, S), dtype=torch.int32,
+                           device=sketches.device)
+    flat = sketches.reshape(-1) ^ torch.iinfo(torch.int64).min
+    vals, order = torch.sort(flat, stable=True)
+    del flat
+    dense = torch.zeros(P, dtype=torch.int64, device=vals.device)
+    torch.cumsum(vals[1:] != vals[:-1], 0, out=dense[1:])
+    del vals
+    U = int(dense[-1]) + 1
+    if U >= _RANK_LIMIT:
+        raise ValueError(f"sketch bank of {N} x {S} holds {U} distinct "
+                         f"values: ranks take fewer than {_RANK_LIMIT}")
+    ranks = torch.empty(P, dtype=torch.int32, device=dense.device)
+    ranks[order] = dense.to(torch.int32)
+    return ranks.view(N, S)
+
+
+def _device_room(device: torch.device) -> int | None:
+    """Bytes the device route may take on `device`: the card's total less
+    what this process holds, so that the route depends on the run and not
+    on other processes on the card; None off the card (no limit)."""
+    if device.type != "cuda":
+        return None
+    total = torch.cuda.get_device_properties(device).total_memory
+    return total - torch.cuda.memory_allocated(device)
+
+
+def ingest_route(n: int, params, device: torch.device) -> tuple:
+    """("device" or "host", the reason) of mash_rank_bank for n
+    sequences, decided before any launch. The host route keeps the
+    checkpoints' bank on the host, and takes a bank whose device route
+    (the int64 bank, the sketch batches, rank_compress_dense's sort) would
+    not fit `_device_room`, reckoned from N x S."""
+    if params.save_sketches or params.load_sketches:
+        return "host", ("--save-sketches/--load-sketches keep the sketch "
+                        "bank on the host")
+    room = _device_room(device)
+    if room is None:
+        return "device", f"plain versions on {device}"
+    from dipper_tpu_torch.sketch.minhash import _BATCH_BYTES
+
+    need = n * params.sketch_size * _DEVICE_ROUTE_BYTES + _BATCH_BYTES
+    if need > room:
+        return "host", (f"the device route needs ~{need} bytes, the card "
+                        f"has {room} beside this process's tensors")
+    return "device", (f"~{need} bytes of the {room} beside this process's "
+                      "tensors")
+
+
 def mash_rank_bank(seqs, params, device, log=None) -> torch.Tensor:
-    """Host sketch bank (sketch/bank.py) -> host ranks -> one upload of
-    the padded int32 rank bank [N, M] to `device`: the ingest of
-    placement, D&C and --add. `log`, if given, receives the CLI's
-    "Sketch in" and "Rank bank in" lines."""
+    """The padded int32 rank bank [N, M] on `device`: the ingest of
+    placement, D&C and --add. The device route (ingest_route) sketches
+    with sketch/minhash.py on `device` (the kernel on the card, its plain
+    version on the CPU) and ranks with rank_compress_dense there; the
+    host route hashes with the native sketcher (or loads the bank), ranks
+    with np.unique and uploads once. Both give the same bytes. `log`, if
+    given, receives the route, and "Sketch in" and "Rank bank in", each
+    after a synchronize."""
     from dipper_tpu_torch.sketch.bank import get_sketch_bank
 
+    route, why = ingest_route(len(seqs), params, device)
+    if log:
+        log(f"Rank bank route: {route} ({why})")
     t0 = time.time()
-    sk = get_sketch_bank(seqs, params, device=device)
+    sk = get_sketch_bank(seqs, params, as_device=route == "device",
+                         device=device)
+    synchronize(device)
     if log:
         log(f"Sketch in: {int((time.time() - t0) * 1000)} ms")
     t0 = time.time()
-    ranks = torch.from_numpy(pad_ranks(rank_compress_host(np.asarray(sk))))
-    ranks = ranks.to(device)
+    if route == "device":
+        dense = rank_compress_dense(sk)
+        del sk
+        ranks = pad_ranks(dense)
+    else:
+        ranks = torch.from_numpy(pad_ranks(rank_compress_host(
+            np.asarray(sk)))).to(device)
     synchronize(device)
     if log:
         log(f"Rank bank in: {int((time.time() - t0) * 1000)} ms")

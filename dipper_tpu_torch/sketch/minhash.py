@@ -303,14 +303,13 @@ def _round_up(x: int, m: int) -> int:
 
 def _row_bytes(L: np.ndarray, k: int, sketch_size: int) -> np.ndarray:
     """Device bytes a row of length L costs in a batch (an upper bound):
-    packed words, the kernel's scratch (at most 3 x tiles x keep + 2 x
-    sketch_size u64, minhash_cuda.scratch_elems) and the output."""
-    from dipper_tpu_torch.sketch.minhash_cuda import TILE
+    packed words, the kernel's scratch (minhash_cuda.row_scratch_bound)
+    and the output."""
+    from dipper_tpu_torch.sketch.minhash_cuda import row_scratch_bound
 
     W = (np.maximum(L, k) + 15) // 16
-    tiles = (16 * W - k + 1 + TILE - 1) // TILE
-    keep = min(TILE, sketch_size)
-    return 4 * W + 8 * (3 * tiles * keep + 3 * sketch_size) + 12
+    return 4 * W + 8 * (row_scratch_bound(W, k, sketch_size)
+                        + sketch_size) + 12
 
 
 def sketch_sequences(seqs, k: int, sketch_size: int = 1000, *, device,

@@ -5,33 +5,47 @@ sketches, built from the repository's sources at first use (csrc/
 build.py). Its plain PyTorch version is sketch/minhash.py::
 sketch_batch_plain.
 
-One call launches stage (a), a block per tile of TILE windows of a row
-(hash, sort, keep the tile's bottom min(TILE, s)), and stage (b), the
-rounds that merge each row's tile lists pairwise until one is left.
+One call launches stage 1 and, where a row has more than one list, the
+rounds of stage 2 that merge each row's lists pairwise until one is
+left. For s <= SELECT_MAX_SKETCH stage 1 is the select kernel: a block
+walks a row's tiles of TILE windows (or a segment of them where the rows
+are too few to fill the card), keeps the hashes below a running
+threshold in shared memory, cuts them to about s by a histogram when the
+buffer fills, and at the end orders what is left (sketch/
+select_model.py models it). Larger s take the tile kernel: every tile of
+SORT_TILE windows sorted whole, its bottom min(SORT_TILE, s) kept.
+`plan` reckons which, as minhash::make_plan does.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from dipper_tpu_torch.csrc.build import check_launch, load
 
-# Kernel calls made by this process (one a batch: stage (a) and its merge
+# Kernel calls made by this process (one a batch: stage 1 and its merge
 # rounds); chip_smoke.py resets it and reads it to show that a run went
 # through the kernel.
 LAUNCHES = 0
 
-# windows a stage-(a) block hashes and sorts (minhash::kTile)
-TILE = 4096
-# the largest sketch size the kernel takes (minhash::kMaxSketch): it keeps
-# min(TILE, s) values a tile and merges through device memory, so no
-# shared-memory limit applies; the bound makes a mistyped -s fail before
-# any allocation
+# windows a select block hashes at once (minhash::kTile), and those a
+# block of the tile path sorts (minhash::kSortTile)
+TILE = 2048
+SORT_TILE = 4096
+# the largest sketch size the kernel takes (minhash::kMaxSketch); the
+# bound makes a mistyped -s fail before any allocation
 MAX_SKETCH_SIZE = 1 << 20
-# `stages` of the C entry point: both stages; stage (a) or (b) alone, and
-# stage (a) without its sort, for timing (chip_smoke.py)
+# the largest sketch size of the select path (minhash::kSelectMaxSketch)
+SELECT_MAX_SKETCH = 8192
+# rows fewer than FILL_BLOCKS are split into segments of at least
+# MIN_SEGMENT_TILES tiles (minhash::kFillBlocks, kMinSegmentTiles)
+FILL_BLOCKS = 4 * 132
+MIN_SEGMENT_TILES = 4
+# `stages` of the C entry point: both stages; stage 1 or 2 alone, and
+# stage 1's hashing alone, for timing (chip_smoke.py)
 STAGES_ALL, STAGE_TILES, STAGE_MERGE, STAGE_HASH_ONLY = 3, 1, 2, 5
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -39,29 +53,57 @@ _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
-def plan(n_words: int, k: int, sketch_size: int):
-    """(tiles a row, values kept a tile, [(lists, length) of each merge
-    round]) for rows of n_words packed words, as minhash::make_plan
-    reckons them."""
-    n_tiles = -(-(16 * n_words - k + 1) // TILE)
-    keep = min(TILE, sketch_size)
-    rounds, n, length = [], n_tiles, keep
+def n_lists(n_rows: int, n_words, k: int, sketch_size: int) -> np.ndarray:
+    """Lists a row that stage 1 writes, for rows of n_words packed words
+    (a numpy array of widths gives one count each): on the select path
+    one, or segments of at least MIN_SEGMENT_TILES tiles where fewer than
+    FILL_BLOCKS rows would leave the card idle; else one a SORT_TILE."""
+    windows = 16 * np.asarray(n_words, dtype=np.int64) - k + 1
+    if sketch_size > SELECT_MAX_SKETCH:
+        return -(-windows // SORT_TILE)
+    tiles = -(-windows // TILE)
+    if n_rows >= FILL_BLOCKS:
+        return np.ones_like(tiles)
+    want = -(-FILL_BLOCKS // n_rows)
+    return np.maximum(1, np.minimum(want, tiles // MIN_SEGMENT_TILES))
+
+
+def plan(n_rows: int, n_words: int, k: int, sketch_size: int):
+    """(select path, lists a row, values a list, [(lists, length) of each
+    merge round]) for n_rows rows of n_words packed words, as
+    minhash::make_plan reckons them."""
+    select = sketch_size <= SELECT_MAX_SKETCH
+    lists = int(n_lists(n_rows, n_words, k, sketch_size))
+    keep = sketch_size if select else min(SORT_TILE, sketch_size)
+    rounds, n, length = [], lists, keep
     while n > 1:
         n, length = (n + 1) // 2, min(2 * length, sketch_size)
         rounds.append((n, length))
-    return n_tiles, keep, rounds
+    return select, lists, keep, rounds
 
 
 def scratch_elems(n_rows: int, n_words: int, k: int,
                   sketch_size: int) -> int:
-    """u64 scratch of one call: the tile lists and two ping-pong buffers
+    """u64 scratch of one call: stage 1's lists and two ping-pong buffers
     for the merge rounds before the last (which writes the output); none
-    when a row is one tile."""
-    n_tiles, keep, rounds = plan(n_words, k, sketch_size)
-    if n_tiles == 1:
+    when a row is one list."""
+    _, lists, keep, rounds = plan(n_rows, n_words, k, sketch_size)
+    if lists == 1:
         return 0
     ping = max((n * length for n, length in rounds[:-1]), default=0)
-    return n_rows * (n_tiles * keep + 2 * ping)
+    return n_rows * (lists * keep + 2 * ping)
+
+
+def row_scratch_bound(n_words: np.ndarray, k: int,
+                      sketch_size: int) -> np.ndarray:
+    """An upper bound of scratch_elems(B, W, ...) / B over every batch
+    size B, for each W of `n_words`: a lone row has the most segments,
+    and a round of n lists of length len holds at most (n + 1) / 2 lists
+    of min(2 len, s), below lists x keep + 2 s."""
+    lists = n_lists(1, n_words, k, sketch_size)
+    keep = (sketch_size if sketch_size <= SELECT_MAX_SKETCH
+            else min(SORT_TILE, sketch_size))
+    return np.where(lists > 1, 3 * lists * keep + 4 * sketch_size, 0)
 
 
 def minhash_sketch_cuda(words: torch.Tensor, lengths: torch.Tensor, *,
@@ -76,7 +118,7 @@ def minhash_sketch_cuda(words: torch.Tensor, lengths: torch.Tensor, *,
     synchronizing; raises before the launch on inputs the kernel does
     not take and after it on a launch error. `stages`, `scratch` and
     `out` serve the smoke's stage timing: a later call with STAGE_MERGE
-    reads the tile lists an earlier STAGE_TILES call left in `scratch`."""
+    reads the lists an earlier STAGE_TILES call left in `scratch`."""
     global LAUNCHES
     if words.device.type != "cuda":
         raise ValueError(f"words must be a CUDA tensor, got {words.device}")

@@ -1,10 +1,12 @@
 """ctypes bindings for the native host sketcher (native/sketchnat.cpp).
 
 Builds native/libsketchnat.so at first use (utils/native_lib.py). The
-ingest of placement, D&C and --add hashes here, rank-compresses the u64
-bank with np.unique and uploads the int32 ranks once; where this library
-cannot be loaded, `sketch.bank.get_sketch_bank` sketches with the device
-sketcher (sketch/minhash.py) instead.
+host route of the ingest hashes here (--save-sketches, and placement,
+D&C and --add where the device route would not fit the card:
+distance/mash.py::ingest_route), rank-compresses the u64 bank with
+np.unique and uploads the int32 ranks once; where this library cannot be
+loaded, `sketch.bank.get_sketch_bank` sketches with the device sketcher
+(sketch/minhash.py) instead.
 """
 
 from __future__ import annotations

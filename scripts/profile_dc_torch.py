@@ -19,6 +19,14 @@ host syncs per phase-3 step, nRF vs the true tree), and the kernel's
 launches (the total, the widest bucket's, the sums of both times beside
 the sum of bounds). The card's name and power limit go first. Needs
 CUDA.
+
+    python3 scripts/profile_dc_torch.py --n 30000 --parent build/parent
+
+compares this checkout with an earlier one (`git archive <commit>`
+unpacked at build/parent) on one card instead: the CLI with -m 3 on the
+same set in child processes, in turns parent, this, this, parent, each
+checkout's kernels and host libraries built before the first turn;
+a JSON line a turn (phase times, wall seconds, nRF vs the true tree).
 """
 
 from __future__ import annotations
@@ -47,6 +55,9 @@ def main() -> int:
     ap.add_argument("--out", default=None,
                     help="directory for the tree and the CLI log (default: "
                          "a temporary one)")
+    ap.add_argument("--parent", default=None,
+                    help="an earlier checkout to time in turns with this "
+                         "one (child processes, no kernel profile)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_dc_torch: CUDA is not available", file=sys.stderr)
@@ -70,6 +81,8 @@ def main() -> int:
                                        seed=1)
         emit({"dataset": {"n": args.n, "L": 10000, "seed": 1,
                           "gen_s": time.time() - t0}})
+        if args.parent:
+            return turns(args.parent, fa, true_nwk, out_dir, args.n)
         calls = []
         kernel = mash_cuda.mash_cluster_inter_cuda
 
@@ -129,6 +142,45 @@ def main() -> int:
             "sum_bound_ms": bound,
             "share_of_bound": bound / kms if kms else None,
             "widest_bucket": widest, "by_launch": launches}})
+    return 0
+
+
+def turns(parent: str, fa: str, true_nwk: str, out_dir: str, n: int) -> int:
+    """-m 3 on `fa` by the CLI of `parent` and of this checkout, each in a
+    child process, in turns parent, this, this, parent."""
+    import chip_smoke as cs
+    from dipper_tpu_torch.utils.treecmp import rf_distance
+
+    roots = {"parent": os.path.abspath(parent), "this": REPO}
+    out_dir = os.path.abspath(out_dir)  # the children run in their roots
+    prep = ("from dipper_tpu_torch.csrc.build import build_all; build_all()"
+            "\nfrom dipper_tpu_torch.utils.native_lib import native_library"
+            "\nfor n in ('fastio', 'sketchnat', 'newick'):"
+            "\n    native_library(f'lib{n}.so', f'{n}.cpp')")
+    for who, root in roots.items():
+        env = dict(os.environ, PYTHONPATH=root)
+        subprocess.run([sys.executable, "-c", prep], cwd=root, env=env,
+                       check=True, timeout=900)
+    for i, who in enumerate(("parent", "this", "this", "parent")):
+        root = roots[who]
+        out = os.path.join(out_dir, f"dc{n}.{who}.{i}.nwk")
+        t0 = time.time()
+        run = subprocess.run(
+            [sys.executable, "-m", "dipper_tpu_torch.cli", "-i", "r", "-I",
+             fa, "-O", out, "-m", "3"], cwd=root,
+            env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+            text=True, timeout=1800)
+        wall = time.time() - t0
+        with open(os.path.join(out_dir, f"dc{n}.{who}.{i}.log"), "w") as f:
+            f.write(run.stderr)
+        if run.returncode != 0:
+            print(f"profile_dc_torch: {who}'s CLI returned "
+                  f"{run.returncode}", file=sys.stderr)
+            return 1
+        rf, nrf = rf_distance(open(out).read(), open(true_nwk).read())
+        emit({"turn": i, "checkout": who, "n": n,
+              **cs._dc_log(run.stderr), "process_wall_s": wall, "rf": rf,
+              "nrf_vs_true": nrf})
     return 0
 
 

@@ -834,6 +834,70 @@ def test_sketch_launches_count_one_a_batch(cuda, monkeypatch):
     assert np.array_equal(got, sketch_sequences_native(seqs, 15, 1000))
 
 
+def _select_case_rows(case: str):
+    """The select path's adversarial rows (k = 15): one 200 kb row (split
+    into segments), rows shorter than k beside normal ones, poly-A rows
+    (every window one hash) and a 4-periodic one, one 10 kb row."""
+    rng = np.random.default_rng(31)
+
+    def acgt(L):
+        return bytes(rng.choice(list(b"ACGT"), L).astype(np.uint8))
+
+    return {"row_200kb": lambda: [acgt(200_000)],
+            "short_rows": lambda: [b"", acgt(7), acgt(14), acgt(15),
+                                   acgt(10_000)],
+            "poly_a": lambda: [b"A" * 10_000, b"A" * 4111,
+                               b"ACGT" * 2500],
+            "b1": lambda: [acgt(10_000)]}[case]()
+
+
+@pytest.mark.parametrize("ss", [1, 1000, 1024, 1 << 20])
+@pytest.mark.parametrize("case", ["row_200kb", "short_rows", "poly_a",
+                                  "b1"])
+def test_sketch_kernel_select_cases(cuda, case, ss):
+    """The kernel (select path below s = 8,193, the tile path above)
+    against the plain version on the card, bitwise, on one batch."""
+    from dipper_tpu_torch.io.encode import encode_2bit_codes
+    from dipper_tpu_torch.sketch import minhash, minhash_cuda
+
+    seqs = _select_case_rows(case)
+    codes = np.zeros((len(seqs), max(15, max(map(len, seqs)))), np.uint8)
+    for i, s in enumerate(seqs):
+        codes[i, :len(s)] = encode_2bit_codes(s)
+    words = minhash.pack_codes(torch.from_numpy(codes).to(cuda))
+    lens = torch.tensor([len(s) for s in seqs], dtype=torch.int32,
+                        device=cuda)
+    before = minhash_cuda.LAUNCHES
+    got = minhash_cuda.minhash_sketch_cuda(words, lens, k=15,
+                                           sketch_size=ss)
+    torch.cuda.synchronize()
+    assert minhash_cuda.LAUNCHES == before + 1
+    want = minhash.sketch_batch_plain(words, lens, k=15, sketch_size=ss)
+    assert torch.equal(got, want)
+
+
+def test_device_route_rank_bank_equals_host(cuda, tmp_path):
+    """mash_rank_bank's device route (the kernel, rank_compress_dense) on
+    the card gives the padded rank bank of the host route (native
+    sketcher, np.unique; forced by --save-sketches) and of the device
+    route on the CPU, byte for byte, on 2,048 rows."""
+    from dipper_tpu_torch.sketch import minhash_cuda
+    from dipper_tpu_torch.utils.params import Param
+
+    _, seqs = simulate_unaligned(2048, 3000, np.random.default_rng(14))
+    lines = []
+    before = minhash_cuda.LAUNCHES
+    got = tm.mash_rank_bank(seqs, Param(), cuda, log=lines.append)
+    assert minhash_cuda.LAUNCHES > before
+    assert got.device.type == "cuda"
+    assert any(ln.startswith("Rank bank route: device") for ln in lines)
+    host = tm.mash_rank_bank(
+        seqs, Param(save_sketches=str(tmp_path / "sk.npz")), cuda)
+    cpu = tm.mash_rank_bank(seqs, Param(), torch.device("cpu"))
+    assert torch.equal(got, host)
+    assert torch.equal(got.cpu(), cpu)
+
+
 def test_rank_compress_cuda_equals_cpu(cuda):
     from dipper_tpu_torch.sketch import minhash
 

@@ -83,4 +83,10 @@ assert not any(m == "jax" or m.startswith(("jax.", "dipper_tpu."))
                or m == "dipper_tpu" for m in sys.modules), \
     "a rank imported JAX or the JAX package"
 np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
+dist.barrier()
 dist.destroy_process_group()
+# leave without the interpreter's teardown, in which a c10d thread still
+# joinable at times aborted a rank that had finished its work
+sys.stdout.flush()
+sys.stderr.flush()
+os._exit(0)
