@@ -78,9 +78,16 @@ the process; phases 20 to 22 run in processes of their own):
      the card (-i r -o d), and -i r -o d of its first 512 on both devices
      (device sketcher, device ranks and kernel 2 on the card, their plain
      versions on the CPU: the same PHYLIP bytes), then -i d -m 2 on both
-     devices in f32 and f64, nRF = 0 required; then one NJ on the card under torch.profiler
-     (launches per merge step, device busy time), and the launches,
-     copies and syncs of one scorer call, kernel and plain;
+     devices in f32 and f64, nRF = 0 required; NJ of the matrix on the
+     card by the kernel route (csrc/nj_q_argmin.cu, csrc/nj_update.cu)
+     and by the plain route (merge_step_plain every step): equal join
+     ids, f32 branch lengths byte for byte, f64 within 1e-12 relative;
+     then one NJ on the card under torch.profiler (launches per merge
+     step, device busy time), and its first merge steps under
+     sync_debug_mode "error" and under the profiler in windows of 100 and
+     200 steps (per step, from their difference: at most 3 kernel
+     launches, 2 of them NJ's, no sync, no copy); and the
+     launches, copies and syncs of one scorer call, kernel and plain;
   5. the placement main path: scripts/make_dataset.py's generator (seed
      1, L=10,000) and the CLI with default flags, which take k-closest
      placement at N >= 30,000; requires rc 0, a complete Newick, launches
@@ -140,6 +147,13 @@ the process; phases 20 to 22 run in processes of their own):
      the host route's (native sketches, np.unique ranks), and nRF vs the
      true tree < 0.45 (at N = 20,000 the value of every earlier smoke,
      NJ_NRF_20K); "Sketch in" and "Rank bank in" beside the host route's;
+     one launch of each NJ kernel a merge step (19,998 at 20,000); the
+     Newick of the plain route on the card (merge_step_plain every step,
+     on the run's matrix) equal byte for byte to the CLI's; kernel A timed
+     at n = 20,000, 10,000 and 2,048 (NJ_TIMED_N) by CUDA events, its
+     flat index equal to the plain version's, beside the plain Q pass,
+     torch.argmin of an [n, n] tensor in memory and its bound; kernel B at
+     20,000 equal to the plain step bit for bit, timed beside it;
   24. the sketch kernel (csrc/minhash_sketch.cu) against its plain
      version on the card and the native host sketcher, equal bits
      required throughout: phase 5's set (every row against the native
@@ -179,8 +193,9 @@ the process; phases 20 to 22 run in processes of their own):
      this product to its compiler too) beside its bound, and of its
      formulas;
   11. the -i m main path: the CLI with default flags on that alignment
-     (auto mode takes NJ, -d 1); requires rc 0, a complete Newick and nRF
-     vs the true tree under MSA_NJ_NRF_LIMIT;
+     (auto mode takes NJ, -d 1); requires rc 0, a complete Newick, one
+     launch of each NJ kernel a merge step and nRF vs the true tree under
+     MSA_NJ_NRF_LIMIT;
   12. -i m -m 1 on the alignment's first 8,192 sequences: one score_edges
      and one insert_step launch per insertion, nRF vs the true tree
      restricted to them under MSA_PLACE_NRF_LIMIT;
@@ -208,8 +223,10 @@ the process; phases 20 to 22 run in processes of their own):
      --coordinator 127.0.0.1:P --num-processes 2 --process-id r --devices
      2 -m 2 on phase 9's set: the Newick byte-equal to phase 9's; each
      rank's backend, time to tree, ms per merge step and host syncs per
-     step; every distance-kernel and sketch-kernel launch of each rank
-     sampled against the plain version (each rank sketches on the card);
+     step, one launch of each NJ kernel a merge step on each rank (kernel
+     A over the rank's rows); every distance-kernel and sketch-kernel
+     launch of each rank sampled against the plain version (each rank
+     sketches on the card);
   21. two ranks on the one card, D&C: the same with -m 3 on phase 5's set:
      byte-equal to phase 16's tree; each rank's phase times; kernels 1, 2,
      3 and 4 sampled on each rank's launches;
@@ -234,7 +251,8 @@ Every kernel counter is set to 0 just before a main path (phases 5, 16,
 9, 11, 12, 14, and in each rank of 20, 21 and 22) and read just after it;
 `launches` in the kernels' record is the count of phases 5 (placement;
 insert_step's counts both its entry points; the sketch kernel's), 16
-(D&C: the per-cluster count kernel) and 9 (NJ), `launches_by_path` has
+(D&C: the per-cluster count kernel) and 9 (NJ: the distance kernel and
+NJ's two), `launches_by_path` has
 every path's (one count a rank for the multi-rank paths), and
 score_edges's `range_launches` the sharded placement's range launches.
 
@@ -279,6 +297,10 @@ KERNELS = {
     "insert_step": ("dipper_tpu_torch/csrc/insert_step.cu",
                     "dipper_tpu/placement/kclosest.py:857 (XLA program, no "
                     "Pallas)"),
+    "nj_q_argmin": ("dipper_tpu_torch/csrc/nj_q_argmin.cu",
+                    "dipper_tpu/nj/engine.py:35 (XLA program, no Pallas)"),
+    "nj_update": ("dipper_tpu_torch/csrc/nj_update.cu",
+                  "dipper_tpu/nj/engine.py:35 (XLA program, no Pallas)"),
 }
 NRF_LIMIT = 0.35
 # nRF vs the true tree of the full-size sets (seed 1) in every smoke so
@@ -334,6 +356,13 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_PER_S = 132 * 64 * 1.98e9
 # dense int8 rate of the tensor cores (the MSA pair-count product)
 PEAK_INT8_PER_S = 1979e12
+# float32 rate outside the tensor cores without FMA: 132 multiprocessors
+# x 128 lanes x 1.98 GHz, one operation a lane a clock (NJ's Q: two
+# subtractions and a compare an element)
+PEAK_F32_PER_S = 132 * 128 * 1.98e9
+# NJ's kernel A is timed at these active counts (the main path's first
+# step, half of it, and phase 8's size)
+NJ_TIMED_N = (20000, 10000, 2048)
 # integer operations of one step of the mash walk: a compare, a pointer
 # advance, two counter updates
 OPS_PER_WALK_STEP = 4
@@ -1796,6 +1825,7 @@ def _ms(pattern: str, text: str) -> float | None:
 def reset_counts() -> None:
     """Every kernel counter to 0 (just before a main path)."""
     from dipper_tpu_torch.distance import mash_cuda
+    from dipper_tpu_torch.nj import nj_cuda
     from dipper_tpu_torch.placement import insert_cuda, kclosest
     from dipper_tpu_torch.sketch import minhash_cuda
 
@@ -1809,6 +1839,8 @@ def reset_counts() -> None:
     insert_cuda.CLOSEST_BFS_LAUNCHES = 0
     insert_cuda.GRAPH_CAPTURES = 0
     insert_cuda.GRAPH_REPLAYS = 0
+    nj_cuda.Q_ARGMIN_LAUNCHES = 0
+    nj_cuda.UPDATE_LAUNCHES = 0
 
 
 def read_counts() -> dict:
@@ -1817,6 +1849,7 @@ def read_counts() -> dict:
     the BFS alone's; and the CUDA graphs of the cursor route captured and
     replayed."""
     from dipper_tpu_torch.distance import mash_cuda
+    from dipper_tpu_torch.nj import nj_cuda
     from dipper_tpu_torch.placement import insert_cuda, kclosest
     from dipper_tpu_torch.sketch import minhash_cuda
 
@@ -1830,7 +1863,9 @@ def read_counts() -> dict:
                             + insert_cuda.CLOSEST_BFS_LAUNCHES),
             "insert_step.closest_bfs": insert_cuda.CLOSEST_BFS_LAUNCHES,
             "graph_captures": insert_cuda.GRAPH_CAPTURES,
-            "graph_replays": insert_cuda.GRAPH_REPLAYS}
+            "graph_replays": insert_cuda.GRAPH_REPLAYS,
+            "nj_q_argmin": nj_cuda.Q_ARGMIN_LAUNCHES,
+            "nj_update": nj_cuda.UPDATE_LAUNCHES}
 
 
 class SketchSampler:
@@ -2152,12 +2187,13 @@ def phase_nj_gpu_vs_cpu(tmp: str, n: int = 2048) -> dict:
               f"(nRF {nrf})")
         res[prec] = {"rf": rf, "nrf": nrf, "nj_ms": nj_ms,
                      "newick_identical": outs["cuda"] == outs["cpu"]}
+    _, D = read_phylip_lower_triangular(phy)
+    res["kernel_vs_plain"] = nj_routes_on_card(D)
     # one NJ on the card under the profiler: launches per merge step and
     # the device's busy share
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    _, D = read_phylip_lower_triangular(phy)
     neighbor_joining(D[:256, :256], dtype_name="float32", device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2172,14 +2208,157 @@ def phase_nj_gpu_vs_cpu(tmp: str, n: int = 2048) -> dict:
     launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
     res["profiled_f32"] = {
         "wall_ms_under_profiler": wall_ms, "device_busy_ms": busy_ms,
+        "device_busy_share_of_profiled_wall": busy_ms / wall_ms,
         "device_busy_share_of_unprofiled_cuda_run":
             busy_ms / res["f32"]["nj_ms"]["cuda"],
         "kernel_launches_per_step": launches / (n - 2),
         "device_ops_per_step": sum(e.count for e in on_dev) / (n - 2),
+        "nj_kernel_records_per_step": sum(
+            e.count for e in on_dev if "q_argmin_kernel" in e.key
+            or "update_kernel" in e.key) / (n - 2),
+        "syncs": {k: v for k, v in ((e.key, e.count) for e in ka)
+                  if "Synchronize" in k},
         "top_device_ops": sorted(
             ((e.key, e.self_device_time_total / 1e3) for e in on_dev),
             key=lambda kv: -kv[1])[:8]}
+    res["profiled_window"] = nj_window_profiled(D)
     emit({"phase": "nj_gpu_vs_cpu", "n": n, **res})
+    return res
+
+
+def _joins(children) -> list:
+    return [[c for c, _ in ch] for ch in children]
+
+
+def _lengths(children) -> np.ndarray:
+    return np.array([bl for ch in children for _, bl in ch])
+
+
+def nj_routes_on_card(D) -> dict:
+    """NJ of D on the card by the kernel route (neighbor_joining) and by
+    the plain route (neighbor_joining_plain, merge_step_plain every step),
+    in f32 and f64: equal join ids; f32 branch lengths byte for byte, f64
+    within 1e-12 relative (U[x]'s f64 sum order is each route's own)."""
+    from dipper_tpu_torch.nj import (neighbor_joining,
+                                     neighbor_joining_plain)
+
+    out = {}
+    for prec, dt in (("f32", "float32"), ("f64", "float64")):
+        rec, trees = {}, {}
+        for route, fn in (("kernel", neighbor_joining),
+                          ("plain", neighbor_joining_plain)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trees[route] = fn(D, dtype_name=dt, device="cuda")
+            rec[f"{route}_s"] = time.perf_counter() - t0
+        got, want = trees["kernel"], trees["plain"]
+        check(got[1] == want[1] and _joins(got[0]) == _joins(want[0]),
+              f"NJ {prec} on the card: the kernel route's joins != the "
+              "plain route's")
+        gl, wl = _lengths(got[0]), _lengths(want[0])
+        rel = float(np.max(np.abs(gl - wl) / np.maximum(np.abs(wl),
+                                                        1e-300)))
+        if prec == "f32":
+            check(np.array_equal(gl, wl), "NJ f32 on the card: the kernel "
+                  f"route's branch lengths != the plain route's (max rel "
+                  f"{rel})")
+        else:
+            check(rel <= 1e-12, f"NJ f64 on the card: branch lengths "
+                  f"{rel} relative off the plain route's")
+        out[prec] = {**rec, "joins_equal": True, "max_rel_err": rel}
+    return out
+
+
+def nj_window_profiled(D, steps: tuple = (100, 200)) -> dict:
+    """The first merge steps of an NJ of D (f32, no U recompute among
+    them) by the kernel route: under sync_debug_mode "error", then under
+    torch.profiler in windows of steps[0] and steps[1] steps (each from
+    a fresh state). Per step, from the difference of the two windows (so
+    that the profiler's own syncs and the window's final synchronize
+    cancel): the host's kernel launches (cudaLaunchKernel, every kernel
+    of the process), NJ's launches (the wrapper's counts), syncs and
+    copies; at most 3 launches, 2 of them NJ's, no sync, no copy. The
+    card's kernel records are reported beside them: CUPTI drops a few
+    of them in a run, so they are no count to check."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dipper_tpu_torch.nj import engine, nj_cuda
+
+    N = D.shape[0]
+    check(not any(engine._recomputes_u(N - s, N)
+                  for s in range(max(steps) + 1)),
+          "the profiled NJ window holds a U recompute")
+
+    def fresh():
+        st = engine._State(D, "float32", torch.device("cuda"), None)
+        k = engine._stepper(st)
+        engine._merge_step_kernels(k, st, 0, None)
+        torch.cuda.synchronize()
+        return st, k
+
+    st, k = fresh()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for s in range(1, max(steps) + 1):
+            engine._merge_step_kernels(k, st, s, None)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    win = {}
+    for w in steps:
+        st, k = fresh()
+        c0 = nj_cuda.Q_ARGMIN_LAUNCHES + nj_cuda.UPDATE_LAUNCHES
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for s in range(1, w + 1):
+                engine._merge_step_kernels(k, st, s, None)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        nj = nj_cuda.Q_ARGMIN_LAUNCHES + nj_cuda.UPDATE_LAUNCHES - c0
+        ka = prof.key_averages()
+        count = {e.key: e.count for e in ka}
+        on_dev = [e for e in ka if e.device_type != DeviceType.CPU]
+        win[w] = {
+            "host_launches": count.get("cudaLaunchKernel", 0),
+            "nj_launches": nj,
+            "card_kernel_records": sum(e.count for e in on_dev),
+            "card_nj_kernel_records": sum(
+                e.count for e in on_dev if "q_argmin_kernel" in e.key
+                or "update_kernel" in e.key),
+            "syncs": {k2: v for k2, v in count.items()
+                      if "Synchronize" in k2},
+            "memcpys": count.get("cudaMemcpyAsync", 0),
+            "device_busy_ms": sum(e.self_device_time_total
+                                  for e in on_dev) / 1e3,
+            "wall_ms_under_profiler": wall_ms}
+    a, b = (win[w] for w in steps)
+    d = steps[1] - steps[0]
+    res = {"windows": win, "n_first": N - 1,
+           "host_launches_per_step":
+               (b["host_launches"] - a["host_launches"]) / d,
+           "nj_launches_per_step": (b["nj_launches"] - a["nj_launches"]) / d,
+           "card_kernel_records_per_step":
+               (b["card_kernel_records"] - a["card_kernel_records"]) / d,
+           "syncs_per_step": (sum(b["syncs"].values())
+                              - sum(a["syncs"].values())) / d,
+           "memcpys_per_step": (b["memcpys"] - a["memcpys"]) / d,
+           "device_busy_ms_per_step":
+               (b["device_busy_ms"] - a["device_busy_ms"]) / d,
+           "wall_ms_per_step_under_profiler":
+               (b["wall_ms_under_profiler"] - a["wall_ms_under_profiler"])
+               / d,
+           "no_sync_under_sync_debug_error": True}
+    res["device_busy_share"] = (res["device_busy_ms_per_step"]
+                                / res["wall_ms_per_step_under_profiler"])
+    check(res["nj_launches_per_step"] == 2.0
+          and res["host_launches_per_step"] <= 3.0,
+          f"NJ merge steps launched {res['host_launches_per_step']} kernels "
+          f"a step ({res['nj_launches_per_step']} of them NJ's)")
+    check(res["syncs_per_step"] == 0 and res["memcpys_per_step"] == 0,
+          f"NJ merge steps synced {res['syncs_per_step']} and copied "
+          f"{res['memcpys_per_step']} times a step ({win})")
     return res
 
 
@@ -2333,6 +2512,7 @@ def phase_nj_main_path(tmp: str, n: int) -> dict:
 
     check(rc == 0, f"NJ main path CLI returned {rc}")
     check("Using conventional NJ" in log, "auto mode did not take NJ")
+    check_nj_launches("NJ main path", counts, n)
     check(counts["mash_rows_dist"] > 0,
           "the NJ main path launched no mash_rows_dist kernel")
     # the NJ matrix's ingest is the device sketcher's, as in the JAX package
@@ -2387,12 +2567,24 @@ def phase_nj_main_path(tmp: str, n: int) -> dict:
     from dipper_tpu_torch.driver import _load_sequences
     from dipper_tpu_torch.utils.params import Param
 
-    _, seqs = _load_sequences(Param(), fa)
+    names, seqs = _load_sequences(Param(), fa)
     D_host = mash.mash_distance_matrix(ranks_of(seqs, k, s), k, s, "float32",
                                        torch.device("cuda"))
     check(torch.equal(D, D_host), "the NJ matrix from the device sketcher "
           "!= the host route's")
     del D_host, seqs
+    # the plain route (merge_step_plain every step) on the card: the same
+    # Newick bytes as the CLI's kernel route
+    from dipper_tpu_torch.nj import neighbor_joining_plain, nj_tree_newick
+
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    plain_nwk = nj_tree_newick(*neighbor_joining_plain(
+        D, dtype_name="float32", device="cuda"), names)
+    plain_s = time.perf_counter() - t1
+    check(plain_nwk == open(out).read().strip(), "NJ main path: the plain "
+          "route's Newick on the card != the kernel route's")
+    nj_times = nj_kernel_times(D)
     emit({"phase": "main_path", "path": "nj", "n": n, "L": 10000, "k": k,
           "s": s, "precision": "f32", "dataset_gen_s": gen_s,
           "phases_ms": {
@@ -2405,12 +2597,93 @@ def phase_nj_main_path(tmp: str, n: int) -> dict:
               "total_wall": wall * 1e3},
           "host_route_ms_before": HOST_ROUTE_NJ_20K_MS,
           "matrix_equal_host_route": True,
+          "plain_route_nj_s": plain_s, "plain_route_newick_equal": True,
+          "nj_kernel_times": nj_times,
           "kernel_launches": counts, "kernel_calls": checked,
           "max_memory_allocated": peak,
           "rf": rf, "nrf_vs_true": nrf, "nrf_limit": NJ_NRF_LIMIT})
     return {"counts": counts, "max_abs_err": worst, "fa": fa,
-            "true_nwk": true_nwk, "out": out,
+            "true_nwk": true_nwk, "out": out, "nj_times": nj_times,
             "tree_created_ms": _ms(r"Tree Created in: (\d+) ms", log)}
+
+
+def check_nj_launches(tag: str, counts: dict, n: int) -> None:
+    """An NJ of n taxa ran every merge step through both kernels."""
+    for name in ("nj_q_argmin", "nj_update"):
+        check(counts[name] == n - 2, f"{tag}: {counts[name]} {name} "
+              f"launches for {n - 2} merge steps")
+
+
+def nj_kernel_times(D: torch.Tensor, reps: int = 20) -> dict:
+    """NJ's kernels at the main path's sizes, on a copy of its f32 matrix
+    D with U its row sums: kernel A (nj_q_argmin over the whole active
+    block) at each n of NJ_TIMED_N, its flat index equal to the plain
+    version's (the Q pass and torch.argmin), by CUDA events beside the
+    plain version, torch.argmin of an [n, n] tensor already in memory
+    (one library read of the same bytes) and its bound; kernel B
+    (nj_update) at the largest n on the pair kernel A chose, bit for bit
+    against _update_plain on a second copy, then timed (each launch
+    rewrites the same rows and columns) beside _update_plain."""
+    from dipper_tpu_torch.nj import engine
+
+    dev = D.device
+    N = D.shape[0]
+    st = engine._State(D, "float32", dev, None)
+    k = engine._stepper(st)
+    res = {"q_argmin": {}, "update": {}}
+    for n in sorted((m for m in NJ_TIMED_N if m <= N), reverse=True):
+        st.U[:n] = engine._sum_last(st.D[:n, :n])
+        Dv = st.D[:n, :n]
+        Un = st.U[:n] / st.denom[n]
+        qbuf = st.q_buffer()
+        k.q_argmin(n)
+        want = engine._argmin_plain(Dv, Un, qbuf, st.big)
+        check(torch.equal(k.flat, want), f"kernel A at n = {n}: flat "
+              f"{int(k.flat)} != the plain version's {int(want)}")
+        ms = event_ms(lambda: k.q_argmin(n), reps)
+        plain_ms = event_ms(lambda: engine._argmin_plain(Dv, Un, qbuf,
+                                                         st.big), reps)
+        Dn = Dv.contiguous()
+        lib_ms = event_ms(lambda: torch.argmin(Dn), reps)
+        del Dn
+        res["q_argmin"][n] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "max_abs_err": 0.0,
+            **bound_of(3.0 * n * n, 4.0 * n * n + 8.0 * n + 8,
+                       PEAK_F32_PER_S)}
+        res["q_argmin"][n]["share_of_bound"] = (
+            res["q_argmin"][n]["bound_ms"] / ms)
+    n = max(res["q_argmin"])
+    step = N - n
+    st.U[:n] = engine._sum_last(st.D[:n, :n])
+    k.q_argmin(n)
+    flat = k.flat.clone()
+    twin = engine._State(st.D, "float32", dev, None)
+    twin.U.copy_(st.U)
+    k.update(step, n, flat)
+    engine._update_plain(twin, step, flat)
+    torch.cuda.synchronize()
+    err = max(float((st.D - twin.D).abs().max()),
+              float((st.U - twin.U).abs().max()))
+    for name in ("D", "U", "real"):
+        check(torch.equal(getattr(st, name), getattr(twin, name)),
+              f"kernel B at n = {n}: {name} != the plain step's (max abs "
+              f"err {err})")
+    for name in ("log_ids", "log_bl"):
+        check(torch.equal(getattr(st, name)[step], getattr(twin, name)[step]),
+              f"kernel B at n = {n}: the log row != the plain step's")
+    ms = event_ms(lambda: k.update(step, n, flat), reps)
+    plain_ms = event_ms(lambda: engine._update_plain(twin, step, flat), reps)
+    res["update"][n] = {
+        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        "max_abs_err": err,
+        # read rows x, y and last and U; write rows and columns x and y
+        # and U
+        **bound_of(6.0 * n, 4.0 * (9 * n) + 8.0, PEAK_F32_PER_S)}
+    res["update"][n]["share_of_bound"] = res["update"][n]["bound_ms"] / ms
+    del st, twin, k
+    torch.cuda.empty_cache()
+    return res
 
 
 def restricted_rf(nwk: str, true_nwk: str) -> tuple:
@@ -2585,6 +2858,7 @@ def phase_msa_nj_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"-i m main path CLI returned {rc}")
     check("Using conventional NJ" in log, "auto mode did not take NJ")
+    check_nj_launches("-i m main path", counts, n)
     check(len(matrices) == 1, "the -i m main path built no MSA matrix")
     D = matrices[0]
     check(D.shape == (n, n) and D.dtype == torch.float32
@@ -3612,6 +3886,7 @@ def phase_nj_two_ranks(tmp: str, nj: dict) -> dict:
         for name in ("mash_rows_dist", "minhash_sketch"):
             check(got["counts"][name] > 0,
                   f"NJ rank {r} launched no {name} kernel")
+        check_nj_launches(f"NJ rank {r}", got["counts"], nj["n"])
         _check_samples("nj2", r, got["samples"],
                        ("mash_rows_dist", "minhash_sketch"))
         m = re.search(r"NJ sharded over 2 ranks \((\w+)\): (\d+) merge steps, "
@@ -4385,6 +4660,19 @@ def main() -> int:
                                     res["max_abs_err"])
             records["minhash_sketch"].setdefault(
                 "launches", res["counts"]["minhash_sketch"])
+            # NJ's kernels: their launches on this path, their times at
+            # its sizes (kernel A at NJ_TIMED_N, the largest in the keys)
+            for name, key in (("nj_q_argmin", "q_argmin"),
+                              ("nj_update", "update")):
+                times = res["nj_times"][key]
+                top = times[max(times)]
+                records[name].update(
+                    launches=res["counts"][name], n=max(times),
+                    times_by_n=times,
+                    **{f: top[f] for f in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms",
+                                           "max_abs_err",
+                                           "share_of_bound")})
         if 24 in phases:
             nj_fa = (nj_single["fa"] if 9 in phases else make_dataset(
                 args.nj_n, os.path.join(tmp, f"n{args.nj_n}"), seed=1)[0])
@@ -4413,7 +4701,9 @@ def main() -> int:
         if 13 in phases:
             phase_exact(tmp, msa_fa, min(512, args.msa_n))
         if 8 in phases:
-            phase_nj_gpu_vs_cpu(tmp)
+            win = phase_nj_gpu_vs_cpu(tmp)["profiled_window"]
+            for name in ("nj_q_argmin", "nj_update"):
+                records[name]["merge_steps_profiled"] = win
             prof = phase_scorer_profiled()
             records["score_edges"].update(
                 plain_launches=prof["plain"]["launches_per_call"],

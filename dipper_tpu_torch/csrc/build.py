@@ -31,6 +31,8 @@ KERNELS = {
     "mash_cluster_inter": "mash_cluster_inter.cu",
     "minhash_sketch": "minhash_sketch.cu",
     "insert_step": "insert_step.cu",
+    "nj_q_argmin": "nj_q_argmin.cu",
+    "nj_update": "nj_update.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -13,21 +13,27 @@ dipper_tpu/nj/engine.py —
 - final 2-node join at root id 2N-2 with d/2 per side (:245-249).
 
 PyTorch design: the active matrix is the [n, n] prefix of one [N, N]
-working copy on the device, and one merge step is eager tensor code on
-it: the Q pass (two subtractions into a reused buffer, the diagonal,
-torch.argmin, which returns the first minimum), then O(n) index writes
-of rows and columns x and y. The JAX package instead rebuilds the whole
-padded matrix with masked selects and re-jits at halved shapes; its row
-sums U are recomputed where it halves (n = S/2, S/4, ..., 128 with S =
-max(128, pow2 >= N)), and so are this one's, since f32 drift depends on
-those points. x, y and the join log stay on the device: a merge step
-makes no host sync, and the log comes back once at the end.
+working copy on the device. On the card a merge step is two hand kernels
+(nj_cuda.py): csrc/nj_q_argmin.cu reads the active block once and
+returns the first minimum of Q (no Q is written), and csrc/nj_update.cu
+reads that index on the card and does the join and the O(n) rewrite of
+rows and columns x and y, U and `real`. On the CPU, and as the yardstick
+on the card (neighbor_joining_plain), the step is merge_step_plain: the
+Q pass into a reused buffer (two subtractions, the diagonal,
+torch.argmin, which returns the first minimum), then O(n) index writes.
+The JAX package instead rebuilds the whole padded matrix with masked
+selects and re-jits at halved shapes; its row sums U are recomputed
+where it halves (n = S/2, S/4, ..., 128 with S = max(128, pow2 >= N)),
+and so are this one's (tensor code on both routes), since f32 drift
+depends on those points. x, y and the join log stay on the device: a
+merge step makes no host sync, and the log comes back once at the end.
 
 Sharded (mesh): every rank holds the whole matrix and runs every O(n)
 update; only the Q pass is split, each rank taking a contiguous block of
-the active rows and its first minimum as (value, flat index). The ranks'
-pairs are all-gathered into a [ranks, 2] tensor and torch.argmin over
-their values, in rank order, picks the global first minimum (NaN first,
+the active rows and its first minimum as (value, flat index) (on the
+card nj_q_argmin over the rank's rows). The ranks' pairs are
+all-gathered into a [ranks, 2] tensor and torch.argmin over their
+values, in rank order, picks the global first minimum (NaN first,
 the lowest index at ties), so the join sequence and the branch lengths
 are the single-process build's, bit for bit. The JAX package row-shards
 D itself under GSPMD and promises the join sequence only
@@ -100,11 +106,62 @@ def neighbor_joining(D_host, *, dtype_name: str = "float32",
     neighbor_joining_device: children[v] = [(child_id, branch_length),
     ...], leaves 0..N-1, the node of join s is N+s, root 2N-2.
 
+    On the card every merge step is the two kernels of nj_cuda (a build
+    or launch failure raises); on the CPU it is merge_step_plain.
     `mesh` (parallel.sharded.Mesh): the Q pass split over its ranks (see
     the module docstring), on mesh.device; every rank returns the same
     result. `log`, if given, receives a line on the sharded merge steps:
     their count, ms a step and host syncs a step."""
     device = mesh.device if mesh is not None else resolve_device(device)
+    return _join(D_host, dtype_name, device, mesh, log, plain=False)
+
+
+def neighbor_joining_plain(D_host, *, dtype_name: str = "float32",
+                           device="cpu", mesh=None):
+    """neighbor_joining with every merge step by merge_step_plain, on any
+    device: the yardstick that the kernels are held to on the card. No
+    entry point of the port calls it."""
+    device = mesh.device if mesh is not None else resolve_device(device)
+    return _join(D_host, dtype_name, device, mesh, None, plain=True)
+
+
+class _State:
+    """One NJ run's device arrays: the working copy D [N, N] (its [n, n]
+    prefix is the active block), the row sums U, the node ids `real`,
+    the join log (ids and branch lengths, a row a step) and the plain
+    version's Q buffer."""
+
+    def __init__(self, D_host, dtype_name: str, device, mesh):
+        dtype = torch_dtype(dtype_name)
+        N = int(D_host.shape[0])
+        if isinstance(D_host, torch.Tensor):
+            self.D = D_host.to(device=device, dtype=dtype, copy=True)
+        else:  # cast on the host, as the JAX engine does
+            self.D = torch.from_numpy(np.array(D_host, dtype=dtype_name)).to(
+                device)
+        self.N = N
+        self.U = _sum_last(self.D)
+        self.real = torch.arange(N, dtype=torch.int32, device=device)
+        self.new_ids = torch.arange(N, 2 * N - 2, dtype=torch.int32,
+                                    device=device)
+        # [n] = n - 2
+        self.denom = torch.arange(N + 1, dtype=dtype, device=device) - 2
+        self.log_ids = torch.empty((N - 2, 2), dtype=torch.int32,
+                                   device=device)
+        self.log_bl = torch.empty((N - 2, 2), dtype=dtype, device=device)
+        self.big = torch.finfo(dtype).max
+        self.qbuf = None
+        self.rows_q = N if mesh is None else -(-N // mesh.size)
+
+    def q_buffer(self) -> torch.Tensor:
+        """The plain version's Q buffer, made at its first use."""
+        if self.qbuf is None:
+            self.qbuf = torch.empty(self.rows_q * self.N, dtype=self.D.dtype,
+                                    device=self.D.device)
+        return self.qbuf
+
+
+def _join(D_host, dtype_name: str, device, mesh, log, plain: bool):
     N = int(D_host.shape[0])
     if N < 2:
         raise ValueError("need at least 2 taxa")
@@ -115,72 +172,17 @@ def neighbor_joining(D_host, *, dtype_name: str = "float32",
         children[root] = [(0, d * 0.5), (1, d * 0.5)]
         return children, root
 
-    dtype = torch_dtype(dtype_name)
-    if isinstance(D_host, torch.Tensor):
-        D = D_host.to(device=device, dtype=dtype, copy=True)
-    else:  # cast on the host, as the JAX engine does
-        D = torch.from_numpy(np.array(D_host, dtype=dtype_name)).to(device)
-    U = _sum_last(D)
-    real = torch.arange(N, dtype=torch.int32, device=device)
-    new_ids = torch.arange(N, 2 * N - 2, dtype=torch.int32, device=device)
-    denom = torch.arange(N + 1, dtype=dtype, device=device) - 2  # [n] = n-2
-    log_ids = torch.empty((N - 2, 2), dtype=torch.int32, device=device)
-    log_bl = torch.empty((N - 2, 2), dtype=dtype, device=device)
-    rows_q = N if mesh is None else -(-N // mesh.size)
-    qbuf = torch.empty(rows_q * N, dtype=dtype, device=device)
-    big = torch.finfo(dtype).max
+    st = _State(D_host, dtype_name, device, mesh)
+    kernels = None if plain or not _on_card(st.D) else _stepper(st)
     t0 = time.time()
-
     for step in range(N - 2):
         n = N - step
-        last = n - 1
-        Dv = D[:n, :n]
         if _recomputes_u(n, N):
-            U[:n] = _sum_last(Dv)
-        # a 0-d CUDA divisor keeps this a true division (a host scalar
-        # would become a multiplication by its reciprocal)
-        Un = U[:n] / denom[n]
-        if mesh is None:
-            flat = torch.argmin(_q_rows(Dv, Un, qbuf, big, 0, n)).view(1)
+            st.U[:n] = _sum_last(st.D[:n, :n])
+        if kernels is None:
+            merge_step_plain(st, step, mesh)
         else:
-            flat = _sharded_argmin(Dv, Un, qbuf, big, mesh)
-        a = flat // n
-        b = flat - a * n
-        x, y = torch.minimum(a, b), torch.maximum(a, b)
-        xy = torch.cat([x, y])
-
-        rows = Dv.index_select(0, xy)
-        rowx, rowy = rows[0], rows[1]
-        d = rowx.index_select(0, y)
-        uxy = Un.index_select(0, xy)
-        blx = (d + uxy[:1] - uxy[1:]) * 0.5
-        bly = d - blx
-        # negative-branch clamping, remainder shifted (reference order)
-        bly = torch.where(blx < 0, bly + blx, bly)
-        blx = blx.clamp(min=0.0)
-        blx = torch.where(bly < 0, blx + bly, blx)
-        bly = bly.clamp(min=0.0)
-        torch.index_select(real, 0, xy, out=log_ids[step])
-        torch.cat([blx, bly], out=log_bl[step])
-
-        newrow = (rowx + rowy - d) * 0.5
-        # U[x] and U[y] are overwritten below, so they need no mask
-        U[:n] += (newrow - rowx) - rowy
-        newrow.index_fill_(0, x, 0.0)                 # D[x, x] = 0
-        ux = _sum_last(newrow.index_fill(0, y, 0.0))
-        d_x_last = newrow[last:last + 1].clone()      # d(new node, last)
-        # row y receives row `last` as it is after the x write, with its
-        # y entry zeroed; (x, y) and (y, x) become d(new node, last)
-        rl = Dv[last].clone()
-        rl.index_copy_(0, x, d_x_last)
-        rl.index_fill_(0, y, 0.0)
-        newrow.index_copy_(0, y, d_x_last)
-        new_rows = torch.stack([newrow, rl])
-        Dv.index_copy_(0, xy, new_rows)
-        Dv.index_copy_(1, xy, new_rows.T)
-        U.index_copy_(0, xy, torch.cat([ux.view(1), U[last:last + 1]]))
-        real.index_copy_(0, xy, torch.cat([new_ids[step:step + 1],
-                                           real[last:last + 1]]))
+            _merge_step_kernels(kernels, st, step, mesh)
 
     if mesh is not None and log is not None:
         synchronize(device)
@@ -188,16 +190,111 @@ def neighbor_joining(D_host, *, dtype_name: str = "float32",
         log(f"NJ sharded over {mesh.size} ranks ({mesh.backend}): {N - 2} "
             f"merge steps, {(time.time() - t0) * 1000 / (N - 2):.4f} ms a "
             f"step, {syncs} host syncs a step")
-    ids = log_ids.cpu().tolist()
-    bls = log_bl.double().cpu().tolist()
-    r0, r1 = real[:2].cpu().tolist()
-    d01 = float(D[0, 1])
+    ids = st.log_ids.cpu().tolist()
+    bls = st.log_bl.double().cpu().tolist()
+    r0, r1 = st.real[:2].cpu().tolist()
+    d01 = float(st.D[0, 1])
     for s in range(N - 2):
         children[N + s].append((ids[s][0], bls[s][0]))
         children[N + s].append((ids[s][1], bls[s][1]))
     children[root].append((r0, d01 * 0.5))
     children[root].append((r1, d01 * 0.5))
     return children, root
+
+
+def _on_card(D: torch.Tensor) -> bool:
+    """Whether the run's merge steps are the kernels': D is on the card."""
+    return D.device.type == "cuda"
+
+
+def _stepper(st: _State):
+    """The kernels' launcher over the run's arrays (nj_cuda.Stepper)."""
+    from dipper_tpu_torch.nj import nj_cuda
+
+    return nj_cuda.Stepper(st.D, st.U, st.real, st.log_ids, st.log_bl)
+
+
+def _merge_step_kernels(k, st: _State, step: int, mesh) -> None:
+    """One merge step by the kernels: the first minimum of Q
+    (nj_q_argmin; over a rank's rows, its pair merged over the ranks as
+    _sharded_argmin merges them), then the join and the update
+    (nj_update), which reads the flat index on the card."""
+    n = st.N - step
+    if mesh is None:
+        k.q_argmin(n)
+        k.update(step, n)
+        return
+    r0, r1 = mesh.share(n)
+    k.q_argmin(n, r0, r1)
+    k.update(step, n, _merge_pairs(mesh.all_gather(k.pair)))
+
+
+def merge_step_plain(st: _State, step: int, mesh=None) -> None:
+    """One merge step as tensor code, on any device: the plain version of
+    the two kernels (the Q pass and its first minimum, then the join and
+    the row and column update; U's recompute is the caller's)."""
+    n = st.N - step
+    Dv = st.D[:n, :n]
+    # a 0-d divisor on the device keeps this a true division (a host
+    # scalar would become a multiplication by its reciprocal)
+    Un = st.U[:n] / st.denom[n]
+    qbuf = st.q_buffer()
+    if mesh is None:
+        flat = _argmin_plain(Dv, Un, qbuf, st.big)
+    else:
+        flat = _sharded_argmin(Dv, Un, qbuf, st.big, mesh)
+    _update_plain(st, step, flat)
+
+
+def _argmin_plain(Dv, Un, qbuf, big) -> torch.Tensor:
+    """The flat index [1] int64 of the first minimum of Q over the active
+    block (nj_q_argmin's plain version)."""
+    return torch.argmin(_q_rows(Dv, Un, qbuf, big, 0, Dv.shape[0])).view(1)
+
+
+def _update_plain(st: _State, step: int, flat: torch.Tensor) -> None:
+    """The join of the pair at `flat` ([1] int64 on the device) and the
+    update of D, U and `real` (nj_update's plain version)."""
+    n = st.N - step
+    last = n - 1
+    Dv, U, real = st.D[:n, :n], st.U, st.real
+    a = flat // n
+    b = flat - a * n
+    x, y = torch.minimum(a, b), torch.maximum(a, b)
+    xy = torch.cat([x, y])
+
+    rows = Dv.index_select(0, xy)
+    rowx, rowy = rows[0], rows[1]
+    d = rowx.index_select(0, y)
+    uxy = U.index_select(0, xy) / st.denom[n]
+    blx = (d + uxy[:1] - uxy[1:]) * 0.5
+    bly = d - blx
+    # negative-branch clamping, remainder shifted (reference order)
+    bly = torch.where(blx < 0, bly + blx, bly)
+    blx = blx.clamp(min=0.0)
+    blx = torch.where(bly < 0, blx + bly, blx)
+    bly = bly.clamp(min=0.0)
+    torch.index_select(real, 0, xy, out=st.log_ids[step])
+    torch.cat([blx, bly], out=st.log_bl[step])
+
+    newrow = (rowx + rowy - d) * 0.5
+    # U[x] and U[y] are overwritten below, so they need no mask
+    U[:n] += (newrow - rowx) - rowy
+    newrow.index_fill_(0, x, 0.0)                 # D[x, x] = 0
+    ux = _sum_last(newrow.index_fill(0, y, 0.0))
+    d_x_last = newrow[last:last + 1].clone()      # d(new node, last)
+    # row y receives row `last` as it is after the x write, with its
+    # y entry zeroed; (x, y) and (y, x) become d(new node, last)
+    rl = Dv[last].clone()
+    rl.index_copy_(0, x, d_x_last)
+    rl.index_fill_(0, y, 0.0)
+    newrow.index_copy_(0, y, d_x_last)
+    new_rows = torch.stack([newrow, rl])
+    Dv.index_copy_(0, xy, new_rows)
+    Dv.index_copy_(1, xy, new_rows.T)
+    U.index_copy_(0, xy, torch.cat([ux.view(1), U[last:last + 1]]))
+    real.index_copy_(0, xy, torch.cat([st.new_ids[step:step + 1],
+                                       real[last:last + 1]]))
 
 
 def _q_rows(Dv, Un, qbuf, big, r0: int, r1: int) -> torch.Tensor:
@@ -225,9 +322,14 @@ def _sharded_argmin(Dv, Un, qbuf, big, mesh) -> torch.Tensor:
     else:  # no rows here: a pair that every real one beats
         pair = torch.tensor([float("inf"), 2.0 ** 62], dtype=torch.float64,
                             device=Dv.device)
-    pairs = mesh.all_gather(pair)                      # [ranks, 2]
-    # rank order is row order, so argmin's first minimum over the ranks'
-    # values (NaN first) is the global one
+    return _merge_pairs(mesh.all_gather(pair))
+
+
+def _merge_pairs(pairs: torch.Tensor) -> torch.Tensor:
+    """The flat index [1] int64 of the global first minimum, from the
+    ranks' (value, flat index) pairs [ranks, 2] in rank order: rank order
+    is row order, so argmin's first minimum over the values (NaN first)
+    is the global one."""
     w = torch.argmin(pairs[:, 0]).view(1)
     return pairs[:, 1].index_select(0, w).long()
 

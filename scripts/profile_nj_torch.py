@@ -4,14 +4,18 @@
 Builds the mash matrix of a scripts/make_dataset.py set (L = 10,000,
 k = 15, s = 1000) with the port, then:
 
-  A. the whole NJ (dipper_tpu_torch.nj.neighbor_joining) on the matrix,
+  A. the whole NJ (dipper_tpu_torch.nj.neighbor_joining; on the card the
+     kernel route, csrc/nj_q_argmin.cu + csrc/nj_update.cu) on the matrix,
      host clock around a synchronized run, once per --sizes prefix;
-  B. the Q pass alone (the two subtractions, the diagonal, the argmin)
-     on the active block at sampled n, CUDA events over 20 runs, and its
-     sum over every merge step, interpolated in n^2 between the samples:
-     the device time that the Q pass costs the whole NJ;
+  B. the selection alone at sampled n: kernel A (nj_q_argmin over the
+     active block, on the card only) beside the plain Q pass (the two
+     subtractions, the diagonal, torch.argmin), CUDA events over 20 runs,
+     and each one's sum over every merge step, interpolated in n^2
+     between the samples: the device time the selection costs the whole
+     NJ;
   C. the host time of one merge step: NJ of a 1,024-taxon prefix, where
-     the device work is small, divided by its steps.
+     the device work is small, divided by its steps, by the kernel route
+     (on the card) and by the plain route (neighbor_joining_plain).
 
 Each result is one JSON line on stdout. Run from the root of a checkout:
 
@@ -41,33 +45,44 @@ def sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def q_pass_ms(D: torch.Tensor, n: int, reps: int = 20) -> float:
-    """Mean ms of one Q pass over the active n x n block of D."""
-    U = D[:n, :n].sum(dim=1)
-    Un = U / (n - 2)
-    Q = torch.empty(n * n, dtype=D.dtype, device=D.device).view(n, n)
-    big = torch.finfo(D.dtype).max
-
-    def once():
-        torch.sub(D[:n, :n], Un[:, None], out=Q)
-        Q.sub_(Un[None, :])
-        Q.diagonal().fill_(big)
-        return torch.argmin(Q)
-
-    once()
-    if D.device.type == "cuda":
+def timed_ms(fn, dev: torch.device, reps: int = 20) -> float:
+    """Mean ms of fn() over `reps` runs after a warm-up: CUDA events on
+    the card, the host clock on the CPU."""
+    fn()
+    if dev.type == "cuda":
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         torch.cuda.synchronize()
         ev[0].record()
         for _ in range(reps):
-            once()
+            fn()
         ev[1].record()
         torch.cuda.synchronize()
         return ev[0].elapsed_time(ev[1]) / reps
     t0 = time.perf_counter()
     for _ in range(reps):
-        once()
+        fn()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def selection_ms(D: torch.Tensor, n: int, dtype_name: str) -> dict:
+    """Kernel A (on the card) and the plain Q pass + argmin over the
+    active n x n block of D, the same flat index from both."""
+    from dipper_tpu_torch.nj import engine
+
+    st = engine._State(D[:n, :n], dtype_name, D.device, None)
+    Un = st.U / st.denom[n]
+    qbuf = st.q_buffer()
+    plain = lambda: engine._argmin_plain(st.D, Un, qbuf, st.big)  # noqa: E731
+    out = {"plain_ms": timed_ms(plain, D.device)}
+    if D.device.type == "cuda":
+        k = engine._stepper(st)
+        k.q_argmin(n)
+        if not torch.equal(k.flat, plain()):
+            raise SystemExit(f"kernel A at n = {n} != the plain version")
+        out["kernel_ms"] = timed_ms(lambda: k.q_argmin(n), D.device)
+    else:
+        out["kernel_ms"] = "not measured (no card)"
+    return out
 
 
 def main() -> int:
@@ -122,31 +137,40 @@ def main() -> int:
                                        "ms_per_step": s * 1e3 / (m - 2)}}),
               flush=True)
 
-    # B: the Q pass at sampled n, summed over every step
+    # B: the selection at sampled n, summed over every step
     ns = [n for n in (args.n, args.n * 3 // 4, args.n // 2, args.n // 4,
                       args.n // 8, args.n // 16) if n >= 3]
-    samples = {n: q_pass_ms(D, n) for n in ns}
-    xs = np.array(sorted(samples)) ** 2.0
-    ys = np.array([samples[n] for n in sorted(samples)])
+    samples = {n: selection_ms(D, n, args.precision) for n in ns}
     steps = np.arange(3, args.n + 1) ** 2.0
-    total_ms = float(np.interp(steps, xs, ys).sum())
-    print(json.dumps({"q_pass": {
-        "ms_at_n": samples,
-        "sum_over_steps_s": total_ms / 1e3,
-        "bytes_per_element": 5 * D.element_size(),
-        "gbytes_per_s_at_n": {n: 5 * D.element_size() * n * n / ms / 1e6
-                              for n, ms in samples.items()}}}), flush=True)
+    xs = np.array(sorted(samples)) ** 2.0
+    rec = {"ms_at_n": samples}
+    for key in ("plain_ms", "kernel_ms"):
+        ys = [samples[n][key] for n in sorted(samples)]
+        if all(isinstance(y, float) for y in ys):
+            rec[f"{key[:-3]}_sum_over_steps_s"] = float(
+                np.interp(steps, xs, np.array(ys)).sum()) / 1e3
+    rec["kernel_gbytes_per_s_at_n"] = {
+        n: D.element_size() * n * n / v["kernel_ms"] / 1e6
+        for n, v in samples.items() if isinstance(v["kernel_ms"], float)}
+    print(json.dumps({"selection": rec}), flush=True)
 
     # C: host time per merge step where the device work is small
+    from dipper_tpu_torch.nj import neighbor_joining_plain
+
     m = min(1024, args.n)
-    neighbor_joining(D[:m, :m], dtype_name=args.precision, device=dev)
-    sync(dev)
-    t0 = time.perf_counter()
-    neighbor_joining(D[:m, :m], dtype_name=args.precision, device=dev)
-    sync(dev)
-    s = time.perf_counter() - t0
-    print(json.dumps({"small_nj": {"n": m, "ms_per_step":
-                                   s * 1e3 / (m - 2)}}), flush=True)
+    for route, fn in (("kernel", neighbor_joining),
+                      ("plain", neighbor_joining_plain)):
+        if route == "kernel" and dev.type != "cuda":
+            continue
+        fn(D[:m, :m], dtype_name=args.precision, device=dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        fn(D[:m, :m], dtype_name=args.precision, device=dev)
+        sync(dev)
+        s = time.perf_counter() - t0
+        print(json.dumps({"small_nj": {"route": route, "n": m,
+                                       "ms_per_step": s * 1e3 / (m - 2)}}),
+              flush=True)
     return 0
 
 

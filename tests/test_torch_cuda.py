@@ -1,10 +1,11 @@
 """The port on an NVIDIA GPU: the hand-written kernels (mash merge count,
 mash distance rows, side vector, the edge scorer, the MinHash sketcher,
-with device rank compression beside it, the insertion step) against their plain
-PyTorch versions, the MSA pair counts and distances, and CUDA builds
-(k-closest and exact placement, --add, the mash matrix, NJ) against CPU
-builds. Every test that takes the `cuda` fixture skips without CUDA;
-test_scorer_sources_and_rounding reads the sources only and runs anywhere.
+with device rank compression beside it, the insertion step, NJ's Q scan
+and update) against their plain PyTorch versions, the MSA pair counts
+and distances, and CUDA builds (k-closest and exact placement, --add,
+the mash matrix, NJ) against CPU builds. Every test that takes the
+`cuda` fixture skips without CUDA; test_scorer_sources_and_rounding and
+test_nj_sources_and_rounding read the sources only and run anywhere.
 Kernel 3 is also held by slot ranges (a rank's share of a sharded build).
 The file imports no JAX, so it also runs on a machine without it (the
 repo's conftest imports JAX, hence --noconftest):
@@ -493,6 +494,39 @@ def test_scorer_sources_and_rounding():
             "a bare arithmetic operator in the clamp sequence"
 
 
+def test_nj_sources_and_rounding():
+    """Runs without a GPU: NJ's two kernels are built, over one shared
+    header, and no product or sum of theirs can contract into an FMA:
+    every one is a round-to-nearest intrinsic (the f32 branch lengths
+    are then the plain version's bytes), and no fma is written."""
+    import os
+    import re
+
+    assert kernel_build.KERNELS["nj_q_argmin"] == "nj_q_argmin.cu"
+    assert kernel_build.KERNELS["nj_update"] == "nj_update.cu"
+    src = {}
+    for name in ("nj_q_argmin.cu", "nj_update.cu", "nj_step.cuh"):
+        with open(os.path.join(kernel_build.CSRC_DIR, name)) as f:
+            src[name] = re.sub(r"//.*", "", f.read())
+        assert not re.search(r"fma(f|_|\s*\()", src[name]), name
+    for name in ("nj_q_argmin.cu", "nj_update.cu"):
+        assert '#include "nj_step.cuh"' in src[name]
+    for fn in ("__fadd_rn", "__fsub_rn", "__fmul_rn", "__fdiv_rn",
+               "__dadd_rn", "__dsub_rn", "__dmul_rn", "__ddiv_rn"):
+        assert fn in src["nj_step.cuh"]
+    q = src["nj_q_argmin.cu"]
+    assert "sub_rn(sub_rn(v[k], uni), unj[k])" in q
+    assert "div_rn(U[col[k]], denom)" in q and "div_rn(U[ic + " in q
+    u = src["nj_update.cu"]
+    for expr in ("mul_rn(sub_rn(add_rn(rx, ry), d), half)",
+                 "add_rn(U[j], sub_rn(sub_rn(nr, rx), ry))",
+                 "mul_rn(sub_rn(add_rn(d, unx), uny), half)",
+                 "sub_rn(d, blx)", "add_rn(bly, blx)", "add_rn(blx, bly)",
+                 "mul_rn(sub_rn(add_rn(d, dyy), d), half)",
+                 "add_rn(U[y], sub_rn(sub_rn(dxl, d), dyy))"):
+        assert expr in u, expr
+
+
 def _additive(n, seed):
     """Leaf-to-leaf path lengths of a random tree (an additive matrix)."""
     parent, blen, _ = random_tree_edges(n, np.random.default_rng(seed))
@@ -528,6 +562,155 @@ def test_nj_cuda_equals_cpu(cuda, dtype):
     rf, _ = rf_distance(nj_tree_newick(*gpu, names),
                         nj_tree_newick(*cpu, names))
     assert rf == 0
+
+
+def _nj_case(name, n, dtype, seed):
+    """A matrix and row sums whose Q holds the case's values: with U = 0,
+    Q off the diagonal is D, value for value (-0.0 included)."""
+    rng = np.random.default_rng(seed)
+    A = rng.random((n, n)) * np.exp(rng.normal(0, 1, (n, n)))
+    D = (A + A.T).astype(dtype)
+    np.fill_diagonal(D, 0)
+    if name == "random":
+        return D, D.sum(axis=1).astype(dtype)
+    U = np.zeros(n, dtype)
+    if name == "nan":
+        D[0, 1] = D[n - 1, 0] = D[n - 2, n - 1] = np.nan
+    elif name == "signed_zeros":
+        D[n - 1, 1] = D[n // 2, 0] = -0.0
+        D[1, n - 1] = 0.0
+    elif name == "ties":
+        cols = (7 * np.arange(n) + 3) % n
+        cols = np.where(cols == np.arange(n), (cols + 1) % n, cols)
+        D[np.arange(n), cols] = -1.0
+    elif name == "inf":
+        D[:] = np.inf
+    return D, U
+
+
+def _nj_state(D, U, dtype, dev):
+    from dipper_tpu_torch.nj import engine
+
+    st = engine._State(D, dtype, dev, None)
+    if U is not None:
+        st.U.copy_(torch.from_numpy(U))
+    return st
+
+
+def _q_plain_on(st, n, r0, r1):
+    from dipper_tpu_torch.nj import engine
+
+    Un = st.U[:n] / st.denom[n]
+    Q = engine._q_rows(st.D[:n, :n], Un, st.q_buffer(), st.big, r0, r1)
+    li = int(torch.argmin(Q))
+    return li + r0 * n, float(Q.view(-1)[li])
+
+
+@pytest.mark.parametrize("case", ["random", "nan", "signed_zeros", "ties",
+                                  "inf"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n", [3, 5, 128, 129, 1000, 4099])
+def test_nj_q_argmin_kernel_equals_plain(cuda, n, dtype, case):
+    """Kernel A (csrc/nj_q_argmin.cu) against the plain Q pass and
+    torch.argmin on the card: the flat index, and for two ranks' row
+    ranges the pair (value, flat), bit for bit (NaN for NaN)."""
+    from dipper_tpu_torch.nj import nj_cuda
+
+    D, U = _nj_case(case, n, dtype, n)
+    st = _nj_state(D, U, dtype, cuda)
+    k = nj_cuda.Stepper(st.D, st.U, st.real, st.log_ids, st.log_bl)
+    before = nj_cuda.Q_ARGMIN_LAUNCHES
+    k.q_argmin(n)
+    assert int(k.flat) == _q_plain_on(st, n, 0, n)[0]
+    half = -(-n // 2)
+    for r0, r1 in ((0, half), (half, n)):
+        k.q_argmin(n, r0, r1)
+        flat, v = _q_plain_on(st, n, r0, r1)
+        got_v, got_flat = k.pair.tolist()
+        assert got_flat == float(flat)
+        assert got_v == v or (np.isnan(got_v) and np.isnan(v))
+        assert np.signbit(got_v) == np.signbit(v)
+    assert nj_cuda.Q_ARGMIN_LAUNCHES == before + 3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n", [3, 4, 5, 127, 128, 129, 300, 4099])
+def test_nj_update_kernel_equals_plain_step(cuda, n, dtype):
+    """Kernel B (csrc/nj_update.cu) against one plain step on the card,
+    on the active prefix of a larger matrix, bit for bit: D, U, real and
+    the log row; x = 0 and y = last among the pairs. In f64 above 128
+    the two sum U[x] in their own orders, so there the values lie on a
+    grid on which every order is exact."""
+    from dipper_tpu_torch.nj import engine, nj_cuda
+
+    rng = np.random.default_rng(n)
+    N, step = n + 3, 3
+    A = rng.random((N, N)) * np.exp(rng.normal(0, 1, (N, N)))
+    D = (A + A.T).astype(dtype)
+    np.fill_diagonal(D, 0)
+    if dtype == "float64" and n > 128:
+        D = np.round(D * 2.0**16) / 2.0**16
+    flats = {n - 1, (n - 1) * n, 2 * n - 1,
+             int(rng.integers(0, n)) * n + int(rng.integers(0, n))}
+    for flat in sorted(f for f in flats if f // n != f % n):
+        want = _nj_state(D, None, dtype, cuda)
+        engine._update_plain(want, step, torch.tensor([flat], device=cuda))
+        got = _nj_state(D, None, dtype, cuda)
+        k = nj_cuda.Stepper(got.D, got.U, got.real, got.log_ids, got.log_bl)
+        k.update(step, n, torch.tensor([flat], device=cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(got.D, want.D), flat
+        assert torch.equal(got.U, want.U), flat
+        assert torch.equal(got.real, want.real), flat
+        assert torch.equal(got.log_ids[step], want.log_ids[step])
+        assert torch.equal(got.log_bl[step], want.log_bl[step])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_nj_kernel_route_equals_plain_route(cuda, dtype):
+    """A whole NJ of 2,048 taxa by the kernels against merge_step_plain on
+    the card: equal join ids; f32 branch lengths byte for byte, f64
+    within 1e-12 relative (U[x]'s f64 sum order is each route's own)."""
+    from dipper_tpu_torch.nj import neighbor_joining_plain, nj_cuda
+
+    D = _additive(2048, 11)
+    before = nj_cuda.UPDATE_LAUNCHES
+    got = neighbor_joining(D, dtype_name=dtype, device=cuda)
+    assert nj_cuda.UPDATE_LAUNCHES == before + 2046
+    want = neighbor_joining_plain(D, dtype_name=dtype, device=cuda)
+    assert got[1] == want[1]
+    assert ([[c for c, _ in ch] for ch in got[0]]
+            == [[c for c, _ in ch] for ch in want[0]])
+    gl = np.array([bl for ch in got[0] for _, bl in ch])
+    wl = np.array([bl for ch in want[0] for _, bl in ch])
+    if dtype == "float32":
+        assert np.array_equal(gl, wl)
+    else:
+        np.testing.assert_allclose(gl, wl, rtol=1e-12, atol=0)
+
+
+def test_nj_steps_make_no_host_sync(cuda):
+    """Merge steps by the kernels under sync_debug_mode "error": two
+    launches a step, no sync; a refused launch raises and is not
+    counted."""
+    from dipper_tpu_torch.nj import engine, nj_cuda
+
+    D, _ = _nj_case("random", 1000, "float32", 2)
+    st = _nj_state(D, None, "float32", cuda)
+    k = engine._stepper(st)
+    q0, u0 = nj_cuda.Q_ARGMIN_LAUNCHES, nj_cuda.UPDATE_LAUNCHES
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for step in range(50):
+            engine._merge_step_kernels(k, st, step, None)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert nj_cuda.Q_ARGMIN_LAUNCHES - q0 == 50
+    assert nj_cuda.UPDATE_LAUNCHES - u0 == 50
+    with pytest.raises(RuntimeError, match="nj_q_argmin launch failed"):
+        k.q_argmin(2)
+    assert nj_cuda.Q_ARGMIN_LAUNCHES - q0 == 50
 
 
 def _aligned_codes(n, L, seed, gap_frac=0.05, blen_scale=1.0):
