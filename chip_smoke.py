@@ -83,10 +83,12 @@ the process; phases 20 to 22 run in processes of their own):
      and by the plain route (merge_step_plain every step): equal join
      ids, f32 branch lengths byte for byte, f64 within 1e-12 relative;
      then one NJ on the card under torch.profiler (launches per merge
-     step, device busy time), and its first merge steps under
-     sync_debug_mode "error" and under the profiler in windows of 100 and
-     200 steps (per step, from their difference: at most 3 kernel
-     launches, 2 of them NJ's, no sync, no copy); and the
+     step, device busy time), and its first merge steps (kernel A in the
+     half read: the PHYLIP matrix is symmetric) under sync_debug_mode
+     "error" and under the profiler in windows of 100 and 200 steps (per
+     step, from their difference: at most 3 kernel launches,
+     cudaLaunchKernel and cudaLaunchKernelExC, 2 of them NJ's, no sync,
+     no copy); and the
      launches, copies and syncs of one scorer call, kernel and plain;
   5. the placement main path: scripts/make_dataset.py's generator (seed
      1, L=10,000) and the CLI with default flags, which take k-closest
@@ -147,13 +149,19 @@ the process; phases 20 to 22 run in processes of their own):
      the host route's (native sketches, np.unique ranks), and nRF vs the
      true tree < 0.45 (at N = 20,000 the value of every earlier smoke,
      NJ_NRF_20K); "Sketch in" and "Rank bank in" beside the host route's;
-     one launch of each NJ kernel a merge step (19,998 at 20,000); the
+     one launch of each NJ kernel a merge step (19,998 at 20,000), every
+     kernel A launch in the half read (the log says so); the
      Newick of the plain route on the card (merge_step_plain every step,
-     on the run's matrix) equal byte for byte to the CLI's; kernel A timed
-     at n = 20,000, 10,000 and 2,048 (NJ_TIMED_N) by CUDA events, its
-     flat index equal to the plain version's, beside the plain Q pass,
-     torch.argmin of an [n, n] tensor in memory and its bound; kernel B at
-     20,000 equal to the plain step bit for bit, timed beside it;
+     on the run's matrix) equal byte for byte to the CLI's; kernel A at
+     n = 20,000, 10,000 and 2,048 (NJ_TIMED_N) in its half and full
+     reads, its flat index equal to the plain version's in both, timed
+     queued behind a device sleep (queued_ms) beside the plain Q pass,
+     torch.argmin of an [n, n] tensor in memory and both bounds (half-
+     and full-read bytes); kernel B at 20,000 equal to the plain step bit
+     for bit, timed beside it; with --parent DIR, that checkout's kernels
+     A and B equal to this one's and timed in turns (parent, this, this,
+     parent); 50 merge steps at each n, ms a step as the run meets them
+     and queued (the card's own);
   24. the sketch kernel (csrc/minhash_sketch.cu) against its plain
      version on the card and the native host sketcher, equal bits
      required throughout: phase 5's set (every row against the native
@@ -194,8 +202,8 @@ the process; phases 20 to 22 run in processes of their own):
      formulas;
   11. the -i m main path: the CLI with default flags on that alignment
      (auto mode takes NJ, -d 1); requires rc 0, a complete Newick, one
-     launch of each NJ kernel a merge step and nRF vs the true tree under
-     MSA_NJ_NRF_LIMIT;
+     launch of each NJ kernel a merge step, kernel A in the half read
+     every step, and nRF vs the true tree under MSA_NJ_NRF_LIMIT;
   12. -i m -m 1 on the alignment's first 8,192 sequences: one score_edges
      and one insert_step launch per insertion, nRF vs the true tree
      restricted to them under MSA_PLACE_NRF_LIMIT;
@@ -224,7 +232,8 @@ the process; phases 20 to 22 run in processes of their own):
      2 -m 2 on phase 9's set: the Newick byte-equal to phase 9's; each
      rank's backend, time to tree, ms per merge step and host syncs per
      step, one launch of each NJ kernel a merge step on each rank (kernel
-     A over the rank's rows); every distance-kernel and sketch-kernel
+     A in the full read over the rank's rows, no half read); every
+     distance-kernel and sketch-kernel
      launch of each rank sampled against the plain version (each rank
      sketches on the card);
   21. two ranks on the one card, D&C: the same with -m 3 on phase 5's set:
@@ -282,7 +291,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # each kernel: its source and the TPU kernel it replaces
 KERNELS = {
     "mash_merge_count": ("dipper_tpu_torch/csrc/mash_merge_count.cu",
-                         "dipper_tpu/distance/mash_pallas.py:143"),
+                         "dipper_tpu/distance/mash_pallas.py:124"),
     "mash_rows_dist": ("dipper_tpu_torch/csrc/mash_rows_dist.cu",
                        "dipper_tpu/distance/mash_pallas.py:191"),
     "side_vector": ("dipper_tpu_torch/csrc/side_vector.cu",
@@ -325,6 +334,9 @@ INSERT_WINDOW = 300
 # wait behind, so that the card runs them back to back and CUDA events
 # time the kernels and not the host's gaps
 QUEUE_SLEEP_CYCLES = 20_000_000
+# the host's kernel launches in torch.profiler's records: <<<>>> launches,
+# and cudaLaunchKernelEx's (NJ's kernels, csrc/nj_step.cuh::launch)
+LAUNCH_KEYS = ("cudaLaunchKernel", "cudaLaunchKernelExC")
 QUEUE_CHUNK = 32
 # phase 5's state before its last range and the rows of a window of its
 # insertions (two graphs' and 7 more), profiled after the profiler phases
@@ -479,6 +491,23 @@ def event_ms(fn, reps: int = 200) -> float:
     fn()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(reps):
+        fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    """Mean ms per call of `reps` calls queued behind a device sleep (the
+    host enqueues them all while the card sleeps, so the card runs them
+    back to back) between two CUDA events, after a warm-up: the card's
+    own time, also where one call is shorter than the host's launch."""
+    fn()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
     ev[0].record()
     for _ in range(reps):
         fn()
@@ -1840,13 +1869,15 @@ def reset_counts() -> None:
     insert_cuda.GRAPH_CAPTURES = 0
     insert_cuda.GRAPH_REPLAYS = 0
     nj_cuda.Q_ARGMIN_LAUNCHES = 0
+    nj_cuda.HALF_READ_LAUNCHES = 0
     nj_cuda.UPDATE_LAUNCHES = 0
 
 
 def read_counts() -> dict:
     """Every kernel's launches since reset_counts: insert_step's are those
     of its entry points (direct or replayed), "insert_step.closest_bfs"
-    the BFS alone's; and the CUDA graphs of the cursor route captured and
+    the BFS alone's; "nj_q_argmin.half_read" kernel A's launches in the
+    half read; and the CUDA graphs of the cursor route captured and
     replayed."""
     from dipper_tpu_torch.distance import mash_cuda
     from dipper_tpu_torch.nj import nj_cuda
@@ -1865,6 +1896,7 @@ def read_counts() -> dict:
             "graph_captures": insert_cuda.GRAPH_CAPTURES,
             "graph_replays": insert_cuda.GRAPH_REPLAYS,
             "nj_q_argmin": nj_cuda.Q_ARGMIN_LAUNCHES,
+            "nj_q_argmin.half_read": nj_cuda.HALF_READ_LAUNCHES,
             "nj_update": nj_cuda.UPDATE_LAUNCHES}
 
 
@@ -2205,7 +2237,7 @@ def phase_nj_gpu_vs_cpu(tmp: str, n: int = 2048) -> dict:
     ka = prof.key_averages()
     on_dev = [e for e in ka if e.device_type != DeviceType.CPU]
     busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
-    launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
+    launches = sum(e.count for e in ka if e.key in LAUNCH_KEYS)
     res["profiled_f32"] = {
         "wall_ms_under_profiler": wall_ms, "device_busy_ms": busy_ms,
         "device_busy_share_of_profiled_wall": busy_ms / wall_ms,
@@ -2271,11 +2303,12 @@ def nj_routes_on_card(D) -> dict:
 
 def nj_window_profiled(D, steps: tuple = (100, 200)) -> dict:
     """The first merge steps of an NJ of D (f32, no U recompute among
-    them) by the kernel route: under sync_debug_mode "error", then under
+    them) by the kernel route, kernel A in the half read (the mode
+    engine._read_mode picks for D): under sync_debug_mode "error", then under
     torch.profiler in windows of steps[0] and steps[1] steps (each from
     a fresh state). Per step, from the difference of the two windows (so
     that the profiler's own syncs and the window's final synchronize
-    cancel): the host's kernel launches (cudaLaunchKernel, every kernel
+    cancel): the host's kernel launches (LAUNCH_KEYS, every kernel
     of the process), NJ's launches (the wrapper's counts), syncs and
     copies; at most 3 launches, 2 of them NJ's, no sync, no copy. The
     card's kernel records are reported beside them: CUPTI drops a few
@@ -2292,7 +2325,8 @@ def nj_window_profiled(D, steps: tuple = (100, 200)) -> dict:
 
     def fresh():
         st = engine._State(D, "float32", torch.device("cuda"), None)
-        k = engine._stepper(st)
+        k = engine._stepper(st, engine._read_mode(st, None))
+        check(k.half, "the PHYLIP matrix is not symmetric bit for bit")
         engine._merge_step_kernels(k, st, 0, None)
         torch.cuda.synchronize()
         return st, k
@@ -2321,7 +2355,7 @@ def nj_window_profiled(D, steps: tuple = (100, 200)) -> dict:
         count = {e.key: e.count for e in ka}
         on_dev = [e for e in ka if e.device_type != DeviceType.CPU]
         win[w] = {
-            "host_launches": count.get("cudaLaunchKernel", 0),
+            "host_launches": sum(count.get(k2, 0) for k2 in LAUNCH_KEYS),
             "nj_launches": nj,
             "card_kernel_records": sum(e.count for e in on_dev),
             "card_nj_kernel_records": sum(
@@ -2468,7 +2502,7 @@ def phase_graph_route_profiled() -> dict:
     return rec
 
 
-def phase_nj_main_path(tmp: str, n: int) -> dict:
+def phase_nj_main_path(tmp: str, n: int, parent: str | None = None) -> dict:
     from dipper_tpu_torch.distance import mash, mash_cuda
 
     t0 = time.time()
@@ -2512,7 +2546,8 @@ def phase_nj_main_path(tmp: str, n: int) -> dict:
 
     check(rc == 0, f"NJ main path CLI returned {rc}")
     check("Using conventional NJ" in log, "auto mode did not take NJ")
-    check_nj_launches("NJ main path", counts, n)
+    check_nj_launches("NJ main path", counts, n, half=True)
+    check_nj_mode("NJ main path", log, "half")
     check(counts["mash_rows_dist"] > 0,
           "the NJ main path launched no mash_rows_dist kernel")
     # the NJ matrix's ingest is the device sketcher's, as in the JAX package
@@ -2584,7 +2619,7 @@ def phase_nj_main_path(tmp: str, n: int) -> dict:
     plain_s = time.perf_counter() - t1
     check(plain_nwk == open(out).read().strip(), "NJ main path: the plain "
           "route's Newick on the card != the kernel route's")
-    nj_times = nj_kernel_times(D)
+    nj_times = nj_kernel_times(D, parent)
     emit({"phase": "main_path", "path": "nj", "n": n, "L": 10000, "k": k,
           "s": s, "precision": "f32", "dataset_gen_s": gen_s,
           "phases_ms": {
@@ -2607,59 +2642,165 @@ def phase_nj_main_path(tmp: str, n: int) -> dict:
             "tree_created_ms": _ms(r"Tree Created in: (\d+) ms", log)}
 
 
-def check_nj_launches(tag: str, counts: dict, n: int) -> None:
-    """An NJ of n taxa ran every merge step through both kernels."""
+def check_nj_launches(tag: str, counts: dict, n: int, half: bool) -> None:
+    """An NJ of n taxa ran every merge step through both kernels, kernel A
+    in the half read (`half`) or in the full read."""
     for name in ("nj_q_argmin", "nj_update"):
         check(counts[name] == n - 2, f"{tag}: {counts[name]} {name} "
               f"launches for {n - 2} merge steps")
+    got = counts["nj_q_argmin.half_read"]
+    check(got == (n - 2 if half else 0), f"{tag}: {got} of kernel A's "
+          f"{n - 2} launches in the half read, want "
+          f"{n - 2 if half else 0}")
 
 
-def nj_kernel_times(D: torch.Tensor, reps: int = 20) -> dict:
+def check_nj_mode(tag: str, log: str, mode: str) -> None:
+    """The NJ run logged kernel A's mode."""
+    check(f"NJ merge steps: {mode} read" in log, f"{tag}: the log does not "
+          f"say the {mode} read ran: "
+          + "; ".join(ln for ln in log.splitlines() if "NJ merge" in ln))
+
+
+def nj_q_bounds(n: int) -> dict:
+    """Kernel A's bounds at n active nodes (f32): the half read's bytes
+    (one triangle and the diagonal, n (n + 1) / 2 values, and U) and the
+    full read's (n^2 values), each against two subtractions and a compare
+    a candidate (n^2 candidates either way)."""
+    half = bound_of(3.0 * n * n, 4.0 * n * (n + 1) / 2 + 8.0 * n + 8,
+                    PEAK_F32_PER_S)
+    full = bound_of(3.0 * n * n, 4.0 * n * n + 8.0 * n + 8, PEAK_F32_PER_S)
+    return {**half, "bound_full_read_ms": full["bound_ms"],
+            "bound_full_read_by": full["bound_by"]}
+
+
+def parent_nj_stepper(parent: str, st):
+    """Kernel A and B of an earlier checkout: its nj/nj_cuda.py's Stepper
+    over copies of the state's arrays (D as a contiguous [N, N], which
+    every earlier Stepper takes), so that its own wrapper builds and loads
+    its own libraries."""
+    mod = parent_module(parent, "nj.nj_cuda")
+    D = torch.empty(st.D.shape, dtype=st.D.dtype, device=st.D.device)
+    arrays = (D.copy_(st.D), st.U.clone(), st.real.clone(),
+              st.log_ids.clone(), st.log_bl.clone())
+    return mod.Stepper(*arrays), arrays
+
+
+def in_turns(this, parent, reps: int) -> dict:
+    """queued_ms of `this` and `parent` timed in turns: parent, this,
+    this, parent."""
+    turns = {"parent": 0.0, "this": 0.0}
+    for who in ("parent", "this", "this", "parent"):
+        turns[who] += queued_ms(this if who == "this" else parent, reps) / 2
+    return turns
+
+
+def nj_step_windows(D: torch.Tensor, steps: int = 50) -> dict:
+    """The first `steps` merge steps of an NJ of D's [n, n] prefix (n in
+    NJ_TIMED_N) by the kernel route in the half read, each window from a
+    fresh state and timed by CUDA events, ms a step: as the run meets them
+    ("host"), and queued behind a device sleep ("card", the card's own
+    time a step)."""
+    from dipper_tpu_torch.nj import engine, nj_cuda
+
+    out = {}
+    for n in sorted((m for m in NJ_TIMED_N if m <= D.shape[0]),
+                    reverse=True):
+        check(not any(engine._recomputes_u(n - s, n)
+                      for s in range(1, steps + 1)),
+              f"the step window at {n} holds a U recompute")
+        out[n] = {"steps": steps}
+        for queue in ("host", "card"):
+            st = engine._State(D[:n, :n], "float32", D.device, None)
+            k = nj_cuda.Stepper(st.D, st.U, st.real, st.log_ids, st.log_bl,
+                                half=True)
+            engine._merge_step_kernels(k, st, 0, None)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            if queue == "card":
+                torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+            ev[0].record()
+            for step in range(1, steps + 1):
+                engine._merge_step_kernels(k, st, step, None)
+            ev[1].record()
+            torch.cuda.synchronize()
+            out[n][f"ms_per_step_{queue}"] = ev[0].elapsed_time(ev[1]) / steps
+            del st, k
+        torch.cuda.empty_cache()
+    return out
+
+
+def nj_kernel_times(D: torch.Tensor, parent: str | None = None,
+                    reps: int = 20) -> dict:
     """NJ's kernels at the main path's sizes, on a copy of its f32 matrix
-    D with U its row sums: kernel A (nj_q_argmin over the whole active
-    block) at each n of NJ_TIMED_N, its flat index equal to the plain
-    version's (the Q pass and torch.argmin), by CUDA events beside the
-    plain version, torch.argmin of an [n, n] tensor already in memory
-    (one library read of the same bytes) and its bound; kernel B
-    (nj_update) at the largest n on the pair kernel A chose, bit for bit
-    against _update_plain on a second copy, then timed (each launch
-    rewrites the same rows and columns) beside _update_plain."""
+    D with U its row sums: kernel A over the whole active block at each n
+    of NJ_TIMED_N in the half read (the main path's mode) and in the full
+    read, its flat index equal to the plain version's (the Q pass and
+    torch.argmin) in both, by CUDA events beside the plain version,
+    torch.argmin of an [n, n] tensor already in memory (one library read
+    of the full bytes) and both bounds; with `parent` (an earlier
+    checkout), that checkout's kernel A on a contiguous copy, its index
+    equal, timed in turns with this one's half read (parent, this, this,
+    parent). Kernel B (nj_update) at the largest n on the pair kernel A
+    chose, bit for bit against _update_plain on a second copy (and the
+    parent's kernel B equal on its copy), then timed (each launch
+    rewrites the same rows and columns) beside _update_plain and in turns
+    with the parent's. Then the step windows (nj_step_windows)."""
     from dipper_tpu_torch.nj import engine
 
     dev = D.device
     N = D.shape[0]
     st = engine._State(D, "float32", dev, None)
-    k = engine._stepper(st)
+    check(engine._read_mode(st, None), "the NJ matrix is not symmetric bit "
+          "for bit")
+    ks = {"half": engine._stepper(st, True), "full": engine._stepper(st, False)}
+    pk, parrays = parent_nj_stepper(parent, st) if parent else (None, None)
     res = {"q_argmin": {}, "update": {}}
     for n in sorted((m for m in NJ_TIMED_N if m <= N), reverse=True):
         st.U[:n] = engine._sum_last(st.D[:n, :n])
         Dv = st.D[:n, :n]
         Un = st.U[:n] / st.denom[n]
         qbuf = st.q_buffer()
-        k.q_argmin(n)
         want = engine._argmin_plain(Dv, Un, qbuf, st.big)
-        check(torch.equal(k.flat, want), f"kernel A at n = {n}: flat "
-              f"{int(k.flat)} != the plain version's {int(want)}")
-        ms = event_ms(lambda: k.q_argmin(n), reps)
-        plain_ms = event_ms(lambda: engine._argmin_plain(Dv, Un, qbuf,
-                                                         st.big), reps)
+        rec = {}
+        for mode, k in ks.items():
+            k.q_argmin(n)
+            check(torch.equal(k.flat, want), f"kernel A ({mode} read) at n "
+                  f"= {n}: flat {int(k.flat)} != the plain version's "
+                  f"{int(want)}")
+        for mode, k in ks.items():
+            rec[f"{mode}_read_ms"] = queued_ms(lambda: k.q_argmin(n), reps)
+        if pk is not None:
+            parrays[1].copy_(st.U)
+            pk.q_argmin(n)
+            check(torch.equal(pk.flat, want), f"the parent's kernel A at n "
+                  f"= {n}: flat {int(pk.flat)} != the plain version's")
+            turns = in_turns(lambda: ks["half"].q_argmin(n),
+                             lambda: pk.q_argmin(n), reps)
+            rec.update(parent_ms=turns["parent"],
+                       this_ms_in_turns=turns["this"])
+        rec["plain_ms"] = queued_ms(lambda: engine._argmin_plain(
+            Dv, Un, qbuf, st.big), reps)
         Dn = Dv.contiguous()
-        lib_ms = event_ms(lambda: torch.argmin(Dn), reps)
+        rec["library_ms"] = queued_ms(lambda: torch.argmin(Dn), reps)
         del Dn
-        res["q_argmin"][n] = {
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "max_abs_err": 0.0,
-            **bound_of(3.0 * n * n, 4.0 * n * n + 8.0 * n + 8,
-                       PEAK_F32_PER_S)}
-        res["q_argmin"][n]["share_of_bound"] = (
-            res["q_argmin"][n]["bound_ms"] / ms)
+        rec.update(ms=rec["half_read_ms"], max_abs_err=0.0,
+                   **nj_q_bounds(n))
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        rec["full_read_share_of_full_bound"] = (rec["bound_full_read_ms"]
+                                                / rec["full_read_ms"])
+        res["q_argmin"][n] = rec
     n = max(res["q_argmin"])
     step = N - n
     st.U[:n] = engine._sum_last(st.D[:n, :n])
+    k = ks["half"]
     k.q_argmin(n)
     flat = k.flat.clone()
     twin = engine._State(st.D, "float32", dev, None)
     twin.U.copy_(st.U)
+    if pk is not None:
+        for dst, src in zip(parrays, (st.D, st.U, st.real, st.log_ids,
+                                      st.log_bl)):
+            dst.copy_(src)
     k.update(step, n, flat)
     engine._update_plain(twin, step, flat)
     torch.cuda.synchronize()
@@ -2672,17 +2813,29 @@ def nj_kernel_times(D: torch.Tensor, reps: int = 20) -> dict:
     for name in ("log_ids", "log_bl"):
         check(torch.equal(getattr(st, name)[step], getattr(twin, name)[step]),
               f"kernel B at n = {n}: the log row != the plain step's")
-    ms = event_ms(lambda: k.update(step, n, flat), reps)
-    plain_ms = event_ms(lambda: engine._update_plain(twin, step, flat), reps)
-    res["update"][n] = {
-        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-        "max_abs_err": err,
+    rec = {}
+    if pk is not None:
+        pk.update(step, n, flat)
+        ours = (st.D, st.U, st.real, st.log_ids[step], st.log_bl[step])
+        theirs = (*parrays[:3], parrays[3][step], parrays[4][step])
+        check(all(torch.equal(a, b) for a, b in zip(theirs, ours)),
+              f"the parent's kernel B at n = {n} != this one's")
+        turns = in_turns(lambda: k.update(step, n, flat),
+                         lambda: pk.update(step, n, flat), reps)
+        rec.update(parent_ms=turns["parent"], this_ms_in_turns=turns["this"])
+    rec.update(
+        ms=queued_ms(lambda: k.update(step, n, flat), reps),
+        plain_ms=queued_ms(lambda: engine._update_plain(twin, step, flat),
+                          reps),
+        library_ms=None, max_abs_err=err,
         # read rows x, y and last and U; write rows and columns x and y
         # and U
-        **bound_of(6.0 * n, 4.0 * (9 * n) + 8.0, PEAK_F32_PER_S)}
-    res["update"][n]["share_of_bound"] = res["update"][n]["bound_ms"] / ms
-    del st, twin, k
+        **bound_of(6.0 * n, 4.0 * (9 * n) + 8.0, PEAK_F32_PER_S))
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    res["update"][n] = rec
+    del st, twin, ks, k, pk, parrays
     torch.cuda.empty_cache()
+    res["step_windows"] = nj_step_windows(D)
     return res
 
 
@@ -2858,7 +3011,8 @@ def phase_msa_nj_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"-i m main path CLI returned {rc}")
     check("Using conventional NJ" in log, "auto mode did not take NJ")
-    check_nj_launches("-i m main path", counts, n)
+    check_nj_launches("-i m main path", counts, n, half=True)
+    check_nj_mode("-i m main path", log, "half")
     check(len(matrices) == 1, "the -i m main path built no MSA matrix")
     D = matrices[0]
     check(D.shape == (n, n) and D.dtype == torch.float32
@@ -3886,7 +4040,8 @@ def phase_nj_two_ranks(tmp: str, nj: dict) -> dict:
         for name in ("mash_rows_dist", "minhash_sketch"):
             check(got["counts"][name] > 0,
                   f"NJ rank {r} launched no {name} kernel")
-        check_nj_launches(f"NJ rank {r}", got["counts"], nj["n"])
+        check_nj_launches(f"NJ rank {r}", got["counts"], nj["n"], half=False)
+        check_nj_mode(f"NJ rank {r}", got["log"], "full")
         _check_samples("nj2", r, got["samples"],
                        ("mash_rows_dist", "minhash_sketch"))
         m = re.search(r"NJ sharded over 2 ranks \((\w+)\): (\d+) merge steps, "
@@ -4522,9 +4677,9 @@ def main() -> int:
     ap.add_argument("--parent", default=None,
                     help="a checkout of an earlier commit (e.g. from git "
                          "archive): phase 15 builds its per-cluster count "
-                         "kernel, phase 5 its insert_step and phase 24 its "
-                         "sketch kernel, and each is timed beside this "
-                         "one's")
+                         "kernel, phase 5 its insert_step, phase 9 its NJ "
+                         "kernels A and B and phase 24 its sketch kernel, "
+                         "and each is timed beside this one's")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -4652,7 +4807,7 @@ def main() -> int:
                       **{k: big[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "share_of_bound")})
         if 9 in phases:
-            res = nj_single = phase_nj_main_path(tmp, args.nj_n)
+            res = nj_single = phase_nj_main_path(tmp, args.nj_n, args.parent)
             note("nj", res["counts"])
             rd = records["mash_rows_dist"]
             rd["launches"] = res["counts"]["mash_rows_dist"]
@@ -4671,8 +4826,14 @@ def main() -> int:
                     times_by_n=times,
                     **{f: top[f] for f in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms",
-                                           "max_abs_err",
-                                           "share_of_bound")})
+                                           "max_abs_err", "share_of_bound",
+                                           "parent_ms") if f in top})
+            records["nj_q_argmin"].update(
+                half_read_launches=res["counts"]["nj_q_argmin.half_read"],
+                bound_full_read_ms=res["nj_times"]["q_argmin"][
+                    records["nj_q_argmin"]["n"]]["bound_full_read_ms"])
+            records["nj_update"]["step_windows"] = \
+                res["nj_times"]["step_windows"]
         if 24 in phases:
             nj_fa = (nj_single["fa"] if 9 in phases else make_dataset(
                 args.nj_n, os.path.join(tmp, f"n{args.nj_n}"), seed=1)[0])

@@ -1,6 +1,8 @@
 // What NJ's two merge-step kernels share (csrc/nj_q_argmin.cu,
 // csrc/nj_update.cu): the block shape, round-to-nearest arithmetic that
-// cannot contract into an FMA, and torch.argmin's order of candidates.
+// cannot contract into an FMA, torch.argmin's order of candidates, and
+// the launch that may overlap the previous kernel of the stream
+// (programmatic dependent launch).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -95,6 +97,40 @@ __device__ __forceinline__ double block_sum(double s, double* part)
         for (int w = 1; w < kWarps; ++w) s = __dadd_rn(s, part[w]);
     }
     return s;
+}
+
+// Programmatic dependent launch (Hopper): a kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start while the
+// previous kernel of its stream runs; wait_prior_grid() returns once that
+// kernel has finished and its writes are visible. Both kernels call it before their first global
+// read or write. release_next_grid() lets the next such launch start.
+__device__ __forceinline__ void wait_prior_grid()
+{
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+__device__ __forceinline__ void release_next_grid()
+{
+    asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// Launches kernel<<<grid, kThreads>>>(args...) on `s` with programmatic
+// dependent launch.
+template <typename... Params, typename... Args>
+cudaError_t launch(void (*kernel)(Params...), dim3 grid, cudaStream_t s,
+                   Args... args)
+{
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = s;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 struct OnDevice {

@@ -24,8 +24,16 @@
 // y}. Columns x and y, d, the join and U[x], U[y] are the last block's:
 // it runs after every other block has finished (a ticket taken with
 // atomicAdd after __threadfence), so every read of d is done before it
-// writes D[x, y]. It reads newrow[last] back from D[x, last] and U[last]
-// from U, both written by thread last (or computes them where last == y).
+// writes D[x, y]. D stays symmetric: row and column x (and y) get the
+// same values.
+//
+// The last block's chain after the ticket is short: every scalar of the
+// join that no thread of the launch writes (d = D[x, y], D[y, y], U[x],
+// U[y], real[x], real[y], real[last]) is read by each block before its
+// ticket, with its columns' loads, and the two that thread `last` writes
+// (newrow[last], the updated U[last]) are left by that thread in a slot
+// beside its block's partial, which the last block reads with the
+// partials. Where last == y they are computed from d, D[y, y] and U[y].
 // Where x == y (only if every off-diagonal Q exceeds the type's largest
 // finite value) the later write wins, as in the plain version on the
 // CPU.
@@ -38,15 +46,21 @@
 // round-to-nearest intrinsic, so none contracts into an FMA: the f32
 // branch lengths are the plain version's bytes.
 //
+// Launched with programmatic dependent launch (nj_step.cuh::launch): the
+// blocks wait for nj_q_argmin before they read its index, and let the
+// next step's nj_q_argmin be placed at once.
+//
 // What bounds it: latency. O(n) work (3n reads, 2n coalesced and 2n
-// strided writes) over ceil(n / 256) blocks, then one block's serial
-// join.
+// strided writes) over ceil(n / 256) blocks: the index, then the
+// columns' and the join's reads in one trip, the ticket, the partials
+// and the slot in one trip, and the last block's arithmetic.
 //
 // Inputs: D T [*, ld] (the active [n, n] block), U T [n], real int32 [n],
 // flat int64 [1] (nj_q_argmin's), log_ids int32 [2] and log_bl T [2] (the
-// step's log row), new_id; n >= 3. Scratch: part double [ceil(n / 256)],
-// ticket uint32 [1] (zero before the first launch); launches that share
-// scratch must be ordered on one stream.
+// step's log row), new_id; n >= 3. Scratch: part double [ceil(n / 256) +
+// 2] (the blocks' partials, then the slot), ticket uint32 [1] (zero before
+// the first launch); launches that share scratch must be ordered on one
+// stream.
 
 #include "nj_step.cuh"
 
@@ -72,43 +86,79 @@ update_kernel(T* D, long long ld, T* U, int* real, const long long* flat_p,
     __shared__ double s_sum[kWarps];
     __shared__ T s_row[kSmallSum];
     __shared__ T s_blk[kSmallSum / kXlaBlock];
+    __shared__ T s_slot[2];   // newrow[last] and U[last], by thread last
     __shared__ int s_last;
+    wait_prior_grid();
+    release_next_grid();
     const long long flat = *flat_p;
     const int a = (int)(flat / n), b = (int)(flat - (long long)a * n);
     const int x = min(a, b), y = max(a, b), last = n - 1;
     T* rowx = D + (long long)x * ld;
     T* rowy = D + (long long)y * ld;
-    const T d = rowx[y];
     const T half = T(0.5);
 
+    // the join's scalars that no thread of the launch writes, read with
+    // the columns (thread 0 of every block: any block may be the last)
+    const T d = rowx[y];
+    T dyy = T(0), ux0 = T(0), uy0 = T(0);
+    int real_x = 0, real_y = 0, real_last = 0;
+    if (threadIdx.x == 0) {
+        dyy = rowy[y];
+        ux0 = U[x];
+        uy0 = U[y];
+        real_x = real[x];
+        real_y = real[y];
+        real_last = real[last];
+    }
     const int j = blockIdx.x * kThreads + threadIdx.x;
     double s = 0.0;
     if (j < n && j != x && j != y) {
         const T rx = rowx[j], ry = rowy[j];
         const T rl = D[(long long)last * ld + j];
+        const T uj = U[j];
         const T nr = mul_rn(sub_rn(add_rn(rx, ry), d), half);
-        U[j] = add_rn(U[j], sub_rn(sub_rn(nr, rx), ry));
+        const T ujn = add_rn(uj, sub_rn(sub_rn(nr, rx), ry));
+        U[j] = ujn;
         T* rowj = D + (long long)j * ld;
         rowx[j] = nr;
         rowj[x] = nr;
         rowy[j] = rl;
         rowj[y] = rl;
         s = (double)nr;
+        if (j == last) {
+            s_slot[0] = nr;
+            s_slot[1] = ujn;
+        }
     }
-    s = block_sum(s, s_sum);
+    s = block_sum(s, s_sum);   // its __syncthreads orders s_slot's write
+    const int blocks = (int)gridDim.x;
     if (threadIdx.x == 0) {
         part[blockIdx.x] = s;
+        if (last != x && last != y && blockIdx.x == last / kThreads) {
+            part[blocks] = (double)s_slot[0];
+            part[blocks + 1] = (double)s_slot[1];
+        }
         __threadfence();
-        s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+        s_last = atomicAdd(ticket, 1u) == (unsigned int)(blocks - 1);
     }
     __syncthreads();
     if (!s_last) return;
     __threadfence();
 
+    T dxl = T(0), uy = T(0);  // newrow[last], and U[last] after the update
+    if (threadIdx.x == 0) {
+        if (last != y) {
+            dxl = (T)__ldcg(part + blocks);
+            uy = (T)__ldcg(part + blocks + 1);
+        } else {
+            dxl = mul_rn(sub_rn(add_rn(d, dyy), d), half);
+            uy = add_rn(uy0, sub_rn(sub_rn(dxl, d), dyy));
+        }
+    }
     T ux;
     if (n > kSmallSum) {
         double t = 0.0;
-        for (int p = threadIdx.x; p < (int)gridDim.x; p += kThreads)
+        for (int p = threadIdx.x; p < blocks; p += kThreads)
             t = __dadd_rn(t, __ldcg(part + p));
         ux = (T)block_sum(t, s_sum);
     } else {
@@ -132,17 +182,8 @@ update_kernel(T* D, long long ld, T* U, int* real, const long long* flat_p,
     }
     if (threadIdx.x != 0) return;
 
-    T dxl, uy;  // newrow[last], and U[last] after the update
-    if (last != y) {
-        dxl = __ldcg(rowx + last);
-        uy = __ldcg(U + last);
-    } else {
-        const T dyy = rowy[y];
-        dxl = mul_rn(sub_rn(add_rn(d, dyy), d), half);
-        uy = add_rn(U[y], sub_rn(sub_rn(dxl, d), dyy));
-    }
     const T denom = T(n - 2);
-    const T unx = div_rn(U[x], denom), uny = div_rn(U[y], denom);
+    const T unx = div_rn(ux0, denom), uny = div_rn(uy0, denom);
     T blx = mul_rn(sub_rn(add_rn(d, unx), uny), half);
     T bly = sub_rn(d, blx);
     // negative-branch clamping, remainder shifted (reference order)
@@ -150,11 +191,10 @@ update_kernel(T* D, long long ld, T* U, int* real, const long long* flat_p,
     blx = clamp0(blx);
     blx = bly < T(0) ? add_rn(blx, bly) : blx;
     bly = clamp0(bly);
-    log_ids[0] = real[x];
-    log_ids[1] = real[y];
+    log_ids[0] = real_x;
+    log_ids[1] = real_y;
     log_bl[0] = blx;
     log_bl[1] = bly;
-    const int real_last = real[last];
 
     rowx[x] = T(0);
     rowx[y] = dxl;
@@ -177,18 +217,20 @@ extern "C" int nj_update(void* D, long long ld, void* U, void* real,
     if (n < 3 || ld < n) return (int)cudaErrorInvalidValue;
     OnDevice on(device);
     if (on.err != cudaSuccess) return (int)on.err;
-    const int blocks = (n + kThreads - 1) / kThreads;
+    const dim3 grid((n + kThreads - 1) / kThreads);
     cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err;
     if (is_f64)
-        update_kernel<double><<<blocks, kThreads, 0, s>>>(
-            (double*)D, ld, (double*)U, (int*)real, (const long long*)flat,
-            (int*)log_ids, (double*)log_bl, (double*)part,
-            (unsigned int*)ticket, n, new_id);
+        err = launch(update_kernel<double>, grid, s, (double*)D, ld,
+                     (double*)U, (int*)real, (const long long*)flat,
+                     (int*)log_ids, (double*)log_bl, (double*)part,
+                     (unsigned int*)ticket, n, new_id);
     else
-        update_kernel<float><<<blocks, kThreads, 0, s>>>(
-            (float*)D, ld, (float*)U, (int*)real, (const long long*)flat,
-            (int*)log_ids, (float*)log_bl, (double*)part,
-            (unsigned int*)ticket, n, new_id);
+        err = launch(update_kernel<float>, grid, s, (float*)D, ld,
+                     (float*)U, (int*)real, (const long long*)flat,
+                     (int*)log_ids, (float*)log_bl, (double*)part,
+                     (unsigned int*)ticket, n, new_id);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
 

@@ -17,10 +17,14 @@ working copy on the device. On the card a merge step is two hand kernels
 (nj_cuda.py): csrc/nj_q_argmin.cu reads the active block once and
 returns the first minimum of Q (no Q is written), and csrc/nj_update.cu
 reads that index on the card and does the join and the O(n) rewrite of
-rows and columns x and y, U and `real`. On the CPU, and as the yardstick
-on the card (neighbor_joining_plain), the step is merge_step_plain: the
-Q pass into a reused buffer (two subtractions, the diagonal,
-torch.argmin, which returns the first minimum), then O(n) index writes.
+rows and columns x and y, U and `real`. Where the working copy is
+symmetric bit for bit (every matrix of the CLI: mash, MSA, PHYLIP) and
+the run is one process, kernel A reads one triangle of it and takes both
+of Q's roundings from each element (_read_mode). On the CPU, and as the
+yardstick on the card (neighbor_joining_plain), the step is
+merge_step_plain: the Q pass into a reused buffer (two subtractions, the
+diagonal, torch.argmin, which returns the first minimum), then O(n)
+index writes.
 The JAX package instead rebuilds the whole padded matrix with masked
 selects and re-jits at halved shapes; its row sums U are recomputed
 where it halves (n = S/2, S/4, ..., 128 with S = max(128, pow2 >= N)),
@@ -70,6 +74,10 @@ _MIN_BUCKET = 128
 
 # XLA:CPU's reduction block (see the module docstring)
 _XLA_BLOCK = 32
+
+# the working copy's leading dimension is a multiple of this many
+# elements (_State)
+LD_ALIGN = 32
 
 
 def _sum_last(x: torch.Tensor) -> torch.Tensor:
@@ -129,16 +137,25 @@ class _State:
     """One NJ run's device arrays: the working copy D [N, N] (its [n, n]
     prefix is the active block), the row sums U, the node ids `real`,
     the join log (ids and branch lengths, a row a step) and the plain
-    version's Q buffer."""
+    version's Q buffer.
+
+    D is the [N, N] view of an [N, ld] buffer whose leading dimension ld
+    is N rounded up to LD_ALIGN elements, so that every row starts on a
+    128-byte boundary and kernel A reads it with aligned 16-byte loads
+    (padding costs under LD_ALIGN elements a row; a scalar head on each
+    row would cost the kernel a second code path in every tile instead).
+    The plain version indexes the view as it would a contiguous matrix."""
 
     def __init__(self, D_host, dtype_name: str, device, mesh):
         dtype = torch_dtype(dtype_name)
         N = int(D_host.shape[0])
+        self.ld = -(-N // LD_ALIGN) * LD_ALIGN
+        self.D = torch.empty((N, self.ld), dtype=dtype,
+                             device=device)[:, :N]
         if isinstance(D_host, torch.Tensor):
-            self.D = D_host.to(device=device, dtype=dtype, copy=True)
+            self.D.copy_(D_host)
         else:  # cast on the host, as the JAX engine does
-            self.D = torch.from_numpy(np.array(D_host, dtype=dtype_name)).to(
-                device)
+            self.D.copy_(torch.from_numpy(np.array(D_host, dtype=dtype_name)))
         self.N = N
         self.U = _sum_last(self.D)
         self.real = torch.arange(N, dtype=torch.int32, device=device)
@@ -173,7 +190,9 @@ def _join(D_host, dtype_name: str, device, mesh, log, plain: bool):
         return children, root
 
     st = _State(D_host, dtype_name, device, mesh)
-    kernels = None if plain or not _on_card(st.D) else _stepper(st)
+    kernels = None
+    if not plain and _on_card(st.D):
+        kernels = _stepper(st, _read_mode(st, mesh, log))
     t0 = time.time()
     for step in range(N - 2):
         n = N - step
@@ -207,18 +226,52 @@ def _on_card(D: torch.Tensor) -> bool:
     return D.device.type == "cuda"
 
 
-def _stepper(st: _State):
-    """The kernels' launcher over the run's arrays (nj_cuda.Stepper)."""
+def _read_mode(st: _State, mesh, log=None) -> bool:
+    """Kernel A's mode for the run, chosen once: the half read (one
+    triangle of D) where the run is a single process and its working copy
+    is symmetric bit for bit, else the full read. The check compares the
+    bit patterns of D and D.T on the device (so -0.0 against +0.0, and
+    NaNs of other payloads, count as asymmetric), one host sync a run;
+    kernel B keeps D symmetric from step to step. The sharded route
+    reads a rank's rows in full: its merge of the ranks' pairs breaks
+    ties by rank order, which is flat order only over whole rows. Logs
+    the mode and the check's milliseconds."""
+    if mesh is not None:
+        if log is not None:
+            log("NJ merge steps: full read (sharded: a rank scans its rows)")
+        return False
+    t0 = time.perf_counter()
+    bits = st.D.view(torch.int32 if st.D.element_size() == 4
+                     else torch.int64)
+    half = torch.equal(bits, bits.T)
+    ms = (time.perf_counter() - t0) * 1e3
+    if log is not None:
+        if half:
+            log(f"NJ merge steps: half read (the working copy is symmetric "
+                f"bit for bit, checked in {ms:.3f} ms)")
+        else:
+            i, j = (int(v) for v in torch.nonzero(bits != bits.T)[0])
+            log(f"NJ merge steps: full read (the working copy is not "
+                f"symmetric bit for bit: D[{i}, {j}] != D[{j}, {i}], "
+                f"checked in {ms:.3f} ms)")
+    return half
+
+
+def _stepper(st: _State, half: bool):
+    """The kernels' launcher over the run's arrays (nj_cuda.Stepper),
+    kernel A in the half read where `half`."""
     from dipper_tpu_torch.nj import nj_cuda
 
-    return nj_cuda.Stepper(st.D, st.U, st.real, st.log_ids, st.log_bl)
+    return nj_cuda.Stepper(st.D, st.U, st.real, st.log_ids, st.log_bl,
+                           half=half)
 
 
 def _merge_step_kernels(k, st: _State, step: int, mesh) -> None:
     """One merge step by the kernels: the first minimum of Q
-    (nj_q_argmin; over a rank's rows, its pair merged over the ranks as
-    _sharded_argmin merges them), then the join and the update
-    (nj_update), which reads the flat index on the card."""
+    (nj_q_argmin, in the stepper's mode; over a rank's rows, the full
+    read, its pair merged over the ranks as _sharded_argmin merges them),
+    then the join and the update (nj_update), which reads the flat index
+    on the card."""
     n = st.N - step
     if mesh is None:
         k.q_argmin(n)

@@ -8,11 +8,12 @@ k = 15, s = 1000) with the port, then:
      kernel route, csrc/nj_q_argmin.cu + csrc/nj_update.cu) on the matrix,
      host clock around a synchronized run, once per --sizes prefix;
   B. the selection alone at sampled n: kernel A (nj_q_argmin over the
-     active block, on the card only) beside the plain Q pass (the two
-     subtractions, the diagonal, torch.argmin), CUDA events over 20 runs,
-     and each one's sum over every merge step, interpolated in n^2
-     between the samples: the device time the selection costs the whole
-     NJ;
+     active block, on the card only) in its half read (one triangle of
+     the symmetric matrix, the NJ paths' mode) and in its full read,
+     beside the plain Q pass (the two subtractions, the diagonal,
+     torch.argmin), CUDA events over 20 runs, and each one's sum over
+     every merge step, interpolated in n^2 between the samples: the
+     device time the selection costs the whole NJ;
   C. the host time of one merge step: NJ of a 1,024-taxon prefix, where
      the device work is small, divided by its steps, by the kernel route
      (on the card) and by the plain route (neighbor_joining_plain).
@@ -65,8 +66,8 @@ def timed_ms(fn, dev: torch.device, reps: int = 20) -> float:
 
 
 def selection_ms(D: torch.Tensor, n: int, dtype_name: str) -> dict:
-    """Kernel A (on the card) and the plain Q pass + argmin over the
-    active n x n block of D, the same flat index from both."""
+    """Kernel A (on the card) in both reads and the plain Q pass + argmin
+    over the active n x n block of D, the same flat index from all."""
     from dipper_tpu_torch.nj import engine
 
     st = engine._State(D[:n, :n], dtype_name, D.device, None)
@@ -75,13 +76,16 @@ def selection_ms(D: torch.Tensor, n: int, dtype_name: str) -> dict:
     plain = lambda: engine._argmin_plain(st.D, Un, qbuf, st.big)  # noqa: E731
     out = {"plain_ms": timed_ms(plain, D.device)}
     if D.device.type == "cuda":
-        k = engine._stepper(st)
-        k.q_argmin(n)
-        if not torch.equal(k.flat, plain()):
-            raise SystemExit(f"kernel A at n = {n} != the plain version")
-        out["kernel_ms"] = timed_ms(lambda: k.q_argmin(n), D.device)
+        if not engine._read_mode(st, None):
+            raise SystemExit("the matrix is not symmetric bit for bit")
+        for key, half in (("kernel_ms", True), ("full_read_ms", False)):
+            k = engine._stepper(st, half)
+            k.q_argmin(n)
+            if not torch.equal(k.flat, plain()):
+                raise SystemExit(f"kernel A at n = {n} != the plain version")
+            out[key] = timed_ms(lambda: k.q_argmin(n), D.device)
     else:
-        out["kernel_ms"] = "not measured (no card)"
+        out["kernel_ms"] = out["full_read_ms"] = "not measured (no card)"
     return out
 
 
@@ -144,13 +148,14 @@ def main() -> int:
     steps = np.arange(3, args.n + 1) ** 2.0
     xs = np.array(sorted(samples)) ** 2.0
     rec = {"ms_at_n": samples}
-    for key in ("plain_ms", "kernel_ms"):
+    for key in ("plain_ms", "kernel_ms", "full_read_ms"):
         ys = [samples[n][key] for n in sorted(samples)]
         if all(isinstance(y, float) for y in ys):
             rec[f"{key[:-3]}_sum_over_steps_s"] = float(
                 np.interp(steps, xs, np.array(ys)).sum()) / 1e3
+    # the half read's bytes: one triangle and the diagonal
     rec["kernel_gbytes_per_s_at_n"] = {
-        n: D.element_size() * n * n / v["kernel_ms"] / 1e6
+        n: D.element_size() * n * (n + 1) / 2 / v["kernel_ms"] / 1e6
         for n, v in samples.items() if isinstance(v["kernel_ms"], float)}
     print(json.dumps({"selection": rec}), flush=True)
 

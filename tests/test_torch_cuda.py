@@ -515,15 +515,18 @@ def test_nj_sources_and_rounding():
                "__dadd_rn", "__dsub_rn", "__dmul_rn", "__ddiv_rn"):
         assert fn in src["nj_step.cuh"]
     q = src["nj_q_argmin.cu"]
-    assert "sub_rn(sub_rn(v[k], uni), unj[k])" in q
-    assert "div_rn(U[col[k]], denom)" in q and "div_rn(U[ic + " in q
+    # both of Q's roundings of an element (the half read's two candidates)
+    assert "sub_rn(sub_rn(e[u][k], uni), unj[k])" in q
+    assert "sub_rn(sub_rn(e[u][k], unj[k]), uni)" in q
+    assert "div_rn(U[idx], denom)" in q
     u = src["nj_update.cu"]
     for expr in ("mul_rn(sub_rn(add_rn(rx, ry), d), half)",
-                 "add_rn(U[j], sub_rn(sub_rn(nr, rx), ry))",
+                 "add_rn(uj, sub_rn(sub_rn(nr, rx), ry))",
                  "mul_rn(sub_rn(add_rn(d, unx), uny), half)",
+                 "div_rn(ux0, denom)", "div_rn(uy0, denom)",
                  "sub_rn(d, blx)", "add_rn(bly, blx)", "add_rn(blx, bly)",
                  "mul_rn(sub_rn(add_rn(d, dyy), d), half)",
-                 "add_rn(U[y], sub_rn(sub_rn(dxl, d), dyy))"):
+                 "add_rn(uy0, sub_rn(sub_rn(dxl, d), dyy))"):
         assert expr in u, expr
 
 
@@ -633,6 +636,55 @@ def test_nj_q_argmin_kernel_equals_plain(cuda, n, dtype, case):
     assert nj_cuda.Q_ARGMIN_LAUNCHES == before + 3
 
 
+def _nj_half_case(name, n, dtype, seed):
+    """_nj_case's values in mirrored pairs: D symmetric bit for bit."""
+    D, U = _nj_case(name, n, dtype, seed)
+    D = np.tril(D) + np.tril(D, -1).T
+    if name == "signed_zeros":
+        D[n - 1, 1] = D[1, n - 1] = 0.0
+        D[n // 2, 0] = D[0, n // 2] = -0.0
+    return D, U
+
+
+@pytest.mark.parametrize("case", ["random", "nan", "signed_zeros", "ties",
+                                  "inf"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n", [3, 5, 128, 129, 1000, 4099])
+def test_nj_q_argmin_half_read_equals_plain(cuda, n, dtype, case):
+    """Kernel A's half read against the plain full Q pass and
+    torch.argmin on the card, on symmetric matrices: the flat index, also
+    over active prefixes whose n is not a multiple of the 16-byte load
+    (the leading dimension is the padded N)."""
+    from dipper_tpu_torch.nj import nj_cuda
+
+    D, U = _nj_half_case(case, n, dtype, n)
+    st = _nj_state(D, U, dtype, cuda)
+    k = nj_cuda.Stepper(st.D, st.U, st.real, st.log_ids, st.log_bl,
+                        half=True)
+    q0, h0 = nj_cuda.Q_ARGMIN_LAUNCHES, nj_cuda.HALF_READ_LAUNCHES
+    for m in sorted({n, max(3, n - 1), max(3, n - 2)}):
+        k.q_argmin(m)
+        assert int(k.flat) == _q_plain_on(st, m, 0, m)[0], m
+    launched = len({n, max(3, n - 1), max(3, n - 2)})
+    assert nj_cuda.Q_ARGMIN_LAUNCHES - q0 == launched
+    assert nj_cuda.HALF_READ_LAUNCHES - h0 == launched
+
+
+def test_nj_stepper_rejects_unaligned_rows(cuda):
+    """Kernel A's 16-byte loads need rows a multiple of 4 f32 (2 f64)
+    elements apart and D aligned: a contiguous [N, N] with N = 4,099
+    is refused, the padded working copy taken."""
+    from dipper_tpu_torch.nj import nj_cuda
+
+    D, U = _nj_half_case("random", 4099, "float32", 3)
+    st = _nj_state(D, U, "float32", cuda)
+    assert st.D.stride(0) % 32 == 0
+    dense = st.D.contiguous()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        nj_cuda.Stepper(dense, st.U, st.real, st.log_ids, st.log_bl)
+    nj_cuda.Stepper(st.D, st.U, st.real, st.log_ids, st.log_bl)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("n", [3, 4, 5, 127, 128, 129, 300, 4099])
 def test_nj_update_kernel_equals_plain_step(cuda, n, dtype):
@@ -675,8 +727,11 @@ def test_nj_kernel_route_equals_plain_route(cuda, dtype):
 
     D = _additive(2048, 11)
     before = nj_cuda.UPDATE_LAUNCHES
+    half = nj_cuda.HALF_READ_LAUNCHES
     got = neighbor_joining(D, dtype_name=dtype, device=cuda)
     assert nj_cuda.UPDATE_LAUNCHES == before + 2046
+    # a symmetric matrix: every step's kernel A in the half read
+    assert nj_cuda.HALF_READ_LAUNCHES == half + 2046
     want = neighbor_joining_plain(D, dtype_name=dtype, device=cuda)
     assert got[1] == want[1]
     assert ([[c for c, _ in ch] for ch in got[0]]
@@ -697,7 +752,8 @@ def test_nj_steps_make_no_host_sync(cuda):
 
     D, _ = _nj_case("random", 1000, "float32", 2)
     st = _nj_state(D, None, "float32", cuda)
-    k = engine._stepper(st)
+    k = engine._stepper(st, engine._read_mode(st, None))
+    assert k.half
     q0, u0 = nj_cuda.Q_ARGMIN_LAUNCHES, nj_cuda.UPDATE_LAUNCHES
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")

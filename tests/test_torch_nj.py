@@ -169,8 +169,9 @@ def test_small_sums_match_xla_bitwise(L, dtype):
 
 
 # --- the merge-step kernels' model (nj/step_model.py) against the plain
-# version: csrc/nj_q_argmin.cu's tiles and two-stage first minimum, and
-# csrc/nj_update.cu's read-then-write columns and last block
+# version: csrc/nj_q_argmin.cu's tiles, persistent grid and two-stage first
+# minimum in both modes, and csrc/nj_update.cu's read-then-write columns
+# and last block
 
 def _q_plain(D, U, r0, r1):
     """(flat, value) of the plain Q pass and argmin over rows [r0, r1):
@@ -220,37 +221,195 @@ def _q_case(name, n, dtype, rng):
 
 Q_CASES = ["random", "nan_first", "nan_later", "signed_zeros",
            "ties_across_blocks", "inf_big_wins"]
+# the kernel's grid on one H100 (132 SMs x 4 blocks), and smaller ones
+GRIDS = (1, 3, 132, step_model.RESIDENT)
+
+
+def _same_first(got, want, *ctx):
+    assert got[0] == want[0], (ctx, got, want)
+    assert (np.isnan(got[1]) and np.isnan(want[1])
+            or got[1] == want[1]), (ctx, got, want)
+    assert np.signbit(got[1]) == np.signbit(want[1]), (ctx, got, want)
 
 
 @pytest.mark.parametrize("threads", [1, 7, 32, 256])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("case", Q_CASES)
 def test_q_argmin_model_equals_plain(case, dtype, threads):
-    """The kernel's two-stage first minimum (thread, block and partial
-    candidates) is the plain Q pass's torch.argmin, value and flat index,
-    over row ranges, with tiles of one row (many block borders) and of
-    the kernel's size."""
+    """The kernel's full read (each thread's first minimum a tile, the
+    tiles' merge, the block and partial candidates) is the plain Q pass's
+    torch.argmin, value and flat index, over row ranges, with tiles of one
+    row (many block borders) and of the kernel's size, on grids of one
+    block to the card's."""
     rng = np.random.default_rng(Q_CASES.index(case))
     for n in (3, 5, 37):
         D, U = _q_case(case, n, dtype, rng)
         for r0, r1 in ((0, n), (1, n), (0, n - 1), (n // 2, n // 2 + 1),
                        (2, 2)):
             want = _q_plain(D, U, r0, r1)
-            for mte in (1, step_model.MIN_TILE_ELEMS):
-                got = step_model.q_argmin(D, U, n, r0, r1, threads=threads,
-                                          min_tile_elems=mte)
-                assert got[0] == want[0], (n, r0, r1, mte, got, want)
-                assert (np.isnan(got[1]) and np.isnan(want[1])
-                        or got[1] == want[1]), (n, r0, r1, got, want)
-                assert np.signbit(got[1]) == np.signbit(want[1])
+            for tile_rows in (1, None):
+                for grid in GRIDS:
+                    got = step_model.q_argmin(D, U, n, r0, r1,
+                                              threads=threads, grid=grid,
+                                              tile_rows=tile_rows)
+                    _same_first(got, want, n, r0, r1, tile_rows, grid)
+
+
+def _rounding_tie(n, dtype, rng):
+    """A symmetric D and U in which Q[1, 0] (a mirrored candidate) and
+    Q[0, k] (an upper one, earlier in flat order) tie at the least value,
+    while Q[0, 1], the same element's other rounding, is larger: a half
+    read that took one rounding for both would pick another index."""
+    dt = np.dtype(dtype).type
+    A = rng.random((n, n)) + 10
+    D = (A + A.T).astype(dtype)
+    np.fill_diagonal(D, 0)
+    U = (rng.random(n) * 3).astype(dtype)
+    un = (U / dt(n - 2)).astype(dtype)
+    for _ in range(100000):
+        v = dt(rng.random())
+        q_up, q_mi = (v - un[0]) - un[1], (v - un[1]) - un[0]
+        if q_mi < q_up:
+            break
+        U[:2] = (rng.random(2) * 3).astype(dtype)
+        un = (U / dt(n - 2)).astype(dtype)
+    else:
+        raise AssertionError("no pair of roundings found")
+    D[0, 1] = D[1, 0] = v
+    k = n - 1
+    for _ in range(1000):
+        w = (q_mi + un[0]) + un[k]
+        for _ in range(64):
+            if (w - un[0]) - un[k] == q_mi:
+                break
+            w = np.nextafter(w, dt(np.inf) if (w - un[0]) - un[k] < q_mi
+                             else dt(-np.inf))
+        if ((w - un[0]) - un[k] == q_mi and (w - un[k]) - un[0] >= q_mi):
+            D[0, k] = D[k, 0] = w
+            return D, U, k
+        U[k] = dt(rng.random() * 3)
+        un[k] = U[k] / dt(n - 2)
+    raise AssertionError("no tying upper candidate found")
+
+
+HALF_CASES = ["random", "nan_mirrored", "signed_zeros", "rounding_tie",
+              "ties_across_tiles", "inf_big_wins"]
+
+
+def _half_case(name, n, dtype, rng):
+    """A symmetric D (bit for bit) and U for the half read."""
+    if name == "rounding_tie":
+        D, U, k = _rounding_tie(n, dtype, rng)
+        return D, U
+    A = rng.random((n, n))
+    D = (A + A.T).astype(dtype)
+    np.fill_diagonal(D, 0)
+    if name == "random":
+        return D, D.sum(axis=1).astype(dtype)
+    U = np.zeros(n, dtype)
+    if name == "nan_mirrored":
+        D[n - 2, n - 1] = D[n - 1, n - 2] = np.nan
+        D[n // 2, 0] = D[0, n // 2] = np.nan
+    elif name == "signed_zeros":
+        D[n - 1, 1] = D[1, n - 1] = 0.0
+        D[n // 2, 0] = D[0, n // 2] = -0.0    # earlier: the first minimum
+    elif name == "ties_across_tiles":
+        for i in range(n):
+            j = (7 * i + 3) % n
+            if j != i:
+                D[i, j] = D[j, i] = -1.0
+    elif name == "inf_big_wins":
+        D[:] = np.inf
+    assert np.array_equal(D.view(f"i{D.itemsize}"), D.T.view(f"i{D.itemsize}"))
+    return D, U
+
+
+@pytest.mark.parametrize("threads", [1, 7, 32, 256])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", HALF_CASES)
+def test_q_argmin_half_model_equals_plain(case, dtype, threads):
+    """The kernel's half read (one triangle of a symmetric D, two
+    candidates an element with Q's two roundings kept apart, the upper
+    and the mirrored running minima merged at each tile's end) is the
+    plain full Q pass's torch.argmin, value and flat index, bit for bit:
+    at n from 3 to 300, with tiles of one row and of the kernel's size,
+    on grids of one block to the card's."""
+    rng = np.random.default_rng(HALF_CASES.index(case))
+    for n in (3, 4, 5, 37, 129, 300):
+        if case == "rounding_tie" and n < 4:
+            continue
+        D, U = _half_case(case, n, dtype, rng)
+        want = _q_plain(D, U, 0, n)
+        for tile_rows in (1, None):
+            for grid in GRIDS:
+                got = step_model.q_argmin(D, U, n, 0, n, half=True,
+                                          threads=threads, grid=grid,
+                                          tile_rows=tile_rows)
+                _same_first(got, want, n, tile_rows, grid)
+
+
+def test_rounding_tie_needs_both_roundings():
+    """The rounding_tie case's first minimum is a mirrored candidate's
+    tie with an upper one, so a half read that mirrored the upper
+    rounding would miss it."""
+    for dtype in ("float32", "float64"):
+        D, U, k = _rounding_tie(37, dtype, np.random.default_rng(1))
+        flat, v = _q_plain(D, U, 0, 37)
+        assert flat == k and v == _q_plain(D, U, 1, 2)[1]
 
 
 def test_q_plan_covers_rows_within_the_partials():
-    for n in (3, 1000, 1025, 4099, 20000, 100000):
-        for rows in (0, 1, n // 3, n):
-            ct, rt, tr = step_model.q_plan(n, rows)
-            assert ct * rt <= step_model.MAX_PARTIALS
-            assert rows == 0 or (rt - 1) * tr < rows <= rt * tr
+    """The kernel's plan: tiles of 32 lanes x one 16-byte load of columns
+    and as many rows (fewer, down to an eighth, where that leaves fewer
+    tiles than resident blocks), a grid within the partials and the
+    tiles; the half read's tiles band by band, whose starts are
+    nj_q_argmin.cu::band_start; every element of the scanned rows (the
+    half read: of the upper triangle and the diagonal) in exactly one
+    tile."""
+    for itemsize in (4, 8):
+        for n in (3, 1000, 1025, 2048, 4099, 20000, 100000):
+            for rows, half in ((0, False), (1, False), (n // 3, False),
+                               (n, False), (n, True)):
+                p = step_model.q_plan(n, rows, half, itemsize)
+                tc = 32 * 16 // itemsize
+                assert p["tile_cols"] == tc
+                assert p["tile_rows"] == tc >> p["shift"]
+                assert (p["tiles"] >= step_model.RESIDENT
+                        or p["shift"] == step_model.MAX_SHIFT)
+                if p["shift"]:
+                    fewer = step_model.q_plan(n, rows, half, itemsize,
+                                              tile_rows=tc >> p["shift"] - 1)
+                    assert fewer["tiles"] < step_model.RESIDENT
+                assert 1 <= p["grid"] <= min(step_model.MAX_PARTIALS,
+                                             max(1, p["tiles"]))
+                tr = p["tile_rows"]
+                assert (p["bands"] - 1) * tr < max(rows, 1) <= p["bands"] * tr \
+                    or rows == 0
+                if half:
+                    assert all(p["starts"][b] == step_model.band_start(
+                        b, p["chunks"], p["shift"])
+                        for b in range(p["bands"] + 1))
+                else:
+                    assert p["tiles"] == p["bands"] * p["chunks"]
+    for n in (3, 37, 300):
+        for itemsize, lanes, tile_rows in ((4, 32, None), (8, 7, 1),
+                                           (4, 1, None), (8, 32, 1)):
+            for half, r0, r1 in ((True, 0, n), (False, 1, n - 1)):
+                p = step_model.q_plan(n, r1 - r0, half, itemsize,
+                                      lanes=lanes, tile_rows=tile_rows)
+                seen = np.zeros((n, n), int)
+                for t in range(p["tiles"]):
+                    band, chunk = step_model.locate(t, p)
+                    i0 = r0 + band * p["tile_rows"]
+                    c0 = chunk * p["tile_cols"]
+                    seen[i0:min(r1, i0 + p["tile_rows"]),
+                         c0:c0 + p["tile_cols"]] += 1
+                want = np.zeros((n, n), int)
+                want[r0:r1] = 1
+                if half:
+                    want = np.triu(want)
+                    seen = np.triu(seen)
+                assert np.array_equal(seen, want), (n, itemsize, lanes, half)
 
 
 def _update_matrix(N, dtype, rng, grid):
@@ -315,12 +474,13 @@ class _OneRankMesh:
 @pytest.fixture
 def model_as_kernels(monkeypatch):
     """The kernels' route on CPU tensors, with step_model in the kernels'
-    place: the steppers made, for their launch counts."""
+    place: the steppers made, for their launch counts (the mode is
+    engine._read_mode's)."""
     made = []
 
-    def stepper(st):
+    def stepper(st, half):
         made.append(step_model.ModelStepper(st.D, st.U, st.real, st.log_ids,
-                                            st.log_bl, threads=32))
+                                            st.log_bl, half=half, threads=32))
         return made[-1]
 
     monkeypatch.setattr(engine, "_on_card", lambda D: True)
@@ -328,20 +488,9 @@ def model_as_kernels(monkeypatch):
     return made
 
 
-@pytest.mark.parametrize("sharded", [False, True])
-@pytest.mark.parametrize("dtype", ["float64", "float32"])
-def test_kernel_route_equals_plain_route(model_as_kernels, dtype, sharded):
-    """The card's loop (kernel A, then kernel B reading its index; U
-    recomputed at 128) driven by the model, against merge_step_plain over
-    the whole NJ: f32 join ids and branch-length bytes equal; f64 ids
-    equal and lengths within 1e-12 relative (U[x]'s f64 sum order)."""
-    D = random_additive_matrix(140, np.random.default_rng(8))
-    mesh = _OneRankMesh() if sharded else None
-    want = engine.neighbor_joining_plain(D, dtype_name=dtype, mesh=mesh)
-    got = engine.neighbor_joining(D, dtype_name=dtype, device="cpu",
-                                  mesh=mesh)
-    (k,) = model_as_kernels
-    assert k.q_launches == k.update_launches == 138
+def _same_route(got, want, dtype):
+    """f32 join ids and branch-length bytes equal; f64 ids equal and
+    lengths within 1e-12 relative (U[x]'s f64 sum order)."""
     assert got[1] == want[1] and _joins(got[0]) == _joins(want[0])
     gl = np.array([bl for ch in got[0] for _, bl in ch])
     wl = np.array([bl for ch in want[0] for _, bl in ch])
@@ -351,11 +500,183 @@ def test_kernel_route_equals_plain_route(model_as_kernels, dtype, sharded):
         np.testing.assert_allclose(gl, wl, rtol=1e-12, atol=0)
 
 
-def test_kernel_route_matches_jax(model_as_kernels):
-    """The kernel route's schedule gives the JAX package's join sequence."""
-    _check_same(random_additive_matrix(130, np.random.default_rng(130)),
-                "float32")
-    assert model_as_kernels
+def _symmetric(D):
+    """D's lower triangle mirrored: symmetric bit for bit (the generator's
+    matrices sum each row's paths in its own order, so D[i, j] and D[j, i]
+    may differ in the last place)."""
+    return np.tril(D) + np.tril(D, -1).T
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_kernel_route_equals_plain_route(model_as_kernels, dtype, sharded):
+    """The card's loop (kernel A, then kernel B reading its index; U
+    recomputed at 128) driven by the model, against merge_step_plain over
+    the whole NJ: f32 join ids and branch-length bytes equal; f64 ids
+    equal and lengths within 1e-12 relative (U[x]'s f64 sum order). The
+    generator's matrix is not symmetric bit for bit in f64 (each row sums
+    its paths in its own order), so f64 takes the full read, f32 the half
+    read where the cast makes it symmetric, the sharded route the full
+    read."""
+    D = random_additive_matrix(140, np.random.default_rng(8))
+    mesh = _OneRankMesh() if sharded else None
+    want = engine.neighbor_joining_plain(D, dtype_name=dtype, mesh=mesh)
+    got = engine.neighbor_joining(D, dtype_name=dtype, device="cpu",
+                                  mesh=mesh)
+    (k,) = model_as_kernels
+    assert k.q_launches == k.update_launches == 138
+    Dt = _bits(D.astype(dtype))
+    symmetric = np.array_equal(Dt, Dt.T)
+    assert symmetric == (dtype == "float32")
+    assert k.half_launches == (138 if symmetric and not sharded else 0)
+    _same_route(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_kernel_route_half_read_equals_plain_route(model_as_kernels, dtype):
+    """The same over a matrix that is symmetric bit for bit: the half read
+    every step, the plain route's tree (f32 bytes, f64 1e-12), and the
+    JAX package's join sequence."""
+    D = _symmetric(random_additive_matrix(140, np.random.default_rng(8)))
+    want = engine.neighbor_joining_plain(D, dtype_name=dtype)
+    got = engine.neighbor_joining(D, dtype_name=dtype, device="cpu")
+    (k,) = model_as_kernels
+    assert k.q_launches == k.half_launches == k.update_launches == 138
+    _same_route(got, want, dtype)
+    _check_same(D, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_kernel_route_full_read_on_an_asymmetric_matrix(model_as_kernels,
+                                                        dtype):
+    """A matrix that is not symmetric takes the full read over the whole
+    run, the log names the first asymmetric place, and the run is the
+    plain route's."""
+    D = _symmetric(random_additive_matrix(140, np.random.default_rng(9)))
+    D[3, 70] = np.nextafter(np.float32(D[3, 70]), np.float32(np.inf))
+    lines = []
+    want = engine.neighbor_joining_plain(D, dtype_name=dtype)
+    got = engine.neighbor_joining(D, dtype_name=dtype, device="cpu",
+                                  log=lines.append)
+    (k,) = model_as_kernels
+    assert k.q_launches == 138 and k.half_launches == 0
+    assert any("full read" in ln and "D[3, 70] != D[70, 3]" in ln
+               for ln in lines), lines
+    _same_route(got, want, dtype)
+
+
+@pytest.mark.parametrize("matrix,dtype,half", [
+    ("symmetric", "float32", True), ("raw", "float64", False)])
+def test_kernel_route_matches_jax(model_as_kernels, matrix, dtype, half):
+    """The kernel route's schedule gives the JAX package's join sequence
+    in both of kernel A's reads: the half read on a matrix symmetric bit
+    for bit, the full read on the generator's own matrix in f64 (not
+    symmetric in the last place)."""
+    D = random_additive_matrix(130, np.random.default_rng(130))
+    _check_same(_symmetric(D) if matrix == "symmetric" else D, dtype)
+    (k,) = model_as_kernels
+    assert k.q_launches == 128
+    assert k.half_launches == (128 if half else 0)
+
+
+def _bits(a):
+    return a.view(f"i{a.itemsize}")
+
+
+def _asymmetric(name, dtype):
+    """A symmetric matrix made asymmetric in its bits only."""
+    D = _symmetric(random_additive_matrix(12, np.random.default_rng(12))
+                   ).astype(dtype)
+    if name == "one_ulp":
+        D[2, 5] = np.nextafter(D[2, 5], np.inf, dtype=D.dtype)
+    elif name == "signed_zeros":
+        D[2, 5], D[5, 2] = 0.0, -0.0
+    elif name == "nan_payloads":
+        D[2, 5] = D[5, 2] = np.nan
+        _bits(D)[5, 2] += 1
+        assert np.isnan(D[5, 2]) and _bits(D)[2, 5] != _bits(D)[5, 2]
+    return D
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name", ["one_ulp", "signed_zeros", "nan_payloads"])
+def test_read_mode_takes_the_full_read_on_asymmetric_bits(name, dtype):
+    """engine._read_mode compares bit patterns: one ulp, -0.0 against
+    +0.0 and two NaN payloads in mirrored places each take the full read,
+    and the log names the place; the sharded route takes it always."""
+    lines = []
+    st = engine._State(_asymmetric(name, dtype), dtype, torch.device("cpu"),
+                       None)
+    assert engine._read_mode(st, None, lines.append) is False
+    assert "full read" in lines[0] and "D[2, 5] != D[5, 2]" in lines[0]
+    st = engine._State(_symmetric(random_additive_matrix(
+        12, np.random.default_rng(2))), dtype, torch.device("cpu"), None)
+    assert engine._read_mode(st, None) is True
+    assert engine._read_mode(st, _OneRankMesh(), lines.append) is False
+
+
+def _cli_matrices(tmp_path):
+    """The matrices the CLI's NJ is given, made by the port's own code:
+    mash (-i r), MSA (-i m, models 1 and 4) and PHYLIP (-i d)."""
+    from dipper_tpu_torch.distance import mash as tmash
+    from dipper_tpu_torch.distance import msa as tmsa
+    from dipper_tpu_torch.io.encode import batch_codes, encode_4bit_codes
+    from dipper_tpu_torch.io.phylip import (read_phylip_lower_triangular,
+                                            write_phylip_lower_triangular)
+    from datagen import simulate_alignment
+
+    cpu = torch.device("cpu")
+    _, seqs = simulate_unaligned(24, 600, np.random.default_rng(21))
+    ranks = tmash.pad_ranks(tmash.rank_compress_host(
+        np.asarray(sketch_sequences(seqs, 12, 64))))
+    out = {f"mash_{dt}": tmash.mash_distance_matrix(ranks, 12, 64, dt, cpu)
+           for dt in ("float32", "float64")}
+    _, aln = simulate_alignment(24, 400, np.random.default_rng(22))
+    codes = batch_codes(aln, encode_4bit_codes, pad_value=4)[0]
+    for model in (1, 4):
+        out[f"msa{model}"] = tmsa.msa_distance_matrix(codes, model,
+                                                      "float32", cpu)
+    path = str(tmp_path / "d.phy")
+    write_phylip_lower_triangular(
+        [f"T{i}" for i in range(30)],
+        random_additive_matrix(30, np.random.default_rng(23)), path)
+    out["phylip"] = read_phylip_lower_triangular(path)[1]
+    return out
+
+
+def test_read_mode_takes_the_half_read_on_the_cli_matrices(tmp_path):
+    """The matrices of every NJ path of the CLI are symmetric bit for bit,
+    so their runs take the half read, in f32 and f64."""
+    for name, D in _cli_matrices(tmp_path).items():
+        for dtype in ("float32", "float64"):
+            lines = []
+            st = engine._State(D, dtype, torch.device("cpu"), None)
+            assert engine._read_mode(st, None, lines.append), (name, dtype)
+            assert "half read" in lines[0], lines
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_symmetry_is_kept_over_a_run(dtype):
+    """Kernel B (the model, in the half read's loop) and the plain step
+    keep the active block symmetric bit for bit after every merge step,
+    U recomputes included, so the mode chosen once holds for the run."""
+    D = _symmetric(random_additive_matrix(140, np.random.default_rng(14)))
+    cpu = torch.device("cpu")
+    st, plain = (engine._State(D, dtype, cpu, None) for _ in range(2))
+    k = step_model.ModelStepper(st.D, st.U, st.real, st.log_ids, st.log_bl,
+                                half=True, threads=32)
+    N = st.N
+    for step in range(N - 2):
+        n = N - step
+        for s in (st, plain):
+            if engine._recomputes_u(n, N):
+                s.U[:n] = engine._sum_last(s.D[:n, :n])
+        engine._merge_step_kernels(k, st, step, None)
+        engine.merge_step_plain(plain, step)
+        for s in (st, plain):
+            a = _bits(s.D[:n - 1, :n - 1].numpy())
+            assert np.array_equal(a, a.T), (step, dtype)
+    assert k.half_launches == N - 2
 
 
 def test_stepper_rejects_cpu_tensors():
