@@ -7,8 +7,8 @@ Runs on one NVIDIA GPU, from the root of a checkout:
     python3 chip_smoke.py --phases 1,2,3,6,7 --n 4400   # kernel checks only
 
 Phases, each printing one line of its own (run in the order 1, 2, 3, 6,
-15, 7, 25, 19, 4, 17, 5, 16, 9, 24, 10, 11, 12, 14, 13, 8, 18, 20, 21, 22,
-23:
+15, 7, 25, 19, 4, 17, 5, 16, 26, 9, 24, 10, 11, 12, 14, 13, 8, 18, 20, 21,
+22, 23:
 phases 13, 8 and 18 run the profiler, which slows every later launch in
 the process; phases 20 to 22 run in processes of their own):
   1. device: torch's device name and nvidia-smi's name and power limit;
@@ -135,10 +135,28 @@ the process; phases 20 to 22 run in processes of their own):
      launch held against the plain version
      on its every 16th cluster, the widest batched bucket's launch timed
      whole beside its bound and its plain version; phase times, bucket
-     lines, cluster sizes, host syncs per phase-3 step;
-  18. launches and host syncs per phase-3 step of one batched build at 64
-     and 1,024 clusters under torch.profiler (made-up inputs): the
-     launches of a step must not grow with the clusters;
+     lines, cluster sizes; phase 3 on its kernels: one dc_cluster_build
+     launch a batched chunk, one score_masked launch a streamed member,
+     no host sync in a phase-3 step, nRF DC_NRF_30K at N = 30,000, and
+     the CLI run again with phase 3 by its plain versions on the card
+     (build_clusters_plain, the streamed tensor loop) to the same Newick
+     bytes;
+  26. phase 3's kernels vs plain on phase 16's own launches (recorded
+     there): every dc_cluster_build launch's every 16th cluster built
+     again by build_clusters_plain, all six arrays bit for bit; the first
+     chunk of each bucket whole, timed by CUDA events on fresh states
+     beside its plain version, its byte bound and its latency floor (five
+     dependent L2 round trips a step, two a BFS level); the streamed
+     cluster built again by its kernels from its recorded rows (the run's
+     arrays), then by its plain route member by member with score_masked
+     launched on a copy at every 16th member (the choice and the flags
+     against _score_masked), the final states equal; score_masked timed
+     queued at the last member beside _score_masked and its byte bound,
+     and both routes' ms a member;
+  18. one batched build at 64 and 1,024 clusters under torch.profiler
+     (made-up inputs): by kernel 8b one dc_cluster_build launch, no BFS
+     level and no stream sync a build; by its plain version the launches
+     of a step must not grow with the clusters;
   9. the NJ main path: the generator at N=20,000 (seed 1) and the CLI
      with default flags, which take conventional NJ below 30,000 taxa;
      requires rc 0, a complete Newick, distance-kernel and sketch-kernel
@@ -260,8 +278,8 @@ Every kernel counter is set to 0 just before a main path (phases 5, 16,
 9, 11, 12, 14, and in each rank of 20, 21 and 22) and read just after it;
 `launches` in the kernels' record is the count of phases 5 (placement;
 insert_step's counts both its entry points; the sketch kernel's), 16
-(D&C: the per-cluster count kernel) and 9 (NJ: the distance kernel and
-NJ's two), `launches_by_path` has
+(D&C: the per-cluster count kernel, score_masked and dc_cluster_build)
+and 9 (NJ: the distance kernel and NJ's two), `launches_by_path` has
 every path's (one count a rank for the multi-rank paths), and
 score_edges's `range_launches` the sharded placement's range launches.
 
@@ -310,6 +328,12 @@ KERNELS = {
                     "dipper_tpu/nj/engine.py:35 (XLA program, no Pallas)"),
     "nj_update": ("dipper_tpu_torch/csrc/nj_update.cu",
                   "dipper_tpu/nj/engine.py:35 (XLA program, no Pallas)"),
+    "score_masked": ("dipper_tpu_torch/csrc/score_masked.cu",
+                     "dipper_tpu/dc/pipeline.py:180 (XLA program, no "
+                     "Pallas)"),
+    "dc_cluster_build": ("dipper_tpu_torch/csrc/dc_cluster_build.cu",
+                         "dipper_tpu/dc/pipeline.py:180 (XLA program, no "
+                         "Pallas)"),
 }
 NRF_LIMIT = 0.35
 # nRF vs the true tree of the full-size sets (seed 1) in every smoke so
@@ -355,8 +379,11 @@ DC_NRF_LIMIT = 0.65
 # every DC_SAMPLE-th cluster of each per-cluster count launch of the D&C
 # main path is held against the plain version
 DC_SAMPLE = 16
-ALL_PHASES = (1, 2, 3, 6, 15, 7, 25, 19, 4, 17, 5, 16, 9, 24, 10, 11, 12, 14,
-              13, 8, 18, 20, 21, 22, 23)
+ALL_PHASES = (1, 2, 3, 6, 15, 7, 25, 19, 4, 17, 5, 16, 26, 9, 24, 10, 11, 12,
+              14, 13, 8, 18, 20, 21, 22, 23)
+# nRF of the D&C main path's tree vs the true tree at N = 30,000 in every
+# earlier smoke with D&C: phase 3's kernels must leave it unchanged
+DC_NRF_30K = 0.5831583158315832
 # every SAMPLE-th query row of a large kernel call is compared with the
 # plain version (which takes ~10 ms per query row at 30,000 bank rows)
 SAMPLE = 128
@@ -1160,7 +1187,8 @@ class RouteSampler:
     six values of the replay's last insertion. `errs`: (last insertion,
     the scorer's max abs err, the arrays that differ) a border;
     `checks_s`: the host time of the checks, queued work first; no check
-    while `sampling` is false."""
+    while `sampling` is false. Replays outside a range (D&C's streamed
+    clusters, which replay graphs of their own) pass unsampled."""
 
     def __init__(self):
         from dipper_tpu_torch.placement import insert_cuda, kclosest
@@ -1181,13 +1209,17 @@ class RouteSampler:
 
     def insert_range(self, st, lo, hi, rows, num_sequences):
         self.begin(st, lo, rows, num_sequences)
-        return self.orig[1](st, lo, hi, rows, num_sequences)
+        try:
+            return self.orig[1](st, lo, hi, rows, num_sequences)
+        finally:
+            self.cur.clear()
 
     def replay(self, g, times: int) -> None:
         replay, cur = self.orig[0], self.cur
         if not (self.sampling and g.steps and cur):
             replay(g, times)
-            cur["pos"] = cur.get("pos", 0) + g.steps * times
+            if cur:
+                cur["pos"] += g.steps * times
             return
         st, rows, lo, N = cur["st"], cur["rows"], cur["lo"], cur["N"]
         for _ in range(times):
@@ -1694,28 +1726,28 @@ def phase_insert_vs_plain(tmp: str, n: int = 4096) -> dict:
         lens[1] = lens[0]
         init = tuple(torch.from_numpy(x).to(dev) for x in (cd, cid, lens))
         states = {}
-        make = cluster.cluster_init_state
+        make = cluster.one_cluster
 
         def keep(route):
-            def init_state(*a, **kw):
-                st_, sc_ = make(*a, **kw)
+            def one(*a):
+                st_, sc_ = make(*a)
                 states[route] = st_
                 return st_, sc_
-            return init_state
+            return one
 
         uses = kclosest.uses_insert_kernel
         before = insert_cuda.INSERT_STEP_LAUNCHES
         try:
-            cluster.cluster_init_state = keep("kernel")
+            cluster.one_cluster = keep("kernel")
             got = cluster.build_streamed(lambda s0: Dq[s0:s0 + rb], *init,
                                          cmax, cmax, rb)
             launches = insert_cuda.INSERT_STEP_LAUNCHES - before
-            cluster.cluster_init_state = keep("plain")
+            cluster.one_cluster = keep("plain")
             kclosest.uses_insert_kernel = lambda st_: False
             want = cluster.build_streamed(lambda s0: Dq[s0:s0 + rb], *init,
                                           cmax, cmax, rb)
         finally:
-            cluster.cluster_init_state = make
+            cluster.one_cluster = make
             kclosest.uses_insert_kernel = uses
         diff = state_diff(states["kernel"], states["plain"])
         check(not diff and launches == cmax
@@ -1853,11 +1885,14 @@ def _ms(pattern: str, text: str) -> float | None:
 
 def reset_counts() -> None:
     """Every kernel counter to 0 (just before a main path)."""
+    from dipper_tpu_torch.dc import cluster_cuda
     from dipper_tpu_torch.distance import mash_cuda
     from dipper_tpu_torch.nj import nj_cuda
     from dipper_tpu_torch.placement import insert_cuda, kclosest
     from dipper_tpu_torch.sketch import minhash_cuda
 
+    cluster_cuda.SCORE_MASKED_LAUNCHES = 0
+    cluster_cuda.CLUSTER_BUILD_LAUNCHES = 0
     mash_cuda.LAUNCHES = 0
     mash_cuda.ROWS_DIST_LAUNCHES = 0
     mash_cuda.CLUSTER_LAUNCHES = 0
@@ -1879,6 +1914,7 @@ def read_counts() -> dict:
     the BFS alone's; "nj_q_argmin.half_read" kernel A's launches in the
     half read; and the CUDA graphs of the cursor route captured and
     replayed."""
+    from dipper_tpu_torch.dc import cluster_cuda
     from dipper_tpu_torch.distance import mash_cuda
     from dipper_tpu_torch.nj import nj_cuda
     from dipper_tpu_torch.placement import insert_cuda, kclosest
@@ -1897,7 +1933,9 @@ def read_counts() -> dict:
             "graph_replays": insert_cuda.GRAPH_REPLAYS,
             "nj_q_argmin": nj_cuda.Q_ARGMIN_LAUNCHES,
             "nj_q_argmin.half_read": nj_cuda.HALF_READ_LAUNCHES,
-            "nj_update": nj_cuda.UPDATE_LAUNCHES}
+            "nj_update": nj_cuda.UPDATE_LAUNCHES,
+            "score_masked": cluster_cuda.SCORE_MASKED_LAUNCHES,
+            "dc_cluster_build": cluster_cuda.CLUSTER_BUILD_LAUNCHES}
 
 
 class SketchSampler:
@@ -3323,11 +3361,74 @@ def _dc_log(log: str) -> dict:
         "buckets": re.findall(r"DC phase 3: (bucket .*)", log)}
 
 
+class Phase3Recorder:
+    """Phase 3's kernel launches of a D&C run recorded for phase 26: of
+    every kernel-8b launch (a batched chunk) the initial lists, lengths,
+    distances and sizes of its every DC_SAMPLE-th cluster and their
+    arrays after the launch, its CUDA-event time, and the first chunk of
+    each bucket whole; of every streamed cluster its inputs, its row
+    blocks and its output. Nothing here syncs the host."""
+
+    def __init__(self):
+        from dipper_tpu_torch.dc import cluster, cluster_cuda
+
+        self.cluster, self.cuda = cluster, cluster_cuda
+        self.build_chunk = cluster_cuda.build_chunk
+        self.build_streamed = cluster.build_streamed
+        self.chunks, self.whole, self.streams = [], {}, []
+
+        def chunk(st, scoreable, Dq, sizes, cmax, stream=None):
+            k = slice(None, None, DC_SAMPLE)
+            init = {"cd": st.cdis[k, :2].clone(), "cid": st.cid[k, :2].clone(),
+                    "lens": st.length[k, :2].clone(), "Dq": Dq[k].clone(),
+                    "sizes": sizes[k].clone()}
+            if cmax not in self.whole:
+                self.whole[cmax] = {
+                    "cd": st.cdis[:, :2].clone(), "cid": st.cid[:, :2].clone(),
+                    "lens": st.length[:, :2].clone(), "Dq": Dq.clone(),
+                    "sizes": sizes.clone()}
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            self.build_chunk(st, scoreable, Dq, sizes, cmax, stream)
+            ev[1].record()
+            got = {f: getattr(st, f)[k].clone() for f in (
+                "e", "belong", "length", "rev", "cdis", "cid")}
+            self.chunks.append({"cmax": cmax, "clusters": st.e.shape[0],
+                                "init": init, "got": got, "ev": ev})
+
+        def streamed(block_fn, cd, cid, lens, size, cmax, row_block):
+            blocks = []
+
+            def fn(start):
+                blocks.append(block_fn(start))
+                return blocks[-1]
+
+            out = self.build_streamed(fn, cd, cid, lens, size, cmax,
+                                      row_block)
+            self.streams.append({"cd": cd.clone(), "cid": cid.clone(),
+                                 "lens": lens.clone(), "size": size,
+                                 "cmax": cmax, "row_block": row_block,
+                                 "blocks": blocks,
+                                 "got": [x.clone() for x in out]})
+            return out
+
+        cluster_cuda.build_chunk = chunk
+        cluster.build_streamed = streamed
+
+    def restore(self) -> None:
+        self.cuda.build_chunk = self.build_chunk
+        self.cluster.build_streamed = self.build_streamed
+
+
 def phase_dc_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
     """-m 3 through the CLI on the placement set (B = n // 20): every
     per-cluster count launch recorded and its every DC_SAMPLE-th cluster
     held against the plain version afterwards; the widest batched
-    bucket's launch timed again beside its bound and the plain version."""
+    bucket's launch timed again beside its bound and the plain version;
+    phase 3's kernels recorded for phase 26 (Phase3Recorder), their
+    launches counted against the log's chunks and streamed members; the
+    run again with phase 3 by its plain versions on the card, to the same
+    Newick bytes."""
     from dipper_tpu_torch.dc import cluster
     from dipper_tpu_torch.distance import mash_cuda
     from dipper_tpu_torch.distance.mash import cluster_inter_ref
@@ -3347,6 +3448,7 @@ def phase_dc_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
 
     mash_cuda.mash_cluster_inter_cuda = recorded
     sketches = SketchSampler()
+    phase3 = Phase3Recorder()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     cluster.STEPS = cluster.BFS_LEVELS = 0
@@ -3355,6 +3457,7 @@ def phase_dc_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
     finally:
         mash_cuda.mash_cluster_inter_cuda = kernel
         sketches.restore()
+        phase3.restore()
     counts = read_counts()
     steps, levels = cluster.STEPS, cluster.BFS_LEVELS
     peak = torch.cuda.max_memory_allocated()
@@ -3383,7 +3486,38 @@ def phase_dc_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
     check(len(calls) == counts["mash_cluster_inter"],
           f"{len(calls)} recorded calls, {counts['mash_cluster_inter']} "
           "launches")
+    # phase 3 on its kernels: one kernel-8b launch a batched chunk (the
+    # chunk's distance launch), one kernel-8a launch a streamed member,
+    # no host sync in a step
+    chunks = sum(int(c) for c in re.findall(
+        r"DC phase 3: bucket \S+ clusters=\d+ path=batch members=\d+ "
+        r"launches=(\d+)", log))
+    check(counts["dc_cluster_build"] == chunks == len(phase3.chunks),
+          f"dc_cluster_build launched {counts['dc_cluster_build']} times for "
+          f"{chunks} batched chunks ({len(phase3.chunks)} recorded)")
+    check(counts["score_masked"] == streamed,
+          f"score_masked launched {counts['score_masked']} times for "
+          f"{streamed} streamed members")
+    check(levels == 0 and steps > 0, f"phase 3 synced the host {levels} "
+          f"times in {steps} steps")
     rf, nrf = check_tree(open(out).read().strip(), n, true_nwk, DC_NRF_LIMIT)
+    if n == 30000:
+        check(nrf == DC_NRF_30K, f"D&C nRF {nrf}, every earlier smoke "
+              f"{DC_NRF_30K}")
+    # the same run with phase 3 by its plain versions on the card
+    plain_out = os.path.join(tmp, f"dc{n}.plain.nwk")
+    uses = cluster.uses_cluster_kernel, cluster.uses_stream_kernels
+    cluster.uses_cluster_kernel = lambda Dq: False
+    cluster.uses_stream_kernels = lambda st: False
+    try:
+        rc_p, log_p, wall_p = run_cli(["-i", "r", "-I", fa, "-O", plain_out,
+                                       "-m", "3"])
+    finally:
+        cluster.uses_cluster_kernel, cluster.uses_stream_kernels = uses
+    check(rc_p == 0, f"D&C CLI with phase 3's plain versions returned {rc_p}")
+    check(open(plain_out).read() == open(out).read(),
+          "D&C: phase 3's kernels and their plain versions give other "
+          "Newick bytes")
     checked, worst = [], 0
     for j, (ranks, wit, mem, S, got, ev) in enumerate(calls):
         want = cluster_inter_ref(ranks, wit[::DC_SAMPLE].contiguous(),
@@ -3411,12 +3545,18 @@ def phase_dc_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
                           "plain_ms": ev[0].elapsed_time(ev[1])},
                          cluster_bound(full, S))
     res = {"counts": counts, "largest_bucket": largest, "max_abs_err": worst,
-           "out": out, **_dc_log(log)}
+           "out": out, "phase3": phase3, **_dc_log(log)}
+    plain = _dc_log(log_p)
     emit({"phase": "main_path", "path": "dc", "n": n, "backbone": B,
           "L": 10000, "k": 15, "s": 1000, "precision": "f32",
           **_dc_log(log), "total_wall_ms": wall * 1e3,
           "phase3_steps": steps, "phase3_bfs_levels": levels,
           "host_syncs_per_phase3_step": levels / max(steps, 1),
+          "phase3_chunks": chunks, "phase3_streamed_members": streamed,
+          "phase3_plain_route": {"phases_ms": plain["phases_ms"],
+                                 "buckets": plain["buckets"],
+                                 "total_wall_ms": wall_p * 1e3,
+                                 "newick_identical": True},
           "kernel_launches": counts, "mash_cluster_inter_calls": checked,
           "sketch_launches_checked": sketch_checked,
           "largest_bucket_launch": largest, "max_memory_allocated": peak,
@@ -3457,13 +3597,292 @@ def phase_dc_gpu_vs_cpu(tmp: str, n: int = 600) -> None:
           "buckets": _dc_log(logs["cuda"])["buckets"]})
 
 
+def _bits_diff(got: dict, want, fields) -> list:
+    """The fields in which `got` (name -> tensor) and `want` (an object
+    with those attributes) differ bit for bit."""
+    out = []
+    for f in fields:
+        x, y = got[f], getattr(want, f)
+        if x.is_floating_point():
+            bits = torch.int32 if x.dtype == torch.float32 else torch.int64
+            x, y = x.view(bits), y.view(bits)
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+            out.append(f)
+    return out
+
+
+def _kept_states(cluster, name: str = "cluster_init_state"):
+    """cluster.<name> (cluster_init_state, or one_cluster for a streamed
+    build's state), recording each state it gives; returns (the list, a
+    function that puts the original back)."""
+    made, orig = [], getattr(cluster, name)
+
+    def keep(*a, **kw):
+        made.append(orig(*a, **kw))
+        return made[-1]
+
+    setattr(cluster, name, keep)
+    return made, lambda: setattr(cluster, name, orig)
+
+
+def scored_reads(cid, rev, flags, n_used: int) -> tuple:
+    """What a masked score over the n_used slots in use of each cluster
+    (cid [C, E, K], rev [C, E], flags [C, E]) must read, summed over the
+    clusters: the slots whose lists it reads (the scoreable ones and their
+    reverses), the scoreable slots (whose reverse slot and length it
+    reads), and the distinct witnesses those lists name (whose row entries
+    it reads)."""
+    valid = flags[:, :n_used]
+    ci, j = valid.nonzero(as_tuple=True)
+    read = valid.clone()
+    read[ci, rev[ci, j].clamp(min=0).long()] = True
+    rc, rj = read.nonzero(as_tuple=True)
+    ids = cid[rc, rj].long()
+    top = int(ids.max()) if ids.numel() else -1
+    named = torch.zeros((valid.shape[0], top + 2), dtype=torch.bool,
+                        device=valid.device)
+    named[rc[:, None].expand_as(ids), ids + 1] = True
+    return int(read.sum()), int(valid.sum()), int(named[:, 1:].sum())
+
+
+def masked_bound(st, flags: torch.Tensor) -> dict:
+    """Kernel 8a's bound for one member of a streamed cluster (a state of
+    one tree at st.idx slots in use, its flags before the member): each
+    input byte read once (the flags of the slots in use, the reverse slot
+    and length of the scoreable ones, the lists of those and of their
+    reverses, the row entries the lists name) and each output byte written
+    once (the choice, the six flags it sets)."""
+    item, K_ = st.length.element_size(), st.cid.shape[-1]
+    n_read, n_valid, named = scored_reads(st.cid[None], st.rev[None],
+                                          flags[None], st.idx)
+    nbytes = (st.idx + n_valid * (4 + item) + n_read * K_ * (4 + item)
+              + named * item + 16 + 2 * item + 6)
+    return bound_of(0, nbytes)
+
+
+def chunk_bound(cluster, w: dict, cmax: int) -> dict:
+    """Kernel 8b's bound for a chunk (w: its initial lists, lengths,
+    distances and sizes): each input byte read once (the sizes, slots 0
+    and 1 and nodes 0 and 1 of every cluster as cluster_init_state leaves
+    them, and for every member the row entries its masked score needs,
+    counted at its turn along a plain build) and each output byte written
+    once (the 2 + 4 size slots and 2 + 2 size nodes a cluster uses: e,
+    belong, rev, length, lists, flag; adjacency)."""
+    K_ = w["cid"].shape[-1]
+    item = w["Dq"].element_size()
+    named, orig = [0], cluster._score_masked
+
+    def counting(st, scoreable, rows, kq, order):
+        named[0] += scored_reads(st.cid, st.rev, scoreable, 2 + 4 * kq)[2]
+        return orig(st, scoreable, rows, kq, order)
+
+    cluster._score_masked = counting
+    try:
+        cluster.build_clusters_plain(w["Dq"], w["cd"], w["cid"], w["lens"],
+                                     w["sizes"].cpu().numpy(), cmax)
+    finally:
+        cluster._score_masked = orig
+    sizes = w["sizes"].long()
+    C = int(sizes.numel())
+    slot = 3 * 4 + K_ * (4 + item) + item + 1
+    slots = 2 * C + int((2 + 4 * sizes).sum())
+    nodes = 2 * C + int((2 + 2 * sizes).sum())
+    nbytes = named[0] * item + 4 * C + slots * slot + nodes * 3 * 4
+    return {**bound_of(0, nbytes), "dq_entries_named": named[0]}
+
+
+def phase_dc_kernels_vs_plain(rec: "Phase3Recorder") -> dict:
+    """Phase 3's kernels on the D&C main path's own inputs (phase 16's
+    recording), against their plain versions on the card, bit for bit.
+    Kernel 8b: every recorded launch's every DC_SAMPLE-th cluster built
+    again by build_clusters_plain (all six arrays); the first chunk of
+    each bucket whole, its launch timed by CUDA events on fresh states
+    beside the plain version, the byte bound and the latency floor (each
+    step's score and splice five dependent L2 round trips, each BFS level
+    of the plain route two). Kernel 8a: the streamed cluster built again
+    by the kernel route from its recorded rows (the run's arrays), then
+    by its plain route member by member, kernel 8a launched on a copy of
+    the state at every DC_SAMPLE-th member and at the last (the choice
+    and the flags against _score_masked's), the final states equal; 8a
+    timed queued at the last member beside its plain version and bound,
+    and both routes' ms a member."""
+    import dataclasses
+
+    from dipper_tpu_torch.dc import cluster, cluster_cuda
+    from dipper_tpu_torch.placement import kclosest
+
+    check(bool(rec.chunks) and bool(rec.streams),
+          "phase 26 needs phase 16's batched chunks and streamed cluster")
+    l2 = l2_round_trip_ms()
+    six = ("e", "belong", "length", "rev", "cdis", "cid")
+    # (a) kernel 8b, every DC_SAMPLE-th cluster of every launch
+    sampled = 0
+    for j, ch in enumerate(rec.chunks):
+        i = ch["init"]
+        made, put_back = _kept_states(cluster)
+        try:
+            cluster.build_clusters_plain(i["Dq"], i["cd"], i["cid"],
+                                         i["lens"], i["sizes"].cpu().numpy(),
+                                         ch["cmax"])
+        finally:
+            put_back()
+        diff = _bits_diff(ch["got"], made[0][0], six)
+        check(not diff, f"dc_cluster_build launch {j} (cmax {ch['cmax']}): "
+              f"{diff} != plain on every {DC_SAMPLE}th cluster")
+        sampled += i["sizes"].shape[0]
+    launches = [{"cmax": ch["cmax"], "clusters": ch["clusters"],
+                 "ms": ch["ev"][0].elapsed_time(ch["ev"][1])}
+                for ch in rec.chunks]
+    # (b) the first chunk of each bucket, whole, timed
+    by_bucket = {}
+    for cmax, w in sorted(rec.whole.items()):
+        sizes = w["sizes"].cpu().numpy()
+        C, W = w["Dq"].shape[0], w["Dq"].shape[2]
+        runs = []
+        for _ in range(6):
+            st, sc = cluster.cluster_init_state(w["cd"], w["cid"], w["lens"],
+                                                cmax, with_adj=True)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            cluster_cuda.build_chunk(st, sc, w["Dq"], w["sizes"], cmax)
+            ev[1].record()
+            torch.cuda.synchronize()
+            runs.append(ev[0].elapsed_time(ev[1]))
+        steps0, levels0 = cluster.STEPS, cluster.BFS_LEVELS
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        made, put_back = _kept_states(cluster)
+        try:
+            cluster.build_clusters_plain(w["Dq"], w["cd"], w["cid"],
+                                         w["lens"], sizes, cmax)
+        finally:
+            put_back()
+        ev[1].record()
+        torch.cuda.synchronize()
+        steps = cluster.STEPS - steps0
+        levels = cluster.BFS_LEVELS - levels0
+        diff = _bits_diff({f: getattr(st, f) for f in six}, made[0][0], six)
+        check(not diff, f"dc_cluster_build, bucket {cmax}: {diff} != plain")
+        rec_b = with_share({"clusters": C, "cmax": cmax, "W": W,
+                            "members": int(sizes.sum()), "steps": steps,
+                            "plain_bfs_levels": levels,
+                            "ms": sorted(runs[1:])[len(runs[1:]) // 2],
+                            "runs_ms": runs,
+                            "plain_ms": ev[0].elapsed_time(ev[1])},
+                           chunk_bound(cluster, w, cmax))
+        rec_b["latency_floor_ms"] = (5 * steps + 2 * levels) * l2
+        rec_b["share_of_latency_floor"] = rec_b["latency_floor_ms"] / \
+            rec_b["ms"]
+        by_bucket[str(cmax)] = rec_b
+    # (c) the streamed cluster
+    streams = []
+    for s in rec.streams:
+        rb, size, cmax = s["row_block"], s["size"], s["cmax"]
+        blocks = s["blocks"]
+
+        def block_fn(start):
+            return blocks[start // rb]
+
+        made, put_back = _kept_states(cluster, "one_cluster")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        try:
+            torch.cuda.synchronize()
+            ev[0].record()
+            got = cluster.build_streamed(block_fn, s["cd"], s["cid"],
+                                         s["lens"], size, cmax, rb)
+            ev[1].record()
+        finally:
+            put_back()
+        torch.cuda.synchronize()
+        route_ms = ev[0].elapsed_time(ev[1])
+        check(all(torch.equal(a, b) for a, b in zip(got, s["got"])),
+              "the streamed cluster built again by its kernels differs from "
+              "the run's")
+        kst, kfl = made[0]
+        # the plain route, member by member, 8a on a copy now and then
+        st, flags = cluster.one_cluster(*cluster.cluster_init_state(
+            s["cd"][None], s["cid"][None], s["lens"][None], cmax,
+            with_adj=True))
+        order = cluster._Order.of(cmax, st.e.device)
+        checked = 0
+        t0 = time.perf_counter()
+        for kq in range(size):
+            row = blocks[kq // rb][kq % rb]
+            probe = kq % DC_SAMPLE == 0 or kq == size - 1
+            if probe:
+                cst, cfl = state_clone(st), flags.clone()
+                before = flags.clone()
+                sc = cluster_cuda.MaskedScorer(cst, cfl)
+                cluster_cuda.score_masked(sc, cst, cfl, row)
+            batched = dataclasses.replace(
+                st, e=st.e[None], belong=st.belong[None],
+                length=st.length[None], rev=st.rev[None], cdis=st.cdis[None],
+                cid=st.cid[None], adj=None)
+            eid, frac, add = cluster._score_masked(batched, flags[None],
+                                                   row[None], kq, order)
+            e0 = eid[0]
+            xe, x, y, ye = torch.stack(
+                (e0, st.belong[e0], st.e[e0], st.rev[e0])).tolist()
+            base = st.idx
+            flags[xe] = False
+            flags[ye] = False
+            flags[base:base + 4] = order.grp
+            if probe:
+                want_f = torch.stack((frac[0], add[0]))
+                bits = (torch.int32 if want_f.dtype == torch.float32
+                        else torch.int64)
+                check(sc.out_i.tolist() == [xe, x, y, ye]
+                      and torch.equal(sc.out_f.view(bits), want_f.view(bits))
+                      and torch.equal(cfl, flags),
+                      f"score_masked != plain at streamed member {kq}")
+                checked += 1
+            if kq == size - 1:
+                last = (cst, cfl, sc, row, batched, flags.clone(), kq,
+                        before)
+            kclosest.splice(st, xe, frac[0], add[0], 0, 0, (x, y, ye),
+                            middle=2 + cmax + kq, outside=2 + kq)
+            kclosest._update_closest_bfs_compact(
+                st, 2 + kq, 2 + 2 * cmax, label=10 + kq,
+                blocked_nodes=(st.belong[0], st.e[0]))
+        torch.cuda.synchronize()
+        plain_route_ms = (time.perf_counter() - t0) * 1e3
+        diff = state_diff(kst, st)
+        check(not diff and torch.equal(kfl, flags),
+              f"the streamed cluster: kernel route != plain route in {diff}")
+        cst, cfl, sc, row, batched, pflags, kq, before = last
+        n_used = cst.idx
+        ms = queued_ms(lambda: cluster_cuda.score_masked(sc, cst, cfl, row),
+                       50)
+        plain_ms = event_ms(lambda: cluster._score_masked(
+            batched, pflags[None], row[None], kq, order), 20)
+        streams.append(with_share(
+            {"members": size, "cmax": cmax, "row_block": rb,
+             "members_checked": checked, "n_used": n_used, "ms": ms,
+             "plain_ms": plain_ms, "route_ms": route_ms,
+             "route_ms_per_member": route_ms / size,
+             "plain_route_ms": plain_route_ms,
+             "plain_route_ms_per_member": plain_route_ms / size},
+            masked_bound(cst, before)))
+    res = {"dc_cluster_build": {"by_bucket": by_bucket, "launches": launches,
+                                "clusters_checked": sampled},
+           "score_masked": {"streamed": streams},
+           "l2_round_trip_ms": l2}
+    emit({"phase": "kernel_vs_plain", "kernel": "score_masked and "
+          "dc_cluster_build", "comparison": "bit for bit on the D&C main "
+          "path's inputs", **res, "max_abs_err": 0.0})
+    return res
+
+
 def phase_dc_step_profiled(cmax: int = 16) -> dict:
-    """Launches and host syncs per phase-3 step of one batched build at
-    64 and at 1,024 clusters (made-up distances and witness lists) under
-    torch.profiler: a step's launches do not grow with the clusters."""
+    """One batched build at 64 and at 1,024 clusters (made-up distances
+    and witness lists) under torch.profiler, by kernel 8b and by its
+    plain version: the kernel route is one dc_cluster_build launch and no
+    host sync a build; the plain route's launches per step do not grow
+    with the clusters."""
     from torch.profiler import ProfilerActivity, profile
 
-    from dipper_tpu_torch.dc import cluster
+    from dipper_tpu_torch.dc import cluster, cluster_cuda
 
     rng = np.random.default_rng(18)
     res = {}
@@ -3478,28 +3897,49 @@ def phase_dc_step_profiled(cmax: int = 16) -> dict:
         (cid,) = _on_card(np.tile(np.arange(10, dtype=np.int32).reshape(
             2, 5), (C, 1, 1)))
         sizes = np.full(C, cmax)
+        res[C] = {}
+        for route, build in (("kernel", cluster.build_clusters),
+                             ("plain", cluster.build_clusters_plain)):
+            def run():
+                return build(Dq, cd, cid, lens, sizes, cmax)
 
-        def build():
-            return cluster.build_clusters(Dq, cd, cid, lens, sizes, cmax)
-
-        build()
-        torch.cuda.synchronize()
-        steps0, levels0 = cluster.STEPS, cluster.BFS_LEVELS
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            build()
+            want = run()
             torch.cuda.synchronize()
-        steps = cluster.STEPS - steps0
-        levels = cluster.BFS_LEVELS - levels0
-        count = {e.key: e.count for e in prof.key_averages()}
-        res[C] = {"steps": steps, "bfs_levels": levels,
-                  "launches_per_step": count.get("cudaLaunchKernel", 0)
-                  / steps,
-                  "stream_syncs_per_step":
-                      count.get("cudaStreamSynchronize", 0) / steps,
-                  "memcpys_per_step": count.get("cudaMemcpyAsync", 0) / steps,
-                  "bfs_levels_per_step": levels / steps}
-    lo, hi = res[64]["launches_per_step"], res[1024]["launches_per_step"]
+            steps0, levels0 = cluster.STEPS, cluster.BFS_LEVELS
+            builds0 = cluster_cuda.CLUSTER_BUILD_LAUNCHES
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                got = run()
+                torch.cuda.synchronize()
+            steps = cluster.STEPS - steps0
+            levels = cluster.BFS_LEVELS - levels0
+            count = {e.key: e.count for e in prof.key_averages()}
+            kernels = sum(c for k, c in count.items()
+                          if "cluster_build_kernel" in k)
+            res[C][route] = {
+                "steps": steps, "bfs_levels": levels,
+                "dc_cluster_build_launches":
+                    cluster_cuda.CLUSTER_BUILD_LAUNCHES - builds0,
+                "dc_cluster_build_kernels_profiled": kernels,
+                "launches": count.get("cudaLaunchKernel", 0),
+                "launches_per_step": count.get("cudaLaunchKernel", 0)
+                / steps,
+                "stream_syncs": count.get("cudaStreamSynchronize", 0),
+                "stream_syncs_per_step":
+                    count.get("cudaStreamSynchronize", 0) / steps,
+                "memcpys_per_step": count.get("cudaMemcpyAsync", 0) / steps,
+                "bfs_levels_per_step": levels / steps}
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"phase-3 build at {C} clusters ({route}) differs between "
+                  "two runs")
+        k = res[C]["kernel"]
+        check(k["dc_cluster_build_launches"] == 1 and k["bfs_levels"] == 0
+              and k["stream_syncs"] == 0,
+              f"a batched build at {C} clusters by kernel 8b: "
+              f"{k['dc_cluster_build_launches']} launches, "
+              f"{k['bfs_levels']} BFS levels, {k['stream_syncs']} syncs")
+    lo = res[64]["plain"]["launches_per_step"]
+    hi = res[1024]["plain"]["launches_per_step"]
     check(hi < 2 * lo, f"launches per phase-3 step grew with the clusters: "
           f"{lo} at 64, {hi} at 1,024")
     emit({"phase": "dc_step_profiled", "cmax": cmax,
@@ -3782,20 +4222,18 @@ class Samplers:
             return sc
 
         def insert_rec(st, eid, frac, add, *, middle, outside, label,
-                       block_slot=-1, stream=None):
+                       stream=None):
             sample = self.insert["calls"] % SIDE_SAMPLE == 0
             self.insert["calls"] += 1
             pl = state_clone(st) if sample else None
             xy = insert(st, eid, frac, add, middle=middle, outside=outside,
-                        label=label, block_slot=block_slot, stream=stream)
+                        label=label, stream=stream)
             if sample:
                 kclosest.splice(pl, int(eid.reshape(())), frac.reshape(()),
                                 add.reshape(()), 0, 0, middle=middle,
                                 outside=outside)
-                blocked = ((pl.belong[block_slot], pl.e[block_slot])
-                           if block_slot >= 0 else ())
                 kclosest._update_closest_bfs_compact(
-                    pl, outside, pl.adj.shape[0], label, blocked)
+                    pl, outside, pl.adj.shape[0], label)
                 self.insert["checked"] += 1
                 if state_diff(st, pl):
                     self.insert["max_abs_err"] = float("inf")
@@ -4806,6 +5244,28 @@ def main() -> int:
                                               big["W"]],
                       **{k: big[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "share_of_bound")})
+            for name in ("score_masked", "dc_cluster_build"):
+                records[name].update(launches=res["counts"][name],
+                                     library_ms=None)
+        if 26 in phases:
+            check(16 in phases, "phase 26 checks phase 16's recorded "
+                  "launches")
+            res = phase_dc_kernels_vs_plain(dc_single.pop("phase3"))
+            sm = res["score_masked"]["streamed"][0]
+            records["score_masked"].update(
+                max_abs_err=0.0, library_ms=None, streamed=sm,
+                **{k: sm[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "share_of_bound")})
+            cb = res["dc_cluster_build"]
+            narrow = cb["by_bucket"][min(cb["by_bucket"], key=int)]
+            records["dc_cluster_build"].update(
+                max_abs_err=0.0, library_ms=None, by_bucket=cb["by_bucket"],
+                clusters_checked=cb["clusters_checked"],
+                main_path_launches=cb["launches"],
+                **{k: narrow[k] for k in ("clusters", "cmax", "ms",
+                                          "plain_ms", "bound_ms", "bound_by",
+                                          "share_of_bound",
+                                          "latency_floor_ms")})
         if 9 in phases:
             res = nj_single = phase_nj_main_path(tmp, args.nj_n, args.parent)
             note("nj", res["counts"])

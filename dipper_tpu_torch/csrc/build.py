@@ -33,6 +33,8 @@ KERNELS = {
     "insert_step": "insert_step.cu",
     "nj_q_argmin": "nj_q_argmin.cu",
     "nj_update": "nj_update.cu",
+    "score_masked": "score_masked.cu",
+    "dc_cluster_build": "dc_cluster_build.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -61,82 +61,11 @@
 // (f64: 96) bytes a used slot and the row, 6.8 MB at 120,000 slots in f32,
 // all of it resident in L2 from one insertion to the next.
 
-#include "side_vector.cuh"
-
-#include <limits.h>
+#include "edge_score.cuh"
 
 namespace {
 
 using namespace dipper;
-
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-
-// torch.clamp(v, min=0): NaN stays NaN
-template <typename T>
-__device__ __forceinline__ T clamp0(T v)
-{
-    return v != v ? v : (v > T(0) ? v : T(0));
-}
-
-// torch.minimum(a, b): NaN wins, a's first
-template <typename T>
-__device__ __forceinline__ T nan_min(T a, T b)
-{
-    return a != a ? a : (b != b ? b : (a < b ? a : b));
-}
-
-template <typename T>
-struct Cand {
-    T score;
-    T frac;
-    int slot;
-};
-
-// a before b in the order of torch.argmin: NaN first, then the lower
-// score, the lower slot at equal scores (and among NaNs)
-template <typename T>
-__device__ __forceinline__ bool before(const Cand<T>& a, const Cand<T>& b)
-{
-    const bool a_nan = a.score != a.score, b_nan = b.score != b.score;
-    if (a_nan != b_nan) return a_nan;
-    if (a_nan || a.score == b.score) return a.slot < b.slot;
-    return a.score < b.score;
-}
-
-// Minimum over the block; the result is thread 0's. `part` holds kWarps
-// candidates in shared memory.
-template <typename T>
-__device__ __forceinline__ Cand<T> block_min(Cand<T> c, Cand<T>* part)
-{
-    const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-#pragma unroll
-    for (int off = kWarp / 2; off > 0; off /= 2) {
-        Cand<T> o;
-        o.score = __shfl_down_sync(0xffffffffu, c.score, off);
-        o.frac = __shfl_down_sync(0xffffffffu, c.frac, off);
-        o.slot = __shfl_down_sync(0xffffffffu, c.slot, off);
-        if (before(o, c)) c = o;
-    }
-    if (lane == 0) part[warp] = c;
-    __syncthreads();
-    if (warp == 0) {
-        if (lane < kWarps) c = part[lane];
-#pragma unroll
-        for (int off = kWarps / 2; off > 0; off /= 2) {
-            Cand<T> o;
-            o.score = __shfl_down_sync(0xffffffffu, c.score, off);
-            o.frac = __shfl_down_sync(0xffffffffu, c.frac, off);
-            o.slot = __shfl_down_sync(0xffffffffu, c.slot, off);
-            if (lane + off < kWarps && before(o, c)) c = o;
-        }
-    }
-    return c;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -172,7 +101,7 @@ score_edges_kernel(const int32_t* __restrict__ cid,
     // slots of the first tile below lo are staged but not scored
     const int end = min(hi, n_used);
     const int base = lo & ~(kWarp - 1);
-    Cand<T> best = {T(INFINITY), T(0), INT_MAX};
+    Cand<T> best = no_cand<T>();
     for (int s0 = base + (blockIdx.x * kWarps + warp) * kWarp; s0 < end;
          s0 += gridDim.x * kThreads) {
         const int s = s0 + lane;
@@ -190,26 +119,17 @@ score_edges_kernel(const int32_t* __restrict__ cid,
         if (mine) {
             Cand<T> c = {T(2), T(0), s};
             if (valid) {
-                T dis1 = side_staged(s_id[warp], s_dis[warp], lane, row);
-                T dis2 = side_global(cid, cdis, r, row);
                 // _finish_score, in its order of operations
-                T addi = clamp0(mul_rn(sub_rn(add_rn(dis1, dis2), len), T(0.5)));
-                dis1 = clamp0(sub_rn(dis1, addi));
-                dis2 = clamp0(sub_rn(dis2, addi));
-                addi = add_rn(add_rn(addi, clamp0(sub_rn(dis1, len))),
-                              clamp0(sub_rn(dis2, len)));
-                dis1 = nan_min(dis1, len);
-                dis2 = nan_min(dis2, len);
-                const T rest = sub_rn(sub_rn(len, dis1), dis2);
-                c.score = addi;
-                c.frac = add_rn(dis1, mul_rn(rest, T(0.5)));
+                edge_score(side_staged(s_id[warp], s_dis[warp], lane, row),
+                           side_global(cid, cdis, r, row), len, &c.score,
+                           &c.frac);
             }
             if (before(c, best)) best = c;
         }
         __syncwarp();  // the tile is reused by the next round
     }
 
-    best = block_min(best, s_part);
+    best = block_min<T, kWarps>(best, s_part);
     if (threadIdx.x == 0) {
         scratch_f[2 * blockIdx.x] = best.score;
         scratch_f[2 * blockIdx.x + 1] = best.frac;
@@ -223,14 +143,14 @@ score_edges_kernel(const int32_t* __restrict__ cid,
     // the last block: every partial is in device memory (each writer
     // fenced before its ticket); read them past L1
     __threadfence();
-    best = {T(INFINITY), T(0), INT_MAX};
+    best = no_cand<T>();
     for (int b = threadIdx.x; b < gridDim.x; b += kThreads) {
         const Cand<T> c = {__ldcg(scratch_f + 2 * b),
                            __ldcg(scratch_f + 2 * b + 1),
                            __ldcg(scratch_i + 1 + b)};
         if (before(c, best)) best = c;
     }
-    best = block_min(best, s_part);
+    best = block_min<T, kWarps>(best, s_part);
     if (threadIdx.x == 0) {
         // the range's slots at and above n_used, all invalid
         const int first_unused = max(lo, n_used);

@@ -12,18 +12,29 @@ order, `mask_order_perm`), attaches with explicit middle and outside
 nodes, and its witness BFS does not expand through the cluster edge's
 endpoints as they stand after the splice.
 
-PyTorch design. `build_clusters` steps all clusters of a size bucket
-together: the state is a TreeState whose arrays carry a leading cluster
-axis ([C, E], [C, E, K], E = 2 + 4 cmax), scoring, splice and the dense
-BFS are written over that axis, and one step costs a fixed number of
-launches whatever C is. The host sync of a step is one `nonzero` per BFS
-level for the whole bucket. Clusters come sorted by size, so the ones
-still inserting at step kq are a suffix, stepped as views; the others
-are left as they are (the JAX package's `kq < sz` mask). Clusters of
-_STREAM_CLUSTER_MIN members and more run `build_streamed`: one at a time,
-distance rows a block at a time, an adjacency table, and on the card one
-launch of the insertion-step kernel a member (csrc/insert_step.cu; on
-the CPU the compact BFS of placement/kclosest.py).
+PyTorch design. `build_clusters` builds a chunk of clusters of one size
+bucket from their distances Dq [C, cmax, W]; the state is a TreeState
+whose arrays carry a leading cluster axis ([C, E], [C, E, K], E = 2 +
+4 cmax). On the card the whole chunk is one launch of kernel 8b
+(csrc/dc_cluster_build.cu, through cluster_cuda.build_chunk): a block a
+cluster, each with an adjacency table, no host sync. On the CPU (and as
+the kernel's yardstick on the card) `build_clusters_plain` steps all
+clusters together in tensor code: scoring, splice and the dense BFS
+written over the cluster axis, one `nonzero` (host sync) a BFS level for
+the whole chunk. Clusters come sorted by size, so the ones still
+inserting at step kq are a suffix, stepped as views; the others are left
+as they are (the JAX package's `kq < sz` mask).
+
+Clusters of _STREAM_CLUSTER_MIN members and more run `build_streamed`:
+one at a time, distance rows a block at a time from `block_fn`, an
+adjacency table. On the card a row block is one cursor write
+(insert_cuda.set_cursor) and replays of a captured CUDA graph of 64
+members, each kernel 8a (csrc/score_masked.cu: the masked score and the
+flags) then kernel 6's cursor entry (csrc/insert_step.cu with this
+build's node offsets and blocked slot 0), the remainder by direct cursor
+launches: the host syncs only in `block_fn`. On the CPU `_score_masked`,
+the plain splice and the compact BFS of placement/kclosest.py run a
+member at a time. dc/cluster_model.py models both kernels' plans.
 """
 
 from __future__ import annotations
@@ -33,10 +44,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from dipper_tpu_torch.dc import cluster_cuda
 from dipper_tpu_torch.placement import insert_cuda, kclosest
 from dipper_tpu_torch.placement.kclosest import K, SENT_DIS, TreeState
 
-# host syncs (BFS levels) and steps of this process's batched builds;
+# steps (member indices kq stepped over a chunk's clusters) and host syncs
+# (BFS levels: 0 on the kernel route) of this process's batched builds;
 # chip_smoke.py resets and reads them
 BFS_LEVELS = 0
 STEPS = 0
@@ -85,9 +98,8 @@ def cluster_init_state(cd_init, cid_init, lens_init, cmax: int,
                        with_adj: bool = False):
     """Initial local cluster trees. cd_init [C, 2, K] (float), cid_init
     [C, 2, K] (int32), lens_init [C, 2] tensors -> (TreeState with [C, E]
-    arrays, scoreable [C, E] bool). `with_adj` (one cluster, C = 1) gives
-    1-D arrays and the [2 + 2 cmax, 3] adjacency table of the compact
-    BFS instead."""
+    arrays, scoreable [C, E] bool). `with_adj` adds the [C, 2 + 2 cmax, 3]
+    adjacency tables of the compact BFS."""
     C = cd_init.shape[0]
     dev, dtype = cd_init.device, cd_init.dtype
     E = 2 + 4 * cmax
@@ -109,12 +121,20 @@ def cluster_init_state(cd_init, cid_init, lens_init, cmax: int,
     if not with_adj:
         return TreeState(e=e, belong=belong, length=length, rev=rev,
                          cdis=cdis, cid=cid, idx=2), scoreable
-    if C != 1:
-        raise ValueError("a state with an adjacency table holds one cluster")
-    adj = torch.full((2 + 2 * cmax, 3), -1, **i32)
-    adj[0, 0], adj[1, 0] = 0, 1
-    return TreeState(e=e[0], belong=belong[0], length=length[0], rev=rev[0],
-                     cdis=cdis[0], cid=cid[0], idx=2, adj=adj), scoreable[0]
+    adj = torch.full((C, 2 + 2 * cmax, 3), -1, **i32)
+    adj[:, 0, 0], adj[:, 1, 0] = 0, 1
+    return TreeState(e=e, belong=belong, length=length, rev=rev, cdis=cdis,
+                     cid=cid, idx=2, adj=adj), scoreable
+
+
+def one_cluster(st: TreeState, scoreable):
+    """The first cluster of a batched state as a state of one tree: views
+    of its arrays ([E], [E, K], adjacency [2 + 2 cmax, 3]) and flags [E]
+    (a streamed build's state)."""
+    return TreeState(e=st.e[0], belong=st.belong[0], length=st.length[0],
+                     rev=st.rev[0], cdis=st.cdis[0], cid=st.cid[0],
+                     idx=st.idx,
+                     adj=None if st.adj is None else st.adj[0]), scoreable[0]
 
 
 def _score_masked(st: TreeState, scoreable, rows, kq: int, order: _Order):
@@ -259,16 +279,42 @@ def _views(st: TreeState, scoreable, c0: int):
         rev=st.rev[c0:], cdis=st.cdis[c0:], cid=st.cid[c0:]), scoreable[c0:])
 
 
+def uses_cluster_kernel(Dq: torch.Tensor) -> bool:
+    """Whether a chunk's build goes to kernel 8b: its distances are on the
+    card."""
+    return Dq.device.type == "cuda"
+
+
 def build_clusters(Dq, cd_init, cid_init, lens_init, sizes, cmax: int):
     """The local builds of C clusters at once (_cluster_build, vmapped).
     Dq [C, cmax, W] distances (member k vs witness w) on the build's
     device, cd_init/cid_init [C, 2, K] and lens_init [C, 2] tensors there,
     sizes: host ints, ascending, each in 1..cmax. Returns the local
-    (e, belong, length), each [C, 2 + 4 cmax]."""
+    (e, belong, length), each [C, 2 + 4 cmax]. On the card one launch of
+    kernel 8b and no host sync; on the CPU the plain version."""
+    global STEPS
     sizes = np.asarray(sizes)
     if len(sizes) and (np.any(np.diff(sizes) < 0) or sizes[0] < 1
                        or sizes[-1] > cmax):
         raise ValueError("cluster sizes must ascend within 1..cmax")
+    if not uses_cluster_kernel(Dq):
+        return build_clusters_plain(Dq, cd_init, cid_init, lens_init, sizes,
+                                    cmax)
+    st, scoreable = cluster_init_state(cd_init, cid_init, lens_init, cmax,
+                                       with_adj=True)
+    cluster_cuda.build_chunk(st, scoreable, Dq,
+                             cluster_cuda.upload_sizes(sizes, Dq.device),
+                             cmax)
+    STEPS += int(sizes.max(initial=0))
+    return st.e, st.belong, st.length
+
+
+def build_clusters_plain(Dq, cd_init, cid_init, lens_init, sizes,
+                         cmax: int):
+    """build_clusters in tensor code (the CPU path, and kernel 8b's
+    yardstick on the card): cluster_step a member index over the
+    chunk's clusters still inserting, one host sync a BFS level."""
+    sizes = np.asarray(sizes)
     st, scoreable = cluster_init_state(cd_init, cid_init, lens_init, cmax)
     order = _Order.of(cmax, Dq.device)
     for kq in range(int(sizes.max(initial=0))):
@@ -279,25 +325,40 @@ def build_clusters(Dq, cd_init, cid_init, lens_init, sizes, cmax: int):
     return st.e, st.belong, st.length
 
 
+def uses_stream_kernels(st: TreeState) -> bool:
+    """Whether a streamed cluster's members go to kernel 8a and insert_step:
+    its state is on the card (kclosest.uses_insert_kernel)."""
+    return kclosest.uses_insert_kernel(st)
+
+
 def build_streamed(block_fn, cd_init, cid_init, lens_init, size: int,
                    cmax: int, row_block: int):
     """One big cluster's build with streamed distance rows
     (_cluster_build_stream, _stream_range_run): `block_fn(start)` gives
     the [<= row_block, W] rows of members start.. (the last block
     ragged), computed when the loop reaches them, so no [cmax, W] tensor
-    is held. Scoring is `_score_masked` on the one cluster (tensor code,
-    no host sync). The state has an adjacency table: on the card one
-    csrc/insert_step.cu launch a member reads the choice where the scorer
-    left it and runs splice and BFS with the cluster's label, not
-    expanding the cluster edge's endpoints (slot 0), so the host syncs
-    only in `block_fn`; on the CPU the plain splice and compact BFS run,
-    with one host sync for the chosen edge. cd_init/cid_init [2, K],
-    lens_init [2]. Returns the local (e, belong, length), each
-    [2 + 4 cmax]."""
-    st, scoreable = cluster_init_state(cd_init[None], cid_init[None],
-                                       lens_init[None], cmax, with_adj=True)
-    on_card = kclosest.uses_insert_kernel(st)
-    order = _Order.of(cmax, cd_init.device)
+    is held. The state has an adjacency table. On the card each row block
+    is a cursor write and replays of a captured graph of
+    kclosest.GRAPH_INSERTIONS members (kernel 8a, then insert_step's
+    cursor entry), the remainder by direct cursor launches: no host sync
+    outside `block_fn`. On the CPU `_score_masked`, the plain splice and
+    the compact BFS run a member at a time, with one host sync for the
+    chosen edge. cd_init/cid_init [2, K], lens_init [2]. Returns the local
+    (e, belong, length), each [2 + 4 cmax]."""
+    st, scoreable = one_cluster(*cluster_init_state(
+        cd_init[None], cid_init[None], lens_init[None], cmax, with_adj=True))
+    if uses_stream_kernels(st):
+        _stream_by_kernels(st, scoreable, block_fn, size, cmax, row_block)
+    else:
+        _stream_plain(st, scoreable, block_fn, size, cmax, row_block)
+    return st.e, st.belong, st.length
+
+
+def _stream_plain(st: TreeState, scoreable, block_fn, size: int, cmax: int,
+                  row_block: int) -> None:
+    """build_streamed's members by tensor code (the CPU path, and the
+    kernels' yardstick on the card)."""
+    order = _Order.of(cmax, st.e.device)
     Mn = 2 + 2 * cmax
     blk = None
     for kq in range(size):
@@ -310,13 +371,6 @@ def build_streamed(block_fn, cd_init, cid_init, lens_init, size: int,
         eid, frac, add = _score_masked(batched, scoreable[None], row[None],
                                        kq, order)
         base = st.idx
-        if on_card:
-            xy = insert_cuda.insert_step(
-                st, eid.to(torch.int32), frac, add, middle=2 + cmax + kq,
-                outside=2 + kq, label=10 + kq, block_slot=0)
-            scoreable.index_fill_(0, xy.long(), False)
-            scoreable[base:base + 4] = order.grp
-            continue
         e0 = eid[0]
         xe, x, y, ye = torch.stack(
             (e0, st.belong[e0], st.e[e0], st.rev[e0])).tolist()  # host sync
@@ -325,7 +379,50 @@ def build_streamed(block_fn, cd_init, cid_init, lens_init, size: int,
         scoreable[xe] = False
         scoreable[ye] = False
         scoreable[base:base + 4] = order.grp
-        kclosest.update_closest_bfs(
+        kclosest._update_closest_bfs_plain(
             st, 2 + kq, Mn, label=10 + kq,
             blocked_nodes=(st.belong[0], st.e[0]))
-    return st.e, st.belong, st.length
+
+
+def stream_offsets(cmax: int) -> tuple:
+    """A streamed cluster's offsets of member kq's outside node, middle
+    node and label (insert_cuda.insert_step_cursor): 2 + kq, 2 + cmax + kq,
+    10 + kq."""
+    return (2, 2 + cmax, 10)
+
+
+def _stream_by_kernels(st: TreeState, scoreable, block_fn, size: int,
+                       cmax: int, row_block: int) -> None:
+    """build_streamed's members on the card by the cursor route. Every
+    launch and replay is on the current stream, so the caching allocator
+    reuses a row block's memory only after the launches that read it."""
+    n_edges = st.e.shape[0]
+    if 2 + 4 * size > n_edges:
+        raise ValueError(f"{size} members do not fit {n_edges} edge slots")
+    sc = cluster_cuda.MaskedScorer(st, scoreable)
+    offsets = stream_offsets(cmax)
+
+    def member(s, count):
+        cluster_cuda.score_masked_cursor(sc, st, s, count)
+        insert_cuda.insert_step_cursor(st, sc, offsets=offsets, block_slot=0,
+                                       stream=s, count=count)
+
+    G = kclosest.GRAPH_INSERTIONS
+    for kq0 in range(0, size, row_block):
+        blk = block_fn(kq0)
+        n = min(row_block, size - kq0)
+        if blk.shape[0] < n:
+            raise ValueError(f"{blk.shape[0]} rows for members {kq0}.."
+                             f"{kq0 + n - 1}")
+        insert_cuda.set_cursor(st, kq0, blk, kq0)
+        reps, rest = divmod(n, G)
+        if reps:
+            graph = insert_cuda.range_graph(
+                st, ("dc_member", offsets, G, id(sc)),
+                lambda s: [member(s, False) for _ in range(G)], steps=G,
+                keep=(sc,))
+            insert_cuda.replay(graph, reps)
+            cluster_cuda.SCORE_MASKED_LAUNCHES += reps * G
+        for _ in range(rest):
+            member(None, True)
+        st.idx += 4 * n

@@ -18,9 +18,13 @@ into pow2 buckets (which bound the padding) and builds each bucket's
 clusters together, PHASE3_BUDGET // cmax_b at a time, from one [c, cmax_b,
 W] distance tensor: for mash the per-cluster count kernel
 (csrc/mash_cluster_inter.cu, one launch a chunk), for a matrix a double
-gather, for aligned sequences codes staged from the host. Clusters of
+gather, for aligned sequences codes staged from the host; on the card a
+chunk's build is one launch of csrc/dc_cluster_build.cu. Clusters of
 _STREAM_CLUSTER_MIN members and more build one at a time with rows
-streamed _STREAM_ROW_BLOCK at a time. Assembly and Newick are host NumPy,
+streamed _STREAM_ROW_BLOCK at a time (on the card, replayed graphs of
+csrc/score_masked.cu and csrc/insert_step.cu a member). Each bucket's
+log line counts its distance launches, steps, host syncs (BFS levels)
+and build-kernel launches. Assembly and Newick are host NumPy,
 as in the JAX package.
 
 Sharded (mesh, parallel/sharded.py; the JAX package's _shard_batch over
@@ -193,6 +197,17 @@ def _stream_block_fn(frontend, payload, params: Param, wit, mem, device):
         distance_type=params.distance_type, dtype_name=params.dtype)
 
 
+def _phase3_kernel_launches() -> int:
+    """This process's launches of phase 3's build kernels: 8b (a batched
+    chunk), 8a and insert_step (a streamed member each)."""
+    from dipper_tpu_torch.dc import cluster_cuda
+    from dipper_tpu_torch.placement import insert_cuda
+
+    return (cluster_cuda.CLUSTER_BUILD_LAUNCHES
+            + cluster_cuda.SCORE_MASKED_LAUNCHES
+            + insert_cuda.INSERT_STEP_LAUNCHES)
+
+
 def _buckets(szs: np.ndarray, cmax: int):
     """(cmax_b, b0, b1) of the pow2 size buckets over the ascending
     sizes `szs`: clusters b0..b1-1 pad to cmax_b members."""
@@ -357,6 +372,7 @@ def build_dc_tree(seqs, names, params: Param, matrix=None, *, device,
             stream = cmax_b >= _STREAM_CLUSTER_MIN
             tb = time.time()
             steps0, levels0 = cluster.STEPS, cluster.BFS_LEVELS
+            kernels0 = _phase3_kernel_launches()
             launches = 0
             # this rank's share of the bucket's clusters, all of them
             # without a mesh; their edge arrays, in cluster order
@@ -397,6 +413,7 @@ def build_dc_tree(seqs, names, params: Param, matrix=None, *, device,
                 f"members={int(sizes[rows].sum())} "
                 f"launches={launches} steps={cluster.STEPS - steps0} "
                 f"bfs_levels={cluster.BFS_LEVELS - levels0} "
+                f"kernel_launches={_phase3_kernel_launches() - kernels0} "
                 f"in {time.time() - tb:.3f}s")
 
     log(f"DC phase 3 in: {int((time.time() - t) * 1000)} ms "

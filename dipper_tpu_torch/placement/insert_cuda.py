@@ -14,14 +14,14 @@ the kernel's per-state arguments and the state's captured graphs. Every
 entry point launches on a stream without synchronizing.
 
 Two ways to launch. `insert_step` and `closest_bfs` take the insertion
-from the host (D&C's streamed clusters, the sharded build, a state's two
-first BFSs). The cursor entry points (`insert_step_cursor`,
+from the host (the sharded build, a state's two first BFSs). The cursor entry points (`insert_step_cursor`,
 `closest_bfs_cursor`) read the insertion or leaf, and the slots in use,
 from the state's cursor on the card and advance it, so that a CUDA graph
 of them captured once (`range_graph`) replays any stretch of an insert
 range or of --add's seeding: kclosest._insert_range writes the cursor
 once (`set_cursor`), replays, and runs the remainder by direct cursor
-launches. A capture, an instantiation or a replay that fails raises.
+launches. D&C's streamed clusters do the same with their own offsets of
+the nodes and label and a blocked slot (dc/cluster.py::build_streamed). A capture, an instantiation or a replay that fails raises.
 """
 
 from __future__ import annotations
@@ -46,13 +46,13 @@ GRAPH_REPLAYS = 0
 MAX_BLOCKED = 2
 
 _STATE_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
-_STEP_ARGS = _STATE_ARGS + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+_STEP_ARGS = _STATE_ARGS + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
     ctypes.c_void_p]
 _BFS_ARGS = _STATE_ARGS + [ctypes.c_int] * 2 + [ctypes.c_void_p,
                                                 ctypes.c_int,
                                                 ctypes.c_void_p]
-_STEP_CURSOR_ARGS = _STATE_ARGS + [ctypes.c_void_p] * 3 + [ctypes.c_int,
-                                                           ctypes.c_void_p]
+_STEP_CURSOR_ARGS = _STATE_ARGS + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+    ctypes.c_void_p]
 _BFS_CURSOR_ARGS = _STATE_ARGS + [ctypes.c_void_p] * 2
 _CURSOR_SET_ARGS = ([ctypes.c_void_p] + [ctypes.c_longlong] * 5
                     + [ctypes.c_int, ctypes.c_void_p])
@@ -195,16 +195,14 @@ def _stream(ins: _Inserter, stream):
 
 def insert_step(st, eid: torch.Tensor, frac: torch.Tensor,
                 add: torch.Tensor, *, middle: int, outside: int, label: int,
-                block_slot: int = -1, stream: int | None = None):
+                stream: int | None = None):
     """Launches the splice of the new node `outside` through `middle` onto
     edge eid at fracLen frac with pendant length add, then the witness BFS
     from `outside` recording `label`, on `stream` (a raw CUDA stream
     handle; default: the current one) without synchronizing. eid (int32),
     frac and add (the state's float type) are one-element tensors on the
     state's card, read there by the kernel (the scorer's outputs). The new
-    slots are st.idx .. st.idx + 3; st.idx advances by 4. With block_slot
-    >= 0 the endpoints of that slot after the splice are not expanded.
-    Returns the `[2]` int32 tensor (xe, ye) that the launch fills (the
+    slots are st.idx .. st.idx + 3; st.idx advances by 4. Returns the `[2]` int32 tensor (xe, ye) that the launch fills (the
     state's next launch overwrites it). Bitwise equal to kclosest.splice
     then kclosest._update_closest_bfs_compact."""
     global INSERT_STEP_LAUNCHES
@@ -216,11 +214,8 @@ def insert_step(st, eid: torch.Tensor, frac: torch.Tensor,
     if not (0 <= middle < ins.n_nodes and 0 <= outside < ins.n_nodes):
         raise ValueError(f"middle {middle} and outside {outside} must be "
                          f"nodes of [0, {ins.n_nodes})")
-    if block_slot >= ins.n_edges:
-        raise ValueError(f"block_slot {block_slot} is not a slot")
     rc = ins.step(*ins.args, eid.data_ptr(), frac.data_ptr(), add.data_ptr(),
-                  i0, middle, outside, label, block_slot,
-                  _stream(ins, stream))
+                  i0, middle, outside, label, _stream(ins, stream))
     if rc != 0:
         check_launch(ins.lib, "insert_step", rc)
     INSERT_STEP_LAUNCHES += 1
@@ -284,19 +279,29 @@ def set_cursor(st, i: int, rows: torch.Tensor | None = None, lo: int = 0,
     check_launch(ins.lib, "insert_step", rc)
 
 
-def insert_step_cursor(st, sc, *, num_sequences: int,
+def cursor_offsets(num_sequences: int) -> tuple:
+    """Placement's offsets of insertion i's outside node, middle node and
+    label: taxon i through middle i + num_sequences - 1, labelled i."""
+    return (0, num_sequences - 1, 0)
+
+
+def insert_step_cursor(st, sc, *, offsets: tuple, block_slot: int = -1,
                        stream: int | None = None, count: bool = True):
     """Launches the insertion i that the state's cursor holds: the splice
-    of taxon i through middle i + num_sequences - 1 onto the edge that the
-    scorer `sc` (kclosest._Scorer: out_i holds the edge and its ends, out_f
-    frac and add) left on the card, at the slots the cursor holds, then
-    the BFS from i; the cursor advances by one insertion. st.idx is the
+    of node i + o through middle i + m, labelled i + l, where (o, m, l) =
+    `offsets` (placement's: `cursor_offsets(num_sequences)`), onto the edge that the scorer `sc` (out_i holds the edge and its ends,
+    out_f frac and add: kclosest._Scorer, or D&C's masked scorer) left on
+    the card, at the slots the cursor holds, then the BFS from the outside
+    node, not expanding the endpoints of `block_slot` after the splice
+    (-1: none); the cursor advances by one insertion. st.idx is the
     caller's to advance. `count=False` for a launch being captured (a
     replay counts its launches)."""
     global INSERT_STEP_LAUNCHES
     ins = inserter(st)
+    if block_slot >= ins.n_edges:
+        raise ValueError(f"block_slot {block_slot} is not a slot")
     rc = ins.step_cursor(*ins.args, sc.out_i.data_ptr(), sc.out_f.data_ptr(),
-                         ins.cursor.data_ptr(), num_sequences,
+                         ins.cursor.data_ptr(), *offsets, block_slot,
                          _stream(ins, stream))
     if rc != 0:
         check_launch(ins.lib, "insert_step", rc)

@@ -297,6 +297,25 @@ def insert_step(s: dict, eid: int, frac, add, i0: int, middle: int,
     return xy
 
 
+def insert_step_cursor(s: dict, cursor: list, choice_i, choice_f, offsets,
+                       block_slot: int = -1):
+    """The kernel's insert_step_cursor in place: insertion i = cursor[0] at
+    the slots in use cursor[1], outside node i + o, middle i + m and label
+    i + l for offsets (o, m, l) (placement's: 0, N - 1, 0), the choice as
+    the scorer left it (choice_i: eid and its ends, choice_f: frac and
+    add); the cursor advances by one insertion. Returns out_xy, (-1, -1)
+    and no write when the nodes or the slots do not fit the state."""
+    E, M = s["e"].shape[0], s["adj"].shape[0]
+    i, i0 = int(cursor[0]), int(cursor[1])
+    o, m, lab = offsets
+    xy = (-1, -1)
+    if 0 <= i0 <= E - 4 and 0 <= i + o < M and 0 <= i + m < M:
+        xy = insert_step(s, int(choice_i[0]), choice_f[0], choice_f[1], i0,
+                         i + m, i + o, i + lab, block_slot)
+    cursor[0], cursor[1] = i + 1, i0 + 4
+    return xy
+
+
 def closest_bfs(s: dict, leaf: int, label: int | None = None, blocked=(),
                 threads: int = THREADS, cap: int = CAP,
                 narrow: int = NARROW, stats: dict | None = None) -> None:

@@ -835,11 +835,12 @@ def _replay_insertions(st: TreeState, lo: int, hi: int, rows: torch.Tensor,
     stream = (torch.cuda.current_stream(dev).cuda_stream
               if dev.type == "cuda" else None)
     insert_cuda.set_cursor(st, lo, rows, lo, stream)
+    offsets = insert_cuda.cursor_offsets(num_sequences)
 
     def insertion(s, count):
         sc = score_edges_cursor_launch(st, s, count)
-        insert_cuda.insert_step_cursor(st, sc, num_sequences=num_sequences,
-                                       stream=s, count=count)
+        insert_cuda.insert_step_cursor(st, sc, offsets=offsets, stream=s,
+                                       count=count)
 
     G = GRAPH_INSERTIONS
     reps, rest = divmod(n, G)

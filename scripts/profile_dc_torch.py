@@ -15,7 +15,10 @@ library's and the kernel's loading, and its bound as chip_smoke.py's
 cluster_bound reckons it); after the run each launch is timed again on
 its own inputs, the card alone (a CUDA graph of 20 launches, replayed).
 Prints JSON lines: the dataset, the run (phase times, clusters, buckets,
-host syncs per phase-3 step, nRF vs the true tree), and the kernel's
+phase 3's kernel launches (csrc/dc_cluster_build.cu a batched chunk,
+csrc/score_masked.cu and csrc/insert_step.cu a streamed member) beside
+the log's chunks and streamed members, its steps and host syncs, nRF vs
+the true tree), and the kernel's
 launches (the total, the widest bucket's, the sums of both times beside
 the sum of bounds). The card's name and power limit go first. Needs
 CUDA.
@@ -34,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -113,6 +117,18 @@ def main() -> int:
 
         rf, nrf = rf_distance(open(out).read(), open(true_nwk).read())
         torch.cuda.synchronize()
+        buckets = re.findall(r"DC phase 3: bucket \S+ clusters=\d+ "
+                             r"path=(\w+) members=(\d+) launches=(\d+)", log)
+        phase3 = {
+            "batched_chunks": sum(int(c) for p, _, c in buckets
+                                  if p == "batch"),
+            "streamed_members": sum(int(m) for p, m, _ in buckets
+                                    if p == "stream"),
+            "dc_cluster_build_launches": counts["dc_cluster_build"],
+            "score_masked_launches": counts["score_masked"],
+            "insert_step_launches": counts["insert_step"],
+            "graph_replays": counts["graph_replays"],
+            "steps": cluster.STEPS, "host_syncs": cluster.BFS_LEVELS}
         launches = []
         for got, s, ev, (ranks, wit, mem) in calls:
             c, Q, W = got.shape
@@ -130,7 +146,7 @@ def main() -> int:
                       "phase3_bfs_levels": cluster.BFS_LEVELS,
                       "host_syncs_per_phase3_step":
                           cluster.BFS_LEVELS / max(cluster.STEPS, 1),
-                      "kernel_launches": counts,
+                      "kernel_launches": counts, "phase3": phase3,
                       "max_memory_allocated": torch.cuda.max_memory_allocated(),
                       "rf": rf, "nrf_vs_true": nrf}})
         ms = sum(x["ms"] for x in launches)

@@ -468,27 +468,35 @@ def test_score_edges_wrapper_rejects_bad_inputs(cuda):
 
 def test_scorer_sources_and_rounding():
     """Runs without a GPU: both entry points of TPU kernel 3 are built,
-    from one shared header, and the scorer's clamp sequence cannot
-    contract a multiply and an add into an FMA (it rounds once where the
-    plain version rounds twice)."""
+    from one shared header, and the scorers' clamp sequence (one copy in
+    edge_score.cuh, which score_edges.cu and D&C's masked scorers include)
+    cannot contract a multiply and an add into an FMA (it rounds once where
+    the plain version rounds twice)."""
     import os
     import re
 
     assert kernel_build.KERNELS["side_vector"] == "side_vector.cu"
     assert kernel_build.KERNELS["score_edges"] == "score_edges.cu"
     src = {}
-    for name in ("side_vector.cu", "score_edges.cu", "side_vector.cuh"):
+    for name in ("side_vector.cu", "score_edges.cu", "side_vector.cuh",
+                 "edge_score.cuh", "score_masked.cu", "dc_cluster_build.cu"):
         with open(os.path.join(kernel_build.CSRC_DIR, name)) as f:
             src[name] = f.read()
-    for name in ("side_vector.cu", "score_edges.cu"):
-        assert '#include "side_vector.cuh"' in src[name]
-    kernel = src["score_edges.cu"]
+    assert '#include "side_vector.cuh"' in src["side_vector.cu"]
+    assert '#include "side_vector.cuh"' in src["edge_score.cuh"]
+    for name in ("score_edges.cu", "score_masked.cu"):
+        assert '#include "edge_score.cuh"' in src[name]
+    assert '#include "insert_step.cuh"' in src["dc_cluster_build.cu"]
+    for name in ("score_edges.cu", "score_masked.cu", "dc_cluster_build.cu"):
+        assert "edge_score(" in src[name]
+    header = src["edge_score.cuh"]
     if "-fmad=false" not in kernel_build.NVCC_FLAGS:
         for fn in ("__fadd_rn", "__fsub_rn", "__fmul_rn", "__dadd_rn",
                    "__dsub_rn", "__dmul_rn"):
-            assert fn in kernel
-        body = kernel[kernel.index("// _finish_score"):
-                      kernel.index("if (before(c, best))")]
+            assert fn in header
+        body = header[header.index("__device__ __forceinline__ void "
+                                   "edge_score("):
+                      header.index("struct Cand")]
         code = re.sub(r"//.*", "", body)
         assert not re.search(r"[^,(]\s[-+*]\s", code), \
             "a bare arithmetic operator in the clamp sequence"
@@ -1427,3 +1435,203 @@ def test_cursor_route_across_caps_equals_cpu(cuda, monkeypatch):
     want = tk.run_placement_chunked((torch.from_numpy(D),), **kw)
     for f in ("e", "belong", "length", "rev", "cdis", "cid", "adj"):
         assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+# ---------------------------------------------------------------------------
+# D&C phase 3's kernels (csrc/score_masked.cu, csrc/dc_cluster_build.cu)
+# against their plain versions
+# ---------------------------------------------------------------------------
+
+_PHASE3_CASES = ["random", "ties", "nan_row", "over_two"]
+
+
+def _chunk_on(dev, case, C, cmax, dtype, seed):
+    from dipper_tpu_torch.dc import cluster_model as cm
+
+    Dq, cd, cid, lens, sizes = cm.made_up_chunk(case, C, cmax, dtype, seed)
+    return (*(torch.from_numpy(x).to(dev) for x in (Dq, cd, cid, lens)),
+            sizes)
+
+
+def _bits_equal(x, y):
+    if x.is_floating_point():
+        bits = torch.int32 if x.dtype == torch.float32 else torch.int64
+        x, y = x.view(bits), y.view(bits)
+    return x.dtype == y.dtype and torch.equal(x, y)
+
+
+@pytest.mark.parametrize("case", _PHASE3_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_score_masked_kernel_equals_plain(cuda, case, dtype):
+    """Kernel 8a on a copy of a streamed cluster's state before each of its
+    64 members, against _score_masked and the plain route's flag update
+    on the state: the choice (eid and its ends, frac, add) and the flags
+    bit for bit. The state then advances by the plain route."""
+    import dataclasses
+
+    from dipper_tpu_torch.dc import cluster as tc
+    from dipper_tpu_torch.dc import cluster_cuda
+
+    cmax = 64
+    Dq, cd, cid, lens, _ = _chunk_on(cuda, case, 2, cmax, dtype, 5)
+    st, flags = tc.one_cluster(*tc.cluster_init_state(
+        cd[1:], cid[1:], lens[1:], cmax, with_adj=True))
+    order = tc._Order.of(cmax, cuda)
+    before = cluster_cuda.SCORE_MASKED_LAUNCHES
+    for kq in range(cmax):
+        row = Dq[1, kq]
+        kst, kfl = _clone7(st), flags.clone()
+        sc = cluster_cuda.MaskedScorer(kst, kfl)
+        cluster_cuda.score_masked(sc, kst, kfl, row)
+        batched = dataclasses.replace(
+            st, e=st.e[None], belong=st.belong[None], length=st.length[None],
+            rev=st.rev[None], cdis=st.cdis[None], cid=st.cid[None], adj=None)
+        eid, frac, add = tc._score_masked(batched, flags[None], row[None],
+                                          kq, order)
+        e0 = eid[0]
+        want_i = torch.stack((e0, st.belong[e0].long(), st.e[e0].long(),
+                              st.rev[e0].long())).to(torch.int32)
+        assert torch.equal(sc.out_i, want_i), (case, kq)
+        assert _bits_equal(sc.out_f, torch.stack((frac[0], add[0]))), \
+            (case, kq)
+        xe, x, y, ye = want_i.tolist()
+        base = st.idx
+        flags[xe] = False
+        flags[ye] = False
+        flags[base:base + 4] = order.grp
+        assert torch.equal(kfl, flags), (case, kq)
+        tk.splice(st, xe, frac[0], add[0], 0, 0, (x, y, ye),
+                  middle=2 + cmax + kq, outside=2 + kq)
+        tk._update_closest_bfs_compact(st, 2 + kq, 2 + 2 * cmax,
+                                       label=10 + kq,
+                                       blocked_nodes=(st.belong[0], st.e[0]))
+    assert cluster_cuda.SCORE_MASKED_LAUNCHES - before == cmax
+
+
+@pytest.mark.parametrize("case", _PHASE3_CASES)
+@pytest.mark.parametrize("cmax, C", [(8, 40), (64, 9), (512, 3)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cluster_build_kernel_equals_plain(cuda, monkeypatch, case, cmax, C,
+                                           dtype):
+    """Kernel 8b (one launch for the chunk, a block a cluster, ragged
+    sizes) against build_clusters_plain on the card: the whole state and
+    the flags bit for bit, the adjacency tables the ones the edges give;
+    no host sync a step."""
+    from dipper_tpu_torch.dc import cluster as tc
+    from dipper_tpu_torch.dc import cluster_cuda
+
+    Dq, cd, cid, lens, sizes = _chunk_on(cuda, case, C, cmax, dtype, cmax)
+    made = []
+    orig = tc.cluster_init_state
+
+    def keep(*a, **kw):
+        made.append(orig(*a, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(tc, "cluster_init_state", keep)
+    before = (cluster_cuda.CLUSTER_BUILD_LAUNCHES, tc.BFS_LEVELS)
+    got = tc.build_clusters(Dq, cd, cid, lens, sizes, cmax)
+    torch.cuda.synchronize()
+    assert (cluster_cuda.CLUSTER_BUILD_LAUNCHES - before[0],
+            tc.BFS_LEVELS - before[1]) == (1, 0)
+    want = tc.build_clusters_plain(Dq, cd, cid, lens, sizes, cmax)
+    (kst, kfl), (pst, pfl) = made
+    for a, b in zip(got, want):
+        assert _bits_equal(a, b), case
+    for f in ("e", "belong", "length", "rev", "cdis", "cid"):
+        assert _bits_equal(getattr(kst, f), getattr(pst, f)), (case, f)
+    assert torch.equal(kfl, pfl), case
+    for c in range(C):
+        assert torch.equal(kst.adj[c], tk.adjacency_from_edges(
+            kst.belong[c], 2 + 2 * cmax)), (case, c)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_streamed_route_replays_graphs_across_a_ragged_block(cuda, dtype,
+                                                             monkeypatch):
+    """A streamed cluster of 300 members in row blocks of 128 (the last 44)
+    with graphs of 16 members: one capture, 8 + 8 + 2 replays, 12 direct
+    members, one kernel 8a and one insert_step launch a member; the state
+    equals the plain route's on the card bit for bit."""
+    from dipper_tpu_torch.dc import cluster as tc
+    from dipper_tpu_torch.dc import cluster_cuda
+    from dipper_tpu_torch.placement import insert_cuda
+
+    monkeypatch.setattr(tk, "GRAPH_INSERTIONS", 16)
+    cmax, rb = 300, 128
+    Dq, cd, cid, lens, _ = _chunk_on(cuda, "random", 1, cmax, dtype, 11)
+    made = []
+    orig = tc.one_cluster
+
+    def keep(*a):
+        made.append(orig(*a))
+        return made[-1]
+
+    monkeypatch.setattr(tc, "one_cluster", keep)
+    blocks = []
+
+    def block_fn(s):
+        blocks.append(s)
+        return Dq[0, s:s + rb].clone()  # a new tensor a block
+
+    before = (cluster_cuda.SCORE_MASKED_LAUNCHES,
+              insert_cuda.INSERT_STEP_LAUNCHES, insert_cuda.GRAPH_CAPTURES,
+              insert_cuda.GRAPH_REPLAYS)
+    got = tc.build_streamed(block_fn, cd[0], cid[0], lens[0], cmax, cmax, rb)
+    assert (cluster_cuda.SCORE_MASKED_LAUNCHES - before[0],
+            insert_cuda.INSERT_STEP_LAUNCHES - before[1],
+            insert_cuda.GRAPH_CAPTURES - before[2],
+            insert_cuda.GRAPH_REPLAYS - before[3]) == (300, 300, 1, 18)
+    assert blocks == [0, 128, 256]
+    monkeypatch.setattr(tk, "uses_insert_kernel", lambda st: False)
+    want = tc.build_streamed(block_fn, cd[0], cid[0], lens[0], cmax, cmax,
+                             rb)
+    for a, b in zip(got, want):
+        assert _bits_equal(a, b)
+    (kst, _), (pst, _) = made
+    _same7(kst, pst)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_insert_range_by_offsets_equals_plain_route(cuda, dtype,
+                                                    monkeypatch):
+    """Placement's _insert_range through insert_step's cursor entry with
+    placement's offsets (replays and a remainder) against the plain route
+    on the card: the same state, byte for byte."""
+    from dipper_tpu_torch.placement import insert_model as im
+
+    monkeypatch.setattr(tk, "GRAPH_INSERTIONS", 16)
+    n = 300
+    D = torch.from_numpy(im.made_up_matrix("some_nan", n, seed=3)
+                         .astype(dtype)).to(cuda)
+    st = tk.init_placement_state((D,), num_sequences=n, frontend="matrix",
+                                 dtype_name=dtype)
+    pl = _clone7(st)
+    tk._insert_range(st, 2, n, D[2:], n)
+    monkeypatch.setattr(tk, "uses_insert_kernel", lambda st: False)
+    tk._insert_range(pl, 2, n, D[2:], n)
+    _same7(st, pl)
+
+
+def test_phase3_wrappers_reject_bad_inputs(cuda):
+    from dipper_tpu_torch.dc import cluster as tc
+    from dipper_tpu_torch.dc import cluster_cuda
+
+    Dq, cd, cid, lens, sizes = _chunk_on(cuda, "random", 3, 8, "float32", 1)
+    st, flags = tc.cluster_init_state(cd, cid, lens, 8, with_adj=True)
+    s32 = torch.from_numpy(sizes.astype(np.int32)).to(cuda)
+    with pytest.raises(ValueError, match="Dq must be"):
+        cluster_cuda.build_chunk(st, flags, Dq.double(), s32, 8)
+    with pytest.raises(ValueError, match="Dq must be"):
+        cluster_cuda.build_chunk(st, flags, Dq[:, :7], s32, 8)
+    with pytest.raises(ValueError, match="sizes must be"):
+        cluster_cuda.build_chunk(st, flags, Dq, s32.long(), 8)
+    with pytest.raises(ValueError, match="edge slots for bucket width"):
+        cluster_cuda.build_chunk(st, flags, Dq, s32, 16)
+    one, f1 = tc.one_cluster(*tc.cluster_init_state(
+        cd[:1], cid[:1], lens[:1], 8, with_adj=True))
+    with pytest.raises(ValueError, match="scoreable must be"):
+        cluster_cuda.MaskedScorer(one, f1.int())
+    sc = cluster_cuda.MaskedScorer(one, f1)
+    with pytest.raises(ValueError, match="row must be"):
+        cluster_cuda.score_masked(sc, one, f1, Dq[0, 0, ::2])

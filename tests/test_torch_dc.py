@@ -24,6 +24,7 @@ import dipper_tpu_torch.dc.pipeline as tpl
 import oracle as orc
 from datagen import simulate_alignment, simulate_unaligned
 from test_nj import random_additive_matrix
+from test_torch_insert import model_as_kernel  # noqa: F401  (a fixture)
 
 torch.set_num_threads(2)
 
@@ -421,3 +422,278 @@ def test_hooks_equal_jax_on_a_streamed_cluster(dtype, bfs, monkeypatch):
                                 torch.from_numpy(lens), [sz], cmax)
     for a, b in zip((le, lb, ll), batched):
         assert np.array_equal(a, b[0].numpy())
+
+
+# ---------------------------------------------------------------------------
+# Phase 3's kernels' plans (dc/cluster_model.py): kernel 8a
+# (csrc/score_masked.cu) and kernel 8b (csrc/dc_cluster_build.cu)
+# ---------------------------------------------------------------------------
+
+
+def _same_bytes(a, b, where=""):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype and a.shape == b.shape, where
+    assert a.tobytes() == b.tobytes(), where
+
+
+def _jax_batched(Dq, cd, cid, lens, sizes, cmax, dtype):
+    import jax.numpy as jnp
+
+    out = jpl._cluster_build_vmapped(cmax, dtype)(
+        jnp.asarray(Dq), jnp.asarray(cd), jnp.asarray(cid),
+        jnp.asarray(lens), jnp.asarray(sizes, jnp.int32))
+    return [np.asarray(x) for x in out]
+
+
+def _jax_streamed(Dq, cd, cid, lens, sz, cmax, dtype):
+    """dipper_tpu's _cluster_build_stream (matrix frontend, so
+    _stream_range_run) of one cluster whose member k's row to witness w is
+    Dq[k, w]."""
+    import jax.numpy as jnp
+
+    W = Dq.shape[1]
+    Dm = np.zeros((W + cmax, W + cmax), dtype)
+    Dm[W:, :W] = Dq
+    payloads = (jnp.asarray(Dm), jnp.arange(W, dtype=jnp.int32),
+                jnp.arange(W, W + cmax, dtype=jnp.int32))
+    out = jpl._cluster_build_stream(
+        "matrix", JaxParam(), dtype, payloads, jnp.asarray(cd),
+        jnp.asarray(cid), jnp.asarray(lens), sz, cmax=cmax)
+    return [np.asarray(x) for x in out]
+
+
+def _keep_states(monkeypatch, tc):
+    """cluster_init_state, recording each state it makes."""
+    made = []
+    orig = tc.cluster_init_state
+
+    def keep(*a, **kw):
+        made.append(orig(*a, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(tc, "cluster_init_state", keep)
+    return made
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "nan_row", "over_two"])
+@pytest.mark.parametrize("cmax", [8, 64])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_cluster_build_model_equals_tensor_route_and_jax(
+        monkeypatch, case, cmax, dtype):
+    """Kernel 8b's plan (cluster_model.build_chunk: a block a cluster over
+    its adjacency table, the block's masked score, the warp's splice, the
+    walk with the bucket's threads and frontier buffers) on a chunk of
+    ragged sizes, against the port's tensor route (build_clusters on the
+    CPU: the dense BFS, no adjacency table) and the JAX package's
+    _cluster_build_vmapped: e, belong and length bit for bit; the model's
+    whole state and flags equal the tensor route's, and its adjacency
+    tables are the ones its edges give."""
+    from dipper_tpu_torch.dc import cluster as tc
+    from dipper_tpu_torch.dc import cluster_model as cm
+    from dipper_tpu_torch.placement import insert_model as im
+    from dipper_tpu_torch.placement import kclosest as tk
+
+    Dq, cd, cid, lens, sizes = cm.made_up_chunk(case, 6, cmax, dtype,
+                                                seed=cmax)
+    T = torch.from_numpy
+    made = _keep_states(monkeypatch, tc)
+    plain = tc.build_clusters(T(Dq), T(cd), T(cid), T(lens), sizes, cmax)
+    (pst, pflags), = made
+    want = _jax_batched(Dq, cd, cid, lens, sizes, cmax, dtype)
+    for f, a, w in zip(("e", "belong", "length"), plain, want):
+        _same_bytes(a.numpy(), w, f"{case}: tensor route vs JAX, {f}")
+    st, flags = tc.cluster_init_state(T(cd), T(cid), T(lens), cmax,
+                                      with_adj=True)
+    assert st.adj.shape == (6, 2 + 2 * cmax, 3)
+    stats = {}
+    cm.build_chunk(im.arrays_of(st), flags.numpy(), Dq, sizes, cmax, stats)
+    for f in ("e", "belong", "length", "rev", "cdis", "cid"):
+        _same_bytes(getattr(st, f).numpy(), getattr(pst, f).numpy(),
+                    f"{case}: model vs tensor route, {f}")
+    _same_bytes(flags.numpy(), pflags.numpy(), f"{case}: flags")
+    for c in range(6):
+        _same_bytes(st.adj[c].numpy(), tk.adjacency_from_edges(
+            st.belong[c], 2 + 2 * cmax).numpy(), f"{case}: adj {c}")
+    assert stats["levels"] > 0
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "nan_row", "over_two"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_stream_model_equals_tensor_route_and_jax(case, dtype):
+    """Kernel 8a's plan with insert_step's cursor entry (cluster_model.
+    stream_member: the masked score of the used slots, the flags set by
+    the scorer, the splice and walk at a streamed cluster's offsets, slot 0
+    blocked) over row blocks of 4 with a ragged last block, against the
+    port's streamed tensor route and the JAX package's _stream_range_run:
+    e, belong and length bit for bit, the model's whole state and flags
+    equal the tensor route's."""
+    from dipper_tpu_torch.dc import cluster as tc
+    from dipper_tpu_torch.dc import cluster_model as cm
+    from dipper_tpu_torch.placement import insert_model as im
+
+    cmax, rb = 21, 4
+    Dq, cd, cid, lens, _ = cm.made_up_chunk(case, 2, cmax, dtype, seed=3)
+    Dq, cd, cid, lens = Dq[0], cd[0], cid[0], lens[0]
+    sz = cmax - 2
+    T = torch.from_numpy
+    D = T(Dq)
+    init = (T(cd), T(cid), T(lens))
+    plain = tc.build_streamed(lambda s: D[s:s + rb], *init, sz, cmax, rb)
+    want = _jax_streamed(Dq, cd, cid, lens, sz, cmax, dtype)
+    for f, a, w in zip(("e", "belong", "length"), plain, want):
+        _same_bytes(a.numpy(), w, f"{case}: tensor route vs JAX, {f}")
+    st, flags = tc.one_cluster(*tc.cluster_init_state(
+        *(x[None] for x in init), cmax, with_adj=True))
+    s, fl = im.arrays_of(st), flags.numpy()
+    for kq0 in range(0, sz, rb):
+        cursor = [kq0, 2 + 4 * kq0, Dq[kq0:kq0 + rb], kq0]
+        for _ in range(min(rb, sz - kq0)):
+            cm.stream_member(s, fl, cursor, cmax)
+    for f, a in zip(("e", "belong", "length"), plain):
+        _same_bytes(s[f], a.numpy(), f"{case}: model vs tensor route, {f}")
+    # the tensor route's flags, replayed from its edges: every used slot
+    # was cleared or set by the same members
+    assert fl[:2 + 4 * sz].sum() > 0 and not fl[2 + 4 * sz:].any()
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_cursor_offsets_give_the_old_launches(dtype):
+    """insert_model.insert_step_cursor with placement's offsets (0, N - 1,
+    0) and no blocked slot makes the launch the cursor entry made before
+    its offsets (middle i + N - 1, outside and label i): a placement build
+    by each is the same state insertion by insertion. With a streamed
+    cluster's offsets (2, 2 + cmax, 10) and slot 0 blocked it makes
+    insert_step's launch at member kq's nodes and label."""
+    from dipper_tpu_torch.dc import cluster as tc
+    from dipper_tpu_torch.dc import cluster_model as cm
+    from dipper_tpu_torch.placement import insert_cuda
+    from dipper_tpu_torch.placement import insert_model as im
+    from dipper_tpu_torch.placement import kclosest as tk
+
+    n = 40
+    D = torch.from_numpy(_dc_matrix(n, 5).astype(dtype))
+    st = tk.init_placement_state((D,), num_sequences=n, frontend="matrix",
+                                 dtype_name=dtype)
+    old = im.arrays_of(st)
+    new = {f: a.copy() for f, a in old.items()}
+    cursor = [2, st.idx, None, 2]
+    assert insert_cuda.cursor_offsets(n) == (0, n - 1, 0)
+    for i in range(2, n):
+        eid, x, y, ye, frac, add = tk._score_edges_plain(st, D[i])
+        xy_old = im.insert_step(old, eid, frac.numpy(), add.numpy(), st.idx,
+                                i + n - 1, i, i)
+        xy_new = im.insert_step_cursor(new, cursor, (eid, x, y, ye),
+                                       (frac.numpy(), add.numpy()),
+                                       insert_cuda.cursor_offsets(n))
+        st.idx += 4
+        assert xy_old == xy_new and cursor[:2] == [i + 1, st.idx]
+        for f in im.FIELDS:
+            _same_bytes(new[f], old[f], f"insertion {i}, {f}")
+    cmax = 12
+    Dq, cd, cid, lens, _ = cm.made_up_chunk("random", 1, cmax, dtype, 9)
+    T = torch.from_numpy
+    st, flags = tc.one_cluster(*tc.cluster_init_state(
+        T(cd), T(cid), T(lens), cmax, with_adj=True))
+    old, fl = im.arrays_of(st), flags.numpy()
+    new = {f: a.copy() for f, a in old.items()}
+    cursor = [0, 2, None, 0]
+    for kq in range(cmax):
+        (eid, x, y, ye), (frac, add) = cm.score_masked(old, fl, Dq[0, kq],
+                                                       2 + 4 * kq)
+        xy_old = im.insert_step(old, eid, frac, add, 2 + 4 * kq,
+                                2 + cmax + kq, 2 + kq, 10 + kq, block_slot=0)
+        xy_new = im.insert_step_cursor(new, cursor, (eid, x, y, ye),
+                                       (frac, add), tc.stream_offsets(cmax),
+                                       block_slot=0)
+        assert xy_old == xy_new
+        for f in im.FIELDS:
+            _same_bytes(new[f], old[f], f"member {kq}, {f}")
+
+
+def _model_build_chunk(st, scoreable, Dq, sizes, cmax, stream=None):
+    """cluster_cuda.build_chunk's contract, computed by the model."""
+    from dipper_tpu_torch.dc import cluster_cuda
+    from dipper_tpu_torch.dc import cluster_model as cm
+    from dipper_tpu_torch.placement import insert_model as im
+
+    assert sizes.dtype == torch.int32 and st.adj.dim() == 3
+    cluster_cuda.CLUSTER_BUILD_LAUNCHES += 1
+    cm.build_chunk(im.arrays_of(st), scoreable.numpy(), Dq.numpy(),
+                   sizes.numpy(), cmax)
+
+
+@pytest.mark.parametrize("knobs", [
+    pytest.param({"PHASE3_BUDGET": 24}, id="chunks"),
+    pytest.param({"_STREAM_CLUSTER_MIN": 8, "_STREAM_ROW_BLOCK": 5},
+                 id="stream"),
+])
+def test_card_routes_with_models_as_kernels_equal_jax(
+        matrix320, model_as_kernel, monkeypatch, knobs):
+    """Phase 3 as it runs on the card, on CPU tensors with the models in
+    the kernels' place: a batched chunk is one build launch with no host
+    sync (BFS levels 0) whatever its steps; a streamed member is a masked
+    score and an insert_step launch, most of them by replays of captured
+    graphs (4 members a graph here), a cursor write a row block. The
+    bucket lines count the launches; the tree and arrays are the JAX
+    package's default, bit for bit."""
+    from dipper_tpu_torch.dc import cluster as tc
+    from dipper_tpu_torch.dc import cluster_cuda
+    from dipper_tpu_torch.placement import insert_cuda
+    from dipper_tpu_torch.placement import kclosest as tk
+
+    D, names, tp, want, debug = matrix320
+    for k, v in knobs.items():
+        monkeypatch.setattr(tpl, k, v)
+    monkeypatch.setattr(tk, "GRAPH_INSERTIONS", 4)
+    monkeypatch.setattr(tc, "uses_cluster_kernel", lambda Dq: True)
+    monkeypatch.setattr(cluster_cuda, "build_chunk", _model_build_chunk)
+    before = (cluster_cuda.CLUSTER_BUILD_LAUNCHES,
+              cluster_cuda.SCORE_MASKED_LAUNCHES, insert_cuda.GRAPH_REPLAYS)
+    got, _, log = _port_run(tpl.build_dc_tree_from_matrix, D, names, tp)
+    assert got == want
+    for k in ("e", "belong", "len"):
+        assert np.array_equal(tpl.last_debug[k], debug[k]), k
+    lines = re.findall(r"path=(\w+) members=(\d+) launches=(\d+) steps=\d+ "
+                       r"bfs_levels=(\d+) kernel_launches=(\d+)", log)
+    assert lines
+    builds = masked = 0
+    for path, members, launches, levels, kernels in lines:
+        assert int(levels) == 0
+        if path == "batch":
+            builds += int(launches)
+            assert int(kernels) == int(launches)  # one build a chunk
+        else:
+            masked += int(members)
+            assert int(kernels) == 2 * int(members)
+    assert (cluster_cuda.CLUSTER_BUILD_LAUNCHES - before[0],
+            cluster_cuda.SCORE_MASKED_LAUNCHES - before[1]) == (builds,
+                                                                masked)
+    if "_STREAM_CLUSTER_MIN" in knobs:
+        assert masked > 0 and insert_cuda.GRAPH_REPLAYS > before[2]
+    else:
+        assert builds > 1 and masked == 0
+
+
+def test_phase3_wrappers_reject_cpu_states():
+    """The kernels' wrappers raise for a CPU state (their callers take the
+    plain version there), and build_clusters on CPU tensors never reaches
+    kernel 8b."""
+    from dipper_tpu_torch.dc import cluster as tc
+    from dipper_tpu_torch.dc import cluster_cuda
+    from dipper_tpu_torch.dc import cluster_model as cm
+
+    Dq, cd, cid, lens, sizes = cm.made_up_chunk("random", 3, 8, "float32")
+    T = torch.from_numpy
+    st, flags = tc.cluster_init_state(T(cd), T(cid), T(lens), 8,
+                                      with_adj=True)
+    with pytest.raises(ValueError, match="CUDA state"):
+        cluster_cuda.build_chunk(st, flags, T(Dq), T(sizes.astype(np.int32)),
+                                 8)
+    st1, flags1 = tc.one_cluster(*tc.cluster_init_state(
+        T(cd[:1]), T(cid[:1]), T(lens[:1]), 8, with_adj=True))
+    with pytest.raises(ValueError, match="CUDA state"):
+        cluster_cuda.MaskedScorer(st1, flags1)
+    before = cluster_cuda.CLUSTER_BUILD_LAUNCHES
+    assert not tc.uses_cluster_kernel(T(Dq))
+    tc.build_clusters(T(Dq), T(cd), T(cid), T(lens), sizes, 8)
+    assert cluster_cuda.CLUSTER_BUILD_LAUNCHES == before

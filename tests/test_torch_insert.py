@@ -31,6 +31,8 @@ import dipper_tpu.dc.pipeline as jpl
 from dipper_tpu.placement import kclosest as jk
 from dipper_tpu.utils.params import Param as JaxParam
 from dipper_tpu_torch.dc import cluster as tc
+from dipper_tpu_torch.dc import cluster_cuda
+from dipper_tpu_torch.dc import cluster_model as cm
 from dipper_tpu_torch.io.newick import parse_newick
 from dipper_tpu_torch.placement import api as tapi
 from dipper_tpu_torch.placement import insert_cuda
@@ -382,14 +384,14 @@ def test_model_seeding_placement_backbone_equals_tensor_code_and_jax(dtype):
 
 
 def _fake_insert_step(st, eid, frac, add, *, middle, outside, label,
-                      block_slot=-1, stream=None):
+                      stream=None):
     """insert_cuda.insert_step's contract, computed by the model."""
     for t, want in ((eid, torch.int32), (frac, st.length.dtype),
                     (add, st.length.dtype)):
         assert t.dtype == want and t.numel() == 1
     xy = im.insert_step(im.arrays_of(st), int(eid.reshape(())),
                         frac.reshape(()).numpy(), add.reshape(()).numpy(),
-                        st.idx, middle, outside, label, block_slot)
+                        st.idx, middle, outside, label)
     st.idx += 4
     return torch.tensor(xy, dtype=torch.int32)
 
@@ -406,11 +408,13 @@ def _fake_score_edges_launch(st, row, stream=None, lo=0, hi=None):
 
 
 class _CursorRoute:
-    """The cursor route's entry points on CPU states, the model and the
+    """The cursor route's entry points on CPU states, the models and the
     scorer's plain version computing what the kernels would: each state's
     cursor (i, slots in use, rows, lo) and scorer outputs live here; a
     launch runs at once, or, inside a capture, is recorded and runs at
-    each replay, reading the cursor then."""
+    each replay, reading the cursor then. D&C's streamed clusters take
+    dc/cluster_model.py's masked scorer (kernel 8a) in the scorer's
+    place."""
 
     def __init__(self):
         self.cursor, self.out, self.graphs = {}, {}, {}
@@ -443,15 +447,32 @@ class _CursorRoute:
             tk.SCORE_EDGES_LAUNCHES += 1
         return out
 
-    def step(self, st, sc, *, num_sequences, stream=None, count=True):
+    def masked_scorer(self, st, scoreable):
+        return types.SimpleNamespace(
+            flags=scoreable, out_i=torch.zeros(4, dtype=torch.int32),
+            out_f=torch.zeros(2, dtype=st.length.dtype))
+
+    def score_masked(self, sc, st, stream=None, count=True):
+        def run():
+            i, used, rows, lo = self.cursor[id(st)]
+            out_i, out_f = cm.score_masked(im.arrays_of(st), sc.flags.numpy(),
+                                           rows[i - lo].numpy(), used)
+            sc.out_i[:] = torch.tensor(out_i, dtype=torch.int32)
+            sc.out_f[0], sc.out_f[1] = float(out_f[0]), float(out_f[1])
+        self._launch(run)
+        if count:
+            cluster_cuda.SCORE_MASKED_LAUNCHES += 1
+        return sc
+
+    def step(self, st, sc, *, offsets, block_slot=-1, stream=None,
+             count=True):
         def run():
             cur = self.cursor[id(st)]
             i, i0 = cur[0], cur[1]
-            im.insert_step(im.arrays_of(st), int(sc.out_i[0]),
-                           sc.out_f[0].numpy(), sc.out_f[1].numpy(), i0,
-                           i + num_sequences - 1, i, i)
+            im.insert_step_cursor(im.arrays_of(st), cur, sc.out_i.tolist(),
+                                  (sc.out_f[0].numpy(), sc.out_f[1].numpy()),
+                                  offsets, block_slot)
             self.steps.append((i, i0))
-            cur[0], cur[1] = i + 1, i0 + 4
         self._launch(run)
         if count:
             insert_cuda.INSERT_STEP_LAUNCHES += 1
@@ -500,6 +521,12 @@ def model_as_kernel(monkeypatch):
     monkeypatch.setattr(insert_cuda, "insert_step_cursor", route.step)
     monkeypatch.setattr(insert_cuda, "closest_bfs_cursor", route.bfs)
     monkeypatch.setattr(insert_cuda, "range_graph", route.range_graph)
+    monkeypatch.setattr(cluster_cuda, "MaskedScorer", route.masked_scorer)
+    monkeypatch.setattr(cluster_cuda, "score_masked_cursor",
+                        route.score_masked)
+    monkeypatch.setattr(cluster_cuda, "upload_sizes",
+                        lambda sizes, device: torch.from_numpy(
+                            np.asarray(sizes, dtype=np.int32)))
     return route
 
 
@@ -523,8 +550,10 @@ def test_streamed_cluster_model_equals_tensor_code_and_jax(
         monkeypatch, cmax, sz, row_block, dtype):
     """D&C's streamed cluster: label 10 + kq, middle 2 + cmax + kq, the
     cluster edge's endpoints (slot 0 after the splice) blocked, scoreable
-    cleared from the launch's (xe, ye). The card's route with the model
-    as the kernel, the plain route, and JAX's streamed build."""
+    set by the masked scorer. The card's route (a cursor a row block,
+    replayed graphs of the masked scorer and insert_step's cursor entry)
+    with the models as the kernels, the plain route, and JAX's streamed
+    build."""
     rng = np.random.default_rng(cmax)
     W = 10 + cmax
     Dq = rng.uniform(0.05, 0.6, (cmax, W)).astype(dtype)
@@ -534,25 +563,35 @@ def test_streamed_cluster_model_equals_tensor_code_and_jax(
     lens = rng.uniform(0.01, 0.2, 2).astype(dtype)
     lens[1] = lens[0]
     states = {}
-    orig_init = tc.cluster_init_state
+    orig_one = tc.one_cluster
 
     def keep(route):
-        def init(*a, **kw):
-            st, sc = orig_init(*a, **kw)
+        def one(*a):
+            st, sc = orig_one(*a)
             states[route] = st
             return st, sc
-        return init
+        return one
 
     D = torch.from_numpy(Dq)
     args = (torch.from_numpy(cd), torch.from_numpy(cid),
             torch.from_numpy(lens), sz, cmax, row_block)
-    monkeypatch.setattr(tc, "cluster_init_state", keep("plain"))
+    monkeypatch.setattr(tc, "one_cluster", keep("plain"))
     plain = tc.build_streamed(lambda s: D[s:s + row_block], *args)
     with monkeypatch.context() as m:
-        m.setattr(tc, "cluster_init_state", keep("model"))
+        route = _CursorRoute()
+        m.setattr(tc, "one_cluster", keep("model"))
         m.setattr(tk, "uses_insert_kernel", lambda st: st.adj is not None)
-        m.setattr(insert_cuda, "insert_step", _fake_insert_step)
+        m.setattr(tk, "GRAPH_INSERTIONS", 3)
+        for mod, name, fn in (
+                (insert_cuda, "set_cursor", route.set_cursor),
+                (insert_cuda, "insert_step_cursor", route.step),
+                (insert_cuda, "range_graph", route.range_graph),
+                (cluster_cuda, "MaskedScorer", route.masked_scorer),
+                (cluster_cuda, "score_masked_cursor", route.score_masked)):
+            m.setattr(mod, name, fn)
         model = tc.build_streamed(lambda s: D[s:s + row_block], *args)
+    assert route.steps == [(kq, 2 + 4 * kq) for kq in range(sz)]
+    assert route.captures == (row_block >= 3)
     _assert_same(states["model"], states["plain"])
     want = _jax_stream_cluster(Dq, cd, cid, lens, sz, cmax, dtype)
     for a, b, w in zip(model, plain, want):
