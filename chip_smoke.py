@@ -7,8 +7,8 @@ Runs on one NVIDIA GPU, from the root of a checkout:
     python3 chip_smoke.py --phases 1,2,3,6,7 --n 4400   # kernel checks only
 
 Phases, each printing one line of its own (run in the order 1, 2, 3, 6,
-15, 7, 25, 19, 4, 17, 5, 16, 26, 9, 24, 10, 11, 12, 14, 13, 8, 18, 20, 21,
-22, 23:
+15, 7, 25, 19, 4, 17, 5, 16, 26, 9, 24, 10, 11, 12, 14, 27, 13, 8, 18, 20,
+21, 22, 23:
 phases 13, 8 and 18 run the profiler, which slows every later launch in
 the process; phases 20 to 22 run in processes of their own):
   1. device: torch's device name and nvidia-smi's name and power limit;
@@ -231,13 +231,35 @@ the process; phases 20 to 22 run in processes of their own):
      launches = 1,024 and the BFS alone once a backbone leaf, merge-count
      launches > 0, the ingest's device route as in phase 5; and the same Newick from the card and the CPU at a
      backbone of 256 with 64 queries;
+  27. the exact main path: the CLI's exact placement (-i r -m 0, auto mode
+     at N >= 30,000, default flags: f32; skipped at a smaller --n) on
+     phase 5's set: rc 0, a
+     complete Newick with nRF vs the true tree < 0.35, time to tree and ms
+     an insertion by range, one exact_step launch an insertion
+     (csrc/exact_step.cu: the level order, both sweeps, the score, the
+     splice and the depth shift in one launch, replayed as CUDA graphs of
+     64 driven by a device cursor), merge-count and sketch-kernel launches
+     (the ingest's device route, sampled against the plain version); then
+     EXACT_SAMPLE insertions of its last range re-run from a copy of the
+     state by the kernel route launch by launch and by the plain version
+     on the card, the choices and every array equal after each; the
+     kernel's time there (a replayed graph of 64) beside the plain
+     version's, its byte bound and its latency floor;
   13. exact placement on the card in f64, through
      build_placement_tree_from_seqs(exact=True) on the alignment's first
-     512 sequences and build_placement_tree_from_matrix(exact=True) on
-     their distance matrix: the same Newick as the port's CPU build, the
-     tree's greatest depth, ms per insertion, and the launches, copies and
-     syncs per insertion of the matrix build's last 32 insertions under
-     torch.profiler.
+     512 and 2,048 sequences and build_placement_tree_from_matrix(
+     exact=True) on the 2,048's distance matrix: the same Newick as the
+     port's CPU build at 512 (sequences) and 2,048 (matrix), one
+     exact_step launch an insertion, ms per insertion on both; the kernel
+     route against the plain route on the
+     card, state for state and choice for choice, in windows of 32
+     insertions at the build's start, middle and end; the kernel's time at
+     the end beside the plain version's and its bounds; and 2 x 64 + 7
+     insertions at the end by the cursor route under
+     torch.cuda.set_sync_debug_mode("error") (one exact_step launch an
+     insertion, two graph replays, no host sync) and again under
+     torch.profiler (launches, copies and syncs an insertion, the device
+     busy time and share).
   19. the scorer by slot ranges (a rank's share of a sharded build): the
      made-up states of phase 7, f32 and f64, split 2 and 3 ways and at
      borders on the winning slot, between two tied edges, at n_used and
@@ -269,17 +291,16 @@ times are those of two processes sharing one card, not of sharding. Each
 rank of phases 20 to 22 is a process of this script (--worker-cli,
 --worker-sharded), checks that it imported no JAX, and is killed with its
 group past RANK_TIMEOUT_S.
-Phase 13's size, 512, is a quarter of what a 600 s budget for the whole
-script would not hold (2,048): exact placement's sweeps are the host's
-tensor code. Phases 12, 14 and 4 are back at 8,192, 4,096 + 1,024 and
-512, since the insertion-step kernel took their insertion loops off the
-host.
+Phases 12, 14, 4 and 13 run at 8,192, 4,096 + 1,024, 512 and 2,048,
+since the insertion-step and exact-step kernels took their insertion
+loops off the host.
 Every kernel counter is set to 0 just before a main path (phases 5, 16,
-9, 11, 12, 14, and in each rank of 20, 21 and 22) and read just after it;
-`launches` in the kernels' record is the count of phases 5 (placement;
-insert_step's counts both its entry points; the sketch kernel's), 16
-(D&C: the per-cluster count kernel, score_masked and dc_cluster_build)
-and 9 (NJ: the distance kernel and NJ's two), `launches_by_path` has
+9, 11, 12, 14, 27, and in each rank of 20, 21 and 22) and read just after
+it; `launches` in the kernels' record is the count of phases 5
+(placement; insert_step's counts both its entry points; the sketch
+kernel's), 16 (D&C: the per-cluster count kernel, score_masked and
+dc_cluster_build), 9 (NJ: the distance kernel and NJ's two) and 27
+(exact: exact_step), `launches_by_path` has
 every path's (one count a rank for the multi-rank paths), and
 score_edges's `range_launches` the sharded placement's range launches.
 
@@ -334,6 +355,9 @@ KERNELS = {
     "dc_cluster_build": ("dipper_tpu_torch/csrc/dc_cluster_build.cu",
                          "dipper_tpu/dc/pipeline.py:180 (XLA program, no "
                          "Pallas)"),
+    "exact_step": ("dipper_tpu_torch/csrc/exact_step.cu",
+                   "dipper_tpu/placement/exact.py:231 (XLA program, no "
+                   "Pallas)"),
 }
 NRF_LIMIT = 0.35
 # nRF vs the true tree of the full-size sets (seed 1) in every smoke so
@@ -380,7 +404,14 @@ DC_NRF_LIMIT = 0.65
 # main path is held against the plain version
 DC_SAMPLE = 16
 ALL_PHASES = (1, 2, 3, 6, 15, 7, 25, 19, 4, 17, 5, 16, 26, 9, 24, 10, 11, 12,
-              14, 13, 8, 18, 20, 21, 22, 23)
+              14, 27, 13, 8, 18, 20, 21, 22, 23)
+# phase 13's taxa, and the insertions of each of its windows of the kernel
+# route against the plain route on the card
+EXACT_N = 2048
+EXACT_WINDOW = 32
+# insertions of the exact CLI's last range re-run from a copy of its state
+# by the kernel route and by the plain version (phase 27)
+EXACT_SAMPLE = 64
 # nRF of the D&C main path's tree vs the true tree at N = 30,000 in every
 # earlier smoke with D&C: phase 3's kernels must leave it unchanged
 DC_NRF_30K = 0.5831583158315832
@@ -1888,7 +1919,7 @@ def reset_counts() -> None:
     from dipper_tpu_torch.dc import cluster_cuda
     from dipper_tpu_torch.distance import mash_cuda
     from dipper_tpu_torch.nj import nj_cuda
-    from dipper_tpu_torch.placement import insert_cuda, kclosest
+    from dipper_tpu_torch.placement import exact_cuda, insert_cuda, kclosest
     from dipper_tpu_torch.sketch import minhash_cuda
 
     cluster_cuda.SCORE_MASKED_LAUNCHES = 0
@@ -1903,6 +1934,7 @@ def reset_counts() -> None:
     insert_cuda.CLOSEST_BFS_LAUNCHES = 0
     insert_cuda.GRAPH_CAPTURES = 0
     insert_cuda.GRAPH_REPLAYS = 0
+    exact_cuda.EXACT_STEP_LAUNCHES = 0
     nj_cuda.Q_ARGMIN_LAUNCHES = 0
     nj_cuda.HALF_READ_LAUNCHES = 0
     nj_cuda.UPDATE_LAUNCHES = 0
@@ -1917,7 +1949,7 @@ def read_counts() -> dict:
     from dipper_tpu_torch.dc import cluster_cuda
     from dipper_tpu_torch.distance import mash_cuda
     from dipper_tpu_torch.nj import nj_cuda
-    from dipper_tpu_torch.placement import insert_cuda, kclosest
+    from dipper_tpu_torch.placement import exact_cuda, insert_cuda, kclosest
     from dipper_tpu_torch.sketch import minhash_cuda
 
     return {"mash_merge_count": mash_cuda.LAUNCHES,
@@ -1935,7 +1967,8 @@ def read_counts() -> dict:
             "nj_q_argmin.half_read": nj_cuda.HALF_READ_LAUNCHES,
             "nj_update": nj_cuda.UPDATE_LAUNCHES,
             "score_masked": cluster_cuda.SCORE_MASKED_LAUNCHES,
-            "dc_cluster_build": cluster_cuda.CLUSTER_BUILD_LAUNCHES}
+            "dc_cluster_build": cluster_cuda.CLUSTER_BUILD_LAUNCHES,
+            "exact_step": exact_cuda.EXACT_STEP_LAUNCHES}
 
 
 class SketchSampler:
@@ -3947,12 +3980,202 @@ def phase_dc_step_profiled(cmax: int = 16) -> dict:
     return res
 
 
-def phase_exact(tmp: str, fa: str, n: int, window: int = 32) -> dict:
-    """Exact placement of the alignment's first n sequences on the card
-    and on the CPU, f64, from the sequences and from their matrix."""
+def exact_clone(st):
+    """A copy of an exact state on its device (its own stepper)."""
+    import dataclasses
+
+    from dipper_tpu_torch.placement import exact_cuda
+    from dipper_tpu_torch.placement.exact_model import FIELDS
+
+    return exact_cuda.prepare_stepper(dataclasses.replace(
+        st, **{f: getattr(st, f).clone() for f in FIELDS}))
+
+
+def exact_diff(a, b) -> list:
+    """What two exact states differ in, bit for bit: idx and the names of
+    the arrays (adj too)."""
+    from dipper_tpu_torch.placement.exact_model import FIELDS
+
+    out = [] if a.idx == b.idx else ["idx"]
+    for f in FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.is_floating_point():
+            bits = torch.int32 if x.dtype == torch.float32 else torch.int64
+            x, y = x.view(bits), y.view(bits)
+        if x.shape != y.shape or not torch.equal(x, y):
+            out.append(f)
+    return out
+
+
+def plain_exact_step(st, row, i: int, N: int) -> int:
+    """Insertion i by the plain version on the card; returns its choice."""
+    from dipper_tpu_torch.placement import exact
+
+    maxdep = exact._max_depth(st)
+    lim = exact._compute_lims(st, row, N, maxdep)
+    eid, frac, add = exact._score_exact(st, lim)
+    exact._splice_exact(st, eid, frac, add, i, N, maxdep)
+    return int(eid)
+
+
+def exact_vs_plain(st, rows, lo: int, k: int, N: int) -> dict:
+    """Insertions lo .. lo + k - 1 (rows[j]: lo + j) from copies of `st`:
+    one by the kernel route launch by launch, one by the plain version on
+    the card; the choices and every array equal after each insertion.
+    `st` is left as it was."""
+    from dipper_tpu_torch.placement import exact, exact_cuda
+
+    a, b = exact_clone(st), exact_clone(st)
+    for j in range(k):
+        i = lo + j
+        exact.run_exact_range(a, i, i + 1, rows[j:j + 1], N)
+        out = exact_cuda.last_out(a)
+        eid = plain_exact_step(b, rows[j], i, N)
+        check(out["status"] == 0, f"exact_step at insertion {i}: {out}")
+        check(out["eid"] == eid, f"exact_step chose slot {out['eid']} at "
+              f"insertion {i}, the plain version {eid}")
+        diff = exact_diff(a, b)
+        check(not diff, f"exact_step at insertion {i} differs from the "
+              f"plain version in {diff}")
+    return {"lo": lo, "insertions": k, "choices_equal": True,
+            "states_equal": True}
+
+
+def exact_times(st, rows, lo: int, N: int) -> dict:
+    """On copies of `st`: exact_step's time an insertion (one replay of
+    the state's graph of exact_cuda.GRAPH_INSERTIONS launches between CUDA
+    events, the median of three), the plain version's on the card (8
+    insertions), the first launch's record (the tree's greatest depth,
+    positions, the depth shift's levels and nodes) and the kernel's bound
+    from the bytes this insertion must move and its latency floor
+    ((3 maxdep + shift levels) dependent L2 round trips)."""
+    from dipper_tpu_torch.placement import exact, exact_cuda
+
+    G = exact_cuda.GRAPH_INSERTIONS
+    check(rows.shape[0] >= G, f"{rows.shape[0]} rows for a graph of {G}")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ms = []
+    for _ in range(3):
+        c = exact_clone(st)
+        graph = exact_cuda.range_graph(c)
+        exact_cuda.set_cursor(c, lo, rows, lo)
+        torch.cuda.synchronize()
+        ev[0].record()
+        graph.graph.replay()
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]) / G)
+    c = exact_clone(st)
+    exact.run_exact_range(c, lo, lo + 1, rows[:1], N)
+    out = exact_cuda.last_out(c)
+    k = 8
+    c = exact_clone(st)
+    torch.cuda.synchronize()
+    ev[0].record()
+    for j in range(k):
+        exact.run_exact_range(c, lo + j, lo + j + 1, rows[j:j + 1], N,
+                              plain=True)
+    ev[1].record()
+    torch.cuda.synchronize()
+    plain_ms = ev[0].elapsed_time(ev[1]) / k
+    T = st.length.element_size()
+    used, P = st.idx, out["positions"]
+    leaves = used // 4 + 1
+    # read: each used slot's length (both directions), each downward
+    # slot's e and rev (an upward slot is reached through its downward
+    # slot's rev), each node's adjacency row, each leaf's row entry, the
+    # choice's belong and its ends' depths; written: the six slots (e,
+    # rev, length), four belong, the three parents, the two new depths and
+    # adjacency rows, the shifted depths and the cursor
+    nbytes = (used * T + (used // 2) * 8 + P * 12 + leaves * T + 12
+              + 6 * (8 + T) + 16 + 12 + 8 + 24 + 4 * out["shift_nodes"]
+              + 16)
+    # a subtraction and a maximum a child in the up-sweep, four operations
+    # an incident edge in the down-sweep, edge_score's 13 a downward edge
+    ops = (P - 1) * (2 + 8 + 13)
+    peak = PEAK_F32_PER_S if T == 4 else PEAK_F32_PER_S / 2
+    bound = bound_of(ops, nbytes, peak)
+    trip = l2_round_trip_ms()
+    floor = (3 * out["maxdep"] + out["shift_levels"]) * trip
+    kms = sorted(ms)[1]
+    return {"lo": lo, "ms": kms, "ms_runs": ms, "plain_ms": plain_ms,
+            "launch_record": out, "slots_used": used, **bound,
+            "share_of_bound": bound["bound_ms"] / kms,
+            "l2_round_trip_ms": trip, "latency_floor_ms": floor,
+            "share_of_latency_floor": floor / kms}
+
+
+def exact_route_profiled(D, n: int) -> dict:
+    """The kernel route at the end of an n-taxon build of D (f64 on the
+    card): a range of 2 x GRAPH_INSERTIONS + 7 insertions (after a range
+    that captured the state's graph) under sync_debug_mode "error" (no
+    host sync), then the same insertions on a copy under torch.profiler:
+    exact_step launches an insertion (the counter and the card's kernel
+    records), the host's graph launches, kernel launches, copies and syncs,
+    the device busy time an insertion."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from dipper_tpu_torch.placement import exact, exact_cuda, insert_cuda
+
+    G = exact_cuda.GRAPH_INSERTIONS
+    k = 2 * G + 7
+    lo = n - k
+    st = exact.init_exact_state((D,), num_sequences=n, frontend="matrix",
+                                dtype_name="float64")
+    exact.run_exact_range(st, 2, lo, D[2:lo], n)
+    snap = exact_clone(st)
+    torch.cuda.synchronize()
+    launches, replays = (exact_cuda.EXACT_STEP_LAUNCHES,
+                         insert_cuda.GRAPH_REPLAYS)
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        exact.run_exact_range(st, lo, n, D[lo:n], n)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    per = (exact_cuda.EXACT_STEP_LAUNCHES - launches) / k
+    check(per == 1.0 and insert_cuda.GRAPH_REPLAYS - replays == 2,
+          f"the range launched exact_step {per} times an insertion and "
+          f"replayed {insert_cuda.GRAPH_REPLAYS - replays} graphs")
+    exact_cuda.range_graph(snap)   # captured before the profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        exact.run_exact_range(snap, lo, n, D[lo:n], n)
+        torch.cuda.synchronize()
+    diff = exact_diff(snap, st)
+    check(not diff, f"the profiled range differs from the checked one in "
+          f"{diff}")
+    ka = prof.key_averages()
+    count = {e.key: e.count for e in ka}
+    on_dev = [e for e in ka if e.device_type != DeviceType.CPU]
+    records = sum(e.count for e in on_dev if "exact_step_kernel" in e.key)
+    busy = sum(e.self_device_time_total for e in on_dev) / 1e3 / k
+    return {"lo": lo, "insertions": k, "graph_insertions": G,
+            "exact_step_launches_per_insertion": per,
+            "host_syncs_in_range": 0,
+            "ms_per_insertion_sync_checked": wall_ms / k,
+            "device_exact_step_records_per_insertion": records / k,
+            "cudaGraphLaunch": count.get("cudaGraphLaunch", 0),
+            "cudaLaunchKernel_per_insertion":
+                sum(count.get(key, 0) for key in LAUNCH_KEYS) / k,
+            "memcpys_per_insertion": count.get("cudaMemcpyAsync", 0) / k,
+            "stream_syncs_per_insertion":
+                count.get("cudaStreamSynchronize", 0) / k,
+            "device_busy_ms_per_insertion": busy,
+            "device_busy_share": busy / (wall_ms / k)}
+
+
+def phase_exact(tmp: str, fa: str, n: int, window: int = EXACT_WINDOW,
+                small: int = 512) -> dict:
+    """Exact placement on the card and on the CPU, f64: the alignment's
+    first n sequences through build_placement_tree_from_seqs(exact=True)
+    and their distance matrix through build_placement_tree_from_matrix(
+    exact=True), and the matrix's first `small` taxa; the kernel route
+    against the plain route on the card in windows; the kernel route's
+    launches, copies and syncs an insertion; kernel and plain times."""
     from dipper_tpu_torch.distance import msa
     from dipper_tpu_torch.io.fasta import read_fasta
     from dipper_tpu_torch.placement import api, exact
@@ -3960,100 +4183,138 @@ def phase_exact(tmp: str, fa: str, n: int, window: int = 32) -> dict:
 
     names, seqs = read_fasta(fa)
     names, seqs = names[:n], seqs[:n]
-    D = msa.msa_distance_matrix(load_codes(fa, n), 1, "float64",
-                                "cuda").cpu().numpy()
+    Dc = msa.msa_distance_matrix(load_codes(fa, n), 1, "float64", "cuda")
+    D = Dc.cpu().numpy()
 
-    states = []
-    chunked = exact.run_exact_chunked
-
-    def keep_state(*a, **kw):
-        st = chunked(*a, **kw)
-        states.append(st)
-        return st
-
-    # the matrix build on the card ends with `window` insertions in a range
-    # of their own, which run under the profiler
-    prof_box = []
-    run_range = exact.run_exact_range
-
-    def range_profiled(st, lo, hi, rows, num_sequences):
-        if st.e.device.type != "cuda" or hi - lo != window or prof_box:
-            return run_range(st, lo, hi, rows, num_sequences)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run_range(st, lo, hi, rows, num_sequences)
-            torch.cuda.synchronize()
-        prof_box.append((prof, (time.perf_counter() - t0) * 1e3))
-
-    def build(frontend: str, dev: str, chunk: int) -> tuple:
+    def build(frontend: str, size: int, dev: str) -> tuple:
         logs = []
         p = Param(in_format="m" if frontend == "msa" else "d",
-                  dtype="float64", state_chunk=chunk)
+                  dtype="float64")
         t0 = time.time()
         if frontend == "msa":
             nwk = api.build_placement_tree_from_seqs(
-                seqs, names, p, device=torch.device(dev), exact=True,
-                log=logs.append)
+                seqs[:size], names[:size], p, device=torch.device(dev),
+                exact=True, log=logs.append)
         else:
             nwk = api.build_placement_tree_from_matrix(
-                D, names, p, device=torch.device(dev), exact=True,
-                log=logs.append)
+                D[:size, :size], names[:size], p, device=torch.device(dev),
+                exact=True, log=logs.append)
         wall = time.time() - t0
         per = [float(m.group(1)) for ln in logs
                for m in [re.search(r"\(([\d.]+) ms/insertion\)", ln)] if m]
         return nwk, wall, per[0]
 
-    exact.run_exact_chunked = keep_state
-    exact.run_exact_range = range_profiled
     res, trees = {}, {}
-    try:
-        for frontend in ("msa", "matrix"):
-            # ranges [2, n - window) and [n - window, n)
-            chunk = n - 2 - window if frontend == "matrix" else n
-            del states[:]
-            reset_counts()
-            gpu, gpu_s, gpu_ms = build(frontend, "cuda", chunk)
-            check(states and states[0].e.device.type == "cuda",
-                  "exact placement did not keep its state on the card")
-            depth = exact._max_depth(states[0])
-            cpu, cpu_s, cpu_ms = build(frontend, "cpu", chunk)
-            check(gpu == cpu, f"exact placement ({frontend}, f64): the "
-                  "card's Newick differs from the CPU's")
-            check(gpu.count(",") == n - 1, "exact placement: incomplete tree")
-            trees[frontend] = gpu
-            res[frontend] = {
-                "newick_identical_gpu_cpu": True, "greatest_depth": depth,
-                "ms_per_insertion": {"cuda": gpu_ms, "cpu": cpu_ms},
-                "wall_s": {"cuda": gpu_s, "cpu": cpu_s},
-                "kernel_launches": read_counts()}
-    finally:
-        exact.run_exact_chunked = chunked
-        exact.run_exact_range = run_range
-    # the same distances row by row (the matrix's diagonal is zeroed)
-    res["same_newick_from_both_frontends"] = trees["msa"] == trees["matrix"]
-    check(len(prof_box) == 1, "the profiled window of exact placement did "
-          "not run")
-    prof, wall_ms = prof_box[0]
-    ka = prof.key_averages()
-    count = {e.key: e.count for e in ka}
-    on_dev = [e for e in ka if e.device_type != DeviceType.CPU]
-    res["profiled_window"] = {
-        "insertions": window, "first": n - window,
-        "ms_per_insertion_under_profiler": wall_ms / window,
-        "launches_per_insertion": count.get("cudaLaunchKernel", 0) / window,
-        "memcpys_per_insertion": count.get("cudaMemcpyAsync", 0) / window,
-        "stream_syncs_per_insertion":
-            count.get("cudaStreamSynchronize", 0) / window,
-        "device_busy_ms_per_insertion":
-            sum(e.self_device_time_total for e in on_dev) / 1e3 / window,
-        "top_device_ops": sorted(
-            ((e.key, e.self_device_time_total / 1e3 / window) for e in on_dev),
-            key=lambda kv: -kv[1])[:6]}
-    emit({"phase": "exact_placement", "n": n, "precision": "f64",
-          "distance_type": 1, **res})
+    # (frontend, taxa, built on the CPU too): the CPU's plain version takes
+    # ~15 ms an insertion at 2,048, so the sequences' build is held to the
+    # CPU at `small` and to the matrix's build on the card at n
+    for frontend, size, on_cpu in (("msa", small, True), ("matrix", n, True),
+                                   ("msa", n, False)):
+        reset_counts()
+        gpu, gpu_s, gpu_ms = build(frontend, size, "cuda")
+        counts = read_counts()
+        check(counts["exact_step"] == size - 2, f"exact placement "
+              f"({frontend}, {size}) launched exact_step "
+              f"{counts['exact_step']} times for {size - 2} insertions")
+        check(gpu.count(",") == size - 1, "exact placement: incomplete tree")
+        trees[frontend, size] = gpu
+        rec = {"ms_per_insertion": {"cuda": gpu_ms}, "wall_s": {"cuda": gpu_s},
+               "kernel_launches": {k: v for k, v in counts.items() if v}}
+        if on_cpu:
+            cpu, cpu_s, cpu_ms = build(frontend, size, "cpu")
+            check(gpu == cpu, f"exact placement ({frontend}, {size}, f64): "
+                  "the card's Newick differs from the CPU's")
+            rec.update(newick_identical_gpu_cpu=True)
+            rec["ms_per_insertion"]["cpu"] = cpu_ms
+            rec["wall_s"]["cpu"] = cpu_s
+        res[f"{frontend}_{size}"] = rec
+    # the same distances row by row (the matrix's diagonal is zeroed, and
+    # an insertion reads no row entry of its own)
+    res["same_newick_from_both_frontends"] = (
+        trees["msa", n] == trees["matrix", n])
+    # the kernel route against the plain route on the card, state for
+    # state, in windows at the start, the middle and the end of a build
+    st = exact.init_exact_state((Dc,), num_sequences=n, frontend="matrix",
+                                dtype_name="float64")
+    pos, windows = 2, []
+    for lo in (2, n // 2, n - window):
+        exact.run_exact_range(st, pos, lo, Dc[pos:lo], n)
+        windows.append(exact_vs_plain(st, Dc[lo:lo + window], lo, window,
+                                      n))
+        exact.run_exact_range(st, lo, lo + window, Dc[lo:lo + window], n)
+        pos = lo + window
+    res["kernel_vs_plain_windows"] = windows
+    res["greatest_depth"] = exact._max_depth(st)
+    G = 64
+    lo = n - G - 8
+    st = exact.init_exact_state((Dc,), num_sequences=n, frontend="matrix",
+                                dtype_name="float64")
+    exact.run_exact_range(st, 2, lo, Dc[2:lo], n)
+    res["times_at_end"] = exact_times(st, Dc[lo:lo + G], lo, n)
+    res["route_profiled"] = exact_route_profiled(Dc, n)
+    emit({"phase": "exact_placement", "n": n, "small": small,
+          "precision": "f64", "distance_type": 1, **res})
     return res
+
+
+def phase_exact_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
+    """The CLI's exact path (-i r -m 0, default flags: f32) on phase 5's
+    set: time to tree, ms an insertion, exact_step's launches, nRF vs the
+    true tree; the ingest's device route; then EXACT_SAMPLE insertions of
+    its last range re-run from a copy of the state by the kernel route and
+    by the plain version on the card (choices and states equal), and the
+    kernel's time there beside the plain version's and its bounds."""
+    from dipper_tpu_torch.placement import exact
+
+    out = os.path.join(tmp, f"n{n}.exact.nwk")
+    last = {}
+    run_range = exact.run_exact_range
+
+    def range_kept(st, lo, hi, rows, num_sequences, plain=False):
+        # the last range's state and first rows, kept for the checks after
+        # the run (device copies, no host sync)
+        if hi == num_sequences and not last:
+            last.update(lo=lo, st=exact_clone(st), N=num_sequences,
+                        rows=rows[:max(EXACT_SAMPLE, 64)].clone())
+        return run_range(st, lo, hi, rows, num_sequences, plain)
+
+    sketches = SketchSampler()
+    exact.run_exact_range = range_kept
+    try:
+        reset_counts()
+        rc, log, wall = run_cli(["-i", "r", "-I", fa, "-O", out, "-m", "0"])
+        counts = read_counts()
+    finally:
+        exact.run_exact_range = run_range
+        sketches.restore()
+    check(rc == 0, f"exact CLI returned {rc}")
+    check("Using exact placement mode" in log, "-m 0 at N = 30,000 did not "
+          "take exact placement")
+    check(counts["exact_step"] == n - 2, f"exact CLI launched exact_step "
+          f"{counts['exact_step']} times for {n - 2} insertions")
+    check(counts["mash_merge_count"] > 0, "exact CLI launched no merge-count "
+          "kernel for its rows")
+    ingest = check_device_ingest("exact CLI", counts, log, sketches)
+    rf, nrf = check_tree(open(out).read(), n, true_nwk, NRF_LIMIT)
+    per = [float(m.group(1)) for m in re.finditer(
+        r"Inserted \d+/\d+ \(([\d.]+) ms/insertion\)", log)]
+    check(bool(last), "the exact CLI's last range was not seen")
+    st, rows, lo, N = last["st"], last["rows"], last["lo"], last["N"]
+    k = min(EXACT_SAMPLE, rows.shape[0])
+    sample = exact_vs_plain(st, rows, lo, k, N)
+    times = exact_times(st, rows, lo, N)
+    rec = {"phase": "exact_main_path", "n": n, "argv": "-i r -m 0",
+           "precision": "f32", "time_to_tree_s": wall,
+           "ms_per_insertion_by_range": per,
+           "insert_ranges": len(per), "rf": rf, "nrf": nrf,
+           "counts": {k2: v for k2, v in counts.items() if v},
+           "ingest_sketch_checked": ingest, "sample_vs_plain": sample,
+           "times_last_range": times,
+           "log_times_ms": {key: _ms(rf"{key} in: (\d+) ms", log)
+                            for key in ("Input", "Sketch", "Rank bank",
+                                        "Tree Created")}}
+    emit(rec)
+    return {**rec, "counts": counts}
 
 
 # ---------------------------------------------------------------------------
@@ -5109,7 +5370,7 @@ def main() -> int:
     ap.add_argument("--msa-n", type=int, default=20000,
                     help="taxa of the aligned set (phases 10 and 11); "
                          "phase 12 places its first min(8192, msa-n), phase "
-                         "13 its first min(512, msa-n)")
+                         "13 its first min(2048, msa-n)")
     ap.add_argument("--phases", default=",".join(map(str, sorted(ALL_PHASES))),
                     help="comma-separated subset of phases to run")
     ap.add_argument("--parent", default=None,
@@ -5143,7 +5404,7 @@ def main() -> int:
                 records[name].setdefault("launches_by_path", {})[path] = c
 
     with tempfile.TemporaryDirectory() as tmp:
-        if phases & {3, 5, 6, 14, 15, 16, 21, 22, 24}:
+        if phases & {3, 5, 6, 14, 15, 16, 21, 22, 24, 27}:
             t0 = time.time()
             data = make_dataset(args.n, os.path.join(tmp, f"n{args.n}"),
                                 seed=1)
@@ -5319,8 +5580,38 @@ def main() -> int:
         if 14 in phases:
             note("add", phase_add(tmp, data[0], min(4096, args.n // 2),
                                   min(1024, args.n // 8))["counts"])
+        if 27 in phases and args.n < 30000:
+            # -m 0 is auto mode, which takes exact placement only from
+            # 30,000 taxa (below, NJ)
+            emit({"phase": "exact_main_path", "n": args.n,
+                  "skipped": "-m 0 takes exact placement at N >= 30,000"})
+        elif 27 in phases:
+            res = phase_exact_main_path(tmp, args.n, *data)
+            note("exact", res["counts"])
+            t = res["times_last_range"]
+            records["exact_step"].update(
+                launches=res["counts"]["exact_step"], max_abs_err=0.0,
+                library_ms=None, n=args.n, slots_used=t["slots_used"],
+                launch_record=t["launch_record"],
+                **{k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "share_of_bound",
+                                     "latency_floor_ms",
+                                     "share_of_latency_floor")})
         if 13 in phases:
-            phase_exact(tmp, msa_fa, min(512, args.msa_n))
+            n13 = min(EXACT_N, args.msa_n)
+            res = phase_exact(tmp, msa_fa, n13, small=min(512, args.msa_n))
+            ex = records["exact_step"]
+            t = res["times_at_end"]
+            ex["at_phase13"] = {k: t[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
+                "latency_floor_ms", "launch_record")}
+            ex["route_profiled"] = res["route_profiled"]
+            for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
+                ex.setdefault(key, t[key])
+            ex.setdefault("max_abs_err", 0.0)
+            ex.setdefault("library_ms", None)
+            ex.setdefault("launches", res[f"matrix_{n13}"]
+                          ["kernel_launches"]["exact_step"])
         if 8 in phases:
             win = phase_nj_gpu_vs_cpu(tmp)["profiled_window"]
             for name in ("nj_q_argmin", "nj_update"):

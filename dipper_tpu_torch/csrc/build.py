@@ -35,6 +35,7 @@ KERNELS = {
     "nj_update": "nj_update.cu",
     "score_masked": "score_masked.cu",
     "dc_cluster_build": "dc_cluster_build.cu",
+    "exact_step": "exact_step.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -26,16 +26,27 @@ arrays. Each insertion runs
 - splice + parent/dep maintenance (the child-side subtree's depths
   shift by one, marked by parent-pointer propagation).
 
-PyTorch design: the sweeps are plain tensor code (they are an XLA
-program, not a hand kernel, in the reference), every level a fixed set
-of masked vector operations over the used edge slots. The state is
-updated in place. An insertion syncs the host three times: for the
-tree's greatest depth, which fixes the number of levels of both sweeps
-and bounds the marking's propagation; for the chosen edge with its
-endpoints and their depths; and for the upload of the splice's slots and
-values (a write `t[i] = number` would cost a copy and a sync each). The
-float operations and their order are the reference's, so states are
-bitwise equal to its on the same rows.
+PyTorch design. On the card a state inserts a range through csrc/exact_step.cu (placement/exact_cuda.py): one launch an
+insertion does the level order, both sweeps, the score, the splice and the
+depth shift, reading the insertion, the slots in use and its row from a
+cursor on the card; the range is one cursor write, replays of a captured
+CUDA graph of exact_cuda.GRAPH_INSERTIONS launches and the remainder by
+direct launches, with no host sync (`_replay_exact`). The tensor code
+below is the plain version: the CPU path, and on the card the yardstick,
+which runs there only when a caller asks for it (`plain=True`). Its
+sweeps are a fixed set of masked vector operations over the used edge
+slots a level; an insertion syncs the host three times: for the tree's
+greatest depth, which fixes the number of levels of both sweeps and
+bounds the marking's propagation; for the chosen edge with its endpoints
+and their depths; and for the upload of the splice's slots and values (a
+write `t[i] = number` would cost a copy and a sync each). The float
+operations and their order are the reference's, so states are bitwise
+equal to its on the same rows; the kernel's are the plain version's.
+
+The adjacency table `adj` [M, 3] (each node's out-edges, in slot order) is
+derived data beside the reference's fields: it is not in FIELDS, so
+checkpoints keep the reference's schema, and a state read from numpy
+rebuilds it from `belong`.
 """
 
 from __future__ import annotations
@@ -47,9 +58,10 @@ import time
 import numpy as np
 import torch
 
+from dipper_tpu_torch.placement import exact_cuda, insert_cuda
 from dipper_tpu_torch.placement.kclosest import (
     ROW_BLOCK, SENT_DIS, _ROWS_BYTES, _i32, _rows, _slice_frontend,
-    load_tree_state, nan_minimum, save_tree_state)
+    adjacency_from_edges, load_tree_state, nan_minimum, save_tree_state)
 from dipper_tpu_torch.utils.device import synchronize, torch_dtype
 
 # depth of a node that is not in the tree; part of the checkpoint, as is
@@ -69,19 +81,28 @@ class ExactState:
     parent: torch.Tensor   # [M] int32 (M = pad index for none)
     dep: torch.Tensor      # [M] int32 (BIG_DEP = not in tree)
     idx: int               # next free edge slot (host-side counter)
+    # [M, 3] int32 out-edges of each node in slot order, -1 empty (derived
+    # from belong; a splice rewrites only the two new nodes' rows)
+    adj: torch.Tensor
+    # the kernel's checked pointers, scratch, cursor and graph
+    # (exact_cuda._Stepper, made by exact_cuda.prepare_stepper)
+    stepper: "exact_cuda._Stepper | None" = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @classmethod
     def from_numpy(cls, d, device) -> "ExactState":
         """The reference's ExactState as numpy arrays (jax.device_get of
         it, or a checkpoint .npz of either package) -> ExactState on
-        `device`."""
+        `device`, with its adjacency table rebuilt from `belong`."""
         def t(a, dtype=None):
             return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
 
-        return cls(e=t(d["e"], np.int32), belong=t(d["belong"], np.int32),
-                   length=t(d["length"]), rev=t(d["rev"], np.int32),
-                   parent=t(d["parent"], np.int32),
-                   dep=t(d["dep"], np.int32), idx=int(d["idx"]))
+        belong = t(d["belong"], np.int32)
+        return exact_cuda.prepare_stepper(cls(
+            e=t(d["e"], np.int32), belong=belong, length=t(d["length"]),
+            rev=t(d["rev"], np.int32), parent=t(d["parent"], np.int32),
+            dep=t(d["dep"], np.int32), idx=int(d["idx"]),
+            adj=adjacency_from_edges(belong, belong.shape[0] // 2)))
 
 
 def _init_state(N: int, dtype: torch.dtype, device) -> ExactState:
@@ -96,6 +117,7 @@ def _init_state(N: int, dtype: torch.dtype, device) -> ExactState:
         parent=torch.full((M,), M, **i32),
         dep=torch.full((M,), BIG_DEP, **i32),
         idx=0,
+        adj=torch.full((M, 3), -1, **i32),
     )
 
 
@@ -109,6 +131,9 @@ def _build_initial(st: ExactState, d01: torch.Tensor, N: int) -> None:
     st.parent[:2] = N
     st.dep[N] = 0
     st.dep[:2] = 1
+    st.adj[0] = _i32([0, -1, -1], dev)
+    st.adj[1] = _i32([1, -1, -1], dev)
+    st.adj[N] = _i32([2, 3, -1], dev)
     st.idx = 4
 
 
@@ -241,8 +266,8 @@ def _splice_exact(st: ExactState, eid, frac, add, place_id: int, N: int,
     i1, i2, i3 = i0 + 1, i0 + 2, i0 + 3
     # parent/dep maintenance: pa = shallower endpoint, ch = deeper
     pa, ch, dpa = (x, y, dx) if dx < dy else (y, x, dy)
-    (slots, e_new, rev_new, belong_new, nodes, parent_new,
-     dep_new) = torch.tensor([
+    (slots, e_new, rev_new, belong_new, nodes, parent_new, dep_new,
+     adj_at, adj_new) = torch.tensor([
         [xe, ye, i0, i1, i2, i3],
         [middle, middle, x, y, middle, outside],
         [i0, i1, xe, ye, i3, i2],
@@ -250,6 +275,9 @@ def _splice_exact(st: ExactState, eid, frac, add, place_id: int, N: int,
         [ch, middle, outside, -1, -1, -1],
         [middle, pa, middle, -1, -1, -1],
         [-1, dpa + 1, dpa + 2, -1, -1, -1],           # dep: new nodes only
+        [3 * middle, 3 * middle + 1, 3 * middle + 2, 3 * outside,
+         3 * outside + 1, 3 * outside + 2],           # the new nodes' rows
+        [i0, i1, i3, i2, -1, -1],
     ]).to(dev)
 
     frac = torch.as_tensor(frac, dtype=st.length.dtype, device=dev)
@@ -272,6 +300,8 @@ def _splice_exact(st: ExactState, eid, frac, add, place_id: int, N: int,
     st.dep += mark[:M]
     st.dep[nodes[1:3]] = dep_new[1:3].int()
     st.parent[nodes[:3]] = parent_new[:3].int()
+    # x and y keep their edge ids (xe/ye now point at middle)
+    st.adj.view(-1)[adj_at] = adj_new.int()
     st.idx += 4
 
 
@@ -292,15 +322,58 @@ def init_exact_state(frontend_args, *, num_sequences: int, frontend: str,
     d01 = _rows(fa2, frontend, frontend_static, dtype_name, 1, 2)[0, 0]
     st = _init_state(N, torch_dtype(dtype_name), frontend_args[0].device)
     _build_initial(st, d01.to(st.length.dtype), N)
-    return st
+    return exact_cuda.prepare_stepper(st)
+
+
+def uses_exact_kernel(st: ExactState) -> bool:
+    """Whether a range of this state runs on csrc/exact_step.cu: a state
+    on the card."""
+    return st.e.device.type == "cuda"
 
 
 def run_exact_range(st: ExactState, lo: int, hi: int, rows: torch.Tensor,
-                    num_sequences: int) -> None:
+                    num_sequences: int, plain: bool = False) -> None:
     """Insertions lo..hi-1; rows[j] is the distance row of insertion
-    lo+j."""
+    lo+j. The range runs on the stream that is current at its start: by
+    the kernel's cursor route on the card (no host sync; a failed
+    insertion stops the range's launches and shows at
+    exact_cuda.check_done), by the plain version on the CPU, or anywhere
+    with `plain=True`."""
+    if not plain and uses_exact_kernel(st):
+        _replay_exact(st, lo, hi, rows, num_sequences)
+        return
     for i in range(lo, hi):
         exact_insertion_step(st, rows[i - lo], i, num_sequences)
+
+
+def _replay_exact(st: ExactState, lo: int, hi: int, rows: torch.Tensor,
+                  num_sequences: int) -> None:
+    """The cursor route of an insert range, the counterpart of the JAX
+    package's fori_loop over one: the state's cursor is written once (lo,
+    st.idx, the rows), a captured CUDA graph of exact_cuda.GRAPH_INSERTIONS
+    launches is replayed (hi - lo) // GRAPH_INSERTIONS times, and the
+    remainder runs by direct cursor launches. st.idx advances by
+    4 (hi - lo)."""
+    n = hi - lo
+    if n <= 0:
+        return
+    E = st.e.shape[0]
+    if rows.shape[0] < n:
+        raise ValueError(f"{rows.shape[0]} rows for {n} insertions")
+    if 2 * num_sequences != st.parent.shape[0]:
+        raise ValueError(f"a state of {st.parent.shape[0]} nodes is not "
+                         f"one of {num_sequences} taxa")
+    if lo < 2 or hi > num_sequences or st.idx + 4 * n > E:
+        raise ValueError(f"insertions [{lo}, {hi}) at slot {st.idx} do not "
+                         f"fit {num_sequences} taxa and {E} edge slots")
+    exact_cuda.set_cursor(st, lo, rows, lo)
+    reps, rest = divmod(n, exact_cuda.GRAPH_INSERTIONS)
+    if reps:
+        insert_cuda.replay(exact_cuda.range_graph(st), reps,
+                           exact_cuda.count_replays)
+    for _ in range(rest):
+        exact_cuda.exact_step_cursor(st)
+    st.idx += 4 * n
 
 
 def run_exact_chunked(frontend_args, *, num_sequences: int, frontend: str,
@@ -308,13 +381,15 @@ def run_exact_chunked(frontend_args, *, num_sequences: int, frontend: str,
                       chunk: int = 8192, save_state: str | None = None,
                       load_state: str | None = None,
                       fingerprint: dict | None = None,
-                      log=None) -> ExactState:
+                      log=None, plain: bool = False) -> ExactState:
     """Whole exact build in bounded insert ranges on the frontend's
     device, with checkpoint/resume in the reference's schema (either
     package resumes the other's file). The sweeps run over the whole
     bank's width, so there are no prefix caps; mash and MSA rows of a
     range are computed in one call before its loop, under the same bytes
-    budget as k-closest ranges."""
+    budget as k-closest ranges. `plain=True` runs the plain version on the
+    card too (run_exact_range). A range of the kernel route in which an
+    insertion failed raises after the range (exact_cuda.check_done)."""
     N = num_sequences
     dev = frontend_args[0].device
     itemsize = torch.empty((), dtype=torch_dtype(dtype_name)).element_size()
@@ -331,6 +406,7 @@ def run_exact_chunked(frontend_args, *, num_sequences: int, frontend: str,
                               frontend_static=frontend_static,
                               dtype_name=dtype_name)
         i0 = 2
+    kernel = not plain and uses_exact_kernel(st)
     B = ROW_BLOCK
     # matrix rows are views of the resident matrix
     ce = chunk if frontend == "matrix" else max(
@@ -341,9 +417,11 @@ def run_exact_chunked(frontend_args, *, num_sequences: int, frontend: str,
         t0 = time.time()
         rows = _rows(frontend_args, frontend, frontend_static, dtype_name,
                      lo, hi)
-        run_exact_range(st, lo, hi, rows, N)
+        run_exact_range(st, lo, hi, rows, N, plain)
         del rows
         synchronize(dev)
+        if kernel:
+            exact_cuda.check_done(st)
         if log:
             log(f"Inserted {hi}/{N} "
                 f"({(time.time() - t0) / max(hi - lo, 1) * 1e3:.2f} "

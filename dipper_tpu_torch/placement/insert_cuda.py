@@ -38,7 +38,8 @@ from dipper_tpu_torch.csrc.build import check_launch, load
 # closest_bfs_cursor
 INSERT_STEP_LAUNCHES = 0
 CLOSEST_BFS_LAUNCHES = 0
-# CUDA graphs captured and replayed by this process (range_graph, replay)
+# CUDA graphs captured and replayed by this process (capture, replay; and
+# exact_cuda's graphs of exact placement)
 GRAPH_CAPTURES = 0
 GRAPH_REPLAYS = 0
 
@@ -335,6 +336,25 @@ class _Graph:
 _capture_streams: dict = {}
 
 
+def capture(device: torch.device, launch) -> torch.cuda.CUDAGraph:
+    """A CUDA graph of the launches `launch(stream)` makes on the device's
+    side stream (they must not count themselves: a replay counts them). A
+    failed capture raises."""
+    global GRAPH_CAPTURES
+    side = _capture_streams.get(device.index)
+    if side is None:
+        side = _capture_streams[device.index] = torch.cuda.Stream(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            launch(side.cuda_stream)
+        finally:
+            graph.capture_end()
+    GRAPH_CAPTURES += 1
+    return graph
+
+
 def range_graph(st, key, launch, steps: int = 0, bfs: int = 0,
                 keep=()) -> _Graph:
     """The state's CUDA graph `key`, captured at its first use: `launch`
@@ -344,35 +364,32 @@ def range_graph(st, key, launch, steps: int = 0, bfs: int = 0,
     the graph. Captured once per state (a state whose arrays were
     replaced has a new _Inserter, and so new graphs) and per key; a failed
     capture raises."""
-    global GRAPH_CAPTURES
     ins = inserter(st)
     g = ins.graphs.get(key)
-    if g is not None:
-        return g
-    side = _capture_streams.get(ins.device.index)
-    if side is None:
-        side = _capture_streams[ins.device.index] = torch.cuda.Stream(
-            ins.device)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.stream(side):
-        graph.capture_begin(capture_error_mode="thread_local")
-        try:
-            launch(side.cuda_stream)
-        finally:
-            graph.capture_end()
-    g = _Graph()
-    g.graph, g.steps, g.bfs, g.keep = graph, steps, bfs, tuple(keep)
-    ins.graphs[key] = g
-    GRAPH_CAPTURES += 1
+    if g is None:
+        g = ins.graphs[key] = new_graph(ins.device, launch, steps, bfs, keep)
     return g
 
 
-def replay(g, times: int) -> None:
+def new_graph(device: torch.device, launch, steps: int = 0, bfs: int = 0,
+              keep=()) -> _Graph:
+    """A _Graph of the launches `launch(stream)` makes (capture), with
+    `steps`, `bfs` and `keep` as range_graph has them."""
+    g = _Graph()
+    g.graph = capture(device, launch)
+    g.steps, g.bfs, g.keep = steps, bfs, tuple(keep)
+    return g
+
+
+def replay(g, times: int, count=None) -> None:
     """Replays the graph `times` times on the current stream, counting its
-    launches."""
+    launches: its insert_step and closest_bfs launches here, other
+    kernels' by `count(times)`."""
     global GRAPH_REPLAYS, INSERT_STEP_LAUNCHES, CLOSEST_BFS_LAUNCHES
     for _ in range(times):
         g.graph.replay()
     GRAPH_REPLAYS += times
     INSERT_STEP_LAUNCHES += g.steps * times
     CLOSEST_BFS_LAUNCHES += g.bfs * times
+    if count is not None:
+        count(times)

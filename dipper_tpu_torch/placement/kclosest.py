@@ -1015,6 +1015,7 @@ def load_tree_state(path: str, num_sequences: int, dtype_name: str,
         raise SystemExit(f"tree-state file is missing arrays: {missing}")
     st = cls.from_numpy(d, device)
     if cls is TreeState and st.adj is None:
+        # (an ExactState's table is rebuilt by ExactState.from_numpy)
         # pre-adjacency checkpoint: rebuild the out-edge table — only
         # if out-degree <= 3 everywhere (a multifurcating backbone
         # would overflow the 3-slot rows; the dense BFS handles it)

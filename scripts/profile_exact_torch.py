@@ -1,25 +1,32 @@
 #!/usr/bin/env python3
 """Per-insertion time breakdown of the PyTorch port's exact placement
-(dipper_tpu_torch.placement.exact), and of --add's backbone seeding.
+(dipper_tpu_torch.placement.exact), by its two routes, and of --add's
+backbone seeding.
 
 Exact placement: builds the tree of the first N sequences of an aligned
 `scripts/make_dataset.py` set (L = 10,000, 5% gaps, -d 1 distances in
-f64) up to 3 * WINDOW insertions before the end, without timing. Then
-three windows of WINDOW insertions each:
-  A. the plain loop, as the builds run it: wall ms per insertion;
+f64) up to a few windows of WINDOW insertions before the end, without
+timing (the kernel route on the card, the plain version on the CPU). Then,
+for each route (the plain version's tensor code, and on the card the
+kernel route: csrc/exact_step.cu, one launch an insertion in replayed
+CUDA graphs), windows of WINDOW insertions each:
+  A. the route's loop as the builds run it: wall ms per insertion;
+  C. torch.profiler over the loop with no extra syncs: the host's kernel
+     and graph launches, copies and stream syncs per insertion, exact_step
+     records on the card, device busy ms per insertion (device-side events
+     only) and the device's busy share of window A's time;
+  S. the host operations that synchronize, counted by source line
+     (torch.cuda.set_sync_debug_mode("warn"));
+and for the plain version
   B. the depth read, the two sweeps (`_compute_lims`), scoring and splice,
-     each bracketed by a device synchronize;
-  C. torch.profiler over the loop with no extra syncs: kernel launches,
-     copies and stream syncs per insertion, device busy ms (device-side
-     events only); the host operations that synchronize, counted by source
-     line (torch.cuda.set_sync_debug_mode("warn")), follow in a fourth,
-     short window.
+     each bracketed by a device synchronize.
 Seeding (--seed-backbone B, off by default): the witness BFS of each leaf
 of a B-leaf k-closest tree of the same distances, as `run_add_queries`
 runs it: ms per backbone leaf over the first, middle and last tenth.
 Each result is one JSON line on stdout.
 
     python scripts/profile_exact_torch.py                  # N=2,048 on cuda
+    python scripts/profile_exact_torch.py --n 30000 --window 64
     python scripts/profile_exact_torch.py --n 300 --window 20 --device cpu
 """
 
@@ -64,29 +71,96 @@ def distances(n: int, seed: int, device) -> torch.Tensor:
     return msa_distance_matrix(codes, 1, "float64", device)
 
 
-def profile_exact(D: torch.Tensor, window: int, device) -> None:
+def _profiled(st, D, lo: int, window: int, plain: bool, device) -> dict:
+    """Window C of a route under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     n = D.shape[0]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        exact.run_exact_range(st, lo, lo + window, D[lo:lo + window], n,
+                              plain)
+        synchronize(device)
+    ka = prof.key_averages()
+    count = {e.key: e.count for e in ka}
+    on_dev = [e for e in ka if e.device_type != DeviceType.CPU]
+    return {"launches_per_insertion":
+                (count.get("cudaLaunchKernel", 0)
+                 + count.get("cudaLaunchKernelExC", 0)) / window,
+            "graph_launches_per_insertion":
+                count.get("cudaGraphLaunch", 0) / window,
+            "memcpys_per_insertion":
+                count.get("cudaMemcpyAsync", 0) / window,
+            "stream_syncs_per_insertion":
+                count.get("cudaStreamSynchronize", 0) / window,
+            "exact_step_records_per_insertion":
+                sum(e.count for e in on_dev if "exact_step_kernel" in e.key)
+                / window,
+            "device_busy_ms_per_insertion":
+                sum(e.self_device_time_total for e in on_dev) / 1e3
+                / window,
+            "top_device_ops_ms_per_insertion": sorted(
+                ((e.key[:60], e.self_device_time_total / 1e3 / window)
+                 for e in on_dev), key=lambda kv: -kv[1])[:6]}
+
+
+def _sync_sources(st, D, lo: int, window: int, plain: bool) -> dict:
+    """Window S: the calls that synchronize, by source line."""
+    n = D.shape[0]
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            exact.run_exact_range(st, lo, lo + window, D[lo:lo + window], n,
+                                  plain)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    where = collections.Counter(
+        f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+        for w in caught if "synchroniz" in str(w.message))
+    return {"syncing_calls_per_insertion": {
+        src: c / window for src, c in where.most_common()},
+        "syncs_per_insertion": sum(where.values()) / window}
+
+
+def profile_exact(D: torch.Tensor, window: int, device) -> None:
+    n = D.shape[0]
     kw = dict(num_sequences=n, frontend="matrix", dtype_name="float64")
+    routes = ("plain", "kernel") if device.type == "cuda" else ("plain",)
+    per_route = 3 if device.type == "cuda" else 1
+    start = n - window * (per_route * len(routes) + 1) - min(window, 8)
     st = exact.init_exact_state((D,), **kw)
-    start = n - 3 * window - min(window, 8)
     exact.run_exact_range(st, 2, start, D[2:start], n)
     synchronize(device)
     base = {"n": n, "window": window, "device": str(device)}
+    lo = start
+    for route in routes:
+        plain = route == "plain"
+        # A. the route's loop
+        t0 = time.perf_counter()
+        exact.run_exact_range(st, lo, lo + window, D[lo:lo + window], n,
+                              plain)
+        synchronize(device)
+        ms = (time.perf_counter() - t0) * 1e3 / window
+        emit({**base, "route": route, "part": "window", "first": lo,
+              "ms_per_insertion": ms,
+              "greatest_depth": exact._max_depth(st)})
+        lo += window
+        if device.type != "cuda":
+            continue
+        # C. under the profiler
+        rec = _profiled(st, D, lo, window, plain, device)
+        rec["device_busy_share"] = rec["device_busy_ms_per_insertion"] / ms
+        emit({**base, "route": route, "part": "profiled_window",
+              "first": lo, **rec})
+        lo += window
+        # S. which host operations synchronize, by source line
+        emit({**base, "route": route, "part": "sync_sources", "first": lo,
+              **_sync_sources(st, D, lo, window, plain)})
+        lo += window
 
-    # A. the plain loop
-    t0 = time.perf_counter()
-    exact.run_exact_range(st, start, start + window,
-                          D[start:start + window], n)
-    synchronize(device)
-    emit({**base, "part": "plain_window", "first": start,
-          "ms_per_insertion": (time.perf_counter() - t0) * 1e3 / window,
-          "greatest_depth": exact._max_depth(st)})
-
-    # B. parts, a synchronize after each
-    lo = start + window
+    # B. the plain version's parts, a synchronize after each
     parts = collections.OrderedDict(
         (k, 0.0) for k in ("depth_read", "sweeps", "score", "splice"))
     levels = 0
@@ -109,53 +183,14 @@ def profile_exact(D: torch.Tensor, window: int, device) -> None:
         levels += 2 * maxdep
         for k, a, b in zip(parts, t, t[1:]):
             parts[k] += (b - a) * 1e3
-    emit({**base, "part": "synced_window", "first": lo,
+    emit({**base, "route": "plain", "part": "synced_window", "first": lo,
           "ms_per_insertion": (time.perf_counter() - t_all) * 1e3 / window,
           "parts_ms_per_insertion": {k: v / window for k, v in parts.items()},
           "sweep_levels_per_insertion": levels / window,
           "sweep_ms_per_level": parts["sweeps"] / max(levels, 1)})
-
-    # C. under the profiler
     lo += window
-    if device.type == "cuda":
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            exact.run_exact_range(st, lo, lo + window, D[lo:lo + window], n)
-            synchronize(device)
-        ka = prof.key_averages()
-        count = {e.key: e.count for e in ka}
-        on_dev = [e for e in ka if e.device_type != DeviceType.CPU]
-        emit({**base, "part": "profiled_window", "first": lo,
-              "launches_per_insertion":
-                  count.get("cudaLaunchKernel", 0) / window,
-              "memcpys_per_insertion":
-                  count.get("cudaMemcpyAsync", 0) / window,
-              "stream_syncs_per_insertion":
-                  count.get("cudaStreamSynchronize", 0) / window,
-              "device_busy_ms_per_insertion":
-                  sum(e.self_device_time_total for e in on_dev) / 1e3
-                  / window,
-              "top_device_ops_ms_per_insertion": sorted(
-                  ((e.key[:60], e.self_device_time_total / 1e3 / window)
-                   for e in on_dev), key=lambda kv: -kv[1])[:6]})
-        lo += window
-        # which host operations synchronize, by source line
-        k = n - lo
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                exact.run_exact_range(st, lo, n, D[lo:n], n)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        where = collections.Counter(
-            f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
-            for w in caught if "synchroniz" in str(w.message))
-        emit({**base, "part": "sync_sources", "insertions": k,
-              "syncing_calls_per_insertion": {
-                  src: c / k for src, c in where.most_common()}})
-    else:
-        exact.run_exact_range(st, lo, n, D[lo:n], n)
+    exact.run_exact_range(st, lo, n, D[lo:n], n)
+    synchronize(device)
     emit({**base, "part": "done", "edge_slots_used": st.idx,
           "greatest_depth": exact._max_depth(st)})
 

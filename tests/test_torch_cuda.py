@@ -839,6 +839,150 @@ def test_exact_cuda_build_equals_cpu_build(cuda, dtype):
         assert np.array_equal(a[f], b[f]), f
 
 
+def _exact_fields_equal(a, b) -> None:
+    """Two exact states (or their numpy dicts) bit for bit, adj too."""
+    from dipper_tpu_torch.placement import exact
+
+    a, b = (x if isinstance(x, dict) else dict(
+        tk.tree_state_to_numpy(x), adj=x.adj.cpu().numpy()) for x in (a, b))
+    for f in exact.ExactState.FIELDS + ("adj",):
+        nan = np.asarray(a[f]).dtype.kind == "f"
+        assert np.array_equal(a[f], b[f], equal_nan=nan), f
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_exact_kernel_route_equals_plain_route(cuda, dtype, tmp_path):
+    """256 insertions (N = 258) on the card in ranges of 100 (graphs of 64
+    replayed, remainders by direct launches): the kernel route's state is
+    the plain route's on the card bit for bit, also when the build is
+    checkpointed and when it is resumed from a checkpoint at insertion 100;
+    one exact_step launch an insertion."""
+    from dipper_tpu_torch.placement import exact, exact_cuda
+
+    n = 258
+    D = _additive(n, 12)
+    D = torch.from_numpy(D / (D.max() * 1.05)).to(getattr(torch, dtype))
+    Dc = D.to(cuda)
+    kw = dict(num_sequences=n, frontend="matrix", dtype_name=dtype,
+              chunk=100)
+    plain = exact.run_exact_chunked((Dc,), plain=True, **kw)
+    before = exact_cuda.EXACT_STEP_LAUNCHES
+    ck = str(tmp_path / "exact.npz")
+    got = exact.run_exact_chunked((Dc,), save_state=ck, **kw)
+    assert exact_cuda.EXACT_STEP_LAUNCHES - before == n - 2
+    assert got.stepper is not None
+    assert exact_cuda.last_out(got)["status"] == 0
+    _exact_fields_equal(got, plain)
+    # a checkpoint at insertion 100, resumed by the kernel route
+    first = exact.init_exact_state((Dc,), num_sequences=n,
+                                   frontend="matrix", dtype_name=dtype)
+    exact.run_exact_range(first, 2, 100, Dc[2:100], n)
+    tk.save_tree_state(ck, first, 100, n, {"frontend": "matrix",
+                                           "dtype": dtype,
+                                           "placement": "exact"})
+    resumed = exact.run_exact_chunked((Dc,), load_state=ck, **kw)
+    _exact_fields_equal(resumed, plain)
+
+
+def test_exact_one_launch_no_sync_an_insertion(cuda):
+    """A range of 2 x 64 + 5 insertions after the state's graph was
+    captured: one exact_step launch an insertion, two graph replays, no
+    host sync (sync_debug_mode "error"), and the launch's record: status 0
+    and the plain version's greatest depth."""
+    from dipper_tpu_torch.placement import exact, exact_cuda, insert_cuda
+
+    n = 400
+    D = _additive(n, 4)
+    D = torch.from_numpy(D / (D.max() * 1.05)).to(cuda)
+    st = exact.init_exact_state((D,), num_sequences=n, frontend="matrix",
+                                dtype_name="float64")
+    exact.run_exact_range(st, 2, 200, D[2:200], n)      # captures the graph
+    k = 2 * exact_cuda.GRAPH_INSERTIONS + 5
+    launches, replays = (exact_cuda.EXACT_STEP_LAUNCHES,
+                         insert_cuda.GRAPH_REPLAYS)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        exact.run_exact_range(st, 200, 200 + k, D[200:200 + k], n)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert exact_cuda.EXACT_STEP_LAUNCHES - launches == k
+    assert insert_cuda.GRAPH_REPLAYS - replays == 2
+    want = exact.ExactState.from_numpy(tk.tree_state_to_numpy(st), cuda)
+    depth = exact._max_depth(want)
+    exact.run_exact_range(st, 200 + k, 201 + k, D[200 + k:201 + k], n)
+    out = exact_cuda.last_out(st)
+    assert out["status"] == 0 and out["maxdep"] == depth
+    exact.run_exact_range(want, 200 + k, 201 + k, D[200 + k:201 + k], n,
+                          plain=True)
+    _exact_fields_equal(st, want)
+
+
+def test_exact_failed_insertion_raises(cuda, monkeypatch):
+    """A walk that overflows (a cycle in adj) at the first insertion of a
+    range of 198, inside replayed graphs: every later launch does
+    nothing, run_exact_chunked raises after the range naming insertion 2,
+    and the tree, adj and the cursor are as they were."""
+    from dipper_tpu_torch.placement import exact, exact_cuda
+
+    n = 200
+    D = _additive(n, 6)
+    D = torch.from_numpy(D / (D.max() * 1.05)).to(cuda)
+    made = []
+    init = exact.init_exact_state
+
+    def init_with_cycle(*args, **kw):
+        st = init(*args, **kw)
+        st.adj[0] = torch.tensor([0, 3, -1], dtype=torch.int32, device=cuda)
+        st.e[3] = 0
+        made.append((st, dict(tk.tree_state_to_numpy(st),
+                              adj=st.adj.cpu().numpy())))
+        return st
+
+    monkeypatch.setattr(exact, "init_exact_state", init_with_cycle)
+    launches = exact_cuda.EXACT_STEP_LAUNCHES
+    with pytest.raises(RuntimeError, match="at insertion 2:.*more nodes"):
+        exact.run_exact_chunked((D,), num_sequences=n, frontend="matrix",
+                                dtype_name="float64")
+    assert exact_cuda.EXACT_STEP_LAUNCHES - launches == n - 2
+    (st, before), = made
+    _exact_fields_equal(st, before)
+    out = exact_cuda.last_out(st)
+    assert out["status"] == out["error"] == 2
+    assert int(st.stepper.cursor[0]) == 2
+
+
+def test_exact_kernel_special_rows(cuda):
+    """Rows with NaN and inf, and rows far above every length (the first
+    minimum on slot 0), f32 and f64: the kernel route's state after every
+    insertion is the plain route's on the card."""
+    from dipper_tpu_torch.placement import exact
+
+    n = 40
+    D = _additive(n, 2)
+    D = D / (D.max() * 1.05)
+    R = D.copy()
+    for i in range(2, n):
+        if i % 4 == 1:
+            R[i, (i * 7) % i] = np.nan
+        if i % 5 == 2:
+            R[i, (i * 3) % i] = np.inf
+        if i % 6 == 3:
+            R[i, (i * 5) % i] = -np.inf
+    for rows in (R, D + 50.0):
+        for dtype in (torch.float32, torch.float64):
+            Rc = torch.from_numpy(rows).to(dtype).to(cuda)
+            kw = dict(num_sequences=n, frontend="matrix",
+                      dtype_name=str(dtype).split(".")[1])
+            a = exact.init_exact_state((Rc,), **kw)
+            b = exact.init_exact_state((Rc,), **kw)
+            for i in range(2, n):
+                exact.run_exact_range(a, i, i + 1, Rc[i:i + 1], n)
+                exact.run_exact_range(b, i, i + 1, Rc[i:i + 1], n,
+                                      plain=True)
+                _exact_fields_equal(a, b)
+
+
 @pytest.mark.parametrize("use_adj", [True, False])
 def test_add_queries_cuda_equals_cpu(cuda, use_adj):
     """--add of 64 queries onto a 192-leaf backbone (mash rows, f64): the
