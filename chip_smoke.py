@@ -242,9 +242,17 @@ the process; phases 20 to 22 run in processes of their own):
      (the ingest's device route, sampled against the plain version); then
      EXACT_SAMPLE insertions of its last range re-run from a copy of the
      state by the kernel route launch by launch and by the plain version
-     on the card, the choices and every array equal after each; the
-     kernel's time there (a replayed graph of 64) beside the plain
-     version's, its byte bound and its latency floor;
+     on the card, the choices and every array equal after each (the node
+     records kept by the splices equal to records rebuilt from the plain
+     state); the kernel's time there (a replayed graph of 64) beside the
+     plain version's, its byte bound and its latency floor; each part of
+     an insertion (walk, up-sweep, down-sweep, score, splice and depth
+     shift) by exact_step.cu's stamped instance (at the main path's
+     shape, and with every level on block 0), with cycles by level; the
+     tree's level widths, the launch shape (C, threads, W) and one
+     cluster barrier's cost; with --parent DIR, that checkout's
+     exact_step timed in turns with this one's (parent, this, this,
+     parent);
   13. exact placement on the card in f64, through
      build_placement_tree_from_seqs(exact=True) on the alignment's first
      512 and 2,048 sequences and build_placement_tree_from_matrix(
@@ -259,7 +267,8 @@ the process; phases 20 to 22 run in processes of their own):
      torch.cuda.set_sync_debug_mode("error") (one exact_step launch an
      insertion, two graph replays, no host sync) and again under
      torch.profiler (launches, copies and syncs an insertion, the device
-     busy time and share).
+     busy time and share); the parts, widths, shapes and --parent turns
+     as in phase 27, at the end of the 2,048 build.
   19. the scorer by slot ranges (a rank's share of a sharded build): the
      made-up states of phase 7, f32 and f64, split 2 and 3 ways and at
      borders on the winning slot, between two tied edges, at n_used and
@@ -412,6 +421,12 @@ EXACT_WINDOW = 32
 # insertions of the exact CLI's last range re-run from a copy of its state
 # by the kernel route and by the plain version (phase 27)
 EXACT_SAMPLE = 64
+# insertions that exact_step.cu's stamped instance times by part (phases
+# 13 and 27), and the runs: (name, launch shape); "block0" takes every
+# level on block 0 (W above any level: the records without the split),
+# "cluster" is the main path's shape
+EXACT_PARTS = 16
+EXACT_PART_RUNS = (("block0", {"wide": 1 << 30}), ("cluster", {}))
 # nRF of the D&C main path's tree vs the true tree at N = 30,000 in every
 # earlier smoke with D&C: phase 3's kernels must leave it unchanged
 DC_NRF_30K = 0.5831583158315832
@@ -4021,13 +4036,18 @@ def plain_exact_step(st, row, i: int, N: int) -> int:
 def exact_vs_plain(st, rows, lo: int, k: int, N: int) -> dict:
     """Insertions lo .. lo + k - 1 (rows[j]: lo + j) from copies of `st`:
     one by the kernel route launch by launch, one by the plain version on
-    the card; the choices and every array equal after each insertion.
-    `st` is left as it was."""
+    the card; the choices and every array equal after each insertion, and
+    how many of the launches took the whole cluster (the launch before
+    found at least CLUSTER_LEVELS levels wider than WIDE; the first launch
+    of a new stepper is block 0's). `st` is left as it was."""
     from dipper_tpu_torch.placement import exact, exact_cuda
 
     a, b = exact_clone(st), exact_clone(st)
+    on_cluster = 0
     for j in range(k):
         i = lo + j
+        prev = exact_cuda.last_out(a)["wide_levels"]
+        on_cluster += prev >= exact_cuda.CLUSTER_LEVELS
         exact.run_exact_range(a, i, i + 1, rows[j:j + 1], N)
         out = exact_cuda.last_out(a)
         eid = plain_exact_step(b, rows[j], i, N)
@@ -4037,8 +4057,12 @@ def exact_vs_plain(st, rows, lo: int, k: int, N: int) -> dict:
         diff = exact_diff(a, b)
         check(not diff, f"exact_step at insertion {i} differs from the "
               f"plain version in {diff}")
+        check(torch.equal(a.stepper.rec, exact_cuda.node_records(b)),
+              f"exact_step at insertion {i}: the node records kept by its "
+              f"splices differ from the plain state's")
     return {"lo": lo, "insertions": k, "choices_equal": True,
-            "states_equal": True}
+            "states_equal": True, "records_equal": True,
+            "launches_on_cluster": on_cluster}
 
 
 def exact_times(st, rows, lo: int, N: int) -> dict:
@@ -4105,6 +4129,97 @@ def exact_times(st, rows, lo: int, N: int) -> dict:
             "share_of_latency_floor": floor / kms}
 
 
+def exact_parts(st, rows, lo: int) -> dict:
+    """Each run of EXACT_PART_RUNS (exact_cuda.stamped_parts) on
+    EXACT_PARTS insertions of `st` from lo: where an insertion's cycles go
+    at each launch shape, and the level widths of the tree (printed, with
+    the launch shape and one cluster barrier's cost)."""
+    from dipper_tpu_torch.placement import exact_cuda
+
+    k = min(EXACT_PARTS, rows.shape[0] - 1)
+    res = {name: exact_cuda.stamped_parts(st, rows, lo, k, **shape)
+           for name, shape in EXACT_PART_RUNS}
+    widths = res["cluster"]["level_widths"]
+    check(res["block0"]["level_widths"] == widths, "the two launch shapes "
+          "walked different level orders")
+    print(f"exact level widths at lo={lo} (depth {len(widths) - 1}, "
+          f"max {max(widths)}): {widths}", flush=True)
+    for name, r in res.items():
+        print(f"exact stamped parts, {name} (us at "
+              f"{r['sm_clock_mhz']:.0f} MHz): "
+              + ", ".join(f"{p} {v:.2f}" for p, v in r["us"].items())
+              + f"; total {r['us_total']:.2f}", flush=True)
+        print(f"  {name} by level, cycles = a + b x width: " + "; ".join(
+            f"{p} a {v['fixed_cycles']:.0f} b {v['cycles_a_position']:.2f}"
+            for p, v in r["by_level"].items()), flush=True)
+        # each pass's us on the levels wider than W and on the others
+        r["us_by_width"] = {
+            p: {kind: sum(c for c, x in zip(v["cycles_by_level"], widths)
+                          if (x > exact_cuda.WIDE) == (kind == "wide"))
+                / r["sm_clock_mhz"] for kind in ("wide", "narrow")}
+            for p, v in r["by_level"].items()}
+        print(f"  {name} us on levels wider than W / the others: "
+              + "; ".join(f"{p} {v['wide']:.2f} / {v['narrow']:.2f}"
+                          for p, v in r["us_by_width"].items()), flush=True)
+    barrier = exact_cuda.cluster_sync_us()
+    print(f"exact_step launch shape: C = {exact_cuda.CLUSTER_CTAS} blocks "
+          f"of {exact_cuda.THREADS} threads, W = {exact_cuda.WIDE}; one "
+          f"cluster barrier (us): {barrier}", flush=True)
+    return {"runs": res, "level_widths": widths,
+            "levels_wider_than": {w: sum(x > w for x in widths)
+                                  for w in (32, 128, 512, 2048)},
+            "cluster_barrier_us": barrier,
+            "shape": {"ctas": exact_cuda.CLUSTER_CTAS,
+                      "threads": exact_cuda.THREADS,
+                      "wide": exact_cuda.WIDE}}
+
+
+def exact_graph_ms(c, rows, lo: int, mod=None) -> float:
+    """One replay of the graph of GRAPH_INSERTIONS launches of a copy `c`
+    of a state from insertion lo (rows[j]: lo + j) between CUDA events, in
+    ms an insertion; `mod` is the exact_cuda module that launches (this
+    checkout's, or an earlier one's, whose stepper `c` then carries)."""
+    from dipper_tpu_torch.placement import exact_cuda
+
+    mod = mod or exact_cuda
+    graph = mod.range_graph(c)
+    mod.set_cursor(c, lo, rows, lo)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    graph.graph.replay()
+    ev[1].record()
+    torch.cuda.synchronize()
+    check(int(c.stepper.out[-1]) == 0, f"a timed graph failed: "
+          f"{c.stepper.out.tolist()}")
+    return ev[0].elapsed_time(ev[1]) / mod.GRAPH_INSERTIONS
+
+
+def exact_in_turns(parent: str, st, rows, lo: int) -> dict:
+    """The earlier checkout's exact_step (its placement/exact_cuda.py on
+    copies of `st`, which build and load its own kernel) and this one's,
+    one graph of GRAPH_INSERTIONS insertions each, in turns: parent, this,
+    this, parent (ms an insertion, the mean of each's two turns)."""
+    import dataclasses
+
+    from dipper_tpu_torch.placement.exact_model import FIELDS
+
+    mod = parent_module(parent, "placement.exact_cuda")
+    turns = {"parent": [], "this": []}
+    for who in ("parent", "this", "this", "parent"):
+        if who == "this":
+            turns[who].append(exact_graph_ms(exact_clone(st), rows, lo))
+            continue
+        c = dataclasses.replace(st, **{f: getattr(st, f).clone()
+                                       for f in FIELDS})
+        mod.prepare_stepper(c)
+        turns[who].append(exact_graph_ms(c, rows, lo, mod))
+    res = {f"{k}_ms": sum(v) / len(v) for k, v in turns.items()}
+    res["turns"] = turns
+    print(f"exact_step in turns at lo={lo}: {res}", flush=True)
+    return res
+
+
 def exact_route_profiled(D, n: int) -> dict:
     """The kernel route at the end of an n-taxon build of D (f64 on the
     card): a range of 2 x GRAPH_INSERTIONS + 7 insertions (after a range
@@ -4169,7 +4284,7 @@ def exact_route_profiled(D, n: int) -> dict:
 
 
 def phase_exact(tmp: str, fa: str, n: int, window: int = EXACT_WINDOW,
-                small: int = 512) -> dict:
+                small: int = 512, parent: str | None = None) -> dict:
     """Exact placement on the card and on the CPU, f64: the alignment's
     first n sequences through build_placement_tree_from_seqs(exact=True)
     and their distance matrix through build_placement_tree_from_matrix(
@@ -4251,13 +4366,18 @@ def phase_exact(tmp: str, fa: str, n: int, window: int = EXACT_WINDOW,
                                 dtype_name="float64")
     exact.run_exact_range(st, 2, lo, Dc[2:lo], n)
     res["times_at_end"] = exact_times(st, Dc[lo:lo + G], lo, n)
+    res["times_at_end"]["parts"] = exact_parts(st, Dc[lo:lo + G], lo)
+    if parent:
+        res["times_at_end"]["in_turns"] = exact_in_turns(
+            parent, st, Dc[lo:lo + G], lo)
     res["route_profiled"] = exact_route_profiled(Dc, n)
     emit({"phase": "exact_placement", "n": n, "small": small,
           "precision": "f64", "distance_type": 1, **res})
     return res
 
 
-def phase_exact_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
+def phase_exact_main_path(tmp: str, n: int, fa: str, true_nwk: str,
+                          parent: str | None = None) -> dict:
     """The CLI's exact path (-i r -m 0, default flags: f32) on phase 5's
     set: time to tree, ms an insertion, exact_step's launches, nRF vs the
     true tree; the ingest's device route; then EXACT_SAMPLE insertions of
@@ -4302,7 +4422,13 @@ def phase_exact_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
     st, rows, lo, N = last["st"], last["rows"], last["lo"], last["N"]
     k = min(EXACT_SAMPLE, rows.shape[0])
     sample = exact_vs_plain(st, rows, lo, k, N)
+    check(sample["launches_on_cluster"] == k - 1, f"of {k} sampled launches "
+          f"at 30K, {sample['launches_on_cluster']} took the whole cluster "
+          f"(every one after the first should)")
     times = exact_times(st, rows, lo, N)
+    times["parts"] = exact_parts(st, rows, lo)
+    if parent:
+        times["in_turns"] = exact_in_turns(parent, st, rows, lo)
     rec = {"phase": "exact_main_path", "n": n, "argv": "-i r -m 0",
            "precision": "f32", "time_to_tree_s": wall,
            "ms_per_insertion_by_range": per,
@@ -5377,8 +5503,9 @@ def main() -> int:
                     help="a checkout of an earlier commit (e.g. from git "
                          "archive): phase 15 builds its per-cluster count "
                          "kernel, phase 5 its insert_step, phase 9 its NJ "
-                         "kernels A and B and phase 24 its sketch kernel, "
-                         "and each is timed beside this one's")
+                         "kernels A and B, phase 24 its sketch kernel and "
+                         "phases 13 and 27 its exact_step, and each is "
+                         "timed beside this one's")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -5586,25 +5713,31 @@ def main() -> int:
             emit({"phase": "exact_main_path", "n": args.n,
                   "skipped": "-m 0 takes exact placement at N >= 30,000"})
         elif 27 in phases:
-            res = phase_exact_main_path(tmp, args.n, *data)
+            res = phase_exact_main_path(tmp, args.n, *data, args.parent)
             note("exact", res["counts"])
             t = res["times_last_range"]
             records["exact_step"].update(
                 launches=res["counts"]["exact_step"], max_abs_err=0.0,
                 library_ms=None, n=args.n, slots_used=t["slots_used"],
-                launch_record=t["launch_record"],
+                launch_record=t["launch_record"], parts=t["parts"],
+                launches_on_cluster=res["sample_vs_plain"][
+                    "launches_on_cluster"],
                 **{k: t[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "share_of_bound",
                                      "latency_floor_ms",
                                      "share_of_latency_floor")})
+            if "in_turns" in t:
+                records["exact_step"]["parent_ms"] = t["in_turns"]["parent_ms"]
         if 13 in phases:
             n13 = min(EXACT_N, args.msa_n)
-            res = phase_exact(tmp, msa_fa, n13, small=min(512, args.msa_n))
+            res = phase_exact(tmp, msa_fa, n13, small=min(512, args.msa_n),
+                              parent=args.parent)
             ex = records["exact_step"]
             t = res["times_at_end"]
             ex["at_phase13"] = {k: t[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
-                "latency_floor_ms", "launch_record")}
+                "latency_floor_ms", "launch_record", "parts", "in_turns")
+                if k in t}
             ex["route_profiled"] = res["route_profiled"]
             for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
                 ex.setdefault(key, t[key])

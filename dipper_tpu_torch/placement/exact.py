@@ -46,7 +46,10 @@ equal to its on the same rows; the kernel's are the plain version's.
 The adjacency table `adj` [M, 3] (each node's out-edges, in slot order) is
 derived data beside the reference's fields: it is not in FIELDS, so
 checkpoints keep the reference's schema, and a state read from numpy
-rebuilds it from `belong`.
+rebuilds it from `belong`. The kernel's node records (each out-edge's
+neighbour, reverse slot and length beside its slot) are derived from `adj`
+in turn: they live in the state's stepper, are rebuilt by each range's
+cursor write and kept by the kernel's splices.
 """
 
 from __future__ import annotations

@@ -19,7 +19,13 @@ CUDA graphs), windows of WINDOW insertions each:
      (torch.cuda.set_sync_debug_mode("warn"));
 and for the plain version
   B. the depth read, the two sweeps (`_compute_lims`), scoring and splice,
-     each bracketed by a device synchronize.
+     each bracketed by a device synchronize;
+and on the card
+  P. the stamped parts of 16 insertions by exact_step.cu's stamped
+     instance (walk, up-sweep, down-sweep, score, splice and depth shift:
+     exact_cuda.stamped_parts) at the main path's launch shape and with
+     every level on block 0 (W above any level), and the level widths (the
+     kernel route's busy share is window C's).
 Seeding (--seed-backbone B, off by default): the witness BFS of each leaf
 of a B-leaf k-closest tree of the same distances, as `run_add_queries`
 runs it: ms per backbone leaf over the first, middle and last tenth.
@@ -50,7 +56,8 @@ sys.path.insert(0, REPO)
 from dipper_tpu_torch.distance.msa import msa_distance_matrix  # noqa: E402
 from dipper_tpu_torch.io.encode import batch_codes, encode_4bit_codes  # noqa: E402
 from dipper_tpu_torch.io.fasta import read_fasta  # noqa: E402
-from dipper_tpu_torch.placement import exact, kclosest as tk  # noqa: E402
+from dipper_tpu_torch.placement import exact, exact_cuda  # noqa: E402
+from dipper_tpu_torch.placement import kclosest as tk  # noqa: E402
 from dipper_tpu_torch.utils.device import resolve_device, synchronize  # noqa: E402
 
 
@@ -159,6 +166,14 @@ def profile_exact(D: torch.Tensor, window: int, device) -> None:
         emit({**base, "route": route, "part": "sync_sources", "first": lo,
               **_sync_sources(st, D, lo, window, plain)})
         lo += window
+
+    if device.type == "cuda":
+        # P, on copies of the state (lo does not move)
+        k = min(window - 1, 16)
+        for shape in ({}, {"wide": 1 << 30}):
+            emit({**base, "part": "stamped_parts",
+                  **exact_cuda.stamped_parts(st, D[lo:lo + k + 1], lo, k,
+                                             **shape)})
 
     # B. the plain version's parts, a synchronize after each
     parts = collections.OrderedDict(

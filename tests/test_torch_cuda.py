@@ -983,6 +983,132 @@ def test_exact_kernel_special_rows(cuda):
                 _exact_fields_equal(a, b)
 
 
+def _points(n, seed):
+    """Distances of n random points in the unit cube, scaled below 1."""
+    x = np.random.default_rng(seed).random((n, 3))
+    D = np.sqrt(((x[:, None, :] - x[None, :, :]) ** 2).sum(-1))
+    return D / (D.max() * 1.05)
+
+
+def _balanced(n, seed):
+    """Leaf-to-leaf path lengths (scaled below 1) of a complete binary tree
+    of n = 2^k leaves with random branch lengths: exact placement grows it
+    back level by level, so its levels are wide."""
+    k = n.bit_length() - 1
+    rng = np.random.default_rng(seed)
+    # depth[h][a]: the distance from the root to node a of height h
+    depth = [None] * (k + 1)
+    depth[k] = np.zeros(1)
+    for h in range(k - 1, -1, -1):
+        depth[h] = (np.repeat(depth[h + 1], 2)
+                    + rng.uniform(0.5, 1.5, 2 ** (k - h)))
+    i = np.arange(n)
+    x = i[:, None] ^ i[None, :]
+    h = np.zeros_like(x)
+    for b in range(k):
+        h = np.where(x >> b > 0, b + 1, h)
+    lca = np.zeros(x.shape)
+    for b in range(k + 1):
+        at = h == b
+        lca[at] = depth[b][(i[:, None] >> b).repeat(n, 1)[at]]
+    D = depth[0][:, None] + depth[0][None, :] - 2 * lca
+    return D / (D.max() * 1.05)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_exact_cluster_wide_tree_equals_plain_route(cuda, dtype):
+    """A 4,096-taxon balanced tree built by the kernel route, then ranges
+    of 48 insertions from copies of its state at three launch shapes: the
+    main path's cluster of 8 blocks at W = 64 (ten levels wider) and at
+    W = 1 (every level past the root's split, so every block has work),
+    and 2 blocks at W = 1 (levels of more than 2 x 512 entries walked in
+    rounds). The first launch of a copy is block 0's; before and after each
+    later range of 16 the launch before found at least CLUSTER_LEVELS wide
+    levels (so the range ran on the whole cluster), and a level was split.
+    After every range the state, adj and the node records kept by the
+    splices equal the plain route's on the card bit for bit (records
+    rebuilt from its state)."""
+    import dataclasses
+
+    from dipper_tpu_torch.placement import exact, exact_cuda
+
+    n, k = 4096, 48
+    Dc = torch.from_numpy(_balanced(n, 21)).to(getattr(torch, dtype)).to(cuda)
+    kw = dict(num_sequences=n, frontend="matrix", dtype_name=dtype)
+    st = exact.init_exact_state((Dc,), **kw)
+    lo = n - 3 * k
+    exact.run_exact_range(st, 2, lo, Dc[2:lo], n)
+    exact_cuda.check_done(st)
+
+    fields = exact.ExactState.FIELDS[:-1] + ("adj",)
+
+    def clone(**shape):
+        c = dataclasses.replace(st, **{f: getattr(st, f).clone()
+                                       for f in fields})
+        return exact_cuda.prepare_stepper(c, **shape)
+
+    def on_cluster(a, wide, widest):
+        out = exact_cuda.last_out(a)
+        assert out["wide_levels"] >= exact_cuda.CLUSTER_LEVELS, out
+        starts = a.stepper.scratch_i[3].cpu().numpy()
+        widths = np.diff(starts[:out["maxdep"] + 2])
+        assert int(widths.max()) > max(wide, widest), widths
+
+    for j, (ctas, wide) in enumerate(((8, 64), (8, 1), (2, 1))):
+        a, b = clone(ctas=ctas, wide=wide), clone()
+        bounds = [lo + k * j, lo + k * j + 1] + list(
+            range(lo + k * j + 17, lo + k * (j + 1), 16)) + [lo + k * (j + 1)]
+        for r0, r1 in zip(bounds, bounds[1:]):
+            if r0 > bounds[0]:
+                on_cluster(a, wide, 0)
+            exact.run_exact_range(a, r0, r1, Dc[r0:r1], n)
+            exact.run_exact_range(b, r0, r1, Dc[r0:r1], n, plain=True)
+            exact_cuda.check_done(a)
+            _exact_fields_equal(a, b)
+            assert torch.equal(a.stepper.rec, exact_cuda.node_records(b))
+            on_cluster(a, wide, 2 * exact_cuda.THREADS if ctas == 2 else 0)
+
+
+def test_exact_preload_raises_when_no_cluster_fits(cuda, monkeypatch):
+    """prepare_stepper raises, before any launch or capture, where the card
+    cannot hold one cluster of the launch's shape (the occupancy query
+    patched to 0); nothing falls back to one block."""
+    from dipper_tpu_torch.placement import exact, exact_cuda
+
+    n = 64
+    D = torch.from_numpy(_points(n, 3)).to(cuda)
+    monkeypatch.setattr(exact_cuda, "_preloaded", set())
+    monkeypatch.setattr(exact_cuda, "max_active_clusters",
+                        lambda lib, device, ctas: 0)
+    launches = exact_cuda.EXACT_STEP_LAUNCHES
+    with pytest.raises(RuntimeError, match="cannot schedule a cluster"):
+        exact.init_exact_state((D,), num_sequences=n, frontend="matrix",
+                               dtype_name="float64")
+    assert exact_cuda.EXACT_STEP_LAUNCHES == launches
+
+
+def test_exact_records_built_by_the_card_equal_plain(cuda):
+    """The node records that a cursor write rebuilds on the card equal
+    exact_cuda.node_records on the same state, f32 and f64 (a 300-taxon
+    build), and a real occupancy query finds room for the main path's
+    cluster."""
+    from dipper_tpu_torch.csrc.build import load
+    from dipper_tpu_torch.placement import exact, exact_cuda
+
+    n = 300
+    for dtype in (torch.float32, torch.float64):
+        D = torch.from_numpy(_points(n, 8)).to(dtype).to(cuda)
+        st = exact.init_exact_state((D,), num_sequences=n,
+                                    frontend="matrix",
+                                    dtype_name=str(dtype).split(".")[1])
+        exact.run_exact_range(st, 2, n, D[2:n], n)
+        exact_cuda.set_cursor(st, n - 1, D[n - 1:], n - 1)
+        assert torch.equal(st.stepper.rec, exact_cuda.node_records(st))
+    lib = load("exact_step", exact_cuda._STEP_ARGS)
+    assert exact_cuda.max_active_clusters(
+        lib, torch.cuda.current_device(), exact_cuda.CLUSTER_CTAS) >= 1
+
+
 @pytest.mark.parametrize("use_adj", [True, False])
 def test_add_queries_cuda_equals_cpu(cuda, use_adj):
     """--add of 64 queries onto a 192-leaf backbone (mash rows, f64): the

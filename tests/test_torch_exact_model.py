@@ -2,12 +2,14 @@
 exact_model.py) against the port's plain exact placement
 (placement/exact.py) and dipper_tpu/placement/exact.py, after every
 insertion, in f64 and f32: the same seeded matrices through all three,
-bit for bit (NaN where NaN); the sweeps' values against `_compute_lims`;
+bit for bit (NaN where NaN), at several block widths, cluster sizes and
+split thresholds; the sweeps' values against `_compute_lims`; the node
+records the model's splices keep against records rebuilt from the state;
 rows with NaN and inf; a first minimum on an invalid slot; splices at the
-root; depth shifts that reach the deepest level; the adjacency table
-rebuilt from checkpoints of either package; and the card's cursor route
-(`exact._replay_exact`) driven on the CPU with the model in the kernel's
-place."""
+root; depth shifts that reach the deepest level; the adjacency table and
+the records rebuilt from checkpoints of either package; and the card's
+cursor route (`exact._replay_exact`) driven on the CPU with the model in
+the kernel's place."""
 
 import types
 
@@ -55,11 +57,21 @@ def _copy(st: texact.ExactState) -> texact.ExactState:
     return texact.ExactState.from_numpy(tk.tree_state_to_numpy(st), CPU)
 
 
-def _three_way(D: np.ndarray, dtype: str, rows=None, threads=xm.THREADS):
-    """Inserts every taxon by the model (on a port state), by the plain
-    version and by the JAX package, comparing after each insertion; the
-    rows are D's unless `rows` gives insertion i's. Returns the model's
-    record of each insertion."""
+def _records_equal(rec: dict, s: dict) -> bool:
+    """Records kept by splices equal the records rebuilt from state s."""
+    want = xm.node_records(s)
+    return all(_equal(rec[f], want[f]) for f in xm.REC)
+
+
+def _three_way(D: np.ndarray, dtype: str, rows=None, threads=xm.THREADS,
+               ctas=xm.CLUSTER_CTAS, wide=xm.WIDE, rule=False):
+    """Inserts every taxon by the model (on a port state, its node records
+    built once and kept by its splices), by the plain version and by the
+    JAX package, comparing after each insertion, records included; the
+    rows are D's unless `rows` gives insertion i's. Every launch runs at
+    `ctas`, or with `rule` on block 0 alone where the launch before found
+    fewer than CLUSTER_LEVELS wide levels, as the kernel. Returns the
+    model's record of each insertion."""
     n = D.shape[0]
     Dt = torch.from_numpy(D.astype(dtype))
     Dj = jnp.asarray(D.astype(dtype))
@@ -68,12 +80,16 @@ def _three_way(D: np.ndarray, dtype: str, rows=None, threads=xm.THREADS):
     plain = texact.init_exact_state((Dt,), **kw)
     model = _copy(plain)
     arr = xm.arrays_of(model)
+    arr["rec"] = xm.node_records(arr)
     recs = []
+    prev = -1
     for i in range(2, n):
         row = Dt[i] if rows is None else torch.from_numpy(
             rows(i).astype(dtype))
         lim = texact._compute_lims(plain, row, n).numpy()
-        rec = xm.exact_step(arr, row.numpy(), i, model.idx, n, threads)
+        rec = xm.exact_step(arr, row.numpy(), i, model.idx, n, threads,
+                            ctas, wide, prev if rule else None)
+        prev = rec["wide_levels"]
         model.idx += 4
         assert _equal(rec["lim"], lim), f"lims, insertion {i}"
         texact.exact_insertion_step(plain, row, i, n)
@@ -88,6 +104,7 @@ def _three_way(D: np.ndarray, dtype: str, rows=None, threads=xm.THREADS):
         assert _equal(arr["adj"], plain.adj.numpy()), where
         assert _equal(arr["adj"], tk.adjacency_from_edges(
             model.belong, 2 * n).numpy()), where
+        assert _records_equal(arr["rec"], arr), where
         recs.append(rec)
     return recs
 
@@ -111,11 +128,23 @@ def test_model_equals_plain_and_jax_after_every_insertion(n, kind, dtype):
     _three_way(_matrix(n, n + 7, kind), dtype)
 
 
-@pytest.mark.parametrize("threads", [1, 3, 32])
-def test_model_chunks_do_not_change_bits(threads):
-    """Levels taken a few entries at a time (wider than the block) give
-    the same list, scores and states."""
-    recs = _three_way(_matrix(45, 52), "float64", threads=threads)
+# (threads, cluster blocks, split threshold, dtype); the first three, one
+# block in f64, keep their ids
+_LARGE = 1 << 30
+_CHUNKS = [pytest.param(t, c, w, d, id=str(t) if (c, w, d) == (
+    1, _LARGE, "float64") else f"{t}-C{c}-W{w}-{d}")
+    for c in (1, 2, 16) for w in (_LARGE, 1) for d in DTYPES
+    for t in (1, 3, 32)]
+
+
+@pytest.mark.parametrize("threads, ctas, wide, dtype", _CHUNKS)
+def test_model_chunks_do_not_change_bits(threads, ctas, wide, dtype):
+    """Levels taken a few entries at a time (wider than the block), and
+    wide levels split over a cluster of blocks (W = 1: every level past
+    the root's), give the same list, scores and states, records
+    included."""
+    recs = _three_way(_matrix(45, 52), dtype, threads=threads, ctas=ctas,
+                      wide=wide)
     assert max(r["positions"] for r in recs) > threads
 
 
@@ -142,6 +171,8 @@ def test_rows_with_nan_and_inf(dtype):
         if i % 4 == 1:
             nan_edge.append(np.isnan(rec["lim"]).any())
     assert nan_edge and all(nan_edge)
+    # every level past the root's split over a cluster of 16 blocks of 3
+    _three_way(D, dtype, rows=rows, threads=3, ctas=16, wide=1)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -150,9 +181,39 @@ def test_first_minimum_on_an_invalid_slot(dtype):
     so the first minimum is the lowest upward slot (slot 0, leaf 0's)."""
     n = 12
     D = _matrix(n, 9)
-    recs = _three_way(D, dtype, rows=lambda i: D[i] + 50.0)
-    assert [r["eid"] for r in recs] == [0] * (n - 2)
-    assert all(r["ch"] == 0 for r in recs)
+    for ctas, wide in ((xm.CLUSTER_CTAS, xm.WIDE), (16, 1)):
+        recs = _three_way(D, dtype, rows=lambda i: D[i] + 50.0, ctas=ctas,
+                          wide=wide)
+        assert [r["eid"] for r in recs] == [0] * (n - 2)
+        assert all(r["ch"] == 0 for r in recs)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["tied", "noisy"])
+@pytest.mark.parametrize("threads, ctas", [(3, 2), (1, 16), (32, 16)])
+def test_model_split_levels_with_ties(kind, dtype, threads, ctas):
+    """Tied values (equal top-2 statistics, equal scores) and noisy
+    matrices with every level past the root's split over the cluster: the
+    bits stay the plain version's and the JAX package's."""
+    _three_way(_matrix(30, 41, kind), dtype, threads=threads, ctas=ctas,
+               wide=1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_model_takes_the_cluster_after_enough_wide_levels(dtype):
+    """The kernel's rule, modelled: a launch takes the whole cluster only
+    where the launch before found at least CLUSTER_LEVELS levels wider than
+    W (the first launch is block 0's); both kinds of launch occur as the
+    tree grows, and the bits stay the plain version's and the JAX
+    package's."""
+    recs = _three_way(_matrix(45, 52), dtype, threads=3, ctas=2, wide=1,
+                      rule=True)
+    assert recs[0]["ctas_run"] == 1
+    for a, b in zip(recs, recs[1:]):
+        assert b["ctas_run"] == (2 if a["wide_levels"] >= xm.CLUSTER_LEVELS
+                                 else 1)
+    runs = [r["ctas_run"] for r in recs[1:]]
+    assert 1 in runs and 2 in runs
 
 
 def test_splices_at_the_root_and_shifts_to_the_deepest_level():
@@ -160,7 +221,8 @@ def test_splices_at_the_root_and_shifts_to_the_deepest_level():
     of a subtree that holds the deepest level."""
     at_root = deepest = 0
     for n, kind in CASES:
-        for rec in _three_way(_matrix(n, n + 7, kind), "float64"):
+        for rec in _three_way(_matrix(n, n + 7, kind), "float64", ctas=2,
+                              wide=1):
             at_root += rec["pa"] == n
             deepest += (rec["ch_depth"] + rec["subtree_levels"] - 1
                         == rec["maxdep"])
@@ -208,9 +270,14 @@ def test_adj_rebuilt_from_checkpoints(tmp_path, writer):
     assert _equal(got.adj.numpy(), st.adj.numpy())
     _assert_same(tk.tree_state_to_numpy(got), st, "loaded")
     arr = xm.arrays_of(got)
+    # the records rebuilt from the checkpoint, kept by the model's splices
+    arr["rec"] = xm.node_records(arr)
+    mine = xm.arrays_of(st)
+    assert _records_equal(arr["rec"], mine)
     for i in range(13, n):
-        xm.exact_step(arr, D[i], i, got.idx, n)
+        xm.exact_step(arr, D[i], i, got.idx, n, ctas=2, wide=1)
         got.idx += 4
+        assert _records_equal(arr["rec"], arr), f"insertion {i}"
     want = jexact.run_exact_chunked((Dj,), chunk=n, **_kw(n))
     _assert_same(arr, want, "resumed by the model")
 
@@ -257,9 +324,12 @@ class _ModelRoute:
         self.recording = None
         self.steps = []
         self.error = {}
+        self.wide = {}   # each state's `out` wide_levels (-1: no launch)
 
     def set_cursor(self, st, i, rows, lo, stream=None):
-        self.cursor[id(st)] = [i, st.idx, rows.numpy(), lo]
+        # the kernel's cursor write rebuilds the node records
+        self.cursor[id(st)] = [i, st.idx, rows.numpy(), lo,
+                               xm.node_records(xm.arrays_of(st))]
 
     def check_done(self, st):
         if id(st) in self.error:
@@ -275,7 +345,9 @@ class _ModelRoute:
             cur = self.cursor[id(st)]
             self.steps.append(cur[0])
             try:
-                xm.exact_step_cursor(xm.arrays_of(st), cur, self.n)
+                out = xm.exact_step_cursor(xm.arrays_of(st), cur, self.n,
+                                           self.wide.get(id(st), -1))
+                self.wide[id(st)] = out["wide_levels"]
             except ValueError as err:
                 self.error[id(st)] = err
         if self.recording is None:
