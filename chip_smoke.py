@@ -7,8 +7,8 @@ Runs on one NVIDIA GPU, from the root of a checkout:
     python3 chip_smoke.py --phases 1,2,3,6,7 --n 4400   # kernel checks only
 
 Phases, each printing one line of its own (run in the order 1, 2, 3, 6,
-15, 7, 25, 19, 4, 17, 5, 16, 26, 9, 24, 10, 11, 12, 14, 27, 13, 8, 18, 20,
-21, 22, 23:
+15, 7, 25, 19, 4, 17, 5, 16, 26, 9, 24, 10, 11, 12, 28, 14, 27, 13, 8, 18,
+20, 21, 22, 23:
 phases 13, 8 and 18 run the profiler, which slows every later launch in
 the process; phases 20 to 22 run in processes of their own):
   1. device: torch's device name and nvidia-smi's name and power limit;
@@ -60,8 +60,10 @@ the process; phases 20 to 22 run in processes of their own):
      the kernel's shared buffers), insertions onto that backbone with its
      lists empty (spills, and switches between a warp's narrow levels and
      the block's wide ones, counted by insert_model), D&C's streamed
-     cluster (label, blocked slot, scoreable cleared from the kernel's
-     output) against its plain route on the card; one narrow BFS level's
+     cluster (label, blocked slot, scoreable cleared after the splice; the
+     walk is insert_step.cuh's, run by kernel 8a, dc_stream_block, one
+     launch a row block) against its plain route on the card; one narrow
+     BFS level's
      latency (a BFS of ~2,049 levels on a caterpillar, CUDA events) and
      one dependent L2 round trip (a pointer chase through 4 MB), the unit
      of the kernel's latency floor;
@@ -129,30 +131,38 @@ the process; phases 20 to 22 run in processes of their own):
      = 1,500): rc 0, a complete Newick with nRF vs the true tree under
      DC_NRF_LIMIT, launches of the per-cluster count kernel and of the
      merge-count kernel, one score_edges launch per backbone insertion (B
-     - 2), one insert_step launch per backbone insertion and streamed
-     member; the ingest's device route as in phase 5 (sketch-kernel
+     - 2), one insert_step launch per backbone insertion; the ingest's
+     device route as in phase 5 (sketch-kernel
      launches sampled against the plain version); every per-cluster count
      launch held against the plain version
      on its every 16th cluster, the widest batched bucket's launch timed
      whole beside its bound and its plain version; phase times, bucket
      lines, cluster sizes; phase 3 on its kernels: one dc_cluster_build
-     launch a batched chunk, one score_masked launch a streamed member,
-     no host sync in a phase-3 step, nRF DC_NRF_30K at N = 30,000, and
+     launch a batched chunk, one dc_stream_block launch a streamed
+     cluster's row block, no host sync in a phase-3 step, nRF DC_NRF_30K
+     at N = 30,000, and
      the CLI run again with phase 3 by its plain versions on the card
      (build_clusters_plain, the streamed tensor loop) to the same Newick
      bytes;
   26. phase 3's kernels vs plain on phase 16's own launches (recorded
      there): every dc_cluster_build launch's every 16th cluster built
      again by build_clusters_plain, all six arrays bit for bit; the first
-     chunk of each bucket whole, timed by CUDA events on fresh states
-     beside its plain version, its byte bound and its latency floor (five
-     dependent L2 round trips a step, two a BFS level); the streamed
-     cluster built again by its kernels from its recorded rows (the run's
-     arrays), then by its plain route member by member with score_masked
-     launched on a copy at every 16th member (the choice and the flags
-     against _score_masked), the final states equal; score_masked timed
-     queued at the last member beside _score_masked and its byte bound,
-     and both routes' ms a member;
+     chunk of each bucket whole, timed on fresh states queued behind a
+     device sleep beside its plain version, its byte bound and its plan's
+     latency floor (shared plans: two L2 round trips, then six dependent
+     shared-memory loads a step and two a BFS level, one shared-memory
+     load timed by a pointer chase; the global plan: five L2 round trips a
+     step, two a level); the streamed cluster built again by its kernel
+     from its recorded rows (the run's arrays), then by its plain route
+     member by member with dc_stream_block launched for one member on a
+     copy at every 16th member (the choice, the state and the flags
+     against the plain route's), the final states equal; the first 64
+     members of the last row block as one launch on 16 and on 8 blocks and
+     as a CUDA graph of 64 one-member launches (the same bits), beside the
+     plain route and the byte bound; both routes' ms a member; with
+     --parent DIR, that checkout's build_chunk on each bucket's first
+     chunk and its streamed route timed in turns with this one's (parent,
+     this, this, parent), to the same bits;
   18. one batched build at 64 and 1,024 clusters under torch.profiler
      (made-up inputs): by kernel 8b one dc_cluster_build launch, no BFS
      level and no stream sync a build; by its plain version the launches
@@ -225,6 +235,12 @@ the process; phases 20 to 22 run in processes of their own):
   12. -i m -m 1 on the alignment's first 8,192 sequences: one score_edges
      and one insert_step launch per insertion, nRF vs the true tree
      restricted to them under MSA_PLACE_NRF_LIMIT;
+  28. -i m -m 3 -d 1 in f64 on the alignment's first 4,096 sequences
+     (MSA_DC_N): one dc_cluster_build launch a batched chunk (its warp and
+     block plans in f64), no host sync in phase 3, the nRF vs the true
+     tree restricted to them; the same Newick bytes with phase 3's plain
+     versions on the card; and the first 600 (MSA_DC_CPU_N) built on the
+     card and on the CPU to the same Newick bytes;
   14. --add: a backbone built by the port from the first 4,096 sequences
      of the placement set (-i r -m 1), then --add of the next 1,024: every
      backbone split survives, score_edges launches = 1,024, insert_step
@@ -304,17 +320,18 @@ Phases 12, 14, 4 and 13 run at 8,192, 4,096 + 1,024, 512 and 2,048,
 since the insertion-step and exact-step kernels took their insertion
 loops off the host.
 Every kernel counter is set to 0 just before a main path (phases 5, 16,
-9, 11, 12, 14, 27, and in each rank of 20, 21 and 22) and read just after
+9, 11, 12, 28, 14, 27, and in each rank of 20, 21 and 22) and read just after
 it; `launches` in the kernels' record is the count of phases 5
 (placement; insert_step's counts both its entry points; the sketch
-kernel's), 16 (D&C: the per-cluster count kernel, score_masked and
+kernel's), 16 (D&C: the per-cluster count kernel, dc_stream_block and
 dc_cluster_build), 9 (NJ: the distance kernel and NJ's two) and 27
 (exact: exact_step), `launches_by_path` has
 every path's (one count a rank for the multi-rank paths), and
 score_edges's `range_launches` the sharded placement's range launches.
 
-The last two lines are the kernels' record and {"ok": true, "device":
-{...}}. Any failed check raises, so the script exits non-zero and prints no
+The line before those two gives each line's seconds since the line
+before it (the smoke's time by phase). The last two lines are the
+kernels' record and {"ok": true, "device": {...}}. Any failed check raises, so the script exits non-zero and prints no
 result; it also exits non-zero without CUDA. Imports no JAX.
 """
 
@@ -358,9 +375,9 @@ KERNELS = {
                     "dipper_tpu/nj/engine.py:35 (XLA program, no Pallas)"),
     "nj_update": ("dipper_tpu_torch/csrc/nj_update.cu",
                   "dipper_tpu/nj/engine.py:35 (XLA program, no Pallas)"),
-    "score_masked": ("dipper_tpu_torch/csrc/score_masked.cu",
-                     "dipper_tpu/dc/pipeline.py:180 (XLA program, no "
-                     "Pallas)"),
+    "dc_stream_block": ("dipper_tpu_torch/csrc/dc_stream_block.cu",
+                        "dipper_tpu/dc/pipeline.py:180 (XLA program, no "
+                        "Pallas)"),
     "dc_cluster_build": ("dipper_tpu_torch/csrc/dc_cluster_build.cu",
                          "dipper_tpu/dc/pipeline.py:180 (XLA program, no "
                          "Pallas)"),
@@ -413,7 +430,11 @@ DC_NRF_LIMIT = 0.65
 # main path is held against the plain version
 DC_SAMPLE = 16
 ALL_PHASES = (1, 2, 3, 6, 15, 7, 25, 19, 4, 17, 5, 16, 26, 9, 24, 10, 11, 12,
-              14, 27, 13, 8, 18, 20, 21, 22, 23)
+              28, 14, 27, 13, 8, 18, 20, 21, 22, 23)
+# -i m -m 3 (phase 28): the aligned set's first MSA_DC_N sequences on the
+# card, and its first MSA_DC_CPU_N on the card and on the CPU
+MSA_DC_N = 4096
+MSA_DC_CPU_N = 600
 # phase 13's taxa, and the insertions of each of its windows of the kernel
 # route against the plain route on the card
 EXACT_N = 2048
@@ -471,7 +492,18 @@ PLAIN_SKETCH_TILE = 2**16
 PLAIN_SKETCH_CHUNK_BYTES = 2**31
 
 
+# (what a line reports, seconds since the line before it) of every line
+# emitted: the smoke's time by phase
+LINE_SECONDS: list = []
+_LAST_LINE = [time.time()]
+
+
 def emit(obj) -> None:
+    now = time.time()
+    tag = str(obj.get("phase", "")) + ("/" + str(obj["path"])
+                                       if "path" in obj else "")
+    LINE_SECONDS.append([tag, round(now - _LAST_LINE[0], 1)])
+    _LAST_LINE[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -1233,8 +1265,7 @@ class RouteSampler:
     six values of the replay's last insertion. `errs`: (last insertion,
     the scorer's max abs err, the arrays that differ) a border;
     `checks_s`: the host time of the checks, queued work first; no check
-    while `sampling` is false. Replays outside a range (D&C's streamed
-    clusters, which replay graphs of their own) pass unsampled."""
+    while `sampling` is false. Replays outside a range pass unsampled."""
 
     def __init__(self):
         from dipper_tpu_torch.placement import insert_cuda, kclosest
@@ -1645,7 +1676,7 @@ def phase_insert_vs_plain(tmp: str, n: int = 4096) -> dict:
     of one BFS level."""
     import dataclasses
 
-    from dipper_tpu_torch.dc import cluster
+    from dipper_tpu_torch.dc import cluster, cluster_cuda
     from dipper_tpu_torch.placement import insert_cuda, insert_model as im
     from dipper_tpu_torch.placement import kclosest
 
@@ -1759,7 +1790,9 @@ def phase_insert_vs_plain(tmp: str, n: int = 4096) -> dict:
               f"insertions onto the balanced backbone {dtype}: no spill or "
               f"no switch between narrow and wide levels ({stats})")
     # (f) D&C's streamed cluster: label, middle, blocked slot 0, scoreable
-    # cleared from the launch's (xe, ye); the plain route on the card
+    # cleared from the splice's (xe, ye), by kernel 8a (insert_step.cuh's
+    # splice and walk in block 0, one launch a row block); the plain route
+    # on the card
     for dtype in ("float32", "float64"):
         rng = np.random.default_rng(12)
         cmax, W, rb = 300, 310, 64
@@ -1782,12 +1815,12 @@ def phase_insert_vs_plain(tmp: str, n: int = 4096) -> dict:
             return one
 
         uses = kclosest.uses_insert_kernel
-        before = insert_cuda.INSERT_STEP_LAUNCHES
+        before = cluster_cuda.STREAM_BLOCK_LAUNCHES
         try:
             cluster.one_cluster = keep("kernel")
             got = cluster.build_streamed(lambda s0: Dq[s0:s0 + rb], *init,
                                          cmax, cmax, rb)
-            launches = insert_cuda.INSERT_STEP_LAUNCHES - before
+            launches = cluster_cuda.STREAM_BLOCK_LAUNCHES - before
             cluster.one_cluster = keep("plain")
             kclosest.uses_insert_kernel = lambda st_: False
             want = cluster.build_streamed(lambda s0: Dq[s0:s0 + rb], *init,
@@ -1796,10 +1829,11 @@ def phase_insert_vs_plain(tmp: str, n: int = 4096) -> dict:
             cluster.one_cluster = make
             kclosest.uses_insert_kernel = uses
         diff = state_diff(states["kernel"], states["plain"])
-        check(not diff and launches == cmax
+        check(not diff and launches == -(-cmax // rb)
               and all(torch.equal(a, b) for a, b in zip(got, want)),
-              f"streamed cluster {dtype}: insert_step != plain in {diff} "
-              f"({launches} launches for {cmax} members)")
+              f"streamed cluster {dtype}: dc_stream_block != plain in "
+              f"{diff} ({launches} launches for {cmax} members in row "
+              f"blocks of {rb})")
         cases[f"dc_streamed/cmax{cmax}/{dtype}"] = {"members": cmax,
                                                     "launches": launches}
     # (g) one BFS level's latency: a BFS from leaf 0 of a 2,048-taxon
@@ -1937,7 +1971,7 @@ def reset_counts() -> None:
     from dipper_tpu_torch.placement import exact_cuda, insert_cuda, kclosest
     from dipper_tpu_torch.sketch import minhash_cuda
 
-    cluster_cuda.SCORE_MASKED_LAUNCHES = 0
+    cluster_cuda.STREAM_BLOCK_LAUNCHES = 0
     cluster_cuda.CLUSTER_BUILD_LAUNCHES = 0
     mash_cuda.LAUNCHES = 0
     mash_cuda.ROWS_DIST_LAUNCHES = 0
@@ -1981,7 +2015,7 @@ def read_counts() -> dict:
             "nj_q_argmin": nj_cuda.Q_ARGMIN_LAUNCHES,
             "nj_q_argmin.half_read": nj_cuda.HALF_READ_LAUNCHES,
             "nj_update": nj_cuda.UPDATE_LAUNCHES,
-            "score_masked": cluster_cuda.SCORE_MASKED_LAUNCHES,
+            "dc_stream_block": cluster_cuda.STREAM_BLOCK_LAUNCHES,
             "dc_cluster_build": cluster_cuda.CLUSTER_BUILD_LAUNCHES,
             "exact_step": exact_cuda.EXACT_STEP_LAUNCHES}
 
@@ -3161,6 +3195,75 @@ def phase_msa_placement(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
     return {"counts": counts}
 
 
+def phase_msa_dc(tmp: str, fa: str, true_nwk: str, n: int) -> dict:
+    """-i m -m 3 -d 1 in f64 on the aligned set's first n sequences: rc 0,
+    a complete Newick, one dc_cluster_build launch a batched chunk and one
+    dc_stream_block launch a streamed row block, no host sync in phase 3,
+    nRF vs the true tree restricted to them; the same Newick bytes with
+    phase 3's plain versions on the card; and on the first MSA_DC_CPU_N
+    the card's Newick byte-equal to the CPU's."""
+    from dipper_tpu_torch.dc import cluster
+
+    def cli(sub: str, out: str, device: str = "cuda") -> tuple:
+        return run_cli(["-i", "m", "-I", sub, "-O", out, "-m", "3", "-d",
+                        "1", "--precision", "f64", "--device", device])
+
+    sub = head_fasta(fa, n, os.path.join(tmp, f"msa_dc{n}.fa"))
+    out = os.path.join(tmp, f"msa_dc{n}.nwk")
+    reset_counts()
+    cluster.STEPS = cluster.BFS_LEVELS = 0
+    rc, log, wall = cli(sub, out)
+    counts = read_counts()
+    steps, levels = cluster.STEPS, cluster.BFS_LEVELS
+    check(rc == 0, f"-i m -m 3 CLI returned {rc}")
+    check("Using divide-and-conquer mode" in log, "D&C mode not logged")
+    lines = re.findall(r"DC phase 3: bucket \S+ clusters=\d+ path=(\w+) "
+                       r"members=\d+ launches=(\d+)", log)
+    chunks = sum(int(k) for p, k in lines if p == "batch")
+    blocks = sum(int(k) for p, k in lines if p == "stream")
+    check(chunks > 0 and counts["dc_cluster_build"] == chunks
+          and counts["dc_stream_block"] == blocks,
+          f"-i m -m 3: dc_cluster_build {counts['dc_cluster_build']} "
+          f"launches for {chunks} chunks, dc_stream_block "
+          f"{counts['dc_stream_block']} for {blocks} row blocks")
+    check(levels == 0 and steps > 0, f"-i m -m 3: phase 3 synced the host "
+          f"{levels} times in {steps} steps")
+    nwk = open(out).read().strip()
+    check(nwk.count(",") == n - 1, f"Newick has {nwk.count(',')} commas, "
+          f"want {n - 1}")
+    rf, nrf = restricted_rf(nwk, open(true_nwk).read())
+    plain_out = os.path.join(tmp, f"msa_dc{n}.plain.nwk")
+    uses = cluster.uses_cluster_kernel, cluster.uses_stream_kernels
+    cluster.uses_cluster_kernel = lambda Dq: False
+    cluster.uses_stream_kernels = lambda st: False
+    try:
+        rc_p, _, wall_p = cli(sub, plain_out)
+    finally:
+        cluster.uses_cluster_kernel, cluster.uses_stream_kernels = uses
+    check(rc_p == 0 and open(plain_out).read() == open(out).read(),
+          "-i m -m 3: phase 3's kernels and their plain versions give other "
+          "Newick bytes")
+    small = head_fasta(fa, MSA_DC_CPU_N,
+                       os.path.join(tmp, f"msa_dc{MSA_DC_CPU_N}.fa"))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        outs[dev] = os.path.join(tmp, f"msa_dc{MSA_DC_CPU_N}.{dev}.nwk")
+        rc_s, _, _ = cli(small, outs[dev], dev)
+        check(rc_s == 0, f"-i m -m 3 at {MSA_DC_CPU_N} on {dev} returned "
+              f"{rc_s}")
+    check(open(outs["cuda"]).read() == open(outs["cpu"]).read(),
+          f"-i m -m 3 at {MSA_DC_CPU_N}: the card's Newick differs from the "
+          "CPU's")
+    emit({"phase": "main_path", "path": "msa_dc", "n": n, "L": 10000,
+          "distance_type": 1, "precision": "f64", "backbone": n // 20,
+          **_dc_log(log), "total_wall_ms": wall * 1e3,
+          "plain_route_wall_ms": wall_p * 1e3, "newick_identical_plain": True,
+          "newick_identical_cpu_at": MSA_DC_CPU_N, "phase3_steps": steps,
+          "phase3_bfs_levels": levels, "kernel_launches": counts,
+          "rf": rf, "nrf_vs_true_restricted": nrf})
+    return {"counts": counts}
+
+
 def backbone_splits_survive(out_nwk: str, back_nwk: str) -> tuple:
     """(every split of the backbone is a split of the combined tree
     restricted to the backbone's leaves, the combined tree's leaves)."""
@@ -3520,32 +3623,35 @@ def phase_dc_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
     check(counts["score_edges"] == B - 2,
           f"the D&C backbone launched score_edges {counts['score_edges']} "
           f"times for its {B - 2} insertions")
-    # one insert_step launch a backbone insertion and a streamed member,
-    # the BFS alone for the backbone's two seeds
+    # one insert_step launch a backbone insertion, the BFS alone for the
+    # backbone's two seeds
     streamed = sum(int(m) for m in re.findall(
         r"DC phase 3: bucket \S+ clusters=\d+ path=stream members=(\d+)",
         log))
+    row_blocks = sum(int(m) for m in re.findall(
+        r"DC phase 3: bucket \S+ clusters=\d+ path=stream members=\d+ "
+        r"launches=(\d+)", log))
     check(counts["insert_step"] - counts["insert_step.closest_bfs"]
-          == B - 2 + streamed and counts["insert_step.closest_bfs"] == 2,
+          == B - 2 and counts["insert_step.closest_bfs"] == 2,
           f"the D&C main path launched insert_step {counts['insert_step']} "
           f"times ({counts['insert_step.closest_bfs']} the BFS alone) for "
-          f"{B - 2} backbone insertions, {streamed} streamed members and "
-          "two seeds")
+          f"{B - 2} backbone insertions and two seeds")
     check(len(calls) == counts["mash_cluster_inter"],
           f"{len(calls)} recorded calls, {counts['mash_cluster_inter']} "
           "launches")
     # phase 3 on its kernels: one kernel-8b launch a batched chunk (the
-    # chunk's distance launch), one kernel-8a launch a streamed member,
-    # no host sync in a step
+    # chunk's distance launch), one kernel-8a launch a streamed cluster's
+    # row block, no host sync in a step
     chunks = sum(int(c) for c in re.findall(
         r"DC phase 3: bucket \S+ clusters=\d+ path=batch members=\d+ "
         r"launches=(\d+)", log))
     check(counts["dc_cluster_build"] == chunks == len(phase3.chunks),
           f"dc_cluster_build launched {counts['dc_cluster_build']} times for "
           f"{chunks} batched chunks ({len(phase3.chunks)} recorded)")
-    check(counts["score_masked"] == streamed,
-          f"score_masked launched {counts['score_masked']} times for "
-          f"{streamed} streamed members")
+    check(counts["dc_stream_block"] == row_blocks
+          and (row_blocks > 0) == (streamed > 0),
+          f"dc_stream_block launched {counts['dc_stream_block']} times for "
+          f"{row_blocks} row blocks ({streamed} streamed members)")
     check(levels == 0 and steps > 0, f"phase 3 synced the host {levels} "
           f"times in {steps} steps")
     rf, nrf = check_tree(open(out).read().strip(), n, true_nwk, DC_NRF_LIMIT)
@@ -3601,6 +3707,7 @@ def phase_dc_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
           "phase3_steps": steps, "phase3_bfs_levels": levels,
           "host_syncs_per_phase3_step": levels / max(steps, 1),
           "phase3_chunks": chunks, "phase3_streamed_members": streamed,
+          "phase3_row_blocks": row_blocks,
           "phase3_plain_route": {"phases_ms": plain["phases_ms"],
                                  "buckets": plain["buckets"],
                                  "total_wall_ms": wall_p * 1e3,
@@ -3693,19 +3800,53 @@ def scored_reads(cid, rev, flags, n_used: int) -> tuple:
     return int(read.sum()), int(valid.sum()), int(named[:, 1:].sum())
 
 
-def masked_bound(st, flags: torch.Tensor) -> dict:
-    """Kernel 8a's bound for one member of a streamed cluster (a state of
-    one tree at st.idx slots in use, its flags before the member): each
-    input byte read once (the flags of the slots in use, the reverse slot
-    and length of the scoreable ones, the lists of those and of their
-    reverses, the row entries the lists name) and each output byte written
-    once (the choice, the six flags it sets)."""
+def member_bytes(st, flags: torch.Tensor) -> int:
+    """Kernel 8a's bytes for one member of a streamed cluster (a state of
+    one tree at st.idx slots in use, its flags before the member), each
+    input byte read once and each output byte written once: the flags of
+    the slots in use, the reverse slot and length of the scoreable ones,
+    the lists of those and of their reverses, the row entries the lists
+    name; the splice's six slots (e, belong, rev, length, lists), six flags
+    and two adjacency rows."""
     item, K_ = st.length.element_size(), st.cid.shape[-1]
     n_read, n_valid, named = scored_reads(st.cid[None], st.rev[None],
                                           flags[None], st.idx)
-    nbytes = (st.idx + n_valid * (4 + item) + n_read * K_ * (4 + item)
-              + named * item + 16 + 2 * item + 6)
-    return bound_of(0, nbytes)
+    slot = 3 * 4 + item + K_ * (4 + item)
+    return (st.idx + n_valid * (4 + item) + n_read * K_ * (4 + item)
+            + named * item + 6 * slot + 6 + 2 * 3 * 4)
+
+
+def shared_round_trip_ms(n: int = 4096, steps: int = 1_000_000) -> float:
+    """One dependent shared-memory load on this card: dc_cluster_build.cu's
+    pointer chase (one thread) through a random cycle of n int32 in shared
+    memory, `steps` links between CUDA events."""
+    import ctypes
+
+    from dipper_tpu_torch.csrc.build import check_launch, load
+    from dipper_tpu_torch.dc import cluster_cuda
+
+    lib = load("dc_cluster_build", cluster_cuda._BUILD_ARGS)
+    fn = lib.dc_cluster_build_chase
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    perm = np.random.default_rng(0).permutation(n)
+    nxt = np.empty(n, np.int32)
+    nxt[perm] = np.roll(perm, -1)
+    (link,) = _on_card(nxt)
+    out = torch.empty(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    dev = torch.cuda.current_device()
+    check_launch(lib, "dc_cluster_build", fn(link.data_ptr(), n, 1000,
+                                             out.data_ptr(), dev, stream))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    check_launch(lib, "dc_cluster_build", fn(link.data_ptr(), n, steps,
+                                             out.data_ptr(), dev, stream))
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / steps
 
 
 def chunk_bound(cluster, w: dict, cmax: int) -> dict:
@@ -3739,30 +3880,77 @@ def chunk_bound(cluster, w: dict, cmax: int) -> dict:
     return {**bound_of(0, nbytes), "dq_entries_named": named[0]}
 
 
-def phase_dc_kernels_vs_plain(rec: "Phase3Recorder") -> dict:
+def _median(xs) -> float:
+    return float(np.median(np.asarray(xs, np.float64)))
+
+
+def queued_each_ms(launches) -> list:
+    """The card's time of each of `launches` (callables, each one kernel
+    launch on inputs of its own, made beforehand), the launches queued
+    behind a device sleep so that the card runs them back to back: CUDA
+    events around each, without the host's time between them."""
+    evs = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+           for _ in launches]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    for fn, ev in zip(launches, evs):
+        ev[0].record()
+        fn()
+        ev[1].record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in evs]
+
+
+def _chunk_runs(cluster, build, w: dict, cmax: int, reps: int = 5) -> tuple:
+    """`reps` kernel-8b launches (`build`: a build_chunk) of a recorded
+    chunk, each on a fresh state, queued (queued_each_ms) after one launch
+    that loads the kernel: (the times, the last state)."""
+    def fresh():
+        return cluster.cluster_init_state(w["cd"], w["cid"], w["lens"], cmax,
+                                          with_adj=True)
+
+    build(*fresh(), w["Dq"], w["sizes"], cmax)
+    states = [fresh() for _ in range(reps)]
+    times = queued_each_ms([
+        lambda st=st, sc=sc: build(st, sc, w["Dq"], w["sizes"], cmax)
+        for st, sc in states])
+    return times, states[-1][0]
+
+
+def phase_dc_kernels_vs_plain(rec: "Phase3Recorder",
+                              parent: str | None = None) -> dict:
     """Phase 3's kernels on the D&C main path's own inputs (phase 16's
     recording), against their plain versions on the card, bit for bit.
     Kernel 8b: every recorded launch's every DC_SAMPLE-th cluster built
     again by build_clusters_plain (all six arrays); the first chunk of
-    each bucket whole, its launch timed by CUDA events on fresh states
-    beside the plain version, the byte bound and the latency floor (each
-    step's score and splice five dependent L2 round trips, each BFS level
-    of the plain route two). Kernel 8a: the streamed cluster built again
-    by the kernel route from its recorded rows (the run's arrays), then
-    by its plain route member by member, kernel 8a launched on a copy of
-    the state at every DC_SAMPLE-th member and at the last (the choice
-    and the flags against _score_masked's), the final states equal; 8a
-    timed queued at the last member beside its plain version and bound,
-    and both routes' ms a member."""
-    import dataclasses
-
+    each bucket whole, its launch timed on fresh states queued behind a
+    device sleep (queued_each_ms) beside the plain version, the byte bound
+    and its plan's latency floor (shared plans: two L2 round trips to stage
+    the state, then six
+    dependent shared-memory loads a step and two a BFS level of the plain
+    route; the global plan: five L2 round trips a step, two a level).
+    Kernel 8a: the streamed cluster built again by its kernel from its
+    recorded rows (the run's arrays), then by its plain route member by
+    member, kernel 8a launched for one member on a copy of the state at
+    every DC_SAMPLE-th member and at the last (the choice, the state and
+    the flags against the plain route's); the first 64 members of the last
+    row block timed as one launch (16 and 8 blocks, queued) and as a CUDA
+    graph of 64 one-member launches, beside the plain route, the byte
+    bound and the score's and splice's L2 trips. With `parent` (a
+    checkout), its build_chunk and build_streamed timed in turns with this
+    one's on the same inputs (parent, this, this, parent), to the same
+    bits."""
     from dipper_tpu_torch.dc import cluster, cluster_cuda
-    from dipper_tpu_torch.placement import kclosest
 
     check(bool(rec.chunks) and bool(rec.streams),
           "phase 26 needs phase 16's batched chunks and streamed cluster")
     l2 = l2_round_trip_ms()
+    shm = shared_round_trip_ms()
     six = ("e", "belong", "length", "rev", "cdis", "cid")
+    par_cuda = par_cluster = None
+    if parent is not None:
+        par_cuda = parent_module(parent, "dc.cluster_cuda")
+        par_cluster = parent_module(parent, "dc.cluster")
     # (a) kernel 8b, every DC_SAMPLE-th cluster of every launch
     sampled = 0
     for j, ch in enumerate(rec.chunks):
@@ -3786,17 +3974,7 @@ def phase_dc_kernels_vs_plain(rec: "Phase3Recorder") -> dict:
     for cmax, w in sorted(rec.whole.items()):
         sizes = w["sizes"].cpu().numpy()
         C, W = w["Dq"].shape[0], w["Dq"].shape[2]
-        runs = []
-        for _ in range(6):
-            st, sc = cluster.cluster_init_state(w["cd"], w["cid"], w["lens"],
-                                                cmax, with_adj=True)
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            torch.cuda.synchronize()
-            ev[0].record()
-            cluster_cuda.build_chunk(st, sc, w["Dq"], w["sizes"], cmax)
-            ev[1].record()
-            torch.cuda.synchronize()
-            runs.append(ev[0].elapsed_time(ev[1]))
+        runs, st = _chunk_runs(cluster, cluster_cuda.build_chunk, w, cmax)
         steps0, levels0 = cluster.STEPS, cluster.BFS_LEVELS
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
@@ -3812,16 +3990,34 @@ def phase_dc_kernels_vs_plain(rec: "Phase3Recorder") -> dict:
         levels = cluster.BFS_LEVELS - levels0
         diff = _bits_diff({f: getattr(st, f) for f in six}, made[0][0], six)
         check(not diff, f"dc_cluster_build, bucket {cmax}: {diff} != plain")
+        plan = cluster_cuda.kernel_plan(cmax, w["Dq"].dtype)
         rec_b = with_share({"clusters": C, "cmax": cmax, "W": W,
                             "members": int(sizes.sum()), "steps": steps,
                             "plain_bfs_levels": levels,
-                            "ms": sorted(runs[1:])[len(runs[1:]) // 2],
-                            "runs_ms": runs,
+                            "plan": dict(zip(("kind", "threads",
+                                              "clusters_per_block",
+                                              "smem_bytes"), plan)),
+                            "ms": _median(runs), "runs_ms": runs,
                             "plain_ms": ev[0].elapsed_time(ev[1])},
                            chunk_bound(cluster, w, cmax))
-        rec_b["latency_floor_ms"] = (5 * steps + 2 * levels) * l2
-        rec_b["share_of_latency_floor"] = rec_b["latency_floor_ms"] / \
-            rec_b["ms"]
+        if plan[0] == "global":
+            floor = (5 * steps + 2 * levels) * l2
+        else:
+            floor = 2 * l2 + (6 * steps + 2 * levels) * shm
+        rec_b["latency_floor_ms"] = floor
+        rec_b["share_of_latency_floor"] = floor / rec_b["ms"]
+        if par_cuda is not None:
+            turns = {"parent": [], "this": []}
+            for who in ("parent", "this", "this", "parent"):
+                build = (par_cuda.build_chunk if who == "parent"
+                         else cluster_cuda.build_chunk)
+                times, got = _chunk_runs(cluster, build, w, cmax)
+                turns[who].append(_median(times))
+                diff = _bits_diff({f: getattr(got, f) for f in six}, st, six)
+                check(not diff, f"bucket {cmax}: the parent's kernel 8b and "
+                      f"this one's differ in {diff}")
+            rec_b["in_turns"] = {k: float(np.mean(v))
+                                 for k, v in turns.items()}
         by_bucket[str(cmax)] = rec_b
     # (c) the streamed cluster
     streams = []
@@ -3832,91 +4028,139 @@ def phase_dc_kernels_vs_plain(rec: "Phase3Recorder") -> dict:
         def block_fn(start):
             return blocks[start // rb]
 
-        made, put_back = _kept_states(cluster, "one_cluster")
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        try:
+        def route(build):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             torch.cuda.synchronize()
             ev[0].record()
-            got = cluster.build_streamed(block_fn, s["cd"], s["cid"],
-                                         s["lens"], size, cmax, rb)
+            got = build(block_fn, s["cd"], s["cid"], s["lens"], size, cmax,
+                        rb)
             ev[1].record()
+            torch.cuda.synchronize()
+            return ev[0].elapsed_time(ev[1]), got
+
+        made, put_back = _kept_states(cluster, "one_cluster")
+        try:
+            route_ms, got = route(cluster.build_streamed)
         finally:
             put_back()
-        torch.cuda.synchronize()
-        route_ms = ev[0].elapsed_time(ev[1])
         check(all(torch.equal(a, b) for a, b in zip(got, s["got"])),
-              "the streamed cluster built again by its kernels differs from "
+              "the streamed cluster built again by its kernel differs from "
               "the run's")
         kst, kfl = made[0]
-        # the plain route, member by member, 8a on a copy now and then
+        # the plain route member by member, kernel 8a on a copy now and then
         st, flags = cluster.one_cluster(*cluster.cluster_init_state(
             s["cd"][None], s["cid"][None], s["lens"][None], cmax,
             with_adj=True))
         order = cluster._Order.of(cmax, st.e.device)
-        checked = 0
+        kq_w = (size - 1) // rb * rb
+        window = min(64, size - kq_w)
+        checked, window_bytes = 0, 0
         t0 = time.perf_counter()
         for kq in range(size):
             row = blocks[kq // rb][kq % rb]
+            if kq == kq_w:
+                snap = (state_clone(st), flags.clone())
+                torch.cuda.synchronize()
+                tw = time.perf_counter()
+            if kq_w <= kq < kq_w + window:
+                window_bytes += member_bytes(st, flags)
             probe = kq % DC_SAMPLE == 0 or kq == size - 1
             if probe:
                 cst, cfl = state_clone(st), flags.clone()
-                before = flags.clone()
-                sc = cluster_cuda.MaskedScorer(cst, cfl)
-                cluster_cuda.score_masked(sc, cst, cfl, row)
-            batched = dataclasses.replace(
-                st, e=st.e[None], belong=st.belong[None],
-                length=st.length[None], rev=st.rev[None], cdis=st.cdis[None],
-                cid=st.cid[None], adj=None)
-            eid, frac, add = cluster._score_masked(batched, flags[None],
-                                                   row[None], kq, order)
-            e0 = eid[0]
-            xe, x, y, ye = torch.stack(
-                (e0, st.belong[e0], st.e[e0], st.rev[e0])).tolist()
-            base = st.idx
-            flags[xe] = False
-            flags[ye] = False
-            flags[base:base + 4] = order.grp
+                j = kq % rb
+                out_i, out_f = cluster_cuda.stream_block(
+                    cst, cfl, blocks[kq // rb][j:j + 1], kq, cmax)
+            eid, frac, add = cluster.stream_member_plain(st, flags, row, kq,
+                                                         cmax, order)
+            if kq == kq_w + window - 1:
+                torch.cuda.synchronize()
+                window_plain_ms = (time.perf_counter() - tw) * 1e3
             if probe:
-                want_f = torch.stack((frac[0], add[0]))
+                cst.idx = st.idx
+                want_f = torch.stack((frac, add))
                 bits = (torch.int32 if want_f.dtype == torch.float32
                         else torch.int64)
-                check(sc.out_i.tolist() == [xe, x, y, ye]
-                      and torch.equal(sc.out_f.view(bits), want_f.view(bits))
+                diff = state_diff(cst, st)
+                check(int(out_i[0]) == eid and not diff
+                      and torch.equal(out_f.view(bits), want_f.view(bits))
                       and torch.equal(cfl, flags),
-                      f"score_masked != plain at streamed member {kq}")
+                      f"dc_stream_block != plain at streamed member {kq} "
+                      f"({diff})")
                 checked += 1
-            if kq == size - 1:
-                last = (cst, cfl, sc, row, batched, flags.clone(), kq,
-                        before)
-            kclosest.splice(st, xe, frac[0], add[0], 0, 0, (x, y, ye),
-                            middle=2 + cmax + kq, outside=2 + kq)
-            kclosest._update_closest_bfs_compact(
-                st, 2 + kq, 2 + 2 * cmax, label=10 + kq,
-                blocked_nodes=(st.belong[0], st.e[0]))
         torch.cuda.synchronize()
         plain_route_ms = (time.perf_counter() - t0) * 1e3
         diff = state_diff(kst, st)
         check(not diff and torch.equal(kfl, flags),
               f"the streamed cluster: kernel route != plain route in {diff}")
-        cst, cfl, sc, row, batched, pflags, kq, before = last
-        n_used = cst.idx
-        ms = queued_ms(lambda: cluster_cuda.score_masked(sc, cst, cfl, row),
-                       50)
-        plain_ms = event_ms(lambda: cluster._score_masked(
-            batched, pflags[None], row[None], kq, order), 20)
-        streams.append(with_share(
+        # the window: one launch (16 and 8 blocks), and a graph of one-member
+        # launches of the same kernel
+        rows_w = torch.stack([blocks[(kq_w + j) // rb][(kq_w + j) % rb]
+                              for j in range(window)])
+
+        def fresh():
+            return state_clone(snap[0]), snap[1].clone()
+
+        def one_launch(ctas):
+            copies = [fresh() for _ in range(5)]
+            runs = queued_each_ms([
+                lambda c=c, f=f: cluster_cuda.stream_block(
+                    c, f, rows_w, kq_w, cmax, ctas=ctas) for c, f in copies])
+            return _median(runs[1:]), *copies[-1]
+
+        ms, c16, f16 = one_launch(cluster_cuda.STREAM_CTAS)
+        ms8, c8, f8 = one_launch(8)
+        gst, gfl = fresh()
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side):
+            for j in range(window):
+                cluster_cuda.stream_block(gst, gfl, rows_w[j:j + 1],
+                                          kq_w + j, cmax)
+        torch.cuda.current_stream().wait_stream(side)
+        graph_runs = []
+        for _ in range(5):
+            restore(gst, snap[0])
+            gfl.copy_(snap[1])
+            graph_runs += queued_each_ms([graph.replay])
+        for tag, (c, f) in (("8 blocks", (c8, f8)), ("the graph",
+                                                        (gst, gfl))):
+            diff = state_diff(c, c16)
+            check(not diff and torch.equal(f, f16),
+                  f"the streamed window by {tag} differs from one launch "
+                  f"on {cluster_cuda.STREAM_CTAS} blocks in {diff}")
+        rec_s = with_share(
             {"members": size, "cmax": cmax, "row_block": rb,
-             "members_checked": checked, "n_used": n_used, "ms": ms,
-             "plain_ms": plain_ms, "route_ms": route_ms,
-             "route_ms_per_member": route_ms / size,
+             "members_checked": checked, "window_first_member": kq_w,
+             "window_members": window, "ctas": cluster_cuda.STREAM_CTAS,
+             "ms": ms, "ms_8_blocks": ms8,
+             "graph_of_one_member_launches_ms": _median(graph_runs),
+             "plain_ms": window_plain_ms,
+             "ms_per_member": ms / window,
+             "route_ms": route_ms, "route_ms_per_member": route_ms / size,
              "plain_route_ms": plain_route_ms,
              "plain_route_ms_per_member": plain_route_ms / size},
-            masked_bound(cst, before)))
+            bound_of(0, window_bytes))
+        rec_s["latency_floor_ms"] = window * 5 * l2
+        rec_s["share_of_latency_floor"] = rec_s["latency_floor_ms"] / ms
+        if par_cluster is not None:
+            turns = {"parent": [], "this": []}
+            route(par_cluster.build_streamed)  # loads its kernels
+            for who in ("parent", "this", "this", "parent"):
+                build = (par_cluster.build_streamed if who == "parent"
+                         else cluster.build_streamed)
+                t, out = route(build)
+                turns[who].append(t)
+                check(all(torch.equal(a, b) for a, b in zip(out, s["got"])),
+                      f"the streamed cluster by the {who}'s route differs")
+            rec_s["in_turns_route_ms_per_member"] = {
+                k: float(np.mean(v)) / size for k, v in turns.items()}
+        streams.append(rec_s)
     res = {"dc_cluster_build": {"by_bucket": by_bucket, "launches": launches,
                                 "clusters_checked": sampled},
-           "score_masked": {"streamed": streams},
-           "l2_round_trip_ms": l2}
-    emit({"phase": "kernel_vs_plain", "kernel": "score_masked and "
+           "dc_stream_block": {"streamed": streams},
+           "l2_round_trip_ms": l2, "shared_round_trip_ms": shm}
+    emit({"phase": "kernel_vs_plain", "kernel": "dc_stream_block and "
           "dc_cluster_build", "comparison": "bit for bit on the D&C main "
           "path's inputs", **res, "max_abs_err": 0.0})
     return res
@@ -3963,7 +4207,8 @@ def phase_dc_step_profiled(cmax: int = 16) -> dict:
             levels = cluster.BFS_LEVELS - levels0
             count = {e.key: e.count for e in prof.key_averages()}
             kernels = sum(c for k, c in count.items()
-                          if "cluster_build_kernel" in k)
+                          if re.search(r"cluster_(warp|block|global)_kernel",
+                                       k))
             res[C][route] = {
                 "steps": steps, "bfs_levels": levels,
                 "dc_cluster_build_launches":
@@ -5503,9 +5748,10 @@ def main() -> int:
                     help="a checkout of an earlier commit (e.g. from git "
                          "archive): phase 15 builds its per-cluster count "
                          "kernel, phase 5 its insert_step, phase 9 its NJ "
-                         "kernels A and B, phase 24 its sketch kernel and "
-                         "phases 13 and 27 its exact_step, and each is "
-                         "timed beside this one's")
+                         "kernels A and B, phase 24 its sketch kernel, "
+                         "phases 13 and 27 its exact_step and phase 26 its "
+                         "phase-3 kernels, and each is timed beside this "
+                         "one's")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -5632,18 +5878,20 @@ def main() -> int:
                                               big["W"]],
                       **{k: big[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "share_of_bound")})
-            for name in ("score_masked", "dc_cluster_build"):
+            for name in ("dc_stream_block", "dc_cluster_build"):
                 records[name].update(launches=res["counts"][name],
                                      library_ms=None)
         if 26 in phases:
             check(16 in phases, "phase 26 checks phase 16's recorded "
                   "launches")
-            res = phase_dc_kernels_vs_plain(dc_single.pop("phase3"))
-            sm = res["score_masked"]["streamed"][0]
-            records["score_masked"].update(
+            res = phase_dc_kernels_vs_plain(dc_single.pop("phase3"),
+                                            args.parent)
+            sm = res["dc_stream_block"]["streamed"][0]
+            records["dc_stream_block"].update(
                 max_abs_err=0.0, library_ms=None, streamed=sm,
                 **{k: sm[k] for k in ("ms", "plain_ms", "bound_ms",
-                                      "bound_by", "share_of_bound")})
+                                      "bound_by", "share_of_bound",
+                                      "latency_floor_ms")})
             cb = res["dc_cluster_build"]
             narrow = cb["by_bucket"][min(cb["by_bucket"], key=int)]
             records["dc_cluster_build"].update(
@@ -5687,7 +5935,7 @@ def main() -> int:
                 args.nj_n, os.path.join(tmp, f"n{args.nj_n}"), seed=1)[0])
             records["minhash_sketch"].update(phase_sketch(data[0], nj_fa,
                                                           args.parent))
-        if phases & {10, 11, 12, 13}:
+        if phases & {10, 11, 12, 13, 28}:
             t0 = time.time()
             msa_fa, msa_true = make_dataset(
                 args.msa_n, os.path.join(tmp, f"msa{args.msa_n}"), seed=1,
@@ -5704,6 +5952,9 @@ def main() -> int:
         if 12 in phases:
             note("msa_placement", phase_msa_placement(
                 tmp, min(8192, args.msa_n), msa_fa, msa_true)["counts"])
+        if 28 in phases:
+            note("msa_dc", phase_msa_dc(tmp, msa_fa, msa_true,
+                                        min(MSA_DC_N, args.msa_n))["counts"])
         if 14 in phases:
             note("add", phase_add(tmp, data[0], min(4096, args.n // 2),
                                   min(1024, args.n // 8))["counts"])
@@ -5782,6 +6033,7 @@ def main() -> int:
                   or m.startswith("dipper_tpu.") for m in sys.modules),
           "JAX or the JAX package was imported")
     kernels = list(records.values())
+    emit({"phase": "seconds_by_line", "lines": LINE_SECONDS})
     if phases != set(ALL_PHASES):
         emit({"partial_run": sorted(phases), "kernels": kernels})
         return 0

@@ -33,7 +33,7 @@ KERNELS = {
     "insert_step": "insert_step.cu",
     "nj_q_argmin": "nj_q_argmin.cu",
     "nj_update": "nj_update.cu",
-    "score_masked": "score_masked.cu",
+    "dc_stream_block": "dc_stream_block.cu",
     "dc_cluster_build": "dc_cluster_build.cu",
     "exact_step": "exact_step.cu",
 }

@@ -1,5 +1,5 @@
 // The score of one directed edge and the first minimum over candidates,
-// shared by score_edges.cu (kernel 3), score_masked.cu and
+// shared by score_edges.cu (kernel 3), dc_stream_block.cu and
 // dc_cluster_build.cu (kernel 8).
 //
 // edge_score is calculateBranchLength's clamp sequence
@@ -138,6 +138,47 @@ __device__ __forceinline__ T side_written(const int32_t* cid, const T* cdis,
         d[j] = cdis[(size_t)e * kK + j];
     }
     return side_of(c, d, row);
+}
+
+
+// Minimum over one warp, every lane getting it (a butterfly of shuffles:
+// `before` is a total order, so every lane ends with the same candidate)
+template <typename T>
+__device__ __forceinline__ Cand<T> warp_min_all(Cand<T> c)
+{
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off /= 2) {
+        Cand<T> o;
+        o.score = __shfl_xor_sync(0xffffffffu, c.score, off);
+        o.frac = __shfl_xor_sync(0xffffffffu, c.frac, off);
+        o.slot = __shfl_xor_sync(0xffffffffu, c.slot, off);
+        if (before(o, c)) c = o;
+    }
+    return c;
+}
+
+// side_of's rule on an edge's K ids and distances and the row's entries at
+// those ids, loaded beforehand (all K, so that the loads of one level of
+// dependence go out together)
+template <typename T>
+__device__ __forceinline__ T side_vals(const int32_t (&c)[kK],
+                                       const T (&d)[kK], const T (&v)[kK])
+{
+    T best = -INFINITY;
+    bool has_nan = false;
+    T nan_value = 0;
+#pragma unroll
+    for (int j = 0; j < kK; ++j) {
+        if (c[j] == -1) continue;
+        const T x = v[j] - d[j];
+        if (x != x) {
+            if (!has_nan) nan_value = x;
+            has_nan = true;
+        } else if (x > best) {
+            best = x;
+        }
+    }
+    return has_nan ? nan_value : (best > T(0) ? best : T(0));
 }
 
 }  // namespace dipper

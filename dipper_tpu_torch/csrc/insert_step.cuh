@@ -1,10 +1,17 @@
 // The splice and the witness BFS of one insertion, shared by
-// insert_step.cu (kernel 6: one block an insertion) and dc_cluster_build.cu
-// (kernel 8b: one block a D&C cluster, an insertion a member). The plan is
-// described at the top of insert_step.cu; placement/insert_model.py models
-// it. Each function is templated on the value type T (float or double), the
-// block's threads and the entries `Cap` of a shared frontier buffer, so that
-// a caller sizes both to its trees.
+// insert_step.cu (kernel 6: one block an insertion), dc_stream_block.cu
+// (kernel 8a: block 0 of a cluster inserts a streamed D&C cluster's
+// members) and dc_cluster_build.cu (kernel 8b: a batched D&C chunk). The
+// plan is described at the top of insert_step.cu; placement/
+// insert_model.py models it. Each function is templated on the value type
+// T (float or double), the block's threads and the entries `Cap` of a
+// shared frontier buffer, so that a caller sizes both to its trees.
+//
+// The functions at the end (visit_local, walk_lanes, splice_lanes) run the
+// same plan on a state that one warp alone reads and writes, through
+// generic pointers (kernel 8b's cluster state in shared memory): `lane` is
+// the lane within the warp, every level of the walk is the warp's, and
+// nothing goes through ld.global.
 //
 // Arithmetic as the plain version's, operation by operation, with
 // round-to-nearest intrinsics.
@@ -479,6 +486,231 @@ __device__ bool warp_splice(const State<T>& s, const int32_t* eid_p,
     *first = {middle, outside, add_rn(T(0), add)};
     *bl = {n_blocked, b0, b1};
     *count = outside_open ? 1 : 0;
+    return true;
+}
+
+
+// D&C's member insertion by a block over a state in device memory (kernel
+// 8a's block 0, kernel 8b's plan for buckets too wide for shared memory):
+// warp 0 splices the choice in shared memory (eid, frac, add) at the
+// member's slots i0 = n_used with middle 2 + cmax + kq, outside 2 + kq and
+// label 10 + kq, clears the flags of the split edge's two slots and sets
+// the new group's (true, true, false, true); then the block walks with
+// slot 0's endpoints, as they stand after the splice, blocked. Every
+// thread of the block calls it; it ends at a barrier of every thread.
+// out_xy (shared) gets the splice's (xe, ye).
+template <typename T, int Threads, int Cap>
+__device__ void insert_member(const State<T>& s, Shared<T, Threads, Cap>& sh,
+                              uint8_t* flags, const int32_t* eid,
+                              const T* frac, const T* add, int n_used,
+                              int kq, int cmax, int32_t* out_xy)
+{
+    const int label = 10 + kq;
+    int count = 0;
+    Entry<T> first = {-1, -1, T(0)};
+    Blocked bl = {0, -1, -1};
+    if (threadIdx.x < kWarp) {
+        const int lane = threadIdx.x;
+        const bool ok = warp_splice(s, eid, nullptr, frac, add, n_used,
+                                    2 + cmax + kq, 2 + kq, label, 0, out_xy,
+                                    &count, &first, &bl);
+        __syncwarp();  // (xe, ye) written
+        if (ok && lane < 2) flags[out_xy[lane]] = 0;
+        __syncwarp();  // cleared before the new group is set
+        if (lane >= 2 && lane < 6 && n_used + lane - 2 < s.n_edges)
+            flags[n_used + lane - 2] = lane != 4;
+        if (!ok) count = 0;
+        if (lane == 0) {
+            sh.label = label;
+            sh.n_blocked = bl.n;
+            sh.blocked[0] = bl.b0;
+            sh.blocked[1] = bl.b1;
+        }
+        __syncwarp();  // the splice's writes before the walk's reads
+    }
+    walk(s, sh, first, count, 1, label, bl);
+}
+
+// visit on a state the calling warp alone touches: plain (generic) loads
+template <typename T>
+__device__ __forceinline__ bool visit_local(const State<T>& s, int node,
+                                            int from, T d, int k, int label,
+                                            Blocked bl, int* dst, T* nd)
+{
+    const int M = s.n_nodes, E = s.n_edges;
+    const bool expand = node >= 0 && node < M && !(bl.n > 0 && node == bl.b0)
+                        && !(bl.n > 1 && node == bl.b1);
+    const int eid = expand ? s.adj[node * kDegree + k] : -1;
+    if (eid < 0 || eid >= E) return false;
+    T* cd = s.cdis + eid * kK;
+    int32_t* ci = s.cid + eid * kK;
+    const int to = s.e[eid];
+    T c[kK];
+    int32_t id[kK];
+#pragma unroll
+    for (int q = 0; q < kK; ++q) {
+        c[q] = cd[q];
+        id[q] = ci[q];
+    }
+    int pos = 0;
+#pragma unroll
+    for (int q = 0; q < kK; ++q) pos += c[q] <= d;
+    if (to == from || pos >= kK) return false;
+#pragma unroll
+    for (int q = kK - 1; q >= 1; --q) {
+        if (q > pos) {
+            cd[q] = c[q - 1];
+            ci[q] = id[q - 1];
+        }
+    }
+    cd[pos] = d;
+    ci[pos] = label;
+    *dst = to;
+    *nd = add_rn(d, s.length[eid]);
+    return true;
+}
+
+// The walk by one warp alone from the one entry `e` at `level`: every
+// level in chunks of kWarp (entry, out-edge) pairs, each chunk's joining
+// lanes placed after the chunks before by a ballot (the flat order of
+// every plan), the frontier in s.f_ids, s.f_frm, s.f_dist ([2, M],
+// nothing spills). Ends at a __syncwarp.
+template <typename T>
+__device__ void walk_lanes(const State<T>& s, int lane, Entry<T> e,
+                           int count, int level, int label, Blocked bl)
+{
+    const int M = s.n_nodes;
+    int cur = 0;
+    if (lane == 0) {
+        s.f_ids[0] = e.node;
+        s.f_frm[0] = e.from;
+        s.f_dist[0] = e.dist;
+    }
+    __syncwarp();
+    while (count > 0 && level < M) {
+        const int items = kDegree * count;
+        const int in = cur * M, out = (1 - cur) * M;
+        int next = 0;
+        for (int c0 = 0; c0 < items; c0 += kWarp) {
+            const int j = c0 + lane;
+            bool joins = false;
+            int node = -1, dst = -1;
+            T nd = T(0);
+            if (j < items) {
+                const int f = j / kDegree;
+                node = s.f_ids[in + f];
+                joins = visit_local(s, node, s.f_frm[in + f], s.f_dist[in + f],
+                                    j - f * kDegree, label, bl, &dst, &nd);
+            }
+            const unsigned ballot = __ballot_sync(kFull, joins);
+            const int at = next + __popc(ballot & ((1u << lane) - 1u));
+            if (joins && at < M) {
+                s.f_ids[out + at] = dst;
+                s.f_frm[out + at] = node;
+                s.f_dist[out + at] = nd;
+            }
+            next += __popc(ballot);
+        }
+        __syncwarp();  // the next level reads what this one wrote
+        count = next < M ? next : M;
+        cur ^= 1;
+        ++level;
+    }
+}
+
+// warp_splice on a state the calling warp alone touches, the choice (xe,
+// frac, add) in every lane's registers: the same reads, rank of the ten
+// candidates, writes and first level. *xy gets (xe, ye), or (-1, -1) and
+// no write when xe or its reverse slot is not a slot of the state. Ends
+// at a __syncwarp.
+template <typename T>
+__device__ bool splice_lanes(const State<T>& s, int lane, int xe, T frac,
+                             T add, int i0, int middle, int outside,
+                             int label, int block_slot, int* xy, int* count,
+                             Entry<T>* first, Blocked* bl)
+{
+    const int E = s.n_edges;
+    *count = 0;
+    xy[0] = xy[1] = -1;
+    if (xe < 0 || xe >= E) return false;
+    const int x = s.belong[xe], y = s.e[xe], ye = s.rev[xe];
+    const int yi = ye < 0 ? ye + E : ye;
+    if (yi < 0 || yi >= E) return false;
+    const int i1 = i0 + 1, i2 = i0 + 2, i3 = i0 + 3;
+    const int at_list = (lane < kK ? xe : yi) * kK + lane % kK;
+    T c = T(0);
+    int32_t id = -1;
+    if (lane < 2 * kK) {
+        c = s.cdis[at_list];
+        id = s.cid[at_list];
+    }
+    const T orig = s.length[xe];
+    const T rest = sub_rn(orig, frac);
+    T v = T(2);
+    if (lane < kK) v = id != -1 ? add_rn(c, frac) : T(2);
+    else if (lane < 2 * kK) v = id != -1 ? sub_rn(add_rn(c, orig), frac) : T(2);
+    const auto key = sort_key(v);
+    int r = 0;
+#pragma unroll
+    for (int j = 0; j < 2 * kK; ++j) {
+        const auto kj = __shfl_sync(kFull, key, j);
+        r += j < lane ? kj <= key : (j > lane ? kj < key : false);
+    }
+    const int at[6] = {xe, yi, i0, i1, i2, i3};
+    const int ne[6] = {middle, middle, x, y, middle, outside};
+    int n_blocked = 0, b0 = -1, b1 = -1;
+    if (block_slot >= 0) {
+        b0 = s.belong[block_slot];
+        b1 = s.e[block_slot];
+        if (block_slot >= i0 && block_slot <= i3)
+            b0 = block_slot == i2 ? outside : middle;
+#pragma unroll
+        for (int p = 0; p < 6; ++p)
+            if (at[p] == block_slot) b1 = ne[p];
+        n_blocked = 2;
+    }
+    const bool outside_open = n_blocked == 0
+                              || (outside != b0 && outside != b1);
+    __syncwarp();  // every read above is done before the first write
+
+    const int a = lane == 0 ? xe : (lane == 1 ? yi : i0 + lane - 2);
+    if (lane < 6 && last_write(at, lane, a)) {
+        s.e[a] = lane < 2 || lane == 4 ? middle
+                 : (lane == 2 ? x : (lane == 3 ? y : outside));
+        s.length[a] = lane == 0 || lane == 2 ? frac
+                      : (lane == 1 || lane == 3 ? rest : add);
+        s.rev[a] = lane == 0 ? i0 : (lane == 1 ? i1 : (lane == 2 ? xe
+                   : (lane == 3 ? ye : (lane == 4 ? i3 : i2))));
+    }
+    if (lane < 4) s.belong[i0 + lane] = lane == 2 ? outside : middle;
+    if (lane < kK) {
+        s.cdis[i1 * kK + lane] = v;
+        s.cid[i1 * kK + lane] = id;
+    } else if (lane < 2 * kK) {
+        s.cdis[i0 * kK + lane - kK] = v;
+        s.cid[i0 * kK + lane - kK] = id;
+    } else if (lane < 3 * kK) {
+        const bool first_entry = lane == 2 * kK && outside_open;
+        s.cdis[i2 * kK + lane - 2 * kK] = first_entry ? T(0) : T(2);
+        s.cid[i2 * kK + lane - 2 * kK] = first_entry ? label : -1;
+    } else if (lane >= 16 && lane < 22) {
+        const int q = lane - 16;
+        if (q >= 3 || middle != outside) {
+            const int row = q < 3 ? middle : outside;
+            s.adj[row * kDegree + q % 3] =
+                q == 0 ? i0 : (q == 1 ? i1 : (q == 2 ? i3 : (q == 3 ? i2 : -1)));
+        }
+    }
+    if (lane < 2 * kK && r < kK) {
+        s.cdis[i3 * kK + r] = v;
+        s.cid[i3 * kK + r] = id;
+    }
+    xy[0] = xe;
+    xy[1] = yi;
+    *first = {middle, outside, add_rn(T(0), add)};
+    *bl = {n_blocked, b0, b1};
+    *count = outside_open ? 1 : 0;
+    __syncwarp();  // the splice's writes before any later read
     return true;
 }
 

@@ -16,9 +16,9 @@ PyTorch design. `build_clusters` builds a chunk of clusters of one size
 bucket from their distances Dq [C, cmax, W]; the state is a TreeState
 whose arrays carry a leading cluster axis ([C, E], [C, E, K], E = 2 +
 4 cmax). On the card the whole chunk is one launch of kernel 8b
-(csrc/dc_cluster_build.cu, through cluster_cuda.build_chunk): a block a
-cluster, each with an adjacency table, no host sync. On the CPU (and as
-the kernel's yardstick on the card) `build_clusters_plain` steps all
+(csrc/dc_cluster_build.cu, through cluster_cuda.build_chunk): a warp or
+a block a cluster, each with an adjacency table, no host sync. On the CPU
+(and as the kernel's yardstick on the card) `build_clusters_plain` steps all
 clusters together in tensor code: scoring, splice and the dense BFS
 written over the cluster axis, one `nonzero` (host sync) a BFS level for
 the whole chunk. Clusters come sorted by size, so the ones still
@@ -27,14 +27,12 @@ as they are (the JAX package's `kq < sz` mask).
 
 Clusters of _STREAM_CLUSTER_MIN members and more run `build_streamed`:
 one at a time, distance rows a block at a time from `block_fn`, an
-adjacency table. On the card a row block is one cursor write
-(insert_cuda.set_cursor) and replays of a captured CUDA graph of 64
-members, each kernel 8a (csrc/score_masked.cu: the masked score and the
-flags) then kernel 6's cursor entry (csrc/insert_step.cu with this
-build's node offsets and blocked slot 0), the remainder by direct cursor
-launches: the host syncs only in `block_fn`. On the CPU `_score_masked`,
-the plain splice and the compact BFS of placement/kclosest.py run a
-member at a time. dc/cluster_model.py models both kernels' plans.
+adjacency table. On the card a row block is one launch of kernel 8a
+(csrc/dc_stream_block.cu, through cluster_cuda.stream_block: every
+member's masked score, splice, flags and walk on a thread-block cluster):
+the host syncs only in `block_fn`. On the CPU `_score_masked`, the plain
+splice and the compact BFS of placement/kclosest.py run a member at a
+time. dc/cluster_model.py models both kernels' plans.
 """
 
 from __future__ import annotations
@@ -45,7 +43,7 @@ import numpy as np
 import torch
 
 from dipper_tpu_torch.dc import cluster_cuda
-from dipper_tpu_torch.placement import insert_cuda, kclosest
+from dipper_tpu_torch.placement import kclosest
 from dipper_tpu_torch.placement.kclosest import K, SENT_DIS, TreeState
 
 # steps (member indices kq stepped over a chunk's clusters) and host syncs
@@ -326,8 +324,8 @@ def build_clusters_plain(Dq, cd_init, cid_init, lens_init, sizes,
 
 
 def uses_stream_kernels(st: TreeState) -> bool:
-    """Whether a streamed cluster's members go to kernel 8a and insert_step:
-    its state is on the card (kclosest.uses_insert_kernel)."""
+    """Whether a streamed cluster's members go to kernel 8a: its state is
+    on the card (kclosest.uses_insert_kernel)."""
     return kclosest.uses_insert_kernel(st)
 
 
@@ -338,13 +336,11 @@ def build_streamed(block_fn, cd_init, cid_init, lens_init, size: int,
     the [<= row_block, W] rows of members start.. (the last block
     ragged), computed when the loop reaches them, so no [cmax, W] tensor
     is held. The state has an adjacency table. On the card each row block
-    is a cursor write and replays of a captured graph of
-    kclosest.GRAPH_INSERTIONS members (kernel 8a, then insert_step's
-    cursor entry), the remainder by direct cursor launches: no host sync
-    outside `block_fn`. On the CPU `_score_masked`, the plain splice and
-    the compact BFS run a member at a time, with one host sync for the
-    chosen edge. cd_init/cid_init [2, K], lens_init [2]. Returns the local
-    (e, belong, length), each [2 + 4 cmax]."""
+    is one launch of kernel 8a: no host sync outside `block_fn`. On the
+    CPU `_score_masked`, the plain splice and the compact BFS run a member
+    at a time, with one host sync for the chosen edge. cd_init/cid_init
+    [2, K], lens_init [2]. Returns the local (e, belong, length), each
+    [2 + 4 cmax]."""
     st, scoreable = one_cluster(*cluster_init_state(
         cd_init[None], cid_init[None], lens_init[None], cmax, with_adj=True))
     if uses_stream_kernels(st):
@@ -359,70 +355,59 @@ def _stream_plain(st: TreeState, scoreable, block_fn, size: int, cmax: int,
     """build_streamed's members by tensor code (the CPU path, and the
     kernels' yardstick on the card)."""
     order = _Order.of(cmax, st.e.device)
-    Mn = 2 + 2 * cmax
     blk = None
     for kq in range(size):
         if kq % row_block == 0:
             blk = block_fn(kq)
-        row = blk[kq % row_block]
-        batched = dataclasses.replace(
-            st, e=st.e[None], belong=st.belong[None], length=st.length[None],
-            rev=st.rev[None], cdis=st.cdis[None], cid=st.cid[None], adj=None)
-        eid, frac, add = _score_masked(batched, scoreable[None], row[None],
-                                       kq, order)
-        base = st.idx
-        e0 = eid[0]
-        xe, x, y, ye = torch.stack(
-            (e0, st.belong[e0], st.e[e0], st.rev[e0])).tolist()  # host sync
-        kclosest.splice(st, xe, frac[0], add[0], 0, 0, (x, y, ye),
-                        middle=2 + cmax + kq, outside=2 + kq)
-        scoreable[xe] = False
-        scoreable[ye] = False
-        scoreable[base:base + 4] = order.grp
-        kclosest._update_closest_bfs_plain(
-            st, 2 + kq, Mn, label=10 + kq,
-            blocked_nodes=(st.belong[0], st.e[0]))
+        stream_member_plain(st, scoreable, blk[kq % row_block], kq, cmax,
+                            order)
+
+
+def stream_member_plain(st: TreeState, scoreable, row, kq: int, cmax: int,
+                        order: _Order) -> tuple:
+    """Member kq of a streamed cluster by tensor code, in place (st.idx =
+    2 + 4 kq): the masked score, the splice, the flags, the BFS. Returns
+    (eid, frac, add), frac and add as [] tensors."""
+    batched = dataclasses.replace(
+        st, e=st.e[None], belong=st.belong[None], length=st.length[None],
+        rev=st.rev[None], cdis=st.cdis[None], cid=st.cid[None], adj=None)
+    eid, frac, add = _score_masked(batched, scoreable[None], row[None], kq,
+                                   order)
+    base = st.idx
+    e0 = eid[0]
+    xe, x, y, ye = torch.stack(
+        (e0, st.belong[e0], st.e[e0], st.rev[e0])).tolist()  # host sync
+    kclosest.splice(st, xe, frac[0], add[0], 0, 0, (x, y, ye),
+                    middle=2 + cmax + kq, outside=2 + kq)
+    scoreable[xe] = False
+    scoreable[ye] = False
+    scoreable[base:base + 4] = order.grp
+    kclosest._update_closest_bfs_plain(
+        st, 2 + kq, 2 + 2 * cmax, label=10 + kq,
+        blocked_nodes=(st.belong[0], st.e[0]))
+    return xe, frac[0], add[0]
 
 
 def stream_offsets(cmax: int) -> tuple:
-    """A streamed cluster's offsets of member kq's outside node, middle
-    node and label (insert_cuda.insert_step_cursor): 2 + kq, 2 + cmax + kq,
-    10 + kq."""
+    """A cluster's offsets of member kq's outside node, middle node and
+    label (2 + kq, 2 + cmax + kq, 10 + kq), as insert_cuda.
+    insert_step_cursor takes them."""
     return (2, 2 + cmax, 10)
 
 
 def _stream_by_kernels(st: TreeState, scoreable, block_fn, size: int,
                        cmax: int, row_block: int) -> None:
-    """build_streamed's members on the card by the cursor route. Every
-    launch and replay is on the current stream, so the caching allocator
-    reuses a row block's memory only after the launches that read it."""
+    """build_streamed's members on the card: one launch of kernel 8a a row
+    block. Every launch is on the current stream, so the caching allocator
+    reuses a row block's memory only after the launch that reads it."""
     n_edges = st.e.shape[0]
     if 2 + 4 * size > n_edges:
         raise ValueError(f"{size} members do not fit {n_edges} edge slots")
-    sc = cluster_cuda.MaskedScorer(st, scoreable)
-    offsets = stream_offsets(cmax)
-
-    def member(s, count):
-        cluster_cuda.score_masked_cursor(sc, st, s, count)
-        insert_cuda.insert_step_cursor(st, sc, offsets=offsets, block_slot=0,
-                                       stream=s, count=count)
-
-    G = kclosest.GRAPH_INSERTIONS
     for kq0 in range(0, size, row_block):
         blk = block_fn(kq0)
         n = min(row_block, size - kq0)
         if blk.shape[0] < n:
             raise ValueError(f"{blk.shape[0]} rows for members {kq0}.."
                              f"{kq0 + n - 1}")
-        insert_cuda.set_cursor(st, kq0, blk, kq0)
-        reps, rest = divmod(n, G)
-        if reps:
-            graph = insert_cuda.range_graph(
-                st, ("dc_member", offsets, G, id(sc)),
-                lambda s: [member(s, False) for _ in range(G)], steps=G,
-                keep=(sc,))
-            insert_cuda.replay(graph, reps)
-            cluster_cuda.SCORE_MASKED_LAUNCHES += reps * G
-        for _ in range(rest):
-            member(None, True)
-        st.idx += 4 * n
+        cluster_cuda.stream_block(st, scoreable, blk[:n], kq0, cmax)
+    st.idx += 4 * size

@@ -3,18 +3,14 @@ repository's sources at first use (csrc/build.py). Both port the JAX
 package's _cluster_step (dipper_tpu/dc/pipeline.py:180-225), an XLA
 program:
 
-- csrc/score_masked.cu (kernel 8a): the masked scoring of one member of a
-  streamed cluster, with the cluster's scoreable flags updated for its
-  insertion. Its plain version is dc/cluster.py::_score_masked. A
-  `MaskedScorer` holds one cluster state's checked arrays, the outputs
-  (score_edges.cu's layout, which insert_cuda.insert_step_cursor reads)
-  and the scratch. `score_masked` launches with the member from the host,
-  `score_masked_cursor` with the member read from the state's insert
-  cursor (insert_cuda.set_cursor), so that a captured CUDA graph of it and
-  insert_step_cursor builds any stretch of a cluster (dc/cluster.py::
-  build_streamed).
+- csrc/dc_stream_block.cu (kernel 8a): a row block of a streamed cluster's
+  build (every member's masked score, splice, flags and walk) in one
+  launch on a thread-block cluster (`stream_block`). Its plain version is
+  dc/cluster.py::_stream_plain.
 - csrc/dc_cluster_build.cu (kernel 8b): the whole local build of a chunk
-  of clusters of one size bucket, one block a cluster (`build_chunk`). Its
+  of clusters of one size bucket (`build_chunk`), by the bucket's plan
+  (a warp a cluster or a block a cluster with the state in shared memory,
+  or a block a cluster over device memory; `kernel_plan` reports it). Its
   plain version is dc/cluster.py::build_clusters_plain.
 
 dc/cluster_model.py models both plans. Every entry point launches on the
@@ -30,29 +26,40 @@ import numpy as np
 import torch
 
 from dipper_tpu_torch.csrc.build import check_launch, load
-from dipper_tpu_torch.placement import insert_cuda
-from dipper_tpu_torch.placement.kclosest import (K, SCORE_EDGES_MAX_BLOCKS,
-                                                 TreeState)
+from dipper_tpu_torch.placement.kclosest import K, TreeState
 
-# Launches made by this process of each kernel, direct or by a graph's
-# replay (chip_smoke.py resets them and reads them to show that a run went
-# through the kernels)
-SCORE_MASKED_LAUNCHES = 0
+# Launches made by this process of each kernel (chip_smoke.py resets them
+# and reads them to show that a run went through the kernels)
+STREAM_BLOCK_LAUNCHES = 0
 CLUSTER_BUILD_LAUNCHES = 0
 
-_MASKED_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+# blocks of kernel 8a's thread-block cluster (1 to 16): 16 took a row
+# block of D&C 30K's streamed cluster in 10% less time than 8 (PERF.md, PR
+# 18)
+STREAM_CTAS = 16
+
+_STREAM_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong]
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 _BUILD_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong] * 2
-               + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+               + [ctypes.c_int] + [ctypes.c_void_p] + [ctypes.c_int] * 4
+               + [ctypes.c_void_p])
+_PLANS = ("warp", "block", "global")
 
-# devices whose score_masked kernels this process has loaded
-_preloaded: set = set()
 
-
-def _entry(lib, name: str, argtypes):
-    fn = getattr(lib, name)
+def kernel_plan(cmax: int, dtype) -> tuple:
+    """Kernel 8b's plan at bucket width cmax for `dtype` (float32 or
+    float64), as the built library's dc_cluster_build_plan reports it:
+    (kind, threads a block, clusters a block, dynamic shared memory bytes a
+    block); cluster_model.kernel_config mirrors it."""
+    lib = load("dc_cluster_build", _BUILD_ARGS)
+    fn = lib.dc_cluster_build_plan
     fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
-    return fn
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    out = (ctypes.c_int * 4)()
+    check_launch(lib, "dc_cluster_build",
+                 fn(cmax, int(dtype == torch.float64), out))
+    return _PLANS[out[0]], out[1], out[2], out[3]
 
 
 def _check_state(st: TreeState, scoreable, what: str, batched: bool):
@@ -89,88 +96,60 @@ def _check_state(st: TreeState, scoreable, what: str, batched: bool):
     return E, dtype, dev
 
 
-class MaskedScorer:
-    """What one streamed cluster's score_masked launches share: the state
-    and flags as checked, the entry points with their per-state
-    arguments, the outputs out_i (int32 [4]: eid, belong, e, rev of the
-    chosen edge) and out_f (frac, add) and the scratch. Launches through
-    one scorer must be ordered on one stream."""
-
-    def __init__(self, st: TreeState, scoreable: torch.Tensor):
-        E, dtype, dev = _check_state(st, scoreable, "score_masked", False)
-        self.arrays = (st.cid, st.cdis, st.belong, st.e, st.rev, st.length,
-                       scoreable)
-        self.dtype, self.device, self.n_edges = dtype, dev, E
-        self.out_i = torch.full((4,), -1, dtype=torch.int32, device=dev)
-        self.out_f = torch.zeros((2,), dtype=dtype, device=dev)
-        self.scratch_i = torch.zeros((1 + SCORE_EDGES_MAX_BLOCKS,),
-                                     dtype=torch.int32, device=dev)
-        self.scratch_f = torch.empty((2 * SCORE_EDGES_MAX_BLOCKS,),
-                                     dtype=dtype, device=dev)
-        self.lib = load("score_masked", _MASKED_ARGS + [ctypes.c_void_p,
-                                                        ctypes.c_int,
-                                                        ctypes.c_void_p])
-        self.fn = self.lib.score_masked
-        self.fn_cursor = _entry(self.lib, "score_masked_cursor",
-                                _MASKED_ARGS + [ctypes.c_void_p] * 2)
-        if dev.index not in _preloaded:
-            preload = _entry(self.lib, "score_masked_preload", [ctypes.c_int])
-            check_launch(self.lib, "score_masked", preload(dev.index))
-            _preloaded.add(dev.index)
-        self.args = (*(a.data_ptr() for a in self.arrays),
-                     self.scratch_f.data_ptr(), self.scratch_i.data_ptr(),
-                     self.out_i.data_ptr(), self.out_f.data_ptr(), E,
-                     SCORE_EDGES_MAX_BLOCKS, int(dtype == torch.float64),
-                     dev.index)
-
-    def owns(self, st: TreeState, scoreable) -> bool:
-        return all(a is b for a, b in zip(self.arrays, (
-            st.cid, st.cdis, st.belong, st.e, st.rev, st.length, scoreable)))
-
-    def _stream(self, stream):
-        return (torch.cuda.current_stream(self.device).cuda_stream
-                if stream is None else stream)
-
-
-def score_masked(sc: MaskedScorer, st: TreeState, scoreable, row,
-                 stream: int | None = None) -> MaskedScorer:
-    """Launches kernel 8a for the member whose slots in use are st.idx
-    (2 + 4 kq), its distance row `row` ([W], the state's float type on its
-    card, unit stride): the choice goes to sc.out_i / sc.out_f and the
-    flags are updated for its insertion. Returns `sc`."""
-    global SCORE_MASKED_LAUNCHES
-    if not sc.owns(st, scoreable):
-        raise ValueError("the scorer was made for other arrays")
-    if (row.dtype != sc.dtype or row.device != sc.device or row.dim() != 1
-            or (row.shape[0] > 1 and row.stride(0) != 1)):
-        raise ValueError(f"row must be a 1-D {sc.dtype} tensor with unit "
-                         f"stride on {sc.device}, got {row.dtype} "
-                         f"{tuple(row.shape)} on {row.device}")
-    if not 0 <= st.idx <= sc.n_edges:
-        raise ValueError(f"{st.idx} slots in use of {sc.n_edges}")
-    rc = sc.fn(*sc.args, row.data_ptr(), st.idx, sc._stream(stream))
+def stream_block(st: TreeState, scoreable: torch.Tensor, rows: torch.Tensor,
+                 kq0: int, cmax: int, ctas: int | None = None,
+                 stream: int | None = None) -> tuple:
+    """Launches kernel 8a: members kq0 .. kq0 + n - 1 of a streamed cluster
+    (a state of one tree, [2 + 4 cmax] arrays, adjacency [2 + 2 cmax, 3],
+    flags [E]) from their rows ([n, W], the state's float type, unit stride
+    along a row), in place and in one launch on a cluster of `ctas` blocks
+    (default STREAM_CTAS).
+    Returns (out_i, out_f): the last member's eid, the splice's (xe, ye)
+    (int32 [3]) and (frac, add). Does not move st.idx. No host sync."""
+    global STREAM_BLOCK_LAUNCHES
+    E, dtype, dev = _check_state(st, scoreable, "dc_stream_block", False)
+    if E != 2 + 4 * cmax:
+        raise ValueError(f"{E} edge slots for bucket width {cmax}")
+    _check_adj(st.adj, (2 + 2 * cmax, 3), dev)
+    n = rows.shape[0] if rows.dim() == 2 else 0
+    if (rows.dtype != dtype or rows.device != dev or rows.dim() != 2
+            or (rows.shape[1] > 1 and rows.stride(1) != 1)):
+        raise ValueError(f"rows must be a 2-D {dtype} tensor with unit "
+                         f"stride along a row on {dev}, got {rows.dtype} "
+                         f"{tuple(rows.shape)} on {rows.device}")
+    if not (0 <= kq0 and 1 <= n and kq0 + n <= cmax):
+        raise ValueError(f"members {kq0}..{kq0 + n - 1} of a bucket of "
+                         f"width {cmax}")
+    ctas = STREAM_CTAS if ctas is None else ctas
+    if not 1 <= ctas <= 16:
+        raise ValueError(f"a cluster of 1 to 16 blocks, got {ctas}")
+    M = 2 + 2 * cmax
+    f_ids = torch.empty((2, M), dtype=torch.int32, device=dev)
+    f_frm = torch.empty((2, M), dtype=torch.int32, device=dev)
+    f_dist = torch.empty((2, M), dtype=dtype, device=dev)
+    out_i = torch.full((3,), -1, dtype=torch.int32, device=dev)
+    out_f = torch.zeros((2,), dtype=dtype, device=dev)
+    lib = load("dc_stream_block", _STREAM_ARGS)
+    if stream is None:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.dc_stream_block(
+        st.e.data_ptr(), st.belong.data_ptr(), st.length.data_ptr(),
+        st.rev.data_ptr(), st.cdis.data_ptr(), st.cid.data_ptr(),
+        st.adj.data_ptr(), f_ids.data_ptr(), f_frm.data_ptr(),
+        f_dist.data_ptr(), scoreable.data_ptr(), rows.data_ptr(),
+        rows.stride(0), kq0, n, cmax, out_i.data_ptr(), out_f.data_ptr(),
+        ctas, int(dtype == torch.float64), dev.index, stream)
     if rc != 0:
-        check_launch(sc.lib, "score_masked", rc)
-    SCORE_MASKED_LAUNCHES += 1
-    return sc
+        check_launch(lib, "dc_stream_block", rc)
+    STREAM_BLOCK_LAUNCHES += 1
+    return out_i, out_f
 
 
-def score_masked_cursor(sc: MaskedScorer, st: TreeState,
-                        stream: int | None = None,
-                        count: bool = True) -> MaskedScorer:
-    """Launches kernel 8a for the member that the state's insert cursor
-    (insert_cuda.set_cursor: member i, slots in use, the rows' address,
-    their stride, their first member) holds. `count=False` for a launch
-    being captured (insert_cuda.replay's caller counts a graph's
-    launches)."""
-    global SCORE_MASKED_LAUNCHES
-    cursor = insert_cuda.inserter(st).cursor
-    rc = sc.fn_cursor(*sc.args, cursor.data_ptr(), sc._stream(stream))
-    if rc != 0:
-        check_launch(sc.lib, "score_masked", rc)
-    if count:
-        SCORE_MASKED_LAUNCHES += 1
-    return sc
+def _check_adj(adj, shape: tuple, dev) -> None:
+    if (adj is None or adj.device != dev or adj.dtype != torch.int32
+            or tuple(adj.shape) != shape or not adj.is_contiguous()):
+        raise ValueError(f"adj must be a contiguous int32 {shape} table on "
+                         f"{dev}")
 
 
 def upload_sizes(sizes, device) -> torch.Tensor:
@@ -197,10 +176,7 @@ def build_chunk(st: TreeState, scoreable: torch.Tensor, Dq: torch.Tensor,
     if E != 2 + 4 * cmax:
         raise ValueError(f"{E} edge slots for bucket width {cmax}")
     adj = st.adj
-    if (adj is None or adj.device != dev or adj.dtype != torch.int32
-            or tuple(adj.shape) != (C, M, 3) or not adj.is_contiguous()):
-        raise ValueError(f"adj must be a contiguous int32 ({C}, {M}, 3) "
-                         f"table on {dev}")
+    _check_adj(adj, (C, M, 3), dev)
     if (Dq.device != dev or Dq.dtype != dtype or Dq.dim() != 3
             or Dq.shape[0] != C or Dq.shape[1] < cmax
             or (Dq.shape[2] > 1 and Dq.stride(2) != 1)):
@@ -212,6 +188,7 @@ def build_chunk(st: TreeState, scoreable: torch.Tensor, Dq: torch.Tensor,
     if (sizes.device != dev or sizes.dtype != torch.int32
             or tuple(sizes.shape) != (C,) or not sizes.is_contiguous()):
         raise ValueError(f"sizes must be a contiguous int32 [{C}] on {dev}")
+    # the global plan's frontier spill
     f_ids = torch.empty((C, 2, M), dtype=torch.int32, device=dev)
     f_frm = torch.empty((C, 2, M), dtype=torch.int32, device=dev)
     f_dist = torch.empty((C, 2, M), dtype=dtype, device=dev)
@@ -223,8 +200,8 @@ def build_chunk(st: TreeState, scoreable: torch.Tensor, Dq: torch.Tensor,
         st.rev.data_ptr(), st.cdis.data_ptr(), st.cid.data_ptr(),
         adj.data_ptr(), f_ids.data_ptr(), f_frm.data_ptr(), f_dist.data_ptr(),
         scoreable.data_ptr(), Dq.data_ptr(), Dq.stride(0), Dq.stride(1),
-        sizes.data_ptr(), C, cmax, int(dtype == torch.float64), dev.index,
-        stream)
+        Dq.shape[2], sizes.data_ptr(), C, cmax, int(dtype == torch.float64),
+        dev.index, stream)
     if rc != 0:
         check_launch(lib, "dc_cluster_build", rc)
     CLUSTER_BUILD_LAUNCHES += 1

@@ -21,8 +21,8 @@ W] distance tensor: for mash the per-cluster count kernel
 gather, for aligned sequences codes staged from the host; on the card a
 chunk's build is one launch of csrc/dc_cluster_build.cu. Clusters of
 _STREAM_CLUSTER_MIN members and more build one at a time with rows
-streamed _STREAM_ROW_BLOCK at a time (on the card, replayed graphs of
-csrc/score_masked.cu and csrc/insert_step.cu a member). Each bucket's
+streamed _STREAM_ROW_BLOCK at a time (on the card, one launch of
+csrc/dc_stream_block.cu a row block). Each bucket's
 log line counts its distance launches, steps, host syncs (BFS levels)
 and build-kernel launches. Assembly and Newick are host NumPy,
 as in the JAX package.
@@ -199,13 +199,23 @@ def _stream_block_fn(frontend, payload, params: Param, wit, mem, device):
 
 def _phase3_kernel_launches() -> int:
     """This process's launches of phase 3's build kernels: 8b (a batched
-    chunk), 8a and insert_step (a streamed member each)."""
+    chunk) and 8a (a streamed cluster's row block)."""
     from dipper_tpu_torch.dc import cluster_cuda
-    from dipper_tpu_torch.placement import insert_cuda
 
     return (cluster_cuda.CLUSTER_BUILD_LAUNCHES
-            + cluster_cuda.SCORE_MASKED_LAUNCHES
-            + insert_cuda.INSERT_STEP_LAUNCHES)
+            + cluster_cuda.STREAM_BLOCK_LAUNCHES)
+
+
+def _phase3_plan(device, stream: bool, cmax_b: int, dtype) -> str:
+    """How a bucket builds: "plain" off the card; on it a streamed row
+    block's launch ("cluster", kernel 8a) or kernel 8b's plan."""
+    if torch.device(device).type != "cuda":
+        return "plain"
+    if stream:
+        return "cluster"
+    from dipper_tpu_torch.dc import cluster_cuda
+
+    return cluster_cuda.kernel_plan(cmax_b, dtype)[0]
 
 
 def _buckets(szs: np.ndarray, cmax: int):
@@ -414,6 +424,7 @@ def build_dc_tree(seqs, names, params: Param, matrix=None, *, device,
                 f"launches={launches} steps={cluster.STEPS - steps0} "
                 f"bfs_levels={cluster.BFS_LEVELS - levels0} "
                 f"kernel_launches={_phase3_kernel_launches() - kernels0} "
+                f"plan={_phase3_plan(device, stream, cmax_b, dtype)} "
                 f"in {time.time() - tb:.3f}s")
 
     log(f"DC phase 3 in: {int((time.time() - t) * 1000)} ms "

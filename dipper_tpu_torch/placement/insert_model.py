@@ -268,11 +268,13 @@ def bfs(s: dict, leaf: int, label: int, blocked=(), threads: int = THREADS,
 def insert_step(s: dict, eid: int, frac, add, i0: int, middle: int,
                 outside: int, label: int, block_slot: int = -1,
                 threads: int = THREADS, stats: dict | None = None,
-                cap: int = CAP, narrow: int = NARROW):
+                cap: int = CAP, narrow: int = NARROW,
+                frontier: "_Frontier | None" = None):
     """The kernel's insert_step in place: splice, then (if it spliced)
     the BFS's first level with it (unless `outside` is blocked) and the
     walk from middle, not expanding the endpoints of `block_slot` as they
-    stand after the splice. Returns out_xy."""
+    stand after the splice. `frontier`, when given, holds the walk's
+    buffers (a caller's own, of `cap` entries). Returns out_xy."""
     xy = splice(s, eid, frac, add, i0, middle, outside)
     if xy[0] < 0:
         return xy
@@ -280,7 +282,7 @@ def insert_step(s: dict, eid: int, frac, add, i0: int, middle: int,
     dt = s["length"].dtype.type
     blocked = ({int(s["belong"][block_slot]), int(s["e"][block_slot])}
                if block_slot >= 0 else set())
-    fr = _Frontier(M, cap, s["length"].dtype)
+    fr = frontier or _Frontier(M, cap, s["length"].dtype)
     count = 0
     if outside not in blocked:
         # level 0: slot i2 (outside -> middle, its list empty) gets (0,

@@ -16,8 +16,8 @@ cluster_bound reckons it); after the run each launch is timed again on
 its own inputs, the card alone (a CUDA graph of 20 launches, replayed).
 Prints JSON lines: the dataset, the run (phase times, clusters, buckets,
 phase 3's kernel launches (csrc/dc_cluster_build.cu a batched chunk,
-csrc/score_masked.cu and csrc/insert_step.cu a streamed member) beside
-the log's chunks and streamed members, its steps and host syncs, nRF vs
+csrc/dc_stream_block.cu a streamed cluster's row block) beside the log's
+chunks and row blocks, its steps and host syncs, nRF vs
 the true tree), and the kernel's
 launches (the total, the widest bucket's, the sums of both times beside
 the sum of bounds). The card's name and power limit go first. Needs
@@ -29,7 +29,8 @@ compares this checkout with an earlier one (`git archive <commit>`
 unpacked at build/parent) on one card instead: the CLI with -m 3 on the
 same set in child processes, in turns parent, this, this, parent, each
 checkout's kernels and host libraries built before the first turn;
-a JSON line a turn (phase times, wall seconds, nRF vs the true tree).
+a JSON line a turn (phase times, wall seconds, nRF vs the true tree,
+whether its Newick equals the first turn's).
 """
 
 from __future__ import annotations
@@ -124,10 +125,10 @@ def main() -> int:
                                   if p == "batch"),
             "streamed_members": sum(int(m) for p, m, _ in buckets
                                     if p == "stream"),
+            "streamed_row_blocks": sum(int(c) for p, _, c in buckets
+                                       if p == "stream"),
             "dc_cluster_build_launches": counts["dc_cluster_build"],
-            "score_masked_launches": counts["score_masked"],
-            "insert_step_launches": counts["insert_step"],
-            "graph_replays": counts["graph_replays"],
+            "dc_stream_block_launches": counts["dc_stream_block"],
             "steps": cluster.STEPS, "host_syncs": cluster.BFS_LEVELS}
         launches = []
         for got, s, ev, (ranks, wit, mem) in calls:
@@ -193,10 +194,12 @@ def turns(parent: str, fa: str, true_nwk: str, out_dir: str, n: int) -> int:
             print(f"profile_dc_torch: {who}'s CLI returned "
                   f"{run.returncode}", file=sys.stderr)
             return 1
-        rf, nrf = rf_distance(open(out).read(), open(true_nwk).read())
+        nwk = open(out).read()
+        first = first if i else nwk
+        rf, nrf = rf_distance(nwk, open(true_nwk).read())
         emit({"turn": i, "checkout": who, "n": n,
               **cs._dc_log(run.stderr), "process_wall_s": wall, "rf": rf,
-              "nrf_vs_true": nrf})
+              "nrf_vs_true": nrf, "newick_equal_to_turn_0": nwk == first})
     return 0
 
 

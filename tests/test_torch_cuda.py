@@ -479,15 +479,17 @@ def test_scorer_sources_and_rounding():
     assert kernel_build.KERNELS["score_edges"] == "score_edges.cu"
     src = {}
     for name in ("side_vector.cu", "score_edges.cu", "side_vector.cuh",
-                 "edge_score.cuh", "score_masked.cu", "dc_cluster_build.cu"):
+                 "edge_score.cuh", "dc_stream_block.cu",
+                 "dc_cluster_build.cu"):
         with open(os.path.join(kernel_build.CSRC_DIR, name)) as f:
             src[name] = f.read()
     assert '#include "side_vector.cuh"' in src["side_vector.cu"]
     assert '#include "side_vector.cuh"' in src["edge_score.cuh"]
-    for name in ("score_edges.cu", "score_masked.cu"):
-        assert '#include "edge_score.cuh"' in src[name]
-    assert '#include "insert_step.cuh"' in src["dc_cluster_build.cu"]
-    for name in ("score_edges.cu", "score_masked.cu", "dc_cluster_build.cu"):
+    assert '#include "edge_score.cuh"' in src["score_edges.cu"]
+    for name in ("dc_stream_block.cu", "dc_cluster_build.cu"):
+        assert '#include "insert_step.cuh"' in src[name]
+    for name in ("score_edges.cu", "dc_stream_block.cu",
+                 "dc_cluster_build.cu"):
         assert "edge_score(" in src[name]
     header = src["edge_score.cuh"]
     if "-fmad=false" not in kernel_build.NVCC_FLAGS:
@@ -1708,7 +1710,7 @@ def test_cursor_route_across_caps_equals_cpu(cuda, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# D&C phase 3's kernels (csrc/score_masked.cu, csrc/dc_cluster_build.cu)
+# D&C phase 3's kernels (csrc/dc_stream_block.cu, csrc/dc_cluster_build.cu)
 # against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -1733,12 +1735,10 @@ def _bits_equal(x, y):
 @pytest.mark.parametrize("case", _PHASE3_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_score_masked_kernel_equals_plain(cuda, case, dtype):
-    """Kernel 8a on a copy of a streamed cluster's state before each of its
-    64 members, against _score_masked and the plain route's flag update
-    on the state: the choice (eid and its ends, frac, add) and the flags
-    bit for bit. The state then advances by the plain route."""
-    import dataclasses
-
+    """Kernel 8a one member a launch, on a copy of a streamed cluster's
+    state before each of its 64 members, against the plain route's member
+    (_score_masked, the flags, the splice and the compact BFS): the choice
+    (eid, frac, add), the whole state and the flags bit for bit."""
     from dipper_tpu_torch.dc import cluster as tc
     from dipper_tpu_torch.dc import cluster_cuda
 
@@ -1747,49 +1747,41 @@ def test_score_masked_kernel_equals_plain(cuda, case, dtype):
     st, flags = tc.one_cluster(*tc.cluster_init_state(
         cd[1:], cid[1:], lens[1:], cmax, with_adj=True))
     order = tc._Order.of(cmax, cuda)
-    before = cluster_cuda.SCORE_MASKED_LAUNCHES
+    before = cluster_cuda.STREAM_BLOCK_LAUNCHES
     for kq in range(cmax):
-        row = Dq[1, kq]
         kst, kfl = _clone7(st), flags.clone()
-        sc = cluster_cuda.MaskedScorer(kst, kfl)
-        cluster_cuda.score_masked(sc, kst, kfl, row)
-        batched = dataclasses.replace(
-            st, e=st.e[None], belong=st.belong[None], length=st.length[None],
-            rev=st.rev[None], cdis=st.cdis[None], cid=st.cid[None], adj=None)
-        eid, frac, add = tc._score_masked(batched, flags[None], row[None],
-                                          kq, order)
-        e0 = eid[0]
-        want_i = torch.stack((e0, st.belong[e0].long(), st.e[e0].long(),
-                              st.rev[e0].long())).to(torch.int32)
-        assert torch.equal(sc.out_i, want_i), (case, kq)
-        assert _bits_equal(sc.out_f, torch.stack((frac[0], add[0]))), \
-            (case, kq)
-        xe, x, y, ye = want_i.tolist()
-        base = st.idx
-        flags[xe] = False
-        flags[ye] = False
-        flags[base:base + 4] = order.grp
+        out_i, out_f = cluster_cuda.stream_block(kst, kfl, Dq[1, kq:kq + 1],
+                                                 kq, cmax)
+        eid, frac, add = tc.stream_member_plain(st, flags, Dq[1, kq], kq,
+                                                cmax, order)
+        kst.idx = st.idx  # the plain splice advanced it
+        assert int(out_i[0]) == eid, (case, kq)
+        assert _bits_equal(out_f, torch.stack((frac, add))), (case, kq)
+        _same7(kst, st)
         assert torch.equal(kfl, flags), (case, kq)
-        tk.splice(st, xe, frac[0], add[0], 0, 0, (x, y, ye),
-                  middle=2 + cmax + kq, outside=2 + kq)
-        tk._update_closest_bfs_compact(st, 2 + kq, 2 + 2 * cmax,
-                                       label=10 + kq,
-                                       blocked_nodes=(st.belong[0], st.e[0]))
-    assert cluster_cuda.SCORE_MASKED_LAUNCHES - before == cmax
+    assert cluster_cuda.STREAM_BLOCK_LAUNCHES - before == cmax
 
 
 @pytest.mark.parametrize("case", _PHASE3_CASES)
-@pytest.mark.parametrize("cmax, C", [(8, 40), (64, 9), (512, 3)])
+@pytest.mark.parametrize("cmax, C, plan", [
+    (8, 40, "warp"), (16, 33, "warp"), (32, 17, "warp"), (64, 9, "block"),
+    (128, 5, "block"), (512, 3, "block"), (520, 2, "global")])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_cluster_build_kernel_equals_plain(cuda, monkeypatch, case, cmax, C,
-                                           dtype):
-    """Kernel 8b (one launch for the chunk, a block a cluster, ragged
-    sizes) against build_clusters_plain on the card: the whole state and
-    the flags bit for bit, the adjacency tables the ones the edges give;
-    no host sync a step."""
+                                           plan, dtype):
+    """Kernel 8b (one launch for the chunk by the bucket's plan, the one
+    cluster_model.kernel_config chooses; ragged sizes) against
+    build_clusters_plain on the card: the whole state and the flags bit for
+    bit, the adjacency tables the ones the edges give; no host sync."""
     from dipper_tpu_torch.dc import cluster as tc
     from dipper_tpu_torch.dc import cluster_cuda
+    from dipper_tpu_torch.dc import cluster_model as cm
 
+    want_plan = cm.kernel_config(cmax, np.dtype(dtype).itemsize)
+    assert want_plan.kind == plan
+    assert cluster_cuda.kernel_plan(cmax, getattr(torch, dtype)) == (
+        want_plan.kind, want_plan.threads, want_plan.clusters,
+        want_plan.smem)
     Dq, cd, cid, lens, sizes = _chunk_on(cuda, case, C, cmax, dtype, cmax)
     made = []
     orig = tc.cluster_init_state
@@ -1800,7 +1792,11 @@ def test_cluster_build_kernel_equals_plain(cuda, monkeypatch, case, cmax, C,
 
     monkeypatch.setattr(tc, "cluster_init_state", keep)
     before = (cluster_cuda.CLUSTER_BUILD_LAUNCHES, tc.BFS_LEVELS)
-    got = tc.build_clusters(Dq, cd, cid, lens, sizes, cmax)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tc.build_clusters(Dq, cd, cid, lens, sizes, cmax)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert (cluster_cuda.CLUSTER_BUILD_LAUNCHES - before[0],
             tc.BFS_LEVELS - before[1]) == (1, 0)
@@ -1816,18 +1812,19 @@ def test_cluster_build_kernel_equals_plain(cuda, monkeypatch, case, cmax, C,
             kst.belong[c], 2 + 2 * cmax)), (case, c)
 
 
+@pytest.mark.parametrize("ctas", [1, 8, 16])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_streamed_route_replays_graphs_across_a_ragged_block(cuda, dtype,
-                                                             monkeypatch):
+                                                             monkeypatch,
+                                                             ctas):
     """A streamed cluster of 300 members in row blocks of 128 (the last 44)
-    with graphs of 16 members: one capture, 8 + 8 + 2 replays, 12 direct
-    members, one kernel 8a and one insert_step launch a member; the state
-    equals the plain route's on the card bit for bit."""
+    by kernel 8a on a cluster of `ctas` blocks: one launch a row block (3),
+    no host sync; the state equals the plain route's on the card bit for
+    bit."""
     from dipper_tpu_torch.dc import cluster as tc
     from dipper_tpu_torch.dc import cluster_cuda
-    from dipper_tpu_torch.placement import insert_cuda
 
-    monkeypatch.setattr(tk, "GRAPH_INSERTIONS", 16)
+    monkeypatch.setattr(cluster_cuda, "STREAM_CTAS", ctas)
     cmax, rb = 300, 128
     Dq, cd, cid, lens, _ = _chunk_on(cuda, "random", 1, cmax, dtype, 11)
     made = []
@@ -1844,22 +1841,23 @@ def test_streamed_route_replays_graphs_across_a_ragged_block(cuda, dtype,
         blocks.append(s)
         return Dq[0, s:s + rb].clone()  # a new tensor a block
 
-    before = (cluster_cuda.SCORE_MASKED_LAUNCHES,
-              insert_cuda.INSERT_STEP_LAUNCHES, insert_cuda.GRAPH_CAPTURES,
-              insert_cuda.GRAPH_REPLAYS)
-    got = tc.build_streamed(block_fn, cd[0], cid[0], lens[0], cmax, cmax, rb)
-    assert (cluster_cuda.SCORE_MASKED_LAUNCHES - before[0],
-            insert_cuda.INSERT_STEP_LAUNCHES - before[1],
-            insert_cuda.GRAPH_CAPTURES - before[2],
-            insert_cuda.GRAPH_REPLAYS - before[3]) == (300, 300, 1, 18)
+    before = cluster_cuda.STREAM_BLOCK_LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tc.build_streamed(block_fn, cd[0], cid[0], lens[0], cmax,
+                                cmax, rb)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cluster_cuda.STREAM_BLOCK_LAUNCHES - before == 3
     assert blocks == [0, 128, 256]
     monkeypatch.setattr(tk, "uses_insert_kernel", lambda st: False)
     want = tc.build_streamed(block_fn, cd[0], cid[0], lens[0], cmax, cmax,
                              rb)
     for a, b in zip(got, want):
         assert _bits_equal(a, b)
-    (kst, _), (pst, _) = made
+    (kst, kfl), (pst, pfl) = made
     _same7(kst, pst)
+    assert torch.equal(kfl, pfl)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -1901,7 +1899,12 @@ def test_phase3_wrappers_reject_bad_inputs(cuda):
     one, f1 = tc.one_cluster(*tc.cluster_init_state(
         cd[:1], cid[:1], lens[:1], 8, with_adj=True))
     with pytest.raises(ValueError, match="scoreable must be"):
-        cluster_cuda.MaskedScorer(one, f1.int())
-    sc = cluster_cuda.MaskedScorer(one, f1)
-    with pytest.raises(ValueError, match="row must be"):
-        cluster_cuda.score_masked(sc, one, f1, Dq[0, 0, ::2])
+        cluster_cuda.stream_block(one, f1.int(), Dq[0, :2], 0, 8)
+    with pytest.raises(ValueError, match="rows must be"):
+        cluster_cuda.stream_block(one, f1, Dq[0, :2, ::2], 0, 8)
+    with pytest.raises(ValueError, match="members"):
+        cluster_cuda.stream_block(one, f1, Dq[0, :2], 7, 8)
+    with pytest.raises(ValueError, match="edge slots for bucket width"):
+        cluster_cuda.stream_block(one, f1, Dq[0, :2], 0, 16)
+    with pytest.raises(ValueError, match="1 to 16 blocks"):
+        cluster_cuda.stream_block(one, f1, Dq[0, :2], 0, 8, ctas=17)

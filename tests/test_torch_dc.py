@@ -426,7 +426,7 @@ def test_hooks_equal_jax_on_a_streamed_cluster(dtype, bfs, monkeypatch):
 
 # ---------------------------------------------------------------------------
 # Phase 3's kernels' plans (dc/cluster_model.py): kernel 8a
-# (csrc/score_masked.cu) and kernel 8b (csrc/dc_cluster_build.cu)
+# (csrc/dc_stream_block.cu) and kernel 8b (csrc/dc_cluster_build.cu)
 # ---------------------------------------------------------------------------
 
 
@@ -476,13 +476,15 @@ def _keep_states(monkeypatch, tc):
 
 
 @pytest.mark.parametrize("case", ["random", "ties", "nan_row", "over_two"])
-@pytest.mark.parametrize("cmax", [8, 64])
+@pytest.mark.parametrize("cmax", [8, 16, 32, 64])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_cluster_build_model_equals_tensor_route_and_jax(
         monkeypatch, case, cmax, dtype):
-    """Kernel 8b's plan (cluster_model.build_chunk: a block a cluster over
-    its adjacency table, the block's masked score, the warp's splice, the
-    walk with the bucket's threads and frontier buffers) on a chunk of
+    """Kernel 8b's plan (cluster_model.build_chunk: at buckets up to 32 a
+    warp a cluster, four clusters of ragged sizes, 1 among them, staged into
+    their slices of one block's shared memory; at 64 a block a cluster over
+    one slice; the masked score, the warp's splice, the warp's walk over
+    the adjacency table, the row staged a member ahead) on a chunk of
     ragged sizes, against the port's tensor route (build_clusters on the
     CPU: the dense BFS, no adjacency table) and the JAX package's
     _cluster_build_vmapped: e, belong and length bit for bit; the model's
@@ -505,6 +507,8 @@ def test_cluster_build_model_equals_tensor_route_and_jax(
     st, flags = tc.cluster_init_state(T(cd), T(cid), T(lens), cmax,
                                       with_adj=True)
     assert st.adj.shape == (6, 2 + 2 * cmax, 3)
+    plan = cm.kernel_config(cmax, np.dtype(dtype).itemsize)
+    assert plan.kind == ("warp" if cmax <= 32 else "block")
     stats = {}
     cm.build_chunk(im.arrays_of(st), flags.numpy(), Dq, sizes, cmax, stats)
     for f in ("e", "belong", "length", "rev", "cdis", "cid"):
@@ -519,14 +523,17 @@ def test_cluster_build_model_equals_tensor_route_and_jax(
 
 @pytest.mark.parametrize("case", ["random", "ties", "nan_row", "over_two"])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-def test_stream_model_equals_tensor_route_and_jax(case, dtype):
-    """Kernel 8a's plan with insert_step's cursor entry (cluster_model.
-    stream_member: the masked score of the used slots, the flags set by
-    the scorer, the splice and walk at a streamed cluster's offsets, slot 0
-    blocked) over row blocks of 4 with a ragged last block, against the
-    port's streamed tensor route and the JAX package's _stream_range_run:
-    e, belong and length bit for bit, the model's whole state and flags
-    equal the tensor route's."""
+@pytest.mark.parametrize("ctas, threads", [(16, 256), (3, 8)])
+def test_stream_model_equals_tensor_route_and_jax(case, dtype, ctas,
+                                                   threads):
+    """Kernel 8a's plan (cluster_model.stream_block: a row block's members
+    in one launch, each member's used slots scored by the cluster's blocks
+    in tiles of `threads`, the partials met in block 0, block 0's splice
+    and walk at a streamed cluster's offsets with slot 0 blocked, the
+    flags from the splice) over row blocks of 4, blocks at kq0 > 0 and a
+    ragged last one, against the port's streamed tensor route and the JAX
+    package's _stream_range_run: e, belong and length bit for bit, the
+    model's whole state equals the tensor route's."""
     from dipper_tpu_torch.dc import cluster as tc
     from dipper_tpu_torch.dc import cluster_model as cm
     from dipper_tpu_torch.placement import insert_model as im
@@ -538,7 +545,18 @@ def test_stream_model_equals_tensor_route_and_jax(case, dtype):
     T = torch.from_numpy
     D = T(Dq)
     init = (T(cd), T(cid), T(lens))
-    plain = tc.build_streamed(lambda s: D[s:s + rb], *init, sz, cmax, rb)
+    made = []
+    orig = tc.one_cluster
+
+    def keep(*a):
+        made.append(orig(*a))
+        return made[-1]
+
+    tc.one_cluster = keep
+    try:
+        plain = tc.build_streamed(lambda s: D[s:s + rb], *init, sz, cmax, rb)
+    finally:
+        tc.one_cluster = orig
     want = _jax_streamed(Dq, cd, cid, lens, sz, cmax, dtype)
     for f, a, w in zip(("e", "belong", "length"), plain, want):
         _same_bytes(a.numpy(), w, f"{case}: tensor route vs JAX, {f}")
@@ -546,14 +564,73 @@ def test_stream_model_equals_tensor_route_and_jax(case, dtype):
         *(x[None] for x in init), cmax, with_adj=True))
     s, fl = im.arrays_of(st), flags.numpy()
     for kq0 in range(0, sz, rb):
-        cursor = [kq0, 2 + 4 * kq0, Dq[kq0:kq0 + rb], kq0]
-        for _ in range(min(rb, sz - kq0)):
-            cm.stream_member(s, fl, cursor, cmax)
-    for f, a in zip(("e", "belong", "length"), plain):
-        _same_bytes(s[f], a.numpy(), f"{case}: model vs tensor route, {f}")
+        cm.stream_block(s, fl, Dq[kq0:kq0 + min(rb, sz - kq0)], kq0, cmax,
+                        ctas, threads)
+    pst = made[0][0]
+    for f in ("e", "belong", "length", "rev", "cdis", "cid"):
+        _same_bytes(s[f], getattr(pst, f).numpy(),
+                    f"{case}: model vs tensor route, {f}")
     # the tensor route's flags, replayed from its edges: every used slot
     # was cleared or set by the same members
     assert fl[:2 + 4 * sz].sum() > 0 and not fl[2 + 4 * sz:].any()
+
+
+@pytest.mark.parametrize("cmax", [8, 24, 40])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_cluster_build_plans_give_the_same_state(cmax, dtype):
+    """Kernel 8b's three plans (a warp a cluster in a slice of shared
+    memory, a block a cluster in one slice, a block a cluster over device
+    memory with frontier buffers that spill) build the same states, flags
+    and adjacency tables from one chunk, bit for bit."""
+    from dipper_tpu_torch.dc import cluster as tc
+    from dipper_tpu_torch.dc import cluster_model as cm
+    from dipper_tpu_torch.placement import insert_model as im
+
+    Dq, cd, cid, lens, sizes = cm.made_up_chunk("ties", 5, cmax, dtype,
+                                                seed=cmax + 1)
+    T = torch.from_numpy
+    item = np.dtype(dtype).itemsize
+    _, one = cm.slice_layout(cmax, item)
+    plans = [cm.Plan("warp", 128, 2 + 2 * cmax, 4, 4 * one),
+             cm.Plan("block", 128, 2 + 2 * cmax, 1, one),
+             cm.Plan("global", 64, 32, 1, 0)]
+    got = []
+    for plan in plans:
+        st, flags = tc.cluster_init_state(T(cd), T(cid), T(lens), cmax,
+                                          with_adj=True)
+        arrays, fl = im.arrays_of(st), flags.numpy()
+        for c, size in enumerate(sizes.tolist()):
+            cm.build_cluster({f: a[c] for f, a in arrays.items()}, fl[c],
+                             Dq[c], size, cmax, plan=plan)
+        got.append((arrays, fl))
+    for arrays, fl in got[1:]:
+        for f in im.FIELDS:
+            _same_bytes(arrays[f], got[0][0][f], f)
+        _same_bytes(fl, got[0][1], "flags")
+
+
+def test_cluster_build_plan_by_bucket():
+    """kernel_config's choice, as csrc/dc_cluster_build.cu's
+    launch_by_bucket makes it: a warp a cluster up to bucket 32, a block a
+    cluster in shared memory to 512 (the widest slice, f64 at 512, fits a
+    block's 227 KB), device memory above; a slice's regions do not
+    overlap and follow each other in slice_layout's order."""
+    from dipper_tpu_torch.dc import cluster_model as cm
+
+    for item in (4, 8):
+        for cmax, kind in ((8, "warp"), (32, "warp"), (33, "block"),
+                           (128, "block"), (512, "block"), (513, "global"),
+                           (1023, "global")):
+            plan = cm.kernel_config(cmax, item)
+            assert plan.kind == kind, (cmax, item)
+            assert plan.smem <= cm.SMEM_LIMIT
+        layout, total = cm.slice_layout(512, item)
+        size = {"f": item, "i": 4, "b": 1}
+        ends = [off + n * size[c] for off, n, c in layout.values()]
+        starts = [off for off, _, _ in layout.values()]
+        assert starts == sorted(starts) and starts[1:] == ends[:-1]
+        assert ends[-1] <= total <= cm.SMEM_LIMIT and total % 16 == 0
+    assert cm.kernel_config(512, 8).smem == 215376
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -631,24 +708,19 @@ def test_card_routes_with_models_as_kernels_equal_jax(
         matrix320, model_as_kernel, monkeypatch, knobs):
     """Phase 3 as it runs on the card, on CPU tensors with the models in
     the kernels' place: a batched chunk is one build launch with no host
-    sync (BFS levels 0) whatever its steps; a streamed member is a masked
-    score and an insert_step launch, most of them by replays of captured
-    graphs (4 members a graph here), a cursor write a row block. The
-    bucket lines count the launches; the tree and arrays are the JAX
-    package's default, bit for bit."""
+    sync (BFS levels 0) whatever its steps; a streamed cluster's row block
+    is one launch of kernel 8a. The bucket lines count the launches; the
+    tree and arrays are the JAX package's default, bit for bit."""
     from dipper_tpu_torch.dc import cluster as tc
     from dipper_tpu_torch.dc import cluster_cuda
-    from dipper_tpu_torch.placement import insert_cuda
-    from dipper_tpu_torch.placement import kclosest as tk
 
     D, names, tp, want, debug = matrix320
     for k, v in knobs.items():
         monkeypatch.setattr(tpl, k, v)
-    monkeypatch.setattr(tk, "GRAPH_INSERTIONS", 4)
     monkeypatch.setattr(tc, "uses_cluster_kernel", lambda Dq: True)
     monkeypatch.setattr(cluster_cuda, "build_chunk", _model_build_chunk)
     before = (cluster_cuda.CLUSTER_BUILD_LAUNCHES,
-              cluster_cuda.SCORE_MASKED_LAUNCHES, insert_cuda.GRAPH_REPLAYS)
+              cluster_cuda.STREAM_BLOCK_LAUNCHES)
     got, _, log = _port_run(tpl.build_dc_tree_from_matrix, D, names, tp)
     assert got == want
     for k in ("e", "belong", "len"):
@@ -656,22 +728,26 @@ def test_card_routes_with_models_as_kernels_equal_jax(
     lines = re.findall(r"path=(\w+) members=(\d+) launches=(\d+) steps=\d+ "
                        r"bfs_levels=(\d+) kernel_launches=(\d+)", log)
     assert lines
-    builds = masked = 0
+    builds = blocks = members_streamed = 0
     for path, members, launches, levels, kernels in lines:
         assert int(levels) == 0
+        # one build a chunk, one kernel-8a launch a row block
+        assert int(kernels) == int(launches)
         if path == "batch":
             builds += int(launches)
-            assert int(kernels) == int(launches)  # one build a chunk
         else:
-            masked += int(members)
-            assert int(kernels) == 2 * int(members)
+            blocks += int(launches)
+            members_streamed += int(members)
     assert (cluster_cuda.CLUSTER_BUILD_LAUNCHES - before[0],
-            cluster_cuda.SCORE_MASKED_LAUNCHES - before[1]) == (builds,
-                                                                masked)
+            cluster_cuda.STREAM_BLOCK_LAUNCHES - before[1]) == (builds,
+                                                                blocks)
     if "_STREAM_CLUSTER_MIN" in knobs:
-        assert masked > 0 and insert_cuda.GRAPH_REPLAYS > before[2]
+        assert members_streamed > blocks > 0
+        assert model_as_kernel.blocks
+        assert all(n <= knobs["_STREAM_ROW_BLOCK"]
+                   for _, n in model_as_kernel.blocks)
     else:
-        assert builds > 1 and masked == 0
+        assert builds > 1 and blocks == 0
 
 
 def test_phase3_wrappers_reject_cpu_states():
@@ -692,7 +768,7 @@ def test_phase3_wrappers_reject_cpu_states():
     st1, flags1 = tc.one_cluster(*tc.cluster_init_state(
         T(cd[:1]), T(cid[:1]), T(lens[:1]), 8, with_adj=True))
     with pytest.raises(ValueError, match="CUDA state"):
-        cluster_cuda.MaskedScorer(st1, flags1)
+        cluster_cuda.stream_block(st1, flags1, T(Dq[0, :2]), 0, 8)
     before = cluster_cuda.CLUSTER_BUILD_LAUNCHES
     assert not tc.uses_cluster_kernel(T(Dq))
     tc.build_clusters(T(Dq), T(cd), T(cid), T(lens), sizes, 8)

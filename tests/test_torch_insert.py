@@ -413,7 +413,7 @@ class _CursorRoute:
     cursor (i, slots in use, rows, lo) and scorer outputs live here; a
     launch runs at once, or, inside a capture, is recorded and runs at
     each replay, reading the cursor then. D&C's streamed clusters take
-    dc/cluster_model.py's masked scorer (kernel 8a) in the scorer's
+    dc/cluster_model.py's row-block plan (kernel 8a) in the kernel's
     place."""
 
     def __init__(self):
@@ -422,6 +422,7 @@ class _CursorRoute:
         self.captures = 0
         self.steps = []   # (i, i0) of each insert_step_cursor run
         self.leaves = []  # leaf of each closest_bfs_cursor run
+        self.blocks = []  # (kq0, members) of each stream_block launch
 
     def _launch(self, fn):
         if self.recording is None:
@@ -447,22 +448,15 @@ class _CursorRoute:
             tk.SCORE_EDGES_LAUNCHES += 1
         return out
 
-    def masked_scorer(self, st, scoreable):
-        return types.SimpleNamespace(
-            flags=scoreable, out_i=torch.zeros(4, dtype=torch.int32),
-            out_f=torch.zeros(2, dtype=st.length.dtype))
-
-    def score_masked(self, sc, st, stream=None, count=True):
-        def run():
-            i, used, rows, lo = self.cursor[id(st)]
-            out_i, out_f = cm.score_masked(im.arrays_of(st), sc.flags.numpy(),
-                                           rows[i - lo].numpy(), used)
-            sc.out_i[:] = torch.tensor(out_i, dtype=torch.int32)
-            sc.out_f[0], sc.out_f[1] = float(out_f[0]), float(out_f[1])
-        self._launch(run)
-        if count:
-            cluster_cuda.SCORE_MASKED_LAUNCHES += 1
-        return sc
+    def stream_block(self, st, scoreable, rows, kq0, cmax, ctas=8,
+                     stream=None):
+        assert st.adj is not None and rows.dim() == 2
+        out_i, out_f = cm.stream_block(im.arrays_of(st), scoreable.numpy(),
+                                       rows.numpy(), kq0, cmax, ctas)
+        self.blocks.append((kq0, rows.shape[0]))
+        cluster_cuda.STREAM_BLOCK_LAUNCHES += 1
+        return (torch.tensor(out_i, dtype=torch.int32),
+                torch.tensor(out_f, dtype=st.length.dtype))
 
     def step(self, st, sc, *, offsets, block_slot=-1, stream=None,
              count=True):
@@ -521,9 +515,7 @@ def model_as_kernel(monkeypatch):
     monkeypatch.setattr(insert_cuda, "insert_step_cursor", route.step)
     monkeypatch.setattr(insert_cuda, "closest_bfs_cursor", route.bfs)
     monkeypatch.setattr(insert_cuda, "range_graph", route.range_graph)
-    monkeypatch.setattr(cluster_cuda, "MaskedScorer", route.masked_scorer)
-    monkeypatch.setattr(cluster_cuda, "score_masked_cursor",
-                        route.score_masked)
+    monkeypatch.setattr(cluster_cuda, "stream_block", route.stream_block)
     monkeypatch.setattr(cluster_cuda, "upload_sizes",
                         lambda sizes, device: torch.from_numpy(
                             np.asarray(sizes, dtype=np.int32)))
@@ -550,10 +542,9 @@ def test_streamed_cluster_model_equals_tensor_code_and_jax(
         monkeypatch, cmax, sz, row_block, dtype):
     """D&C's streamed cluster: label 10 + kq, middle 2 + cmax + kq, the
     cluster edge's endpoints (slot 0 after the splice) blocked, scoreable
-    set by the masked scorer. The card's route (a cursor a row block,
-    replayed graphs of the masked scorer and insert_step's cursor entry)
-    with the models as the kernels, the plain route, and JAX's streamed
-    build."""
+    set after the splice. The card's route (one kernel-8a launch a row
+    block, the last one ragged) with the model as the kernel, the plain
+    route, and JAX's streamed build."""
     rng = np.random.default_rng(cmax)
     W = 10 + cmax
     Dq = rng.uniform(0.05, 0.6, (cmax, W)).astype(dtype)
@@ -581,17 +572,11 @@ def test_streamed_cluster_model_equals_tensor_code_and_jax(
         route = _CursorRoute()
         m.setattr(tc, "one_cluster", keep("model"))
         m.setattr(tk, "uses_insert_kernel", lambda st: st.adj is not None)
-        m.setattr(tk, "GRAPH_INSERTIONS", 3)
-        for mod, name, fn in (
-                (insert_cuda, "set_cursor", route.set_cursor),
-                (insert_cuda, "insert_step_cursor", route.step),
-                (insert_cuda, "range_graph", route.range_graph),
-                (cluster_cuda, "MaskedScorer", route.masked_scorer),
-                (cluster_cuda, "score_masked_cursor", route.score_masked)):
-            m.setattr(mod, name, fn)
+        m.setattr(cluster_cuda, "stream_block", route.stream_block)
         model = tc.build_streamed(lambda s: D[s:s + row_block], *args)
-    assert route.steps == [(kq, 2 + 4 * kq) for kq in range(sz)]
-    assert route.captures == (row_block >= 3)
+    assert route.blocks == [(kq0, min(row_block, sz - kq0))
+                            for kq0 in range(0, sz, row_block)]
+    assert states["model"].idx == 2 + 4 * sz
     _assert_same(states["model"], states["plain"])
     want = _jax_stream_cluster(Dq, cd, cid, lens, sz, cmax, dtype)
     for a, b, w in zip(model, plain, want):
