@@ -7,8 +7,8 @@ Runs on one NVIDIA GPU, from the root of a checkout:
     python3 chip_smoke.py --phases 1,2,3,6,7 --n 4400   # kernel checks only
 
 Phases, each printing one line of its own (run in the order 1, 2, 3, 6,
-15, 7, 25, 19, 4, 17, 5, 16, 26, 9, 24, 10, 11, 12, 28, 14, 27, 13, 8, 18,
-20, 21, 22, 23:
+15, 7, 25, 19, 4, 17, 5, 16, 29, 26, 9, 24, 10, 11, 12, 28, 14, 27, 13, 8,
+18, 20, 21, 22, 23:
 phases 13, 8 and 18 run the profiler, which slows every later launch in
 the process; phases 20 to 22 run in processes of their own):
   1. device: torch's device name and nvidia-smi's name and power limit;
@@ -141,9 +141,29 @@ the process; phases 20 to 22 run in processes of their own):
      launch a batched chunk, one dc_stream_block launch a streamed
      cluster's row block, no host sync in a phase-3 step, nRF DC_NRF_30K
      at N = 30,000, and
-     the CLI run again with phase 3 by its plain versions on the card
-     (build_clusters_plain, the streamed tensor loop) to the same Newick
-     bytes;
+     phase 2 on kernel 10: one dc_assign launch a chunk, the phase's
+     launches under torch.cuda.set_sync_debug_mode("error") (no host sync
+     before its one copy to the host), every launch's rows and slots
+     recorded for phase 29; and the CLI run again with phases 2 and 3 by
+     their plain versions on the card (score_edges_rows_plain,
+     build_clusters_plain, the streamed tensor loop) to the same
+     assignment and Newick bytes;
+  29. kernel 10 (csrc/dc_assign.cu, D&C phase 2's assignment) vs
+     score_edges_rows_plain on the card, equal slots required: the
+     scorer's made-up states in f32 and f64 (ties, every valid score
+     above 2.0, NaN and +inf in rows, four edges, unused tails) on 13
+     rows, contiguous and strided, under the kernel's plan and every
+     forced instance (1, 2, 4, 8 rows a block staged, 8 read from device
+     memory); phase 16's backbone state with every chunk of its real
+     phase-2 rows (every row; the run's slots and a launch again); that
+     chunk as a view of wider rows (the matrix frontend's layout); a
+     synthetic state at the 1M band's width (B = 50,000, E = 200,000, 256
+     rows) in f32 and f64. Times: each case's kernel launches queued
+     behind a device sleep (median of 5) beside its bound (the rows, the
+     state and the slots once at the memory rate, or 35 operations a row
+     and valid slot at the float rate) and the plain version's time (a
+     reference: no single PyTorch call computes the function), and the
+     sum over phase 16's chunks;
   26. phase 3's kernels vs plain on phase 16's own launches (recorded
      there): every dc_cluster_build launch's every 16th cluster built
      again by build_clusters_plain, all six arrays bit for bit; the first
@@ -237,10 +257,11 @@ the process; phases 20 to 22 run in processes of their own):
      restricted to them under MSA_PLACE_NRF_LIMIT;
   28. -i m -m 3 -d 1 in f64 on the alignment's first 4,096 sequences
      (MSA_DC_N): one dc_cluster_build launch a batched chunk (its warp and
-     block plans in f64), no host sync in phase 3, the nRF vs the true
-     tree restricted to them; the same Newick bytes with phase 3's plain
-     versions on the card; and the first 600 (MSA_DC_CPU_N) built on the
-     card and on the CPU to the same Newick bytes;
+     block plans in f64), one dc_assign launch a phase-2 chunk, no host
+     sync in phase 3, the nRF vs the true tree restricted to them; the
+     same Newick bytes with phase 3's plain versions on the card; and the
+     first 600 (MSA_DC_CPU_N) built on the card and on the CPU to the same
+     Newick bytes;
   14. --add: a backbone built by the port from the first 4,096 sequences
      of the placement set (-i r -m 1), then --add of the next 1,024: every
      backbone split survives, score_edges launches = 1,024, insert_step
@@ -303,7 +324,8 @@ the process; phases 20 to 22 run in processes of their own):
      sketches on the card);
   21. two ranks on the one card, D&C: the same with -m 3 on phase 5's set:
      byte-equal to phase 16's tree; each rank's phase times; kernels 1, 2,
-     3 and 4 sampled on each rank's launches;
+     3 and 4 sampled on each rank's launches; one kernel-10 launch a
+     phase-2 chunk of each rank's share;
   22. sharded_mash_matrix and sharded_placement_build over two ranks on the
      first 4,096 taxa of phase 5's set: equal to the single-process matrix
      and placement arrays; kernels 1, 2 and 3 sampled on the ranks'
@@ -323,9 +345,9 @@ Every kernel counter is set to 0 just before a main path (phases 5, 16,
 9, 11, 12, 28, 14, 27, and in each rank of 20, 21 and 22) and read just after
 it; `launches` in the kernels' record is the count of phases 5
 (placement; insert_step's counts both its entry points; the sketch
-kernel's), 16 (D&C: the per-cluster count kernel, dc_stream_block and
-dc_cluster_build), 9 (NJ: the distance kernel and NJ's two) and 27
-(exact: exact_step), `launches_by_path` has
+kernel's), 16 (D&C: the per-cluster count kernel, dc_stream_block,
+dc_cluster_build and dc_assign), 9 (NJ: the distance kernel and NJ's
+two) and 27 (exact: exact_step), `launches_by_path` has
 every path's (one count a rank for the multi-rank paths), and
 score_edges's `range_launches` the sharded placement's range launches.
 
@@ -384,6 +406,8 @@ KERNELS = {
     "exact_step": ("dipper_tpu_torch/csrc/exact_step.cu",
                    "dipper_tpu/placement/exact.py:231 (XLA program, no "
                    "Pallas)"),
+    "dc_assign": ("dipper_tpu_torch/csrc/dc_assign.cu",
+                  "dipper_tpu/dc/pipeline.py:57 (XLA program, no Pallas)"),
 }
 NRF_LIMIT = 0.35
 # nRF vs the true tree of the full-size sets (seed 1) in every smoke so
@@ -429,8 +453,19 @@ DC_NRF_LIMIT = 0.65
 # every DC_SAMPLE-th cluster of each per-cluster count launch of the D&C
 # main path is held against the plain version
 DC_SAMPLE = 16
-ALL_PHASES = (1, 2, 3, 6, 15, 7, 25, 19, 4, 17, 5, 16, 26, 9, 24, 10, 11, 12,
-              28, 14, 27, 13, 8, 18, 20, 21, 22, 23)
+# kernel 10's (csrc/dc_assign.cu) operations a row and valid slot: 10
+# differences and 10 maxima over the two witness lists, the clamp
+# sequence's 14, the compare with the running minimum
+ASSIGN_OPS_PER_PAIR = 35
+# its instances: (rows a block, staged) forced, None the plan's own
+ASSIGN_PLANS = [(None, None), (1, True), (2, True), (4, True), (8, True),
+                (8, False)]
+# the synthetic state at the 1M band's width (B = 50,000, E = 4B) and its
+# rows
+ASSIGN_WIDE_B = 50000
+ASSIGN_WIDE_ROWS = 256
+ALL_PHASES = (1, 2, 3, 6, 15, 7, 25, 19, 4, 17, 5, 16, 29, 26, 9, 24, 10, 11,
+              12, 28, 14, 27, 13, 8, 18, 20, 21, 22, 23)
 # -i m -m 3 (phase 28): the aligned set's first MSA_DC_N sequences on the
 # card, and its first MSA_DC_CPU_N on the card and on the CPU
 MSA_DC_N = 4096
@@ -466,6 +501,9 @@ PEAK_INT8_PER_S = 1979e12
 # x 128 lanes x 1.98 GHz, one operation a lane a clock (NJ's Q: two
 # subtractions and a compare an element)
 PEAK_F32_PER_S = 132 * 128 * 1.98e9
+# float64 alike: 64 lanes a multiprocessor (half the 67 TFLOP/s FP64
+# figure, which counts an FMA as two)
+PEAK_F64_PER_S = 132 * 64 * 1.98e9
 # NJ's kernel A is timed at these active counts (the main path's first
 # step, half of it, and phase 8's size)
 NJ_TIMED_N = (20000, 10000, 2048)
@@ -1965,7 +2003,7 @@ def _ms(pattern: str, text: str) -> float | None:
 
 def reset_counts() -> None:
     """Every kernel counter to 0 (just before a main path)."""
-    from dipper_tpu_torch.dc import cluster_cuda
+    from dipper_tpu_torch.dc import assign_cuda, cluster_cuda
     from dipper_tpu_torch.distance import mash_cuda
     from dipper_tpu_torch.nj import nj_cuda
     from dipper_tpu_torch.placement import exact_cuda, insert_cuda, kclosest
@@ -1973,6 +2011,7 @@ def reset_counts() -> None:
 
     cluster_cuda.STREAM_BLOCK_LAUNCHES = 0
     cluster_cuda.CLUSTER_BUILD_LAUNCHES = 0
+    assign_cuda.ASSIGN_LAUNCHES = 0
     mash_cuda.LAUNCHES = 0
     mash_cuda.ROWS_DIST_LAUNCHES = 0
     mash_cuda.CLUSTER_LAUNCHES = 0
@@ -1995,7 +2034,7 @@ def read_counts() -> dict:
     the BFS alone's; "nj_q_argmin.half_read" kernel A's launches in the
     half read; and the CUDA graphs of the cursor route captured and
     replayed."""
-    from dipper_tpu_torch.dc import cluster_cuda
+    from dipper_tpu_torch.dc import assign_cuda, cluster_cuda
     from dipper_tpu_torch.distance import mash_cuda
     from dipper_tpu_torch.nj import nj_cuda
     from dipper_tpu_torch.placement import exact_cuda, insert_cuda, kclosest
@@ -2017,7 +2056,8 @@ def read_counts() -> dict:
             "nj_update": nj_cuda.UPDATE_LAUNCHES,
             "dc_stream_block": cluster_cuda.STREAM_BLOCK_LAUNCHES,
             "dc_cluster_build": cluster_cuda.CLUSTER_BUILD_LAUNCHES,
-            "exact_step": exact_cuda.EXACT_STEP_LAUNCHES}
+            "exact_step": exact_cuda.EXACT_STEP_LAUNCHES,
+            "dc_assign": assign_cuda.ASSIGN_LAUNCHES}
 
 
 class SketchSampler:
@@ -3228,6 +3268,10 @@ def phase_msa_dc(tmp: str, fa: str, true_nwk: str, n: int) -> dict:
           f"{counts['dc_stream_block']} for {blocks} row blocks")
     check(levels == 0 and steps > 0, f"-i m -m 3: phase 3 synced the host "
           f"{levels} times in {steps} steps")
+    p2 = phase2_line(log)
+    check(counts["dc_assign"] == p2["chunks"] > 0 and p2["route"] == "kernel",
+          f"-i m -m 3: dc_assign {counts['dc_assign']} launches for "
+          f"{p2['chunks']} phase-2 chunks")
     nwk = open(out).read().strip()
     check(nwk.count(",") == n - 1, f"Newick has {nwk.count(',')} commas, "
           f"want {n - 1}")
@@ -3571,6 +3615,69 @@ class Phase3Recorder:
         self.cluster.build_streamed = self.build_streamed
 
 
+ASSIGN_FIELDS = ("e", "belong", "length", "rev", "cdis", "cid")
+
+
+class Phase2Recorder:
+    """Phase 2 of a D&C run recorded for phase 29: the backbone state's six
+    arrays (copied on the card at the first launch) and every kernel-10
+    launch's rows (copied on the card) and slots; and the phase's
+    launches (pipeline._phase2_assign, everything before its one copy to
+    the host) run under torch.cuda.set_sync_debug_mode("error"), so that a
+    host sync there raises (`synced` keeps its message). Nothing here
+    syncs the host."""
+
+    def __init__(self):
+        from dipper_tpu_torch.dc import assign_cuda, pipeline
+
+        self.mod, self.pipeline = assign_cuda, pipeline
+        self.assign, self.phase2 = assign_cuda.assign, pipeline._phase2_assign
+        self.state, self.launches, self.synced, self.windows = None, [], [], 0
+
+        def assign(st, rows, out=None, **kw):
+            got = self.assign(st, rows, out, **kw)
+            if self.state is None:
+                self.state = {f: getattr(st, f).clone()
+                              for f in ASSIGN_FIELDS}
+            self.launches.append({"rows": rows.clone(), "got": got.clone(),
+                                  "row_stride": rows.stride(0)})
+            return got
+
+        def phase2(*a, **kw):
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            self.windows += 1
+            try:
+                return self.phase2(*a, **kw)
+            except RuntimeError as e:
+                self.synced.append(str(e))
+                raise
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+
+        assign_cuda.assign = assign
+        pipeline._phase2_assign = phase2
+
+    def restore(self) -> None:
+        self.mod.assign = self.assign
+        self.pipeline._phase2_assign = self.phase2
+
+
+def phase2_line(log: str) -> dict:
+    """The D&C log's phase-2 line: chunks, rows a chunk, kernel-10
+    launches, host syncs and route."""
+    m = re.search(r"DC phase 2: chunks=(\d+) rows_per_chunk=(\d+) "
+                  r"kernel_launches=(\d+) host_syncs=(\d+) route=(\w+)", log)
+    check(m is not None, "no phase-2 line in the D&C log")
+    return {"chunks": int(m[1]), "rows_per_chunk": int(m[2]),
+            "kernel_launches": int(m[3]), "host_syncs": int(m[4]),
+            "route": m[5]}
+
+
+def assign_md5(log: str) -> str:
+    return re.search(r"\[assign (\w+)\]", log).group(1)
+
+
 def phase_dc_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
     """-m 3 through the CLI on the placement set (B = n // 20): every
     per-cluster count launch recorded and its every DC_SAMPLE-th cluster
@@ -3599,6 +3706,7 @@ def phase_dc_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
 
     mash_cuda.mash_cluster_inter_cuda = recorded
     sketches = SketchSampler()
+    phase2 = Phase2Recorder()
     phase3 = Phase3Recorder()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -3608,6 +3716,7 @@ def phase_dc_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
     finally:
         mash_cuda.mash_cluster_inter_cuda = kernel
         sketches.restore()
+        phase2.restore()
         phase3.restore()
     counts = read_counts()
     steps, levels = cluster.STEPS, cluster.BFS_LEVELS
@@ -3654,24 +3763,43 @@ def phase_dc_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
           f"{row_blocks} row blocks ({streamed} streamed members)")
     check(levels == 0 and steps > 0, f"phase 3 synced the host {levels} "
           f"times in {steps} steps")
+    # phase 2 on kernel 10: one launch a chunk, no host sync before its one
+    # copy to the host
+    p2 = phase2_line(log)
+    check(p2["route"] == "kernel" and counts["dc_assign"] == p2["chunks"]
+          == p2["kernel_launches"] == len(phase2.launches) > 0,
+          f"dc_assign launched {counts['dc_assign']} times for "
+          f"{p2['chunks']} phase-2 chunks ({len(phase2.launches)} recorded)")
+    check(phase2.windows == 1 and not phase2.synced
+          and p2["host_syncs"] == 1, f"phase 2 synced the host: "
+          f"{phase2.synced or p2}")
     rf, nrf = check_tree(open(out).read().strip(), n, true_nwk, DC_NRF_LIMIT)
     if n == 30000:
         check(nrf == DC_NRF_30K, f"D&C nRF {nrf}, every earlier smoke "
               f"{DC_NRF_30K}")
-    # the same run with phase 3 by its plain versions on the card
+    # the same run with phases 2 and 3 by their plain versions on the card
+    from dipper_tpu_torch.placement import kclosest
+
     plain_out = os.path.join(tmp, f"dc{n}.plain.nwk")
-    uses = cluster.uses_cluster_kernel, cluster.uses_stream_kernels
+    uses = (cluster.uses_cluster_kernel, cluster.uses_stream_kernels,
+            kclosest.uses_assign_kernel)
     cluster.uses_cluster_kernel = lambda Dq: False
     cluster.uses_stream_kernels = lambda st: False
+    kclosest.uses_assign_kernel = lambda st: False
     try:
         rc_p, log_p, wall_p = run_cli(["-i", "r", "-I", fa, "-O", plain_out,
                                        "-m", "3"])
     finally:
-        cluster.uses_cluster_kernel, cluster.uses_stream_kernels = uses
-    check(rc_p == 0, f"D&C CLI with phase 3's plain versions returned {rc_p}")
+        (cluster.uses_cluster_kernel, cluster.uses_stream_kernels,
+         kclosest.uses_assign_kernel) = uses
+    check(rc_p == 0, f"D&C CLI with phases 2 and 3 by their plain versions "
+          f"returned {rc_p}")
+    check(phase2_line(log_p)["route"] == "plain"
+          and assign_md5(log_p) == assign_md5(log),
+          "D&C: kernel 10 and its plain version give other assignments")
     check(open(plain_out).read() == open(out).read(),
-          "D&C: phase 3's kernels and their plain versions give other "
-          "Newick bytes")
+          "D&C: phases 2 and 3 on their kernels and on their plain versions "
+          "give other Newick bytes")
     checked, worst = [], 0
     for j, (ranks, wit, mem, S, got, ev) in enumerate(calls):
         want = cluster_inter_ref(ranks, wit[::DC_SAMPLE].contiguous(),
@@ -3699,19 +3827,23 @@ def phase_dc_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
                           "plain_ms": ev[0].elapsed_time(ev[1])},
                          cluster_bound(full, S))
     res = {"counts": counts, "largest_bucket": largest, "max_abs_err": worst,
-           "out": out, "phase3": phase3, **_dc_log(log)}
+           "out": out, "phase2": phase2, "phase3": phase3, **_dc_log(log)}
     plain = _dc_log(log_p)
     emit({"phase": "main_path", "path": "dc", "n": n, "backbone": B,
           "L": 10000, "k": 15, "s": 1000, "precision": "f32",
           **_dc_log(log), "total_wall_ms": wall * 1e3,
           "phase3_steps": steps, "phase3_bfs_levels": levels,
           "host_syncs_per_phase3_step": levels / max(steps, 1),
+          "phase2": {**p2, "assign_md5": assign_md5(log),
+                     "sync_debug_windows": phase2.windows},
           "phase3_chunks": chunks, "phase3_streamed_members": streamed,
           "phase3_row_blocks": row_blocks,
-          "phase3_plain_route": {"phases_ms": plain["phases_ms"],
-                                 "buckets": plain["buckets"],
-                                 "total_wall_ms": wall_p * 1e3,
-                                 "newick_identical": True},
+          "phases_2_3_plain_route": {"phases_ms": plain["phases_ms"],
+                                     "buckets": plain["buckets"],
+                                     "phase2": phase2_line(log_p),
+                                     "total_wall_ms": wall_p * 1e3,
+                                     "newick_identical": True,
+                                     "assign_identical": True},
           "kernel_launches": counts, "mash_cluster_inter_calls": checked,
           "sketch_launches_checked": sketch_checked,
           "largest_bucket_launch": largest, "max_memory_allocated": peak,
@@ -3750,6 +3882,162 @@ def phase_dc_gpu_vs_cpu(tmp: str, n: int = 600) -> None:
     emit({"phase": "dc_gpu_vs_cpu", "n": n, "backbone": n // 20,
           "knobs": knobs, "newick_identical": True, "wall_s": walls,
           "buckets": _dc_log(logs["cuda"])["buckets"]})
+
+
+def assign_bound(st, rows) -> dict:
+    """Kernel 10's bound on one chunk: the rows, the state and the slots
+    once at the memory rate (the state is read from L2 again by every
+    block; counted once), or ASSIGN_OPS_PER_PAIR operations for each row
+    and valid slot of this state at the float rate of the rows' type."""
+    from dipper_tpu_torch.placement.kclosest import K
+
+    Q, W = rows.shape
+    item = rows.element_size()
+    E = st.e.shape[0]
+    valid = int((st.belong > st.e).sum())
+    nbytes = Q * W * item + E * (K * (4 + item) + 3 * 4 + item) + Q * 8
+    rate = PEAK_F64_PER_S if item == 8 else PEAK_F32_PER_S
+    return {**bound_of(Q * valid * ASSIGN_OPS_PER_PAIR, nbytes, rate),
+            "valid_slots": valid}
+
+
+def assign_times(st, rows, reps: int = 5) -> dict:
+    """Kernel 10 on one chunk, the card's time of each of `reps` launches
+    queued behind a device sleep (median), after a launch that loads it;
+    the plain version's (median of 3, a reference only: no single PyTorch
+    call computes this function); the bound and the share of it."""
+    from dipper_tpu_torch.dc import assign_cuda
+    from dipper_tpu_torch.placement import kclosest as tk
+
+    out = assign_cuda.assign(st, rows)
+    kernel = queued_each_ms([lambda: assign_cuda.assign(st, rows, out)
+                             for _ in range(reps)])
+    plain = queued_each_ms([lambda: tk.score_edges_rows_plain(st, rows)
+                            for _ in range(3)])
+    plan = assign_cuda.plan(rows.shape[1], rows.dtype)
+    rec = {"rows": rows.shape[0], "width": rows.shape[1],
+           "slots": st.e.shape[0], "row_stride": rows.stride(0),
+           "precision": "f64" if rows.dtype == torch.float64 else "f32",
+           "plan": {"rows_per_block": plan[0], "staged": plan[1],
+                    "threads": plan[2], "smem": plan[3]},
+           "ms": _median(kernel), "ms_runs": kernel,
+           "plain_ms": _median(plain), "library_ms": None}
+    return with_share(rec, assign_bound(st, rows))
+
+
+def _assign_state(arrays: dict):
+    from dipper_tpu_torch.placement import kclosest as tk
+
+    return tk.TreeState(**arrays, idx=0)
+
+
+def _assign_every_plan(st, rows, tag: str) -> int:
+    """Kernel 10 under its plan and every forced instance against the
+    plain version on the card, bit for bit; returns the launches."""
+    from dipper_tpu_torch.dc import assign_cuda
+    from dipper_tpu_torch.placement import kclosest as tk
+
+    from dipper_tpu_torch.dc.assign_model import STAGED_ONE_ROW
+
+    want = tk.score_edges_rows_plain(st, rows)
+    W = rows.shape[1]
+    item = rows.element_size()
+    launches = 0
+    for r, staged in ASSIGN_PLANS:
+        if staged and r * W * item > STAGED_ONE_ROW:
+            continue
+        got = assign_cuda.assign(st, rows, rows_per_block=r, staged=staged)
+        check(torch.equal(got, want), f"kernel 10 != plain on {tag} "
+              f"(rows a block {r}, staged {staged}): "
+              f"{int((got != want).sum())} rows differ")
+        launches += 1
+    return launches
+
+
+def phase_dc_assign_vs_plain(rec: Phase2Recorder) -> dict:
+    """Kernel 10 (csrc/dc_assign.cu) against score_edges_rows_plain on the
+    card, bit for bit: the scorer's made-up states in f32 and f64 (ties,
+    every valid score above 2.0, NaN and +inf in rows, four edges, unused
+    tails) on 13 rows, contiguous and strided, under every instance;
+    every chunk of phase 16's real phase-2 rows (D&C 30K's backbone state,
+    every row) and its slots from the run; those rows as the matrix
+    frontend hands them over (a view of wider rows); a synthetic state
+    at the 1M band's width (B = 50,000, E = 200,000, 256 rows) in f32 (one
+    row staged a block) and f64 (rows read from device memory). Each timed
+    (assign_times) beside its bound and the plain version."""
+    from dipper_tpu_torch.dc import assign_cuda
+    from dipper_tpu_torch.placement import kclosest as tk
+    from dipper_tpu_torch.placement import score_model as sm
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(29)
+    out = {"made_up": {}}
+    launches = 0
+    for dtype in ("float32", "float64"):
+        for name, d, row, _ in sm.made_up_cases(dtype, seed=29):
+            st = _assign_state({f: torch.from_numpy(np.array(d[f])).to(dev)
+                                for f in ASSIGN_FIELDS})
+            rows_h = np.stack([row] + [rng.permutation(row)
+                                       for _ in range(11)]
+                              + [np.full_like(row, row[0])])
+            wide = torch.from_numpy(np.concatenate(
+                [rows_h, rng.random((13, 5)).astype(dtype)], axis=1)).to(dev)
+            rows = torch.from_numpy(rows_h).to(dev)
+            for r, tag in ((rows, "contiguous"),
+                           (wide[:, :rows_h.shape[1]], "strided")):
+                launches += _assign_every_plan(st, r, f"{name} {dtype} {tag}")
+            out["made_up"][f"{name}/{dtype}"] = {
+                "slots": int(d["e"].shape[0]), "rows": 13}
+    # D&C 30K's backbone and its real rows, every chunk and row
+    check(rec.state is not None and rec.launches,
+          "phase 16 recorded no kernel-10 launch")
+    st = _assign_state(rec.state)
+    rows_checked = 0
+    for j, c in enumerate(rec.launches):
+        want = tk.score_edges_rows_plain(st, c["rows"])
+        check(torch.equal(c["got"], want), f"D&C phase-2 chunk {j}: the "
+              f"run's slots != plain ({int((c['got'] != want).sum())} rows)")
+        check(torch.equal(assign_cuda.assign(st, c["rows"]), want),
+              f"D&C phase-2 chunk {j}: kernel 10 again != plain")
+        rows_checked += c["rows"].shape[0]
+        launches += 1
+    big = max(rec.launches, key=lambda c: c["rows"].shape[0])["rows"]
+    out["dc_chunk"] = assign_times(st, big)
+    # every chunk once more, queued, for the phase's kernel time
+    outs = [torch.empty(c["rows"].shape[0], dtype=torch.int64, device=dev)
+            for c in rec.launches]
+    each = queued_each_ms([lambda c=c, o=o: assign_cuda.assign(
+        st, c["rows"], o) for c, o in zip(rec.launches, outs)])
+    out["dc_phase2"] = {"chunks": len(rec.launches), "rows": rows_checked,
+                        "kernel_ms_sum": sum(each), "kernel_ms": each,
+                        "bound_ms_sum": sum(
+                            assign_bound(st, c["rows"])["bound_ms"]
+                            for c in rec.launches)}
+    # the matrix frontend's rows: a view of an [N, N] matrix's rows
+    Q, B = big.shape
+    mat = torch.zeros((Q, 20 * B), dtype=big.dtype, device=dev)
+    mat[:, :B] = big
+    view = mat[:, :B]
+    launches += _assign_every_plan(st, view, "the strided D&C chunk")
+    out["matrix_strided"] = assign_times(st, view)
+    del mat, view
+    # the 1M band's width
+    for dtype in ("float32", "float64"):
+        d = sm.made_up_state(2 * ASSIGN_WIDE_B - 2, 4 * ASSIGN_WIDE_B,
+                             ASSIGN_WIDE_B, dtype, rng, bare=False)
+        st_w = _assign_state({f: torch.from_numpy(np.array(d[f])).to(dev)
+                              for f in ASSIGN_FIELDS})
+        rows_h = rng.random((ASSIGN_WIDE_ROWS, ASSIGN_WIDE_B)).astype(dtype)
+        rows_h[7, ::101] = np.nan
+        rows_w = torch.from_numpy(rows_h).to(dev)
+        launches += _assign_every_plan(st_w, rows_w, f"B = 50,000 {dtype}")
+        out[f"b50000_{dtype}"] = assign_times(st_w, rows_w)
+        del st_w, rows_w
+    torch.cuda.synchronize()
+    emit({"phase": "kernel_vs_plain", "kernel": "dc_assign",
+          "launches_compared": launches, "dc_rows_compared": rows_checked,
+          "max_abs_err": 0, **out})
+    return out
 
 
 def _bits_diff(got: dict, want, fields) -> list:
@@ -5149,6 +5437,10 @@ def phase_dc_two_ranks(tmp: str, n: int, fa: str, dc: dict) -> dict:
             check(c[name] > 0, f"D&C rank {r} launched no {name} kernel")
         check(c["score_edges"] == B - 2, f"D&C rank {r}: score_edges "
               f"{c['score_edges']} launches for {B - 2} backbone insertions")
+        p2 = phase2_line(got["log"])
+        check(c["dc_assign"] == p2["chunks"] > 0 and p2["route"] == "kernel",
+              f"D&C rank {r}: dc_assign {c['dc_assign']} launches for its "
+              f"{p2['chunks']} phase-2 chunks")
         _check_samples("dc2", r, got["samples"],
                        ("mash_merge_count", "mash_rows_dist",
                         "mash_cluster_inter", "score_edges", "insert_step"))
@@ -5878,9 +6170,23 @@ def main() -> int:
                                               big["W"]],
                       **{k: big[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "share_of_bound")})
-            for name in ("dc_stream_block", "dc_cluster_build"):
+            for name in ("dc_stream_block", "dc_cluster_build",
+                         "dc_assign"):
                 records[name].update(launches=res["counts"][name],
                                      library_ms=None)
+        if 29 in phases:
+            check(16 in phases, "phase 29 checks phase 16's recorded "
+                  "phase 2")
+            res = phase_dc_assign_vs_plain(dc_single.pop("phase2"))
+            big = res["dc_chunk"]
+            records["dc_assign"].update(
+                max_abs_err=0.0, library_ms=None, dc_phase2=res["dc_phase2"],
+                matrix_strided=res["matrix_strided"],
+                b50000={k: res[f"b50000_{k}"] for k in ("float32",
+                                                         "float64")},
+                **{k: big[k] for k in ("rows", "width", "plan", "ms",
+                                       "plain_ms", "bound_ms", "bound_by",
+                                       "share_of_bound")})
         if 26 in phases:
             check(16 in phases, "phase 26 checks phase 16's recorded "
                   "launches")

@@ -36,6 +36,7 @@ KERNELS = {
     "dc_stream_block": "dc_stream_block.cu",
     "dc_cluster_build": "dc_cluster_build.cu",
     "exact_step": "exact_step.cu",
+    "dc_assign": "dc_assign.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -12,8 +12,12 @@ src/divide_and_conquer/placement_close_k.cu):
   N + B - 1 + prefix[c] + k, and its edges follow slot 4B - 4.
 
 PyTorch design. Phase 1 is placement/kclosest.py's build. Phase 2 scores
-blocks of [Q, B] distance rows at once with `score_edges_rows` (tensor
-code), Q sized from a byte budget. Phase 3 sorts the clusters by size
+chunks of [Q, B] distance rows at once with `score_edges_rows`: on the card
+one launch of csrc/dc_assign.cu (kernel 10) a chunk, Q sized from the
+rows' bytes, each chunk's slots written into one device buffer that is
+copied to the host once, after the last chunk (no host sync in between);
+on the CPU its plain version, Q sized from the bytes of its [Q, E, K]
+witness gather. Phase 3 sorts the clusters by size
 into pow2 buckets (which bound the padding) and builds each bucket's
 clusters together, PHASE3_BUDGET // cmax_b at a time, from one [c, cmax_b,
 W] distance tensor: for mash the per-cluster count kernel
@@ -29,8 +33,9 @@ as in the JAX package.
 
 Sharded (mesh, parallel/sharded.py; the JAX package's _shard_batch over
 the same two phases): phase 1 runs on every rank alike. In phase 2 each
-rank scores a contiguous share of each chunk's queries and the cluster
-ids are all-gathered. In phase 3 each rank takes a contiguous share of
+rank scores one contiguous share of all the queries, chunk by chunk, and
+the cluster ids are all-gathered once (a row's slot does not depend on its
+chunk). In phase 3 each rank takes a contiguous share of
 each size bucket's clusters, batched or streamed (streamed clusters are
 dealt out whole), builds them, and the buckets' edge arrays are
 all-gathered in cluster order; assembly runs on every rank, so every rank
@@ -54,8 +59,9 @@ from dipper_tpu_torch.utils.device import synchronize, torch_dtype
 from dipper_tpu_torch.utils.params import Param
 
 # Memory budgets (tests shrink them to force the multi-chunk paths):
-# queries per phase-2 block at most, and bytes of one block's [Q, E, K]
-# witness gather; cluster members (clusters x cmax_b) per phase-3 build;
+# queries per phase-2 chunk at most, and bytes of one chunk's [Q, B] rows
+# on the card (kernel 10) or of its [Q, E, K] witness gather on the CPU
+# (the plain version); cluster members (clusters x cmax_b) per phase-3 build;
 # members from which a cluster builds alone with streamed rows (bounds
 # the quadratic [cmax, W] distance tensor), and its rows per block.
 PHASE2_CHUNK = 4096
@@ -122,7 +128,10 @@ def _phase2_rows(frontend, payload, bb_args, params: Param, q0: int,
                              dtype_name=params.dtype)
     from dipper_tpu_torch.distance.msa import msa_tiled_block, nongap_counts
 
-    codes_q = torch.from_numpy(payload[q0:q1]).to(device)
+    codes_q = torch.from_numpy(payload[q0:q1])
+    if torch.device(device).type == "cuda":
+        # staged through pinned memory: an upload without a host sync
+        codes_q = codes_q.pin_memory().to(device, non_blocking=True)
     return msa_tiled_block(codes_q, nongap_counts(codes_q, params.dtype),
                            *bb_args, distance_type=params.distance_type,
                            dtype_name=params.dtype)
@@ -197,6 +206,43 @@ def _stream_block_fn(frontend, payload, params: Param, wit, mem, device):
         distance_type=params.distance_type, dtype_name=params.dtype)
 
 
+def _assign_launches() -> int:
+    """This process's launches of phase 2's kernel 10."""
+    from dipper_tpu_torch.dc import assign_cuda
+
+    return assign_cuda.ASSIGN_LAUNCHES
+
+
+def _phase2_chunk(state, B: int) -> int:
+    """Queries of one phase-2 chunk: PHASE2_CHUNK at most, and within
+    PHASE2_BYTES of [Q, B] rows for kernel 10 or of the plain version's
+    [Q, E, K] witness gather."""
+    item = state.length.element_size()
+    per_row = (B * item if kclosest.uses_assign_kernel(state)
+               else state.e.shape[0] * K * item)
+    return max(1, min(PHASE2_CHUNK, PHASE2_BYTES // per_row))
+
+
+def _phase2_assign(state, frontend, payload, bb_args, params: Param, N: int,
+                   device, mesh=None) -> tuple:
+    """Phase 2's launches: the chosen backbone slot of each of this
+    process's queries (all of B..N-1, or this rank's contiguous share of
+    them), chunk by chunk, into one int64 tensor on `device`, with no host
+    sync (on the card). Returns (the slots, queries a chunk, chunks)."""
+    B = params.backbone_size
+    lo, hi = (0, N - B) if mesh is None else mesh.share(N - B)
+    chunk = _phase2_chunk(state, B)
+    ids = torch.empty((hi - lo,), dtype=torch.int64, device=device)
+    chunks = 0
+    for a in range(B + lo, B + hi, chunk):
+        b = min(B + hi, a + chunk)
+        rows = _phase2_rows(frontend, payload, bb_args, params, a, b, device)
+        kclosest.score_edges_rows(state, rows,
+                                  out=ids[a - B - lo:b - B - lo])
+        chunks += 1
+    return ids, chunk, chunks
+
+
 def _phase3_kernel_launches() -> int:
     """This process's launches of phase 3's build kernels: 8b (a batched
     chunk) and 8a (a streamed cluster's row block)."""
@@ -267,25 +313,20 @@ def build_dc_tree(seqs, names, params: Param, matrix=None, *, device,
     synchronize(device)
     log(f"DC phase 1 in: {int((time.time() - t) * 1000)} ms")
 
-    # ---- Phase 2: cluster assignment, [Q, B] row blocks scored at once
+    # ---- Phase 2: cluster assignment, [Q, B] row chunks scored at once
     log("DC phase 2: cluster assignment")
     t = time.time()
     cluster_id = np.empty(N, dtype=np.int64)
-    E = state.e.shape[0]
-    per_row = E * K * torch.empty((), dtype=dtype).element_size()
-    chunk = max(1, min(PHASE2_CHUNK, PHASE2_BYTES // per_row))
-    for q0 in range(B, N, chunk):
-        q1 = min(N, q0 + chunk)
-        a, b = q0, q1
-        if mesh is not None:    # this rank's share of the chunk
-            lo, hi = mesh.share(q1 - q0)
-            a, b = q0 + lo, q0 + hi
-        ids = np.empty(0, dtype=np.int64)
-        if b > a:
-            rows = _phase2_rows(frontend, payload, bb_args, params, a, b,
-                                device)
-            ids = kclosest.score_edges_rows(state, rows).cpu().numpy()
-        cluster_id[q0:q1] = ids if mesh is None else mesh.all_gather_host(ids)
+    launches0 = _assign_launches()
+    ids, chunk, chunks = _phase2_assign(state, frontend, payload, bb_args,
+                                        params, N, device, mesh)
+    ids = ids.cpu().numpy()  # the phase's one copy to the host
+    cluster_id[B:N] = ids if mesh is None else mesh.all_gather_host(ids)
+    on_card = torch.device(device).type == "cuda"
+    log(f"DC phase 2: chunks={chunks} rows_per_chunk={chunk} "
+        f"kernel_launches={_assign_launches() - launches0} "
+        f"host_syncs={int(on_card)} "
+        f"route={'kernel' if kclosest.uses_assign_kernel(state) else 'plain'}")
     log(f"DC phase 2 in: {int((time.time() - t) * 1000)} ms "
         f"[assign {hashlib.md5(cluster_id[B:N].tobytes()).hexdigest()[:10]}]")
     t = time.time()

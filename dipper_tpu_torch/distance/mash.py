@@ -254,7 +254,13 @@ def inter_to_dist(inter: torch.Tensor, k: int, sketch_size: int,
 
 def _dist_table_on(device: torch.device, k: int, sketch_size: int,
                    dtype_name: str) -> torch.Tensor:
-    return torch.from_numpy(_dist_table(k, sketch_size, dtype_name)).to(device)
+    """The distance table on `device`; to the card through pinned memory,
+    an upload without a host sync (D&C's phase 2 uploads it every
+    chunk)."""
+    table = torch.from_numpy(_dist_table(k, sketch_size, dtype_name))
+    if torch.device(device).type == "cuda":
+        return table.pin_memory().to(device, non_blocking=True)
+    return table.to(device)
 
 
 def _bitonic_merge(keys: torch.Tensor) -> torch.Tensor:

@@ -39,9 +39,11 @@ the range. The same kernel's BFS alone seeds states
 the compact and dense BFS, insertion_step) is the plain version: the CPU
 path and the kernel's yardstick; its compact BFS sizes each level with
 `nonzero`, a host sync a level. csrc/side_vector.cu is the scorer's side
-vector on its own. The float operations and their order are the
-reference's, so trees are bitwise equal to the JAX package's on the same
-rows.
+vector on its own. D&C's phase 2 scores many rows on one state
+(`score_edges_rows`): on the card one launch of csrc/dc_assign.cu
+(dc/assign_cuda.py) a chunk, `score_edges_rows_plain` its plain version.
+The float operations and their order are the reference's, so trees are
+bitwise equal to the JAX package's on the same rows.
 """
 
 from __future__ import annotations
@@ -421,17 +423,42 @@ def _score_edges_plain(st: TreeState, dist_row, lo: int = 0,
     return eid, x, y, ye, frac, add
 
 
-def score_edges_rows(st: TreeState, rows: torch.Tensor) -> torch.Tensor:
-    """The chosen edge of each of many rows on one state, the tree
-    untouched (D&C's phase 2): rows [Q, cap] -> int64 eid [Q], on the
-    rows' device, equal to score_edges' eid row by row (the same
-    elementwise operations; ties -> lowest eid). Tensor code over the
-    [Q, E, K] witness gather; callers bound Q."""
+def score_edges_rows_plain(st: TreeState, rows: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of csrc/dc_assign.cu (kernel 10): the
+    chosen edge of each of many rows on one state, the tree untouched
+    (D&C's phase 2): rows [Q, cap] -> int64 eid [Q], on the rows' device,
+    equal to score_edges' eid row by row (the same elementwise operations;
+    ties -> lowest eid). Tensor code over the [Q, E, K] witness gather;
+    callers bound Q."""
     dv = torch.where(st.cid != -1, rows[:, st.cid.clamp(min=0)] - st.cdis,
                      float("-inf"))
     side = dv.amax(dim=-1).clamp(min=0.0)                # [Q, E]
     addi, _ = clamp_sequence(side, side[:, st.rev], st.length)
     return torch.argmin(torch.where(st.belong > st.e, addi, SENT_DIS), dim=1)
+
+
+def uses_assign_kernel(st: TreeState) -> bool:
+    """Whether D&C's phase 2 scores on kernel 10: the state is on the
+    card."""
+    return st.e.device.type == "cuda"
+
+
+def score_edges_rows(st: TreeState, rows: torch.Tensor,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """`score_edges_rows_plain` on the state's device: for a state on the
+    card, one launch of kernel 10 (dc/assign_cuda.py, which raises on a
+    failed build or launch), writing into `out` (int64 [Q]) if given, with
+    no host sync; for a CPU state the plain version. Returns the int64
+    [Q] slots."""
+    if uses_assign_kernel(st):
+        from dipper_tpu_torch.dc import assign_cuda
+
+        return assign_cuda.assign(st, rows, out)
+    got = score_edges_rows_plain(st, rows)
+    if out is None:
+        return got
+    out.copy_(got)
+    return out
 
 
 # most blocks of one score_edges launch (4 on each of an H100's 132

@@ -18,7 +18,12 @@ Prints JSON lines: the dataset, the run (phase times, clusters, buckets,
 phase 3's kernel launches (csrc/dc_cluster_build.cu a batched chunk,
 csrc/dc_stream_block.cu a streamed cluster's row block) beside the log's
 chunks and row blocks, its steps and host syncs, nRF vs
-the true tree), and the kernel's
+the true tree; phase 2 split into its rows (dc/pipeline.py::_phase2_rows:
+kernel 2 for mash) and its scorer (kclosest.score_edges_rows: kernel 10,
+csrc/dc_assign.cu), each the sum over the phase's chunks of the time
+between two CUDA events recorded around the call in the run and read
+after the run, with the phase-2 log line's chunks, launches and host
+syncs), and the kernel's
 launches (the total, the widest bucket's, the sums of both times beside
 the sum of bounds). The card's name and power limit go first. Needs
 CUDA.
@@ -29,8 +34,9 @@ compares this checkout with an earlier one (`git archive <commit>`
 unpacked at build/parent) on one card instead: the CLI with -m 3 on the
 same set in child processes, in turns parent, this, this, parent, each
 checkout's kernels and host libraries built before the first turn;
-a JSON line a turn (phase times, wall seconds, nRF vs the true tree,
-whether its Newick equals the first turn's).
+a JSON line a turn (phase times, phase 2's rows and scorer split as
+above, wall seconds, nRF vs the true tree, whether its Newick equals the
+first turn's). Each child runs the CLI through PHASE2_CHILD.
 """
 
 from __future__ import annotations
@@ -52,6 +58,72 @@ sys.path.insert(0, REPO)
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+# Times phase 2's two calls by the names that this checkout and earlier
+# ones share (dc/pipeline.py::_phase2_rows, kclosest.score_edges_rows):
+# CUDA events around each call in the run; after the run (synchronized),
+# summary() gives each call's summed ms and count, restore() puts the
+# calls back. Run by exec, in this process or in a child of another
+# checkout (PHASE2_CHILD).
+PHASE2_TIMERS = r"""
+import torch
+from dipper_tpu_torch.dc import pipeline
+from dipper_tpu_torch.placement import kclosest
+
+events = {"rows": [], "scorer": []}
+calls = pipeline._phase2_rows, kclosest.score_edges_rows
+
+
+def timed(key, fn):
+    def run(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn(*a, **kw)
+        ev[1].record()
+        events[key].append(ev)
+        return out
+    return run
+
+
+def summary():
+    return {**{f"phase2_{k}_ms": sum(a.elapsed_time(b) for a, b in v)
+               for k, v in events.items()},
+            **{f"phase2_{k}_calls": len(v) for k, v in events.items()}}
+
+
+def restore():
+    pipeline._phase2_rows, kclosest.score_edges_rows = calls
+
+
+pipeline._phase2_rows = timed("rows", calls[0])
+kclosest.score_edges_rows = timed("scorer", calls[1])
+"""
+
+# Runs the CLI (arguments after the script) with PHASE2_TIMERS; prints one
+# JSON line: the CLI's return code and the timers' summary
+PHASE2_CHILD = PHASE2_TIMERS + r"""
+import json, sys
+from dipper_tpu_torch.cli import main
+
+rc = main(sys.argv[1:])
+torch.cuda.synchronize()
+print(json.dumps({"rc": rc, **summary()}))
+"""
+
+
+def phase2_split(log: str, child: dict) -> dict:
+    """Phase 2's rows and scorer times (PHASE2_CHILD's line) and, where
+    the log has it, its phase-2 line (chunks, kernel-10 launches, host
+    syncs)."""
+    rec = {k: v for k, v in child.items() if k.startswith("phase2_")}
+    m = re.search(r"DC phase 2: chunks=(\d+) rows_per_chunk=(\d+) "
+                  r"kernel_launches=(\d+) host_syncs=(\d+) route=(\w+)", log)
+    if m:
+        rec.update(phase2_chunks=int(m[1]), phase2_rows_per_chunk=int(m[2]),
+                   phase2_kernel_launches=int(m[3]),
+                   phase2_host_syncs=int(m[4]), phase2_route=m[5])
+    return rec
 
 
 def main() -> int:
@@ -100,6 +172,8 @@ def main() -> int:
             return got
 
         mash_cuda.mash_cluster_inter_cuda = recorded
+        timers: dict = {}
+        exec(PHASE2_TIMERS, timers)
         cs.reset_counts()
         cluster.STEPS = cluster.BFS_LEVELS = 0
         out = os.path.join(out_dir, f"dc{args.n}.nwk")
@@ -108,6 +182,7 @@ def main() -> int:
                                         "-m", "3"])
         finally:
             mash_cuda.mash_cluster_inter_cuda = kernel
+            timers["restore"]()
         counts = cs.read_counts()
         with open(os.path.join(out_dir, f"dc{args.n}.log"), "w") as f:
             f.write(log)
@@ -141,8 +216,10 @@ def main() -> int:
                              "kernel_ms": kernel_ms,
                              "bound_ms": b["bound_ms"],
                              "bound_by": b["bound_by"]})
+        split = phase2_split(log, timers["summary"]())
         emit({"run": {"n": args.n, "backbone": args.n // 20,
-                      **cs._dc_log(log), "total_wall_ms": wall * 1e3,
+                      **cs._dc_log(log), **split,
+                      "total_wall_ms": wall * 1e3,
                       "phase3_steps": cluster.STEPS,
                       "phase3_bfs_levels": cluster.BFS_LEVELS,
                       "host_syncs_per_phase3_step":
@@ -183,8 +260,8 @@ def turns(parent: str, fa: str, true_nwk: str, out_dir: str, n: int) -> int:
         out = os.path.join(out_dir, f"dc{n}.{who}.{i}.nwk")
         t0 = time.time()
         run = subprocess.run(
-            [sys.executable, "-m", "dipper_tpu_torch.cli", "-i", "r", "-I",
-             fa, "-O", out, "-m", "3"], cwd=root,
+            [sys.executable, "-c", PHASE2_CHILD, "-i", "r", "-I", fa, "-O",
+             out, "-m", "3"], cwd=root,
             env=dict(os.environ, PYTHONPATH=root), capture_output=True,
             text=True, timeout=1800)
         wall = time.time() - t0
@@ -197,8 +274,10 @@ def turns(parent: str, fa: str, true_nwk: str, out_dir: str, n: int) -> int:
         nwk = open(out).read()
         first = first if i else nwk
         rf, nrf = rf_distance(nwk, open(true_nwk).read())
+        child = json.loads(run.stdout.strip().splitlines()[-1])
         emit({"turn": i, "checkout": who, "n": n,
-              **cs._dc_log(run.stderr), "process_wall_s": wall, "rf": rf,
+              **cs._dc_log(run.stderr), **phase2_split(run.stderr, child),
+              "process_wall_s": wall, "rf": rf,
               "nrf_vs_true": nrf, "newick_equal_to_turn_0": nwk == first})
     return 0
 

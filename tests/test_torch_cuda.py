@@ -21,6 +21,7 @@ from dipper_tpu_torch.distance import mash as tm
 from dipper_tpu_torch.distance import mash_cuda
 from dipper_tpu_torch.nj import neighbor_joining, nj_tree_newick
 from dipper_tpu_torch.csrc import build as kernel_build
+from dipper_tpu_torch.dc import assign_cuda
 from dipper_tpu_torch.placement import kclosest as tk
 from dipper_tpu_torch.placement import score_model as sm
 from dipper_tpu_torch.sketch.native import sketch_sequences_native
@@ -1243,27 +1244,138 @@ def test_dc_cuda_equals_cpu(cuda, frontend, monkeypatch):
             D, names, p, device=dev, log=lambda m: None)
     want = run(torch.device("cpu"))
     before = mash_cuda.CLUSTER_LAUNCHES
+    assigned = assign_cuda.ASSIGN_LAUNCHES
     got = run(cuda)
     assert got == want
     assert (mash_cuda.CLUSTER_LAUNCHES > before) == (frontend == "mash")
+    # phase 2: 285 queries, one chunk, one kernel-10 launch
+    assert assign_cuda.ASSIGN_LAUNCHES == assigned + 1
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_score_edges_rows_cuda_equals_kernel_loop(cuda, dtype):
-    """D&C's phase-2 scorer (tensor code over [Q, B] rows) on the card:
-    the eids of the scorer kernel called row by row, and of the plain
-    scorer on the CPU."""
+    """D&C's phase-2 scorer on the card by kernel 10 (csrc/dc_assign.cu),
+    called by its wrapper and through score_edges_rows, one launch each:
+    the eids of the scorer kernel called row by row, of the plain version
+    on the card and of the plain scorer on the CPU."""
     r = torch.from_numpy(_ranks(200, 2000, 6, 12, 100))
     kw = dict(num_sequences=150, frontend="mash", frontend_static=(12, 100),
               dtype_name=dtype)
     st = tk.run_placement_full((r[:150].to(cuda),), **kw)
     rows = tm.mash_pairwise(r[:150].to(cuda), r[150:].to(cuda), k=12,
                             sketch_size=100, dtype_name=dtype)
-    got = tk.score_edges_rows(st, rows)
     want = [tk.score_edges(st, rows[i])[0] for i in range(rows.shape[0])]
-    assert got.tolist() == want
+    before = assign_cuda.ASSIGN_LAUNCHES
+    assert assign_cuda.assign(st, rows).tolist() == want
+    assert tk.uses_assign_kernel(st)
+    assert tk.score_edges_rows(st, rows).tolist() == want
+    assert assign_cuda.ASSIGN_LAUNCHES == before + 2
+    assert tk.score_edges_rows_plain(st, rows).tolist() == want
     cpu = tk.tree_state_from_numpy(tk.tree_state_to_numpy(st), "cpu")
     assert tk.score_edges_rows(cpu, rows.cpu()).tolist() == want
+
+
+ASSIGN_FIELDS = ("e", "belong", "length", "rev", "cdis", "cid")
+# every instance of kernel 10: rows a block, staged or read from device
+# memory (None: the kernel's plan)
+ASSIGN_PLANS = [(None, None), (1, True), (2, True), (4, True), (8, True),
+                (8, False)]
+
+
+def _assign_all_plans(st, rows, want, tag):
+    """Kernel 10 under its plan and every forced instance whose staged
+    rows fit a block's shared memory (225 KB, the kernel's limit)."""
+    from dipper_tpu_torch.dc import assign_cuda
+    from dipper_tpu_torch.dc import assign_model as am
+
+    for R, staged in ASSIGN_PLANS:
+        if staged and R * rows.shape[1] * rows.element_size() \
+                > am.STAGED_ONE_ROW:
+            with pytest.raises(RuntimeError, match="invalid argument"):
+                assign_cuda.assign(st, rows, rows_per_block=R, staged=True)
+            continue
+        before = assign_cuda.ASSIGN_LAUNCHES
+        got = assign_cuda.assign(st, rows, rows_per_block=R, staged=staged)
+        torch.cuda.synchronize()
+        assert assign_cuda.ASSIGN_LAUNCHES == before + 1
+        assert got.dtype == torch.int64
+        assert torch.equal(got, want), (tag, R, staged)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_assign_kernel_equals_plain_and_model(cuda, dtype):
+    """Kernel 10 against score_edges_rows_plain on the card and
+    dc/assign_model.py, bit for bit, under its plan and every forced
+    instance: the scorer's made-up states (ties between two valid edges,
+    every valid score above 2.0, NaN and +inf in rows, four edges, unused
+    tails; E ragged against the block's 256 threads), 13 rows (ragged
+    against every plan's rows a block), contiguous and as a strided view
+    of wider rows."""
+    from dipper_tpu_torch.dc import assign_model as am
+
+    rng = np.random.default_rng(5)
+    for name, d, row, _ in sm.made_up_cases(dtype):
+        st = tk.tree_state_from_numpy(
+            {k: v for k, v in d.items() if v is not None}, cuda)
+        rows_h = np.stack([row] + [rng.permutation(row) for _ in range(11)]
+                          + [np.full_like(row, row[0])])
+        wide_h = np.concatenate(
+            [rows_h, rng.random((13, 5)).astype(dtype)], axis=1)
+        rows = torch.from_numpy(rows_h).to(cuda)
+        strided = torch.from_numpy(wide_h).to(cuda)[:, :rows_h.shape[1]]
+        want = tk.score_edges_rows_plain(st, rows)
+        model = am.assign({f: d[f] for f in ASSIGN_FIELDS}, rows_h)
+        assert want.tolist() == model.tolist(), name
+        for r, tag in ((rows, "contiguous"), (strided, "strided")):
+            _assign_all_plans(st, r, want, f"{name} {tag}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_assign_kernel_wide_rows(cuda, dtype):
+    """Rows of 30,000 entries (f64: read from device memory; f32: staged
+    one a block) and 9 rows on a made-up state of 4,100 slots (3,999 used,
+    the witnesses spread over the row): the kernel under its plan and
+    every forced instance equals the plain version and the model; the
+    kernel's plan is the model's."""
+    from dipper_tpu_torch.dc import assign_cuda
+    from dipper_tpu_torch.dc import assign_model as am
+
+    rng = np.random.default_rng(8)
+    d = sm.made_up_state(2000, 4100, 30000, dtype, rng)
+    st = tk.tree_state_from_numpy(d, cuda)
+    rows_h = rng.random((9, 30000)).astype(dtype)
+    rows_h[3, ::97] = np.nan
+    rows = torch.from_numpy(rows_h).to(cuda)
+    want = tk.score_edges_rows_plain(st, rows)
+    assert want.tolist() == am.assign(
+        {f: d[f] for f in ASSIGN_FIELDS}, rows_h).tolist()
+    _assign_all_plans(st, rows, want, "wide")
+    for width in (1500, 5000, 12288, 28800, 28801, 50000):
+        for dt in (torch.float32, torch.float64):
+            plan = am.kernel_plan(width, 8 if dt == torch.float64 else 4)
+            assert assign_cuda.plan(width, dt) == tuple(plan), (width, dt)
+    # no instance reads 4 rows a block from device memory
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        assign_cuda.assign(st, rows, rows_per_block=4, staged=False)
+
+
+def test_assign_wrapper_rejects_bad_inputs(cuda):
+    """Kernel 10's wrapper raises on rows of another type or device, rows
+    that are not unit stride along a row, and a wrong output buffer."""
+    from dipper_tpu_torch.dc import assign_cuda
+
+    name, d, row, _ = sm.made_up_cases("float32")[0]
+    st = tk.tree_state_from_numpy(d, cuda)
+    rows = torch.from_numpy(np.stack([row, row])).to(cuda)
+    with pytest.raises(ValueError, match="rows must be"):
+        assign_cuda.assign(st, rows.double())
+    with pytest.raises(ValueError, match="rows must be"):
+        assign_cuda.assign(st, rows.cpu())
+    with pytest.raises(ValueError, match="rows must be"):
+        assign_cuda.assign(st, rows.t())
+    with pytest.raises(ValueError, match="out must be"):
+        assign_cuda.assign(st, rows, torch.empty(2, dtype=torch.int32,
+                                                 device=cuda))
 
 
 def _sketch_rows(k, seed):

@@ -9,6 +9,8 @@ clusters with a ragged last row block) are held to the JAX default
 output, so each path is checked against the reference and not only
 against the port's other paths."""
 
+import contextlib
+import io
 import re
 
 import numpy as np
@@ -53,6 +55,15 @@ def _jax_run(capsys, fn, *args):
     return nwk, re.search(r"\[assign (\w+)\]", err).group(1)
 
 
+def _jax_quiet(fn, *args):
+    """_jax_run for a module fixture (no capsys): the stderr of the build
+    captured by redirection."""
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        nwk = fn(*args)
+    return nwk, re.search(r"\[assign (\w+)\]", err.getvalue()).group(1)
+
+
 def _port_run(fn, *args, **kw):
     logs = []
     nwk = fn(*args, device=CPU, log=logs.append, **kw)
@@ -92,8 +103,8 @@ def matrix320():
     D = _dc_matrix(n, 11)
     names = [f"L{i}" for i in range(n)]
     jp, tp = _params(b, in_format="d")
-    want = jpl.build_dc_tree_from_matrix(D, names, jp)
-    return D, names, tp, want, dict(jpl.last_debug)
+    want, md5 = _jax_quiet(jpl.build_dc_tree_from_matrix, D, names, jp)
+    return D, names, tp, want, dict(jpl.last_debug, assign_md5=md5)
 
 
 @pytest.mark.parametrize("knobs", [
@@ -128,8 +139,8 @@ def mash150():
     default tree."""
     names, seqs = simulate_unaligned(150, 900, np.random.default_rng(17))
     jp, tp = _params(12, in_format="r", kmer_size=12, sketch_size=100)
-    want = jpl.build_dc_tree(seqs, names, jp)
-    return names, seqs, tp, want, dict(jpl.last_debug)
+    want, md5 = _jax_quiet(jpl.build_dc_tree, seqs, names, jp)
+    return names, seqs, tp, want, dict(jpl.last_debug, assign_md5=md5)
 
 
 @pytest.mark.parametrize("knobs", [
@@ -305,9 +316,10 @@ def test_pair_distances_pass_members_as_witness_tail(monkeypatch):
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_score_edges_rows_equals_score_edges(dtype):
-    """score_edges_rows == a loop of score_edges, on the scorer's made-up
-    states (ties between two valid edges, NaN and inf in rows, unused
-    tails) and on a state built from a matrix."""
+    """score_edges_rows (on a CPU state, its plain version) and
+    score_edges_rows_plain == a loop of score_edges, on the scorer's
+    made-up states (ties between two valid edges, NaN and inf in rows,
+    unused tails) and on a state built from a matrix."""
     from dipper_tpu_torch.placement import kclosest as tk
     from dipper_tpu_torch.placement import score_model as sm
 
@@ -326,9 +338,10 @@ def test_score_edges_rows_equals_score_edges(dtype):
         # permutations of it, and a constant row
         rows = np.stack([row] + [rng.permutation(row) for _ in range(6)]
                         + [np.full_like(row, row[0])])
-        got = tk.score_edges_rows(st, torch.from_numpy(rows))
         want = [tk.score_edges(st, torch.from_numpy(r))[0] for r in rows]
-        assert got.tolist() == want, name
+        for fn in (tk.score_edges_rows, tk.score_edges_rows_plain):
+            got = fn(st, torch.from_numpy(rows))
+            assert got.tolist() == want, (fn.__name__, name)
 
 
 def _jax_cluster_inputs(C, cmax, W, dtype, seed):
@@ -773,3 +786,86 @@ def test_phase3_wrappers_reject_cpu_states():
     assert not tc.uses_cluster_kernel(T(Dq))
     tc.build_clusters(T(Dq), T(cd), T(cid), T(lens), sizes, 8)
     assert cluster_cuda.CLUSTER_BUILD_LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# Phase 2's kernel 10 (csrc/dc_assign.cu) as the card runs it
+# ---------------------------------------------------------------------------
+
+
+def _model_assign(st, rows, out=None, **kw):
+    """assign_cuda.assign's contract, computed by dc/assign_model.py."""
+    from dipper_tpu_torch.dc import assign_cuda
+    from dipper_tpu_torch.dc import assign_model as am
+
+    assert rows.device == st.e.device and rows.stride(-1) == 1
+    assign_cuda.ASSIGN_LAUNCHES += 1
+    arrays = {f: getattr(st, f).numpy()
+              for f in ("e", "belong", "length", "rev", "cdis", "cid")}
+    got = torch.from_numpy(am.assign(arrays, rows.numpy()))
+    if out is None:
+        return got
+    assert out.dtype == torch.int64 and out.shape == got.shape
+    out.copy_(got)
+    return out
+
+
+def _phase2_line(log: str) -> tuple:
+    m = re.search(r"DC phase 2: chunks=(\d+) rows_per_chunk=(\d+) "
+                  r"kernel_launches=(\d+) host_syncs=(\d+) route=(\w+)", log)
+    return int(m[1]), int(m[2]), int(m[3]), int(m[4]), m[5]
+
+
+@pytest.mark.parametrize("case, knobs", [
+    pytest.param("matrix", {"PHASE2_CHUNK": 48}, id="matrix-chunks"),
+    pytest.param("matrix", {"PHASE2_BYTES": 1}, id="matrix-one_row"),
+    pytest.param("mash", {"PHASE2_CHUNK": 29}, id="mash-chunks"),
+    pytest.param("msa", {"PHASE2_CHUNK": 7}, id="msa-chunks"),
+])
+def test_phase2_card_route_with_model_as_kernel_equals_jax(
+        request, capsys, monkeypatch, case, knobs):
+    """Phase 2 as it runs on the card, on CPU tensors with kernel 10's
+    model in its place: chunks sized from the [Q, B] rows' bytes (forced
+    small here), one launch a chunk into one buffer; the log's phase-2
+    line counts them. The assignment md5 and the Newick are the JAX
+    package's default, bit for bit (the matrix rows as strided views)."""
+    from dipper_tpu_torch.dc import assign_cuda
+    from dipper_tpu_torch.placement import kclosest as tk
+
+    if case == "matrix":
+        D, names, tp, want, debug = request.getfixturevalue("matrix320")
+        run = (tpl.build_dc_tree_from_matrix, D, names, tp)
+        want_md5, n, b = debug["assign_md5"], 320, 64
+    elif case == "mash":
+        names, seqs, tp, want, debug = request.getfixturevalue("mash150")
+        run = (tpl.build_dc_tree, seqs, names, tp)
+        want_md5, n, b = debug["assign_md5"], 150, 12
+    else:
+        names, seqs = simulate_alignment(50, 800, np.random.default_rng(5),
+                                         gap_frac=0.03, blen_scale=0.5)
+        jp, tp = _params(10, in_format="m", distance_type=2)
+        want, want_md5 = _jax_run(capsys, jpl.build_dc_tree, seqs, names, jp)
+        run = (tpl.build_dc_tree, seqs, names, tp)
+        n, b = 50, 10
+    for k, v in knobs.items():
+        monkeypatch.setattr(tpl, k, v)
+    monkeypatch.setattr(tk, "uses_assign_kernel", lambda st: True)
+    monkeypatch.setattr(assign_cuda, "assign", _model_assign)
+    before = assign_cuda.ASSIGN_LAUNCHES
+    got, got_md5, log = _port_run(*run)
+    assert got == want and got_md5 == want_md5
+    chunks, per, launches, syncs, route = _phase2_line(log)
+    want_per = knobs.get("PHASE2_CHUNK", 1)
+    assert per == want_per and chunks == -(-(n - b) // per) > 1
+    assert launches == chunks == assign_cuda.ASSIGN_LAUNCHES - before
+    assert route == "kernel" and syncs == 0   # no card: no copy to sync
+
+
+def test_phase2_cpu_route_line():
+    """On the CPU phase 2 scores by the plain version, chunks sized from
+    its [Q, E, K] gather, and launches no kernel."""
+    D = _dc_matrix(90, 90)
+    names = [f"L{i}" for i in range(90)]
+    _, tp = _params(14, in_format="d")
+    _, _, log = _port_run(tpl.build_dc_tree_from_matrix, D, names, tp)
+    assert _phase2_line(log) == (1, tpl.PHASE2_CHUNK, 0, 0, "plain")
