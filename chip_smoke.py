@@ -141,29 +141,35 @@ the process; phases 20 to 22 run in processes of their own):
      launch a batched chunk, one dc_stream_block launch a streamed
      cluster's row block, no host sync in a phase-3 step, nRF DC_NRF_30K
      at N = 30,000, and
-     phase 2 on kernel 10: one dc_assign launch a chunk, the phase's
-     launches under torch.cuda.set_sync_debug_mode("error") (no host sync
-     before its one copy to the host), every launch's rows and slots
-     recorded for phase 29; and the CLI run again with phases 2 and 3 by
+     phase 2 on kernel 10: one dc_assign_pack launch a phase and one
+     dc_assign launch a chunk, the phase's launches under
+     torch.cuda.set_sync_debug_mode("error") (no host sync before its one
+     copy to the host), the pack's records and every launch's rows and
+     slots recorded for phase 29; and the CLI run again with phases 2 and 3 by
      their plain versions on the card (score_edges_rows_plain,
      build_clusters_plain, the streamed tensor loop) to the same
      assignment and Newick bytes;
-  29. kernel 10 (csrc/dc_assign.cu, D&C phase 2's assignment) vs
-     score_edges_rows_plain on the card, equal slots required: the
-     scorer's made-up states in f32 and f64 (ties, every valid score
-     above 2.0, NaN and +inf in rows, four edges, unused tails) on 13
-     rows, contiguous and strided, under the kernel's plan and every
-     forced instance (1, 2, 4, 8 rows a block staged, 8 read from device
-     memory); phase 16's backbone state with every chunk of its real
-     phase-2 rows (every row; the run's slots and a launch again); that
-     chunk as a view of wider rows (the matrix frontend's layout); a
+  29. kernel 10 (csrc/dc_assign.cu, D&C phase 2's assignment) and its
+     pack vs score_edges_rows_plain and pack_slots_plain on the card,
+     equal slots and record bytes required: the scorer's made-up states
+     in f32 and f64 (ties, every valid score above 2.0, NaN and +inf in
+     rows, four edges, unused tails) on 13 rows, contiguous and strided,
+     under the kernel's plan and every forced instance (clusters of 1
+     block and of the plan's 2; 1, 2, 4, 8 rows a block staged, 2 read
+     from device memory; a ring of two stages); phase 16's pack and backbone state with every chunk of its
+     real phase-2 rows (every row; the run's slots and a launch again);
+     that chunk as a view of wider rows (the matrix frontend's layout); a
      synthetic state at the 1M band's width (B = 50,000, E = 200,000, 256
-     rows) in f32 and f64. Times: each case's kernel launches queued
-     behind a device sleep (median of 5) beside its bound (the rows, the
-     state and the slots once at the memory rate, or 35 operations a row
-     and valid slot at the float rate) and the plain version's time (a
-     reference: no single PyTorch call computes the function), and the
-     sum over phase 16's chunks;
+     rows) in f32 and f64, and in f32 a chunk as the pipeline sizes it
+     there (1,342 rows, held in slices of 256), projected to 950,000
+     rows. Times: each case's kernel launches queued behind a device
+     sleep (median of 5) beside its bound (the rows, the state and the
+     slots once at the memory rate, or 35 operations a row and valid slot
+     at the float rate), two reckoned floors (the shared-memory gathers'
+     bank wavefronts; the records' bytes through L2 at the rate a copy
+     within L2 reaches) and the plain version's time (a reference: no
+     single PyTorch call computes the function), and the sum over phase
+     16's chunks; the pack's time beside its byte bound;
   26. phase 3's kernels vs plain on phase 16's own launches (recorded
      there): every dc_cluster_build launch's every 16th cluster built
      again by build_clusters_plain, all six arrays bit for bit; the first
@@ -257,7 +263,8 @@ the process; phases 20 to 22 run in processes of their own):
      restricted to them under MSA_PLACE_NRF_LIMIT;
   28. -i m -m 3 -d 1 in f64 on the alignment's first 4,096 sequences
      (MSA_DC_N): one dc_cluster_build launch a batched chunk (its warp and
-     block plans in f64), one dc_assign launch a phase-2 chunk, no host
+     block plans in f64), one dc_assign launch a phase-2 chunk and one
+     pack a phase, no host
      sync in phase 3, the nRF vs the true tree restricted to them; the
      same Newick bytes with phase 3's plain versions on the card; and the
      first 600 (MSA_DC_CPU_N) built on the card and on the CPU to the same
@@ -346,7 +353,8 @@ Every kernel counter is set to 0 just before a main path (phases 5, 16,
 it; `launches` in the kernels' record is the count of phases 5
 (placement; insert_step's counts both its entry points; the sketch
 kernel's), 16 (D&C: the per-cluster count kernel, dc_stream_block,
-dc_cluster_build and dc_assign), 9 (NJ: the distance kernel and NJ's
+dc_cluster_build, dc_assign and dc_assign_pack), 9 (NJ: the distance
+kernel and NJ's
 two) and 27 (exact: exact_step), `launches_by_path` has
 every path's (one count a rank for the multi-rank paths), and
 score_edges's `range_launches` the sharded placement's range launches.
@@ -363,6 +371,7 @@ import argparse
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -408,6 +417,9 @@ KERNELS = {
                    "Pallas)"),
     "dc_assign": ("dipper_tpu_torch/csrc/dc_assign.cu",
                   "dipper_tpu/dc/pipeline.py:57 (XLA program, no Pallas)"),
+    "dc_assign_pack": ("dipper_tpu_torch/csrc/dc_assign.cu",
+                       "dipper_tpu/dc/pipeline.py:57 (XLA program, no "
+                       "Pallas)"),
 }
 NRF_LIMIT = 0.35
 # nRF vs the true tree of the full-size sets (seed 1) in every smoke so
@@ -457,13 +469,23 @@ DC_SAMPLE = 16
 # differences and 10 maxima over the two witness lists, the clamp
 # sequence's 14, the compare with the running minimum
 ASSIGN_OPS_PER_PAIR = 35
-# its instances: (rows a block, staged) forced, None the plan's own
-ASSIGN_PLANS = [(None, None), (1, True), (2, True), (4, True), (8, True),
-                (8, False)]
+# its instances: (rows a block, staged, blocks a cluster), None the plan's
+# own; rows read from device memory are assign_model.GLOBAL_ROWS a block
+ASSIGN_INSTANCES = [(None, None, None, None), (None, None, 1, None),
+                    (None, None, None, 2), (1, True, None, None),
+                    (2, True, None, None), (4, True, None, None),
+                    (8, True, None, None), (2, False, None, None),
+                    (2, False, 1, None)]
 # the synthetic state at the 1M band's width (B = 50,000, E = 4B) and its
-# rows
+# rows: 256, and one chunk as the pipeline sizes it (PHASE2_BYTES // (B x
+# 4) rows in f32), held to the plain version in slices of 256 rows
 ASSIGN_WIDE_B = 50000
 ASSIGN_WIDE_ROWS = 256
+# the 1M band's phase 2: the rows of N - B queries at N = 1,000,000
+ASSIGN_BAND_QUERIES = 950000
+# expected bank wavefronts of a warp's shared-memory load of 4, 8 or 16
+# bytes a lane at random addresses (assign_bound)
+SM_BANKS = 32
 ALL_PHASES = (1, 2, 3, 6, 15, 7, 25, 19, 4, 17, 5, 16, 29, 26, 9, 24, 10, 11,
               12, 28, 14, 27, 13, 8, 18, 20, 21, 22, 23)
 # -i m -m 3 (phase 28): the aligned set's first MSA_DC_N sequences on the
@@ -620,7 +642,10 @@ def phase_build() -> None:
     t0 = time.time()
     build_all()
     ptxas = {}
-    for name in KERNELS:
+    # a library a source (dc_assign.cu holds kernel 10 and its pack)
+    libs = sorted({os.path.splitext(os.path.basename(src))[0]
+                   for src, _ in KERNELS.values()})
+    for name in libs:
         with open(os.path.join(BUILD_DIR, f"lib{name}.log")) as f:
             ptxas[name] = [ln.strip() for ln in f
                            if "registers" in ln or "spill" in ln]
@@ -2012,6 +2037,7 @@ def reset_counts() -> None:
     cluster_cuda.STREAM_BLOCK_LAUNCHES = 0
     cluster_cuda.CLUSTER_BUILD_LAUNCHES = 0
     assign_cuda.ASSIGN_LAUNCHES = 0
+    assign_cuda.PACK_LAUNCHES = 0
     mash_cuda.LAUNCHES = 0
     mash_cuda.ROWS_DIST_LAUNCHES = 0
     mash_cuda.CLUSTER_LAUNCHES = 0
@@ -2057,7 +2083,8 @@ def read_counts() -> dict:
             "dc_stream_block": cluster_cuda.STREAM_BLOCK_LAUNCHES,
             "dc_cluster_build": cluster_cuda.CLUSTER_BUILD_LAUNCHES,
             "exact_step": exact_cuda.EXACT_STEP_LAUNCHES,
-            "dc_assign": assign_cuda.ASSIGN_LAUNCHES}
+            "dc_assign": assign_cuda.ASSIGN_LAUNCHES,
+            "dc_assign_pack": assign_cuda.PACK_LAUNCHES}
 
 
 class SketchSampler:
@@ -2600,6 +2627,21 @@ def phase_scorer_profiled(calls: int = 50) -> dict:
     return res
 
 
+# the kernel of torch.cuda._sleep, which profiler_lead_in launches
+LEAD_IN_KERNEL = "spin_kernel"
+
+
+def profiler_lead_in() -> None:
+    """Device work at the start of a profiler session that the session's
+    counts leave out, then a device sync: a session's first kernels can
+    be missing from its trace, even in the process's first session
+    (scripts/profiler_lead_in_check.py counts such misses), so a window
+    whose kernels are counted by name starts behind this."""
+    for _ in range(8):
+        torch.cuda._sleep(10000)
+    torch.cuda.synchronize()
+
+
 def phase_graph_route_profiled() -> dict:
     """The cursor route (kclosest._insert_range) over PROFILE_WINDOW's
     insertions of the main path's state under torch.profiler, after a
@@ -2620,15 +2662,18 @@ def phase_graph_route_profiled() -> dict:
     torch.cuda.synchronize()
     warm = state_clone(st)
     restore(st, snap)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        profiler_lead_in()
         kclosest._insert_range(st, lo, lo + n, rows, N)
         torch.cuda.synchronize()
     diff = state_diff(st, warm)
     check(not diff, f"the profiled window differs from its warm-up in {diff}")
     ka = prof.key_averages()
     count = {e.key: e.count for e in ka}
-    on_dev = [e for e in ka if e.device_type != DeviceType.CPU]
+    on_dev = [e for e in ka if e.device_type != DeviceType.CPU
+              and LEAD_IN_KERNEL not in e.key]
     by_kernel, kernel_ms = {}, {}
     for e in on_dev:
         for name in ("score_edges_kernel", "insert_step_kernel",
@@ -3272,6 +3317,7 @@ def phase_msa_dc(tmp: str, fa: str, true_nwk: str, n: int) -> dict:
     check(counts["dc_assign"] == p2["chunks"] > 0 and p2["route"] == "kernel",
           f"-i m -m 3: dc_assign {counts['dc_assign']} launches for "
           f"{p2['chunks']} phase-2 chunks")
+    check_one_pack("-i m -m 3", counts, p2)
     nwk = open(out).read().strip()
     check(nwk.count(",") == n - 1, f"Newick has {nwk.count(',')} commas, "
           f"want {n - 1}")
@@ -3620,19 +3666,27 @@ ASSIGN_FIELDS = ("e", "belong", "length", "rev", "cdis", "cid")
 
 class Phase2Recorder:
     """Phase 2 of a D&C run recorded for phase 29: the backbone state's six
-    arrays (copied on the card at the first launch) and every kernel-10
-    launch's rows (copied on the card) and slots; and the phase's
-    launches (pipeline._phase2_assign, everything before its one copy to
-    the host) run under torch.cuda.set_sync_debug_mode("error"), so that a
-    host sync there raises (`synced` keeps its message). Nothing here
-    syncs the host."""
+    arrays (copied on the card at the first launch), the pack's records
+    (copied) and every kernel-10 launch's rows (copied on the card) and
+    slots; and the phase's launches (pipeline._phase2_assign, everything
+    before its one copy to the host) run under
+    torch.cuda.set_sync_debug_mode("error"), so that a host sync there
+    raises (`synced` keeps its message). Nothing here syncs the host."""
 
     def __init__(self):
         from dipper_tpu_torch.dc import assign_cuda, pipeline
 
         self.mod, self.pipeline = assign_cuda, pipeline
         self.assign, self.phase2 = assign_cuda.assign, pipeline._phase2_assign
+        self.pack = assign_cuda.pack
         self.state, self.launches, self.synced, self.windows = None, [], [], 0
+        self.records = []
+
+        def pack(st, width):
+            got = self.pack(st, width)
+            self.records.append(got._replace(data=got.data.clone(),
+                                             meta=got.meta.clone()))
+            return got
 
         def assign(st, rows, out=None, **kw):
             got = self.assign(st, rows, out, **kw)
@@ -3656,22 +3710,33 @@ class Phase2Recorder:
                 torch.cuda.set_sync_debug_mode(prev)
 
         assign_cuda.assign = assign
+        assign_cuda.pack = pack
         pipeline._phase2_assign = phase2
 
     def restore(self) -> None:
         self.mod.assign = self.assign
+        self.mod.pack = self.pack
         self.pipeline._phase2_assign = self.phase2
 
 
 def phase2_line(log: str) -> dict:
     """The D&C log's phase-2 line: chunks, rows a chunk, kernel-10
-    launches, host syncs and route."""
+    launches, host syncs, route and pack launches."""
     m = re.search(r"DC phase 2: chunks=(\d+) rows_per_chunk=(\d+) "
-                  r"kernel_launches=(\d+) host_syncs=(\d+) route=(\w+)", log)
+                  r"kernel_launches=(\d+) host_syncs=(\d+) route=(\w+) "
+                  r"pack_launches=(\d+)", log)
     check(m is not None, "no phase-2 line in the D&C log")
     return {"chunks": int(m[1]), "rows_per_chunk": int(m[2]),
             "kernel_launches": int(m[3]), "host_syncs": int(m[4]),
-            "route": m[5]}
+            "route": m[5], "pack_launches": int(m[6])}
+
+
+def check_one_pack(tag: str, counts: dict, p2: dict) -> None:
+    """Phase 2 on the card packs its state once (one dc_assign_pack
+    launch, as its log line counts)."""
+    check(counts["dc_assign_pack"] == p2["pack_launches"] == 1,
+          f"{tag}: dc_assign_pack launched {counts['dc_assign_pack']} times "
+          f"in phase 2 (log: {p2['pack_launches']}), once wanted")
 
 
 def assign_md5(log: str) -> str:
@@ -3770,6 +3835,8 @@ def phase_dc_main_path(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
           == p2["kernel_launches"] == len(phase2.launches) > 0,
           f"dc_assign launched {counts['dc_assign']} times for "
           f"{p2['chunks']} phase-2 chunks ({len(phase2.launches)} recorded)")
+    check_one_pack("D&C", counts, p2)
+    check(len(phase2.records) == 1, f"{len(phase2.records)} packs recorded")
     check(phase2.windows == 1 and not phase2.synced
           and p2["host_syncs"] == 1, f"phase 2 synced the host: "
           f"{phase2.synced or p2}")
@@ -3884,45 +3951,164 @@ def phase_dc_gpu_vs_cpu(tmp: str, n: int = 600) -> None:
           "buckets": _dc_log(logs["cuda"])["buckets"]})
 
 
-def assign_bound(st, rows) -> dict:
-    """Kernel 10's bound on one chunk: the rows, the state and the slots
-    once at the memory rate (the state is read from L2 again by every
-    block; counted once), or ASSIGN_OPS_PER_PAIR operations for each row
-    and valid slot of this state at the float rate of the rows' type."""
+def _max_load(balls: int, bins: int) -> float:
+    """The expected largest bin of `balls` thrown at random into `bins`
+    (exact: P(largest <= k) is balls! / bins^balls times the coefficient of
+    x^balls in (sum_{i <= k} x^i / i!)^bins)."""
+    expect = 0.0
+    for k in range(balls):
+        base = np.array([1.0 / math.factorial(i) for i in range(k + 1)])
+        poly = np.array([1.0])
+        for _ in range(bins):
+            poly = np.convolve(poly, base)[:balls + 1]
+        p_le = (poly[balls] if poly.size > balls else 0.0) * \
+            math.factorial(balls) / bins ** balls
+        expect += 1.0 - p_le
+    return expect
+
+
+def gather_wavefronts(nbytes: int) -> float:
+    """Expected bank wavefronts of one warp's shared-memory load of
+    `nbytes` (4, 8 or 16) a lane at random addresses: the warp's request
+    goes in nbytes / 4 phases of 32 / (nbytes / 4) lanes, and a phase takes
+    as many wavefronts as its fullest bank (group of nbytes / 4 banks)."""
+    phases = nbytes // 4
+    lanes = SM_BANKS // phases
+    return phases * _max_load(lanes, lanes)
+
+
+L2_RATE: list = []
+
+
+def l2_rate() -> float:
+    """L2's rate as this card achieves it within L2, bytes a second: an 8
+    MB buffer copied into another (both resident in the 50 MB L2) 100
+    times in one CUDA graph (no launch gaps), CUDA events around a replay,
+    the bytes read and written counted. Measured once a run."""
+    if not L2_RATE:
+        src = torch.rand(2 << 20, device="cuda")
+        dst = torch.empty_like(src)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            dst.copy_(src)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(100):
+                dst.copy_(src)
+        graph.replay()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        graph.replay()
+        ev[1].record()
+        torch.cuda.synchronize()
+        L2_RATE.append(2 * src.numel() * 4 * 100
+                       / (ev[0].elapsed_time(ev[1]) * 1e-3))
+    return L2_RATE[0]
+
+
+def assign_bound(st, rows, plan) -> dict:
+    """Kernel 10's bound on one chunk under `plan` (assign_cuda.plan's):
+    the rows, the state and the slots once at the memory rate, or
+    ASSIGN_OPS_PER_PAIR operations for each row and valid slot of this
+    state at the float rate of the rows' type; and two reckoned floors
+    beside it, each with the work that sets it. The shared-memory gather
+    floor (staged rows): the witness loads (each row group's, each valid
+    record's used witness entries, ceil(R x item / 16) loads an id of
+    min(R x item, 16) bytes) / 32 x gather_wavefronts at one wavefront a
+    clock on each of 132 SMs at 1.98 GHz. The state's L2 floor: the
+    records' bytes times the record streams of a chunk (one a cluster's
+    C row groups) over l2_rate()."""
     from dipper_tpu_torch.placement.kclosest import K
 
     Q, W = rows.shape
     item = rows.element_size()
     E = st.e.shape[0]
-    valid = int((st.belong > st.e).sum())
+    v = st.belong > st.e
+    valid = int(v.sum())
+    used = int((st.cid[v] != -1).sum() + (st.cid[st.rev[v].long()] != -1)
+               .sum())
     nbytes = Q * W * item + E * (K * (4 + item) + 3 * 4 + item) + Q * 8
     rate = PEAK_F64_PER_S if item == 8 else PEAK_F32_PER_S
-    return {**bound_of(Q * valid * ASSIGN_OPS_PER_PAIR, nbytes, rate),
-            "valid_slots": valid}
+    groups = -(-Q // plan.rows)
+    streams = -(-groups // plan.cluster)
+    l2_bytes = valid * plan.record_bytes * streams
+    out = {**bound_of(Q * valid * ASSIGN_OPS_PER_PAIR, nbytes, rate),
+           "valid_slots": valid, "witness_entries": used,
+           "l2_floor_ms": l2_bytes / l2_rate() * 1e3,
+           "l2_floor_work": {"record_bytes": plan.record_bytes,
+                             "records": valid, "streams": streams,
+                             "bytes": l2_bytes, "l2_bytes_per_s": l2_rate()},
+           "smem_gather_floor_ms": None, "smem_gather_floor_work": None}
+    if plan.staged:
+        vec = plan.rows * item
+        per_id, width = -(-vec // 16), min(vec, 16)
+        warp_loads = groups * used * per_id / 32
+        waves = gather_wavefronts(width)
+        out["smem_gather_floor_ms"] = warp_loads * waves / SM_CLOCKS_PER_S \
+            * 1e3
+        out["smem_gather_floor_work"] = {
+            "row_groups": groups, "loads_per_id": per_id,
+            "load_bytes": width, "warp_loads": warp_loads,
+            "wavefronts_per_warp_load": waves}
+    return out
 
 
-def assign_times(st, rows, reps: int = 5) -> dict:
-    """Kernel 10 on one chunk, the card's time of each of `reps` launches
-    queued behind a device sleep (median), after a launch that loads it;
-    the plain version's (median of 3, a reference only: no single PyTorch
-    call computes this function); the bound and the share of it."""
+def assign_times(st, rows, records, reps: int = 5,
+                 plain: bool = True) -> dict:
+    """Kernel 10 on one chunk over `records`, the card's time of each of
+    `reps` launches queued behind a device sleep (median), after a launch
+    that loads it; the plain version's (median of 3, a reference only: no
+    single PyTorch call computes this function) unless `plain` is False;
+    the bound, the two floors and the share of each."""
     from dipper_tpu_torch.dc import assign_cuda
     from dipper_tpu_torch.placement import kclosest as tk
 
-    out = assign_cuda.assign(st, rows)
-    kernel = queued_each_ms([lambda: assign_cuda.assign(st, rows, out)
+    out = assign_cuda.assign(st, rows, records=records)
+    kernel = queued_each_ms([lambda: assign_cuda.assign(st, rows, out,
+                                                        records=records)
                              for _ in range(reps)])
-    plain = queued_each_ms([lambda: tk.score_edges_rows_plain(st, rows)
-                            for _ in range(3)])
+    plain_ms = (_median(queued_each_ms(
+        [lambda: tk.score_edges_rows_plain(st, rows) for _ in range(3)]))
+        if plain else None)
     plan = assign_cuda.plan(rows.shape[1], rows.dtype)
     rec = {"rows": rows.shape[0], "width": rows.shape[1],
            "slots": st.e.shape[0], "row_stride": rows.stride(0),
            "precision": "f64" if rows.dtype == torch.float64 else "f32",
-           "plan": {"rows_per_block": plan[0], "staged": plan[1],
-                    "threads": plan[2], "smem": plan[3]},
-           "ms": _median(kernel), "ms_runs": kernel,
+           "plan": plan._asdict(), "ms": _median(kernel), "ms_runs": kernel,
+           "plain_ms": plain_ms, "library_ms": None}
+    rec = with_share(rec, assign_bound(st, rows, plan))
+    rec["share_of_l2_floor"] = rec["l2_floor_ms"] / rec["ms"]
+    if rec["smem_gather_floor_ms"] is not None:
+        rec["share_of_smem_gather_floor"] = (rec["smem_gather_floor_ms"]
+                                             / rec["ms"])
+    return rec
+
+
+def pack_times(st, width: int, reps: int = 5) -> dict:
+    """The pack on one state, each of `reps` launches queued behind a
+    device sleep (median); its plain version's (median of 3); its bound:
+    the state's arrays read once and the records written once at the
+    memory rate."""
+    from dipper_tpu_torch.dc import assign_cuda
+    from dipper_tpu_torch.placement import kclosest as tk
+    from dipper_tpu_torch.placement.kclosest import K
+
+    got = assign_cuda.pack(st, width)
+    kernel = queued_each_ms([lambda: assign_cuda.pack(st, width)
+                             for _ in range(reps)])
+    plain = queued_each_ms([lambda: tk.pack_slots_plain(st, width)
+                            for _ in range(3)])
+    E = st.e.shape[0]
+    item = st.length.element_size()
+    valid = int(got.meta[0])
+    nbytes = (E * (K * (4 + item) + 3 * 4 + item)
+              + valid * got.data.shape[1] + 8)
+    rec = {"slots": E, "records": valid, "record_bytes": got.data.shape[1],
+           "width": width, "ms": _median(kernel), "ms_runs": kernel,
            "plain_ms": _median(plain), "library_ms": None}
-    return with_share(rec, assign_bound(st, rows))
+    return with_share(rec, bound_of(0, nbytes))
 
 
 def _assign_state(arrays: dict):
@@ -3931,48 +4117,71 @@ def _assign_state(arrays: dict):
     return tk.TreeState(**arrays, idx=0)
 
 
-def _assign_every_plan(st, rows, tag: str) -> int:
-    """Kernel 10 under its plan and every forced instance against the
-    plain version on the card, bit for bit; returns the launches."""
+def _check_pack(st, width: int, tag: str, got=None):
+    """The pack (`got`, or a launch now) against pack_slots_plain, byte for
+    byte: the valid slots' records and meta (count, lowest invalid slot).
+    Returns the records."""
     from dipper_tpu_torch.dc import assign_cuda
     from dipper_tpu_torch.placement import kclosest as tk
 
-    from dipper_tpu_torch.dc.assign_model import STAGED_ONE_ROW
+    got = got or assign_cuda.pack(st, width)
+    rec, meta = tk.pack_slots_plain(st, width)
+    check(torch.equal(got.meta, meta), f"the pack on {tag}: meta "
+          f"{got.meta.tolist()} != plain {meta.tolist()}")
+    check(torch.equal(got.data[:rec.shape[0]], rec),
+          f"the pack on {tag}: records != plain")
+    return got
+
+
+def _assign_every_plan(st, rows, records, tag: str) -> int:
+    """Kernel 10 under its plan and every instance of ASSIGN_INSTANCES
+    that fits against the plain version on the card, bit for bit; returns
+    the launches."""
+    from dipper_tpu_torch.dc import assign_cuda
+    from dipper_tpu_torch.dc import assign_model as am
+    from dipper_tpu_torch.placement import kclosest as tk
 
     want = tk.score_edges_rows_plain(st, rows)
-    W = rows.shape[1]
-    item = rows.element_size()
+    W, item = rows.shape[1], rows.element_size()
     launches = 0
-    for r, staged in ASSIGN_PLANS:
-        if staged and r * W * item > STAGED_ONE_ROW:
+    for r, staged, cl, stages in ASSIGN_INSTANCES:
+        try:
+            am.kernel_plan(W, item, r, staged, cl, stages)
+        except ValueError:
             continue
-        got = assign_cuda.assign(st, rows, rows_per_block=r, staged=staged)
-        check(torch.equal(got, want), f"kernel 10 != plain on {tag} "
-              f"(rows a block {r}, staged {staged}): "
+        got = assign_cuda.assign(st, rows, records=records, rows_per_block=r,
+                                 staged=staged, cluster=cl, stages=stages)
+        check(torch.equal(got, want), f"kernel 10 != plain on {tag} (rows a "
+              f"block {r}, staged {staged}, cluster {cl}, stages {stages}): "
               f"{int((got != want).sum())} rows differ")
         launches += 1
     return launches
 
 
 def phase_dc_assign_vs_plain(rec: Phase2Recorder) -> dict:
-    """Kernel 10 (csrc/dc_assign.cu) against score_edges_rows_plain on the
-    card, bit for bit: the scorer's made-up states in f32 and f64 (ties,
-    every valid score above 2.0, NaN and +inf in rows, four edges, unused
-    tails) on 13 rows, contiguous and strided, under every instance;
-    every chunk of phase 16's real phase-2 rows (D&C 30K's backbone state,
+    """Kernel 10 (csrc/dc_assign.cu) and its pack against their plain
+    versions (score_edges_rows_plain, pack_slots_plain) on the card, bit
+    for bit: the scorer's made-up states in f32 and f64 (ties, every valid
+    score above 2.0, NaN and +inf in rows, four edges, unused tails) on 13
+    rows, contiguous and strided, under every instance; phase 16's pack
+    and every chunk of its real phase-2 rows (D&C 30K's backbone state,
     every row) and its slots from the run; those rows as the matrix
-    frontend hands them over (a view of wider rows); a synthetic state
-    at the 1M band's width (B = 50,000, E = 200,000, 256 rows) in f32 (one
-    row staged a block) and f64 (rows read from device memory). Each timed
-    (assign_times) beside its bound and the plain version."""
-    from dipper_tpu_torch.dc import assign_cuda
+    frontend hands them over (a view of wider rows); a synthetic state at
+    the 1M band's width (B = 50,000, E = 200,000) with 256 rows in f32
+    (one row a block) and f64 (rows read from device memory), and in f32
+    one chunk as the pipeline sizes it (PHASE2_BYTES // (B x 4) = 1,342
+    rows, held to the plain version in slices of 256 rows), timed and
+    projected to the 1M band's 950,000 rows. Each timed (assign_times)
+    beside its bound, its two floors and the plain version; the pack
+    timed on D&C 30K's state and at B = 50,000."""
+    from dipper_tpu_torch.dc import assign_cuda, pipeline
     from dipper_tpu_torch.placement import kclosest as tk
     from dipper_tpu_torch.placement import score_model as sm
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(29)
     out = {"made_up": {}}
-    launches = 0
+    launches = packs = 0
     for dtype in ("float32", "float64"):
         for name, d, row, _ in sm.made_up_cases(dtype, seed=29):
             st = _assign_state({f: torch.from_numpy(np.array(d[f])).to(dev)
@@ -3983,43 +4192,56 @@ def phase_dc_assign_vs_plain(rec: Phase2Recorder) -> dict:
             wide = torch.from_numpy(np.concatenate(
                 [rows_h, rng.random((13, 5)).astype(dtype)], axis=1)).to(dev)
             rows = torch.from_numpy(rows_h).to(dev)
+            records = _check_pack(st, rows.shape[1], f"{name} {dtype}")
+            packs += 1
             for r, tag in ((rows, "contiguous"),
                            (wide[:, :rows_h.shape[1]], "strided")):
-                launches += _assign_every_plan(st, r, f"{name} {dtype} {tag}")
+                launches += _assign_every_plan(st, r, records,
+                                               f"{name} {dtype} {tag}")
             out["made_up"][f"{name}/{dtype}"] = {
                 "slots": int(d["e"].shape[0]), "rows": 13}
-    # D&C 30K's backbone and its real rows, every chunk and row
-    check(rec.state is not None and rec.launches,
-          "phase 16 recorded no kernel-10 launch")
+    # D&C 30K's backbone, the run's records and its real rows, every chunk
+    # and row
+    check(rec.state is not None and rec.launches and len(rec.records) == 1,
+          "phase 16 recorded no kernel-10 launch or not one pack")
     st = _assign_state(rec.state)
+    W = rec.launches[0]["rows"].shape[1]
+    records = _check_pack(st, W, "D&C 30K's state (the run's records)",
+                          rec.records[0])
     rows_checked = 0
     for j, c in enumerate(rec.launches):
         want = tk.score_edges_rows_plain(st, c["rows"])
         check(torch.equal(c["got"], want), f"D&C phase-2 chunk {j}: the "
               f"run's slots != plain ({int((c['got'] != want).sum())} rows)")
-        check(torch.equal(assign_cuda.assign(st, c["rows"]), want),
+        check(torch.equal(assign_cuda.assign(st, c["rows"], records=records),
+                          want),
               f"D&C phase-2 chunk {j}: kernel 10 again != plain")
         rows_checked += c["rows"].shape[0]
         launches += 1
     big = max(rec.launches, key=lambda c: c["rows"].shape[0])["rows"]
-    out["dc_chunk"] = assign_times(st, big)
+    out["dc_chunk"] = assign_times(st, big, records)
+    out["pack_dc"] = pack_times(st, W)
     # every chunk once more, queued, for the phase's kernel time
     outs = [torch.empty(c["rows"].shape[0], dtype=torch.int64, device=dev)
             for c in rec.launches]
     each = queued_each_ms([lambda c=c, o=o: assign_cuda.assign(
-        st, c["rows"], o) for c, o in zip(rec.launches, outs)])
+        st, c["rows"], o, records=records) for c, o in zip(rec.launches,
+                                                           outs)])
+    plan = assign_cuda.plan(W, big.dtype)
+    bounds = [assign_bound(st, c["rows"], plan) for c in rec.launches]
     out["dc_phase2"] = {"chunks": len(rec.launches), "rows": rows_checked,
                         "kernel_ms_sum": sum(each), "kernel_ms": each,
-                        "bound_ms_sum": sum(
-                            assign_bound(st, c["rows"])["bound_ms"]
-                            for c in rec.launches)}
+                        "pack_ms": out["pack_dc"]["ms"],
+                        **{f"{k}_sum": sum(b[k] for b in bounds) for k in
+                           ("bound_ms", "smem_gather_floor_ms",
+                            "l2_floor_ms")}}
     # the matrix frontend's rows: a view of an [N, N] matrix's rows
     Q, B = big.shape
     mat = torch.zeros((Q, 20 * B), dtype=big.dtype, device=dev)
     mat[:, :B] = big
     view = mat[:, :B]
-    launches += _assign_every_plan(st, view, "the strided D&C chunk")
-    out["matrix_strided"] = assign_times(st, view)
+    launches += _assign_every_plan(st, view, records, "the strided D&C chunk")
+    out["matrix_strided"] = assign_times(st, view, records)
     del mat, view
     # the 1M band's width
     for dtype in ("float32", "float64"):
@@ -4027,16 +4249,50 @@ def phase_dc_assign_vs_plain(rec: Phase2Recorder) -> dict:
                              ASSIGN_WIDE_B, dtype, rng, bare=False)
         st_w = _assign_state({f: torch.from_numpy(np.array(d[f])).to(dev)
                               for f in ASSIGN_FIELDS})
+        records = _check_pack(st_w, ASSIGN_WIDE_B, f"B = 50,000 {dtype}")
+        packs += 1
         rows_h = rng.random((ASSIGN_WIDE_ROWS, ASSIGN_WIDE_B)).astype(dtype)
         rows_h[7, ::101] = np.nan
         rows_w = torch.from_numpy(rows_h).to(dev)
-        launches += _assign_every_plan(st_w, rows_w, f"B = 50,000 {dtype}")
-        out[f"b50000_{dtype}"] = assign_times(st_w, rows_w)
-        del st_w, rows_w
+        launches += _assign_every_plan(st_w, rows_w, records,
+                                       f"B = 50,000 {dtype}")
+        out[f"b50000_{dtype}"] = assign_times(st_w, rows_w, records)
+        del rows_w
+        if dtype == "float32":
+            out["pack_b50000"] = pack_times(st_w, ASSIGN_WIDE_B)
+            # one chunk as the pipeline sizes it at the 1M band
+            q = pipeline.PHASE2_BYTES // (ASSIGN_WIDE_B * 4)
+            band = torch.rand((q, ASSIGN_WIDE_B), generator=torch.Generator(
+                device=dev).manual_seed(29), device=dev)
+            band[11, ::103] = float("nan")
+            got = assign_cuda.assign(st_w, band, records=records)
+            launches += 1
+            plain_ms = []
+            for a in range(0, q, ASSIGN_WIDE_ROWS):
+                part = band[a:a + ASSIGN_WIDE_ROWS]
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                want = tk.score_edges_rows_plain(st_w, part)
+                ev[1].record()
+                torch.cuda.synchronize()
+                plain_ms.append(ev[0].elapsed_time(ev[1]))
+                check(torch.equal(got[a:a + ASSIGN_WIDE_ROWS], want),
+                      f"the 1M band's chunk, rows {a}..: kernel 10 != plain "
+                      f"({int((got[a:a + ASSIGN_WIDE_ROWS] != want).sum())} "
+                      "rows)")
+            t = assign_times(st_w, band, records, plain=False)
+            t["plain_ms"] = sum(plain_ms)
+            t["plain_ms_slices"] = plain_ms
+            t["projected_s_1m_band"] = (t["ms"] * ASSIGN_BAND_QUERIES / q
+                                        / 1e3)
+            t["projected_queries"] = ASSIGN_BAND_QUERIES
+            out["band_chunk_float32"] = t
+            del band
+        del st_w
     torch.cuda.synchronize()
     emit({"phase": "kernel_vs_plain", "kernel": "dc_assign",
-          "launches_compared": launches, "dc_rows_compared": rows_checked,
-          "max_abs_err": 0, **out})
+          "launches_compared": launches, "packs_compared": packs + 1,
+          "dc_rows_compared": rows_checked, "max_abs_err": 0, **out})
     return out
 
 
@@ -5441,6 +5697,7 @@ def phase_dc_two_ranks(tmp: str, n: int, fa: str, dc: dict) -> dict:
         check(c["dc_assign"] == p2["chunks"] > 0 and p2["route"] == "kernel",
               f"D&C rank {r}: dc_assign {c['dc_assign']} launches for its "
               f"{p2['chunks']} phase-2 chunks")
+        check_one_pack(f"D&C rank {r}", c, p2)
         _check_samples("dc2", r, got["samples"],
                        ("mash_merge_count", "mash_rows_dist",
                         "mash_cluster_inter", "score_edges", "insert_step"))
@@ -6156,6 +6413,8 @@ def main() -> int:
                            share_of_latency_chain=chain / win["ms"])
             # the first profiler session of the process: after another
             # one, the profiler missed a few of the replayed graphs' kernels
+            # (and even here it once missed the window's first kernel,
+            # hence profiler_lead_in)
             ins["graph_route_profiled"] = phase_graph_route_profiled()
             PROFILE_WINDOW.clear()
         if 16 in phases:
@@ -6171,7 +6430,7 @@ def main() -> int:
                       **{k: big[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "share_of_bound")})
             for name in ("dc_stream_block", "dc_cluster_build",
-                         "dc_assign"):
+                         "dc_assign", "dc_assign_pack"):
                 records[name].update(launches=res["counts"][name],
                                      library_ms=None)
         if 29 in phases:
@@ -6184,9 +6443,19 @@ def main() -> int:
                 matrix_strided=res["matrix_strided"],
                 b50000={k: res[f"b50000_{k}"] for k in ("float32",
                                                          "float64")},
+                band_chunk_float32=res["band_chunk_float32"],
                 **{k: big[k] for k in ("rows", "width", "plan", "ms",
                                        "plain_ms", "bound_ms", "bound_by",
-                                       "share_of_bound")})
+                                       "share_of_bound",
+                                       "smem_gather_floor_ms",
+                                       "share_of_smem_gather_floor",
+                                       "l2_floor_ms", "share_of_l2_floor")})
+            pk = res["pack_dc"]
+            records["dc_assign_pack"].update(
+                max_abs_err=0.0, library_ms=None, b50000=res["pack_b50000"],
+                **{k: pk[k] for k in ("slots", "records", "ms", "plain_ms",
+                                      "bound_ms", "bound_by",
+                                      "share_of_bound")})
         if 26 in phases:
             check(16 in phases, "phase 26 checks phase 16's recorded "
                   "launches")

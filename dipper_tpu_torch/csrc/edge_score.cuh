@@ -1,6 +1,7 @@
 // The score of one directed edge and the first minimum over candidates,
 // shared by score_edges.cu (kernel 3), dc_stream_block.cu and
-// dc_cluster_build.cu (kernel 8).
+// dc_cluster_build.cu (kernel 8), exact_step.cu (kernel 9) and
+// dc_assign.cu (kernel 10, the score alone).
 //
 // edge_score is calculateBranchLength's clamp sequence
 // (placement/kclosest.py::clamp_sequence, the plain version's), operation by
@@ -60,6 +61,35 @@ __device__ __forceinline__ void edge_score(T dis1, T dis2, T len, T* score,
     const T rest = sub_rn(sub_rn(len, dis1), dis2);
     *score = addi;
     *frac = add_rn(dis1, mul_rn(rest, T(0.5)));
+}
+
+// max(a, b), NaN where either is NaN: one max.NaN in f32 (sm_80 and
+// up), a select in f64. A zero result may carry either sign.
+__device__ __forceinline__ float max_nan(float a, float b)
+{
+    float d;
+    asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+    return d;
+}
+
+__device__ __forceinline__ double max_nan(double a, double b)
+{
+    return a != a ? a : (b != b ? b : (a > b ? a : b));
+}
+
+// edge_score's score alone, for a caller that only tests a score for NaN
+// and compares it (kernel 10): the same operations in the same order, each
+// clamp a max_nan with 0, which may give another NaN or another zero sign
+// than clamp0 and no other value.
+template <typename T>
+__device__ __forceinline__ T edge_score_only(T dis1, T dis2, T len)
+{
+    const T addi =
+        max_nan(mul_rn(sub_rn(add_rn(dis1, dis2), len), T(0.5)), T(0));
+    dis1 = max_nan(sub_rn(dis1, addi), T(0));
+    dis2 = max_nan(sub_rn(dis2, addi), T(0));
+    return add_rn(add_rn(addi, max_nan(sub_rn(dis1, len), T(0))),
+                  max_nan(sub_rn(dis2, len), T(0)));
 }
 
 template <typename T>

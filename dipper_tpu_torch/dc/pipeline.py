@@ -13,8 +13,10 @@ src/divide_and_conquer/placement_close_k.cu):
 
 PyTorch design. Phase 1 is placement/kclosest.py's build. Phase 2 scores
 chunks of [Q, B] distance rows at once with `score_edges_rows`: on the card
-one launch of csrc/dc_assign.cu (kernel 10) a chunk, Q sized from the
-rows' bytes, each chunk's slots written into one device buffer that is
+the backbone's valid slots are packed once (one launch of
+csrc/dc_assign.cu's pack), then one launch of kernel 10 a chunk over the
+records, Q sized from the rows' bytes, each chunk's slots written into one
+device buffer that is
 copied to the host once, after the last chunk (no host sync in between);
 on the CPU its plain version, Q sized from the bytes of its [Q, E, K]
 witness gather. Phase 3 sorts the clusters by size
@@ -206,11 +208,11 @@ def _stream_block_fn(frontend, payload, params: Param, wit, mem, device):
         distance_type=params.distance_type, dtype_name=params.dtype)
 
 
-def _assign_launches() -> int:
-    """This process's launches of phase 2's kernel 10."""
+def _assign_launches() -> tuple:
+    """This process's launches of phase 2's kernel 10 and of its pack."""
     from dipper_tpu_torch.dc import assign_cuda
 
-    return assign_cuda.ASSIGN_LAUNCHES
+    return assign_cuda.ASSIGN_LAUNCHES, assign_cuda.PACK_LAUNCHES
 
 
 def _phase2_chunk(state, B: int) -> int:
@@ -228,17 +230,21 @@ def _phase2_assign(state, frontend, payload, bb_args, params: Param, N: int,
     """Phase 2's launches: the chosen backbone slot of each of this
     process's queries (all of B..N-1, or this rank's contiguous share of
     them), chunk by chunk, into one int64 tensor on `device`, with no host
-    sync (on the card). Returns (the slots, queries a chunk, chunks)."""
+    sync (on the card: the state's valid slots packed once, then one
+    kernel-10 launch a chunk). Returns (the slots, queries a chunk,
+    chunks)."""
     B = params.backbone_size
     lo, hi = (0, N - B) if mesh is None else mesh.share(N - B)
     chunk = _phase2_chunk(state, B)
     ids = torch.empty((hi - lo,), dtype=torch.int64, device=device)
+    records = kclosest.assign_records(state, B) if hi > lo else None
     chunks = 0
     for a in range(B + lo, B + hi, chunk):
         b = min(B + hi, a + chunk)
         rows = _phase2_rows(frontend, payload, bb_args, params, a, b, device)
         kclosest.score_edges_rows(state, rows,
-                                  out=ids[a - B - lo:b - B - lo])
+                                  out=ids[a - B - lo:b - B - lo],
+                                  records=records)
         chunks += 1
     return ids, chunk, chunks
 
@@ -317,16 +323,18 @@ def build_dc_tree(seqs, names, params: Param, matrix=None, *, device,
     log("DC phase 2: cluster assignment")
     t = time.time()
     cluster_id = np.empty(N, dtype=np.int64)
-    launches0 = _assign_launches()
+    launches0, packs0 = _assign_launches()
     ids, chunk, chunks = _phase2_assign(state, frontend, payload, bb_args,
                                         params, N, device, mesh)
     ids = ids.cpu().numpy()  # the phase's one copy to the host
     cluster_id[B:N] = ids if mesh is None else mesh.all_gather_host(ids)
     on_card = torch.device(device).type == "cuda"
+    launches1, packs1 = _assign_launches()
     log(f"DC phase 2: chunks={chunks} rows_per_chunk={chunk} "
-        f"kernel_launches={_assign_launches() - launches0} "
+        f"kernel_launches={launches1 - launches0} "
         f"host_syncs={int(on_card)} "
-        f"route={'kernel' if kclosest.uses_assign_kernel(state) else 'plain'}")
+        f"route={'kernel' if kclosest.uses_assign_kernel(state) else 'plain'}"
+        f" pack_launches={packs1 - packs0}")
     log(f"DC phase 2 in: {int((time.time() - t) * 1000)} ms "
         f"[assign {hashlib.md5(cluster_id[B:N].tobytes()).hexdigest()[:10]}]")
     t = time.time()

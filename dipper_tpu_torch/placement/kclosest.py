@@ -41,7 +41,9 @@ path and the kernel's yardstick; its compact BFS sizes each level with
 `nonzero`, a host sync a level. csrc/side_vector.cu is the scorer's side
 vector on its own. D&C's phase 2 scores many rows on one state
 (`score_edges_rows`): on the card one launch of csrc/dc_assign.cu
-(dc/assign_cuda.py) a chunk, `score_edges_rows_plain` its plain version.
+(dc/assign_cuda.py) a chunk over records of the valid slots packed once a
+phase (`assign_records`), `score_edges_rows_plain` and `pack_slots_plain`
+its plain versions.
 The float operations and their order are the reference's, so trees are
 bitwise equal to the JAX package's on the same rows.
 """
@@ -437,23 +439,77 @@ def score_edges_rows_plain(st: TreeState, rows: torch.Tensor) -> torch.Tensor:
     return torch.argmin(torch.where(st.belong > st.e, addi, SENT_DIS), dim=1)
 
 
+def pack_slots_plain(st: TreeState, width: int) -> tuple:
+    """The plain PyTorch version of csrc/dc_assign.cu's pack: the valid
+    slots' records (uint8 [n, record bytes], in slot order; the layout of
+    dc/assign_model.py::record_layout: the slot's and its reverse's five
+    witness ids, uint16 with 0xFFFF for an empty entry where `width` <=
+    65,535, else int32 with -1, the slot, its length, the ten distances,
+    zeros to a multiple of 16 bytes) and meta int32 [2]: the record count
+    and the lowest invalid slot (2**31 - 1 if none). Tensor code on the
+    state's device; syncs the host (nonzero)."""
+    from dipper_tpu_torch.dc import assign_model as am
+
+    item = st.length.element_size()
+    idb = am.id_bytes_of(width)
+    lay = am.record_layout(idb, item)
+    valid = st.belong > st.e
+    s = torch.nonzero(valid).squeeze(1)
+    r = st.rev[s].long()
+    n = s.shape[0]
+    ids = torch.cat([st.cid[s], st.cid[r]], dim=1)               # [n, 2K]
+    dis = torch.cat([st.cdis[s], st.cdis[r]], dim=1)
+    rec = torch.zeros((n, lay.bytes), dtype=torch.uint8, device=st.e.device)
+    if idb == 2:
+        code = torch.where(ids < 0, 0xFFFF, ids)
+        rec[:, :lay.slot] = torch.stack(
+            (code & 0xFF, code >> 8), dim=-1).reshape(n, lay.slot).to(
+                torch.uint8)
+    else:
+        rec[:, :lay.slot] = ids.to(torch.int32).contiguous().view(
+            torch.uint8).reshape(n, lay.slot)
+    rec[:, lay.slot:lay.slot + 4] = s.to(torch.int32)[:, None].view(
+        torch.uint8)
+    rec[:, lay.length:lay.length + item] = st.length[s][:, None].view(
+        torch.uint8)
+    rec[:, lay.dist:lay.dist + 2 * K * item] = dis.contiguous().view(
+        torch.uint8).reshape(n, 2 * K * item)
+    invalid = torch.nonzero(~valid)
+    first = int(invalid[0, 0]) if invalid.shape[0] else 2**31 - 1
+    meta = torch.tensor([n, first], dtype=torch.int32, device=st.e.device)
+    return rec, meta
+
+
 def uses_assign_kernel(st: TreeState) -> bool:
     """Whether D&C's phase 2 scores on kernel 10: the state is on the
     card."""
     return st.e.device.type == "cuda"
 
 
-def score_edges_rows(st: TreeState, rows: torch.Tensor,
-                     out: torch.Tensor | None = None) -> torch.Tensor:
-    """`score_edges_rows_plain` on the state's device: for a state on the
-    card, one launch of kernel 10 (dc/assign_cuda.py, which raises on a
-    failed build or launch), writing into `out` (int64 [Q]) if given, with
-    no host sync; for a CPU state the plain version. Returns the int64
-    [Q] slots."""
+def assign_records(st: TreeState, width: int):
+    """The packed records that kernel 10 scores rows of `width` over: for a
+    state on the card, one launch of the pack (dc/assign_cuda.py::pack,
+    no host sync); None for a CPU state, whose plain version needs none."""
     if uses_assign_kernel(st):
         from dipper_tpu_torch.dc import assign_cuda
 
-        return assign_cuda.assign(st, rows, out)
+        return assign_cuda.pack(st, width)
+    return None
+
+
+def score_edges_rows(st: TreeState, rows: torch.Tensor,
+                     out: torch.Tensor | None = None,
+                     records=None) -> torch.Tensor:
+    """`score_edges_rows_plain` on the state's device: for a state on the
+    card, one launch of kernel 10 (dc/assign_cuda.py, which raises on a
+    failed build or launch) over `records` (assign_records' for the rows'
+    width; packed by one more launch if None), writing into `out` (int64
+    [Q]) if given, with no host sync; for a CPU state the plain version.
+    Returns the int64 [Q] slots."""
+    if uses_assign_kernel(st):
+        from dipper_tpu_torch.dc import assign_cuda
+
+        return assign_cuda.assign(st, rows, out, records=records)
     got = score_edges_rows_plain(st, rows)
     if out is None:
         return got

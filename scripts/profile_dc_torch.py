@@ -19,11 +19,13 @@ phase 3's kernel launches (csrc/dc_cluster_build.cu a batched chunk,
 csrc/dc_stream_block.cu a streamed cluster's row block) beside the log's
 chunks and row blocks, its steps and host syncs, nRF vs
 the true tree; phase 2 split into its rows (dc/pipeline.py::_phase2_rows:
-kernel 2 for mash) and its scorer (kclosest.score_edges_rows: kernel 10,
-csrc/dc_assign.cu), each the sum over the phase's chunks of the time
+kernel 2 for mash), its scorer (kclosest.score_edges_rows: kernel 10,
+csrc/dc_assign.cu) and, where the checkout has one, its pack
+(kclosest.assign_records, once a phase), each the sum over the phase's
+chunks of the time
 between two CUDA events recorded around the call in the run and read
-after the run, with the phase-2 log line's chunks, launches and host
-syncs), and the kernel's
+after the run, and of the host's time in the call, with the phase-2 log
+line's chunks, launches and host syncs), and the kernel's
 launches (the total, the widest bucket's, the sums of both times beside
 the sum of bounds). The card's name and power limit go first. Needs
 CUDA.
@@ -32,7 +34,8 @@ CUDA.
 
 compares this checkout with an earlier one (`git archive <commit>`
 unpacked at build/parent) on one card instead: the CLI with -m 3 on the
-same set in child processes, in turns parent, this, this, parent, each
+same set in child processes, in turns parent, this, this, parent (each
+round; --rounds sets how many), each
 checkout's kernels and host libraries built before the first turn;
 a JSON line a turn (phase times, phase 2's rows and scorer split as
 above, wall seconds, nRF vs the true tree, whether its Newick equals the
@@ -62,25 +65,32 @@ def emit(obj) -> None:
 
 # Times phase 2's two calls by the names that this checkout and earlier
 # ones share (dc/pipeline.py::_phase2_rows, kclosest.score_edges_rows):
-# CUDA events around each call in the run; after the run (synchronized),
-# summary() gives each call's summed ms and count, restore() puts the
-# calls back. Run by exec, in this process or in a child of another
-# checkout (PHASE2_CHILD).
+# CUDA events around each call in the run, and the host's time in each
+# call (perf_counter); after the run (synchronized), summary() gives each
+# call's summed ms, host ms and count, restore() puts the calls back. Run
+# by exec, in this process or in a child of another checkout
+# (PHASE2_CHILD).
 PHASE2_TIMERS = r"""
+import time
 import torch
 from dipper_tpu_torch.dc import pipeline
 from dipper_tpu_torch.placement import kclosest
 
-events = {"rows": [], "scorer": []}
-calls = pipeline._phase2_rows, kclosest.score_edges_rows
+events = {"rows": [], "scorer": [], "pack": []}
+host = {k: 0.0 for k in events}
+# the pack (kclosest.assign_records) where the checkout has one
+calls = (pipeline._phase2_rows, kclosest.score_edges_rows,
+         getattr(kclosest, "assign_records", None))
 
 
 def timed(key, fn):
     def run(*a, **kw):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
         ev[0].record()
         out = fn(*a, **kw)
         ev[1].record()
+        host[key] += time.perf_counter() - t0
         events[key].append(ev)
         return out
     return run
@@ -89,15 +99,20 @@ def timed(key, fn):
 def summary():
     return {**{f"phase2_{k}_ms": sum(a.elapsed_time(b) for a, b in v)
                for k, v in events.items()},
+            **{f"phase2_{k}_host_ms": v * 1e3 for k, v in host.items()},
             **{f"phase2_{k}_calls": len(v) for k, v in events.items()}}
 
 
 def restore():
-    pipeline._phase2_rows, kclosest.score_edges_rows = calls
+    pipeline._phase2_rows, kclosest.score_edges_rows = calls[:2]
+    if calls[2] is not None:
+        kclosest.assign_records = calls[2]
 
 
 pipeline._phase2_rows = timed("rows", calls[0])
 kclosest.score_edges_rows = timed("scorer", calls[1])
+if calls[2] is not None:
+    kclosest.assign_records = timed("pack", calls[2])
 """
 
 # Runs the CLI (arguments after the script) with PHASE2_TIMERS; prints one
@@ -123,6 +138,9 @@ def phase2_split(log: str, child: dict) -> dict:
         rec.update(phase2_chunks=int(m[1]), phase2_rows_per_chunk=int(m[2]),
                    phase2_kernel_launches=int(m[3]),
                    phase2_host_syncs=int(m[4]), phase2_route=m[5])
+    m = re.search(r"DC phase 2: .* pack_launches=(\d+)", log)
+    if m:
+        rec["phase2_pack_launches"] = int(m[1])
     return rec
 
 
@@ -135,6 +153,8 @@ def main() -> int:
     ap.add_argument("--parent", default=None,
                     help="an earlier checkout to time in turns with this "
                          "one (child processes, no kernel profile)")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="with --parent: the four turns this many times")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_dc_torch: CUDA is not available", file=sys.stderr)
@@ -159,7 +179,8 @@ def main() -> int:
         emit({"dataset": {"n": args.n, "L": 10000, "seed": 1,
                           "gen_s": time.time() - t0}})
         if args.parent:
-            return turns(args.parent, fa, true_nwk, out_dir, args.n)
+            return turns(args.parent, fa, true_nwk, out_dir, args.n,
+                         args.rounds)
         calls = []
         kernel = mash_cuda.mash_cluster_inter_cuda
 
@@ -239,9 +260,10 @@ def main() -> int:
     return 0
 
 
-def turns(parent: str, fa: str, true_nwk: str, out_dir: str, n: int) -> int:
+def turns(parent: str, fa: str, true_nwk: str, out_dir: str, n: int,
+          rounds: int = 1) -> int:
     """-m 3 on `fa` by the CLI of `parent` and of this checkout, each in a
-    child process, in turns parent, this, this, parent."""
+    child process, in turns parent, this, this, parent, `rounds` times."""
     import chip_smoke as cs
     from dipper_tpu_torch.utils.treecmp import rf_distance
 
@@ -255,7 +277,7 @@ def turns(parent: str, fa: str, true_nwk: str, out_dir: str, n: int) -> int:
         env = dict(os.environ, PYTHONPATH=root)
         subprocess.run([sys.executable, "-c", prep], cwd=root, env=env,
                        check=True, timeout=900)
-    for i, who in enumerate(("parent", "this", "this", "parent")):
+    for i, who in enumerate(("parent", "this", "this", "parent") * rounds):
         root = roots[who]
         out = os.path.join(out_dir, f"dc{n}.{who}.{i}.nwk")
         t0 = time.time()

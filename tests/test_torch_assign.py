@@ -2,18 +2,22 @@
 (dipper_tpu_torch/dc/assign_model.py) against the plain version
 (kclosest.score_edges_rows_plain) and the JAX package's phase-2 chunks
 (dipper_tpu/dc/pipeline.py's _phase2_chunk_matrix, _phase2_chunk_mash
-and _phase2_chunk_msa), on the same states and rows, made from seeds.
+and _phase2_chunk_msa), on the same states and rows, made from seeds; the
+pack's plain version (kclosest.pack_slots_plain) against the model's.
 
 Tolerance 0: a row's slot is an integer, and the model, the plain version
 and the JAX package run the same float operations in the same order, so
-every slot is equal. The cases: the scorer's made-up states (ties between
-two valid edges, every valid score above SENT_DIS, NaN and +inf in a
-row, a state of four edges, unused tails) and a built state, rows with a
-stride other than their width, Q not a multiple of a block's rows and E
-not a multiple of a block's threads, under every plan of the kernel; real
-states and rows of the mash and aligned-sequence frontends. The card's
-route of the whole phase, with the model as the kernel, is in
-tests/test_torch_dc.py."""
+every slot is equal; the records are bytes. The cases: the scorer's
+made-up states (ties between two valid edges, every valid score above
+SENT_DIS, NaN and +inf in a row, a state of four edges, unused tails) and
+a built state, rows with a stride other than their width, Q not a
+multiple of a block's rows and record counts not a multiple of the tile,
+under the kernel's plan and every forced instance (clusters of 1 and of
+CLUSTER_CTAS blocks, R = 1, 2, 4, 8 staged, rows read from device memory)
+and plans of fewer warps and tiles of 32 (a warp takes many slices), in
+the default slice order and a shuffled one; real states and rows of the
+mash and aligned-sequence frontends. The card's route of the whole phase,
+with the model as the kernels, is in tests/test_torch_dc.py."""
 
 import os
 import re
@@ -37,12 +41,25 @@ torch.set_num_threads(2)
 CPU = torch.device("cpu")
 FIELDS = ("e", "belong", "length", "rev", "cdis", "cid")
 
-# plans beside each width's own: the kernel's instances (1, 2, 4 or 8
-# staged rows a block, 8 read from device memory), and blocks of 64 and
-# 32 threads (E then spans several ragged slot tiles)
-PLANS = [am.Plan(1, True, 256, 0), am.Plan(2, True, 256, 0),
-         am.Plan(4, True, 256, 0), am.Plan(8, False, 256, 0),
-         am.Plan(8, True, 64, 0), am.Plan(8, False, 32, 0)]
+# the kernel's instances beside each width's own plan: (rows a block,
+# staged, blocks a cluster, ring stages), None the plan's
+INSTANCES = [(None, None, 1, None), (None, None, None, 2),
+             (1, True, None, None), (2, True, None, None),
+             (4, True, None, None), (8, True, None, None),
+             (am.GLOBAL_ROWS, False, None, None),
+             (am.GLOBAL_ROWS, False, 1, 16)]
+
+
+def _plans(width: int, item: int) -> list:
+    """The plan, every instance of INSTANCES, and model-only plans of one
+    and three consumer warps with tiles of 32 and 64 records (a warp then
+    takes many slices)."""
+    own = am.kernel_plan(width, item)
+    plans = [own] + [am.kernel_plan(width, item, *inst)
+                     for inst in INSTANCES]
+    return plans + [own._replace(threads=64, tile=32),
+                    own._replace(threads=128, tile=64),
+                    own._replace(threads=128, tile=32)]
 
 
 def _arrays(st) -> dict:
@@ -77,7 +94,7 @@ def _cases(dtype):
 def test_model_equals_plain_and_jax_on_made_up_states(dtype):
     """Every made-up case and a built state, 13 rows each, contiguous and
     as a strided view of wider rows: the model under its own plan and
-    under PLANS, the plain version and the JAX package's
+    under every plan of _plans, the plain version and the JAX package's
     _phase2_chunk_matrix give the same slots."""
     rng = np.random.default_rng(11)
     names = set()
@@ -100,11 +117,19 @@ def test_model_equals_plain_and_jax_on_made_up_states(dtype):
         assert tk.score_edges_rows_plain(
             st, torch.from_numpy(wide)[:, :W]).tolist() == want.tolist()
         arrays = _arrays(st)
-        for plan in [None] + PLANS:
+        records, first = am.pack(arrays, W)
+        shuffled = rng.permutation(-(-records.shape[0] // 32) + 1) % 3
+        for plan in [None] + _plans(W, rows.itemsize):
             for r in (rows, strided):
                 got = am.assign(arrays, r, plan)
                 assert got.dtype == np.int64
                 assert got.tolist() == want.tolist(), (name, plan)
+        # the kernel takes slices in a run-time order: any order gives the
+        # same slots
+        plan = am.kernel_plan(W, rows.itemsize)._replace(threads=128,
+                                                         tile=32)
+        assert am.assign_records(records, first, strided, plan,
+                                 order=shuffled).tolist() == want.tolist()
     assert {"tie", "all_above_2", "nan_in_row", "inf_in_row",
             "nan_and_inf_in_row", "four_edges", "unused_candidate_wins",
             "built"} <= names
@@ -125,24 +150,58 @@ def test_model_meets_the_made_up_expectations():
 
 
 def test_plan_by_width():
-    """kernel_plan: R rows a block within 96 KB (R = 8, 4, 2), else one
-    row within 225 KB, else 8 rows read from device memory; D&C's
-    backbones of 1,500, 5,000 and 50,000 taxa."""
-    for width, item, want in ((1500, 4, (8, True)), (1500, 8, (8, True)),
-                              (5000, 4, (4, True)), (5000, 8, (2, True)),
-                              (12288, 8, (1, True)), (50000, 4, (1, True)),
-                              (50000, 8, (8, False)), (28800, 8, (1, True)),
-                              (28801, 8, (8, False))):
+    """kernel_plan: R = 8, 4 or 2 rows a block (16 consumer warps) where
+    two buffers of R transposed rows and the ring fit 227 KB, else one row
+    (31 consumer warps, 1,024 threads) in two buffers or one, else rows
+    read from device memory; ids uint16 to 65,535 wide; D&C's backbones of
+    1,500, 5,000 and 50,000 taxa; records of 80, 96, 112 and 144 bytes."""
+    for width, item, want in ((1500, 4, (8, True, 2)), (1500, 8, (4, True, 2)),
+                              (5000, 4, (4, True, 2)), (5000, 8, (2, True, 2)),
+                              (12288, 8, (1, True, 1)),
+                              (50000, 4, (1, True, 1)),
+                              (50000, 8, (am.GLOBAL_ROWS, False, 0)),
+                              (27000, 8, (1, True, 1)),
+                              (27500, 8, (am.GLOBAL_ROWS, False, 0)),
+                              (70000, 4, (am.GLOBAL_ROWS, False, 0))):
         plan = am.kernel_plan(width, item)
-        assert (plan.rows, plan.staged) == want, (width, item)
-        assert plan.smem == (plan.rows * width * item if plan.staged else 0)
-        assert plan.smem <= am.STAGED_ONE_ROW
+        assert (plan.rows, plan.staged, plan.buffers) == want, (width, item)
+        assert plan.smem <= am.SMEM_BYTES
+        assert plan.cluster == am.CLUSTER_CTAS
+        assert plan.threads == 32 * (1 + (am.ONE_ROW_WARPS if plan.rows == 1
+                                          and plan.staged
+                                          else am.CONSUMER_WARPS))
+        assert plan.id_bytes == (2 if width <= 65535 else 4)
+        assert am.MIN_STAGES <= plan.stages <= am.MAX_STAGES
+        if plan.staged:
+            rows = plan.buffers * plan.rows * width * item
+            assert plan.smem - rows == (
+                am._head(plan.threads // 32 - 1, plan.rows, item)
+                + plan.stages * plan.tile * plan.record_bytes)
+    # a staged ring of RING_ROW_BYTES / (R x item) stages as fit, up to
+    # MAX_STAGES: 4 at R = 8 in f32, 8 at R = 4, 8 at R = 2 in f64; a one-
+    # row block takes what its row leaves (one 98 KB row at 12,288 in f64
+    # leaves room for 16 or more, one 200 KB row at B = 50,000 in f32 for
+    # six); rows from device memory GLOBAL_STAGES
+    assert [am.kernel_plan(w, i).stages for w, i in
+            ((1500, 4), (1500, 8), (5000, 4), (5000, 8), (12288, 8),
+             (50000, 4), (50000, 8))] == [4, 4, 8, 8, 16, 6, 4]
+    assert am.kernel_plan(1500, 4, stages=2).stages == 2
+    assert [am.record_layout(b, i).bytes for b, i in
+            ((2, 4), (4, 4), (2, 8), (4, 8))] == [80, 96, 112, 144]
+    for bad in (dict(rows=3), dict(rows=4, staged=False),
+                dict(cluster=3), dict(cluster=4), dict(cluster=8),
+                dict(cluster=16),
+                dict(rows=2, staged=True), dict(stages=1), dict(stages=17),
+                dict(rows=1, stages=7)):
+        with pytest.raises(ValueError):
+            am.kernel_plan(50000, 4, **bad)
 
 
 def test_kernel_source_matches_the_model():
     """Runs without a GPU: kernel 10 is in the build table, scores with
-    edge_score.cuh (the scorers' one clamp sequence, side_vals and the
-    argmin order), and its plan's constants are the model's."""
+    edge_score.cuh's edge_score_only (the scorers' clamp sequence),
+    feeds its records by bulk copies multicast over a cluster, and its
+    plan's constants are the model's."""
     from dipper_tpu_torch.csrc import build as kernel_build
 
     assert kernel_build.KERNELS["dc_assign"] == "dc_assign.cu"
@@ -150,13 +209,106 @@ def test_kernel_source_matches_the_model():
         src = f.read()
     code = re.sub(r"//.*", "", src)
     assert '#include "edge_score.cuh"' in code
-    for call in ("edge_score(", "side_vals(", "before(", "block_min<"):
+    for call in ("edge_score_only(", "max_nan(", "key_before(",
+                 "multicast::cluster", "mbarrier::complete_tx::",
+                 "cudaOccupancyMaxActiveClusters",
+                 "cudaLaunchAttributeClusterDimension"):
         assert call in code, call
     consts = dict(re.findall(r"constexpr [\w ]+ (k\w+) = ([\d *]+);", code))
-    assert eval(consts["kAssignThreads"]) == am.THREADS
-    assert eval(consts["kStagedBytes"]) == am.STAGED_BYTES
-    assert eval(consts["kStagedOneRow"]) == am.STAGED_ONE_ROW
-    assert eval(consts["kGlobalRows"]) == am.GLOBAL_ROWS
+    for name, value in (("kConsumerWarps", am.CONSUMER_WARPS),
+                        ("kOneRowWarps", am.ONE_ROW_WARPS),
+                        ("kTileRecords", am.TILE_RECORDS),
+                        ("kSliceRecords", am.SLICE_RECORDS),
+                        ("kPlanStages", am.PLAN_STAGES),
+                        ("kRingRowBytes", am.RING_ROW_BYTES),
+                        ("kGlobalStages", am.GLOBAL_STAGES),
+                        ("kMaxStages", am.MAX_STAGES),
+                        ("kMinStages", am.MIN_STAGES),
+                        ("kClusterCtas", am.CLUSTER_CTAS),
+                        ("kSmemBytes", am.SMEM_BYTES),
+                        ("kBarrierBytes", am.BARRIER_BYTES),
+                        ("kGlobalRows", am.GLOBAL_ROWS),
+                        ("kMaxId16Width", am.MAX_ID16_WIDTH),
+                        ("kPackThreads", am.PACK_THREADS),
+                        ("kPackSlots", am.PACK_SLOTS)):
+        assert eval(consts[name]) == value, name
+    assert float(re.search(r"kSentDis = ([\d.]+);", code)[1]) == am.SENT_DIS
+    assert "kPackTile = kPackThreads * kPackSlots;" in code
+
+
+def _pack_state(rng, dtype, n_pairs, n_slots, width, first_valid=0,
+                first_invalid=0):
+    """A made-up state whose slots below `first_valid` are all invalid and
+    whose slots below `first_invalid` are all valid."""
+    d = sm.made_up_state(n_pairs, n_slots, width, dtype, rng)
+    low = np.arange(n_slots) < first_valid
+    d["belong"][low & (d["belong"] > d["e"])] = -1
+    high = np.arange(n_slots) < first_invalid
+    d["belong"][high] = np.maximum(d["belong"][high], d["e"][high] + 1)
+    return d
+
+
+@pytest.mark.parametrize("width", [1500, 70000])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_pack_plain_keeps_slot_order(dtype, width):
+    """pack_slots_plain: the valid slots in slot order, each record the
+    slot's and its reverse's ids and distances, its length and the slot;
+    uint16 ids (0xFFFF empty) to 65,535 wide, else int32 (-1); the lowest
+    invalid slot; bytes equal to the model's pack, on made-up states, a
+    built one, one whose only valid slots sit past the pack's first tile
+    and one whose lowest invalid slot does."""
+    rng = np.random.default_rng(4)
+    states = [d for _, d, _, _ in sm.made_up_cases(dtype)]
+    states.append(_cases(dtype)[-1][1])
+    # the pack kernel's first block takes PACK_TILE slots: this state's
+    # valid slots all sit past it, the next one's invalid slots
+    tile = am.PACK_TILE
+    late = _pack_state(rng, dtype, 2100, 4400, 200, first_valid=tile)
+    late_invalid = _pack_state(rng, dtype, 2100, 4400, 200,
+                               first_invalid=tile + 5)
+    states += [late, late_invalid]
+    idb = 2 if width <= 65535 else 4
+    item = np.dtype(dtype).itemsize
+    lay = am.record_layout(idb, item)
+    for d in states:
+        st = tk.tree_state_from_numpy(
+            {k: v for k, v in d.items() if v is not None}, CPU)
+        rec, meta = tk.pack_slots_plain(st, width)
+        want, first = am.pack(_arrays(st), width)
+        assert rec.dtype == torch.uint8 and rec.shape[1] == lay.bytes
+        assert np.array_equal(rec.numpy(), want)
+        valid = np.flatnonzero(d["belong"] > d["e"])
+        invalid = np.flatnonzero(~(d["belong"] > d["e"]))
+        assert meta.tolist() == [valid.size, first]
+        assert first == (invalid[0] if invalid.size else am.NO_SLOT)
+        u = am.unpack(want, idb, dtype)
+        assert u["slot"].tolist() == valid.tolist()
+        r = d["rev"][valid]
+        assert np.array_equal(u["ids"], np.concatenate(
+            [d["cid"][valid], d["cid"][r]], axis=1))
+        assert np.array_equal(u["dist"], np.concatenate(
+            [d["cdis"][valid], d["cdis"][r]], axis=1))
+        assert np.array_equal(u["length"], d["length"][valid])
+        assert not want[:, lay.dist + 2 * am.K * item:].any()   # padding
+    assert not (late["belong"][:tile] > late["e"][:tile]).any()
+    assert (late["belong"] > late["e"]).any()
+    assert am.pack(late_invalid, width)[1] >= tile + 5
+
+
+def test_model_scores_a_late_tile():
+    """A state whose valid slots all sit past the first tile, 130 rows: the
+    model under its plan and a plan of one warp equals the plain version."""
+    rng = np.random.default_rng(6)
+    for dtype in ("float32", "float64"):
+        d = _pack_state(rng, dtype, 150, 400, 90, first_valid=130)
+        st = tk.tree_state_from_numpy(d, CPU)
+        rows = rng.random((130, 90)).astype(dtype)
+        rows[5, ::7] = np.nan
+        want = tk.score_edges_rows_plain(st, torch.from_numpy(rows))
+        for plan in (None, am.kernel_plan(90, rows.itemsize)._replace(
+                threads=64)):
+            assert am.assign(_arrays(st), rows, plan).tolist() == \
+                want.tolist()
 
 
 def _mash_case(dtype):
@@ -209,13 +361,13 @@ def _msa_case(dtype):
 def test_model_equals_jax_phase2_chunks(frontend, dtype):
     """A backbone placed by the port from mash ranks (B = 20, 50 queries)
     or aligned codes (B = 16, 44 queries) and the port's rows to it: the
-    model under its plan and PLANS, and the plain version, equal the JAX
+    model under every plan of _plans, and the plain version, equal the JAX
     package's _phase2_chunk_mash / _phase2_chunk_msa on that state."""
     st, rows, want = (_mash_case if frontend == "mash" else _msa_case)(dtype)
     assert len(set(want.tolist())) > 3
     assert tk.score_edges_rows_plain(st, rows).tolist() == want.tolist()
     arrays = _arrays(st)
-    for plan in [None] + PLANS:
+    for plan in [None] + _plans(rows.shape[1], rows.element_size()):
         assert am.assign(arrays, rows.numpy(), plan).tolist() == \
             want.tolist(), plan
 
@@ -232,9 +384,12 @@ def test_wrapper_rejects_cpu_states():
     rows = torch.from_numpy(np.stack([row, row]))
     with pytest.raises(ValueError, match="CUDA state"):
         assign_cuda.assign(st, rows)
-    before = assign_cuda.ASSIGN_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA state"):
+        assign_cuda.pack(st, rows.shape[1])
+    assert tk.assign_records(st, rows.shape[1]) is None
+    before = assign_cuda.ASSIGN_LAUNCHES, assign_cuda.PACK_LAUNCHES
     out = torch.full((2,), -1, dtype=torch.int64)
     got = tk.score_edges_rows(st, rows, out=out)
     assert got is out and not tk.uses_assign_kernel(st)
     assert got.tolist() == tk.score_edges_rows_plain(st, rows).tolist()
-    assert assign_cuda.ASSIGN_LAUNCHES == before
+    assert (assign_cuda.ASSIGN_LAUNCHES, assign_cuda.PACK_LAUNCHES) == before

@@ -1245,11 +1245,13 @@ def test_dc_cuda_equals_cpu(cuda, frontend, monkeypatch):
     want = run(torch.device("cpu"))
     before = mash_cuda.CLUSTER_LAUNCHES
     assigned = assign_cuda.ASSIGN_LAUNCHES
+    packed = assign_cuda.PACK_LAUNCHES
     got = run(cuda)
     assert got == want
     assert (mash_cuda.CLUSTER_LAUNCHES > before) == (frontend == "mash")
-    # phase 2: 285 queries, one chunk, one kernel-10 launch
+    # phase 2: 285 queries, one chunk, one kernel-10 launch, one pack
     assert assign_cuda.ASSIGN_LAUNCHES == assigned + 1
+    assert assign_cuda.PACK_LAUNCHES == packed + 1
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -1266,40 +1268,73 @@ def test_score_edges_rows_cuda_equals_kernel_loop(cuda, dtype):
                             sketch_size=100, dtype_name=dtype)
     want = [tk.score_edges(st, rows[i])[0] for i in range(rows.shape[0])]
     before = assign_cuda.ASSIGN_LAUNCHES
+    packed = assign_cuda.PACK_LAUNCHES
     assert assign_cuda.assign(st, rows).tolist() == want
     assert tk.uses_assign_kernel(st)
+    records = tk.assign_records(st, rows.shape[1])
+    assert tk.score_edges_rows(st, rows, records=records).tolist() == want
     assert tk.score_edges_rows(st, rows).tolist() == want
-    assert assign_cuda.ASSIGN_LAUNCHES == before + 2
+    assert assign_cuda.ASSIGN_LAUNCHES == before + 3
+    assert assign_cuda.PACK_LAUNCHES == packed + 3
     assert tk.score_edges_rows_plain(st, rows).tolist() == want
     cpu = tk.tree_state_from_numpy(tk.tree_state_to_numpy(st), "cpu")
     assert tk.score_edges_rows(cpu, rows.cpu()).tolist() == want
 
 
 ASSIGN_FIELDS = ("e", "belong", "length", "rev", "cdis", "cid")
-# every instance of kernel 10: rows a block, staged or read from device
-# memory (None: the kernel's plan)
-ASSIGN_PLANS = [(None, None), (1, True), (2, True), (4, True), (8, True),
-                (8, False)]
+# instances of kernel 10: (rows a block, staged, blocks a cluster, ring
+# stages), None the plan's; rows read from device memory are GLOBAL_ROWS
+# a block (4 of them an instance that does not exist); two stages wrap
+# the ring every other tile, 16 fill it
+ASSIGN_INSTANCES = [(None, None, None, None), (None, None, 1, None),
+                    (None, None, 2, None), (None, None, 1, 2),
+                    (None, None, None, 2), (None, None, 2, 16),
+                    (1, True, None, None), (1, True, 1, 2),
+                    (2, True, None, None), (4, True, None, None),
+                    (8, True, None, None), (8, True, 1, None),
+                    (2, False, None, None), (2, False, 1, 2),
+                    (4, False, None, None)]
 
 
 def _assign_all_plans(st, rows, want, tag):
-    """Kernel 10 under its plan and every forced instance whose staged
-    rows fit a block's shared memory (225 KB, the kernel's limit)."""
+    """Kernel 10 under its plan and every instance of ASSIGN_INSTANCES, over
+    records packed once: equal to `want` where the instance fits (its plan
+    the model's), a launch that raises where it does not."""
     from dipper_tpu_torch.dc import assign_cuda
     from dipper_tpu_torch.dc import assign_model as am
 
-    for R, staged in ASSIGN_PLANS:
-        if staged and R * rows.shape[1] * rows.element_size() \
-                > am.STAGED_ONE_ROW:
+    W, item = rows.shape[1], rows.element_size()
+    records = assign_cuda.pack(st, W)
+    for R, staged, cl, stages in ASSIGN_INSTANCES:
+        kw = dict(rows_per_block=R, staged=staged, cluster=cl, stages=stages)
+        try:
+            plan = am.kernel_plan(W, item, R, staged, cl, stages)
+        except ValueError:
             with pytest.raises(RuntimeError, match="invalid argument"):
-                assign_cuda.assign(st, rows, rows_per_block=R, staged=True)
+                assign_cuda.assign(st, rows, records=records, **kw)
             continue
+        assert assign_cuda.plan(W, rows.dtype, **kw) == plan, (tag, kw)
         before = assign_cuda.ASSIGN_LAUNCHES
-        got = assign_cuda.assign(st, rows, rows_per_block=R, staged=staged)
+        got = assign_cuda.assign(st, rows, records=records, **kw)
         torch.cuda.synchronize()
         assert assign_cuda.ASSIGN_LAUNCHES == before + 1
         assert got.dtype == torch.int64
-        assert torch.equal(got, want), (tag, R, staged)
+        assert torch.equal(got, want), (tag, kw)
+
+
+def _assert_pack_equals_plain(st, width, tag):
+    """The pack kernel against pack_slots_plain, byte for byte: the
+    records of the valid slots and meta (count, lowest invalid slot)."""
+    from dipper_tpu_torch.dc import assign_cuda
+
+    before = assign_cuda.PACK_LAUNCHES
+    got = assign_cuda.pack(st, width)
+    rec, meta = tk.pack_slots_plain(st, width)
+    torch.cuda.synchronize()
+    assert assign_cuda.PACK_LAUNCHES == before + 1
+    assert torch.equal(got.meta, meta), (tag, got.meta, meta)
+    assert got.data.shape[1] == rec.shape[1]
+    assert torch.equal(got.data[:rec.shape[0]], rec), tag
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -1308,9 +1343,9 @@ def test_assign_kernel_equals_plain_and_model(cuda, dtype):
     dc/assign_model.py, bit for bit, under its plan and every forced
     instance: the scorer's made-up states (ties between two valid edges,
     every valid score above 2.0, NaN and +inf in rows, four edges, unused
-    tails; E ragged against the block's 256 threads), 13 rows (ragged
+    tails; record counts ragged against the tile), 13 rows (ragged
     against every plan's rows a block), contiguous and as a strided view
-    of wider rows."""
+    of wider rows; the pack against its plain version on each state."""
     from dipper_tpu_torch.dc import assign_model as am
 
     rng = np.random.default_rng(5)
@@ -1326,42 +1361,104 @@ def test_assign_kernel_equals_plain_and_model(cuda, dtype):
         want = tk.score_edges_rows_plain(st, rows)
         model = am.assign({f: d[f] for f in ASSIGN_FIELDS}, rows_h)
         assert want.tolist() == model.tolist(), name
+        _assert_pack_equals_plain(st, rows_h.shape[1], name)
         for r, tag in ((rows, "contiguous"), (strided, "strided")):
             _assign_all_plans(st, r, want, f"{name} {tag}")
 
 
+@pytest.mark.parametrize("width", [1500, 50000])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_assign_kernel_wide_rows(cuda, dtype):
-    """Rows of 30,000 entries (f64: read from device memory; f32: staged
-    one a block) and 9 rows on a made-up state of 4,100 slots (3,999 used,
-    the witnesses spread over the row): the kernel under its plan and
-    every forced instance equals the plain version and the model; the
-    kernel's plan is the model's."""
+def test_assign_kernel_wide_rows(cuda, dtype, width):
+    """Rows of D&C's widths at 30K (B = 1,500: R = 8 rows a block in f32,
+    4 in f64) and at the 1M band (B = 50,000: one row a block in f32, rows
+    read from device memory in f64), 9 rows with NaN in one, on a made-up
+    state of 4B slots (half of the used ones valid, the witnesses spread
+    over the row): the pack and the kernel under its plan and every forced
+    instance equal the plain versions and the model; the kernel's plans
+    are the model's at the widths where they change."""
     from dipper_tpu_torch.dc import assign_cuda
     from dipper_tpu_torch.dc import assign_model as am
 
     rng = np.random.default_rng(8)
-    d = sm.made_up_state(2000, 4100, 30000, dtype, rng)
+    d = sm.made_up_state(2 * width - 2, 4 * width, width, dtype, rng,
+                         bare=False)
     st = tk.tree_state_from_numpy(d, cuda)
-    rows_h = rng.random((9, 30000)).astype(dtype)
+    rows_h = rng.random((9, width)).astype(dtype)
     rows_h[3, ::97] = np.nan
     rows = torch.from_numpy(rows_h).to(cuda)
     want = tk.score_edges_rows_plain(st, rows)
     assert want.tolist() == am.assign(
         {f: d[f] for f in ASSIGN_FIELDS}, rows_h).tolist()
-    _assign_all_plans(st, rows, want, "wide")
-    for width in (1500, 5000, 12288, 28800, 28801, 50000):
+    _assert_pack_equals_plain(st, width, f"wide {width}")
+    _assign_all_plans(st, rows, want, f"wide {width}")
+    for w in (1500, 5000, 12288, 27000, 27500, 50000, 70000):
         for dt in (torch.float32, torch.float64):
-            plan = am.kernel_plan(width, 8 if dt == torch.float64 else 4)
-            assert assign_cuda.plan(width, dt) == tuple(plan), (width, dt)
-    # no instance reads 4 rows a block from device memory
-    with pytest.raises(RuntimeError, match="invalid argument"):
-        assign_cuda.assign(st, rows, rows_per_block=4, staged=False)
+            plan = am.kernel_plan(w, 8 if dt == torch.float64 else 4)
+            assert assign_cuda.plan(w, dt) == plan, (w, dt)
+
+
+def test_assign_kernel_int32_ids(cuda):
+    """Rows 70,000 wide (over uint16's 65,535): the pack writes int32 ids
+    and kernel 10 reads its rows from device memory; 5 rows on a made-up
+    state of 4,100 slots whose witnesses span the row."""
+    from dipper_tpu_torch.dc import assign_cuda
+    from dipper_tpu_torch.dc import assign_model as am
+
+    rng = np.random.default_rng(12)
+    width = 70000
+    d = sm.made_up_state(2000, 4100, width, "float32", rng)
+    st = tk.tree_state_from_numpy(d, cuda)
+    rows_h = rng.random((5, width)).astype(np.float32)
+    rows = torch.from_numpy(rows_h).to(cuda)
+    want = tk.score_edges_rows_plain(st, rows)
+    assert want.tolist() == am.assign(
+        {f: d[f] for f in ASSIGN_FIELDS}, rows_h).tolist()
+    assert assign_cuda.pack(st, width).id_bytes == 4
+    _assert_pack_equals_plain(st, width, "int32 ids")
+    _assign_all_plans(st, rows, want, "int32 ids")
+
+
+def test_pack_kernel_equals_plain(cuda):
+    """The pack against pack_slots_plain, byte for byte, on states whose
+    valid slots all sit past the pack's first tile (1,024 slots), whose
+    lowest invalid slot does, a state with no valid slot, one with no
+    invalid slot, and one of 200,000 slots (196 tiles, the blocks' look-back
+    over many tiles)."""
+    from dipper_tpu_torch.dc import assign_model as am
+
+    rng = np.random.default_rng(13)
+    tile = am.PACK_TILE
+    for dtype in ("float32", "float64"):
+        d = sm.made_up_state(2100, 4400, 300, dtype, rng)
+        low = np.arange(4400) < tile
+        d["belong"][low & (d["belong"] > d["e"])] = -1
+        st = tk.tree_state_from_numpy(d, cuda)
+        _assert_pack_equals_plain(st, 300, f"late {dtype}")
+        _assert_pack_equals_plain(st, 70000, f"late int32 {dtype}")
+        high = np.arange(4400) < 3 * tile + 7
+        d["belong"][high] = np.maximum(d["belong"][high], d["e"][high] + 1)
+        assert (d["belong"][:3 * tile + 7] > d["e"][:3 * tile + 7]).all()
+        _assert_pack_equals_plain(tk.tree_state_from_numpy(d, cuda), 300,
+                                  f"late invalid {dtype}")
+        big = sm.made_up_state(99999, 200000, 50000, dtype, rng, bare=False)
+        _assert_pack_equals_plain(tk.tree_state_from_numpy(big, cuda), 50000,
+                                  f"200,000 slots {dtype}")
+        none = dict(d, belong=np.full_like(d["belong"], -1))
+        _assert_pack_equals_plain(tk.tree_state_from_numpy(none, cuda), 300,
+                                  f"no valid slot {dtype}")
+        pairs = sm.made_up_state(50, 100, 300, dtype, rng)
+        full = dict(pairs, belong=np.full_like(pairs["belong"], 5),
+                    e=np.full_like(pairs["e"], 1),
+                    rev=np.arange(100, dtype=np.int32)[::-1].copy())
+        _assert_pack_equals_plain(tk.tree_state_from_numpy(full, cuda), 300,
+                                  f"no invalid slot {dtype}")
 
 
 def test_assign_wrapper_rejects_bad_inputs(cuda):
     """Kernel 10's wrapper raises on rows of another type or device, rows
-    that are not unit stride along a row, and a wrong output buffer."""
+    that are not unit stride along a row, a wrong output buffer, records
+    whose ids do not fit the rows' width, and the launch on a refused
+    cluster size, ring or instance."""
     from dipper_tpu_torch.dc import assign_cuda
 
     name, d, row, _ = sm.made_up_cases("float32")[0]
@@ -1376,6 +1473,19 @@ def test_assign_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="out must be"):
         assign_cuda.assign(st, rows, torch.empty(2, dtype=torch.int32,
                                                  device=cuda))
+    narrow = assign_cuda.pack(st, rows.shape[1])
+    wide = torch.zeros((2, 70000), dtype=torch.float32, device=cuda)
+    wide[:, :rows.shape[1]] = rows
+    with pytest.raises(ValueError, match="do not fit"):
+        assign_cuda.assign(st, wide, records=narrow)
+    for kw in (dict(cluster=3), dict(cluster=4), dict(cluster=8),
+               dict(cluster=16), dict(stages=1), dict(stages=17),
+               dict(rows_per_block=4, staged=False),
+               dict(rows_per_block=3)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            assign_cuda.assign(st, rows, records=narrow, **kw)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            assign_cuda.plan(rows.shape[1], torch.float32, **kw)
 
 
 def _sketch_rows(k, seed):

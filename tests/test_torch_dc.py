@@ -793,16 +793,36 @@ def test_phase3_wrappers_reject_cpu_states():
 # ---------------------------------------------------------------------------
 
 
-def _model_assign(st, rows, out=None, **kw):
-    """assign_cuda.assign's contract, computed by dc/assign_model.py."""
+def _model_pack(st, width):
+    """assign_cuda.pack's contract, computed by dc/assign_model.py."""
+    from dipper_tpu_torch.dc import assign_cuda
+    from dipper_tpu_torch.dc import assign_model as am
+
+    assign_cuda.PACK_LAUNCHES += 1
+    arrays = {f: getattr(st, f).numpy()
+              for f in ("e", "belong", "length", "rev", "cdis", "cid")}
+    rec, first = am.pack(arrays, width)
+    E = st.e.shape[0]
+    data = torch.zeros((E, rec.shape[1]), dtype=torch.uint8)
+    data[:rec.shape[0]] = torch.from_numpy(rec)
+    meta = torch.tensor([rec.shape[0], first], dtype=torch.int32)
+    return assign_cuda.Records(data, meta, am.id_bytes_of(width),
+                               st.length.dtype, E)
+
+
+def _model_assign(st, rows, out=None, *, records=None, **kw):
+    """assign_cuda.assign's contract over the pack's records, computed by
+    dc/assign_model.py."""
     from dipper_tpu_torch.dc import assign_cuda
     from dipper_tpu_torch.dc import assign_model as am
 
     assert rows.device == st.e.device and rows.stride(-1) == 1
+    assert records is not None and records.n_edges == st.e.shape[0]
+    assert records.id_bytes == am.id_bytes_of(rows.shape[1])
     assign_cuda.ASSIGN_LAUNCHES += 1
-    arrays = {f: getattr(st, f).numpy()
-              for f in ("e", "belong", "length", "rev", "cdis", "cid")}
-    got = torch.from_numpy(am.assign(arrays, rows.numpy()))
+    n, first = records.meta.tolist()
+    got = torch.from_numpy(am.assign_records(records.data[:n].numpy(), first,
+                                             rows.numpy()))
     if out is None:
         return got
     assert out.dtype == torch.int64 and out.shape == got.shape
@@ -816,6 +836,10 @@ def _phase2_line(log: str) -> tuple:
     return int(m[1]), int(m[2]), int(m[3]), int(m[4]), m[5]
 
 
+def _pack_launches(log: str) -> int:
+    return int(re.search(r"DC phase 2: .* pack_launches=(\d+)", log)[1])
+
+
 @pytest.mark.parametrize("case, knobs", [
     pytest.param("matrix", {"PHASE2_CHUNK": 48}, id="matrix-chunks"),
     pytest.param("matrix", {"PHASE2_BYTES": 1}, id="matrix-one_row"),
@@ -824,11 +848,12 @@ def _phase2_line(log: str) -> tuple:
 ])
 def test_phase2_card_route_with_model_as_kernel_equals_jax(
         request, capsys, monkeypatch, case, knobs):
-    """Phase 2 as it runs on the card, on CPU tensors with kernel 10's
-    model in its place: chunks sized from the [Q, B] rows' bytes (forced
-    small here), one launch a chunk into one buffer; the log's phase-2
-    line counts them. The assignment md5 and the Newick are the JAX
-    package's default, bit for bit (the matrix rows as strided views)."""
+    """Phase 2 as it runs on the card, on CPU tensors with the models of
+    kernel 10 and its pack in their place: the state packed once, chunks
+    sized from the [Q, B] rows' bytes (forced small here), one launch a
+    chunk into one buffer; the log's phase-2 line counts them. The
+    assignment md5 and the Newick are the JAX package's default, bit for
+    bit (the matrix rows as strided views)."""
     from dipper_tpu_torch.dc import assign_cuda
     from dipper_tpu_torch.placement import kclosest as tk
 
@@ -851,13 +876,16 @@ def test_phase2_card_route_with_model_as_kernel_equals_jax(
         monkeypatch.setattr(tpl, k, v)
     monkeypatch.setattr(tk, "uses_assign_kernel", lambda st: True)
     monkeypatch.setattr(assign_cuda, "assign", _model_assign)
+    monkeypatch.setattr(assign_cuda, "pack", _model_pack)
     before = assign_cuda.ASSIGN_LAUNCHES
+    packs = assign_cuda.PACK_LAUNCHES
     got, got_md5, log = _port_run(*run)
     assert got == want and got_md5 == want_md5
     chunks, per, launches, syncs, route = _phase2_line(log)
     want_per = knobs.get("PHASE2_CHUNK", 1)
     assert per == want_per and chunks == -(-(n - b) // per) > 1
     assert launches == chunks == assign_cuda.ASSIGN_LAUNCHES - before
+    assert _pack_launches(log) == 1 == assign_cuda.PACK_LAUNCHES - packs
     assert route == "kernel" and syncs == 0   # no card: no copy to sync
 
 
@@ -869,3 +897,4 @@ def test_phase2_cpu_route_line():
     _, tp = _params(14, in_format="d")
     _, _, log = _port_run(tpl.build_dc_tree_from_matrix, D, names, tp)
     assert _phase2_line(log) == (1, tpl.PHASE2_CHUNK, 0, 0, "plain")
+    assert _pack_launches(log) == 0
