@@ -7,8 +7,8 @@ Runs on one NVIDIA GPU, from the root of a checkout:
     python3 chip_smoke.py --phases 1,2,3,6,7 --n 4400   # kernel checks only
 
 Phases, each printing one line of its own (run in the order 1, 2, 3, 6,
-15, 7, 25, 19, 4, 17, 5, 16, 29, 26, 9, 24, 10, 11, 12, 28, 14, 27, 13, 8,
-18, 20, 21, 22, 23:
+15, 7, 25, 19, 4, 17, 5, 16, 29, 26, 9, 24, 10, 11, 12, 28, 14, 30, 27, 13,
+8, 18, 20, 21, 22, 23:
 phases 13, 8 and 18 run the profiler, which slows every later launch in
 the process; phases 20 to 22 run in processes of their own):
   1. device: torch's device name and nvidia-smi's name and power limit;
@@ -275,6 +275,25 @@ the process; phases 20 to 22 run in processes of their own):
      launches = 1,024 and the BFS alone once a backbone leaf, merge-count
      launches > 0, the ingest's device route as in phase 5; and the same Newick from the card and the CPU at a
      backbone of 256 with 64 queries;
+  30. multifurcating --add: a backbone built by the port from phase 5's
+     set but its last 1,024 taxa (28,976 at N = 30,000; -i r -m 1),
+     collapsed (collapse_backbone: the internal edges under the 30th
+     percentile of internal lengths, and every internal edge of the
+     smallest clade of at least COLLAPSE_CLADE leaves, contracted), then
+     --add of the last 1,024: the log's wide-table route, every kept
+     backbone split survives, the leaves are the input's, score_edges
+     launches = 1,024, the wide insert_step's launches = backbone leaves
+     + 1,024 (the BFS alone once a leaf) and none of the binary one's;
+     then on the run's own inputs (wide_window) the kernel route against
+     the plain route (the dense BFS) from two states built alike: 256
+     leaves seeded and 64 queries by the cursor route under
+     torch.cuda.set_sync_debug_mode("error"), 64 more queries by direct
+     launches, the same arrays (and insert_model's for the leaves), each
+     timed by CUDA events queued behind a device sleep beside the plain
+     route, the bound from the model's counts and the latency floor (its
+     levels a leaf times one L2 round trip); and the same Newick from the
+     card and the CPU on a collapsed backbone of 256 (a clade of 64) with
+     64 queries. Seeding ms a backbone leaf and ms a query from the log;
   27. the exact main path: the CLI's exact placement (-i r -m 0, auto mode
      at N >= 30,000, default flags: f32; skipped at a smaller --n) on
      phase 5's set: rc 0, a
@@ -349,13 +368,14 @@ Phases 12, 14, 4 and 13 run at 8,192, 4,096 + 1,024, 512 and 2,048,
 since the insertion-step and exact-step kernels took their insertion
 loops off the host.
 Every kernel counter is set to 0 just before a main path (phases 5, 16,
-9, 11, 12, 28, 14, 27, and in each rank of 20, 21 and 22) and read just after
-it; `launches` in the kernels' record is the count of phases 5
+9, 11, 12, 28, 14, 30, 27, and in each rank of 20, 21 and 22) and read just
+after it; `launches` in the kernels' record is the count of phases 5
 (placement; insert_step's counts both its entry points; the sketch
 kernel's), 16 (D&C: the per-cluster count kernel, dc_stream_block,
 dc_cluster_build, dc_assign and dc_assign_pack), 9 (NJ: the distance
 kernel and NJ's
-two) and 27 (exact: exact_step), `launches_by_path` has
+two), 30 (insert_step_wide, the wide instantiation: both entry points)
+and 27 (exact: exact_step), `launches_by_path` has
 every path's (one count a rank for the multi-rank paths), and
 score_edges's `range_launches` the sharded placement's range launches.
 
@@ -402,6 +422,9 @@ KERNELS = {
     "insert_step": ("dipper_tpu_torch/csrc/insert_step.cu",
                     "dipper_tpu/placement/kclosest.py:857 (XLA program, no "
                     "Pallas)"),
+    "insert_step_wide": ("dipper_tpu_torch/csrc/insert_step.cu",
+                         "dipper_tpu/placement/kclosest.py:143 (XLA program, "
+                         "no Pallas)"),
     "nj_q_argmin": ("dipper_tpu_torch/csrc/nj_q_argmin.cu",
                     "dipper_tpu/nj/engine.py:35 (XLA program, no Pallas)"),
     "nj_update": ("dipper_tpu_torch/csrc/nj_update.cu",
@@ -487,7 +510,7 @@ ASSIGN_BAND_QUERIES = 950000
 # bytes a lane at random addresses (assign_bound)
 SM_BANKS = 32
 ALL_PHASES = (1, 2, 3, 6, 15, 7, 25, 19, 4, 17, 5, 16, 29, 26, 9, 24, 10, 11,
-              12, 28, 14, 27, 13, 8, 18, 20, 21, 22, 23)
+              12, 28, 14, 30, 27, 13, 8, 18, 20, 21, 22, 23)
 # -i m -m 3 (phase 28): the aligned set's first MSA_DC_N sequences on the
 # card, and its first MSA_DC_CPU_N on the card and on the CPU
 MSA_DC_N = 4096
@@ -508,6 +531,18 @@ EXACT_PART_RUNS = (("block0", {"wide": 1 << 30}), ("cluster", {}))
 # nRF of the D&C main path's tree vs the true tree at N = 30,000 in every
 # earlier smoke with D&C: phase 3's kernels must leave it unchanged
 DC_NRF_30K = 0.5831583158315832
+# the multifurcating --add backbone (collapse_backbone): internal edges
+# below this quantile of the internal lengths contracted, and every
+# internal edge of one clade of at least COLLAPSE_CLADE leaves, more than
+# the frontier entries of insert_step.cu's shared buffers (kCap = 256), so
+# that the clade's level spills to the scratch
+COLLAPSE_QUANTILE = 0.3
+COLLAPSE_CLADE = 320
+# phase 30's window of the kernel route against the plain route: backbone
+# leaves seeded, and queries (twice: by the cursor route, then by direct
+# launches)
+ADD_WIDE_LEAVES = 256
+ADD_WIDE_QUERIES = 64
 # every SAMPLE-th query row of a large kernel call is compared with the
 # plain version (which takes ~10 ms per query row at 30,000 bank rows)
 SAMPLE = 128
@@ -2046,6 +2081,8 @@ def reset_counts() -> None:
     minhash_cuda.LAUNCHES = 0
     insert_cuda.INSERT_STEP_LAUNCHES = 0
     insert_cuda.CLOSEST_BFS_LAUNCHES = 0
+    insert_cuda.INSERT_STEP_WIDE_LAUNCHES = 0
+    insert_cuda.CLOSEST_BFS_WIDE_LAUNCHES = 0
     insert_cuda.GRAPH_CAPTURES = 0
     insert_cuda.GRAPH_REPLAYS = 0
     exact_cuda.EXACT_STEP_LAUNCHES = 0
@@ -2057,7 +2094,8 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     """Every kernel's launches since reset_counts: insert_step's are those
     of its entry points (direct or replayed), "insert_step.closest_bfs"
-    the BFS alone's; "nj_q_argmin.half_read" kernel A's launches in the
+    the BFS alone's, and "insert_step_wide" those of its wide
+    instantiation; "nj_q_argmin.half_read" kernel A's launches in the
     half read; and the CUDA graphs of the cursor route captured and
     replayed."""
     from dipper_tpu_torch.dc import assign_cuda, cluster_cuda
@@ -2075,6 +2113,10 @@ def read_counts() -> dict:
             "insert_step": (insert_cuda.INSERT_STEP_LAUNCHES
                             + insert_cuda.CLOSEST_BFS_LAUNCHES),
             "insert_step.closest_bfs": insert_cuda.CLOSEST_BFS_LAUNCHES,
+            "insert_step_wide": (insert_cuda.INSERT_STEP_WIDE_LAUNCHES
+                                 + insert_cuda.CLOSEST_BFS_WIDE_LAUNCHES),
+            "insert_step_wide.closest_bfs":
+                insert_cuda.CLOSEST_BFS_WIDE_LAUNCHES,
             "graph_captures": insert_cuda.GRAPH_CAPTURES,
             "graph_replays": insert_cuda.GRAPH_REPLAYS,
             "nj_q_argmin": nj_cuda.Q_ARGMIN_LAUNCHES,
@@ -3370,6 +3412,71 @@ def backbone_splits_survive(out_nwk: str, back_nwk: str) -> tuple:
         if 1 < len(side) < len(back_leaves) - 1:
             restricted.add(frozenset(side))
     return back <= restricted, leaves
+
+
+def collapse_backbone(nwk: str, quantile: float = COLLAPSE_QUANTILE,
+                      clade: int = COLLAPSE_CLADE) -> tuple[str, dict]:
+    """A multifurcating backbone made from a binary Newick, as other tools
+    hand them over (short branches collapsed, or a taxonomy): every
+    internal edge shorter than the `quantile` of the internal edges'
+    lengths is contracted, and so is every internal edge inside the
+    smallest clade of at least `clade` leaves (the first in DFS order),
+    whose root then holds all its leaves. A contracted edge's node gives
+    its children, with their lengths, to its parent. Returns the Newick
+    (io.newick.write_newick, as the CLI writes trees) and the internal
+    edges before and after, the clade's leaves and the degrees.
+
+    Host code only, and not a feature of the package. The port's CPU
+    tests (test_torch_add.py, test_torch_add_wide.py), its card tests
+    (test_torch_cuda.py) and scripts/profile_add_torch.py import it from
+    here, so a change to it changes the backbones they build."""
+    from dipper_tpu_torch.io.newick import parse_newick, write_newick
+
+    tree = parse_newick(nwk, nwk.count(",") + 1)
+    order, stack = [], [tree.root]
+    while stack:
+        v = stack.pop()
+        order.append(v)
+        stack.extend(v.children)
+    order.reverse()  # children before their parent
+    leaves = {}
+    for v in order:
+        leaves[id(v)] = (1 if v.is_leaf()
+                         else sum(leaves[id(c)] for c in v.children))
+    inner = [v for v in order if not v.is_leaf() and v.parent is not None]
+    cut = float(np.quantile([v.bl for v in inner], quantile))
+    big = [v for v in order if not v.is_leaf() and leaves[id(v)] >= clade]
+    top = min(big, key=lambda v: leaves[id(v)]) if big else None
+    inside = set()
+    if top is not None:
+        stack = list(top.children)
+        while stack:
+            v = stack.pop()
+            if not v.is_leaf():
+                inside.add(id(v))
+                stack.extend(v.children)
+    for v in inner:
+        if v.bl < cut or id(v) in inside:
+            p = v.parent
+            at = p.children.index(v)
+            p.children[at:at + 1] = v.children
+            for c in v.children:
+                c.parent = p
+    nodes, stack = [], [tree.root]
+    while stack:
+        v = stack.pop()
+        nodes.append(v)
+        stack.extend(v.children)
+    deg = [len(v.children) + (v.parent is not None) for v in nodes
+           if not v.is_leaf()]
+    return write_newick(tree), {
+        "internal_edges": len(inner),
+        "internal_edges_kept": sum(not v.is_leaf() and v.parent is not None
+                                   for v in nodes),
+        "quantile": quantile, "length_cut": cut,
+        "clade_leaves": leaves[id(top)] if top is not None else 0,
+        "max_degree": max(deg),
+        "nodes_above_degree_3": sum(d > 3 for d in deg)}
 
 
 def phase_add(tmp: str, fa: str, backbone: int, queries: int,
@@ -6272,6 +6379,203 @@ def phase_sketch(fa30: str, fa20: str, parent: str | None = None) -> dict:
     return rec
 
 
+def no_sync(fn) -> None:
+    """fn() under torch.cuda.set_sync_debug_mode("error"): a host sync
+    raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def wide_window(inputs: tuple, leaves: int = ADD_WIDE_LEAVES,
+                queries: int = ADD_WIDE_QUERIES) -> dict:
+    """The wide instantiation against its plain version (the dense BFS)
+    on --add's state of a multifurcating backbone, built twice from the
+    CLI's own inputs to run_add_queries (`inputs`): with the wide table
+    (the kernels' cursor route) and without (the plain route). After a
+    warm-up of GRAPH_INSERTIONS leaves (the seeding graph's capture), the
+    seeding of `leaves` leaves by replays under sync debug "error", timed
+    by CUDA events, and by the dense BFS, timed likewise, to the same
+    arrays; insert_model seeds a host copy of those leaves too (its
+    counts give the bound). The kernel route then seeds the rest (timed),
+    a copy without a table takes the same state, and `queries` queries
+    run on both after a warm-up range of GRAPH_INSERTIONS (the insert
+    graph's capture): the kernel route under sync debug "error", to the
+    same arrays; then `queries` more by direct launches (kernel_window:
+    each insert_step launch between events) and by the plain version."""
+    import dataclasses
+
+    from dipper_tpu_torch.placement import insert_model, kclosest as tk
+
+    frontend_args, arrays, kw = inputs
+    N, B = kw["num_sequences"], kw["backbone_size"]
+    common = dict(num_sequences=N, backbone_size=B,
+                  dtype_name=kw["dtype_name"], use_adj=False)
+    st = tk.add_state(*arrays, **common)
+    pl = tk.add_state(*arrays, wide_table=False, **common)
+    check(st.wide_off is not None and pl.adj is None,
+          "--add wide window: the states are not the wide and the plain one")
+    six = ("e", "belong", "length", "rev", "cdis", "cid")
+
+    def diff(a, b):
+        return [f for f in state_diff(a, dataclasses.replace(b, adj=a.adj))
+                if f in six + ("idx",)]
+
+    G = tk.GRAPH_INSERTIONS
+    lo, hi = G, G + leaves
+    tk._replay_seeding(st, 0, lo)
+    for i in range(lo):
+        tk.update_closest_bfs(pl, i, 2 * N)
+    model = {f: getattr(st, f).cpu().numpy().copy()
+             for f in insert_model.FIELDS + insert_model.WIDE}
+    seed_ms = queued_each_ms([lambda: no_sync(
+        lambda: tk._replay_seeding(st, lo, hi))])[0]
+    plain_seed_ms = queued_each_ms([lambda: [
+        tk.update_closest_bfs(pl, i, 2 * N) for i in range(lo, hi)]])[0]
+    stats, levels = {}, []
+    for i in range(lo, hi):
+        insert_model.bfs(model, i, i, stats=stats, levels=levels)
+    d = diff(st, pl)
+    check(not d, f"--add wide window: seeding by the kernel != the dense BFS "
+          f"in {d}")
+    mdiff = [f for f in six if getattr(st, f).cpu().numpy().tobytes()
+             != model[f].tobytes()]
+    check(not mdiff, f"--add wide window: seeding != insert_model in {mdiff}")
+    rest_ms = queued_each_ms([lambda: tk._replay_seeding(st, hi, B)])[0]
+    pl = tk.prepare_kernels(dataclasses.replace(
+        st, **{f: getattr(st, f).clone() for f in six}, adj=None,
+        wide_off=None, wide_eid=None))
+    rows = tk._rows(frontend_args, kw["frontend"], kw["frontend_static"],
+                    kw["dtype_name"], B, B + G + 2 * queries)
+    tk._insert_range(st, B, B + G, rows, N)
+    tk._insert_range(pl, B, B + G, rows, N)
+    q0 = B + G
+    route_ms = queued_each_ms([lambda: no_sync(lambda: tk._insert_range(
+        st, q0, q0 + queries, rows[G:], N))])[0]
+    plain_q_ms = queued_each_ms([lambda: tk._insert_range(
+        pl, q0, q0 + queries, rows[G:], N)])[0]
+    d = diff(st, pl)
+    check(not d, f"--add wide window: queries by the kernel route != the "
+          f"plain route in {d}")
+    q1 = q0 + queries
+    win = kernel_window(st, rows[q1 - B:], q1, q1 + queries, N)
+    tk._insert_range(pl, q1, q1 + queries, rows[q1 - B:], N)
+    d = diff(st, pl)
+    check(not d, f"--add wide window: direct insert_step launches != the "
+          f"plain route in {d}")
+    bound = insert_bound(stats, 0, st.length.element_size())
+    ms = seed_ms / leaves
+    rec = {"leaves": leaves, "queries": queries, "ms": ms,
+           "plain_ms": plain_seed_ms / leaves,
+           "bound_ms": bound["bound_ms"] / leaves,
+           "bound_by": bound["bound_by"],
+           "rest_seeding_ms_per_leaf": rest_ms / (B - hi),
+           "query_route_ms": route_ms / queries,
+           "query_plain_ms": plain_q_ms / queries,
+           "insert_step_ms_per_query": sum(win["insert_ms"]) / queries,
+           "score_edges_ms_per_query": sum(win["score_ms"]) / queries,
+           "levels_per_leaf": stats["levels"] / leaves,
+           "widest_level": max(levels),
+           "model_counts_per_leaf": {k: v / leaves for k, v in stats.items()},
+           "equal_plain_and_model": True, "no_host_sync_in_ranges": True}
+    rec["share_of_bound"] = rec["bound_ms"] / ms
+    return rec
+
+
+def phase_add_wide(tmp: str, fa: str, backbone: int, queries: int,
+                   small: tuple = (256, 64)) -> dict:
+    """--add onto a multifurcating backbone: the port's -i r -m 1 tree of
+    the set's first `backbone` taxa, collapsed (collapse_backbone), then
+    --add of the next `queries` on the card, counted; the wide window on
+    the run's own inputs; the card and the CPU on a collapsed backbone of
+    small[0] with small[1] queries."""
+    from dipper_tpu_torch.placement import kclosest
+
+    def backbone_of(b: int, tag: str, clade: int) -> tuple:
+        back_fa = head_fasta(fa, b, os.path.join(tmp, f"{tag}.back.fa"))
+        binary = os.path.join(tmp, f"{tag}.binary.nwk")
+        rc, _, _ = run_cli(["-i", "r", "-I", back_fa, "-O", binary, "-m",
+                            "1", "--device", "cuda"])
+        check(rc == 0, f"{tag}: the backbone build returned {rc}")
+        with open(binary) as f:
+            nwk, counts = collapse_backbone(f.read(), clade=clade)
+        path = os.path.join(tmp, f"{tag}.back.nwk")
+        with open(path, "w") as f:
+            f.write(nwk + "\n")
+        return path, counts
+
+    def add_run(b: int, q: int, back: str, dev: str, tag: str):
+        all_fa = head_fasta(fa, b + q, os.path.join(tmp, f"{tag}.all.fa"))
+        out = os.path.join(tmp, f"{tag}.out.{dev}.nwk")
+        rc, log, wall = run_cli(["-i", "r", "-I", all_fa, "-O", out, "--add",
+                                 "-t", back, "--device", dev])
+        check(rc == 0, f"{tag}: --add --device {dev} returned {rc}")
+        return open(out).read(), log, wall
+
+    back, collapsed = backbone_of(backbone, "addw", COLLAPSE_CLADE)
+    check(collapsed["max_degree"] >= COLLAPSE_CLADE,
+          f"the collapsed backbone's largest degree is "
+          f"{collapsed['max_degree']}")
+    inputs = {}
+    orig = kclosest.run_add_queries
+
+    def recorded(frontend_args, e0, belong0, length0, rev0, **kw):
+        inputs["args"] = (frontend_args, (e0, belong0, length0, rev0), kw)
+        return orig(frontend_args, e0, belong0, length0, rev0, **kw)
+
+    kclosest.run_add_queries = recorded
+    reset_counts()
+    try:
+        out, log, wall = add_run(backbone, queries, back, "cuda", "addw")
+    finally:
+        kclosest.run_add_queries = orig
+    counts = read_counts()
+    check("insert_step.cu's wide table" in log,
+          "--add did not take the wide table on the card")
+    check(counts["score_edges"] == queries,
+          f"--add launched score_edges {counts['score_edges']} times for "
+          f"{queries} queries")
+    check(counts["insert_step_wide.closest_bfs"] == backbone
+          and counts["insert_step_wide"] == backbone + queries
+          and counts["insert_step"] == 0,
+          f"--add launched the wide insert_step {counts['insert_step_wide']}"
+          f" times ({counts['insert_step_wide.closest_bfs']} the BFS alone) "
+          f"and the binary one {counts['insert_step']} times for "
+          f"{backbone} backbone leaves and {queries} queries")
+    survive, leaves = backbone_splits_survive(out, open(back).read())
+    check(leaves == {f"S{i}" for i in range(backbone + queries)},
+          "--add: the tree's leaves are not the input's")
+    check(survive, "--add: a backbone split did not survive")
+    window = wide_window(inputs.pop("args"))
+    b, q = small
+    back_s, _ = backbone_of(b, f"addw{b}", 64)
+    outs = {dev: add_run(b, q, back_s, dev, f"addw{b}")[0]
+            for dev in ("cuda", "cpu")}
+    check(outs["cuda"] == outs["cpu"], "--add: the card's Newick on a "
+          f"collapsed backbone differs from the CPU's at {b} + {q}")
+    seeded = _ms(r"seeded in: ([\d.]+) ms", log)
+    inserted = _ms(r"insertions ([\d.]+) ms", log)
+    emit({"phase": "main_path", "path": "add_multifurcating",
+          "backbone": backbone, "queries": queries, "precision": "f32",
+          "collapsed": collapsed,
+          "phases_ms": {
+              "sketch": _ms(r"Sketch in: (\d+) ms", log),
+              "seeding": seeded,
+              "rows": _ms(r"queries: rows ([\d.]+) ms", log),
+              "insertions": inserted,
+              "tree_created": _ms(r"Tree Created in: (\d+) ms", log),
+              "total_wall": wall * 1e3},
+          "seeding_ms_per_backbone_leaf": seeded / backbone,
+          "ms_per_query": inserted / queries,
+          "kernel_launches": counts, "backbone_splits_survive": True,
+          "window": window,
+          "gpu_vs_cpu": {"backbone": b, "queries": q,
+                         "newick_identical": True}})
+    return {"counts": counts, "window": window}
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] in ("--worker-cli",
                                              "--worker-sharded"):
@@ -6326,7 +6630,7 @@ def main() -> int:
                 records[name].setdefault("launches_by_path", {})[path] = c
 
     with tempfile.TemporaryDirectory() as tmp:
-        if phases & {3, 5, 6, 14, 15, 16, 21, 22, 24, 27}:
+        if phases & {3, 5, 6, 14, 15, 16, 21, 22, 24, 27, 30}:
             t0 = time.time()
             data = make_dataset(args.n, os.path.join(tmp, f"n{args.n}"),
                                 seed=1)
@@ -6533,6 +6837,21 @@ def main() -> int:
         if 14 in phases:
             note("add", phase_add(tmp, data[0], min(4096, args.n // 2),
                                   min(1024, args.n // 8))["counts"])
+        if 30 in phases:
+            q = min(1024, args.n // 8)
+            res = phase_add_wide(tmp, data[0], args.n - q, q)
+            note("add_multifurcating", res["counts"])
+            win = res["window"]
+            # one dependent L2 round trip (phase 25's, or measured here)
+            trip = (records["insert_step"].get("l2_round_trip_ms")
+                    or l2_round_trip_ms())
+            records["insert_step_wide"].update(
+                launches=res["counts"]["insert_step_wide"], max_abs_err=0.0,
+                library_ms=None, window=win,
+                l2_round_trip_ms=trip,
+                latency_floor_ms=win["levels_per_leaf"] * trip,
+                **{k: win[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "share_of_bound")})
         if 27 in phases and args.n < 30000:
             # -m 0 is auto mode, which takes exact placement only from
             # 30,000 taxa (below, NJ)

@@ -179,18 +179,15 @@ struct Blocked {
     int n, b0, b1;
 };
 
-// One (frontier entry, out-edge k) pair: true when the far node joins the
-// next frontier (at distance *nd, as *dst), after (d, label) went into the
-// edge's list.
+// One (frontier entry, out-edge eid) pair: true when the far node joins
+// the next frontier (at distance *nd, as *dst), after (d, label) went into
+// the edge's list; false for an eid that is no slot of the state.
 template <typename T>
-__device__ __forceinline__ bool visit(const State<T>& s, int node, int from,
-                                      T d, int k, int label, Blocked bl,
-                                      int* dst, T* nd)
+__device__ __forceinline__ bool visit_edge(const State<T>& s, int eid,
+                                           int from, T d, int label,
+                                           int* dst, T* nd)
 {
-    const int M = s.n_nodes, E = s.n_edges;
-    const bool expand = node >= 0 && node < M && !(bl.n > 0 && node == bl.b0)
-                        && !(bl.n > 1 && node == bl.b1);
-    const int eid = expand ? s.adj[(size_t)node * kDegree + k] : -1;
+    const int E = s.n_edges;
     if (eid < 0 || eid >= E) return false;
     // the edge's destination, list, ids and length in one round trip
     T* cd = s.cdis + (size_t)eid * kK;
@@ -221,6 +218,28 @@ __device__ __forceinline__ bool visit(const State<T>& s, int node, int from,
     *dst = to;
     *nd = add_rn(d, len);
     return true;
+}
+
+// Out-edge slot k of a frontier entry's node: its adjacency slot, or -1
+// for a node that is not expanded (out of range, or blocked)
+template <typename T>
+__device__ __forceinline__ int slot_of(const State<T>& s, int node, int k,
+                                       Blocked bl)
+{
+    const int M = s.n_nodes;
+    const bool expand = node >= 0 && node < M && !(bl.n > 0 && node == bl.b0)
+                        && !(bl.n > 1 && node == bl.b1);
+    return expand ? s.adj[(size_t)node * kDegree + k] : -1;
+}
+
+// One (frontier entry, out-edge slot k) pair: visit_edge of the node's
+// slot k, when the node is expanded.
+template <typename T>
+__device__ __forceinline__ bool visit(const State<T>& s, int node, int from,
+                                      T d, int k, int label, Blocked bl,
+                                      int* dst, T* nd)
+{
+    return visit_edge(s, slot_of(s, node, k, bl), from, d, label, dst, nd);
 }
 
 // Warp 0's narrow levels, the frontier in shared buffer `cur`: a lane a
@@ -292,15 +311,35 @@ __device__ int wide_level(const State<T>& s, Shared<T, Threads, Cap>& sh,
     return next < M ? next : M;
 }
 
+// A walk's two kinds of level over the [M, 3] rows: narrow_levels and
+// wide_level. insert_step.cu gives walk another pair for trees with wider
+// nodes.
+template <typename T, int Threads, int Cap>
+struct RowLevels {
+    __device__ void narrow(const State<T>& s, Shared<T, Threads, Cap>& sh,
+                           int& cur, int& count, int& level, int label,
+                           Blocked bl) const
+    {
+        narrow_levels(s, sh, cur, count, level, label, bl);
+    }
+    __device__ int wide(const State<T>& s, Shared<T, Threads, Cap>& sh,
+                        int cur, int count, int label, Blocked bl) const
+    {
+        return wide_level(s, sh, cur, count, label, bl);
+    }
+};
+
 // The walk, by every thread of the block, from the one entry `e` (the
 // others' arguments are not read) at `level`; warp 0 has written the
 // label and the blocked nodes to shared memory. Warp 0 walks the narrow
-// levels alone; the other warps wait at a barrier that it reaches when a
-// level turns wide or the walk ends. Every thread returns after the same
-// barrier.
-template <typename T, int Threads, int Cap>
+// levels alone (lv.narrow); the other warps wait at a barrier that it
+// reaches when a level turns wide or the walk ends, and the block takes
+// the wide level (lv.wide). Every thread returns after the same barrier.
+template <typename T, int Threads, int Cap,
+          typename Levels = RowLevels<T, Threads, Cap>>
 __device__ void walk(const State<T>& s, Shared<T, Threads, Cap>& sh,
-                     Entry<T> e, int count, int level, int label, Blocked bl)
+                     Entry<T> e, int count, int level, int label, Blocked bl,
+                     Levels lv = Levels{})
 {
     const int M = s.n_nodes;
     int cur = 0;
@@ -312,7 +351,7 @@ __device__ void walk(const State<T>& s, Shared<T, Threads, Cap>& sh,
     if (threadIdx.x < kWarp) __syncwarp();  // before warp 0 reads it
     for (;;) {
         if (threadIdx.x < kWarp) {
-            narrow_levels(s, sh, cur, count, level, label, bl);
+            lv.narrow(s, sh, cur, count, level, label, bl);
             if (threadIdx.x == 0) {
                 sh.count = count;
                 sh.cur = cur;
@@ -326,7 +365,7 @@ __device__ void walk(const State<T>& s, Shared<T, Threads, Cap>& sh,
         if (count == 0 || level >= M) return;
         label = sh.label;
         bl = {sh.n_blocked, sh.blocked[0], sh.blocked[1]};
-        count = wide_level(s, sh, cur, count, label, bl);
+        count = lv.wide(s, sh, cur, count, label, bl);
         cur ^= 1;
         ++level;
     }

@@ -158,11 +158,17 @@ def add_queries_to_backbone(tree, seqs, names, params: Param,
     e0, belong0, length0, rev0 = backbone_tree_to_arrays(tree, n)
     # multifurcating backbones (legal Newick, handled by the reference's
     # linked-list adjacency) have out-degree > 3 and would overflow the
-    # [M,3] compact-BFS table — route them through the dense BFS
-    max_deg = int(np.bincount(belong0[belong0 >= 0]).max(initial=0))
+    # [M,3] compact-BFS table: on the card their wide nodes' out-edges
+    # go to a table of their own, which kernel 6's wide instantiation
+    # reads; on the CPU they take the dense BFS
+    deg = np.bincount(belong0[belong0 >= 0])
+    max_deg = int(deg.max(initial=0))
     if max_deg > 3 and log:
-        log(f"Backbone has multifurcations (max degree {max_deg}); "
-            "using dense witness BFS")
+        route = (f"insert_step.cu's wide table ({int((deg > 3).sum())} "
+                 "nodes of degree > 3)"
+                 if torch.device(device).type == "cuda"
+                 else "using dense witness BFS")
+        log(f"Backbone has multifurcations (max degree {max_deg}); {route}")
     e, belong, length = kclosest.run_add_queries(
         frontend_args,
         torch.from_numpy(e0).to(device), torch.from_numpy(belong0).to(device),

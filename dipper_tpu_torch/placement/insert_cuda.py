@@ -22,6 +22,13 @@ range or of --add's seeding: kclosest._insert_range writes the cursor
 once (`set_cursor`), replays, and runs the remainder by direct cursor
 launches. D&C's streamed clusters do the same with their own offsets of
 the nodes and label and a blocked slot (dc/cluster.py::build_streamed). A capture, an instantiation or a replay that fails raises.
+
+A state whose table has wide nodes (TreeState.wide_off and wide_eid, a
+multifurcating --add backbone's) takes the kernel's wide instantiation
+through the same entry points: its _Inserter passes the wide table and a
+[3, M] scratch, and its launches count in the *_WIDE_LAUNCHES counters.
+The plain version of that instantiation is kclosest.splice followed by
+kclosest._update_closest_bfs_dense.
 """
 
 from __future__ import annotations
@@ -38,6 +45,9 @@ from dipper_tpu_torch.csrc.build import check_launch, load
 # closest_bfs_cursor
 INSERT_STEP_LAUNCHES = 0
 CLOSEST_BFS_LAUNCHES = 0
+# the same, of the wide instantiation (states with a wide table)
+INSERT_STEP_WIDE_LAUNCHES = 0
+CLOSEST_BFS_WIDE_LAUNCHES = 0
 # CUDA graphs captured and replayed by this process (capture, replay; and
 # exact_cuda's graphs of exact placement)
 GRAPH_CAPTURES = 0
@@ -46,7 +56,7 @@ GRAPH_REPLAYS = 0
 # nodes a BFS may dequeue without expanding (insert_step.cu's kMaxBlocked)
 MAX_BLOCKED = 2
 
-_STATE_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+_STATE_ARGS = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
 _STEP_ARGS = _STATE_ARGS + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
     ctypes.c_void_p]
 _BFS_ARGS = _STATE_ARGS + [ctypes.c_int] * 2 + [ctypes.c_void_p,
@@ -66,32 +76,41 @@ CURSOR_LEN = 5
 # devices whose kernels this process has loaded (insert_step_preload)
 _preloaded: set = set()
 
-_NAMES = ("e", "belong", "length", "rev", "cdis", "cid", "adj")
+_NAMES = ("e", "belong", "length", "rev", "cdis", "cid", "adj", "wide_off",
+          "wide_eid")
 
 
 class _Inserter:
-    """What one TreeState's launches share: its seven arrays as checked
-    (held so that a swapped array is noticed), the library's two entry
-    points with the per-state arguments, the frontier scratch and the
-    (xe, ye) output. Launches through one _Inserter must be ordered on one
-    stream: they share the scratch and the output."""
+    """What one TreeState's launches share: its seven arrays and wide
+    table as checked (held so that a swapped array is noticed), the
+    library's entry points with the per-state arguments, the frontier
+    scratch, the wide list's scratch and the (xe, ye) output. Launches
+    through one _Inserter must be ordered on one stream: they share the
+    scratch and the output."""
 
-    __slots__ = ("arrays", "dtype", "device", "n_edges", "n_nodes", "lib",
-                 "step", "bfs", "step_cursor", "bfs_cursor", "cursor_set",
-                 "args", "f_ids", "f_frm", "f_dist", "out_xy", "cursor",
-                 "graphs")
+    __slots__ = ("arrays", "dtype", "device", "n_edges", "n_nodes", "wide",
+                 "lib", "step", "bfs", "step_cursor", "bfs_cursor",
+                 "cursor_set", "args", "f_ids", "f_frm", "f_dist",
+                 "wide_list", "out_xy", "cursor", "graphs")
 
     def owns(self, st) -> bool:
-        return all(getattr(st, f) is a for f, a in zip(_NAMES, self.arrays))
+        return all(getattr(st, f, None) is a
+                   for f, a in zip(_NAMES, self.arrays))
 
 
 def check_arrays(st) -> tuple:
-    """The state's seven arrays, checked against what csrc/insert_step.cu
-    takes (one device, contiguous, int32 but for length and cdis of one
-    float type, [E], [E, 5] and [M, 3]); raises ValueError otherwise."""
+    """The state's seven arrays and its wide table (None, None for a
+    binary state), checked against what csrc/insert_step.cu takes (one
+    device, contiguous, int32 but for length and cdis of one float type,
+    [E], [E, 5] and [M, 3]; wide_off [W + 1] with W >= 1, ascending from
+    0 to wide_eid's length, every mark of adj a wide node's, every wide
+    out-edge a slot); raises ValueError otherwise. The wide table's check
+    reads it on the host once."""
     dev = st.e.device
-    arrays = tuple(getattr(st, f) for f in _NAMES)
+    arrays = tuple(getattr(st, f, None) for f in _NAMES)
     for name, a in zip(_NAMES, arrays):
+        if a is None and name in ("wide_off", "wide_eid"):
+            continue
         if a.device != dev:
             raise ValueError(f"insert_step needs the state's arrays on one "
                              f"CUDA device: {name} is on {a.device}, e on "
@@ -103,15 +122,34 @@ def check_arrays(st) -> tuple:
     dtype = st.length.dtype
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"length must be float32 or float64, got {dtype}")
-    for name, a in zip(_NAMES, arrays):
+    for name, a in zip(_NAMES[:7], arrays):
         want = dtype if name in ("length", "cdis") else torch.int32
         shape = {"cdis": (E, 5), "cid": (E, 5), "adj": (M, 3)}.get(name, (E,))
         if a.dtype != want or tuple(a.shape) != shape:
             raise ValueError(f"{name} must be {want} {shape}, got {a.dtype} "
                              f"{tuple(a.shape)}")
+    off, eid = arrays[7:]
+    if (off is None) != (eid is None):
+        raise ValueError("wide_off and wide_eid come together")
+    for name, a in (("wide_off", off), ("wide_eid", eid)):
+        if a is not None and (a.dtype != torch.int32 or a.dim() != 1):
+            raise ValueError(f"{name} must be a torch.int32 vector, got "
+                             f"{a.dtype} {tuple(a.shape)}")
     if not 4 <= E < 2**30 or not 1 <= M <= 2**29:
         raise ValueError(f"insert_step takes 4 to 2**30 - 1 edge slots and "
                          f"1 to 2**29 nodes, got {E} and {M}")
+    if off is not None:
+        o, w_eid = off.cpu().numpy(), eid.cpu().numpy()
+        if o.size < 2:
+            raise ValueError("wide_off must name at least one wide node")
+        marks = st.adj[:, 0].cpu().numpy()
+        marks = -2 - marks[marks <= -2]
+        if (o[0] != 0 or (o[1:] < o[:-1]).any() or o[-1] != w_eid.size
+                or (marks >= o.size - 1).any()
+                or ((w_eid < 0) | (w_eid >= E)).any()):
+            raise ValueError("the wide table is malformed: wide_off must "
+                             "ascend from 0 to len(wide_eid), adj's marks "
+                             "name its nodes, wide_eid hold slots")
     return arrays
 
 
@@ -126,7 +164,8 @@ def check_choice(dtype, device, eid, frac, add) -> None:
 
 def prepare_inserter(st):
     """Checks a CUDA state's arrays (check_arrays) and gives the state its
-    `_Inserter`; a state on the CPU, without an adjacency table or with a
+    `_Inserter`, for the wide instantiation where the state has a wide
+    table; a state on the CPU, without an adjacency table or with a
     cluster axis is left without one. Called wherever a state is made or
     its arrays are replaced, so that no check runs per insertion. Returns
     `st`."""
@@ -143,6 +182,10 @@ def prepare_inserter(st):
     ins.f_ids = torch.empty((2, M), dtype=torch.int32, device=dev)
     ins.f_frm = torch.empty((2, M), dtype=torch.int32, device=dev)
     ins.f_dist = torch.empty((2, M), dtype=dtype, device=dev)
+    off, eid = arrays[7:]
+    ins.wide = off is not None
+    ins.wide_list = (torch.empty((3, M), dtype=torch.int32, device=dev)
+                     if ins.wide else None)
     ins.out_xy = torch.full((2,), -1, dtype=torch.int32, device=dev)
     ins.cursor = torch.zeros((CURSOR_LEN,), dtype=torch.int64, device=dev)
     ins.graphs = {}
@@ -156,10 +199,12 @@ def prepare_inserter(st):
         preload = _entry(ins.lib, "insert_step_preload", [ctypes.c_int])
         check_launch(ins.lib, "insert_step", preload(dev.index))
         _preloaded.add(dev.index)
-    ins.args = (*(a.data_ptr() for a in arrays), ins.f_ids.data_ptr(),
+    wide = ((off.data_ptr(), eid.data_ptr(), ins.wide_list.data_ptr(),
+             off.numel() - 1) if ins.wide else (None, None, None, 0))
+    ins.args = (*(a.data_ptr() for a in arrays[:7]), ins.f_ids.data_ptr(),
                 ins.f_frm.data_ptr(), ins.f_dist.data_ptr(),
-                ins.out_xy.data_ptr(), E, M, int(dtype == torch.float64),
-                dev.index)
+                ins.out_xy.data_ptr(), *wide, E, M,
+                int(dtype == torch.float64), dev.index)
     st.inserter = ins
     return st
 
@@ -189,6 +234,20 @@ def inserter(st) -> _Inserter:
     return ins
 
 
+def count_launches(wide: bool, steps: int = 0, bfs: int = 0) -> None:
+    """Adds launches of insert_step's (`steps`) and closest_bfs's (`bfs`)
+    entry points to the binary instantiation's counters, or to the wide
+    one's."""
+    global INSERT_STEP_LAUNCHES, CLOSEST_BFS_LAUNCHES
+    global INSERT_STEP_WIDE_LAUNCHES, CLOSEST_BFS_WIDE_LAUNCHES
+    if wide:
+        INSERT_STEP_WIDE_LAUNCHES += steps
+        CLOSEST_BFS_WIDE_LAUNCHES += bfs
+    else:
+        INSERT_STEP_LAUNCHES += steps
+        CLOSEST_BFS_LAUNCHES += bfs
+
+
 def _stream(ins: _Inserter, stream):
     return (torch.cuda.current_stream(ins.device).cuda_stream
             if stream is None else stream)
@@ -205,8 +264,8 @@ def insert_step(st, eid: torch.Tensor, frac: torch.Tensor,
     state's card, read there by the kernel (the scorer's outputs). The new
     slots are st.idx .. st.idx + 3; st.idx advances by 4. Returns the `[2]` int32 tensor (xe, ye) that the launch fills (the
     state's next launch overwrites it). Bitwise equal to kclosest.splice
-    then kclosest._update_closest_bfs_compact."""
-    global INSERT_STEP_LAUNCHES
+    then kclosest._update_closest_bfs_compact (the dense BFS for a state
+    with a wide table)."""
     ins = inserter(st)
     check_choice(ins.dtype, ins.device, eid, frac, add)
     i0 = st.idx
@@ -219,7 +278,7 @@ def insert_step(st, eid: torch.Tensor, frac: torch.Tensor,
                   i0, middle, outside, label, _stream(ins, stream))
     if rc != 0:
         check_launch(ins.lib, "insert_step", rc)
-    INSERT_STEP_LAUNCHES += 1
+    count_launches(ins.wide, steps=1)
     st.idx = i0 + 4
     return ins.out_xy
 
@@ -231,8 +290,8 @@ def closest_bfs(st, leaf: int, label: int | None = None,
     (default: the leaf) on `stream` without synchronizing; `blocked`, an
     int32 tensor of at most MAX_BLOCKED node ids on the state's card, are
     dequeued but not expanded. Bitwise equal to
-    kclosest._update_closest_bfs_compact."""
-    global CLOSEST_BFS_LAUNCHES
+    kclosest._update_closest_bfs_compact (the dense BFS for a state with
+    a wide table)."""
     ins = inserter(st)
     if not 0 <= leaf < ins.n_nodes:
         raise ValueError(f"leaf {leaf} is not a node of [0, {ins.n_nodes})")
@@ -248,7 +307,7 @@ def closest_bfs(st, leaf: int, label: int | None = None,
                  _stream(ins, stream))
     if rc != 0:
         check_launch(ins.lib, "insert_step", rc)
-    CLOSEST_BFS_LAUNCHES += 1
+    count_launches(ins.wide, bfs=1)
 
 
 # ---------------------------------------------------------------------------
@@ -297,7 +356,6 @@ def insert_step_cursor(st, sc, *, offsets: tuple, block_slot: int = -1,
     (-1: none); the cursor advances by one insertion. st.idx is the
     caller's to advance. `count=False` for a launch being captured (a
     replay counts its launches)."""
-    global INSERT_STEP_LAUNCHES
     ins = inserter(st)
     if block_slot >= ins.n_edges:
         raise ValueError(f"block_slot {block_slot} is not a slot")
@@ -307,28 +365,28 @@ def insert_step_cursor(st, sc, *, offsets: tuple, block_slot: int = -1,
     if rc != 0:
         check_launch(ins.lib, "insert_step", rc)
     if count:
-        INSERT_STEP_LAUNCHES += 1
+        count_launches(ins.wide, steps=1)
 
 
 def closest_bfs_cursor(st, stream: int | None = None,
                        count: bool = True) -> None:
     """Launches the BFS from leaf i = the cursor's insertion, recording i;
     the cursor advances by one leaf."""
-    global CLOSEST_BFS_LAUNCHES
     ins = inserter(st)
     rc = ins.bfs_cursor(*ins.args, ins.cursor.data_ptr(),
                         _stream(ins, stream))
     if rc != 0:
         check_launch(ins.lib, "insert_step", rc)
     if count:
-        CLOSEST_BFS_LAUNCHES += 1
+        count_launches(ins.wide, bfs=1)
 
 
 class _Graph:
     """A captured CUDA graph of cursor launches, with the launches of each
-    entry point one replay makes and what its pointers point into."""
+    entry point one replay makes, whether they are the wide
+    instantiation's, and what its pointers point into."""
 
-    __slots__ = ("graph", "steps", "bfs", "keep")
+    __slots__ = ("graph", "steps", "bfs", "wide", "keep")
 
 
 # a side stream per device to capture on (a capture needs a stream other
@@ -368,6 +426,7 @@ def range_graph(st, key, launch, steps: int = 0, bfs: int = 0,
     g = ins.graphs.get(key)
     if g is None:
         g = ins.graphs[key] = new_graph(ins.device, launch, steps, bfs, keep)
+        g.wide = ins.wide
     return g
 
 
@@ -377,19 +436,19 @@ def new_graph(device: torch.device, launch, steps: int = 0, bfs: int = 0,
     `steps`, `bfs` and `keep` as range_graph has them."""
     g = _Graph()
     g.graph = capture(device, launch)
-    g.steps, g.bfs, g.keep = steps, bfs, tuple(keep)
+    g.steps, g.bfs, g.wide, g.keep = steps, bfs, False, tuple(keep)
     return g
 
 
 def replay(g, times: int, count=None) -> None:
     """Replays the graph `times` times on the current stream, counting its
-    launches: its insert_step and closest_bfs launches here, other
-    kernels' by `count(times)`."""
-    global GRAPH_REPLAYS, INSERT_STEP_LAUNCHES, CLOSEST_BFS_LAUNCHES
+    launches: its insert_step and closest_bfs launches here (in the wide
+    counters for a wide state's graph), other kernels' by
+    `count(times)`."""
+    global GRAPH_REPLAYS
     for _ in range(times):
         g.graph.replay()
     GRAPH_REPLAYS += times
-    INSERT_STEP_LAUNCHES += g.steps * times
-    CLOSEST_BFS_LAUNCHES += g.bfs * times
+    count_launches(g.wide, g.steps * times, g.bfs * times)
     if count is not None:
         count(times)

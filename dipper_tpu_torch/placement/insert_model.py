@@ -21,14 +21,31 @@ The kernel departs from the plain version where the model does:
 - the blocked nodes of an insert step are those of a slot after the
   splice.
 
-Every placement keeps the flat (entry, out-edge) order, so the bits do
-not depend on `cap`, `narrow` or `threads`; the tests vary them to reach
-the spill and the switches between narrow and wide levels, which `stats`
-counts.
+A state whose backbone has nodes of degree > 3 carries the wide table
+(kclosest.wide_adjacency_from_edges: a wide node's adj row (-2 - w, -1,
+-1), its out-edges in wide_eid[wide_off[w]:wide_off[w + 1]]), and the
+kernel's wide instantiation walks it:
+- a level's pairs are each entry's three slots, as in a binary state,
+  then the out-edges of its wide entries (those whose first slot holds a
+  mark), entry by entry: the prefix sum of their degrees;
+- the level is warp 0's when both the slots and the wide pairs number at
+  most `narrow` (a warp's scan of the degrees; a lane of the second round
+  finds its entry by a binary search over the lanes' sums); otherwise the
+  block takes it whole, the slots in chunks of `threads` that also list
+  the wide entries (their place by the same scan as the joins), then the
+  wide pairs in chunks of `threads`, each thread finding its entry by a
+  binary search over the list's first pairs; list entries from `cap` on
+  spill to a [3, M] scratch.
+
+Every placement keeps the flat order (the slots' joins, then the wide
+pairs'), so the bits do not depend on `cap`, `narrow` or `threads`; the
+tests vary them to reach the spills and the switches between narrow and
+wide levels, which `stats` counts.
 
 A state is a dict of numpy arrays named as TreeState's fields (e,
-belong, length, rev, cdis, cid, adj), updated in place; `arrays_of`
-gives such a dict of views of a CPU TreeState's tensors. The made-up
+belong, length, rev, cdis, cid, adj, and wide_off, wide_eid where the
+state has them), updated in place; `arrays_of` gives such a dict of
+views of a CPU TreeState's tensors. The made-up
 inputs at the end reach the kernel's corners: ties, empty entries and
 NaN in the ten-way merge, a choice whose writes overlap, and matrices
 with NaN.
@@ -47,11 +64,14 @@ DEGREE = 3      # adjacency slots a node
 MAX_BLOCKED = 2
 
 FIELDS = ("e", "belong", "length", "rev", "cdis", "cid", "adj")
+WIDE = ("wide_off", "wide_eid")
 
 
 def arrays_of(st) -> dict:
-    """Numpy views of a CPU TreeState's arrays (writes go to the state)."""
-    return {f: getattr(st, f).numpy() for f in FIELDS}
+    """Numpy views of a CPU TreeState's arrays (writes go to the state),
+    with its wide table where it has one."""
+    return {f: getattr(st, f).numpy() for f in FIELDS + WIDE
+            if getattr(st, f, None) is not None}
 
 
 def _before(a, b) -> bool:
@@ -167,16 +187,31 @@ class _Frontier:
         return True
 
 
-def _visit(s: dict, node: int, frm: int, d, k: int, blocked, label: int,
-           stats: dict | None):
-    """One (frontier entry, out-edge k) pair: the far node's entry when it
-    joins the next frontier (after (d, label) went into the edge's list),
-    else None."""
-    E, M = s["e"].shape[0], s["adj"].shape[0]
-    dt = s["length"].dtype.type
-    if not 0 <= node < M or node in blocked:
+def _slot(s: dict, node: int, k: int, blocked) -> int:
+    """Out-edge slot k of a frontier entry's node: adj[node, k], or -1
+    for a node that is not expanded (out of range, or blocked)."""
+    if not 0 <= node < s["adj"].shape[0] or node in blocked:
+        return -1
+    return int(s["adj"][node, k])
+
+
+def _wide_of(s: dict, slot: int):
+    """(first out-edge in wide_eid, degree) of the wide node that a first
+    slot marks, or None for a slot that is no mark of the state's table."""
+    off = s.get("wide_off")
+    w = -2 - slot
+    if off is None or not 0 <= w < off.shape[0] - 1:
         return None
-    eid = int(s["adj"][node, k])
+    return int(off[w]), int(off[w + 1]) - int(off[w])
+
+
+def _visit(s: dict, eid: int, frm: int, d, label: int,
+           stats: dict | None):
+    """One (frontier entry, out-edge eid) pair: (far node, its distance)
+    when it joins the next frontier (after (d, label) went into the
+    edge's list), else None."""
+    E = s["e"].shape[0]
+    dt = s["length"].dtype.type
     if not 0 <= eid < E:
         return None
     dst = int(s["e"][eid])
@@ -197,7 +232,7 @@ def _visit(s: dict, node: int, frm: int, d, k: int, blocked, label: int,
     s["cid"][eid, pos + 1:] = s["cid"][eid, pos:K - 1].copy()
     s["cdis"][eid, pos] = d
     s["cid"][eid, pos] = label
-    return dst, node, _add(dt, d, s["length"][eid])
+    return dst, _add(dt, d, s["length"][eid])
 
 
 def _walk(s: dict, fr: _Frontier, count: int, level: int, label: int,
@@ -219,31 +254,46 @@ def _walk(s: dict, fr: _Frontier, count: int, level: int, label: int,
             levels.append(count)
         add("levels")
         add("entries", count)
+        entries = [fr.get(cur, f) for f in range(count)]
+        # each entry's three slots, then its wide out-edges
         items = DEGREE * count
-        wide = items > narrow
-        add("wide_levels" if wide else "narrow_levels")
-        if was_wide is not None and wide != was_wide:
+        slots = [_slot(s, int(entries[j // DEGREE][0]), j % DEGREE, blocked)
+                 for j in range(items)]
+        marks = [(j // DEGREE, _wide_of(s, v)) for j, v in enumerate(slots)]
+        wide = [(f, *w) for f, w in marks if w is not None]
+        pairs = sum(deg for _, _, deg in wide)
+        is_wide = items > narrow or pairs > narrow
+        add("wide_levels" if is_wide else "narrow_levels")
+        if items <= narrow < pairs:
+            add("handed_to_block")
+        if was_wide is not None and is_wide != was_wide:
             add("switches")
-        was_wide = wide
+        was_wide = is_wide
+        if wide:
+            add("wide_entries", len(wide))
+            add("wide_pairs", pairs)
+            if is_wide:
+                add("wide_listed_spilled", max(0, len(wide) - fr.cap))
         # a warp's ballot places the joining lanes of its one chunk; the
         # block's scan those of each chunk of `threads`, after the ones
-        # before: both give the flat order
-        width = threads if wide else narrow
+        # before: both give the flat order, the slots' joins first
+        width = threads if is_wide else narrow
+        flat = [(entries[j // DEGREE], v) for j, v in enumerate(slots)]
+        flat += [(entries[f], int(s["wide_eid"][base + k]))
+                 for f, base, deg in wide for k in range(deg)]
         nxt = 0
-        for c0 in range(0, items, width):
-            joins = []
-            for j in range(c0, min(items, c0 + width)):
-                f = j // DEGREE
-                node, frm, d = fr.get(cur, f)
-                got = _visit(s, int(node), int(frm), d, j - f * DEGREE,
-                             blocked, label, stats)
-                if got is not None:
-                    joins.append(got)
-            for rank, entry in enumerate(joins):
-                at = nxt + rank
-                if at < M and fr.put(1 - cur, at, entry):
-                    add("spilled")
-            nxt += len(joins)
+        for part in (flat[:items], flat[items:]):
+            for c0 in range(0, len(part), width):
+                joins = []
+                for (node, frm, d), eid in part[c0:c0 + width]:
+                    got = _visit(s, eid, int(frm), d, label, stats)
+                    if got is not None:
+                        joins.append((got[0], int(node), got[1]))
+                for rank, entry in enumerate(joins):
+                    at = nxt + rank
+                    if at < M and fr.put(1 - cur, at, entry):
+                        add("spilled")
+                nxt += len(joins)
         count = min(nxt, M)
         cur = 1 - cur
         level += 1

@@ -35,7 +35,10 @@ insert loop does on its device. An insert range reads its insertions from
 a cursor on the card and replays a captured CUDA graph of them
 (_replay_insertions), the counterpart of the JAX package's fori_loop over
 the range. The same kernel's BFS alone seeds states
-(init_placement_state, --add's backbone, replayed likewise). The tensor code below (splice,
+(init_placement_state, --add's backbone, replayed likewise). A
+multifurcating --add backbone's state carries a wide out-edge table
+(wide_adjacency_from_edges) on the card and takes the same route through
+the kernel's wide instantiation; on the CPU it runs the dense BFS. The tensor code below (splice,
 the compact and dense BFS, insertion_step) is the plain version: the CPU
 path and the kernel's yardstick; its compact BFS sizes each level with
 `nonzero`, a host sync a level. csrc/side_vector.cu is the scorer's side
@@ -87,6 +90,12 @@ class TreeState:
     # compact BFS has no frontier cap, so this reads 0 by construction; it
     # is kept for the checkpoint schema and the state comparisons
     nfb: int = 0
+    # the out-edges of the nodes of degree > 3 (a multifurcating --add
+    # backbone's, wide_adjacency_from_edges): wide node w, whose adj row
+    # is (-2 - w, -1, -1), has wide_eid[wide_off[w]:wide_off[w + 1]].
+    # Never written after the backbone is loaded; None in binary states
+    wide_off: torch.Tensor | None = None  # [W + 1] int32
+    wide_eid: torch.Tensor | None = None  # [wide_off[W]] int32
     # the CUDA scorer's checked pointers, outputs and scratch (`_Scorer`,
     # made by prepare_scorer); not a constructor argument, so
     # dataclasses.replace never carries it over to other arrays
@@ -179,8 +188,9 @@ def update_closest_bfs(st: TreeState, leaf: int, num_nodes: int,
 def _update_closest_bfs_plain(st: TreeState, leaf: int, num_nodes: int,
                               label=None, blocked_nodes=()) -> None:
     """update_closest_bfs by tensor code alone: the compact BFS for
-    states with an adjacency table, the dense one for the others."""
-    if st.adj is not None:
+    states with a binary adjacency table, the dense one for the others
+    (no table, or one with wide nodes)."""
+    if st.adj is not None and st.wide_off is None:
         _update_closest_bfs_compact(st, leaf, num_nodes, label, blocked_nodes)
     else:
         _update_closest_bfs_dense(st, leaf, num_nodes, label, blocked_nodes)
@@ -188,7 +198,8 @@ def _update_closest_bfs_plain(st: TreeState, leaf: int, num_nodes: int,
 
 def uses_insert_kernel(st: TreeState) -> bool:
     """Whether the state's insertions and BFSs go to csrc/insert_step.cu:
-    a CUDA state with an adjacency table."""
+    a CUDA state with an adjacency table, binary or with wide nodes (the
+    kernel's wide instantiation)."""
     return st.adj is not None and st.e.device.type == "cuda"
 
 
@@ -205,7 +216,8 @@ def _blocked_ids(blocked_nodes, device,
 def _update_closest_bfs_dense(st: TreeState, leaf: int, num_nodes: int,
                               label=None, blocked_nodes=()) -> None:
     """Edge-parallel BFS: every level tests all E edge slots. The path of
-    adj-less states (multifurcating --add backbones)."""
+    multifurcating --add backbones on the CPU, and the plain version of
+    the kernel's wide instantiation on the card."""
     M = num_nodes
     dev = st.e.device
     label = leaf if label is None else label
@@ -298,6 +310,39 @@ def adjacency_from_edges(belong: torch.Tensor, num_nodes: int) -> torch.Tensor:
                      device=belong.device)
     adj[b_s[okm].long(), slotpos[okm]] = order[okm].to(torch.int32)
     return adj
+
+
+def wide_adjacency_from_edges(belong: torch.Tensor, num_nodes: int) -> tuple:
+    """adjacency_from_edges for a tree whose nodes may have any degree
+    (a multifurcating --add backbone), built once on the host: (adj, off,
+    eid) on belong's device. A node of degree <= 3 has its [M, 3] row as
+    adjacency_from_edges gives it; the w-th node of degree > 3 (by node
+    id) has the row (-2 - w, -1, -1) and its out-edges, ascending, in
+    eid[off[w]:off[w + 1]]. off and eid are None when no node is wider
+    than 3, and the table is then adjacency_from_edges's."""
+    b = belong.cpu().numpy().astype(np.int64)
+    eids = np.flatnonzero(b >= 0)
+    src = b[eids]  # eids ascend, so each node's out-edges do
+    deg = np.bincount(src, minlength=num_nodes)
+    wide = np.flatnonzero(deg > 3)
+    dev = belong.device
+    if wide.size == 0:
+        return adjacency_from_edges(belong, num_nodes), None, None
+    order = np.argsort(src, kind="stable")
+    src, eids = src[order], eids[order]
+    first = np.concatenate([[0], np.cumsum(deg)])[src]
+    slot = np.arange(src.size) - first
+    adj = np.full((num_nodes, 3), -1, np.int32)
+    narrow = deg[src] <= 3
+    adj[src[narrow], slot[narrow]] = eids[narrow]
+    adj[wide, 0] = -2 - np.arange(wide.size)
+    off = np.concatenate([[0], np.cumsum(deg[wide])]).astype(np.int32)
+    eid = eids[~narrow].astype(np.int32)  # grouped by node, nodes ascending
+
+    def up(a):
+        return torch.from_numpy(a).to(dev)
+
+    return up(adj), up(off), up(eid)
 
 
 def _side_vector(cid, cdis, dist_row):
@@ -1247,6 +1292,36 @@ def run_placement_chunked(frontend_args, *, num_sequences: int, frontend: str,
 # ---------------------------------------------------------------------------
 
 
+def add_state(e0, belong0, length0, rev0, *, num_sequences: int,
+              backbone_size: int, dtype_name: str, use_adj: bool = True,
+              wide_table: bool | None = None) -> TreeState:
+    """--add's state before seeding: copies of the backbone's [4N] edge
+    arrays (api.backbone_tree_to_arrays, on one device), empty lists, the
+    edge cursor at 4B - 4, and the out-edge table: adjacency_from_edges's
+    with `use_adj`; without it (a backbone that may have nodes of degree
+    > 3) wide_adjacency_from_edges's where `wide_table` (default: on the
+    card, where kernel 6's wide instantiation takes it), else none (the
+    dense BFS, the CPU path and the kernel's plain version)."""
+    N = num_sequences
+    dev = e0.device
+    dtype = torch_dtype(dtype_name)
+    E = 4 * N
+    if wide_table is None:
+        wide_table = dev.type == "cuda"
+    adj = off = eid = None
+    if use_adj:
+        adj = adjacency_from_edges(belong0, 2 * N)
+    elif wide_table:
+        adj, off, eid = wide_adjacency_from_edges(belong0, 2 * N)
+    # copies: the state is updated in place, the caller's arrays are not
+    return prepare_kernels(TreeState(
+        e=e0.clone(), belong=belong0.clone(),
+        length=length0.to(dtype, copy=True), rev=rev0.clone(),
+        cdis=torch.full((E, K), SENT_DIS, dtype=dtype, device=dev),
+        cid=torch.full((E, K), -1, dtype=torch.int32, device=dev),
+        idx=4 * backbone_size - 4, adj=adj, wide_off=off, wide_eid=eid))
+
+
 def run_add_queries(frontend_args, e0, belong0, length0, rev0, *,
                     num_sequences: int, backbone_size: int, frontend: str,
                     frontend_static=(), dtype_name: str, use_adj: bool = True,
@@ -1258,23 +1333,17 @@ def run_add_queries(frontend_args, e0, belong0, length0, rev0, *,
     (api.backbone_tree_to_arrays) on the frontend's device. Returns the
     final (e, belong, length).
 
-    `use_adj=False` skips the [M,3] adjacency table and runs the dense
-    BFS throughout — required for multifurcating backbones (parse_newick
-    accepts them), whose out-degree > 3 would overflow the 3-slot table.
-    The caller checks degrees host-side."""
+    `use_adj=False` is for multifurcating backbones (parse_newick accepts
+    them), whose out-degree > 3 would overflow the [M, 3] table; the
+    caller checks degrees host-side. Such a state carries the wide table
+    on the card (`add_state`) and takes the kernels' cursor route as a
+    binary one does, and carries no table on the CPU, where the dense BFS
+    runs throughout."""
     N = num_sequences
     B = backbone_size
     dev = frontend_args[0].device
-    dtype = torch_dtype(dtype_name)
-    E = 4 * N
-    # copies: the state is updated in place, the caller's arrays are not
-    st = prepare_kernels(TreeState(
-        e=e0.clone(), belong=belong0.clone(),
-        length=length0.to(dtype, copy=True), rev=rev0.clone(),
-        cdis=torch.full((E, K), SENT_DIS, dtype=dtype, device=dev),
-        cid=torch.full((E, K), -1, dtype=torch.int32, device=dev),
-        idx=4 * B - 4,
-        adj=adjacency_from_edges(belong0, 2 * N) if use_adj else None))
+    st = add_state(e0, belong0, length0, rev0, num_sequences=N,
+                   backbone_size=B, dtype_name=dtype_name, use_adj=use_adj)
     captures = insert_cuda.GRAPH_CAPTURES
     t0 = time.time()
     if uses_insert_kernel(st):

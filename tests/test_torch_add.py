@@ -1,7 +1,9 @@
 """--add in the port (placing queries onto a loaded backbone) on the CPU
 against dipper_tpu: the backbone's edge arrays bitwise; run_add_queries
 driven directly from a matrix, and the CLI from -i r and -i m, on binary
-and multifurcating backbones (the latter take the dense BFS, adj=None).
+and multifurcating backbones (MULTI, and a binary backbone collapsed by
+chip_smoke.collapse_backbone; on the CPU they take the dense BFS,
+adj=None).
 In f64 the final edge arrays and the Newick bytes are equal for the
 matrix and for mash (mash distances come from one host table); -i m is
 held to the same tree with branch lengths to rtol 1e-9."""
@@ -21,6 +23,8 @@ from dipper_tpu_torch.io.newick import parse_newick
 from dipper_tpu_torch.placement import api as tapi
 from dipper_tpu_torch.placement import kclosest as tk
 from dipper_tpu_torch.utils.treecmp import _splits_from_newick
+
+from chip_smoke import collapse_backbone
 
 from datagen import simulate_alignment, simulate_unaligned, write_fasta
 from test_nj import random_additive_matrix
@@ -63,7 +67,7 @@ def test_backbone_arrays_equal_reference(kind):
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("kind", ["binary", "multifurcating"])
+@pytest.mark.parametrize("kind", ["binary", "multifurcating", "collapsed"])
 def test_run_add_queries_matrix_equals_reference(kind, dtype):
     """run_add_queries from a matrix (the CLI refuses -i d --add): final
     (e, belong, length) equal to the reference's bit for bit."""
@@ -74,6 +78,8 @@ def test_run_add_queries_matrix_equals_reference(kind, dtype):
     else:
         B = 12
         nwk = _binary_backbone(D, B)
+        if kind == "collapsed":
+            nwk = collapse_backbone(nwk, 0.3, clade=5)[0]
     tree = parse_newick(nwk, n)
     # the matrix in the tree's leaf order, queries after the backbone
     order = [int(nm[1:]) for nm in tree.leaf_names_in_idx_order()]
@@ -116,8 +122,8 @@ def _split_set(nwk, keep):
 @pytest.fixture(scope="module")
 def add_inputs(tmp_path_factory):
     """For -i r and -i m: all 24 sequences, a binary backbone of the first
-    16 built by the reference's CLI, and a multifurcating backbone of the
-    first 8."""
+    16 built by the reference's CLI, the same collapsed, and a
+    multifurcating backbone of the first 8."""
     tmp = tmp_path_factory.mktemp("add")
     out = {}
     for fmt in ("r", "m"):
@@ -132,12 +138,16 @@ def add_inputs(tmp_path_factory):
                          "-m", "1", "-k", "12", "-s", "150", "--precision",
                          "f64", "--seed", "-1"]) == 0
         multi_nwk.write_text(MULTI.replace("L", "S") + "\n")
+        collapsed = tmp / f"collapsed.{fmt}.nwk"
+        collapsed.write_text(collapse_backbone(back_nwk.read_text(), 0.3,
+                                               clade=6)[0] + "\n")
         out[fmt] = dict(names=names, all_fa=str(all_fa),
-                        binary=str(back_nwk), multifurcating=str(multi_nwk))
+                        binary=str(back_nwk), multifurcating=str(multi_nwk),
+                        collapsed=str(collapsed))
     return out
 
 
-@pytest.mark.parametrize("kind", ["binary", "multifurcating"])
+@pytest.mark.parametrize("kind", ["binary", "multifurcating", "collapsed"])
 @pytest.mark.parametrize("fmt, precision", [("r", "f64"), ("r", "f32"),
                                             ("m", "f64"), ("m", "f32")])
 def test_cli_add_equals_reference(tmp_path, add_inputs, capsys, fmt,
@@ -151,7 +161,7 @@ def test_cli_add_equals_reference(tmp_path, add_inputs, capsys, fmt,
     capsys.readouterr()
     assert port_main(args + ["-O", str(out_p), "--device", "cpu"]) == 0
     err = capsys.readouterr().err
-    assert ("using dense witness BFS" in err) == (kind == "multifurcating")
+    assert ("using dense witness BFS" in err) == (kind != "binary")
     want, got = out_j.read_text(), out_p.read_text()
     if fmt == "r":
         assert got == want      # also in f32: equal rows, equal arithmetic

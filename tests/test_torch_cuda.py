@@ -1910,6 +1910,182 @@ def test_replayed_range_equals_direct_launches(cuda, dtype, monkeypatch):
     _same7(seeded, direct)
 
 
+# ---------------------------------------------------------------------------
+# The insertion-step kernel's wide instantiation (multifurcating --add
+# backbones) against its plain version, the dense BFS
+# ---------------------------------------------------------------------------
+
+_MULTI = ("((L0:0.11,L1:0.2,L2:0.13,L3:0.3):0.1,(L4:0.21,L5:0.12):0.14,"
+          "L6:0.2,L7:0.1);")
+
+
+def _wide_backbone(name):
+    """(Newick, taxa): a star of 600 leaves (its centre's level spills the
+    frontier), 300 clades of four under one root (a level of 299 wide
+    entries spills the wide list), a 400-taxon placement tree collapsed
+    by chip_smoke.collapse_backbone (a clade of at least 64 leaves made
+    one node), and MULTI."""
+    from chip_smoke import collapse_backbone
+    from dipper_tpu_torch.placement import insert_model as im
+
+    if name == "star":
+        return "(" + ",".join(f"L{i}:{0.01 * (i % 7 + 1):.2f}"
+                              for i in range(600)) + ");", 700
+    if name == "brooms":
+        return "(" + ",".join(
+            "(" + ",".join(f"L{4 * c + j}:{0.02 + 0.01 * j:.2f}"
+                           for j in range(4)) + f"):{0.05 + 0.001 * c:.3f}"
+            for c in range(300)) + ");", 1300
+    if name == "collapsed":
+        B = 400
+        D = torch.from_numpy(im.made_up_matrix("random", B, seed=5))
+        e, belong, length = tk.run_placement((D,), num_sequences=B,
+                                             frontend="matrix",
+                                             dtype_name="float64")
+        nwk = tk.edges_to_newick(e, belong, length,
+                                 [f"L{i}" for i in range(B)], B)
+        return collapse_backbone(nwk, 0.3, clade=64)[0], 480
+    return _MULTI, 20
+
+
+def _wide_state(cuda, name, dtype, wide_table=None):
+    """--add's state of the backbone on the card (kclosest.add_state:
+    the wide table), its taxa and backbone size."""
+    from dipper_tpu_torch.io.newick import parse_newick
+    from dipper_tpu_torch.placement import api as tapi
+
+    nwk, n = _wide_backbone(name)
+    tree = parse_newick(nwk, n)
+    arrays = tapi.backbone_tree_to_arrays(tree, n)
+    st = tk.add_state(*(torch.from_numpy(a).to(cuda) for a in arrays),
+                      num_sequences=n, backbone_size=tree.num_leaves,
+                      dtype_name=dtype, use_adj=False, wide_table=wide_table)
+    return st, n, tree.num_leaves
+
+
+WIDE_NAMES = ["star", "brooms", "collapsed", "multi"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name", WIDE_NAMES)
+def test_wide_closest_bfs_and_insert_step_equal_dense(cuda, name, dtype):
+    """closest_bfs from every backbone leaf, then insert_step of up to 24
+    queries, on a wide state (the wide instantiation), held against a
+    copy stepped by the plain version (the dense BFS; splice, dense BFS)
+    after every launch; every launch in the wide counters."""
+    from dipper_tpu_torch.placement import insert_cuda
+
+    st, n, B = _wide_state(cuda, name, dtype)
+    assert st.wide_off is not None and st.inserter.wide
+    pl = _clone7(st)
+    before = (insert_cuda.CLOSEST_BFS_WIDE_LAUNCHES,
+              insert_cuda.INSERT_STEP_WIDE_LAUNCHES,
+              insert_cuda.CLOSEST_BFS_LAUNCHES,
+              insert_cuda.INSERT_STEP_LAUNCHES)
+    for i in range(B):
+        insert_cuda.closest_bfs(st, i)
+        tk._update_closest_bfs_dense(pl, i, 2 * n)
+        if i % 16 == 0 or i == B - 1:
+            _same7(st, pl)
+    Q = min(24, n - B)
+    rows = torch.from_numpy(np.random.default_rng(B).uniform(
+        0.05, 0.5, (Q, n)).astype(dtype)).to(cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for j in range(Q):
+        i = B + j
+        tk.kernel_insertion_step(st, rows[j], i, n, stream)
+        eid, x, y, ye, frac, add = tk._score_edges_plain(pl, rows[j])
+        tk.splice(pl, eid, frac, add, i, n, (x, y, ye))
+        tk._update_closest_bfs_dense(pl, i, 2 * n)
+        _same7(st, pl)
+    assert (insert_cuda.CLOSEST_BFS_WIDE_LAUNCHES - before[0],
+            insert_cuda.INSERT_STEP_WIDE_LAUNCHES - before[1],
+            insert_cuda.CLOSEST_BFS_LAUNCHES - before[2],
+            insert_cuda.INSERT_STEP_LAUNCHES - before[3]) == (B, Q, 0, 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name", WIDE_NAMES)
+def test_wide_cursor_route_equals_dense_route(cuda, name, dtype,
+                                              monkeypatch):
+    """--add on a wide state by the cursor route (replayed graphs of 16 BFS
+    launches for the seeding, of 16 insertions for the queries, and
+    remainders) against the same backbone without a table (the dense
+    route, the kernels' plain version) on the card and on the CPU: the
+    same final arrays; the route's launches in the wide counters, no
+    host sync inside an insert range."""
+    import dataclasses
+
+    from dipper_tpu_torch.placement import insert_cuda
+
+    monkeypatch.setattr(tk, "GRAPH_INSERTIONS", 16)
+    st, n, B = _wide_state(cuda, name, dtype)
+    plain, _, _ = _wide_state(cuda, name, dtype, wide_table=False)
+    assert plain.adj is None and not tk.uses_insert_kernel(plain)
+    G = 16
+    before = (insert_cuda.CLOSEST_BFS_WIDE_LAUNCHES,
+              insert_cuda.INSERT_STEP_WIDE_LAUNCHES,
+              insert_cuda.GRAPH_REPLAYS)
+
+    def no_sync(run, lo, hi):
+        # [lo, lo + G) first (a graph's capture synchronizes), then the
+        # rest under sync debug "error"
+        mid = min(hi, lo + G)
+        run(lo, mid)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run(mid, hi)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return (mid - lo) // G + (hi - mid) // G
+
+    replays = no_sync(lambda lo, hi: tk._replay_seeding(st, lo, hi), 0, B)
+    for i in range(B):
+        tk.update_closest_bfs(plain, i, 2 * n)
+    _same7(st, dataclasses.replace(plain, adj=st.adj))
+    Q = n - B
+    rows = torch.from_numpy(np.random.default_rng(n).uniform(
+        0.05, 0.5, (Q, n)).astype(dtype)).to(cuda)
+    replays += no_sync(lambda lo, hi: tk._insert_range(
+        st, lo, hi, rows[lo - B:], n), B, n)
+    tk._insert_range(plain, B, n, rows, n)
+    cpu, _, _ = _wide_state(torch.device("cpu"), name, dtype)
+    assert cpu.adj is None
+    for i in range(B):
+        tk.update_closest_bfs(cpu, i, 2 * n)
+    tk._insert_range(cpu, B, n, rows.cpu(), n)
+    for f in ("e", "belong", "length", "rev", "cdis", "cid"):
+        a, b, c = getattr(st, f), getattr(plain, f), getattr(cpu, f)
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c), f
+    assert (insert_cuda.CLOSEST_BFS_WIDE_LAUNCHES - before[0],
+            insert_cuda.INSERT_STEP_WIDE_LAUNCHES - before[1],
+            insert_cuda.GRAPH_REPLAYS - before[2]) == (B, Q, replays)
+
+
+def test_wide_state_refuses_a_cpu_fallback(cuda, monkeypatch):
+    """A wide state on the card whose kernel cannot be built fails the
+    run: run_add_queries raises, it does not drop to the dense route."""
+    from dipper_tpu_torch.io.newick import parse_newick
+    from dipper_tpu_torch.placement import api as tapi
+    from dipper_tpu_torch.placement import insert_cuda
+
+    nwk, n = _wide_backbone("multi")
+    tree = parse_newick(nwk, n)
+    arrays = [torch.from_numpy(a).to(cuda)
+              for a in tapi.backbone_tree_to_arrays(tree, n)]
+    D = torch.rand((n, n), dtype=torch.float64, device=cuda)
+
+    def unbuilt(name, argtypes):
+        raise RuntimeError(f"nvcc failed to build {name}")
+
+    monkeypatch.setattr(insert_cuda, "load", unbuilt)
+    with pytest.raises(RuntimeError, match="failed to build insert_step"):
+        tk.run_add_queries((D,), *arrays, num_sequences=n,
+                           backbone_size=tree.num_leaves, frontend="matrix",
+                           dtype_name="float64", use_adj=False)
+
+
 def test_cursor_route_across_caps_equals_cpu(cuda, monkeypatch):
     """run_placement_chunked on the card in ranges of 50 with prefix caps
     from 64 (a graph captured again at each cap, replays and remainders)

@@ -366,7 +366,7 @@ class _ModelRoute:
             self.graphs[id(st)] = (st, types.SimpleNamespace(
                 graph=types.SimpleNamespace(
                     replay=lambda: [fn() for fn in runs]),
-                steps=0, bfs=0))
+                steps=0, bfs=0, wide=False))
         return self.graphs[id(st)][1]
 
 

@@ -469,7 +469,7 @@ class _CursorRoute:
             self.steps.append((i, i0))
         self._launch(run)
         if count:
-            insert_cuda.INSERT_STEP_LAUNCHES += 1
+            insert_cuda.count_launches(st.wide_off is not None, steps=1)
 
     def bfs(self, st, stream=None, count=True):
         def run():
@@ -479,7 +479,7 @@ class _CursorRoute:
             cur[0] += 1
         self._launch(run)
         if count:
-            insert_cuda.CLOSEST_BFS_LAUNCHES += 1
+            insert_cuda.count_launches(st.wide_off is not None, bfs=1)
 
     def range_graph(self, st, key, launch, steps=0, bfs=0, keep=()):
         k = (id(st), key)
@@ -495,7 +495,8 @@ class _CursorRoute:
                 replay=lambda: [fn() for fn in runs])
             # the state is held so that its id is not reused
             self.graphs[k] = (st, types.SimpleNamespace(
-                graph=graph, steps=steps, bfs=bfs, keep=keep))
+                graph=graph, steps=steps, bfs=bfs,
+                wide=st.wide_off is not None, keep=keep))
             self.captures += 1
         return self.graphs[k][1]
 
