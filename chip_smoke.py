@@ -443,6 +443,9 @@ KERNELS = {
     "dc_assign_pack": ("dipper_tpu_torch/csrc/dc_assign.cu",
                        "dipper_tpu/dc/pipeline.py:57 (XLA program, no "
                        "Pallas)"),
+    "msa_cluster_dist": ("dipper_tpu_torch/csrc/msa_cluster_dist.cu",
+                         "dipper_tpu/dc/pipeline.py:1210 (XLA program, no "
+                         "Pallas)"),
 }
 NRF_LIMIT = 0.35
 # nRF vs the true tree of the full-size sets (seed 1) in every smoke so
@@ -510,7 +513,7 @@ ASSIGN_BAND_QUERIES = 950000
 # bytes a lane at random addresses (assign_bound)
 SM_BANKS = 32
 ALL_PHASES = (1, 2, 3, 6, 15, 7, 25, 19, 4, 17, 5, 16, 29, 26, 9, 24, 10, 11,
-              12, 28, 14, 30, 27, 13, 8, 18, 20, 21, 22, 23)
+              12, 28, 31, 14, 30, 27, 13, 8, 18, 20, 21, 22, 23)
 # -i m -m 3 (phase 28): the aligned set's first MSA_DC_N sequences on the
 # card, and its first MSA_DC_CPU_N on the card and on the CPU
 MSA_DC_N = 4096
@@ -2064,13 +2067,14 @@ def _ms(pattern: str, text: str) -> float | None:
 def reset_counts() -> None:
     """Every kernel counter to 0 (just before a main path)."""
     from dipper_tpu_torch.dc import assign_cuda, cluster_cuda
-    from dipper_tpu_torch.distance import mash_cuda
+    from dipper_tpu_torch.distance import mash_cuda, msa_cuda
     from dipper_tpu_torch.nj import nj_cuda
     from dipper_tpu_torch.placement import exact_cuda, insert_cuda, kclosest
     from dipper_tpu_torch.sketch import minhash_cuda
 
     cluster_cuda.STREAM_BLOCK_LAUNCHES = 0
     cluster_cuda.CLUSTER_BUILD_LAUNCHES = 0
+    msa_cuda.CLUSTER_DIST_LAUNCHES = 0
     assign_cuda.ASSIGN_LAUNCHES = 0
     assign_cuda.PACK_LAUNCHES = 0
     mash_cuda.LAUNCHES = 0
@@ -2099,7 +2103,7 @@ def read_counts() -> dict:
     half read; and the CUDA graphs of the cursor route captured and
     replayed."""
     from dipper_tpu_torch.dc import assign_cuda, cluster_cuda
-    from dipper_tpu_torch.distance import mash_cuda
+    from dipper_tpu_torch.distance import mash_cuda, msa_cuda
     from dipper_tpu_torch.nj import nj_cuda
     from dipper_tpu_torch.placement import exact_cuda, insert_cuda, kclosest
     from dipper_tpu_torch.sketch import minhash_cuda
@@ -2126,7 +2130,8 @@ def read_counts() -> dict:
             "dc_cluster_build": cluster_cuda.CLUSTER_BUILD_LAUNCHES,
             "exact_step": exact_cuda.EXACT_STEP_LAUNCHES,
             "dc_assign": assign_cuda.ASSIGN_LAUNCHES,
-            "dc_assign_pack": assign_cuda.PACK_LAUNCHES}
+            "dc_assign_pack": assign_cuda.PACK_LAUNCHES,
+            "msa_cluster_dist": msa_cuda.CLUSTER_DIST_LAUNCHES}
 
 
 class SketchSampler:
@@ -3324,12 +3329,14 @@ def phase_msa_placement(tmp: str, n: int, fa: str, true_nwk: str) -> dict:
 
 def phase_msa_dc(tmp: str, fa: str, true_nwk: str, n: int) -> dict:
     """-i m -m 3 -d 1 in f64 on the aligned set's first n sequences: rc 0,
-    a complete Newick, one dc_cluster_build launch a batched chunk and one
-    dc_stream_block launch a streamed row block, no host sync in phase 3,
-    nRF vs the true tree restricted to them; the same Newick bytes with
-    phase 3's plain versions on the card; and on the first MSA_DC_CPU_N
-    the card's Newick byte-equal to the CPU's."""
+    a complete Newick, one msa_cluster_dist and one dc_cluster_build
+    launch a batched chunk and one dc_stream_block launch a streamed row
+    block, no host sync in phase 3, nRF vs the true tree restricted to
+    them; the same Newick bytes with phase 3's plain versions on the card;
+    and on the first MSA_DC_CPU_N the card's Newick byte-equal to the
+    CPU's."""
     from dipper_tpu_torch.dc import cluster
+    from dipper_tpu_torch.distance import msa
 
     def cli(sub: str, out: str, device: str = "cuda") -> tuple:
         return run_cli(["-i", "m", "-I", sub, "-O", out, "-m", "3", "-d",
@@ -3349,8 +3356,10 @@ def phase_msa_dc(tmp: str, fa: str, true_nwk: str, n: int) -> dict:
     chunks = sum(int(k) for p, k in lines if p == "batch")
     blocks = sum(int(k) for p, k in lines if p == "stream")
     check(chunks > 0 and counts["dc_cluster_build"] == chunks
+          and counts["msa_cluster_dist"] == chunks
           and counts["dc_stream_block"] == blocks,
-          f"-i m -m 3: dc_cluster_build {counts['dc_cluster_build']} "
+          f"-i m -m 3: dc_cluster_build {counts['dc_cluster_build']} and "
+          f"msa_cluster_dist {counts['msa_cluster_dist']} "
           f"launches for {chunks} chunks, dc_stream_block "
           f"{counts['dc_stream_block']} for {blocks} row blocks")
     check(levels == 0 and steps > 0, f"-i m -m 3: phase 3 synced the host "
@@ -3365,13 +3374,16 @@ def phase_msa_dc(tmp: str, fa: str, true_nwk: str, n: int) -> dict:
           f"want {n - 1}")
     rf, nrf = restricted_rf(nwk, open(true_nwk).read())
     plain_out = os.path.join(tmp, f"msa_dc{n}.plain.nwk")
-    uses = cluster.uses_cluster_kernel, cluster.uses_stream_kernels
+    uses = (cluster.uses_cluster_kernel, cluster.uses_stream_kernels,
+            msa.uses_cluster_dist_kernel)
     cluster.uses_cluster_kernel = lambda Dq: False
     cluster.uses_stream_kernels = lambda st: False
+    msa.uses_cluster_dist_kernel = lambda codes: False
     try:
         rc_p, _, wall_p = cli(sub, plain_out)
     finally:
-        cluster.uses_cluster_kernel, cluster.uses_stream_kernels = uses
+        (cluster.uses_cluster_kernel, cluster.uses_stream_kernels,
+         msa.uses_cluster_dist_kernel) = uses
     check(rc_p == 0 and open(plain_out).read() == open(out).read(),
           "-i m -m 3: phase 3's kernels and their plain versions give other "
           "Newick bytes")
@@ -3394,6 +3406,188 @@ def phase_msa_dc(tmp: str, fa: str, true_nwk: str, n: int) -> dict:
           "phase3_bfs_levels": levels, "kernel_launches": counts,
           "rf": rf, "nrf_vs_true_restricted": nrf})
     return {"counts": counts}
+
+
+class ClusterDistRecorder:
+    """Kernel 12's launches of a D&C run: each chunk's (members, clusters),
+    and the codes of each bucket's first chunk (the tensor handed to the
+    kernel, kept on the card; the pipeline never writes it)."""
+
+    def __init__(self):
+        from dipper_tpu_torch.distance import msa_cuda
+
+        self.mod, self.fn = msa_cuda, msa_cuda.cluster_dist
+        self.launches, self.first = [], {}
+
+        def rec(codes, members, **kw):
+            out = self.fn(codes, members, **kw)
+            self.launches.append((members, codes.shape[0]))
+            self.first.setdefault(members, codes)
+            return out
+
+        msa_cuda.cluster_dist = rec
+
+    def restore(self) -> None:
+        self.mod.cluster_dist = self.fn
+
+
+def same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Two tensors equal bit for bit (a float's NaN bits included)."""
+    if x.dtype != y.dtype or x.shape != y.shape:
+        return False
+    if x.is_floating_point():
+        bits = torch.int32 if x.dtype == torch.float32 else torch.int64
+        x, y = x.view(bits), y.view(bits)
+    return torch.equal(x, y)
+
+
+def hard_chunk(codes: np.ndarray, seed: int = 5) -> np.ndarray:
+    """uint8 [4, 18, 203] witness codes of a made-up bucket-8 chunk (10
+    head witnesses) whose first cluster's members are
+    tests/test_torch_msa.py::_hard_codes' kinds of row: unrelated ones
+    (the log of a negative: NaN), a pair a transversion or A<->C apart in
+    every column, an all-gap row (0/0, x/0) and a duplicate; the last
+    cluster ragged (its last members repeat one). `codes`: the aligned
+    set, whose first 10 rows cut to 203 columns are the simulated ones."""
+    rng = np.random.default_rng(seed)
+    L = 203
+    sim = codes[:10, :L]
+    rand = rng.integers(0, 4, (6, L)).astype(np.uint8)
+    rand[3] = rand[2] ^ 1
+    bank = np.concatenate([sim, rand, np.full((1, L), 4, np.uint8), sim[:1]])
+    n = len(bank)
+    wit = rng.integers(0, n, (4, 18))
+    wit[0, 10:] = np.arange(n - 8, n)
+    wit[-1, 14:] = wit[-1, 13]
+    return bank[wit]
+
+
+def cluster_dist_bound(codes: torch.Tensor, members: int, item: int) -> dict:
+    """Kernel 12's bound on one chunk: the 4 x 4 bins of every pair as
+    int8 one-hot products (16 multiply-adds a pair and column) at the
+    tensor cores' int8 rate, against each code byte read once and each
+    distance written once."""
+    c, W, L = codes.shape
+    pairs = c * members * W
+    return bound_of(2.0 * 16 * pairs * L, c * W * L + pairs * item,
+                    PEAK_INT8_PER_S)
+
+
+def bucket_times(log: str) -> dict:
+    """Seconds of each phase-3 bucket of a D&C log, by cmax_b."""
+    return {int(b): float(t) for b, t in re.findall(
+        r"DC phase 3: bucket cmax_b=(\d+) .* in ([\d.]+)s", log)}
+
+
+def phase_msa_dc_main_path(tmp: str, fa: str, true_nwk: str, n: int) -> dict:
+    """-i m -m 3 on the whole aligned set, default flags (f32, -d 1, B = n
+    // 20), in turns with the plain distance route (one _block_distance
+    call a cluster on the same gathered codes, msa.uses_cluster_dist_kernel
+    patched):
+    plain, kernel, kernel, plain. Every turn rc 0 and the same Newick
+    bytes, a complete tree, nRF vs the true tree < DC_NRF_LIMIT; the first
+    kernel turn, counted, launches msa_cluster_dist and dc_cluster_build
+    once a batched chunk. Then kernel 12 bit for bit against its plain
+    version on each bucket's first chunk of that run and on a made-up chunk
+    of hard rows, all six models in f32 and f64; and each first chunk's
+    kernel time queued behind a device sleep, its bound and the plain
+    version's time, at the run's settings."""
+    from dipper_tpu_torch.distance import msa, msa_cuda
+
+    def cli(route: str, tag: str) -> dict:
+        path = os.path.join(tmp, f"msa_dc{n}.{tag}.nwk")
+        uses = msa.uses_cluster_dist_kernel
+        if route == "plain":
+            msa.uses_cluster_dist_kernel = lambda codes: False
+        try:
+            rc, log, wall = run_cli(["-i", "m", "-I", fa, "-O", path, "-m",
+                                     "3"])
+        finally:
+            msa.uses_cluster_dist_kernel = uses
+        check(rc == 0, f"-i m -m 3 at {n} ({route} route) returned {rc}")
+        return {"route": route, "nwk": open(path).read(), "log": log,
+                "wall_ms": wall * 1e3}
+
+    turns = [cli("plain", "t0")]
+    reset_counts()
+    rec = ClusterDistRecorder()
+    try:
+        turns.append(cli("kernel", "t1"))
+    finally:
+        rec.restore()
+    counts = read_counts()
+    turns += [cli("kernel", "t2"), cli("plain", "t3")]
+    log = turns[1]["log"]
+    lines = re.findall(r"DC phase 3: bucket \S+ clusters=\d+ path=(\w+) "
+                       r"members=\d+ launches=(\d+)", log)
+    chunks = sum(int(k) for p, k in lines if p == "batch")
+    blocks = sum(int(k) for p, k in lines if p == "stream")
+    check(chunks > 0 and counts["msa_cluster_dist"] == chunks
+          == len(rec.launches) and counts["dc_cluster_build"] == chunks
+          and counts["dc_stream_block"] == blocks,
+          f"-i m -m 3 at {n}: msa_cluster_dist {counts['msa_cluster_dist']} "
+          f"and dc_cluster_build {counts['dc_cluster_build']} launches for "
+          f"{chunks} batched chunks, dc_stream_block "
+          f"{counts['dc_stream_block']} for {blocks} row blocks")
+    p2 = phase2_line(log)
+    check(counts["dc_assign"] == p2["chunks"] > 0 and p2["route"] == "kernel",
+          f"-i m -m 3 at {n}: dc_assign {counts['dc_assign']} launches for "
+          f"{p2['chunks']} phase-2 chunks")
+    nwk = turns[1]["nwk"].strip()
+    check(all(t["nwk"] == turns[1]["nwk"] for t in turns),
+          f"-i m -m 3 at {n}: the kernel route's and the plain route's "
+          "Newick bytes differ")
+    check(nwk.count(",") == n - 1, f"Newick has {nwk.count(',')} commas, "
+          f"want {n - 1}")
+    rf, nrf = restricted_rf(nwk, open(true_nwk).read())
+    check(nrf < DC_NRF_LIMIT, f"-i m -m 3 at {n}: nRF vs the true tree "
+          f"{nrf} >= {DC_NRF_LIMIT}")
+
+    # kernel 12 against its plain version on the run's chunks, all models
+    hard = torch.from_numpy(hard_chunk(load_codes(fa, 10))).cuda()
+    cases = {**{f"bucket{q}": (codes, q) for q, codes in rec.first.items()},
+             "hard": (hard, 8)}
+    compared = {}
+    for name, (codes, q) in cases.items():
+        for dt in range(1, 7):
+            for dtype in ("float32", "float64"):
+                kw = dict(distance_type=dt, dtype_name=dtype)
+                got = msa_cuda.cluster_dist(codes, q, **kw)
+                want = msa.cluster_block_distances_plain(codes, q, **kw)
+                check(same_bits(got, want), f"msa_cluster_dist differs from "
+                      f"its plain version on {name}, -d {dt}, {dtype}")
+                if name == "hard" and dt > 1:
+                    check(bool(got.isnan().any() or got.isinf().any()),
+                          f"the hard chunk gave no NaN or inf at -d {dt}, "
+                          f"{dtype}")
+        compared[name] = list(codes.shape)
+        del got, want
+    # times at the run's settings (f32, -d 1)
+    kw = dict(distance_type=1, dtype_name="float32")
+    by_bucket = {}
+    for q, codes in sorted(rec.first.items()):
+        t = {"clusters": codes.shape[0], "W": codes.shape[1],
+             "ms": queued_ms(lambda: msa_cuda.cluster_dist(codes, q, **kw),
+                             reps=5),
+             "plain_ms": event_ms(
+                 lambda: msa.cluster_block_distances_plain(codes, q, **kw),
+                 reps=2),
+             **cluster_dist_bound(codes, q, 4)}
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        by_bucket[q] = t
+    rec.first.clear()
+    res = {"phase": "main_path", "path": "msa_dc_main", "n": n, "L": 10000,
+           "distance_type": 1, "precision": "f32", "backbone": n // 20,
+           "turns": [{"route": t["route"], "wall_ms": t["wall_ms"],
+                      "encode_ms": _ms(r"Encoded in: (\d+) ms", t["log"]),
+                      **_dc_log(t["log"]),
+                      "bucket_s": bucket_times(t["log"])} for t in turns],
+           "chunks": [list(x) for x in rec.launches],
+           "newick_identical_plain": True, "kernel_vs_plain": compared,
+           "by_bucket": by_bucket, "kernel_launches": counts, "rf": rf,
+           "nrf_vs_true": nrf, "nrf_limit": DC_NRF_LIMIT}
+    emit(res)
+    return {"counts": counts, "by_bucket": by_bucket}
 
 
 def backbone_splits_survive(out_nwk: str, back_nwk: str) -> tuple:
@@ -4406,15 +4600,7 @@ def phase_dc_assign_vs_plain(rec: Phase2Recorder) -> dict:
 def _bits_diff(got: dict, want, fields) -> list:
     """The fields in which `got` (name -> tensor) and `want` (an object
     with those attributes) differ bit for bit."""
-    out = []
-    for f in fields:
-        x, y = got[f], getattr(want, f)
-        if x.is_floating_point():
-            bits = torch.int32 if x.dtype == torch.float32 else torch.int64
-            x, y = x.view(bits), y.view(bits)
-        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
-            out.append(f)
-    return out
+    return [f for f in fields if not same_bits(got[f], getattr(want, f))]
 
 
 def _kept_states(cluster, name: str = "cluster_init_state"):
@@ -6814,7 +7000,7 @@ def main() -> int:
                 args.nj_n, os.path.join(tmp, f"n{args.nj_n}"), seed=1)[0])
             records["minhash_sketch"].update(phase_sketch(data[0], nj_fa,
                                                           args.parent))
-        if phases & {10, 11, 12, 13, 28}:
+        if phases & {10, 11, 12, 13, 28, 31}:
             t0 = time.time()
             msa_fa, msa_true = make_dataset(
                 args.msa_n, os.path.join(tmp, f"msa{args.msa_n}"), seed=1,
@@ -6834,6 +7020,16 @@ def main() -> int:
         if 28 in phases:
             note("msa_dc", phase_msa_dc(tmp, msa_fa, msa_true,
                                         min(MSA_DC_N, args.msa_n))["counts"])
+        if 31 in phases:
+            res = phase_msa_dc_main_path(tmp, msa_fa, msa_true, args.msa_n)
+            note("msa_dc_main", res["counts"])
+            b8 = res["by_bucket"][min(res["by_bucket"])]
+            records["msa_cluster_dist"].update(
+                launches=res["counts"]["msa_cluster_dist"], max_abs_err=0.0,
+                library_ms=None, by_bucket=res["by_bucket"],
+                **{k: b8[k] for k in ("clusters", "W", "ms", "plain_ms",
+                                      "bound_ms", "bound_by",
+                                      "share_of_bound")})
         if 14 in phases:
             note("add", phase_add(tmp, data[0], min(4096, args.n // 2),
                                   min(1024, args.n // 8))["counts"])

@@ -37,6 +37,7 @@ KERNELS = {
     "dc_cluster_build": "dc_cluster_build.cu",
     "exact_step": "exact_step.cu",
     "dc_assign": "dc_assign.cu",
+    "msa_cluster_dist": "msa_cluster_dist.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

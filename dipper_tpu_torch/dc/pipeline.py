@@ -24,11 +24,14 @@ into pow2 buckets (which bound the padding) and builds each bucket's
 clusters together, PHASE3_BUDGET // cmax_b at a time, from one [c, cmax_b,
 W] distance tensor: for mash the per-cluster count kernel
 (csrc/mash_cluster_inter.cu, one launch a chunk), for a matrix a double
-gather, for aligned sequences codes staged from the host; on the card a
-chunk's build is one launch of csrc/dc_cluster_build.cu. Clusters of
-_STREAM_CLUSTER_MIN members and more build one at a time with rows
-streamed _STREAM_ROW_BLOCK at a time (on the card, one launch of
-csrc/dc_stream_block.cu a row block). Each bucket's
+gather, for aligned sequences the witness lists' codes gathered on the
+host and staged once (the members are their tail), then on the card one
+launch of csrc/msa_cluster_dist.cu (kernel 12) a chunk, on the CPU one
+plain call a cluster; on the card a chunk's build is one launch of
+csrc/dc_cluster_build.cu. Clusters of _STREAM_CLUSTER_MIN members and
+more build one at a time with rows streamed _STREAM_ROW_BLOCK at a time
+(on the card, one launch of csrc/dc_stream_block.cu a row block; aligned
+rows by msa_tiled_block's pair-count product). Each bucket's
 log line counts its distance launches, steps, host syncs (BFS levels)
 and build-kernel launches. Assembly and Newick are host NumPy,
 as in the JAX package.
@@ -106,7 +109,9 @@ def _frontend(seqs, params: Param, matrix, device, dtype, log):
         from dipper_tpu_torch.distance.msa import nongap_counts
         from dipper_tpu_torch.io.encode import batch_codes, encode_4bit_codes
 
+        t0 = time.time()
         codes_host, _ = batch_codes(seqs, encode_4bit_codes, pad_value=4)
+        log(f"Encoded in: {int((time.time() - t0) * 1000)} ms")
         codes_bb = torch.from_numpy(codes_host[:B]).to(device)
         return ("msa", codes_host,
                 (codes_bb, nongap_counts(codes_bb, params.dtype)),
@@ -162,17 +167,24 @@ def _pair_distances(frontend, payload, params: Param, wit, mem, device):
         w = torch.from_numpy(wit).to(device)
         m = torch.from_numpy(mem).to(device)
         return payload[m[:, :, None], w[:, None, :]]
-    from dipper_tpu_torch.distance.msa import (_block_distance,
-                                               nongap_counts,
-                                               one_hot_channels)
+    from dipper_tpu_torch.distance.msa import cluster_block_distances
 
-    codes_w = torch.from_numpy(payload[wit]).to(device)    # [c, W, L]
-    codes_m = torch.from_numpy(payload[mem]).to(device)    # [c, cmax, L]
-    return torch.stack([
-        _block_distance(one_hot_channels(m), one_hot_channels(w),
-                        nongap_counts(m, dtype), nongap_counts(w, dtype),
-                        distance_type=params.distance_type, dtype_name=dtype)
-        for w, m in zip(codes_w, codes_m)])
+    Q = mem.shape[1]
+    assert wit.shape[1] >= Q, (wit.shape, mem.shape)
+    # the members are the witness lists' tail: one gather, one upload
+    if torch.device(device).type == "cuda":
+        # gathered straight into pinned memory: an upload without a host
+        # sync (mode="clip": with the default "raise" numpy gathers into a
+        # temporary and copies it out; the ids are rows of payload)
+        codes_w = torch.empty(wit.shape + payload.shape[1:],
+                              dtype=torch.uint8, pin_memory=True)
+        np.take(payload, wit, axis=0, out=codes_w.numpy(), mode="clip")
+        codes_w = codes_w.to(device, non_blocking=True)     # [c, W, L]
+    else:
+        codes_w = torch.from_numpy(payload[wit])
+    return cluster_block_distances(codes_w, Q,
+                                   distance_type=params.distance_type,
+                                   dtype_name=dtype)
 
 
 def _stream_block_fn(frontend, payload, params: Param, wit, mem, device):

@@ -124,8 +124,16 @@ def _block_distance(phi_i, phi_j, nongap_i, nongap_j, *, distance_type: int,
     run's type one [Bi,Bj] slice at a time (the values the reference gets
     by casting all of P first); every operation after that is the
     reference's, in its order and type."""
+    return distance_from_counts(pair_counts(phi_i, phi_j), nongap_i,
+                                nongap_j, distance_type=distance_type,
+                                dtype_name=dtype_name)
+
+
+def distance_from_counts(P4, nongap_i, nongap_j, *, distance_type: int,
+                         dtype_name: str) -> torch.Tensor:
+    """int32 [Bi,5,Bj,5] pair counts (pair_counts' layout), nongap_* in
+    the run's type -> [Bi,Bj] distances: _block_distance's formulas."""
     dtype = torch_dtype(dtype_name)
-    P4 = pair_counts(phi_i, phi_j)
 
     def P(a: int, b: int) -> torch.Tensor:
         return P4[:, a, :, b].to(dtype)
@@ -215,6 +223,50 @@ def msa_tiled_block(codes_q, nongap_q, codes_bank, nongap_bank, *,
                 nongap_q[r:r + R], ng_b, distance_type=distance_type,
                 dtype_name=dtype_name)
     return out
+
+
+def uses_cluster_dist_kernel(codes: torch.Tensor) -> bool:
+    """Whether a chunk's cluster distances go to kernel 12: its codes are
+    on the card."""
+    return codes.device.type == "cuda"
+
+
+def cluster_block_distances(codes_w: torch.Tensor, members: int, *,
+                            distance_type: int,
+                            dtype_name: str) -> torch.Tensor:
+    """D&C phase 3's distances of a chunk of clusters: uint8 [c, W, L]
+    codes, each cluster's W witness rows ending with its `members` (Q)
+    member rows (wit = [head, mem], as phase 3 builds the lists) -> [c, Q,
+    W] distances d(member k, witness w) on the codes' device. On the card
+    one launch of kernel 12 (distance/msa_cuda.py); on the CPU the plain
+    version."""
+    if uses_cluster_dist_kernel(codes_w):
+        from dipper_tpu_torch.distance import msa_cuda
+
+        return msa_cuda.cluster_dist(codes_w, members,
+                                     distance_type=distance_type,
+                                     dtype_name=dtype_name)
+    return cluster_block_distances_plain(codes_w, members,
+                                         distance_type=distance_type,
+                                         dtype_name=dtype_name)
+
+
+def cluster_block_distances_plain(codes_w: torch.Tensor, members: int, *,
+                                  distance_type: int,
+                                  dtype_name: str) -> torch.Tensor:
+    """cluster_block_distances in tensor code, one _block_distance call a
+    cluster (the CPU path, and kernel 12's yardstick on the card)."""
+    c, W, L = codes_w.shape
+    if c == 0:
+        return torch.empty((0, members, W), dtype=torch_dtype(dtype_name),
+                           device=codes_w.device)
+    codes_m = codes_w[:, W - members:]
+    return torch.stack([
+        _block_distance(one_hot_channels(m), one_hot_channels(w),
+                        nongap_counts(m, dtype_name),
+                        nongap_counts(w, dtype_name),
+                        distance_type=distance_type, dtype_name=dtype_name)
+        for w, m in zip(codes_w, codes_m)])
 
 
 def nongap_counts(codes: torch.Tensor, dtype_name: str) -> torch.Tensor:

@@ -39,7 +39,13 @@ round; --rounds sets how many), each
 checkout's kernels and host libraries built before the first turn;
 a JSON line a turn (phase times, phase 2's rows and scorer split as
 above, wall seconds, nRF vs the true tree, whether its Newick equals the
-first turn's). Each child runs the CLI through PHASE2_CHILD.
+first turn's, phase 3's bucket times). Each child runs the CLI through
+PHASE2_CHILD.
+
+    python3 scripts/profile_dc_torch.py --n 20000 --aligned --parent build/parent
+
+does the same from aligned sequences (`-i m`, scripts/make_dataset.py's
+--aligned set, seed 1: chip_smoke.py phase 31's).
 """
 
 from __future__ import annotations
@@ -155,7 +161,11 @@ def main() -> int:
                          "one (child processes, no kernel profile)")
     ap.add_argument("--rounds", type=int, default=1,
                     help="with --parent: the four turns this many times")
+    ap.add_argument("--aligned", action="store_true",
+                    help="with --parent: an aligned set, read by -i m")
     args = ap.parse_args()
+    if args.aligned and not args.parent:
+        ap.error("--aligned needs --parent")
     if not torch.cuda.is_available():
         print("profile_dc_torch: CUDA is not available", file=sys.stderr)
         return 1
@@ -175,12 +185,13 @@ def main() -> int:
         os.makedirs(out_dir, exist_ok=True)
         t0 = time.time()
         fa, true_nwk = cs.make_dataset(args.n, os.path.join(tmp, "dc"),
-                                       seed=1)
+                                       seed=1, aligned=args.aligned)
         emit({"dataset": {"n": args.n, "L": 10000, "seed": 1,
+                          "aligned": args.aligned,
                           "gen_s": time.time() - t0}})
         if args.parent:
             return turns(args.parent, fa, true_nwk, out_dir, args.n,
-                         args.rounds)
+                         args.rounds, "m" if args.aligned else "r")
         calls = []
         kernel = mash_cuda.mash_cluster_inter_cuda
 
@@ -261,9 +272,10 @@ def main() -> int:
 
 
 def turns(parent: str, fa: str, true_nwk: str, out_dir: str, n: int,
-          rounds: int = 1) -> int:
-    """-m 3 on `fa` by the CLI of `parent` and of this checkout, each in a
-    child process, in turns parent, this, this, parent, `rounds` times."""
+          rounds: int = 1, input_type: str = "r") -> int:
+    """-m 3 on `fa` (read as -i `input_type`) by the CLI of `parent` and of
+    this checkout, each in a child process, in turns parent, this, this,
+    parent, `rounds` times."""
     import chip_smoke as cs
     from dipper_tpu_torch.utils.treecmp import rf_distance
 
@@ -282,8 +294,8 @@ def turns(parent: str, fa: str, true_nwk: str, out_dir: str, n: int,
         out = os.path.join(out_dir, f"dc{n}.{who}.{i}.nwk")
         t0 = time.time()
         run = subprocess.run(
-            [sys.executable, "-c", PHASE2_CHILD, "-i", "r", "-I", fa, "-O",
-             out, "-m", "3"], cwd=root,
+            [sys.executable, "-c", PHASE2_CHILD, "-i", input_type, "-I", fa,
+             "-O", out, "-m", "3"], cwd=root,
             env=dict(os.environ, PYTHONPATH=root), capture_output=True,
             text=True, timeout=1800)
         wall = time.time() - t0
@@ -299,6 +311,7 @@ def turns(parent: str, fa: str, true_nwk: str, out_dir: str, n: int,
         child = json.loads(run.stdout.strip().splitlines()[-1])
         emit({"turn": i, "checkout": who, "n": n,
               **cs._dc_log(run.stderr), **phase2_split(run.stderr, child),
+              "bucket_s": cs.bucket_times(run.stderr),
               "process_wall_s": wall, "rf": rf,
               "nrf_vs_true": nrf, "newick_equal_to_turn_0": nwk == first})
     return 0

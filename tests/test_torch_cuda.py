@@ -2306,3 +2306,82 @@ def test_phase3_wrappers_reject_bad_inputs(cuda):
         cluster_cuda.stream_block(one, f1, Dq[0, :2], 0, 16)
     with pytest.raises(ValueError, match="1 to 16 blocks"):
         cluster_cuda.stream_block(one, f1, Dq[0, :2], 0, 8, ctas=17)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 12 (csrc/msa_cluster_dist.cu): D&C phase 3's per-cluster MSA
+# distances against their plain version, bit for bit
+# ---------------------------------------------------------------------------
+
+_MSA_BANKS: dict = {}
+
+
+def _msa_bank(L):
+    """200 simulated rows (8% gaps), then tests/test_torch_msa.py::
+    _hard_codes' kinds of row: unrelated ones (log of a negative: NaN), a
+    pair a transversion or A<->C apart in every column, an all-gap row
+    (0/0, x/0) and a duplicate."""
+    if L not in _MSA_BANKS:
+        rng = np.random.default_rng(L)
+        rand = rng.integers(0, 4, (6, L)).astype(np.uint8)
+        rand[3] = rand[2] ^ 1
+        codes = _aligned_codes(200, L, 11, gap_frac=0.08)
+        _MSA_BANKS[L] = np.concatenate(
+            [codes, rand, np.full((1, L), 4, np.uint8), codes[:1]])
+    return _MSA_BANKS[L]
+
+
+def _cluster_chunk(cmax, L, seed):
+    """uint8 [c, cmax + 10, L] witness codes of a chunk as D&C's phase 3
+    stages them (the last cmax rows the members): cluster 0's members the
+    hard rows, the last cluster ragged (its last members repeat one)."""
+    bank = _msa_bank(L)
+    N = len(bank)
+    rng = np.random.default_rng(seed)
+    c, W = max(2, 64 // cmax), cmax + 10
+    wit = rng.integers(0, N, (c, W))
+    wit[0, W - 8:] = np.arange(N - 8, N)
+    wit[-1, W - cmax // 2:] = wit[-1, W - cmax // 2 - 1]
+    return bank[wit]
+
+
+@pytest.mark.parametrize("cmax", [8, 32, 128, 512])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("dt", [1, 2, 3, 4, 5, 6])
+def test_msa_cluster_dist_equals_plain(cuda, dt, dtype, cmax):
+    """One launch a chunk, the plain version's bits (NaN and +-inf in the
+    same places), at L = 10,000, 1,001 and 203."""
+    from dipper_tpu_torch.distance import msa, msa_cuda
+
+    kw = dict(distance_type=dt, dtype_name=dtype)
+    for L in (10000, 1001, 203):
+        codes = torch.from_numpy(_cluster_chunk(cmax, L, dt + L)).to(cuda)
+        before = msa_cuda.CLUSTER_DIST_LAUNCHES
+        got = msa.cluster_block_distances(codes, cmax, **kw)
+        torch.cuda.synchronize()
+        assert msa_cuda.CLUSTER_DIST_LAUNCHES == before + 1
+        want = msa.cluster_block_distances_plain(codes, cmax, **kw)
+        assert _bits_equal(got, want)
+        if dt != 1:
+            assert got.isnan().any() or got.isinf().any()
+
+
+def test_msa_cluster_dist_rejects_bad_inputs(cuda):
+    from dipper_tpu_torch.distance import msa_cuda
+
+    codes = torch.from_numpy(_cluster_chunk(8, 203, 1)).to(cuda)
+    kw = dict(distance_type=1, dtype_name="float32")
+    with pytest.raises(ValueError, match="contiguous"):
+        msa_cuda.cluster_dist(codes[:, :, ::2], 8, **kw)
+    with pytest.raises(ValueError, match="uint8"):
+        msa_cuda.cluster_dist(codes.int(), 8, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        msa_cuda.cluster_dist(codes.cpu(), 8, **kw)
+    with pytest.raises(ValueError, match="members"):
+        msa_cuda.cluster_dist(codes, 19, **kw)
+    with pytest.raises(ValueError, match="distance_type"):
+        msa_cuda.cluster_dist(codes, 8, distance_type=7,
+                              dtype_name="float32")
+    with pytest.raises(ValueError, match="precision"):
+        msa_cuda.cluster_dist(codes, 8, distance_type=1,
+                              dtype_name="float16")

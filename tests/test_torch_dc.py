@@ -191,17 +191,22 @@ def test_mash_f32_nrf_zero():
     assert rf_distance(got, want)[0] == 0
 
 
-@pytest.mark.parametrize("case", ["oracle50", "stream120"])
+@pytest.mark.parametrize("case", ["oracle50", "stream120", "oracle50-d1-f32",
+                                  "oracle50-d3", "oracle50-d5"])
 def test_msa_equals_jax(monkeypatch, case):
-    """test_dc_msa_matches_oracle's case and
-    test_dc_streaming_msa_and_matrix's (streamed, ragged row blocks)."""
-    if case == "oracle50":
+    """test_dc_msa_matches_oracle's case (JC in f64, and -d 1 in f32, -d 3
+    and -d 5 in f64) and test_dc_streaming_msa_and_matrix's (streamed,
+    ragged row blocks)."""
+    if case.startswith("oracle50"):
         names, seqs = simulate_alignment(50, 800, np.random.default_rng(5),
                                          gap_frac=0.03, blen_scale=0.5)
     else:
         names, seqs = simulate_alignment(120, 700, np.random.default_rng(29),
                                          gap_frac=0.03, blen_scale=0.5)
-    jp, tp = _params(10, in_format="m", distance_type=2)
+    dt = int(case[10]) if "-d" in case else 2
+    jp, tp = _params(10, in_format="m", distance_type=dt)
+    if case.endswith("f32"):
+        jp.dtype = tp.dtype = "float32"
     want = jpl.build_dc_tree(seqs, names, jp)
     if case == "stream120":
         monkeypatch.setattr(tpl, "_STREAM_CLUSTER_MIN", 8)
