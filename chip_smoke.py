@@ -282,18 +282,23 @@ the process; phases 20 to 22 run in processes of their own):
      smallest clade of at least COLLAPSE_CLADE leaves, contracted), then
      --add of the last 1,024: the log's wide-table route, every kept
      backbone split survives, the leaves are the input's, score_edges
-     launches = 1,024, the wide insert_step's launches = backbone leaves
-     + 1,024 (the BFS alone once a leaf) and none of the binary one's;
-     then on the run's own inputs (wide_window) the kernel route against
-     the plain route (the dense BFS) from two states built alike: 256
-     leaves seeded and 64 queries by the cursor route under
-     torch.cuda.set_sync_debug_mode("error"), 64 more queries by direct
-     launches, the same arrays (and insert_model's for the leaves), each
-     timed by CUDA events queued behind a device sleep beside the plain
-     route, the bound from the model's counts and the latency floor (its
-     levels a leaf times one L2 round trip); and the same Newick from the
+     launches = 1,024, the seeding in closest_bfs_range launches = its
+     chunks of RANGE_LEAVES (one at 28,976), the wide insert_step's
+     launches = 1,024 (none of the BFS alone) and none of the binary
+     one's; then on the run's own inputs (wide_window) the range kernel
+     against the per-leaf cursor route and the dense BFS, 256 leaves
+     (the window after the first 64) and 256 from ADD_WIDE_LATE, and 64
+     queries by the cursor route (the seeding and the queries under
+     torch.cuda.set_sync_debug_mode("error")), 64 more queries by direct
+     launches against splice and dense BFS, the same arrays (and
+     insert_model's), each timed by CUDA events queued behind a device
+     sleep, the bounds from the model's counts and the latency floor (its
+     levels a leaf times one L2 round trip); the window seeded again by
+     the range kernel in f64 and at a forced capacity of 32 entries (f32
+     and f64): the cursor route's arrays; and the same Newick from the
      card and the CPU on a collapsed backbone of 256 (a clade of 64) with
-     64 queries. Seeding ms a backbone leaf and ms a query from the log;
+     64 queries. Seeding ms a backbone leaf, its launches and ms a query
+     from the log;
   27. the exact main path: the CLI's exact placement (-i r -m 0, auto mode
      at N >= 30,000, default flags: f32; skipped at a smaller --n) on
      phase 5's set: rc 0, a
@@ -374,7 +379,8 @@ after it; `launches` in the kernels' record is the count of phases 5
 kernel's), 16 (D&C: the per-cluster count kernel, dc_stream_block,
 dc_cluster_build, dc_assign and dc_assign_pack), 9 (NJ: the distance
 kernel and NJ's
-two), 30 (insert_step_wide, the wide instantiation: both entry points)
+two), 30 (insert_step_wide, the wide instantiation's queries, and
+closest_bfs_range_wide, the seeding's range launches)
 and 27 (exact: exact_step), `launches_by_path` has
 every path's (one count a rank for the multi-rank paths), and
 score_edges's `range_launches` the sharded placement's range launches.
@@ -425,6 +431,9 @@ KERNELS = {
     "insert_step_wide": ("dipper_tpu_torch/csrc/insert_step.cu",
                          "dipper_tpu/placement/kclosest.py:143 (XLA program, "
                          "no Pallas)"),
+    "closest_bfs_range_wide": ("dipper_tpu_torch/csrc/insert_step.cu",
+                               "dipper_tpu/placement/kclosest.py:1236 (XLA "
+                               "program, no Pallas)"),
     "nj_q_argmin": ("dipper_tpu_torch/csrc/nj_q_argmin.cu",
                     "dipper_tpu/nj/engine.py:35 (XLA program, no Pallas)"),
     "nj_update": ("dipper_tpu_torch/csrc/nj_update.cu",
@@ -546,6 +555,11 @@ COLLAPSE_CLADE = 320
 # launches)
 ADD_WIDE_LEAVES = 256
 ADD_WIDE_QUERIES = 64
+# the first leaf of phase 30's late stretch (the window again, where the
+# lists near most leaves are full), and the capacity that the window's
+# forced run gives the range kernel's frontier and wide list
+ADD_WIDE_LATE = 20000
+ADD_WIDE_SMALL_CAP = 32
 # every SAMPLE-th query row of a large kernel call is compared with the
 # plain version (which takes ~10 ms per query row at 30,000 bank rows)
 SAMPLE = 128
@@ -2087,6 +2101,7 @@ def reset_counts() -> None:
     insert_cuda.CLOSEST_BFS_LAUNCHES = 0
     insert_cuda.INSERT_STEP_WIDE_LAUNCHES = 0
     insert_cuda.CLOSEST_BFS_WIDE_LAUNCHES = 0
+    insert_cuda.CLOSEST_BFS_RANGE_WIDE_LAUNCHES = 0
     insert_cuda.GRAPH_CAPTURES = 0
     insert_cuda.GRAPH_REPLAYS = 0
     exact_cuda.EXACT_STEP_LAUNCHES = 0
@@ -2098,8 +2113,9 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     """Every kernel's launches since reset_counts: insert_step's are those
     of its entry points (direct or replayed), "insert_step.closest_bfs"
-    the BFS alone's, and "insert_step_wide" those of its wide
-    instantiation; "nj_q_argmin.half_read" kernel A's launches in the
+    the BFS alone's, "insert_step_wide" those of its wide
+    instantiation and "closest_bfs_range_wide" its range launches (a wide
+    state's seeding); "nj_q_argmin.half_read" kernel A's launches in the
     half read; and the CUDA graphs of the cursor route captured and
     replayed."""
     from dipper_tpu_torch.dc import assign_cuda, cluster_cuda
@@ -2121,6 +2137,8 @@ def read_counts() -> dict:
                                  + insert_cuda.CLOSEST_BFS_WIDE_LAUNCHES),
             "insert_step_wide.closest_bfs":
                 insert_cuda.CLOSEST_BFS_WIDE_LAUNCHES,
+            "closest_bfs_range_wide":
+                insert_cuda.CLOSEST_BFS_RANGE_WIDE_LAUNCHES,
             "graph_captures": insert_cuda.GRAPH_CAPTURES,
             "graph_replays": insert_cuda.GRAPH_REPLAYS,
             "nj_q_argmin": nj_cuda.Q_ARGMIN_LAUNCHES,
@@ -6577,59 +6595,129 @@ def no_sync(fn) -> None:
 
 def wide_window(inputs: tuple, leaves: int = ADD_WIDE_LEAVES,
                 queries: int = ADD_WIDE_QUERIES) -> dict:
-    """The wide instantiation against its plain version (the dense BFS)
-    on --add's state of a multifurcating backbone, built twice from the
-    CLI's own inputs to run_add_queries (`inputs`): with the wide table
-    (the kernels' cursor route) and without (the plain route). After a
-    warm-up of GRAPH_INSERTIONS leaves (the seeding graph's capture), the
-    seeding of `leaves` leaves by replays under sync debug "error", timed
-    by CUDA events, and by the dense BFS, timed likewise, to the same
-    arrays; insert_model seeds a host copy of those leaves too (its
-    counts give the bound). The kernel route then seeds the rest (timed),
-    a copy without a table takes the same state, and `queries` queries
-    run on both after a warm-up range of GRAPH_INSERTIONS (the insert
-    graph's capture): the kernel route under sync debug "error", to the
-    same arrays; then `queries` more by direct launches (kernel_window:
-    each insert_step launch between events) and by the plain version."""
+    """closest_bfs_range (the seeding's kernel) against the per-leaf
+    cursor route (closest_bfs_cursor's graphs, the parent's route, kept as
+    the yardstick) and the plain version (the dense BFS), on --add's state
+    of a multifurcating backbone built from the CLI's own inputs to
+    run_add_queries (`inputs`): three f32 states (the range route, the
+    cursor route, no table). Each seeds GRAPH_INSERTIONS leaves (the
+    cursor graph's capture), then `leaves` more (the window), each route
+    timed by CUDA events queued behind a device sleep (the two kernel
+    routes under sync debug "error"), to the same arrays, and to
+    insert_model.bfs_range's on a host copy (its counts give the bound);
+    the range route then seeds to ADD_WIDE_LATE, the cursor route takes
+    its arrays, and both seed `leaves` more (the late stretch, timed
+    alike, the same arrays); the range route seeds the rest (timed). The
+    window is seeded again by the range kernel in f64 and, at a forced
+    capacity of ADD_WIDE_SMALL_CAP entries (the frontier and the wide
+    list spill), in f32 and f64: the same arrays as the cursor route
+    (and the dense BFS in f64). Then `queries` queries on the range
+    route's state and on a copy without a table after a warm-up range
+    (the insert graph's capture): the kernel route under sync debug
+    "error", to the same arrays; then `queries` more by direct launches
+    (kernel_window: each insert_step launch between events) and by the
+    plain version (the scorer, then splice and dense BFS between events),
+    insert_model's insert_step on a host copy counting what they read."""
     import dataclasses
 
-    from dipper_tpu_torch.placement import insert_model, kclosest as tk
+    from dipper_tpu_torch.placement import insert_cuda, insert_model
+    from dipper_tpu_torch.placement import kclosest as tk
 
     frontend_args, arrays, kw = inputs
     N, B = kw["num_sequences"], kw["backbone_size"]
-    common = dict(num_sequences=N, backbone_size=B,
-                  dtype_name=kw["dtype_name"], use_adj=False)
-    st = tk.add_state(*arrays, **common)
-    pl = tk.add_state(*arrays, wide_table=False, **common)
-    check(st.wide_off is not None and pl.adj is None,
-          "--add wide window: the states are not the wide and the plain one")
+    common = dict(num_sequences=N, backbone_size=B, use_adj=False)
+
+    def states(dtype):
+        got = (tk.add_state(*arrays, dtype_name=dtype, **common),
+               tk.add_state(*arrays, dtype_name=dtype, **common),
+               tk.add_state(*arrays, dtype_name=dtype, wide_table=False,
+                            **common))
+        check(got[0].wide_off is not None and got[2].adj is None,
+              "--add wide window: the states are not the wide and the "
+              "plain ones")
+        return got
+
+    st, cu, pl = states(kw["dtype_name"])
     six = ("e", "belong", "length", "rev", "cdis", "cid")
 
     def diff(a, b):
         return [f for f in state_diff(a, dataclasses.replace(b, adj=a.adj))
                 if f in six + ("idx",)]
 
+    def host(a):
+        return {f: getattr(a, f).cpu().numpy().copy()
+                for f in insert_model.FIELDS + insert_model.WIDE}
+
+    def seed_dense(state, lo_, hi_):
+        for i in range(lo_, hi_):
+            tk.update_closest_bfs(state, i, 2 * N)
+
     G = tk.GRAPH_INSERTIONS
     lo, hi = G, G + leaves
-    tk._replay_seeding(st, 0, lo)
-    for i in range(lo):
-        tk.update_closest_bfs(pl, i, 2 * N)
-    model = {f: getattr(st, f).cpu().numpy().copy()
-             for f in insert_model.FIELDS + insert_model.WIDE}
-    seed_ms = queued_each_ms([lambda: no_sync(
-        lambda: tk._replay_seeding(st, lo, hi))])[0]
-    plain_seed_ms = queued_each_ms([lambda: [
-        tk.update_closest_bfs(pl, i, 2 * N) for i in range(lo, hi)]])[0]
+    tk._seed_by_range(st, 0, lo)
+    tk._seed_by_cursor(cu, 0, lo)
+    seed_dense(pl, 0, lo)
+    plan = insert_cuda.range_plan(st)
+    model = host(st)
+    range_ms, cursor_ms, plain_ms = (queued_each_ms([fn])[0] for fn in (
+        lambda: no_sync(lambda: tk._seed_by_range(st, lo, hi)),
+        lambda: no_sync(lambda: tk._seed_by_cursor(cu, lo, hi)),
+        lambda: seed_dense(pl, lo, hi)))
     stats, levels = {}, []
-    for i in range(lo, hi):
-        insert_model.bfs(model, i, i, stats=stats, levels=levels)
-    d = diff(st, pl)
-    check(not d, f"--add wide window: seeding by the kernel != the dense BFS "
-          f"in {d}")
+    insert_model.bfs_range(model, lo, leaves, plan, stats=stats,
+                           levels=levels)
+    for tag, other in (("the per-leaf cursor route", cu),
+                       ("the dense BFS", pl)):
+        d = diff(st, other)
+        check(not d, f"--add wide window: closest_bfs_range != {tag} in {d}")
     mdiff = [f for f in six if getattr(st, f).cpu().numpy().tobytes()
              != model[f].tobytes()]
-    check(not mdiff, f"--add wide window: seeding != insert_model in {mdiff}")
-    rest_ms = queued_each_ms([lambda: tk._replay_seeding(st, hi, B)])[0]
+    check(not mdiff, f"--add wide window: closest_bfs_range != insert_model "
+          f"in {mdiff}")
+    snap = {f: getattr(st, f).clone() for f in six}
+    # the range kernel in f64 and at a forced small capacity, on the window
+    wants = {kw["dtype_name"]: snap}
+    for dtype, small in (("float32", True), ("float64", False),
+                         ("float64", True)):
+        if dtype not in wants:
+            a, c, p = states(dtype)
+            tk._seed_by_range(a, 0, hi)
+            tk._seed_by_cursor(c, 0, hi)
+            seed_dense(p, 0, hi)
+            for tag, other in (("the per-leaf cursor route", c),
+                               ("the dense BFS", p)):
+                d = diff(a, other)
+                check(not d, f"--add wide window, {dtype}: closest_bfs_range"
+                      f" != {tag} in {d}")
+            wants[dtype] = {f: getattr(c, f) for f in six}
+        want = wants[dtype]
+        if small:
+            a = tk.add_state(*arrays, dtype_name=dtype, **common)
+            ps = insert_cuda.range_plan(a, cap=ADD_WIDE_SMALL_CAP,
+                                        list_cap=ADD_WIDE_SMALL_CAP)
+            tk._seed_by_range(a, 0, hi, ps)
+            d = [f for f in six if not same_bits(getattr(a, f), want[f])]
+            check(not d, f"--add wide window, {dtype}: closest_bfs_range at "
+                  f"a capacity of {ADD_WIDE_SMALL_CAP} != the cursor route "
+                  f"in {d}")
+    # the late stretch
+    late = max(hi, min(ADD_WIDE_LATE, B - leaves))
+    rest_ms = queued_each_ms([lambda: tk._seed_by_range(st, hi, late)])[0]
+    for f in six:
+        getattr(cu, f).copy_(getattr(st, f))
+    model = host(st)
+    late_range_ms, late_cursor_ms = (queued_each_ms([fn])[0] for fn in (
+        lambda: no_sync(lambda: tk._seed_by_range(st, late, late + leaves)),
+        lambda: no_sync(lambda: tk._seed_by_cursor(cu, late, late + leaves))))
+    lstats = {}
+    insert_model.bfs_range(model, late, leaves, plan, stats=lstats)
+    d = diff(st, cu) + [f for f in six if getattr(st, f).cpu().numpy()
+                        .tobytes() != model[f].tobytes()]
+    check(not d, f"--add wide window, late stretch: closest_bfs_range != "
+          f"the cursor route or insert_model in {d}")
+    rest_ms += queued_each_ms([lambda: tk._seed_by_range(
+        st, late + leaves, B)])[0]
+    del cu
     pl = tk.prepare_kernels(dataclasses.replace(
         st, **{f: getattr(st, f).clone() for f in six}, adj=None,
         wide_off=None, wide_eid=None))
@@ -6646,27 +6734,61 @@ def wide_window(inputs: tuple, leaves: int = ADD_WIDE_LEAVES,
     check(not d, f"--add wide window: queries by the kernel route != the "
           f"plain route in {d}")
     q1 = q0 + queries
+    model = host(st)
     win = kernel_window(st, rows[q1 - B:], q1, q1 + queries, N)
-    tk._insert_range(pl, q1, q1 + queries, rows[q1 - B:], N)
-    d = diff(st, pl)
+    qstats, splice_bfs_ms = {}, []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for i in range(q1, q1 + queries):
+        eid, x, y, ye, frac, add = tk.score_edges(pl, rows[i - B])
+        i0 = pl.idx
+        ev[0].record()
+        tk.splice(pl, eid, frac, add, i, N, (x, y, ye))
+        tk._update_closest_bfs_dense(pl, i, 2 * N)
+        ev[1].record()
+        torch.cuda.synchronize()
+        splice_bfs_ms.append(ev[0].elapsed_time(ev[1]))
+        insert_model.insert_step(model, int(eid), frac.cpu().numpy(),
+                                 add.cpu().numpy(), i0, i + N - 1, i, i,
+                                 stats=qstats)
+    d = diff(st, pl) + [f for f in six if getattr(st, f).cpu().numpy()
+                        .tobytes() != model[f].tobytes()]
     check(not d, f"--add wide window: direct insert_step launches != the "
-          f"plain route in {d}")
-    bound = insert_bound(stats, 0, st.length.element_size())
-    ms = seed_ms / leaves
-    rec = {"leaves": leaves, "queries": queries, "ms": ms,
-           "plain_ms": plain_seed_ms / leaves,
-           "bound_ms": bound["bound_ms"] / leaves,
-           "bound_by": bound["bound_by"],
-           "rest_seeding_ms_per_leaf": rest_ms / (B - hi),
+          f"plain version or insert_model in {d}")
+    item = st.length.element_size()
+    # the range launch's bytes: the leaves' reads and writes, and the
+    # table staged once
+    bound = insert_bound(stats, 0, item)
+    staged = 4 * (plan["n_off"] + plan["n_eid"])
+    bound_r = bound_of(bound["ops"], bound["bytes"] + staged, 33.5e12)
+    lbound = insert_bound(lstats, 0, item)
+    qbound = insert_bound(qstats, queries, item)
+    rec = {"leaves": leaves, "queries": queries, "plan": plan,
+           "ms": range_ms / leaves, "plain_ms": plain_ms / leaves,
+           "bound_ms": bound_r["bound_ms"] / leaves,
+           "bound_by": bound_r["bound_by"],
+           "per_leaf_cursor_ms": cursor_ms / leaves,
+           "late_first_leaf": late, "late_ms": late_range_ms / leaves,
+           "late_per_leaf_cursor_ms": late_cursor_ms / leaves,
+           "late_bound_ms": lbound["bound_ms"] / leaves,
+           "rest_seeding_ms_per_leaf": rest_ms / (B - hi - leaves),
            "query_route_ms": route_ms / queries,
            "query_plain_ms": plain_q_ms / queries,
            "insert_step_ms_per_query": sum(win["insert_ms"]) / queries,
            "score_edges_ms_per_query": sum(win["score_ms"]) / queries,
+           "splice_dense_bfs_ms_per_query": sum(splice_bfs_ms) / queries,
+           "query_bound_ms": qbound["bound_ms"] / queries,
+           "query_bound_by": qbound["bound_by"],
+           "query_levels": qstats["levels"] / queries,
            "levels_per_leaf": stats["levels"] / leaves,
+           "late_levels_per_leaf": lstats["levels"] / leaves,
            "widest_level": max(levels),
            "model_counts_per_leaf": {k: v / leaves for k, v in stats.items()},
-           "equal_plain_and_model": True, "no_host_sync_in_ranges": True}
-    rec["share_of_bound"] = rec["bound_ms"] / ms
+           "late_model_counts_per_leaf": {k: v / leaves
+                                          for k, v in lstats.items()},
+           "equal_cursor_dense_and_model": True,
+           "equal_f64_and_small_capacity": True,
+           "no_host_sync_in_ranges": True}
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
     return rec
 
 
@@ -6723,13 +6845,19 @@ def phase_add_wide(tmp: str, fa: str, backbone: int, queries: int,
     check(counts["score_edges"] == queries,
           f"--add launched score_edges {counts['score_edges']} times for "
           f"{queries} queries")
-    check(counts["insert_step_wide.closest_bfs"] == backbone
-          and counts["insert_step_wide"] == backbone + queries
+    chunks = -(-backbone // kclosest.RANGE_LEAVES)
+    check(counts["closest_bfs_range_wide"] == chunks
+          and counts["insert_step_wide.closest_bfs"] == 0
+          and counts["insert_step_wide"] == queries
           and counts["insert_step"] == 0,
-          f"--add launched the wide insert_step {counts['insert_step_wide']}"
-          f" times ({counts['insert_step_wide.closest_bfs']} the BFS alone) "
-          f"and the binary one {counts['insert_step']} times for "
-          f"{backbone} backbone leaves and {queries} queries")
+          f"--add launched closest_bfs_range {counts['closest_bfs_range_wide']}"
+          f" times ({chunks} chunks), the wide insert_step "
+          f"{counts['insert_step_wide']} times "
+          f"({counts['insert_step_wide.closest_bfs']} the BFS alone) and the "
+          f"binary one {counts['insert_step']} times for {backbone} backbone "
+          f"leaves and {queries} queries")
+    check(f"seeding range launches {chunks}" in log,
+          "--add's log does not report its seeding range launches")
     survive, leaves = backbone_splits_survive(out, open(back).read())
     check(leaves == {f"S{i}" for i in range(backbone + queries)},
           "--add: the tree's leaves are not the input's")
@@ -6754,6 +6882,8 @@ def phase_add_wide(tmp: str, fa: str, backbone: int, queries: int,
               "tree_created": _ms(r"Tree Created in: (\d+) ms", log),
               "total_wall": wall * 1e3},
           "seeding_ms_per_backbone_leaf": seeded / backbone,
+          "seeding_launches": counts["closest_bfs_range_wide"],
+          "seeding_chunk_leaves": kclosest.RANGE_LEAVES,
           "ms_per_query": inserted / queries,
           "kernel_launches": counts, "backbone_splits_survive": True,
           "window": window,
@@ -7041,13 +7171,27 @@ def main() -> int:
             # one dependent L2 round trip (phase 25's, or measured here)
             trip = (records["insert_step"].get("l2_round_trip_ms")
                     or l2_round_trip_ms())
-            records["insert_step_wide"].update(
-                launches=res["counts"]["insert_step_wide"], max_abs_err=0.0,
-                library_ms=None, window=win,
-                l2_round_trip_ms=trip,
+            records["closest_bfs_range_wide"].update(
+                launches=res["counts"]["closest_bfs_range_wide"],
+                max_abs_err=0.0, library_ms=None, per="backbone leaf",
+                window=win, l2_round_trip_ms=trip,
                 latency_floor_ms=win["levels_per_leaf"] * trip,
+                late_latency_floor_ms=win["late_levels_per_leaf"] * trip,
                 **{k: win[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "share_of_bound")})
+            # the wide instantiation's launches on the main path are the
+            # queries' insert_step (the seeding is the range kernel's)
+            records["insert_step_wide"].update(
+                launches=res["counts"]["insert_step_wide"], max_abs_err=0.0,
+                library_ms=None, per="query", l2_round_trip_ms=trip,
+                ms=win["insert_step_ms_per_query"],
+                plain_ms=win["splice_dense_bfs_ms_per_query"],
+                bound_ms=win["query_bound_ms"],
+                bound_by=win["query_bound_by"],
+                share_of_bound=(win["query_bound_ms"]
+                                / win["insert_step_ms_per_query"]),
+                latency_floor_ms=win["query_levels"] * trip,
+                per_leaf_cursor_seeding_ms=win["per_leaf_cursor_ms"])
         if 27 in phases and args.n < 30000:
             # -m 0 is auto mode, which takes exact placement only from
             # 30,000 taxa (below, NJ)

@@ -35,6 +35,16 @@
 //   kernel of this library, so that a capture loads none.
 // Each of the four launches the wide instantiation when it is given a
 // wide table (below).
+// - closest_bfs_range (a wide table only): the BFS alone from a range of
+//   leaves in one persistent launch, the seeding of a multifurcating --add
+//   backbone (see "The seeding range" below); closest_bfs_range_budget
+//   gives the shared memory it may take.
+// - closest_bfs_wide_stamped: closest_bfs_cursor's wide instantiation
+//   with clock64 stamps by part on thread 0 (the launch, the narrow
+//   levels, the wide levels' slot passes, degree scans and wide-pair
+//   passes, thread 0's reads past the shared buffers), as the range
+//   kernel's stamped instance has them a leaf: what the per-leaf route's
+//   time is made of.
 //
 // The plan, for a card where one insertion is a chain of dependent L2
 // reads and nothing else:
@@ -234,16 +244,97 @@ __device__ void narrow_levels_wide(const State<T>& s, const WideTable& wt,
     }
 }
 
+// The stamped instances' words a leaf (int64): clock64 at the leaf's start
+// (a launch's first leaf: at the launch's), at its walk's first level and
+// at its end; cycles in narrow levels, in wide levels' slot passes, degree
+// scans and wide-pair passes, and in thread 0's reads past the shared
+// buffers (frontier entries, wide-list items); %globaltimer (ns) at the
+// start and the end; narrow and wide levels; thread 0's reads past the
+// buffers; a sink that the timed reads store to
+enum {
+    kStStart = 0, kStFirst, kStEnd, kStNarrow, kStSlots, kStScan, kStPairs,
+    kStSpill, kStTimerStart, kStTimerEnd, kStNarrowLevels, kStWideLevels,
+    kStSpillReads, kStSink, kStampWords = 16
+};
+
+__device__ __forceinline__ long long global_ns()
+{
+    long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+}
+
+// *p; in a stamped instance, thread 0's read past the shared buffers
+// (`past`) is timed: its value goes to the sink before the clock is read
+// again, so the read has landed
+template <bool Stamp, typename V>
+__device__ __forceinline__ V read_past(const V* p, bool past, long long* acc)
+{
+    if constexpr (Stamp) {
+        if (threadIdx.x == 0 && past) {
+            const long long t = clock64();
+            const V v = *(const volatile V*)p;
+            *(volatile long long*)&acc[kStSink] = (long long)v;
+            acc[kStSpill] += clock64() - t;
+            acc[kStSpillReads] += 1;
+            return v;
+        }
+    }
+    return *p;
+}
+
+// get_entry, its reads past the shared buffers timed in a stamped instance
+template <bool Stamp, typename T>
+__device__ __forceinline__ void get_entry_timed(
+    const State<T>& s, const Shared<T, kThreads, kCap>& sh, int buf, int f,
+    int& id, int& frm, T& d, long long* acc)
+{
+    if constexpr (!Stamp) {
+        get_entry(s, sh, buf, f, id, frm, d);
+    } else if (f < kCap) {
+        get_entry(s, sh, buf, f, id, frm, d);
+    } else {
+        const size_t o = (size_t)buf * s.n_nodes + f;
+        id = read_past<true>(s.f_ids + o, true, acc);
+        frm = read_past<true>(s.f_frm + o, true, acc);
+        d = read_past<true>(s.f_dist + o, true, acc);
+    }
+}
+
+// thread 0 of a stamped instance adds the cycles since `t` to word k and
+// returns the clock
+template <bool Stamp>
+__device__ __forceinline__ long long lap(long long* acc, int k, long long t)
+{
+    if constexpr (Stamp) {
+        if (threadIdx.x == 0) {
+            const long long now = clock64();
+            acc[k] += now - t;
+            return now;
+        }
+    }
+    return t;
+}
+
+template <bool Stamp>
+__device__ __forceinline__ long long clock_if()
+{
+    if constexpr (Stamp) return clock64();
+    return 0;
+}
+
 // A level of the wide instantiation by the whole block; returns the next
-// frontier's width.
-template <typename T>
+// frontier's width. A stamped instance times its passes (acc).
+template <typename T, bool Stamp>
 __device__ int wide_level_wide(const State<T>& s, const WideTable& wt,
                                Shared<T, kThreads, kCap>& sh, WideList& wl,
-                               int cur, int count, int label, Blocked bl)
+                               int cur, int count, int label, Blocked bl,
+                               long long* acc)
 {
     const int M = s.n_nodes;
     const int items = kDegree * count;
     int next = 0, n_wide = 0;
+    long long t = clock_if<Stamp>();
     // the slots; a wide entry's mark puts it on the list, its degree in
     // the place of its first pair
     for (int c0 = 0; c0 < items; c0 += kThreads) {
@@ -255,7 +346,7 @@ __device__ int wide_level_wide(const State<T>& s, const WideTable& wt,
             f = j / kDegree;
             int from;
             T d;
-            get_entry(s, sh, cur, f, node, from, d);
+            get_entry_timed<Stamp>(s, sh, cur, f, node, from, d, acc);
             const int slot = slot_of(s, node, j - f * kDegree, bl);
             wide = wide_node(wt, slot, &base, &deg);
             joins = visit_edge(s, slot, from, d, label, &dst, &nd);
@@ -275,6 +366,7 @@ __device__ int wide_level_wide(const State<T>& s, const WideTable& wt,
         n_wide += total >> 16;
     }
     __syncthreads();  // the list is written
+    t = lap<Stamp>(acc, kStSlots, t);
     if (n_wide > 0) {
         // each wide entry's first pair: the exclusive sum of the degrees
         int pairs = 0;
@@ -289,6 +381,7 @@ __device__ int wide_level_wide(const State<T>& s, const WideTable& wt,
             pairs += total;
         }
         __syncthreads();  // the first pairs are written
+        t = lap<Stamp>(acc, kStScan, t);
         for (int c0 = 0; c0 < pairs; c0 += kThreads) {
             const int j = c0 + threadIdx.x;
             bool joins = false;
@@ -299,15 +392,25 @@ __device__ int wide_level_wide(const State<T>& s, const WideTable& wt,
                 int lo = 0, hi = n_wide;
                 while (hi - lo > 1) {
                     const int mid = (lo + hi) / 2;
-                    if (*list_at(wt, wl, 2, mid, M) <= j) lo = mid;
-                    else hi = mid;
+                    if (read_past<Stamp>(list_at(wt, wl, 2, mid, M),
+                                         mid >= kCap, acc) <= j)
+                        lo = mid;
+                    else
+                        hi = mid;
                 }
                 int from;
                 T d;
-                get_entry(s, sh, cur, *list_at(wt, wl, 0, lo, M), node, from,
-                          d);
-                const int eid = load_now(wt.eid + *list_at(wt, wl, 1, lo, M)
-                                         + j - *list_at(wt, wl, 2, lo, M));
+                get_entry_timed<Stamp>(
+                    s, sh, cur, read_past<Stamp>(list_at(wt, wl, 0, lo, M),
+                                                 lo >= kCap, acc),
+                    node, from, d, acc);
+                const int eid = load_now(
+                    wt.eid
+                    + read_past<Stamp>(list_at(wt, wl, 1, lo, M), lo >= kCap,
+                                       acc)
+                    + j
+                    - read_past<Stamp>(list_at(wt, wl, 2, lo, M), lo >= kCap,
+                                       acc));
                 joins = visit_edge(s, eid, from, d, label, &dst, &nd);
             }
             int total;
@@ -318,25 +421,39 @@ __device__ int wide_level_wide(const State<T>& s, const WideTable& wt,
             next += total;
         }
         __syncthreads();  // the next level reads what this one wrote
+        lap<Stamp>(acc, kStPairs, t);
     }
     return next < M ? next : M;
 }
 
-// walk's levels over a wide table: narrow_levels_wide and wide_level_wide
-template <typename T>
+// walk's levels over a wide table: narrow_levels_wide and wide_level_wide;
+// a stamped instance times them into acc (shared memory)
+template <typename T, bool Stamp = false>
 struct WideLevels {
     const WideTable& wt;
     WideList& wl;
+    long long* acc;
     __device__ void narrow(const State<T>& s, Shared<T, kThreads, kCap>& sh,
                            int& cur, int& count, int& level, int label,
                            Blocked bl) const
     {
+        const long long t = clock_if<Stamp>();
+        const int l0 = level;
         narrow_levels_wide(s, wt, sh, cur, count, level, label, bl);
+        if constexpr (Stamp) {
+            if (threadIdx.x == 0) {
+                acc[kStNarrow] += clock64() - t;
+                acc[kStNarrowLevels] += level - l0;
+            }
+        }
     }
     __device__ int wide(const State<T>& s, Shared<T, kThreads, kCap>& sh,
                         int cur, int count, int label, Blocked bl) const
     {
-        return wide_level_wide(s, wt, sh, wl, cur, count, label, bl);
+        if constexpr (Stamp)
+            if (threadIdx.x == 0) acc[kStWideLevels] += 1;
+        return wide_level_wide<T, Stamp>(s, wt, sh, wl, cur, count, label,
+                                         bl, acc);
     }
 };
 
@@ -435,15 +552,22 @@ insert_step_wide_kernel(State<T> s, const int32_t* eid, const int32_t* ends,
 
 // closest_bfs and closest_bfs_cursor (Wide: over a wide table); the
 // cursor, when given, supplies the leaf (= label) and is advanced at the
-// end
-template <typename T, bool Wide>
+// end. A stamped instance (Stamp) times the launch's parts into acc.
+template <typename T, bool Wide, bool Stamp = false>
 __device__ __forceinline__ void closest_bfs_body(
     State<T> s, Shared<T, kThreads, kCap>& sh, int leaf, int label,
     const int32_t* blocked, int n_blocked, long long* cursor, WideTable wt,
-    WideList* wl)
+    WideList* wl, long long* acc = nullptr)
 {
     long long ci = 0;
     Blocked bl = {n_blocked, -1, -1};
+    if constexpr (Stamp) {
+        if (threadIdx.x == 0) {
+            for (int q = 0; q < kStampWords; ++q) acc[q] = 0;
+            acc[kStStart] = clock64();
+            acc[kStTimerStart] = global_ns();
+        }
+    }
     if (threadIdx.x < kWarp) {
         if (cursor != nullptr) {
             ci = cursor[kCurI];
@@ -458,12 +582,20 @@ __device__ __forceinline__ void closest_bfs_body(
             sh.blocked[1] = bl.b1;
         }
     }
+    if constexpr (Stamp)
+        if (threadIdx.x == 0) acc[kStFirst] = clock64();
     if constexpr (Wide)
         walk(s, sh, Entry<T>{leaf, -1, T(0)}, 1, 0, label, bl,
-             WideLevels<T>{wt, *wl});
+             WideLevels<T, Stamp>{wt, *wl, acc});
     else
         walk(s, sh, Entry<T>{leaf, -1, T(0)}, 1, 0, label, bl);
     if (cursor != nullptr && threadIdx.x == 0) cursor[kCurI] = ci + 1;
+    if constexpr (Stamp) {
+        if (threadIdx.x == 0) {
+            acc[kStEnd] = clock64();
+            acc[kStTimerEnd] = global_ns();
+        }
+    }
 }
 
 template <typename T>
@@ -486,6 +618,504 @@ closest_bfs_wide_kernel(State<T> s, int leaf, int label,
     __shared__ WideList wl;
     closest_bfs_body<T, true>(s, sh, leaf, label, blocked, n_blocked, cursor,
                               wt, &wl);
+}
+
+// closest_bfs_wide_kernel's cursor launch, stamped: kStampWords to stamps
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+closest_bfs_wide_stamped_kernel(State<T> s, long long* cursor, WideTable wt,
+                                long long* stamps)
+{
+    __shared__ Shared<T, kThreads, kCap> sh;
+    __shared__ WideList wl;
+    __shared__ long long acc[kStampWords];
+    closest_bfs_body<T, true, true>(s, sh, 0, 0, nullptr, 0, cursor, wt, &wl,
+                                    acc);
+    if (threadIdx.x == 0)
+        for (int q = 0; q < kStampWords; ++q) stamps[q] = acc[q];
+}
+
+// ---------------------------------------------------------------------------
+// The seeding range (closest_bfs_range, the wide instantiation): the BFS
+// alone from leaves i .. i + n - 1 in order, in one launch of one block
+// (the counterpart of the JAX package's fori_loop over the backbone,
+// kclosest.py:1233-1236). The per-leaf launch above reads the cursor,
+// fills its shared memory from nothing and writes the cursor back for
+// every leaf; this one reads the cursor once, stages the wide table once
+// and writes the cursor once (i + n).
+//
+// Its shared memory is dynamic and sized at launch (up to the card's
+// opt-in, 227 KB on an H100): the wide table's offsets and, where they
+// fit, its out-edges, staged once by cp.async (the table never changes
+// while a backbone is seeded); then the frontier's two buffers and the
+// wide list, of capacities that the caller chooses from what is left
+// (placement/insert_model.py::range_plan). Entries past them spill to
+// the same [2, M] and [3, M] scratch as above, so any tree runs at any
+// capacity. A narrow level issues its slot pairs' and its wide pairs'
+// reads together (one round trip where the per-leaf kernel takes two:
+// the pairs of a level are distinct edges, so their visits commute, and
+// the joins are placed in the same flat order). The block is NT threads
+// (256, 512 or 1,024; the plan's default 512, which the stamps of phase
+// 30's backbone favoured) for the wide levels; narrow levels stay warp
+// 0's.
+// ---------------------------------------------------------------------------
+
+__host__ __device__ __forceinline__ size_t pad16(size_t b)
+{
+    return (b + 15) & ~(size_t)15;
+}
+
+// bytes of a range launch's dynamic shared memory: the frontier's
+// distances, nodes and sources ([2, cap] each), the wide list ([3, lcap]),
+// then n_off staged offsets and n_eid staged out-edges (0: not staged);
+// insert_model.range_bytes mirrors it
+__host__ __device__ __forceinline__ size_t range_bytes(int item, int cap,
+                                                       int lcap, int n_off,
+                                                       int n_eid)
+{
+    return pad16((size_t)2 * cap * item) + 2 * pad16((size_t)2 * cap * 4)
+           + 3 * pad16((size_t)lcap * 4) + pad16((size_t)n_off * 4)
+           + pad16((size_t)n_eid * 4);
+}
+
+// A range launch's view of its shared memory; off and eid point into it
+// where staged, else at the table in device memory
+template <typename T>
+struct RangeMem {
+    T* dist;
+    int32_t *ids, *frm;
+    int32_t *lf, *lbase, *lstart;
+    int32_t *off_s, *eid_s;
+    const int32_t *off, *eid;
+    int cap, lcap;
+};
+
+template <typename T>
+__device__ __forceinline__ RangeMem<T> carve(unsigned char* dyn,
+                                             const WideTable& wt, int cap,
+                                             int lcap, int n_off, int n_eid)
+{
+    RangeMem<T> m;
+    size_t o = 0;
+    m.dist = reinterpret_cast<T*>(dyn);
+    o += pad16((size_t)2 * cap * sizeof(T));
+    m.ids = reinterpret_cast<int32_t*>(dyn + o);
+    o += pad16((size_t)2 * cap * 4);
+    m.frm = reinterpret_cast<int32_t*>(dyn + o);
+    o += pad16((size_t)2 * cap * 4);
+    m.lf = reinterpret_cast<int32_t*>(dyn + o);
+    o += pad16((size_t)lcap * 4);
+    m.lbase = reinterpret_cast<int32_t*>(dyn + o);
+    o += pad16((size_t)lcap * 4);
+    m.lstart = reinterpret_cast<int32_t*>(dyn + o);
+    o += pad16((size_t)lcap * 4);
+    m.off_s = reinterpret_cast<int32_t*>(dyn + o);
+    o += pad16((size_t)n_off * 4);
+    m.eid_s = reinterpret_cast<int32_t*>(dyn + o);
+    m.off = n_off > 0 ? m.off_s : wt.off;
+    m.eid = n_eid > 0 ? m.eid_s : wt.eid;
+    m.cap = cap;
+    m.lcap = lcap;
+    return m;
+}
+
+// cp.async of n int32 words into shared memory (16 bytes a copy where the
+// source is 16-byte aligned; dst is); the caller commits and waits
+__device__ __forceinline__ void stage_words(int32_t* dst, const int32_t* src,
+                                            int n, int threads)
+{
+    const bool vec = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+    const int body = vec ? (n & ~3) : 0;
+    for (int i = 4 * threadIdx.x; i < body; i += 4 * threads) {
+        const unsigned d = (unsigned)__cvta_generic_to_shared(dst + i);
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                     "l"(src + i)
+                     : "memory");
+    }
+    for (int i = body + threadIdx.x; i < n; i += threads) {
+        const unsigned d = (unsigned)__cvta_generic_to_shared(dst + i);
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                     "l"(src + i)
+                     : "memory");
+    }
+}
+
+// frontier entry f of buffer `buf`: shared below cap, else the scratch
+template <bool Stamp, typename T>
+__device__ __forceinline__ void rget(const State<T>& s, const RangeMem<T>& m,
+                                     int buf, int f, int& id, int& frm, T& d,
+                                     long long* acc)
+{
+    if (f < m.cap) {
+        const int o = buf * m.cap + f;
+        id = m.ids[o];
+        frm = m.frm[o];
+        d = m.dist[o];
+    } else {
+        const size_t o = (size_t)buf * s.n_nodes + f;
+        id = read_past<Stamp>(s.f_ids + o, true, acc);
+        frm = read_past<Stamp>(s.f_frm + o, true, acc);
+        d = read_past<Stamp>(s.f_dist + o, true, acc);
+    }
+}
+
+template <typename T>
+__device__ __forceinline__ void rput(const State<T>& s, const RangeMem<T>& m,
+                                     int buf, int at, int id, int frm, T d)
+{
+    if (at < m.cap) {
+        const int o = buf * m.cap + at;
+        m.ids[o] = id;
+        m.frm[o] = frm;
+        m.dist[o] = d;
+    } else {
+        const size_t o = (size_t)buf * s.n_nodes + at;
+        s.f_ids[o] = id;
+        s.f_frm[o] = frm;
+        s.f_dist[o] = d;
+    }
+}
+
+// word q (0 frontier index, 1 first out-edge, 2 first pair) of wide-list
+// item i: shared below lcap, else the [3, M] scratch
+template <typename T>
+__device__ __forceinline__ int* rlist(const WideTable& wt,
+                                      const RangeMem<T>& m, int q, int i,
+                                      int M)
+{
+    if (i < m.lcap)
+        return (q == 0 ? m.lf : (q == 1 ? m.lbase : m.lstart)) + i;
+    return wt.list + (size_t)q * M + i;
+}
+
+// wide_node over the launch's offsets
+template <typename T>
+__device__ __forceinline__ bool rwide_node(const RangeMem<T>& m, int n_wide,
+                                           int slot, int* base, int* deg)
+{
+    const int w = -2 - slot;
+    if (slot > -2 || w >= n_wide) return false;
+    *base = m.off[w];
+    *deg = m.off[w + 1] - *base;
+    return true;
+}
+
+// visit_edge in two halves, so that a lane's two pairs read in one round
+// trip: read_edge issues the edge's reads, finish_visit is the rest
+template <typename T>
+struct EdgeRead {
+    int to;
+    T len;
+    T c[kK];
+    int32_t id[kK];
+};
+
+template <typename T>
+__device__ __forceinline__ void read_edge(const State<T>& s, int eid,
+                                          EdgeRead<T>& r)
+{
+    if (eid < 0 || eid >= s.n_edges) return;
+    const T* cd = s.cdis + (size_t)eid * kK;
+    const int32_t* ci = s.cid + (size_t)eid * kK;
+    r.to = load_now(s.e + eid);
+    r.len = load_now(s.length + eid);
+#pragma unroll
+    for (int q = 0; q < kK; ++q) {
+        r.c[q] = load_now(cd + q);
+        r.id[q] = load_now(ci + q);
+    }
+}
+
+template <typename T>
+__device__ __forceinline__ bool finish_visit(const State<T>& s, int eid,
+                                             const EdgeRead<T>& r, int from,
+                                             T d, int label, int* dst, T* nd)
+{
+    if (eid < 0 || eid >= s.n_edges) return false;
+    int pos = 0;
+#pragma unroll
+    for (int q = 0; q < kK; ++q) pos += r.c[q] <= d;
+    if (r.to == from || pos >= kK) return false;
+    T* cd = s.cdis + (size_t)eid * kK;
+    int32_t* ci = s.cid + (size_t)eid * kK;
+#pragma unroll
+    for (int q = kK - 1; q >= 1; --q) {
+        if (q > pos) {
+            cd[q] = r.c[q - 1];
+            ci[q] = r.id[q - 1];
+        }
+    }
+    cd[pos] = d;
+    ci[pos] = label;
+    *dst = r.to;
+    *nd = add_rn(d, r.len);
+    return true;
+}
+
+// warp 0's narrow levels of a range launch: narrow_levels_wide's plan, the
+// slot pair's and the wide pair's reads of a lane issued together, and no
+// scan or second round where the level has no wide entry
+template <typename T, bool Stamp>
+__device__ void range_narrow(const State<T>& s, const WideTable& wt,
+                             const RangeMem<T>& m, int& cur, int& count,
+                             int& level, int label, long long* acc)
+{
+    const int lane = threadIdx.x;
+    const int M = s.n_nodes;
+    while (count > 0 && level < M && kDegree * count <= kNarrow) {
+        const int f = lane / kDegree;
+        int node = -1, from = -1, slot = -1, base = 0, deg = 0;
+        T d = T(0);
+        if (lane < kDegree * count) {
+            rget<Stamp>(s, m, cur, f, node, from, d, acc);
+            slot = slot_of(s, node, lane - f * kDegree, Blocked{0, -1, -1});
+        }
+        rwide_node(m, wt.n_wide, slot, &base, &deg);
+        int o_node = -1, o_from = -1, weid = -1;
+        T o_d = T(0);
+        // a level without a wide entry (most of them) has no second round
+        if (__ballot_sync(kFull, deg > 0) != 0) {
+            int incl = deg;  // the degrees' inclusive sum over the lanes
+#pragma unroll
+            for (int o = 1; o < kWarp; o *= 2) {
+                const int y = __shfl_up_sync(kFull, incl, o);
+                if (lane >= o) incl += y;
+            }
+            const int pairs = __shfl_sync(kFull, incl, kWarp - 1);
+            if (pairs > kNarrow) return;  // the block's level
+            // lane j's wide pair: the first lane whose sum exceeds j
+            int owner = 0;
+#pragma unroll
+            for (int step = kWarp / 2; step >= 1; step /= 2) {
+                const int v = __shfl_sync(kFull, incl, owner + step - 1);
+                if (v <= lane) owner += step;
+            }
+            o_node = __shfl_sync(kFull, node, owner);
+            o_from = __shfl_sync(kFull, from, owner);
+            o_d = __shfl_sync(kFull, d, owner);
+            const int o_first =
+                __shfl_sync(kFull, base - (incl - deg), owner);
+            weid = lane < pairs ? m.eid[o_first + lane] : -1;
+        }
+        // a mark is no slot: read_edge and finish_visit take none
+        EdgeRead<T> r1, r2;
+        read_edge(s, slot, r1);
+        read_edge(s, weid, r2);
+        int dst1 = -1, dst2 = -1;
+        T nd1 = T(0), nd2 = T(0);
+        const bool j1 = finish_visit(s, slot, r1, from, d, label, &dst1, &nd1);
+        const bool j2 =
+            finish_visit(s, weid, r2, o_from, o_d, label, &dst2, &nd2);
+        const unsigned b1 = __ballot_sync(kFull, j1);
+        const unsigned b2 = __ballot_sync(kFull, j2);
+        const unsigned below = (1u << lane) - 1u;
+        int at = __popc(b1 & below);
+        if (j1 && at < M) rput(s, m, 1 - cur, at, dst1, node, nd1);
+        at = __popc(b1) + __popc(b2 & below);
+        if (j2 && at < M) rput(s, m, 1 - cur, at, dst2, o_node, nd2);
+        const int next = __popc(b1) + __popc(b2);
+        __syncwarp();  // the next level reads what this one wrote
+        count = next < M ? next : M;
+        cur ^= 1;
+        ++level;
+    }
+}
+
+// a level of a range launch by the whole block of NT threads:
+// wide_level_wide's plan over the launch's shared memory
+template <typename T, int NT, bool Stamp>
+__device__ int range_wide_level(const State<T>& s, const WideTable& wt,
+                                const RangeMem<T>& m, int* warp_sum, int cur,
+                                int count, int label, long long* acc)
+{
+    const int M = s.n_nodes;
+    const int items = kDegree * count;
+    int next = 0, n_wide = 0;
+    long long t = clock_if<Stamp>();
+    for (int c0 = 0; c0 < items; c0 += NT) {
+        const int j = c0 + threadIdx.x;
+        bool joins = false, wide = false;
+        int node = -1, dst = -1, f = 0, base = 0, deg = 0;
+        T nd = T(0);
+        if (j < items) {
+            f = j / kDegree;
+            int from;
+            T d;
+            rget<Stamp>(s, m, cur, f, node, from, d, acc);
+            const int slot = slot_of(s, node, j - f * kDegree,
+                                     Blocked{0, -1, -1});
+            wide = rwide_node(m, wt.n_wide, slot, &base, &deg);
+            joins = visit_edge(s, slot, from, d, label, &dst, &nd);
+        }
+        int total;
+        const int ex = block_exclusive_scan<NT>(
+            (int)joins | ((int)wide << 16), warp_sum, &total);
+        const int at = next + (ex & 0xffff);
+        if (joins && at < M) rput(s, m, 1 - cur, at, dst, node, nd);
+        if (wide) {
+            const int i = n_wide + (ex >> 16);
+            *rlist(wt, m, 0, i, M) = f;
+            *rlist(wt, m, 1, i, M) = base;
+            *rlist(wt, m, 2, i, M) = deg;
+        }
+        next += total & 0xffff;
+        n_wide += total >> 16;
+    }
+    __syncthreads();  // the list is written
+    t = lap<Stamp>(acc, kStSlots, t);
+    if (n_wide > 0) {
+        int pairs = 0;
+        for (int c0 = 0; c0 < n_wide; c0 += NT) {
+            const int i = c0 + threadIdx.x;
+            int* at = i < n_wide ? rlist(wt, m, 2, i, M) : nullptr;
+            const int deg = at != nullptr ? *at : 0;
+            int total;
+            const int ex = block_exclusive_scan<NT>(deg, warp_sum, &total);
+            if (at != nullptr) *at = pairs + ex;
+            pairs += total;
+        }
+        __syncthreads();  // the first pairs are written
+        t = lap<Stamp>(acc, kStScan, t);
+        for (int c0 = 0; c0 < pairs; c0 += NT) {
+            const int j = c0 + threadIdx.x;
+            bool joins = false;
+            int node = -1, dst = -1;
+            T nd = T(0);
+            if (j < pairs) {
+                int lo = 0, hi = n_wide;
+                while (hi - lo > 1) {
+                    const int mid = (lo + hi) / 2;
+                    if (read_past<Stamp>(rlist(wt, m, 2, mid, M),
+                                         mid >= m.lcap, acc) <= j)
+                        lo = mid;
+                    else
+                        hi = mid;
+                }
+                const bool past = lo >= m.lcap;
+                int from;
+                T d;
+                rget<Stamp>(s, m, cur,
+                            read_past<Stamp>(rlist(wt, m, 0, lo, M), past,
+                                             acc),
+                            node, from, d, acc);
+                const int eid = m.eid[read_past<Stamp>(rlist(wt, m, 1, lo, M),
+                                                       past, acc)
+                                      + j
+                                      - read_past<Stamp>(
+                                          rlist(wt, m, 2, lo, M), past, acc)];
+                joins = visit_edge(s, eid, from, d, label, &dst, &nd);
+            }
+            int total;
+            const int at =
+                next + block_exclusive_scan<NT>(joins, warp_sum, &total);
+            if (joins && at < M) rput(s, m, 1 - cur, at, dst, node, nd);
+            next += total;
+        }
+        __syncthreads();  // the next level reads what this one wrote
+        lap<Stamp>(acc, kStPairs, t);
+    }
+    return next < M ? next : M;
+}
+
+// one leaf's walk by every thread of a range launch: warp 0's narrow
+// levels, the block's wide ones (walk's hand-over through ctl: count, cur,
+// level); every thread returns after the same barrier
+template <typename T, int NT, bool Stamp>
+__device__ void range_walk(const State<T>& s, const WideTable& wt,
+                           const RangeMem<T>& m, int* warp_sum, int* ctl,
+                           int leaf, long long* acc)
+{
+    const int M = s.n_nodes;
+    int cur = 0, count = 1, level = 0;
+    if (threadIdx.x == 0) rput(s, m, 0, 0, leaf, -1, T(0));
+    if (threadIdx.x < kWarp) __syncwarp();  // before warp 0 reads it
+    for (;;) {
+        if (threadIdx.x < kWarp) {
+            const long long t = clock_if<Stamp>();
+            const int l0 = level;
+            range_narrow<T, Stamp>(s, wt, m, cur, count, level, leaf, acc);
+            if (threadIdx.x == 0) {
+                ctl[0] = count;
+                ctl[1] = cur;
+                ctl[2] = level;
+                if constexpr (Stamp) {
+                    acc[kStNarrow] += clock64() - t;
+                    acc[kStNarrowLevels] += level - l0;
+                }
+            }
+        }
+        __syncthreads();  // the other warps join for a wide level, or leave
+        count = ctl[0];
+        cur = ctl[1];
+        level = ctl[2];
+        if (count == 0 || level >= M) return;
+        if constexpr (Stamp)
+            if (threadIdx.x == 0) acc[kStWideLevels] += 1;
+        // every thread has read ctl before the level's first barrier, so
+        // warp 0 writes it again only after
+        count = range_wide_level<T, NT, Stamp>(s, wt, m, warp_sum, cur, count,
+                                               leaf, acc);
+        cur ^= 1;
+        ++level;
+    }
+}
+
+// closest_bfs_range: leaves i .. i + n_leaves - 1 from the cursor's i (a
+// leaf out of [0, M) walks nothing, as closest_bfs_cursor's), the cursor
+// read once and advanced once (i + n_leaves); n_off and n_eid words of the
+// table staged (0: read from device memory). A stamped instance writes
+// kStampWords a leaf to stamps.
+template <typename T, int NT, bool Stamp>
+__global__ void __launch_bounds__(NT)
+closest_bfs_range_kernel(State<T> s, WideTable wt, long long* cursor,
+                         int n_leaves, int cap, int lcap, int n_off,
+                         int n_eid, long long* stamps)
+{
+    extern __shared__ __align__(16) unsigned char dyn[];
+    __shared__ int warp_sum[NT / kWarp];
+    __shared__ int ctl[3];
+    __shared__ long long first_leaf;
+    __shared__ long long acc[Stamp ? kStampWords : 1];
+    long long t_start = 0, ns_start = 0;
+    if constexpr (Stamp) {
+        if (threadIdx.x == 0) {
+            t_start = clock64();
+            ns_start = global_ns();
+        }
+    }
+    const RangeMem<T> m = carve<T>(dyn, wt, cap, lcap, n_off, n_eid);
+    if (n_off > 0) stage_words(m.off_s, wt.off, n_off, NT);
+    if (n_eid > 0) stage_words(m.eid_s, wt.eid, n_eid, NT);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    if (threadIdx.x == 0) first_leaf = cursor[kCurI];
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // the table and the first leaf, for every thread
+    const long long lo = first_leaf;
+    const int M = s.n_nodes;
+    for (int k = 0; k < n_leaves; ++k) {
+        const long long ci = lo + k;
+        const int leaf = (int)(ci >= 0 && ci < M ? ci : -1);
+        if constexpr (Stamp) {
+            if (threadIdx.x == 0) {
+                for (int q = 0; q < kStampWords; ++q) acc[q] = 0;
+                acc[kStStart] = k == 0 ? t_start : clock64();
+                acc[kStTimerStart] = k == 0 ? ns_start : global_ns();
+                acc[kStFirst] = clock64();
+            }
+        }
+        range_walk<T, NT, Stamp>(s, wt, m, warp_sum, ctl, leaf, acc);
+        if constexpr (Stamp) {
+            if (threadIdx.x == 0) {
+                acc[kStEnd] = clock64();
+                acc[kStTimerEnd] = global_ns();
+                for (int q = 0; q < kStampWords; ++q)
+                    stamps[(size_t)k * kStampWords + q] = acc[q];
+            }
+        }
+        __syncthreads();  // the next leaf's first entry and ctl after every
+                          // thread's last read of this one's
+    }
+    if (threadIdx.x == 0) cursor[kCurI] = lo + n_leaves;
 }
 
 // One thread follows `steps` links of `next` (a random cycle, read past
@@ -590,6 +1220,82 @@ bool wide_ok(const void* wide_off, const void* wide_eid,
 {
     return wide_off == nullptr
            || (wide_eid != nullptr && wide_list != nullptr && n_wide >= 1);
+}
+
+// a range launch: its instance by type, threads and stamps; the dynamic
+// shared memory allowed first (a launch past the card's opt-in fails, and
+// its error is taken off the thread's last error, so that the next
+// launch's check does not report it)
+template <typename T, int NT, bool Stamp>
+cudaError_t launch_range_t(const State<T>& s, const WideTable& wt,
+                           long long* cursor, int n_leaves, int cap, int lcap,
+                           int n_off, int n_eid, long long* stamps,
+                           size_t bytes, cudaStream_t st)
+{
+    const auto kernel = closest_bfs_range_kernel<T, NT, Stamp>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) {
+        cudaGetLastError();
+        return err;
+    }
+    kernel<<<1, NT, bytes, st>>>(s, wt, cursor, n_leaves, cap, lcap, n_off,
+                                 n_eid, stamps);
+    return cudaGetLastError();
+}
+
+template <typename T, bool Stamp>
+cudaError_t launch_range(void* const* p, int n_edges, int n_nodes,
+                         const WideTable& wt, long long* cursor, int n_leaves,
+                         int threads, int cap, int lcap, int n_off, int n_eid,
+                         long long* stamps, cudaStream_t st)
+{
+    const State<T> s = make_state<T>(p[0], p[1], p[2], p[3], p[4], p[5],
+                                     p[6], p[7], p[8], p[9], n_edges,
+                                     n_nodes);
+    const size_t bytes = range_bytes((int)sizeof(T), cap, lcap, n_off, n_eid);
+    if (threads == 256)
+        return launch_range_t<T, 256, Stamp>(s, wt, cursor, n_leaves, cap,
+                                             lcap, n_off, n_eid, stamps,
+                                             bytes, st);
+    if (threads == 512)
+        return launch_range_t<T, 512, Stamp>(s, wt, cursor, n_leaves, cap,
+                                             lcap, n_off, n_eid, stamps,
+                                             bytes, st);
+    return launch_range_t<T, 1024, Stamp>(s, wt, cursor, n_leaves, cap, lcap,
+                                          n_off, n_eid, stamps, bytes, st);
+}
+
+// the dynamic shared memory a range launch of `threads` may take: the
+// card's opt-in less the instance's static shared memory (the stamped
+// one's, which is the larger)
+template <typename T, int NT>
+cudaError_t range_budget_t(int device, int* out)
+{
+    int optin = 0;
+    cudaError_t err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    cudaFuncAttributes a;
+    if (err == cudaSuccess)
+        err = cudaFuncGetAttributes(
+            &a, (const void*)closest_bfs_range_kernel<T, NT, true>);
+    if (err == cudaSuccess) *out = optin - (int)a.sharedSizeBytes;
+    else cudaGetLastError();
+    return err;
+}
+
+template <typename T>
+cudaError_t range_budget(int threads, int device, int* out)
+{
+    if (threads == 256) return range_budget_t<T, 256>(device, out);
+    if (threads == 512) return range_budget_t<T, 512>(device, out);
+    return range_budget_t<T, 1024>(device, out);
+}
+
+bool threads_ok(int threads)
+{
+    return threads == 256 || threads == 512 || threads == 1024;
 }
 
 }  // namespace
@@ -716,6 +1422,94 @@ extern "C" int closest_bfs_cursor(STATE_PARAMS, void* cursor, void* stream)
     return (int)cudaGetLastError();
 }
 
+// The BFS alone from leaves i .. i + n_leaves - 1, i = cursor[0], in one
+// launch of one block of `threads` (256, 512 or 1,024) over a wide table
+// (a binary state is refused); the cursor advances by n_leaves. cap and
+// list_cap: the frontier's and the wide list's entries in shared memory;
+// n_off (0 or n_wide + 1) and n_eid (0 or wide_off[n_wide]): the table's
+// words staged there. Their bytes (range_bytes) must be within
+// closest_bfs_range_budget's. stamps: null, or int64 [n_leaves, 16] for
+// the stamped instance.
+extern "C" int closest_bfs_range(STATE_PARAMS, void* cursor, int n_leaves,
+                                 int threads, int cap, int list_cap,
+                                 int n_off, int n_eid, void* stamps,
+                                 void* stream)
+{
+    if (!state_ok(n_edges, n_nodes) || cursor == nullptr || n_leaves < 1
+        || wide_off == nullptr
+        || !wide_ok(wide_off, wide_eid, wide_list, n_wide)
+        || !threads_ok(threads) || cap < 1 || list_cap < 1
+        || (n_off != 0 && n_off != n_wide + 1) || n_eid < 0)
+        return (int)cudaErrorInvalidValue;
+    OnDevice on(device);
+    if (on.err != cudaSuccess) return (int)on.err;
+    void* const p[11] = STATE_PTRS;
+    cudaStream_t st = (cudaStream_t)stream;
+    long long* c = (long long*)cursor;
+    long long* sp = (long long*)stamps;
+    cudaError_t err;
+    if (is_f64)
+        err = sp != nullptr
+                  ? launch_range<double, true>(p, n_edges, n_nodes,
+                                               WIDE_TABLE, c, n_leaves,
+                                               threads, cap, list_cap, n_off,
+                                               n_eid, sp, st)
+                  : launch_range<double, false>(p, n_edges, n_nodes,
+                                                WIDE_TABLE, c, n_leaves,
+                                                threads, cap, list_cap, n_off,
+                                                n_eid, sp, st);
+    else
+        err = sp != nullptr
+                  ? launch_range<float, true>(p, n_edges, n_nodes,
+                                              WIDE_TABLE, c, n_leaves,
+                                              threads, cap, list_cap, n_off,
+                                              n_eid, sp, st)
+                  : launch_range<float, false>(p, n_edges, n_nodes,
+                                               WIDE_TABLE, c, n_leaves,
+                                               threads, cap, list_cap, n_off,
+                                               n_eid, sp, st);
+    return (int)err;
+}
+
+// closest_bfs_range's dynamic shared memory budget in bytes for `threads`
+// (and is_f64) on `device`, to *out.
+extern "C" int closest_bfs_range_budget(int is_f64, int threads, int device,
+                                        int* out)
+{
+    if (!threads_ok(threads) || out == nullptr)
+        return (int)cudaErrorInvalidValue;
+    OnDevice on(device);
+    if (on.err != cudaSuccess) return (int)on.err;
+    return (int)(is_f64 ? range_budget<double>(threads, device, out)
+                        : range_budget<float>(threads, device, out));
+}
+
+// closest_bfs_cursor over a wide table by its stamped instance: stamps
+// (int64 [16]) get the launch's parts.
+extern "C" int closest_bfs_wide_stamped(STATE_PARAMS, void* cursor,
+                                        void* stamps, void* stream)
+{
+    if (!state_ok(n_edges, n_nodes) || cursor == nullptr
+        || stamps == nullptr || wide_off == nullptr
+        || !wide_ok(wide_off, wide_eid, wide_list, n_wide))
+        return (int)cudaErrorInvalidValue;
+    OnDevice on(device);
+    if (on.err != cudaSuccess) return (int)on.err;
+    void* const p[11] = STATE_PTRS;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (is_f64)
+        closest_bfs_wide_stamped_kernel<double><<<1, kThreads, 0, st>>>(
+            make_state<double>(p[0], p[1], p[2], p[3], p[4], p[5], p[6],
+                               p[7], p[8], p[9], n_edges, n_nodes),
+            (long long*)cursor, WIDE_TABLE, (long long*)stamps);
+    else
+        closest_bfs_wide_stamped_kernel<float><<<1, kThreads, 0, st>>>(
+            make_state<float>(p[0], p[1], p[2], p[3], p[4], p[5], p[6],
+                              p[7], p[8], p[9], n_edges, n_nodes),
+            (long long*)cursor, WIDE_TABLE, (long long*)stamps);
+    return (int)cudaGetLastError();
+}
+
 // Writes the cursor (int64 [5]): i, slots in use, the address of the
 // range's first distance row (0 for none), the rows' stride in elements,
 // the range's first insertion.
@@ -761,6 +1555,20 @@ extern "C" int insert_step_preload(int device)
                          (const void*)insert_step_wide_kernel<double>,
                          (const void*)closest_bfs_wide_kernel<float>,
                          (const void*)closest_bfs_wide_kernel<double>,
+                         (const void*)closest_bfs_wide_stamped_kernel<float>,
+                         (const void*)closest_bfs_wide_stamped_kernel<double>,
+                         (const void*)closest_bfs_range_kernel<float, 256, false>,
+                         (const void*)closest_bfs_range_kernel<float, 512, false>,
+                         (const void*)closest_bfs_range_kernel<float, 1024, false>,
+                         (const void*)closest_bfs_range_kernel<double, 256, false>,
+                         (const void*)closest_bfs_range_kernel<double, 512, false>,
+                         (const void*)closest_bfs_range_kernel<double, 1024, false>,
+                         (const void*)closest_bfs_range_kernel<float, 256, true>,
+                         (const void*)closest_bfs_range_kernel<float, 512, true>,
+                         (const void*)closest_bfs_range_kernel<float, 1024, true>,
+                         (const void*)closest_bfs_range_kernel<double, 256, true>,
+                         (const void*)closest_bfs_range_kernel<double, 512, true>,
+                         (const void*)closest_bfs_range_kernel<double, 1024, true>,
                          (const void*)cursor_set_kernel,
                          (const void*)chase_kernel};
     for (const void* f : fns) {

@@ -160,12 +160,13 @@ def add_queries_to_backbone(tree, seqs, names, params: Param,
     # linked-list adjacency) have out-degree > 3 and would overflow the
     # [M,3] compact-BFS table: on the card their wide nodes' out-edges
     # go to a table of their own, which kernel 6's wide instantiation
-    # reads; on the CPU they take the dense BFS
+    # reads (the seeding in one closest_bfs_range launch); on the CPU
+    # they take the dense BFS
     deg = np.bincount(belong0[belong0 >= 0])
     max_deg = int(deg.max(initial=0))
     if max_deg > 3 and log:
         route = (f"insert_step.cu's wide table ({int((deg > 3).sum())} "
-                 "nodes of degree > 3)"
+                 "nodes of degree > 3), seeded by closest_bfs_range"
                  if torch.device(device).type == "cuda"
                  else "using dense witness BFS")
         log(f"Backbone has multifurcations (max degree {max_deg}); {route}")

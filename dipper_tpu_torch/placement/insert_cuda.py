@@ -29,6 +29,13 @@ through the same entry points: its _Inserter passes the wide table and a
 [3, M] scratch, and its launches count in the *_WIDE_LAUNCHES counters.
 The plain version of that instantiation is kclosest.splice followed by
 kclosest._update_closest_bfs_dense.
+
+A wide state's seeding runs by `closest_bfs_range`: the BFS alone from a
+range of leaves in one persistent launch, its dynamic shared memory
+divided by `range_plan` (insert_model.range_plan over the card's budget,
+`range_budget`); its launches count in CLOSEST_BFS_RANGE_WIDE_LAUNCHES.
+`closest_bfs_wide_stamped` and a range launch given `stamps` run the
+stamped instances, which time each leaf by part (STAMP_PARTS).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import ctypes
 import torch
 
 from dipper_tpu_torch.csrc.build import check_launch, load
+from dipper_tpu_torch.placement import insert_model as im
 
 # Launches made by this process of each kernel, direct or by a graph's
 # replay (chip_smoke.py resets them and reads them to show that a run went
@@ -48,6 +56,8 @@ CLOSEST_BFS_LAUNCHES = 0
 # the same, of the wide instantiation (states with a wide table)
 INSERT_STEP_WIDE_LAUNCHES = 0
 CLOSEST_BFS_WIDE_LAUNCHES = 0
+# closest_bfs_range launches (a wide state's seeding, a range a launch)
+CLOSEST_BFS_RANGE_WIDE_LAUNCHES = 0
 # CUDA graphs captured and replayed by this process (capture, replay; and
 # exact_cuda's graphs of exact placement)
 GRAPH_CAPTURES = 0
@@ -67,6 +77,19 @@ _STEP_CURSOR_ARGS = _STATE_ARGS + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
 _BFS_CURSOR_ARGS = _STATE_ARGS + [ctypes.c_void_p] * 2
 _CURSOR_SET_ARGS = ([ctypes.c_void_p] + [ctypes.c_longlong] * 5
                     + [ctypes.c_int, ctypes.c_void_p])
+_RANGE_ARGS = (_STATE_ARGS + [ctypes.c_void_p] + [ctypes.c_int] * 6
+               + [ctypes.c_void_p] * 2)
+_RANGE_BUDGET_ARGS = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+_STAMPED_ARGS = _STATE_ARGS + [ctypes.c_void_p] * 3
+
+# the stamped instances' int64 words a leaf (insert_step.cu's kSt*): clock64
+# at the leaf's start (a launch's first: the launch's), at its first level
+# and at its end; cycles by part; %globaltimer ns at the start and the end;
+# narrow and wide levels; thread 0's reads past the shared buffers
+STAMP_WORDS = 16
+STAMP_PARTS = ("start", "first_level", "end", "narrow", "slot_pass",
+               "degree_scan", "pair_pass", "reads_past_shared", "ns_start",
+               "ns_end", "narrow_levels", "wide_levels", "reads_past_count")
 
 # the cursor's entries (int64): insertion or leaf i, slots in use, the
 # address of the range's first distance row, the rows' stride in elements,
@@ -90,7 +113,8 @@ class _Inserter:
 
     __slots__ = ("arrays", "dtype", "device", "n_edges", "n_nodes", "wide",
                  "lib", "step", "bfs", "step_cursor", "bfs_cursor",
-                 "cursor_set", "args", "f_ids", "f_frm", "f_dist",
+                 "cursor_set", "bfs_range", "bfs_stamped", "budgets",
+                 "n_off", "n_eid", "args", "f_ids", "f_frm", "f_dist",
                  "wide_list", "out_xy", "cursor", "graphs")
 
     def owns(self, st) -> bool:
@@ -195,6 +219,12 @@ def prepare_inserter(st):
     ins.step_cursor = _entry(ins.lib, "insert_step_cursor", _STEP_CURSOR_ARGS)
     ins.bfs_cursor = _entry(ins.lib, "closest_bfs_cursor", _BFS_CURSOR_ARGS)
     ins.cursor_set = _entry(ins.lib, "insert_cursor_set", _CURSOR_SET_ARGS)
+    ins.bfs_range = _entry(ins.lib, "closest_bfs_range", _RANGE_ARGS)
+    ins.bfs_stamped = _entry(ins.lib, "closest_bfs_wide_stamped",
+                             _STAMPED_ARGS)
+    ins.budgets = {}
+    ins.n_off = off.numel() if ins.wide else 0
+    ins.n_eid = eid.numel() if ins.wide else 0
     if dev.index not in _preloaded:
         preload = _entry(ins.lib, "insert_step_preload", [ctypes.c_int])
         check_launch(ins.lib, "insert_step", preload(dev.index))
@@ -234,15 +264,20 @@ def inserter(st) -> _Inserter:
     return ins
 
 
-def count_launches(wide: bool, steps: int = 0, bfs: int = 0) -> None:
+def count_launches(wide: bool, steps: int = 0, bfs: int = 0,
+                   ranges: int = 0) -> None:
     """Adds launches of insert_step's (`steps`) and closest_bfs's (`bfs`)
     entry points to the binary instantiation's counters, or to the wide
-    one's."""
+    one's, and closest_bfs_range's (`ranges`, wide states only)."""
     global INSERT_STEP_LAUNCHES, CLOSEST_BFS_LAUNCHES
     global INSERT_STEP_WIDE_LAUNCHES, CLOSEST_BFS_WIDE_LAUNCHES
+    global CLOSEST_BFS_RANGE_WIDE_LAUNCHES
+    if ranges and not wide:
+        raise ValueError("closest_bfs_range takes wide states only")
     if wide:
         INSERT_STEP_WIDE_LAUNCHES += steps
         CLOSEST_BFS_WIDE_LAUNCHES += bfs
+        CLOSEST_BFS_RANGE_WIDE_LAUNCHES += ranges
     else:
         INSERT_STEP_LAUNCHES += steps
         CLOSEST_BFS_LAUNCHES += bfs
@@ -379,6 +414,93 @@ def closest_bfs_cursor(st, stream: int | None = None,
         check_launch(ins.lib, "insert_step", rc)
     if count:
         count_launches(ins.wide, bfs=1)
+
+
+# ---------------------------------------------------------------------------
+# The seeding range of a wide state: one persistent launch for a range of
+# leaves
+# ---------------------------------------------------------------------------
+
+
+def range_budget(st, threads: int = im.RANGE_THREADS_DEFAULT) -> int:
+    """Bytes of dynamic shared memory a closest_bfs_range launch of
+    `threads` may take on the state's card (its opt-in less the kernel's
+    static shared memory), read once per state and width."""
+    ins = inserter(st)
+    if threads not in ins.budgets:
+        out = ctypes.c_int(0)
+        fn = _entry(ins.lib, "closest_bfs_range_budget", _RANGE_BUDGET_ARGS)
+        check_launch(ins.lib, "insert_step",
+                     fn(int(ins.dtype == torch.float64), threads,
+                        ins.device.index, ctypes.byref(out)))
+        ins.budgets[threads] = out.value
+    return ins.budgets[threads]
+
+
+def range_plan(st, **forced) -> dict:
+    """insert_model.range_plan for the state's wide table, type and card:
+    which of the table is staged, the frontier's and the wide list's
+    capacities, the block width; `forced` gives any of threads, cap,
+    list_cap, stage_off, stage_eid instead."""
+    ins = inserter(st)
+    if not ins.wide:
+        raise ValueError("closest_bfs_range takes a state with a wide table")
+    threads = forced.pop("threads", im.RANGE_THREADS_DEFAULT)
+    return im.range_plan(range_budget(st, threads), ins.n_nodes, ins.n_off,
+                         ins.n_eid, ins.f_dist.element_size(),
+                         threads=threads, **forced)
+
+
+def closest_bfs_range(st, n: int, plan: dict | None = None,
+                      stamps: torch.Tensor | None = None,
+                      stream: int | None = None) -> None:
+    """Launches the BFS alone from leaves i .. i + n - 1, i = the state's
+    cursor (each recording its own index), in one launch at `plan`
+    (default: range_plan(st)); the cursor advances by n. `stamps`: an
+    int64 [n, STAMP_WORDS] tensor on the card for the stamped instance.
+    A wide state only; bitwise equal to n closest_bfs_cursor launches and
+    to the dense BFS from each leaf."""
+    ins = inserter(st)
+    if not ins.wide:
+        raise ValueError("closest_bfs_range takes a state with a wide table")
+    if n < 1:
+        raise ValueError(f"a range launch seeds at least one leaf, got {n}")
+    plan = range_plan(st) if plan is None else plan
+    ptr = None
+    if stamps is not None:
+        if (stamps.device != ins.device or stamps.dtype != torch.int64
+                or tuple(stamps.shape) != (n, STAMP_WORDS)
+                or not stamps.is_contiguous()):
+            raise ValueError(f"stamps must be a contiguous int64 "
+                             f"[{n}, {STAMP_WORDS}] tensor on {ins.device}")
+        ptr = stamps.data_ptr()
+    rc = ins.bfs_range(*ins.args, ins.cursor.data_ptr(), n, plan["threads"],
+                       plan["cap"], plan["list_cap"], plan["n_off"],
+                       plan["n_eid"], ptr, _stream(ins, stream))
+    if rc != 0:
+        check_launch(ins.lib, "insert_step", rc)
+    count_launches(True, ranges=1)
+
+
+def closest_bfs_wide_stamped(st, stamps: torch.Tensor,
+                             stream: int | None = None) -> None:
+    """closest_bfs_cursor of a wide state by its stamped instance: the
+    launch's parts (STAMP_PARTS) to `stamps`, a contiguous int64
+    [STAMP_WORDS] tensor on the card; the cursor advances by one leaf.
+    Counted as a closest_bfs launch."""
+    ins = inserter(st)
+    if not ins.wide:
+        raise ValueError("the stamped instance takes a state with a wide "
+                         "table")
+    if (stamps.device != ins.device or stamps.dtype != torch.int64
+            or stamps.numel() != STAMP_WORDS or not stamps.is_contiguous()):
+        raise ValueError(f"stamps must be a contiguous int64 "
+                         f"[{STAMP_WORDS}] tensor on {ins.device}")
+    rc = ins.bfs_stamped(*ins.args, ins.cursor.data_ptr(), stamps.data_ptr(),
+                         _stream(ins, stream))
+    if rc != 0:
+        check_launch(ins.lib, "insert_step", rc)
+    count_launches(True, bfs=1)
 
 
 class _Graph:

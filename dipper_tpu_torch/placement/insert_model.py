@@ -237,11 +237,13 @@ def _visit(s: dict, eid: int, frm: int, d, label: int,
 
 def _walk(s: dict, fr: _Frontier, count: int, level: int, label: int,
           blocked, threads: int, narrow: int, levels: list | None,
-          stats: dict | None) -> None:
+          stats: dict | None, list_cap: int | None = None) -> None:
     """The kernel's walk from the `count` entries of buffer 0 at `level`:
     narrow levels by a warp, wide ones by the block, each placing the next
     frontier in the other buffer; at most M levels, a frontier cut at M
-    entries."""
+    entries. The wide list holds `list_cap` items in shared memory
+    (default: the frontier's cap)."""
+    list_cap = fr.cap if list_cap is None else list_cap
     M = s["adj"].shape[0]
     cur, was_wide = 0, None
 
@@ -273,7 +275,7 @@ def _walk(s: dict, fr: _Frontier, count: int, level: int, label: int,
             add("wide_entries", len(wide))
             add("wide_pairs", pairs)
             if is_wide:
-                add("wide_listed_spilled", max(0, len(wide) - fr.cap))
+                add("wide_listed_spilled", max(0, len(wide) - list_cap))
         # a warp's ballot places the joining lanes of its one chunk; the
         # block's scan those of each chunk of `threads`, after the ones
         # before: both give the flat order, the slots' joins first
@@ -301,18 +303,118 @@ def _walk(s: dict, fr: _Frontier, count: int, level: int, label: int,
 
 def bfs(s: dict, leaf: int, label: int, blocked=(), threads: int = THREADS,
         levels: list | None = None, stats: dict | None = None,
-        cap: int = CAP, narrow: int = NARROW) -> None:
+        cap: int = CAP, narrow: int = NARROW,
+        list_cap: int | None = None) -> None:
     """The kernel's witness BFS from `leaf` in place (closest_bfs).
     `levels`, when given, gets each level's frontier width; `stats` adds
     up what the kernel reads, writes and how: levels, frontier entries,
     out-edges whose destination is read ("edges"), lists compared
     ("lists") and inserted into ("inserts"), narrow and wide levels, the
-    switches between them, and frontier entries that spilled."""
+    switches between them, and frontier entries that spilled. The wide
+    list holds `list_cap` items before it spills (default: `cap`)."""
     M = s["adj"].shape[0]
     fr = _Frontier(M, cap, s["length"].dtype)
     fr.put(0, 0, (leaf, -1, 0))
     _walk(s, fr, 1, 0, label, set(int(b) for b in blocked), threads, narrow,
-          levels, stats)
+          levels, stats, list_cap)
+
+
+# ---------------------------------------------------------------------------
+# The seeding range (closest_bfs_range): one launch for a range of leaves,
+# its shared memory sized at launch
+# ---------------------------------------------------------------------------
+
+# an H100 block's opt-in shared memory (bytes; the card's own figure, less
+# the kernel's static shared memory, is read at run time:
+# insert_cuda.range_budget)
+SMEM_OPTIN = 232448
+# the range kernel's block widths, and the plan's default (on phase 30's
+# backbone 512 threads took both the early leaves' wide levels and the
+# late leaves' fastest: PERF.md, PR 23)
+RANGE_THREADS = (256, 512, 1024)
+RANGE_THREADS_DEFAULT = 512
+
+
+def _pad16(b: int) -> int:
+    return (b + 15) // 16 * 16
+
+
+def range_bytes(item: int, cap: int, list_cap: int, n_off: int,
+                n_eid: int) -> int:
+    """Dynamic shared memory of a range launch (insert_step.cu's
+    range_bytes): the frontier's two buffers of `cap` entries (a distance
+    of `item` bytes, two int32), the wide list's `list_cap` items (three
+    int32), then the n_off offsets and n_eid out-edges staged (0: read
+    from device memory), each array padded to 16 bytes."""
+    return (_pad16(2 * cap * item) + 2 * _pad16(2 * cap * 4)
+            + 3 * _pad16(list_cap * 4) + _pad16(n_off * 4)
+            + _pad16(n_eid * 4))
+
+
+def range_plan(budget: int, n_nodes: int, n_off: int, n_eid: int,
+               item: int, *, threads: int = RANGE_THREADS_DEFAULT,
+               cap: int | None = None, list_cap: int | None = None,
+               stage_off: bool | None = None,
+               stage_eid: bool | None = None) -> dict:
+    """How a range launch divides `budget` bytes of shared memory, for a
+    state of `n_nodes` nodes whose wide table has n_off offsets and n_eid
+    out-edges, `item`-byte distances. What the walk reads most comes first:
+    the offsets (every wide entry of every level reads two), then the
+    out-edges (every wide pair reads one), each staged where it fits
+    beside a frontier and a list of CAP entries (the per-leaf kernel's);
+    what is left goes to the frontier and the wide list, as many entries
+    each (a level's list holds at most its entries), at most n_nodes.
+    Any of these may be given instead (the tests force small capacities).
+    Returns threads, cap, list_cap, n_off and n_eid staged (0: not), and
+    the bytes; raises when the given parts do not fit."""
+    if threads not in RANGE_THREADS:
+        raise ValueError(f"threads must be one of {RANGE_THREADS}")
+    floor = min(CAP, n_nodes)
+
+    def fits(so, se, c, lc):
+        return range_bytes(item, c, lc, n_off if so else 0,
+                           n_eid if se else 0) <= budget
+
+    c0 = floor if cap is None else cap
+    l0 = floor if list_cap is None else list_cap
+    if stage_off is None:
+        stage_off = fits(True, False, c0, l0)
+    if stage_eid is None:
+        stage_eid = fits(stage_off, True, c0, l0)
+    so, se = (n_off if stage_off else 0), (n_eid if stage_eid else 0)
+    free_cap, free_list = cap is None, list_cap is None
+    # the arrays' padding (16 bytes each, at most) set aside first
+    rest = budget - range_bytes(item, 0, 0, so, se) - 6 * 16
+    if free_cap and free_list:
+        cap = list_cap = rest // (2 * (8 + item) + 12)
+    elif free_cap:
+        cap = (rest - 3 * list_cap * 4) // (2 * (8 + item))
+    elif free_list:
+        list_cap = (rest - 2 * cap * (8 + item)) // 12
+    cap, list_cap = min(n_nodes, max(1, cap)), min(n_nodes, max(1, list_cap))
+    nbytes = range_bytes(item, cap, list_cap, so, se)
+    if cap < 1 or list_cap < 1 or nbytes > budget:
+        raise ValueError(f"a range launch of cap {cap}, list_cap {list_cap}, "
+                         f"{so} offsets and {se} out-edges staged takes "
+                         f"{nbytes} bytes of shared memory; {budget} allowed")
+    return {"threads": threads, "cap": int(cap), "list_cap": int(list_cap),
+            "n_off": so, "n_eid": se, "bytes": nbytes}
+
+
+def bfs_range(s: dict, lo: int, n: int, plan: dict,
+              narrow: int = NARROW, stats: dict | None = None,
+              levels: list | None = None) -> int:
+    """The kernel's closest_bfs_range in place: the BFS alone from leaves
+    lo .. lo + n - 1 in order (label = leaf; a leaf out of [0, M) walks
+    nothing) at the plan's capacities and block width (range_plan);
+    returns the cursor after (lo + n). What is staged changes no bit."""
+    M = s["adj"].shape[0]
+    for leaf in range(lo, lo + n):
+        if 0 <= leaf < M:
+            bfs(s, leaf, leaf, threads=plan["threads"], cap=plan["cap"],
+                list_cap=plan["list_cap"], narrow=narrow, stats=stats,
+                levels=levels)
+    return lo + n
 
 
 def insert_step(s: dict, eid: int, frac, add, i0: int, middle: int,

@@ -985,20 +985,64 @@ def _replay_insertions(st: TreeState, lo: int, hi: int, rows: torch.Tensor,
     st.idx += 4 * n
 
 
+# leaves a closest_bfs_range launch seeds at most: 65,536 takes the
+# backbones the repo runs (phase 30's 28,976) in one launch, the
+# counterpart of the JAX package's one fori_loop; a longer backbone is
+# split into launches of this many
+RANGE_LEAVES = 1 << 16
+
+
 def _replay_seeding(st: TreeState, lo: int, hi: int) -> None:
     """The BFS alone from each leaf lo..hi-1 (--add's seeding of a
-    backbone) by the cursor route: one cursor write, (hi - lo) //
-    GRAPH_INSERTIONS replays of a captured graph of that many
-    insert_cuda.closest_bfs_cursor launches, the remainder direct."""
-    n = hi - lo
-    if n <= 0:
-        return
+    backbone) on the card: a wide state's by closest_bfs_range
+    (_seed_by_range), a binary state's by the cursor route
+    (_seed_by_cursor). A wide state whose range kernel fails to build or
+    launch raises; it never takes another route."""
+    if st.wide_off is not None:
+        _seed_by_range(st, lo, hi)
+    else:
+        _seed_by_cursor(st, lo, hi)
+
+
+def _check_leaves(st: TreeState, lo: int, hi: int) -> None:
     if lo < 0 or hi > st.adj.shape[0]:
         raise ValueError(f"leaves [{lo}, {hi}) are not nodes of "
                          f"[0, {st.adj.shape[0]})")
+
+
+def _stream_of(st: TreeState):
     dev = st.e.device
-    stream = (torch.cuda.current_stream(dev).cuda_stream
-              if dev.type == "cuda" else None)
+    return (torch.cuda.current_stream(dev).cuda_stream
+            if dev.type == "cuda" else None)
+
+
+def _seed_by_range(st: TreeState, lo: int, hi: int, plan=None) -> None:
+    """The seeding of a wide state: one cursor write, then one
+    insert_cuda.closest_bfs_range launch a chunk of RANGE_LEAVES leaves
+    (at `plan`, default the state's range_plan), each reading the cursor
+    once and leaving it after its last leaf; no graph is captured. The
+    cursor ends at hi."""
+    if hi - lo <= 0:
+        return
+    _check_leaves(st, lo, hi)
+    stream = _stream_of(st)
+    insert_cuda.set_cursor(st, lo, None, lo, stream)
+    for c0 in range(lo, hi, RANGE_LEAVES):
+        insert_cuda.closest_bfs_range(st, min(RANGE_LEAVES, hi - c0), plan,
+                                      stream=stream)
+
+
+def _seed_by_cursor(st: TreeState, lo: int, hi: int) -> None:
+    """The BFS alone from each leaf lo..hi-1 by the cursor route: one
+    cursor write, (hi - lo) // GRAPH_INSERTIONS replays of a captured
+    graph of that many insert_cuda.closest_bfs_cursor launches, the
+    remainder direct. A binary state's seeding, and a wide state's
+    per-leaf yardstick."""
+    n = hi - lo
+    if n <= 0:
+        return
+    _check_leaves(st, lo, hi)
+    stream = _stream_of(st)
     insert_cuda.set_cursor(st, lo, None, lo, stream)
     G = GRAPH_INSERTIONS
     reps, rest = divmod(n, G)
@@ -1336,15 +1380,17 @@ def run_add_queries(frontend_args, e0, belong0, length0, rev0, *,
     `use_adj=False` is for multifurcating backbones (parse_newick accepts
     them), whose out-degree > 3 would overflow the [M, 3] table; the
     caller checks degrees host-side. Such a state carries the wide table
-    on the card (`add_state`) and takes the kernels' cursor route as a
-    binary one does, and carries no table on the CPU, where the dense BFS
-    runs throughout."""
+    on the card (`add_state`): its seeding is closest_bfs_range's (a
+    launch a chunk of RANGE_LEAVES leaves) and its queries take the
+    kernels' cursor route as a binary one's do; it carries no table on
+    the CPU, where the dense BFS runs throughout."""
     N = num_sequences
     B = backbone_size
     dev = frontend_args[0].device
     st = add_state(e0, belong0, length0, rev0, num_sequences=N,
                    backbone_size=B, dtype_name=dtype_name, use_adj=use_adj)
     captures = insert_cuda.GRAPH_CAPTURES
+    ranges = insert_cuda.CLOSEST_BFS_RANGE_WIDE_LAUNCHES
     t0 = time.time()
     if uses_insert_kernel(st):
         _replay_seeding(st, 0, B)
@@ -1373,7 +1419,8 @@ def run_add_queries(frontend_args, e0, belong0, length0, rev0, *,
         log(f"Backbone of {B} seeded in: {t_seed * 1e3:.1f} ms; {N - B} "
             f"queries: rows {rows_s * 1e3:.1f} ms, insertions "
             f"{ins_s * 1e3:.1f} ms; graph captures "
-            f"{insert_cuda.GRAPH_CAPTURES - captures}")
+            f"{insert_cuda.GRAPH_CAPTURES - captures}; seeding range "
+            f"launches {insert_cuda.CLOSEST_BFS_RANGE_WIDE_LAUNCHES - ranges}")
     return st.e, st.belong, st.length
 
 

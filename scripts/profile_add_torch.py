@@ -26,10 +26,26 @@ turns (A B B A for two checkouts, A A for one). One JSON line each:
     nothing), CUDA kernel launches a level (torch.profiler, over leaves
     whose levels are counted alike), ms a leaf and a query. Skipped with
     --no-dense.
+  - "parts" (with --parts, this checkout in this process, on the card):
+    where a seeding leaf's time goes, by the stamped instances of
+    csrc/insert_step.cu (clock64 and %globaltimer on thread 0, a leaf:
+    the launch to its first level, the narrow levels, the wide levels'
+    slot passes, degree scans and wide-pair passes, thread 0's reads past
+    the shared buffers, and the rest), for the per-leaf cursor route's
+    kernel (closest_bfs_wide_stamped, a launch a leaf) and for the range
+    kernel (closest_bfs_range, one launch) at its plan and at the
+    --plans given, over --parts-leaves leaves after the first 64 (the
+    window) and from --late (the late stretch), both routes from equal
+    states and to equal states; the SM clock the stamps imply; and the
+    card's gap between consecutive launches of a replayed per-leaf graph
+    (torch.profiler's kernel records, behind a lead-in) beside the range
+    launch's own record.
 The backbones, Newicks and logs go to --out.
 
     python3 scripts/profile_add_torch.py --out build/profile_add
     python3 scripts/profile_add_torch.py --checkout build/parent --checkout .
+    python3 scripts/profile_add_torch.py --sizes 28976 --no-dense --parts \
+        --checkout .
 """
 
 from __future__ import annotations
@@ -209,6 +225,140 @@ def dense_route(all_fa: str, back_nwk: str, W: int, device: str) -> dict:
     return rec
 
 
+def _stamp_summary(w: torch.Tensor) -> dict:
+    """A stretch's stamps ([leaves, STAMP_WORDS] int64, on the host) as
+    µs a leaf by part, levels and reads a leaf, and the SM clock (GHz)
+    they imply."""
+    w = w.double()
+    cyc = w[:, 2] - w[:, 0]
+    ns = w[:, 9] - w[:, 8]
+    ghz = float(cyc.sum() / ns.sum())
+    us = lambda c: float(c.mean()) / ghz / 1e3  # noqa: E731
+    parts = {"to_first_level": us(w[:, 1] - w[:, 0]),
+             "narrow_levels": us(w[:, 3]), "slot_passes": us(w[:, 4]),
+             "degree_scans": us(w[:, 5]), "pair_passes": us(w[:, 6])}
+    parts["other"] = us(cyc) - sum(parts.values())
+    return {"us_per_leaf": us(cyc), "parts_us": parts,
+            "reads_past_shared_us": us(w[:, 7]),
+            "reads_past_shared_per_leaf": float(w[:, 12].mean()),
+            "narrow_levels_per_leaf": float(w[:, 10].mean()),
+            "wide_levels_per_leaf": float(w[:, 11].mean()),
+            "first_leaf_to_first_level_us": float(w[0, 1] - w[0, 0])
+            / ghz / 1e3,
+            "sm_clock_ghz": ghz}
+
+
+def _kernel_records(fn, names) -> dict:
+    """fn() under torch.profiler behind a lead-in: each named kernel's
+    records (start, end in µs), in start order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            torch.cuda._sleep(10000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    out = {n: [] for n in names}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for n in names:
+            if n in e.name:
+                out[n].append((e.time_range.start, e.time_range.end))
+    return {n: sorted(v) for n, v in out.items()}
+
+
+def stamped_parts(all_fa: str, back_nwk: str, leaves: int, late: int,
+                  plans: list | None) -> dict:
+    """The stamped split of the seeding (see the module's "parts"), on
+    states made from this checkout's --add inputs on the card; `plans`
+    None: the per-leaf kernel alone (no range launch is timed)."""
+    from dipper_tpu_torch.placement import insert_cuda
+    from dipper_tpu_torch.placement import kclosest as tk
+
+    frontend_args, arrays, kw = add_inputs(all_fa, back_nwk, "cuda")
+    N, B = kw["num_sequences"], kw["backbone_size"]
+
+    def state():
+        return tk.add_state(*arrays, num_sequences=N, backbone_size=B,
+                            dtype_name=kw["dtype_name"], use_adj=False)
+
+    six = ("e", "belong", "length", "rev", "cdis", "cid")
+    one, rng = state(), state()
+    rec = {"backbone": B, "leaves": leaves, "n_off": one.wide_off.numel(),
+           "n_eid": one.wide_eid.numel(),
+           "plans": ([] if plans is None else
+                     [insert_cuda.range_plan(rng, **p)
+                      for p in [{}] + plans])}
+    lo0 = tk.GRAPH_INSERTIONS
+    done = 0
+    for tag, lo in (("window", lo0), ("late", max(lo0 + leaves,
+                                                   min(late, B - leaves)))):
+        tk._seed_by_range(one, done, lo)
+        tk._seed_by_range(rng, done, lo)
+        snap = {f: getattr(rng, f).clone() for f in six}
+        stamps = torch.zeros((leaves, insert_cuda.STAMP_WORDS),
+                             dtype=torch.int64, device=one.e.device)
+        insert_cuda.set_cursor(one, lo)
+        for k in range(leaves):
+            insert_cuda.closest_bfs_wide_stamped(one, stamps[k])
+        got = {"first_leaf": lo,
+               "per_leaf": _stamp_summary(stamps.cpu())}
+        if not rec["plans"]:
+            tk._seed_by_range(rng, lo, lo + leaves)
+        for j, plan in enumerate(rec["plans"]):
+            for f in six:
+                getattr(rng, f).copy_(snap[f])
+            rs = torch.zeros_like(stamps)
+            insert_cuda.set_cursor(rng, lo)
+            insert_cuda.closest_bfs_range(rng, leaves, plan, stamps=rs)
+            bad = [f for f in six if not torch.equal(getattr(one, f),
+                                                     getattr(rng, f))]
+            if bad:
+                raise SystemExit(f"parts, {tag}: the range kernel at plan "
+                                 f"{plan} != the per-leaf kernel in {bad}")
+            got["range" if j == 0 else f"range_plan_{j}"] = _stamp_summary(
+                rs.cpu())
+        rec[tag] = got
+        done = lo + leaves
+    # the card's gaps between a replayed graph's per-leaf launches, and
+    # the range launch's record, over the next 2 x GRAPH_INSERTIONS leaves
+    n = 2 * tk.GRAPH_INSERTIONS
+    tk._seed_by_cursor(one, done, done + tk.GRAPH_INSERTIONS)  # capture
+    tk._seed_by_range(rng, done, done + tk.GRAPH_INSERTIONS)
+    done += tk.GRAPH_INSERTIONS
+    k1 = _kernel_records(lambda: tk._seed_by_cursor(one, done, done + n),
+                         ["closest_bfs_wide_kernel"])
+    k2 = ({"closest_bfs_range_kernel": []} if plans is None else
+          _kernel_records(lambda: tk._seed_by_range(rng, done, done + n),
+                          ["closest_bfs_range_kernel"]))
+    if plans is None:
+        tk._seed_by_range(rng, done, done + n)
+    runs = k1["closest_bfs_wide_kernel"]
+    gaps = [b[0] - a[1] for a, b in zip(runs, runs[1:])]
+    rec["profiled"] = {
+        "first_leaf": done, "leaves": n, "per_leaf_records": len(runs),
+        "per_leaf_kernel_us": (sum(b - a for a, b in runs) / len(runs)
+                               if runs else None),
+        "gap_us_mean": sum(gaps) / len(gaps) if gaps else None,
+        "gap_us_min": min(gaps) if gaps else None,
+        "gap_us_max": max(gaps) if gaps else None,
+        "per_leaf_span_us": (runs[-1][1] - runs[0][0]) / len(runs)
+        if runs else None,
+        "range_records": len(k2["closest_bfs_range_kernel"]),
+        "range_us_per_leaf": (sum(b - a for a, b in
+                                  k2["closest_bfs_range_kernel"]) / n
+                              if k2["closest_bfs_range_kernel"] else None)}
+    bad = [f for f in six if not torch.equal(getattr(one, f),
+                                             getattr(rng, f))]
+    if bad:
+        raise SystemExit(f"parts, profiled: the routes differ in {bad}")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=30000,
@@ -223,6 +373,19 @@ def main() -> int:
                     help="leaves and queries of each dense-route window")
     ap.add_argument("--no-dense", action="store_true",
                     help="skip the in-process dense route")
+    ap.add_argument("--parts", action="store_true",
+                    help="the stamped split of the seeding (this checkout, "
+                         "in this process, on the card)")
+    ap.add_argument("--parts-leaves", type=int, default=256,
+                    help="leaves of each stamped stretch")
+    ap.add_argument("--late", type=int, default=20000,
+                    help="first leaf of the late stamped stretch")
+    ap.add_argument("--no-range", action="store_true",
+                    help="--parts of the per-leaf kernel alone")
+    ap.add_argument("--plans", default="",
+                    help="more range-kernel plans for --parts, as JSON "
+                         "objects of range_plan's forced parts separated "
+                         "by ';' (e.g. '{\"threads\": 1024}')")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cpu: a rehearsal at a small --n (no syncs, "
                          "launches or card times)")
@@ -299,6 +462,11 @@ def run_size(args, dev: str, turns: list, fa: str, B: int, tmp: str) -> None:
     if not args.no_dense:
         emit({"dense_route": dense_route(all_fa, back_nwk, args.window,
                                          dev)})
+    if args.parts:
+        plans = (None if args.no_range else
+                 [json.loads(p) for p in args.plans.split(";") if p.strip()])
+        emit({"parts": stamped_parts(all_fa, back_nwk, args.parts_leaves,
+                                     args.late, plans)})
 
 
 if __name__ == "__main__":

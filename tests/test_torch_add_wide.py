@@ -11,8 +11,13 @@ witness BFS:
   switches between narrow and wide levels `stats` counts;
 - run_add_queries on the card's route, with the model in the kernels'
   place (tests/test_torch_insert.py's model_as_kernel): a wide state
-  seeds by replays of the BFS alone and places queries by the cursor
-  route, counted as the wide instantiation's launches, to JAX's arrays.
+  seeds by one range launch a chunk (closest_bfs_range) and places
+  queries by the cursor route, counted as the wide instantiation's
+  launches, to JAX's arrays;
+- the range kernel's plan (insert_model.range_plan: what of the wide
+  table is staged in shared memory, the frontier's and the wide list's
+  capacities) fits its budget, and insert_model.bfs_range at capacities
+  of 32, 256 and one past the widest level seeds to JAX's state.
 Backbones: MULTI (degrees 4 and 5), a star of degree 45, eight clades
 of four leaves under one root (levels of seven wide entries), and binary
 backbones placed by the JAX package from 3 seeds, collapsed at 2
@@ -237,17 +242,17 @@ def test_model_add_sequence_equals_jax(name, dtype):
 def test_run_add_queries_routes_wide_states_to_the_kernel(
         model_as_kernel, monkeypatch, name, dtype, G):
     """run_add_queries with the wide table on the card's route: one cursor
-    write and B // G replays of a graph of G BFS launches for the seeding,
-    the queries by the cursor route, every launch in the wide
-    instantiation's counters and none in the binary one's; JAX's
-    arrays."""
+    write and one closest_bfs_range launch for the seeding (no BFS-alone
+    launch, no graph), the queries by the cursor route ((N - B) // G
+    replays), every launch in the wide instantiation's counters and none
+    in the binary one's; JAX's arrays."""
     monkeypatch.setattr(tk, "GRAPH_INSERTIONS", G)
     _, tree, arrays, D = _backbone(name)
     B = tree.num_leaves
     route = model_as_kernel
     names = ("INSERT_STEP_LAUNCHES", "CLOSEST_BFS_LAUNCHES",
              "INSERT_STEP_WIDE_LAUNCHES", "CLOSEST_BFS_WIDE_LAUNCHES",
-             "GRAPH_REPLAYS")
+             "CLOSEST_BFS_RANGE_WIDE_LAUNCHES", "GRAPH_REPLAYS")
     monkeypatch.setattr(tk, "add_state",
                         functools.partial(tk.add_state, wide_table=True))
     before = [getattr(insert_cuda, k) for k in names]
@@ -256,8 +261,8 @@ def test_run_add_queries_routes_wide_states_to_the_kernel(
         *(torch.from_numpy(a) for a in arrays), num_sequences=N,
         backbone_size=B, frontend="matrix", dtype_name=dtype, use_adj=False)
     counts = [getattr(insert_cuda, k) - b for k, b in zip(names, before)]
-    assert counts == [0, 0, N - B, B, B // G + (N - B) // G]
-    assert route.leaves == list(range(B))
+    assert counts == [0, 0, N - B, 0, 1, (N - B) // G]
+    assert route.leaves == [] and [r[:2] for r in route.ranges] == [(0, B)]
     assert route.steps == [(i, 4 * i - 4) for i in range(B, N)]
     for g, w in zip(got, _jax_add(name, dtype)):
         assert g.numpy().tobytes() == w.tobytes()
@@ -280,3 +285,132 @@ def test_check_arrays_refuses_a_malformed_wide_table():
     with pytest.raises(ValueError, match="wide_off must be a torch.int32"):
         insert_cuda.check_arrays(dataclasses.replace(
             st, wide_off=st.wide_off.long()))
+
+
+# ---------------------------------------------------------------------------
+# The seeding range: insert_model's plan of closest_bfs_range
+# ---------------------------------------------------------------------------
+
+RANGE_NAMES = ["multi", "star"] + [n for n in BACKBONES
+                                   if n.startswith("collapsed")]
+# the frontier's and the wide list's capacities, each with a block width
+RANGE_CAPS = {"cap32": (32, 256), "cap256": (256, 512),
+              "past_widest": (None, 1024)}
+_seeded: dict = {}
+
+
+def _jax_seeded_arrays(name, dtype):
+    if (name, dtype) not in _seeded:
+        want = _jax_seeded(name, dtype)
+        _seeded[name, dtype] = {f: np.asarray(getattr(want, f)) for f in
+                                ("e", "belong", "length", "rev", "cdis",
+                                 "cid")}
+    return _seeded[name, dtype]
+
+
+def _widest(name):
+    """The widest level of the wide plan's seeding of the backbone."""
+    s = im.arrays_of(_state(name, "float64"))
+    levels = []
+    for i in range(_backbone(name)[1].num_leaves):
+        im.bfs(s, i, i, levels=levels)
+    return max(levels)
+
+
+@pytest.mark.parametrize("caps", RANGE_CAPS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", RANGE_NAMES)
+def test_model_range_seeding_equals_jax(name, dtype, caps):
+    """insert_model.bfs_range, the range kernel's plan, seeds the backbone
+    in two launches (the cursor carried from one to the next) at a
+    frontier and a wide list of 32 entries, of 256, and of one past the
+    widest level (each at most the M nodes), with the table staged as
+    range_plan stages it: JAX's dense seeding, bit for bit."""
+    cap, threads = RANGE_CAPS[caps]
+    cap = _widest(name) + 1 if cap is None else cap
+    st = _state(name, dtype)
+    plan = im.range_plan(im.SMEM_OPTIN, st.adj.shape[0], st.wide_off.numel(),
+                         st.wide_eid.numel(), st.length.element_size(),
+                         threads=threads, cap=cap, list_cap=cap)
+    cap = min(cap, st.adj.shape[0])  # no level holds more than M entries
+    assert (plan["cap"], plan["list_cap"], plan["threads"]) == (
+        cap, cap, threads)
+    s = im.arrays_of(st)
+    B = _backbone(name)[1].num_leaves
+    stats = {}
+    i = im.bfs_range(s, 0, B // 2, plan, stats=stats)
+    assert im.bfs_range(s, i, B - i, plan, stats=stats) == B
+    want = _jax_seeded_arrays(name, dtype)
+    for f in want:
+        assert s[f].tobytes() == want[f].tobytes(), f
+    if caps == "cap32" and name == "star":
+        assert stats["spilled"] > 0 and stats["wide_listed_spilled"] == 0
+    if caps == "past_widest":
+        assert stats.get("spilled", 0) == 0
+
+
+def test_range_plan_divides_the_budget():
+    """range_plan stages the offsets, then the out-edges, where each fits
+    beside a frontier and a list of CAP entries; gives the rest to the
+    frontier and the list alike (at most the nodes); honours forced parts;
+    fits its budget to the byte (range_bytes, the kernel's formula) and
+    refuses forced parts that do not fit."""
+    assert im.range_bytes(4, 3, 5, 7, 9) == 32 + 2 * 32 + 3 * 32 + 32 + 48
+    budget, M = 232448 - 200, 60000
+    for item in (4, 8):
+        for n_eid in (0, 26000, 120000):
+            p = im.range_plan(budget, M, 5537, n_eid, item)
+            assert p["bytes"] <= budget and p["cap"] == p["list_cap"]
+            assert p["n_off"] == 5537
+            assert p["n_eid"] == (n_eid if 0 < n_eid < 50000 else 0)
+            more = p["cap"] + 1
+            assert im.range_bytes(item, more, more, p["n_off"],
+                                  p["n_eid"]) > budget - 6 * 16
+    p = im.range_plan(budget, 100, 9, 40, 8)
+    assert (p["cap"], p["list_cap"], p["n_off"], p["n_eid"]) == (100, 100, 9,
+                                                                  40)
+    p = im.range_plan(budget, M, 5537, 26000, 4, cap=32, list_cap=32,
+                      stage_eid=False, threads=1024)
+    assert (p["cap"], p["list_cap"], p["n_eid"], p["threads"]) == (32, 32, 0,
+                                                                    1024)
+    p = im.range_plan(12000, M, 5537, 26000, 4)
+    assert p["n_off"] == 0 and p["n_eid"] == 0 and p["cap"] >= im.CAP
+    p = im.range_plan(budget, M, 5537, 26000, 4, cap=1000)
+    assert p["cap"] == 1000 and p["bytes"] <= budget
+    assert p["list_cap"] > 1000
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        im.range_plan(budget, M, 5537, 26000, 4, cap=20000)
+    with pytest.raises(ValueError, match="threads"):
+        im.range_plan(budget, M, 5537, 26000, 4, threads=128)
+
+
+@pytest.mark.parametrize("chunk", [7, 1 << 16])
+@pytest.mark.parametrize("name", ["star", "collapsed_s3_q70"])
+def test_replay_seeding_makes_one_range_launch_a_chunk(
+        model_as_kernel, monkeypatch, name, chunk):
+    """_replay_seeding of a wide state on the card's route (the model in
+    the kernel's place): one closest_bfs_range launch a chunk of
+    RANGE_LEAVES leaves, the cursor at hi after it, no graph captured and
+    no BFS-alone launch; JAX's seeding. The per-leaf cursor route, kept
+    as the yardstick (_seed_by_cursor), gives the same state."""
+    monkeypatch.setattr(tk, "RANGE_LEAVES", chunk)
+    route = model_as_kernel
+    st = _state(name, "float32")
+    B = _backbone(name)[1].num_leaves
+    names = ("CLOSEST_BFS_RANGE_WIDE_LAUNCHES", "CLOSEST_BFS_WIDE_LAUNCHES",
+             "CLOSEST_BFS_LAUNCHES", "GRAPH_CAPTURES")
+    before = [getattr(insert_cuda, k) for k in names]
+    tk._replay_seeding(st, 0, B)
+    counts = [getattr(insert_cuda, k) - b for k, b in zip(names, before)]
+    n_chunks = -(-B // chunk)
+    assert counts == [n_chunks, 0, 0, 0] and route.captures == 0
+    assert [r[:2] for r in route.ranges] == [
+        (c, min(chunk, B - c)) for c in range(0, B, chunk)]
+    assert route.cursor[id(st)][0] == B
+    want = _jax_seeded_arrays(name, "float32")
+    yard = _state(name, "float32")
+    tk._seed_by_cursor(yard, 0, B)
+    assert route.leaves == list(range(B))
+    for f in want:
+        assert getattr(st, f).numpy().tobytes() == want[f].tobytes(), f
+        assert getattr(yard, f).numpy().tobytes() == want[f].tobytes(), f

@@ -2008,12 +2008,13 @@ def test_wide_closest_bfs_and_insert_step_equal_dense(cuda, name, dtype):
 @pytest.mark.parametrize("name", WIDE_NAMES)
 def test_wide_cursor_route_equals_dense_route(cuda, name, dtype,
                                               monkeypatch):
-    """--add on a wide state by the cursor route (replayed graphs of 16 BFS
-    launches for the seeding, of 16 insertions for the queries, and
-    remainders) against the same backbone without a table (the dense
-    route, the kernels' plain version) on the card and on the CPU: the
-    same final arrays; the route's launches in the wide counters, no
-    host sync inside an insert range."""
+    """--add on a wide state by the card's routes (the seeding by
+    closest_bfs_range, a launch for each of its two stretches; the
+    queries by replayed graphs of 16 insertions and remainders) against
+    the same backbone without a table (the dense route, the kernels'
+    plain version) on the card and on the CPU: the same final arrays;
+    the routes' launches in the wide counters, no host sync inside a
+    seeding range or an insert range."""
     import dataclasses
 
     from dipper_tpu_torch.placement import insert_cuda
@@ -2025,6 +2026,7 @@ def test_wide_cursor_route_equals_dense_route(cuda, name, dtype,
     G = 16
     before = (insert_cuda.CLOSEST_BFS_WIDE_LAUNCHES,
               insert_cuda.INSERT_STEP_WIDE_LAUNCHES,
+              insert_cuda.CLOSEST_BFS_RANGE_WIDE_LAUNCHES,
               insert_cuda.GRAPH_REPLAYS)
 
     def no_sync(run, lo, hi):
@@ -2040,7 +2042,10 @@ def test_wide_cursor_route_equals_dense_route(cuda, name, dtype,
             torch.cuda.set_sync_debug_mode("default")
         return (mid - lo) // G + (hi - mid) // G
 
-    replays = no_sync(lambda lo, hi: tk._replay_seeding(st, lo, hi), 0, B)
+    assert no_sync(lambda lo, hi: tk._replay_seeding(st, lo, hi), 0, B) \
+        >= 0
+    seed_launches = 1 + (B > G)
+    replays = 0
     for i in range(B):
         tk.update_closest_bfs(plain, i, 2 * n)
     _same7(st, dataclasses.replace(plain, adj=st.adj))
@@ -2060,7 +2065,9 @@ def test_wide_cursor_route_equals_dense_route(cuda, name, dtype,
         assert torch.equal(a, b) and torch.equal(a.cpu(), c), f
     assert (insert_cuda.CLOSEST_BFS_WIDE_LAUNCHES - before[0],
             insert_cuda.INSERT_STEP_WIDE_LAUNCHES - before[1],
-            insert_cuda.GRAPH_REPLAYS - before[2]) == (B, Q, replays)
+            insert_cuda.CLOSEST_BFS_RANGE_WIDE_LAUNCHES - before[2],
+            insert_cuda.GRAPH_REPLAYS - before[3]) == (0, Q, seed_launches,
+                                                       replays)
 
 
 def test_wide_state_refuses_a_cpu_fallback(cuda, monkeypatch):
@@ -2084,6 +2091,129 @@ def test_wide_state_refuses_a_cpu_fallback(cuda, monkeypatch):
         tk.run_add_queries((D,), *arrays, num_sequences=n,
                            backbone_size=tree.num_leaves, frontend="matrix",
                            dtype_name="float64", use_adj=False)
+
+
+# closest_bfs_range (a wide state's seeding in one launch) against the
+# per-leaf cursor route and the dense BFS. Plans: the frontier and the wide
+# list forced to 32 entries (both spill), the card's default plan, the
+# default at 1,024 threads, and nothing of the table staged at 256.
+RANGE_PLANS = {"small": dict(cap=32, list_cap=32),
+               "full": {}, "full_1024": dict(threads=1024),
+               "unstaged_256": dict(threads=256, stage_off=False,
+                                    stage_eid=False)}
+_range_refs: dict = {}
+
+
+def _range_reference(cuda, name, dtype):
+    """(the per-leaf cursor route's seeded state, the dense BFS's six
+    arrays) of a backbone, made once."""
+    import dataclasses
+
+    if (name, dtype) not in _range_refs:
+        cursor, n, B = _wide_state(cuda, name, dtype)
+        tk._seed_by_cursor(cursor, 0, B)
+        plain, _, _ = _wide_state(cuda, name, dtype, wide_table=False)
+        for i in range(B):
+            tk.update_closest_bfs(plain, i, 2 * n)
+        _range_refs[name, dtype] = (cursor, dataclasses.replace(
+            plain, adj=cursor.adj, wide_off=cursor.wide_off,
+            wide_eid=cursor.wide_eid))
+    return _range_refs[name, dtype]
+
+
+@pytest.mark.parametrize("plan", RANGE_PLANS)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name", WIDE_NAMES)
+def test_wide_range_equals_cursor_and_dense(cuda, name, dtype, plan):
+    """closest_bfs_range over every backbone leaf in two launches (the
+    cursor carried on the card from the first to the second and left at
+    B) equals the per-leaf cursor route and the dense BFS bit for bit, at
+    each plan; the launches count as range launches only."""
+    from dipper_tpu_torch.placement import insert_cuda
+
+    cursor, plain = _range_reference(cuda, name, dtype)
+    st, n, B = _wide_state(cuda, name, dtype)
+    p = insert_cuda.range_plan(st, **RANGE_PLANS[plan])
+    if plan == "small":
+        assert (p["cap"], p["list_cap"]) == (32, 32)
+    if plan.startswith("unstaged"):
+        assert p["n_off"] == p["n_eid"] == 0
+    else:
+        assert p["n_off"] == st.wide_off.numel()
+    before = (insert_cuda.CLOSEST_BFS_RANGE_WIDE_LAUNCHES,
+              insert_cuda.CLOSEST_BFS_WIDE_LAUNCHES)
+    insert_cuda.set_cursor(st, 0)
+    insert_cuda.closest_bfs_range(st, B // 2, p)
+    insert_cuda.closest_bfs_range(st, B - B // 2, p)
+    assert int(st.inserter.cursor[0]) == B
+    assert (insert_cuda.CLOSEST_BFS_RANGE_WIDE_LAUNCHES - before[0],
+            insert_cuda.CLOSEST_BFS_WIDE_LAUNCHES - before[1]) == (2, 0)
+    _same7(st, cursor)
+    _same7(st, plain)
+
+
+def test_wide_range_stamped_instances(cuda):
+    """The stamped instances (the range kernel's and the per-leaf
+    kernel's) seed as the plain ones do and write their parts: clocks in
+    order, parts within the leaf's cycles, levels counted."""
+    from dipper_tpu_torch.placement import insert_cuda
+
+    cursor, _ = _range_reference(cuda, "collapsed", "float32")
+    st, n, B = _wide_state(cuda, "collapsed", "float32")
+    stamps = torch.zeros((B, insert_cuda.STAMP_WORDS), dtype=torch.int64,
+                         device=cuda)
+    insert_cuda.set_cursor(st, 0)
+    insert_cuda.closest_bfs_range(st, B, stamps=stamps)
+    _same7(st, cursor)
+    one, _, _ = _wide_state(cuda, "collapsed", "float32")
+    leaf = torch.zeros((B, insert_cuda.STAMP_WORDS), dtype=torch.int64,
+                       device=cuda)
+    insert_cuda.set_cursor(one, 0)
+    for i in range(B):
+        insert_cuda.closest_bfs_wide_stamped(one, leaf[i])
+    _same7(one, cursor)
+    for w in (stamps.cpu(), leaf.cpu()):
+        assert bool((w[:, 1] >= w[:, 0]).all() and (w[:, 2] >= w[:, 1]).all())
+        parts = w[:, 3:7].sum(1)
+        assert bool((parts <= w[:, 2] - w[:, 0]).all())
+        assert bool((w[:, 9] >= w[:, 8]).all())
+        assert int((w[:, 10] + w[:, 11]).min()) >= 1
+        assert int(w[:, 11].sum()) > 0
+
+
+def test_wide_range_failures_raise(cuda, monkeypatch):
+    """A wide state's seeding on the card never falls back: a range
+    launch past the card's shared memory fails and raises (and leaves no
+    error behind: the next launches, the range's and a binary state's
+    BFS, run and seed right), and a range kernel that fails to build
+    raises; neither makes a per-leaf or dense BFS launch."""
+    from dipper_tpu_torch.placement import insert_cuda
+    from dipper_tpu_torch.placement import insert_model as im
+
+    cursor, _ = _range_reference(cuda, "multi", "float64")
+    st, n, B = _wide_state(cuda, "multi", "float64")
+    p = insert_cuda.range_plan(st)
+    big = dict(p, cap=1 << 20, list_cap=1 << 20)  # 36 MB of shared memory
+    before = insert_cuda.CLOSEST_BFS_WIDE_LAUNCHES
+    insert_cuda.set_cursor(st, 0)
+    with pytest.raises(RuntimeError, match="insert_step launch failed"):
+        insert_cuda.closest_bfs_range(st, B, big)
+    insert_cuda.closest_bfs_range(st, B, p)
+    _same7(st, cursor)
+    D = torch.from_numpy(im.made_up_matrix("random", 20, seed=1)).to(cuda)
+    tk.init_placement_state((D,), num_sequences=20, frontend="matrix",
+                            dtype_name="float64")
+    torch.cuda.synchronize()
+    st, n, B = _wide_state(cuda, "multi", "float64")
+
+    def unbuilt(name, argtypes):
+        raise RuntimeError(f"nvcc failed to build {name}")
+
+    monkeypatch.setattr(insert_cuda, "load", unbuilt)
+    st.inserter = None  # made again at the next launch: the build fails
+    with pytest.raises(RuntimeError, match="failed to build insert_step"):
+        tk._replay_seeding(st, 0, B)
+    assert insert_cuda.CLOSEST_BFS_WIDE_LAUNCHES == before
 
 
 def test_cursor_route_across_caps_equals_cpu(cuda, monkeypatch):

@@ -414,7 +414,8 @@ class _CursorRoute:
     launch runs at once, or, inside a capture, is recorded and runs at
     each replay, reading the cursor then. D&C's streamed clusters take
     dc/cluster_model.py's row-block plan (kernel 8a) in the kernel's
-    place."""
+    place, a wide state's seeding ranges insert_model.bfs_range (the range
+    kernel's plan at its default budget)."""
 
     def __init__(self):
         self.cursor, self.out, self.graphs = {}, {}, {}
@@ -422,6 +423,7 @@ class _CursorRoute:
         self.captures = 0
         self.steps = []   # (i, i0) of each insert_step_cursor run
         self.leaves = []  # leaf of each closest_bfs_cursor run
+        self.ranges = []  # (first leaf, leaves, plan) of each range launch
         self.blocks = []  # (kq0, members) of each stream_block launch
 
     def _launch(self, fn):
@@ -481,6 +483,17 @@ class _CursorRoute:
         if count:
             insert_cuda.count_launches(st.wide_off is not None, bfs=1)
 
+    def bfs_range(self, st, n, plan=None, stamps=None, stream=None):
+        assert st.wide_off is not None and self.recording is None
+        if plan is None:
+            plan = im.range_plan(im.SMEM_OPTIN, st.adj.shape[0],
+                                 st.wide_off.numel(), st.wide_eid.numel(),
+                                 st.length.element_size())
+        cur = self.cursor[id(st)]
+        self.ranges.append((cur[0], n, plan))
+        cur[0] = im.bfs_range(im.arrays_of(st), cur[0], n, plan)
+        insert_cuda.count_launches(True, ranges=1)
+
     def range_graph(self, st, key, launch, steps=0, bfs=0, keep=()):
         k = (id(st), key)
         if k not in self.graphs:
@@ -515,6 +528,7 @@ def model_as_kernel(monkeypatch):
     monkeypatch.setattr(tk, "score_edges_cursor_launch", route.score)
     monkeypatch.setattr(insert_cuda, "insert_step_cursor", route.step)
     monkeypatch.setattr(insert_cuda, "closest_bfs_cursor", route.bfs)
+    monkeypatch.setattr(insert_cuda, "closest_bfs_range", route.bfs_range)
     monkeypatch.setattr(insert_cuda, "range_graph", route.range_graph)
     monkeypatch.setattr(cluster_cuda, "stream_block", route.stream_block)
     monkeypatch.setattr(cluster_cuda, "upload_sizes",
