@@ -98,15 +98,19 @@
 // then the wide entries' out-edges: the prefix sum of their degrees.
 // - A level is warp 0's when it has at most kNarrow slots and at most
 //   kNarrow wide pairs: the slot lanes read the rows, a wide entry's lane
-//   its degree, a warp scan sums the degrees, and a lane of the second
-//   round finds its entry by a binary search over the lanes' sums
-//   (shuffles); its joins are placed after the slots' joins.
-// - Otherwise the block takes the level whole: the slots in chunks of
-//   kThreads, one scan placing both the joins and the wide entries on a
-//   list (shared memory, kCap entries, the rest in a [3, M] scratch), a
-//   scan of the list's degrees, then the wide pairs in chunks of
-//   kThreads, each thread finding its entry by a binary search over the
-//   list's first pairs.
+//   its degree; where the level has a wide entry, a warp scan sums the
+//   degrees and a lane of the second round finds its entry by a binary
+//   search over the lanes' sums (shuffles). A lane's slot pair and wide
+//   pair are read in one round trip, and the wide pairs' joins are placed
+//   after the slots' joins.
+// - Otherwise the block takes the level whole: the slots in chunks of the
+//   block's width, one scan placing both the joins and the wide entries on
+//   a list (shared memory, the rest in a [3, M] scratch), a scan of the
+//   list's degrees, then the wide pairs in chunks, each thread finding its
+//   entry by a binary search over the list's first pairs.
+// - The walk (wide_walk) runs over a WideMem: the frontier's buffers, the
+//   list and the table, wherever they lie. The per-leaf kernels' is
+//   static, kCap entries each; the range kernel's is sized at launch.
 // In a tree the BFS visits each directed edge at most once and inserts
 // into distinct edges commute, so the order of a frontier does not change
 // the state: it equals the dense BFS's bit for bit. The binary
@@ -128,121 +132,58 @@ namespace {
 
 using namespace dipper;
 
-// frontier entries a shared buffer holds (6 KB for both buffers in f32, 8 KB
-// in f64): levels at 30,000 taxa hold a few nodes, the first BFSs over a
+// frontier entries, and wide-list items, that the per-leaf kernels' shared
+// buffers hold (6 KB for both frontier buffers in f32, 8 KB in f64, 3 KB
+// of list): levels at 30,000 taxa hold a few nodes, the first BFSs over a
 // balanced 1,024-leaf backbone up to 512 (those spill)
 constexpr int kCap = 256;
 
-static_assert(kCap >= 2 * kNarrow, "a narrow level's two rounds of joins "
-              "stay shared");
+// the range kernel's block (see "The seeding range" below): its wide
+// levels go in chunks of 512 pairs, its narrow levels stay warp 0's. On
+// phase 30's backbone 512 threads took the early leaves' wide levels
+// nearly as fast as 1,024 and the late leaves' fastest (PERF.md, PR 23).
+constexpr int kRangeThreads = 512;
 
 // A tree's out-edges beyond the [M, 3] rows (see the top of the file)
 struct WideTable {
     const int32_t* off;  // [n_wide + 1]
     const int32_t* eid;  // [off[n_wide]]
-    int32_t* list;       // [3, M] scratch: a level's wide entries past kCap
+    int32_t* list;       // [3, M] scratch: a level's wide entries past the
+                         // shared list
     int n_wide;
 };
 
-// A wide level's list of wide entries (frontier index, first out-edge,
-// first pair), the first kCap in shared memory
+// A per-leaf kernel's wide list: (frontier index, first out-edge, first
+// pair) of a level's first kCap wide entries
 struct WideList {
     int f[kCap], base[kCap], start[kCap];
 };
 
-__device__ __forceinline__ int* list_at(const WideTable& wt, WideList& wl,
-                                        int q, int i, int M)
-{
-    if (i < kCap) return q == 0 ? &wl.f[i] : (q == 1 ? &wl.base[i]
-                                                     : &wl.start[i]);
-    return wt.list + (size_t)q * M + i;
-}
+// the walk's hand-over from warp 0 to the block: the frontier's width and
+// buffer, the level, the label and the blocked nodes
+enum {
+    kCtlCount = 0, kCtlCur, kCtlLevel, kCtlLabel, kCtlBlocked, kCtlB0,
+    kCtlB1, kCtlWords
+};
 
-// The wide node that a first slot marks: true, with its first out-edge
-// and degree, when `slot` is a mark of the table
-__device__ __forceinline__ bool wide_node(const WideTable& wt, int slot,
-                                          int* base, int* deg)
-{
-    const int w = -2 - slot;
-    if (slot > -2 || w >= wt.n_wide) return false;
-    *base = load_now(wt.off + w);
-    *deg = load_now(wt.off + w + 1) - *base;
-    return true;
-}
-
-// Warp 0's narrow levels of the wide instantiation: a lane a slot of the
-// first round, then a lane a wide pair. Returns as narrow_levels does, or
-// when a level has more than kNarrow wide pairs (nothing of it visited).
+// The memory of a walk over a wide table: the frontier's two buffers of
+// `cap` entries and the wide list's `lcap` items in shared memory, the
+// entries past them in the [2, M] and [3, M] scratch; the table's offsets
+// and out-edges (in shared memory where a range launch staged them, else
+// the table's own); the block's scan words and the hand-over (ctl). A
+// per-leaf kernel's is static (kCap each); a range launch's is carved from
+// its dynamic shared memory at capacities chosen at launch.
 template <typename T>
-__device__ void narrow_levels_wide(const State<T>& s, const WideTable& wt,
-                                   Shared<T, kThreads, kCap>& sh, int& cur,
-                                   int& count, int& level, int label,
-                                   Blocked bl)
-{
-    const int lane = threadIdx.x;
-    const int M = s.n_nodes;
-    while (count > 0 && level < M && kDegree * count <= kNarrow) {
-        const int f = lane / kDegree;
-        int node = -1, from = -1, slot = -1, base = 0, deg = 0;
-        T d = T(0);
-        if (lane < kDegree * count) {
-            node = sh.ids[cur][f];
-            from = sh.frm[cur][f];
-            d = sh.dist[cur][f];
-            slot = slot_of(s, node, lane - f * kDegree, bl);
-        }
-        wide_node(wt, slot, &base, &deg);
-        int incl = deg;  // the degrees' inclusive sum over the lanes
-#pragma unroll
-        for (int o = 1; o < kWarp; o *= 2) {
-            const int y = __shfl_up_sync(kFull, incl, o);
-            if (lane >= o) incl += y;
-        }
-        const int pairs = __shfl_sync(kFull, incl, kWarp - 1);
-        if (pairs > kNarrow) return;  // the block's level
-        // a mark is no slot: visit_edge takes none
-        int dst = -1;
-        T nd = T(0);
-        bool joins = visit_edge(s, slot, from, d, label, &dst, &nd);
-        unsigned ballot = __ballot_sync(kFull, joins);
-        int at = __popc(ballot & ((1u << lane) - 1u));
-        if (joins && at < M) {
-            sh.ids[1 - cur][at] = dst;
-            sh.frm[1 - cur][at] = node;
-            sh.dist[1 - cur][at] = nd;
-        }
-        int next = __popc(ballot);
-        if (pairs > 0) {
-            // lane j's entry: the first lane whose sum exceeds j
-            int owner = 0;
-#pragma unroll
-            for (int step = kWarp / 2; step >= 1; step /= 2) {
-                const int v = __shfl_sync(kFull, incl, owner + step - 1);
-                if (v <= lane) owner += step;
-            }
-            const int o_node = __shfl_sync(kFull, node, owner);
-            const int o_from = __shfl_sync(kFull, from, owner);
-            const T o_d = __shfl_sync(kFull, d, owner);
-            const int o_first = __shfl_sync(kFull, base - (incl - deg),
-                                            owner);
-            joins = lane < pairs
-                    && visit_edge(s, load_now(wt.eid + o_first + lane),
-                                  o_from, o_d, label, &dst, &nd);
-            ballot = __ballot_sync(kFull, joins);
-            at = next + __popc(ballot & ((1u << lane) - 1u));
-            if (joins && at < M) {
-                sh.ids[1 - cur][at] = dst;
-                sh.frm[1 - cur][at] = o_node;
-                sh.dist[1 - cur][at] = nd;
-            }
-            next += __popc(ballot);
-        }
-        __syncwarp();  // the next level reads what this one wrote
-        count = next < M ? next : M;
-        cur ^= 1;
-        ++level;
-    }
-}
+struct WideMem {
+    T* dist;                       // [2, cap]
+    int32_t *ids, *frm;            // [2, cap]
+    int32_t *lf, *lbase, *lstart;  // [lcap] each
+    const int32_t *off, *eid;
+    int32_t* list;
+    int* warp_sum;
+    int* ctl;  // [kCtlWords]
+    int cap, lcap, n_wide;
+};
 
 // The stamped instances' words a leaf (int64): clock64 at the leaf's start
 // (a launch's first leaf: at the launch's), at its walk's first level and
@@ -283,24 +224,6 @@ __device__ __forceinline__ V read_past(const V* p, bool past, long long* acc)
     return *p;
 }
 
-// get_entry, its reads past the shared buffers timed in a stamped instance
-template <bool Stamp, typename T>
-__device__ __forceinline__ void get_entry_timed(
-    const State<T>& s, const Shared<T, kThreads, kCap>& sh, int buf, int f,
-    int& id, int& frm, T& d, long long* acc)
-{
-    if constexpr (!Stamp) {
-        get_entry(s, sh, buf, f, id, frm, d);
-    } else if (f < kCap) {
-        get_entry(s, sh, buf, f, id, frm, d);
-    } else {
-        const size_t o = (size_t)buf * s.n_nodes + f;
-        id = read_past<true>(s.f_ids + o, true, acc);
-        frm = read_past<true>(s.f_frm + o, true, acc);
-        d = read_past<true>(s.f_dist + o, true, acc);
-    }
-}
-
 // thread 0 of a stamped instance adds the cycles since `t` to word k and
 // returns the clock
 template <bool Stamp>
@@ -323,428 +246,12 @@ __device__ __forceinline__ long long clock_if()
     return 0;
 }
 
-// A level of the wide instantiation by the whole block; returns the next
-// frontier's width. A stamped instance times its passes (acc).
-template <typename T, bool Stamp>
-__device__ int wide_level_wide(const State<T>& s, const WideTable& wt,
-                               Shared<T, kThreads, kCap>& sh, WideList& wl,
-                               int cur, int count, int label, Blocked bl,
-                               long long* acc)
-{
-    const int M = s.n_nodes;
-    const int items = kDegree * count;
-    int next = 0, n_wide = 0;
-    long long t = clock_if<Stamp>();
-    // the slots; a wide entry's mark puts it on the list, its degree in
-    // the place of its first pair
-    for (int c0 = 0; c0 < items; c0 += kThreads) {
-        const int j = c0 + threadIdx.x;
-        bool joins = false, wide = false;
-        int node = -1, dst = -1, f = 0, base = 0, deg = 0;
-        T nd = T(0);
-        if (j < items) {
-            f = j / kDegree;
-            int from;
-            T d;
-            get_entry_timed<Stamp>(s, sh, cur, f, node, from, d, acc);
-            const int slot = slot_of(s, node, j - f * kDegree, bl);
-            wide = wide_node(wt, slot, &base, &deg);
-            joins = visit_edge(s, slot, from, d, label, &dst, &nd);
-        }
-        int total;
-        const int ex = block_exclusive_scan<kThreads>(
-            (int)joins | ((int)wide << 16), sh.warp_sum, &total);
-        const int at = next + (ex & 0xffff);
-        if (joins && at < M) put_entry(s, sh, 1 - cur, at, dst, node, nd);
-        if (wide) {
-            const int i = n_wide + (ex >> 16);
-            *list_at(wt, wl, 0, i, M) = f;
-            *list_at(wt, wl, 1, i, M) = base;
-            *list_at(wt, wl, 2, i, M) = deg;
-        }
-        next += total & 0xffff;
-        n_wide += total >> 16;
-    }
-    __syncthreads();  // the list is written
-    t = lap<Stamp>(acc, kStSlots, t);
-    if (n_wide > 0) {
-        // each wide entry's first pair: the exclusive sum of the degrees
-        int pairs = 0;
-        for (int c0 = 0; c0 < n_wide; c0 += kThreads) {
-            const int i = c0 + threadIdx.x;
-            int* at = i < n_wide ? list_at(wt, wl, 2, i, M) : nullptr;
-            const int deg = at != nullptr ? *at : 0;
-            int total;
-            const int ex =
-                block_exclusive_scan<kThreads>(deg, sh.warp_sum, &total);
-            if (at != nullptr) *at = pairs + ex;
-            pairs += total;
-        }
-        __syncthreads();  // the first pairs are written
-        t = lap<Stamp>(acc, kStScan, t);
-        for (int c0 = 0; c0 < pairs; c0 += kThreads) {
-            const int j = c0 + threadIdx.x;
-            bool joins = false;
-            int node = -1, dst = -1;
-            T nd = T(0);
-            if (j < pairs) {
-                // the last list entry whose first pair is at most j
-                int lo = 0, hi = n_wide;
-                while (hi - lo > 1) {
-                    const int mid = (lo + hi) / 2;
-                    if (read_past<Stamp>(list_at(wt, wl, 2, mid, M),
-                                         mid >= kCap, acc) <= j)
-                        lo = mid;
-                    else
-                        hi = mid;
-                }
-                int from;
-                T d;
-                get_entry_timed<Stamp>(
-                    s, sh, cur, read_past<Stamp>(list_at(wt, wl, 0, lo, M),
-                                                 lo >= kCap, acc),
-                    node, from, d, acc);
-                const int eid = load_now(
-                    wt.eid
-                    + read_past<Stamp>(list_at(wt, wl, 1, lo, M), lo >= kCap,
-                                       acc)
-                    + j
-                    - read_past<Stamp>(list_at(wt, wl, 2, lo, M), lo >= kCap,
-                                       acc));
-                joins = visit_edge(s, eid, from, d, label, &dst, &nd);
-            }
-            int total;
-            const int at =
-                next + block_exclusive_scan<kThreads>(joins, sh.warp_sum,
-                                                      &total);
-            if (joins && at < M) put_entry(s, sh, 1 - cur, at, dst, node, nd);
-            next += total;
-        }
-        __syncthreads();  // the next level reads what this one wrote
-        lap<Stamp>(acc, kStPairs, t);
-    }
-    return next < M ? next : M;
-}
-
-// walk's levels over a wide table: narrow_levels_wide and wide_level_wide;
-// a stamped instance times them into acc (shared memory)
-template <typename T, bool Stamp = false>
-struct WideLevels {
-    const WideTable& wt;
-    WideList& wl;
-    long long* acc;
-    __device__ void narrow(const State<T>& s, Shared<T, kThreads, kCap>& sh,
-                           int& cur, int& count, int& level, int label,
-                           Blocked bl) const
-    {
-        const long long t = clock_if<Stamp>();
-        const int l0 = level;
-        narrow_levels_wide(s, wt, sh, cur, count, level, label, bl);
-        if constexpr (Stamp) {
-            if (threadIdx.x == 0) {
-                acc[kStNarrow] += clock64() - t;
-                acc[kStNarrowLevels] += level - l0;
-            }
-        }
-    }
-    __device__ int wide(const State<T>& s, Shared<T, kThreads, kCap>& sh,
-                        int cur, int count, int label, Blocked bl) const
-    {
-        if constexpr (Stamp)
-            if (threadIdx.x == 0) acc[kStWideLevels] += 1;
-        return wide_level_wide<T, Stamp>(s, wt, sh, wl, cur, count, label,
-                                         bl, acc);
-    }
-};
-
-// the cursor of an insert range: insertion (or leaf) i, slots in use, the
-// address of the range's first distance row, the rows' stride in elements,
-// and the range's first insertion (int64 each)
-enum { kCurI = 0, kCurUsed, kCurRows, kCurStride, kCurLo };
-
-// The offsets of a cursor launch's nodes and label from its insertion i
-struct Offsets {
-    int outside, middle, label;
-};
-
-// insert_step and insert_step_cursor, over the [M, 3] rows or (Wide) a
-// wide table; the cursor, when given, supplies i (outside = i +
-// off.outside, middle = i + off.middle, label = i + off.label) and i0 (the
-// slots in use), and is advanced at the end
-template <typename T, bool Wide>
-__device__ __forceinline__ void insert_step_body(
-    State<T> s, Shared<T, kThreads, kCap>& sh, const int32_t* eid,
-    const int32_t* ends, const T* frac, const T* add, int i0, int middle,
-    int outside, int label, int block_slot, int32_t* out_xy,
-    long long* cursor, Offsets off, WideTable wt, WideList* wl)
-{
-    long long ci = 0, cu = 0;
-    int count = 0;
-    Entry<T> first = {-1, -1, T(0)};
-    Blocked bl = {0, -1, -1};
-    if (threadIdx.x < kWarp) {
-        bool ok = true;
-        if (cursor != nullptr) {
-            long long a = 0;
-            if (threadIdx.x < 2) a = cursor[threadIdx.x];
-            ci = __shfl_sync(kFull, a, kCurI);
-            cu = __shfl_sync(kFull, a, kCurUsed);
-            const long long out = ci + off.outside, mid = ci + off.middle;
-            ok = cu >= 0 && cu <= s.n_edges - 4 && out >= 0
-                 && out < s.n_nodes && mid >= 0 && mid < s.n_nodes;
-            i0 = (int)cu;
-            outside = (int)out;
-            middle = (int)mid;
-            label = (int)(ci + off.label);
-        }
-        if (ok) {
-            ok = warp_splice(s, eid, ends, frac, add, i0, middle, outside,
-                             label, block_slot, out_xy, &count, &first, &bl);
-        } else if (threadIdx.x < 2) {
-            out_xy[threadIdx.x] = -1;
-        }
-        if (!ok) count = 0;
-        if (threadIdx.x == 0) {
-            sh.label = label;
-            sh.n_blocked = bl.n;
-            sh.blocked[0] = bl.b0;
-            sh.blocked[1] = bl.b1;
-        }
-        __syncwarp();  // the splice's writes before the walk's reads
-    }
-    if constexpr (Wide)
-        walk(s, sh, first, count, 1, label, bl, WideLevels<T>{wt, *wl});
-    else
-        walk(s, sh, first, count, 1, label, bl);
-    if (cursor != nullptr && threadIdx.x == 0) {
-        cursor[kCurI] = ci + 1;
-        cursor[kCurUsed] = cu + 4;
-    }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-insert_step_kernel(State<T> s, const int32_t* eid, const int32_t* ends,
-                   const T* frac, const T* add, int i0, int middle,
-                   int outside, int label, int block_slot, int32_t* out_xy,
-                   long long* cursor, Offsets off)
-{
-    __shared__ Shared<T, kThreads, kCap> sh;
-    insert_step_body<T, false>(s, sh, eid, ends, frac, add, i0, middle,
-                               outside, label, block_slot, out_xy, cursor,
-                               off, WideTable{}, nullptr);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-insert_step_wide_kernel(State<T> s, const int32_t* eid, const int32_t* ends,
-                        const T* frac, const T* add, int i0, int middle,
-                        int outside, int label, int block_slot,
-                        int32_t* out_xy, long long* cursor, Offsets off,
-                        WideTable wt)
-{
-    __shared__ Shared<T, kThreads, kCap> sh;
-    __shared__ WideList wl;
-    insert_step_body<T, true>(s, sh, eid, ends, frac, add, i0, middle,
-                              outside, label, block_slot, out_xy, cursor, off,
-                              wt, &wl);
-}
-
-// closest_bfs and closest_bfs_cursor (Wide: over a wide table); the
-// cursor, when given, supplies the leaf (= label) and is advanced at the
-// end. A stamped instance (Stamp) times the launch's parts into acc.
-template <typename T, bool Wide, bool Stamp = false>
-__device__ __forceinline__ void closest_bfs_body(
-    State<T> s, Shared<T, kThreads, kCap>& sh, int leaf, int label,
-    const int32_t* blocked, int n_blocked, long long* cursor, WideTable wt,
-    WideList* wl, long long* acc = nullptr)
-{
-    long long ci = 0;
-    Blocked bl = {n_blocked, -1, -1};
-    if constexpr (Stamp) {
-        if (threadIdx.x == 0) {
-            for (int q = 0; q < kStampWords; ++q) acc[q] = 0;
-            acc[kStStart] = clock64();
-            acc[kStTimerStart] = global_ns();
-        }
-    }
-    if (threadIdx.x < kWarp) {
-        if (cursor != nullptr) {
-            ci = cursor[kCurI];
-            leaf = label = (int)(ci >= 0 && ci < s.n_nodes ? ci : -1);
-        }
-        if (n_blocked > 0) bl.b0 = blocked[0];
-        if (n_blocked > 1) bl.b1 = blocked[1];
-        if (threadIdx.x == 0) {
-            sh.label = label;
-            sh.n_blocked = bl.n;
-            sh.blocked[0] = bl.b0;
-            sh.blocked[1] = bl.b1;
-        }
-    }
-    if constexpr (Stamp)
-        if (threadIdx.x == 0) acc[kStFirst] = clock64();
-    if constexpr (Wide)
-        walk(s, sh, Entry<T>{leaf, -1, T(0)}, 1, 0, label, bl,
-             WideLevels<T, Stamp>{wt, *wl, acc});
-    else
-        walk(s, sh, Entry<T>{leaf, -1, T(0)}, 1, 0, label, bl);
-    if (cursor != nullptr && threadIdx.x == 0) cursor[kCurI] = ci + 1;
-    if constexpr (Stamp) {
-        if (threadIdx.x == 0) {
-            acc[kStEnd] = clock64();
-            acc[kStTimerEnd] = global_ns();
-        }
-    }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-closest_bfs_kernel(State<T> s, int leaf, int label, const int32_t* blocked,
-                   int n_blocked, long long* cursor)
-{
-    __shared__ Shared<T, kThreads, kCap> sh;
-    closest_bfs_body<T, false>(s, sh, leaf, label, blocked, n_blocked, cursor,
-                               WideTable{}, nullptr);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-closest_bfs_wide_kernel(State<T> s, int leaf, int label,
-                        const int32_t* blocked, int n_blocked,
-                        long long* cursor, WideTable wt)
-{
-    __shared__ Shared<T, kThreads, kCap> sh;
-    __shared__ WideList wl;
-    closest_bfs_body<T, true>(s, sh, leaf, label, blocked, n_blocked, cursor,
-                              wt, &wl);
-}
-
-// closest_bfs_wide_kernel's cursor launch, stamped: kStampWords to stamps
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-closest_bfs_wide_stamped_kernel(State<T> s, long long* cursor, WideTable wt,
-                                long long* stamps)
-{
-    __shared__ Shared<T, kThreads, kCap> sh;
-    __shared__ WideList wl;
-    __shared__ long long acc[kStampWords];
-    closest_bfs_body<T, true, true>(s, sh, 0, 0, nullptr, 0, cursor, wt, &wl,
-                                    acc);
-    if (threadIdx.x == 0)
-        for (int q = 0; q < kStampWords; ++q) stamps[q] = acc[q];
-}
-
-// ---------------------------------------------------------------------------
-// The seeding range (closest_bfs_range, the wide instantiation): the BFS
-// alone from leaves i .. i + n - 1 in order, in one launch of one block
-// (the counterpart of the JAX package's fori_loop over the backbone,
-// kclosest.py:1233-1236). The per-leaf launch above reads the cursor,
-// fills its shared memory from nothing and writes the cursor back for
-// every leaf; this one reads the cursor once, stages the wide table once
-// and writes the cursor once (i + n).
-//
-// Its shared memory is dynamic and sized at launch (up to the card's
-// opt-in, 227 KB on an H100): the wide table's offsets and, where they
-// fit, its out-edges, staged once by cp.async (the table never changes
-// while a backbone is seeded); then the frontier's two buffers and the
-// wide list, of capacities that the caller chooses from what is left
-// (placement/insert_model.py::range_plan). Entries past them spill to
-// the same [2, M] and [3, M] scratch as above, so any tree runs at any
-// capacity. A narrow level issues its slot pairs' and its wide pairs'
-// reads together (one round trip where the per-leaf kernel takes two:
-// the pairs of a level are distinct edges, so their visits commute, and
-// the joins are placed in the same flat order). The block is NT threads
-// (256, 512 or 1,024; the plan's default 512, which the stamps of phase
-// 30's backbone favoured) for the wide levels; narrow levels stay warp
-// 0's.
-// ---------------------------------------------------------------------------
-
-__host__ __device__ __forceinline__ size_t pad16(size_t b)
-{
-    return (b + 15) & ~(size_t)15;
-}
-
-// bytes of a range launch's dynamic shared memory: the frontier's
-// distances, nodes and sources ([2, cap] each), the wide list ([3, lcap]),
-// then n_off staged offsets and n_eid staged out-edges (0: not staged);
-// insert_model.range_bytes mirrors it
-__host__ __device__ __forceinline__ size_t range_bytes(int item, int cap,
-                                                       int lcap, int n_off,
-                                                       int n_eid)
-{
-    return pad16((size_t)2 * cap * item) + 2 * pad16((size_t)2 * cap * 4)
-           + 3 * pad16((size_t)lcap * 4) + pad16((size_t)n_off * 4)
-           + pad16((size_t)n_eid * 4);
-}
-
-// A range launch's view of its shared memory; off and eid point into it
-// where staged, else at the table in device memory
-template <typename T>
-struct RangeMem {
-    T* dist;
-    int32_t *ids, *frm;
-    int32_t *lf, *lbase, *lstart;
-    int32_t *off_s, *eid_s;
-    const int32_t *off, *eid;
-    int cap, lcap;
-};
-
-template <typename T>
-__device__ __forceinline__ RangeMem<T> carve(unsigned char* dyn,
-                                             const WideTable& wt, int cap,
-                                             int lcap, int n_off, int n_eid)
-{
-    RangeMem<T> m;
-    size_t o = 0;
-    m.dist = reinterpret_cast<T*>(dyn);
-    o += pad16((size_t)2 * cap * sizeof(T));
-    m.ids = reinterpret_cast<int32_t*>(dyn + o);
-    o += pad16((size_t)2 * cap * 4);
-    m.frm = reinterpret_cast<int32_t*>(dyn + o);
-    o += pad16((size_t)2 * cap * 4);
-    m.lf = reinterpret_cast<int32_t*>(dyn + o);
-    o += pad16((size_t)lcap * 4);
-    m.lbase = reinterpret_cast<int32_t*>(dyn + o);
-    o += pad16((size_t)lcap * 4);
-    m.lstart = reinterpret_cast<int32_t*>(dyn + o);
-    o += pad16((size_t)lcap * 4);
-    m.off_s = reinterpret_cast<int32_t*>(dyn + o);
-    o += pad16((size_t)n_off * 4);
-    m.eid_s = reinterpret_cast<int32_t*>(dyn + o);
-    m.off = n_off > 0 ? m.off_s : wt.off;
-    m.eid = n_eid > 0 ? m.eid_s : wt.eid;
-    m.cap = cap;
-    m.lcap = lcap;
-    return m;
-}
-
-// cp.async of n int32 words into shared memory (16 bytes a copy where the
-// source is 16-byte aligned; dst is); the caller commits and waits
-__device__ __forceinline__ void stage_words(int32_t* dst, const int32_t* src,
-                                            int n, int threads)
-{
-    const bool vec = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
-    const int body = vec ? (n & ~3) : 0;
-    for (int i = 4 * threadIdx.x; i < body; i += 4 * threads) {
-        const unsigned d = (unsigned)__cvta_generic_to_shared(dst + i);
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                     "l"(src + i)
-                     : "memory");
-    }
-    for (int i = body + threadIdx.x; i < n; i += threads) {
-        const unsigned d = (unsigned)__cvta_generic_to_shared(dst + i);
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-                     "l"(src + i)
-                     : "memory");
-    }
-}
-
 // frontier entry f of buffer `buf`: shared below cap, else the scratch
 template <bool Stamp, typename T>
-__device__ __forceinline__ void rget(const State<T>& s, const RangeMem<T>& m,
-                                     int buf, int f, int& id, int& frm, T& d,
-                                     long long* acc)
+__device__ __forceinline__ void wide_get(const State<T>& s,
+                                         const WideMem<T>& m, int buf, int f,
+                                         int& id, int& frm, T& d,
+                                         long long* acc)
 {
     if (f < m.cap) {
         const int o = buf * m.cap + f;
@@ -760,8 +267,9 @@ __device__ __forceinline__ void rget(const State<T>& s, const RangeMem<T>& m,
 }
 
 template <typename T>
-__device__ __forceinline__ void rput(const State<T>& s, const RangeMem<T>& m,
-                                     int buf, int at, int id, int frm, T d)
+__device__ __forceinline__ void wide_put(const State<T>& s,
+                                         const WideMem<T>& m, int buf,
+                                         int at, int id, int frm, T d)
 {
     if (at < m.cap) {
         const int o = buf * m.cap + at;
@@ -779,22 +287,22 @@ __device__ __forceinline__ void rput(const State<T>& s, const RangeMem<T>& m,
 // word q (0 frontier index, 1 first out-edge, 2 first pair) of wide-list
 // item i: shared below lcap, else the [3, M] scratch
 template <typename T>
-__device__ __forceinline__ int* rlist(const WideTable& wt,
-                                      const RangeMem<T>& m, int q, int i,
-                                      int M)
+__device__ __forceinline__ int* wide_list_at(const WideMem<T>& m, int q,
+                                             int i, int M)
 {
     if (i < m.lcap)
         return (q == 0 ? m.lf : (q == 1 ? m.lbase : m.lstart)) + i;
-    return wt.list + (size_t)q * M + i;
+    return m.list + (size_t)q * M + i;
 }
 
-// wide_node over the launch's offsets
+// The wide node that a first slot marks: true, with its first out-edge
+// and degree, when `slot` is a mark of the table
 template <typename T>
-__device__ __forceinline__ bool rwide_node(const RangeMem<T>& m, int n_wide,
-                                           int slot, int* base, int* deg)
+__device__ __forceinline__ bool wide_node(const WideMem<T>& m, int slot,
+                                          int* base, int* deg)
 {
     const int w = -2 - slot;
-    if (slot > -2 || w >= n_wide) return false;
+    if (slot > -2 || w >= m.n_wide) return false;
     *base = m.off[w];
     *deg = m.off[w + 1] - *base;
     return true;
@@ -852,13 +360,17 @@ __device__ __forceinline__ bool finish_visit(const State<T>& s, int eid,
     return true;
 }
 
-// warp 0's narrow levels of a range launch: narrow_levels_wide's plan, the
-// slot pair's and the wide pair's reads of a lane issued together, and no
-// scan or second round where the level has no wide entry
+// Warp 0's narrow levels of a wide walk: a lane a slot of the level's
+// entries (its row read, or its wide entry's degree), then, where the
+// level has a wide entry, a lane a wide pair, found by a binary search
+// over the lanes' degree sums (a warp scan); a lane's two pairs' reads go
+// out together, and the joins are placed in the flat order, the slots'
+// first. Returns as narrow_levels does, or when a level has more than
+// kNarrow wide pairs (nothing of it visited).
 template <typename T, bool Stamp>
-__device__ void range_narrow(const State<T>& s, const WideTable& wt,
-                             const RangeMem<T>& m, int& cur, int& count,
-                             int& level, int label, long long* acc)
+__device__ void wide_narrow_levels(const State<T>& s, const WideMem<T>& m,
+                                   int& cur, int& count, int& level,
+                                   int label, Blocked bl, long long* acc)
 {
     const int lane = threadIdx.x;
     const int M = s.n_nodes;
@@ -867,10 +379,10 @@ __device__ void range_narrow(const State<T>& s, const WideTable& wt,
         int node = -1, from = -1, slot = -1, base = 0, deg = 0;
         T d = T(0);
         if (lane < kDegree * count) {
-            rget<Stamp>(s, m, cur, f, node, from, d, acc);
-            slot = slot_of(s, node, lane - f * kDegree, Blocked{0, -1, -1});
+            wide_get<Stamp>(s, m, cur, f, node, from, d, acc);
+            slot = slot_of(s, node, lane - f * kDegree, bl);
         }
-        rwide_node(m, wt.n_wide, slot, &base, &deg);
+        wide_node(m, slot, &base, &deg);
         int o_node = -1, o_from = -1, weid = -1;
         T o_d = T(0);
         // a level without a wide entry (most of them) has no second round
@@ -910,9 +422,9 @@ __device__ void range_narrow(const State<T>& s, const WideTable& wt,
         const unsigned b2 = __ballot_sync(kFull, j2);
         const unsigned below = (1u << lane) - 1u;
         int at = __popc(b1 & below);
-        if (j1 && at < M) rput(s, m, 1 - cur, at, dst1, node, nd1);
+        if (j1 && at < M) wide_put(s, m, 1 - cur, at, dst1, node, nd1);
         at = __popc(b1) + __popc(b2 & below);
-        if (j2 && at < M) rput(s, m, 1 - cur, at, dst2, o_node, nd2);
+        if (j2 && at < M) wide_put(s, m, 1 - cur, at, dst2, o_node, nd2);
         const int next = __popc(b1) + __popc(b2);
         __syncwarp();  // the next level reads what this one wrote
         count = next < M ? next : M;
@@ -921,17 +433,23 @@ __device__ void range_narrow(const State<T>& s, const WideTable& wt,
     }
 }
 
-// a level of a range launch by the whole block of NT threads:
-// wide_level_wide's plan over the launch's shared memory
+// A level of a wide walk by the whole block of NT threads: the slots in
+// chunks of NT, one scan placing both the joins and the wide entries on
+// the list, a scan of the list's degrees, then the wide pairs in chunks of
+// NT, each thread finding its entry by a binary search over the list's
+// first pairs; returns the next frontier's width. A stamped instance times
+// its passes (acc).
 template <typename T, int NT, bool Stamp>
-__device__ int range_wide_level(const State<T>& s, const WideTable& wt,
-                                const RangeMem<T>& m, int* warp_sum, int cur,
-                                int count, int label, long long* acc)
+__device__ int wide_block_level(const State<T>& s, const WideMem<T>& m,
+                                int cur, int count, int label, Blocked bl,
+                                long long* acc)
 {
     const int M = s.n_nodes;
     const int items = kDegree * count;
     int next = 0, n_wide = 0;
     long long t = clock_if<Stamp>();
+    // the slots; a wide entry's mark puts it on the list, its degree in
+    // the place of its first pair
     for (int c0 = 0; c0 < items; c0 += NT) {
         const int j = c0 + threadIdx.x;
         bool joins = false, wide = false;
@@ -941,22 +459,21 @@ __device__ int range_wide_level(const State<T>& s, const WideTable& wt,
             f = j / kDegree;
             int from;
             T d;
-            rget<Stamp>(s, m, cur, f, node, from, d, acc);
-            const int slot = slot_of(s, node, j - f * kDegree,
-                                     Blocked{0, -1, -1});
-            wide = rwide_node(m, wt.n_wide, slot, &base, &deg);
+            wide_get<Stamp>(s, m, cur, f, node, from, d, acc);
+            const int slot = slot_of(s, node, j - f * kDegree, bl);
+            wide = wide_node(m, slot, &base, &deg);
             joins = visit_edge(s, slot, from, d, label, &dst, &nd);
         }
         int total;
         const int ex = block_exclusive_scan<NT>(
-            (int)joins | ((int)wide << 16), warp_sum, &total);
+            (int)joins | ((int)wide << 16), m.warp_sum, &total);
         const int at = next + (ex & 0xffff);
-        if (joins && at < M) rput(s, m, 1 - cur, at, dst, node, nd);
+        if (joins && at < M) wide_put(s, m, 1 - cur, at, dst, node, nd);
         if (wide) {
             const int i = n_wide + (ex >> 16);
-            *rlist(wt, m, 0, i, M) = f;
-            *rlist(wt, m, 1, i, M) = base;
-            *rlist(wt, m, 2, i, M) = deg;
+            *wide_list_at(m, 0, i, M) = f;
+            *wide_list_at(m, 1, i, M) = base;
+            *wide_list_at(m, 2, i, M) = deg;
         }
         next += total & 0xffff;
         n_wide += total >> 16;
@@ -964,13 +481,14 @@ __device__ int range_wide_level(const State<T>& s, const WideTable& wt,
     __syncthreads();  // the list is written
     t = lap<Stamp>(acc, kStSlots, t);
     if (n_wide > 0) {
+        // each wide entry's first pair: the exclusive sum of the degrees
         int pairs = 0;
         for (int c0 = 0; c0 < n_wide; c0 += NT) {
             const int i = c0 + threadIdx.x;
-            int* at = i < n_wide ? rlist(wt, m, 2, i, M) : nullptr;
+            int* at = i < n_wide ? wide_list_at(m, 2, i, M) : nullptr;
             const int deg = at != nullptr ? *at : 0;
             int total;
-            const int ex = block_exclusive_scan<NT>(deg, warp_sum, &total);
+            const int ex = block_exclusive_scan<NT>(deg, m.warp_sum, &total);
             if (at != nullptr) *at = pairs + ex;
             pairs += total;
         }
@@ -982,10 +500,11 @@ __device__ int range_wide_level(const State<T>& s, const WideTable& wt,
             int node = -1, dst = -1;
             T nd = T(0);
             if (j < pairs) {
+                // the last list entry whose first pair is at most j
                 int lo = 0, hi = n_wide;
                 while (hi - lo > 1) {
                     const int mid = (lo + hi) / 2;
-                    if (read_past<Stamp>(rlist(wt, m, 2, mid, M),
+                    if (read_past<Stamp>(wide_list_at(m, 2, mid, M),
                                          mid >= m.lcap, acc) <= j)
                         lo = mid;
                     else
@@ -994,21 +513,22 @@ __device__ int range_wide_level(const State<T>& s, const WideTable& wt,
                 const bool past = lo >= m.lcap;
                 int from;
                 T d;
-                rget<Stamp>(s, m, cur,
-                            read_past<Stamp>(rlist(wt, m, 0, lo, M), past,
-                                             acc),
-                            node, from, d, acc);
-                const int eid = m.eid[read_past<Stamp>(rlist(wt, m, 1, lo, M),
-                                                       past, acc)
-                                      + j
-                                      - read_past<Stamp>(
-                                          rlist(wt, m, 2, lo, M), past, acc)];
+                wide_get<Stamp>(s, m, cur,
+                                read_past<Stamp>(wide_list_at(m, 0, lo, M),
+                                                 past, acc),
+                                node, from, d, acc);
+                const int eid =
+                    m.eid[read_past<Stamp>(wide_list_at(m, 1, lo, M), past,
+                                           acc)
+                          + j
+                          - read_past<Stamp>(wide_list_at(m, 2, lo, M), past,
+                                             acc)];
                 joins = visit_edge(s, eid, from, d, label, &dst, &nd);
             }
             int total;
             const int at =
-                next + block_exclusive_scan<NT>(joins, warp_sum, &total);
-            if (joins && at < M) rput(s, m, 1 - cur, at, dst, node, nd);
+                next + block_exclusive_scan<NT>(joins, m.warp_sum, &total);
+            if (joins && at < M) wide_put(s, m, 1 - cur, at, dst, node, nd);
             next += total;
         }
         __syncthreads();  // the next level reads what this one wrote
@@ -1017,27 +537,34 @@ __device__ int range_wide_level(const State<T>& s, const WideTable& wt,
     return next < M ? next : M;
 }
 
-// one leaf's walk by every thread of a range launch: warp 0's narrow
-// levels, the block's wide ones (walk's hand-over through ctl: count, cur,
-// level); every thread returns after the same barrier
+// The walk over a wide table by every thread of a block of NT: walk's plan
+// (insert_step.cuh) over m, with wide_narrow_levels and wide_block_level.
+// Thread 0's entry `e`, and warp 0's count, level, label and blocked
+// nodes, start it (the other threads' are not read); every thread returns
+// after the same barrier. A stamped instance times its levels into acc.
 template <typename T, int NT, bool Stamp>
-__device__ void range_walk(const State<T>& s, const WideTable& wt,
-                           const RangeMem<T>& m, int* warp_sum, int* ctl,
-                           int leaf, long long* acc)
+__device__ void wide_walk(const State<T>& s, const WideMem<T>& m, Entry<T> e,
+                          int count, int level, int label, Blocked bl,
+                          long long* acc)
 {
     const int M = s.n_nodes;
-    int cur = 0, count = 1, level = 0;
-    if (threadIdx.x == 0) rput(s, m, 0, 0, leaf, -1, T(0));
+    int cur = 0;
+    if (threadIdx.x == 0) wide_put(s, m, 0, 0, e.node, e.from, e.dist);
     if (threadIdx.x < kWarp) __syncwarp();  // before warp 0 reads it
     for (;;) {
         if (threadIdx.x < kWarp) {
             const long long t = clock_if<Stamp>();
             const int l0 = level;
-            range_narrow<T, Stamp>(s, wt, m, cur, count, level, leaf, acc);
+            wide_narrow_levels<T, Stamp>(s, m, cur, count, level, label, bl,
+                                         acc);
             if (threadIdx.x == 0) {
-                ctl[0] = count;
-                ctl[1] = cur;
-                ctl[2] = level;
+                m.ctl[kCtlCount] = count;
+                m.ctl[kCtlCur] = cur;
+                m.ctl[kCtlLevel] = level;
+                m.ctl[kCtlLabel] = label;
+                m.ctl[kCtlBlocked] = bl.n;
+                m.ctl[kCtlB0] = bl.b0;
+                m.ctl[kCtlB1] = bl.b1;
                 if constexpr (Stamp) {
                     acc[kStNarrow] += clock64() - t;
                     acc[kStNarrowLevels] += level - l0;
@@ -1045,18 +572,314 @@ __device__ void range_walk(const State<T>& s, const WideTable& wt,
             }
         }
         __syncthreads();  // the other warps join for a wide level, or leave
-        count = ctl[0];
-        cur = ctl[1];
-        level = ctl[2];
+        count = m.ctl[kCtlCount];
+        cur = m.ctl[kCtlCur];
+        level = m.ctl[kCtlLevel];
         if (count == 0 || level >= M) return;
+        label = m.ctl[kCtlLabel];
+        bl = {m.ctl[kCtlBlocked], m.ctl[kCtlB0], m.ctl[kCtlB1]};
         if constexpr (Stamp)
             if (threadIdx.x == 0) acc[kStWideLevels] += 1;
         // every thread has read ctl before the level's first barrier, so
         // warp 0 writes it again only after
-        count = range_wide_level<T, NT, Stamp>(s, wt, m, warp_sum, cur, count,
-                                               leaf, acc);
+        count = wide_block_level<T, NT, Stamp>(s, m, cur, count, label, bl,
+                                               acc);
         cur ^= 1;
         ++level;
+    }
+}
+
+// a per-leaf kernel's WideMem over its static shared memory
+template <typename T>
+__device__ __forceinline__ WideMem<T> static_mem(
+    Shared<T, kThreads, kCap>& sh, WideList& wl, int* ctl,
+    const WideTable& wt)
+{
+    return WideMem<T>{&sh.dist[0][0], &sh.ids[0][0], &sh.frm[0][0],
+                      wl.f,           wl.base,       wl.start,
+                      wt.off,         wt.eid,        wt.list,
+                      sh.warp_sum,    ctl,           kCap,
+                      kCap,           wt.n_wide};
+}
+
+// the cursor of an insert range: insertion (or leaf) i, slots in use, the
+// address of the range's first distance row, the rows' stride in elements,
+// and the range's first insertion (int64 each)
+enum { kCurI = 0, kCurUsed, kCurRows, kCurStride, kCurLo };
+
+// The offsets of a cursor launch's nodes and label from its insertion i
+struct Offsets {
+    int outside, middle, label;
+};
+
+// insert_step and insert_step_cursor, over the [M, 3] rows or (Wide) a
+// wide table (m); the cursor, when given, supplies i (outside = i +
+// off.outside, middle = i + off.middle, label = i + off.label) and i0 (the
+// slots in use), and is advanced at the end
+template <typename T, bool Wide>
+__device__ __forceinline__ void insert_step_body(
+    State<T> s, Shared<T, kThreads, kCap>& sh, const int32_t* eid,
+    const int32_t* ends, const T* frac, const T* add, int i0, int middle,
+    int outside, int label, int block_slot, int32_t* out_xy,
+    long long* cursor, Offsets off, const WideMem<T>* m)
+{
+    long long ci = 0, cu = 0;
+    int count = 0;
+    Entry<T> first = {-1, -1, T(0)};
+    Blocked bl = {0, -1, -1};
+    if (threadIdx.x < kWarp) {
+        bool ok = true;
+        if (cursor != nullptr) {
+            long long a = 0;
+            if (threadIdx.x < 2) a = cursor[threadIdx.x];
+            ci = __shfl_sync(kFull, a, kCurI);
+            cu = __shfl_sync(kFull, a, kCurUsed);
+            const long long out = ci + off.outside, mid = ci + off.middle;
+            ok = cu >= 0 && cu <= s.n_edges - 4 && out >= 0
+                 && out < s.n_nodes && mid >= 0 && mid < s.n_nodes;
+            i0 = (int)cu;
+            outside = (int)out;
+            middle = (int)mid;
+            label = (int)(ci + off.label);
+        }
+        if (ok) {
+            ok = warp_splice(s, eid, ends, frac, add, i0, middle, outside,
+                             label, block_slot, out_xy, &count, &first, &bl);
+        } else if (threadIdx.x < 2) {
+            out_xy[threadIdx.x] = -1;
+        }
+        if (!ok) count = 0;
+        if (threadIdx.x == 0) {
+            sh.label = label;
+            sh.n_blocked = bl.n;
+            sh.blocked[0] = bl.b0;
+            sh.blocked[1] = bl.b1;
+        }
+        __syncwarp();  // the splice's writes before the walk's reads
+    }
+    if constexpr (Wide)
+        wide_walk<T, kThreads, false>(s, *m, first, count, 1, label, bl,
+                                      nullptr);
+    else
+        walk(s, sh, first, count, 1, label, bl);
+    if (cursor != nullptr && threadIdx.x == 0) {
+        cursor[kCurI] = ci + 1;
+        cursor[kCurUsed] = cu + 4;
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+insert_step_kernel(State<T> s, const int32_t* eid, const int32_t* ends,
+                   const T* frac, const T* add, int i0, int middle,
+                   int outside, int label, int block_slot, int32_t* out_xy,
+                   long long* cursor, Offsets off)
+{
+    __shared__ Shared<T, kThreads, kCap> sh;
+    insert_step_body<T, false>(s, sh, eid, ends, frac, add, i0, middle,
+                               outside, label, block_slot, out_xy, cursor,
+                               off, nullptr);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+insert_step_wide_kernel(State<T> s, const int32_t* eid, const int32_t* ends,
+                        const T* frac, const T* add, int i0, int middle,
+                        int outside, int label, int block_slot,
+                        int32_t* out_xy, long long* cursor, Offsets off,
+                        WideTable wt)
+{
+    __shared__ Shared<T, kThreads, kCap> sh;
+    __shared__ WideList wl;
+    __shared__ int ctl[kCtlWords];
+    const WideMem<T> m = static_mem(sh, wl, ctl, wt);
+    insert_step_body<T, true>(s, sh, eid, ends, frac, add, i0, middle,
+                              outside, label, block_slot, out_xy, cursor, off,
+                              &m);
+}
+
+// closest_bfs and closest_bfs_cursor (Wide: over a wide table, m); the
+// cursor, when given, supplies the leaf (= label) and is advanced at the
+// end. A stamped instance (Stamp) times the launch's parts into acc.
+template <typename T, bool Wide, bool Stamp = false>
+__device__ __forceinline__ void closest_bfs_body(
+    State<T> s, Shared<T, kThreads, kCap>& sh, int leaf, int label,
+    const int32_t* blocked, int n_blocked, long long* cursor,
+    const WideMem<T>* m, long long* acc = nullptr)
+{
+    long long ci = 0;
+    Blocked bl = {n_blocked, -1, -1};
+    if constexpr (Stamp) {
+        if (threadIdx.x == 0) {
+            for (int q = 0; q < kStampWords; ++q) acc[q] = 0;
+            acc[kStStart] = clock64();
+            acc[kStTimerStart] = global_ns();
+        }
+    }
+    if (threadIdx.x < kWarp) {
+        if (cursor != nullptr) {
+            ci = cursor[kCurI];
+            leaf = label = (int)(ci >= 0 && ci < s.n_nodes ? ci : -1);
+        }
+        if (n_blocked > 0) bl.b0 = blocked[0];
+        if (n_blocked > 1) bl.b1 = blocked[1];
+        if (threadIdx.x == 0) {
+            sh.label = label;
+            sh.n_blocked = bl.n;
+            sh.blocked[0] = bl.b0;
+            sh.blocked[1] = bl.b1;
+        }
+    }
+    if constexpr (Stamp)
+        if (threadIdx.x == 0) acc[kStFirst] = clock64();
+    if constexpr (Wide)
+        wide_walk<T, kThreads, Stamp>(s, *m, Entry<T>{leaf, -1, T(0)}, 1, 0,
+                                      label, bl, acc);
+    else
+        walk(s, sh, Entry<T>{leaf, -1, T(0)}, 1, 0, label, bl);
+    if (cursor != nullptr && threadIdx.x == 0) cursor[kCurI] = ci + 1;
+    if constexpr (Stamp) {
+        if (threadIdx.x == 0) {
+            acc[kStEnd] = clock64();
+            acc[kStTimerEnd] = global_ns();
+        }
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+closest_bfs_kernel(State<T> s, int leaf, int label, const int32_t* blocked,
+                   int n_blocked, long long* cursor)
+{
+    __shared__ Shared<T, kThreads, kCap> sh;
+    closest_bfs_body<T, false>(s, sh, leaf, label, blocked, n_blocked, cursor,
+                               nullptr);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+closest_bfs_wide_kernel(State<T> s, int leaf, int label,
+                        const int32_t* blocked, int n_blocked,
+                        long long* cursor, WideTable wt)
+{
+    __shared__ Shared<T, kThreads, kCap> sh;
+    __shared__ WideList wl;
+    __shared__ int ctl[kCtlWords];
+    const WideMem<T> m = static_mem(sh, wl, ctl, wt);
+    closest_bfs_body<T, true>(s, sh, leaf, label, blocked, n_blocked, cursor,
+                              &m);
+}
+
+// closest_bfs_wide_kernel's cursor launch, stamped: kStampWords to stamps
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+closest_bfs_wide_stamped_kernel(State<T> s, long long* cursor, WideTable wt,
+                                long long* stamps)
+{
+    __shared__ Shared<T, kThreads, kCap> sh;
+    __shared__ WideList wl;
+    __shared__ int ctl[kCtlWords];
+    __shared__ long long acc[kStampWords];
+    const WideMem<T> m = static_mem(sh, wl, ctl, wt);
+    closest_bfs_body<T, true, true>(s, sh, 0, 0, nullptr, 0, cursor, &m, acc);
+    if (threadIdx.x == 0)
+        for (int q = 0; q < kStampWords; ++q) stamps[q] = acc[q];
+}
+
+// ---------------------------------------------------------------------------
+// The seeding range (closest_bfs_range, the wide instantiation): the BFS
+// alone from leaves i .. i + n - 1 in order, in one launch of one block
+// (the counterpart of the JAX package's fori_loop over the backbone,
+// kclosest.py:1233-1236). The per-leaf launch above reads the cursor,
+// fills its shared memory from nothing and writes the cursor back for
+// every leaf; this one reads the cursor once, stages the wide table once
+// and writes the cursor once (i + n). Each leaf's walk is wide_walk, the
+// per-leaf kernels' own, over the launch's memory.
+//
+// Its shared memory is dynamic and sized at launch (up to the card's
+// opt-in, 227 KB on an H100): the wide table's offsets and, where they
+// fit, its out-edges, staged once by cp.async (the table never changes
+// while a backbone is seeded); then the frontier's two buffers and the
+// wide list, of capacities that the caller chooses from what is left
+// (placement/insert_model.py::range_plan). Entries past them spill to
+// the same [2, M] and [3, M] scratch as above, so any tree runs at any
+// capacity. The block is kRangeThreads threads.
+// ---------------------------------------------------------------------------
+
+__host__ __device__ __forceinline__ size_t pad16(size_t b)
+{
+    return (b + 15) & ~(size_t)15;
+}
+
+// bytes of a range launch's dynamic shared memory: the frontier's
+// distances, nodes and sources ([2, cap] each), the wide list ([3, lcap]),
+// then n_off staged offsets and n_eid staged out-edges (0: not staged);
+// insert_model.range_bytes mirrors it
+__host__ __device__ __forceinline__ size_t range_bytes(int item, int cap,
+                                                       int lcap, int n_off,
+                                                       int n_eid)
+{
+    return pad16((size_t)2 * cap * item) + 2 * pad16((size_t)2 * cap * 4)
+           + 3 * pad16((size_t)lcap * 4) + pad16((size_t)n_off * 4)
+           + pad16((size_t)n_eid * 4);
+}
+
+// A range launch's WideMem, carved from its dynamic shared memory in
+// range_bytes's order; *off_s and *eid_s get where the table's words are
+// staged (m.off and m.eid point there where staged, else at the table)
+template <typename T>
+__device__ __forceinline__ WideMem<T> carve(unsigned char* dyn,
+                                            const WideTable& wt,
+                                            int* warp_sum, int* ctl, int cap,
+                                            int lcap, int n_off, int n_eid,
+                                            int32_t** off_s, int32_t** eid_s)
+{
+    WideMem<T> m;
+    size_t o = 0;
+    m.dist = reinterpret_cast<T*>(dyn);
+    o += pad16((size_t)2 * cap * sizeof(T));
+    m.ids = reinterpret_cast<int32_t*>(dyn + o);
+    o += pad16((size_t)2 * cap * 4);
+    m.frm = reinterpret_cast<int32_t*>(dyn + o);
+    o += pad16((size_t)2 * cap * 4);
+    m.lf = reinterpret_cast<int32_t*>(dyn + o);
+    o += pad16((size_t)lcap * 4);
+    m.lbase = reinterpret_cast<int32_t*>(dyn + o);
+    o += pad16((size_t)lcap * 4);
+    m.lstart = reinterpret_cast<int32_t*>(dyn + o);
+    o += pad16((size_t)lcap * 4);
+    *off_s = reinterpret_cast<int32_t*>(dyn + o);
+    o += pad16((size_t)n_off * 4);
+    *eid_s = reinterpret_cast<int32_t*>(dyn + o);
+    m.off = n_off > 0 ? *off_s : wt.off;
+    m.eid = n_eid > 0 ? *eid_s : wt.eid;
+    m.list = wt.list;
+    m.warp_sum = warp_sum;
+    m.ctl = ctl;
+    m.cap = cap;
+    m.lcap = lcap;
+    m.n_wide = wt.n_wide;
+    return m;
+}
+
+// cp.async of n int32 words into shared memory (16 bytes a copy where the
+// source is 16-byte aligned; dst is); the caller commits and waits
+__device__ __forceinline__ void stage_words(int32_t* dst, const int32_t* src,
+                                            int n)
+{
+    const bool vec = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+    const int body = vec ? (n & ~3) : 0;
+    for (int i = 4 * threadIdx.x; i < body; i += 4 * kRangeThreads) {
+        const unsigned d = (unsigned)__cvta_generic_to_shared(dst + i);
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                     "l"(src + i)
+                     : "memory");
+    }
+    for (int i = body + threadIdx.x; i < n; i += kRangeThreads) {
+        const unsigned d = (unsigned)__cvta_generic_to_shared(dst + i);
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                     "l"(src + i)
+                     : "memory");
     }
 }
 
@@ -1065,15 +888,15 @@ __device__ void range_walk(const State<T>& s, const WideTable& wt,
 // read once and advanced once (i + n_leaves); n_off and n_eid words of the
 // table staged (0: read from device memory). A stamped instance writes
 // kStampWords a leaf to stamps.
-template <typename T, int NT, bool Stamp>
-__global__ void __launch_bounds__(NT)
+template <typename T, bool Stamp>
+__global__ void __launch_bounds__(kRangeThreads)
 closest_bfs_range_kernel(State<T> s, WideTable wt, long long* cursor,
                          int n_leaves, int cap, int lcap, int n_off,
                          int n_eid, long long* stamps)
 {
     extern __shared__ __align__(16) unsigned char dyn[];
-    __shared__ int warp_sum[NT / kWarp];
-    __shared__ int ctl[3];
+    __shared__ int warp_sum[kRangeThreads / kWarp];
+    __shared__ int ctl[kCtlWords];
     __shared__ long long first_leaf;
     __shared__ long long acc[Stamp ? kStampWords : 1];
     long long t_start = 0, ns_start = 0;
@@ -1083,9 +906,11 @@ closest_bfs_range_kernel(State<T> s, WideTable wt, long long* cursor,
             ns_start = global_ns();
         }
     }
-    const RangeMem<T> m = carve<T>(dyn, wt, cap, lcap, n_off, n_eid);
-    if (n_off > 0) stage_words(m.off_s, wt.off, n_off, NT);
-    if (n_eid > 0) stage_words(m.eid_s, wt.eid, n_eid, NT);
+    int32_t *off_s, *eid_s;
+    const WideMem<T> m = carve<T>(dyn, wt, warp_sum, ctl, cap, lcap, n_off,
+                                  n_eid, &off_s, &eid_s);
+    if (n_off > 0) stage_words(off_s, wt.off, n_off);
+    if (n_eid > 0) stage_words(eid_s, wt.eid, n_eid);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     if (threadIdx.x == 0) first_leaf = cursor[kCurI];
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -1103,7 +928,8 @@ closest_bfs_range_kernel(State<T> s, WideTable wt, long long* cursor,
                 acc[kStFirst] = clock64();
             }
         }
-        range_walk<T, NT, Stamp>(s, wt, m, warp_sum, ctl, leaf, acc);
+        wide_walk<T, kRangeThreads, Stamp>(s, m, Entry<T>{leaf, -1, T(0)}, 1,
+                                           0, leaf, Blocked{0, -1, -1}, acc);
         if constexpr (Stamp) {
             if (threadIdx.x == 0) {
                 acc[kStEnd] = clock64();
@@ -1222,17 +1048,21 @@ bool wide_ok(const void* wide_off, const void* wide_eid,
            || (wide_eid != nullptr && wide_list != nullptr && n_wide >= 1);
 }
 
-// a range launch: its instance by type, threads and stamps; the dynamic
-// shared memory allowed first (a launch past the card's opt-in fails, and
-// its error is taken off the thread's last error, so that the next
-// launch's check does not report it)
-template <typename T, int NT, bool Stamp>
-cudaError_t launch_range_t(const State<T>& s, const WideTable& wt,
-                           long long* cursor, int n_leaves, int cap, int lcap,
-                           int n_off, int n_eid, long long* stamps,
-                           size_t bytes, cudaStream_t st)
+// a range launch: its instance by type and stamps; the dynamic shared
+// memory allowed first (a launch past the card's opt-in fails, and its
+// error is taken off the thread's last error, so that the next launch's
+// check does not report it)
+template <typename T, bool Stamp>
+cudaError_t launch_range(void* const* p, int n_edges, int n_nodes,
+                         const WideTable& wt, long long* cursor, int n_leaves,
+                         int cap, int lcap, int n_off, int n_eid,
+                         long long* stamps, cudaStream_t st)
 {
-    const auto kernel = closest_bfs_range_kernel<T, NT, Stamp>;
+    const State<T> s = make_state<T>(p[0], p[1], p[2], p[3], p[4], p[5],
+                                     p[6], p[7], p[8], p[9], n_edges,
+                                     n_nodes);
+    const size_t bytes = range_bytes((int)sizeof(T), cap, lcap, n_off, n_eid);
+    const auto kernel = closest_bfs_range_kernel<T, Stamp>;
     const cudaError_t err = cudaFuncSetAttribute(
         (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
@@ -1240,38 +1070,16 @@ cudaError_t launch_range_t(const State<T>& s, const WideTable& wt,
         cudaGetLastError();
         return err;
     }
-    kernel<<<1, NT, bytes, st>>>(s, wt, cursor, n_leaves, cap, lcap, n_off,
-                                 n_eid, stamps);
+    kernel<<<1, kRangeThreads, bytes, st>>>(s, wt, cursor, n_leaves, cap,
+                                             lcap, n_off, n_eid, stamps);
     return cudaGetLastError();
 }
 
-template <typename T, bool Stamp>
-cudaError_t launch_range(void* const* p, int n_edges, int n_nodes,
-                         const WideTable& wt, long long* cursor, int n_leaves,
-                         int threads, int cap, int lcap, int n_off, int n_eid,
-                         long long* stamps, cudaStream_t st)
-{
-    const State<T> s = make_state<T>(p[0], p[1], p[2], p[3], p[4], p[5],
-                                     p[6], p[7], p[8], p[9], n_edges,
-                                     n_nodes);
-    const size_t bytes = range_bytes((int)sizeof(T), cap, lcap, n_off, n_eid);
-    if (threads == 256)
-        return launch_range_t<T, 256, Stamp>(s, wt, cursor, n_leaves, cap,
-                                             lcap, n_off, n_eid, stamps,
-                                             bytes, st);
-    if (threads == 512)
-        return launch_range_t<T, 512, Stamp>(s, wt, cursor, n_leaves, cap,
-                                             lcap, n_off, n_eid, stamps,
-                                             bytes, st);
-    return launch_range_t<T, 1024, Stamp>(s, wt, cursor, n_leaves, cap, lcap,
-                                          n_off, n_eid, stamps, bytes, st);
-}
-
-// the dynamic shared memory a range launch of `threads` may take: the
-// card's opt-in less the instance's static shared memory (the stamped
-// one's, which is the larger)
-template <typename T, int NT>
-cudaError_t range_budget_t(int device, int* out)
+// the dynamic shared memory a range launch may take: the card's opt-in
+// less the kernel's static shared memory (the stamped instance's, which
+// is the larger)
+template <typename T>
+cudaError_t range_budget(int device, int* out)
 {
     int optin = 0;
     cudaError_t err = cudaDeviceGetAttribute(
@@ -1279,23 +1087,10 @@ cudaError_t range_budget_t(int device, int* out)
     cudaFuncAttributes a;
     if (err == cudaSuccess)
         err = cudaFuncGetAttributes(
-            &a, (const void*)closest_bfs_range_kernel<T, NT, true>);
+            &a, (const void*)closest_bfs_range_kernel<T, true>);
     if (err == cudaSuccess) *out = optin - (int)a.sharedSizeBytes;
     else cudaGetLastError();
     return err;
-}
-
-template <typename T>
-cudaError_t range_budget(int threads, int device, int* out)
-{
-    if (threads == 256) return range_budget_t<T, 256>(device, out);
-    if (threads == 512) return range_budget_t<T, 512>(device, out);
-    return range_budget_t<T, 1024>(device, out);
-}
-
-bool threads_ok(int threads)
-{
-    return threads == 256 || threads == 512 || threads == 1024;
 }
 
 }  // namespace
@@ -1423,23 +1218,21 @@ extern "C" int closest_bfs_cursor(STATE_PARAMS, void* cursor, void* stream)
 }
 
 // The BFS alone from leaves i .. i + n_leaves - 1, i = cursor[0], in one
-// launch of one block of `threads` (256, 512 or 1,024) over a wide table
-// (a binary state is refused); the cursor advances by n_leaves. cap and
-// list_cap: the frontier's and the wide list's entries in shared memory;
-// n_off (0 or n_wide + 1) and n_eid (0 or wide_off[n_wide]): the table's
-// words staged there. Their bytes (range_bytes) must be within
+// launch of one block of kRangeThreads over a wide table (a binary state
+// is refused); the cursor advances by n_leaves. cap and list_cap: the
+// frontier's and the wide list's entries in shared memory; n_off (0 or
+// n_wide + 1) and n_eid (0 or wide_off[n_wide]): the table's words staged
+// there. Their bytes (range_bytes) must be within
 // closest_bfs_range_budget's. stamps: null, or int64 [n_leaves, 16] for
 // the stamped instance.
 extern "C" int closest_bfs_range(STATE_PARAMS, void* cursor, int n_leaves,
-                                 int threads, int cap, int list_cap,
-                                 int n_off, int n_eid, void* stamps,
-                                 void* stream)
+                                 int cap, int list_cap, int n_off, int n_eid,
+                                 void* stamps, void* stream)
 {
     if (!state_ok(n_edges, n_nodes) || cursor == nullptr || n_leaves < 1
         || wide_off == nullptr
-        || !wide_ok(wide_off, wide_eid, wide_list, n_wide)
-        || !threads_ok(threads) || cap < 1 || list_cap < 1
-        || (n_off != 0 && n_off != n_wide + 1) || n_eid < 0)
+        || !wide_ok(wide_off, wide_eid, wide_list, n_wide) || cap < 1
+        || list_cap < 1 || (n_off != 0 && n_off != n_wide + 1) || n_eid < 0)
         return (int)cudaErrorInvalidValue;
     OnDevice on(device);
     if (on.err != cudaSuccess) return (int)on.err;
@@ -1451,37 +1244,33 @@ extern "C" int closest_bfs_range(STATE_PARAMS, void* cursor, int n_leaves,
     if (is_f64)
         err = sp != nullptr
                   ? launch_range<double, true>(p, n_edges, n_nodes,
-                                               WIDE_TABLE, c, n_leaves,
-                                               threads, cap, list_cap, n_off,
-                                               n_eid, sp, st)
+                                               WIDE_TABLE, c, n_leaves, cap,
+                                               list_cap, n_off, n_eid, sp, st)
                   : launch_range<double, false>(p, n_edges, n_nodes,
-                                                WIDE_TABLE, c, n_leaves,
-                                                threads, cap, list_cap, n_off,
-                                                n_eid, sp, st);
+                                                WIDE_TABLE, c, n_leaves, cap,
+                                                list_cap, n_off, n_eid, sp,
+                                                st);
     else
         err = sp != nullptr
                   ? launch_range<float, true>(p, n_edges, n_nodes,
-                                              WIDE_TABLE, c, n_leaves,
-                                              threads, cap, list_cap, n_off,
-                                              n_eid, sp, st)
+                                              WIDE_TABLE, c, n_leaves, cap,
+                                              list_cap, n_off, n_eid, sp, st)
                   : launch_range<float, false>(p, n_edges, n_nodes,
-                                               WIDE_TABLE, c, n_leaves,
-                                               threads, cap, list_cap, n_off,
-                                               n_eid, sp, st);
+                                               WIDE_TABLE, c, n_leaves, cap,
+                                               list_cap, n_off, n_eid, sp,
+                                               st);
     return (int)err;
 }
 
-// closest_bfs_range's dynamic shared memory budget in bytes for `threads`
-// (and is_f64) on `device`, to *out.
-extern "C" int closest_bfs_range_budget(int is_f64, int threads, int device,
-                                        int* out)
+// closest_bfs_range's dynamic shared memory budget in bytes (for is_f64)
+// on `device`, to *out.
+extern "C" int closest_bfs_range_budget(int is_f64, int device, int* out)
 {
-    if (!threads_ok(threads) || out == nullptr)
-        return (int)cudaErrorInvalidValue;
+    if (out == nullptr) return (int)cudaErrorInvalidValue;
     OnDevice on(device);
     if (on.err != cudaSuccess) return (int)on.err;
-    return (int)(is_f64 ? range_budget<double>(threads, device, out)
-                        : range_budget<float>(threads, device, out));
+    return (int)(is_f64 ? range_budget<double>(device, out)
+                        : range_budget<float>(device, out));
 }
 
 // closest_bfs_cursor over a wide table by its stamped instance: stamps
@@ -1557,18 +1346,10 @@ extern "C" int insert_step_preload(int device)
                          (const void*)closest_bfs_wide_kernel<double>,
                          (const void*)closest_bfs_wide_stamped_kernel<float>,
                          (const void*)closest_bfs_wide_stamped_kernel<double>,
-                         (const void*)closest_bfs_range_kernel<float, 256, false>,
-                         (const void*)closest_bfs_range_kernel<float, 512, false>,
-                         (const void*)closest_bfs_range_kernel<float, 1024, false>,
-                         (const void*)closest_bfs_range_kernel<double, 256, false>,
-                         (const void*)closest_bfs_range_kernel<double, 512, false>,
-                         (const void*)closest_bfs_range_kernel<double, 1024, false>,
-                         (const void*)closest_bfs_range_kernel<float, 256, true>,
-                         (const void*)closest_bfs_range_kernel<float, 512, true>,
-                         (const void*)closest_bfs_range_kernel<float, 1024, true>,
-                         (const void*)closest_bfs_range_kernel<double, 256, true>,
-                         (const void*)closest_bfs_range_kernel<double, 512, true>,
-                         (const void*)closest_bfs_range_kernel<double, 1024, true>,
+                         (const void*)closest_bfs_range_kernel<float, false>,
+                         (const void*)closest_bfs_range_kernel<double, false>,
+                         (const void*)closest_bfs_range_kernel<float, true>,
+                         (const void*)closest_bfs_range_kernel<double, true>,
                          (const void*)cursor_set_kernel,
                          (const void*)chase_kernel};
     for (const void* f : fns) {

@@ -77,9 +77,9 @@ _STEP_CURSOR_ARGS = _STATE_ARGS + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
 _BFS_CURSOR_ARGS = _STATE_ARGS + [ctypes.c_void_p] * 2
 _CURSOR_SET_ARGS = ([ctypes.c_void_p] + [ctypes.c_longlong] * 5
                     + [ctypes.c_int, ctypes.c_void_p])
-_RANGE_ARGS = (_STATE_ARGS + [ctypes.c_void_p] + [ctypes.c_int] * 6
+_RANGE_ARGS = (_STATE_ARGS + [ctypes.c_void_p] + [ctypes.c_int] * 5
                + [ctypes.c_void_p] * 2)
-_RANGE_BUDGET_ARGS = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+_RANGE_BUDGET_ARGS = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
 _STAMPED_ARGS = _STATE_ARGS + [ctypes.c_void_p] * 3
 
 # the stamped instances' int64 words a leaf (insert_step.cu's kSt*): clock64
@@ -113,7 +113,7 @@ class _Inserter:
 
     __slots__ = ("arrays", "dtype", "device", "n_edges", "n_nodes", "wide",
                  "lib", "step", "bfs", "step_cursor", "bfs_cursor",
-                 "cursor_set", "bfs_range", "bfs_stamped", "budgets",
+                 "cursor_set", "bfs_range", "bfs_stamped", "budget",
                  "n_off", "n_eid", "args", "f_ids", "f_frm", "f_dist",
                  "wide_list", "out_xy", "cursor", "graphs")
 
@@ -222,7 +222,7 @@ def prepare_inserter(st):
     ins.bfs_range = _entry(ins.lib, "closest_bfs_range", _RANGE_ARGS)
     ins.bfs_stamped = _entry(ins.lib, "closest_bfs_wide_stamped",
                              _STAMPED_ARGS)
-    ins.budgets = {}
+    ins.budget = None
     ins.n_off = off.numel() if ins.wide else 0
     ins.n_eid = eid.numel() if ins.wide else 0
     if dev.index not in _preloaded:
@@ -422,33 +422,31 @@ def closest_bfs_cursor(st, stream: int | None = None,
 # ---------------------------------------------------------------------------
 
 
-def range_budget(st, threads: int = im.RANGE_THREADS_DEFAULT) -> int:
-    """Bytes of dynamic shared memory a closest_bfs_range launch of
-    `threads` may take on the state's card (its opt-in less the kernel's
-    static shared memory), read once per state and width."""
+def range_budget(st) -> int:
+    """Bytes of dynamic shared memory a closest_bfs_range launch may take
+    on the state's card (its opt-in less the kernel's static shared
+    memory), read once per state."""
     ins = inserter(st)
-    if threads not in ins.budgets:
+    if ins.budget is None:
         out = ctypes.c_int(0)
         fn = _entry(ins.lib, "closest_bfs_range_budget", _RANGE_BUDGET_ARGS)
         check_launch(ins.lib, "insert_step",
-                     fn(int(ins.dtype == torch.float64), threads,
-                        ins.device.index, ctypes.byref(out)))
-        ins.budgets[threads] = out.value
-    return ins.budgets[threads]
+                     fn(int(ins.dtype == torch.float64), ins.device.index,
+                        ctypes.byref(out)))
+        ins.budget = out.value
+    return ins.budget
 
 
 def range_plan(st, **forced) -> dict:
     """insert_model.range_plan for the state's wide table, type and card:
     which of the table is staged, the frontier's and the wide list's
-    capacities, the block width; `forced` gives any of threads, cap,
-    list_cap, stage_off, stage_eid instead."""
+    capacities; `forced` gives any of cap, list_cap, stage_off, stage_eid
+    instead."""
     ins = inserter(st)
     if not ins.wide:
         raise ValueError("closest_bfs_range takes a state with a wide table")
-    threads = forced.pop("threads", im.RANGE_THREADS_DEFAULT)
-    return im.range_plan(range_budget(st, threads), ins.n_nodes, ins.n_off,
-                         ins.n_eid, ins.f_dist.element_size(),
-                         threads=threads, **forced)
+    return im.range_plan(range_budget(st), ins.n_nodes, ins.n_off, ins.n_eid,
+                         ins.f_dist.element_size(), **forced)
 
 
 def closest_bfs_range(st, n: int, plan: dict | None = None,
@@ -474,9 +472,9 @@ def closest_bfs_range(st, n: int, plan: dict | None = None,
             raise ValueError(f"stamps must be a contiguous int64 "
                              f"[{n}, {STAMP_WORDS}] tensor on {ins.device}")
         ptr = stamps.data_ptr()
-    rc = ins.bfs_range(*ins.args, ins.cursor.data_ptr(), n, plan["threads"],
-                       plan["cap"], plan["list_cap"], plan["n_off"],
-                       plan["n_eid"], ptr, _stream(ins, stream))
+    rc = ins.bfs_range(*ins.args, ins.cursor.data_ptr(), n, plan["cap"],
+                       plan["list_cap"], plan["n_off"], plan["n_eid"], ptr,
+                       _stream(ins, stream))
     if rc != 0:
         check_launch(ins.lib, "insert_step", rc)
     count_launches(True, ranges=1)

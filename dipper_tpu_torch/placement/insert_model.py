@@ -328,11 +328,8 @@ def bfs(s: dict, leaf: int, label: int, blocked=(), threads: int = THREADS,
 # the kernel's static shared memory, is read at run time:
 # insert_cuda.range_budget)
 SMEM_OPTIN = 232448
-# the range kernel's block widths, and the plan's default (on phase 30's
-# backbone 512 threads took both the early leaves' wide levels and the
-# late leaves' fastest: PERF.md, PR 23)
-RANGE_THREADS = (256, 512, 1024)
-RANGE_THREADS_DEFAULT = 512
+# the range kernel's block, kRangeThreads
+RANGE_THREADS = 512
 
 
 def _pad16(b: int) -> int:
@@ -352,9 +349,8 @@ def range_bytes(item: int, cap: int, list_cap: int, n_off: int,
 
 
 def range_plan(budget: int, n_nodes: int, n_off: int, n_eid: int,
-               item: int, *, threads: int = RANGE_THREADS_DEFAULT,
-               cap: int | None = None, list_cap: int | None = None,
-               stage_off: bool | None = None,
+               item: int, *, cap: int | None = None,
+               list_cap: int | None = None, stage_off: bool | None = None,
                stage_eid: bool | None = None) -> dict:
     """How a range launch divides `budget` bytes of shared memory, for a
     state of `n_nodes` nodes whose wide table has n_off offsets and n_eid
@@ -365,10 +361,8 @@ def range_plan(budget: int, n_nodes: int, n_off: int, n_eid: int,
     what is left goes to the frontier and the wide list, as many entries
     each (a level's list holds at most its entries), at most n_nodes.
     Any of these may be given instead (the tests force small capacities).
-    Returns threads, cap, list_cap, n_off and n_eid staged (0: not), and
-    the bytes; raises when the given parts do not fit."""
-    if threads not in RANGE_THREADS:
-        raise ValueError(f"threads must be one of {RANGE_THREADS}")
+    Returns cap, list_cap, n_off and n_eid staged (0: not), and the
+    bytes; raises when the given parts do not fit."""
     floor = min(CAP, n_nodes)
 
     def fits(so, se, c, lc):
@@ -397,7 +391,7 @@ def range_plan(budget: int, n_nodes: int, n_off: int, n_eid: int,
         raise ValueError(f"a range launch of cap {cap}, list_cap {list_cap}, "
                          f"{so} offsets and {se} out-edges staged takes "
                          f"{nbytes} bytes of shared memory; {budget} allowed")
-    return {"threads": threads, "cap": int(cap), "list_cap": int(list_cap),
+    return {"cap": int(cap), "list_cap": int(list_cap),
             "n_off": so, "n_eid": se, "bytes": nbytes}
 
 
@@ -406,12 +400,12 @@ def bfs_range(s: dict, lo: int, n: int, plan: dict,
               levels: list | None = None) -> int:
     """The kernel's closest_bfs_range in place: the BFS alone from leaves
     lo .. lo + n - 1 in order (label = leaf; a leaf out of [0, M) walks
-    nothing) at the plan's capacities and block width (range_plan);
+    nothing) at the plan's capacities (range_plan);
     returns the cursor after (lo + n). What is staged changes no bit."""
     M = s["adj"].shape[0]
     for leaf in range(lo, lo + n):
         if 0 <= leaf < M:
-            bfs(s, leaf, leaf, threads=plan["threads"], cap=plan["cap"],
+            bfs(s, leaf, leaf, threads=RANGE_THREADS, cap=plan["cap"],
                 list_cap=plan["list_cap"], narrow=narrow, stats=stats,
                 levels=levels)
     return lo + n

@@ -385,7 +385,7 @@ def main() -> int:
     ap.add_argument("--plans", default="",
                     help="more range-kernel plans for --parts, as JSON "
                          "objects of range_plan's forced parts separated "
-                         "by ';' (e.g. '{\"threads\": 1024}')")
+                         "by ';' (e.g. '{\"cap\": 256, \"list_cap\": 256}')")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cpu: a rehearsal at a small --n (no syncs, "
                          "launches or card times)")

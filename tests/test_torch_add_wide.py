@@ -293,9 +293,9 @@ def test_check_arrays_refuses_a_malformed_wide_table():
 
 RANGE_NAMES = ["multi", "star"] + [n for n in BACKBONES
                                    if n.startswith("collapsed")]
-# the frontier's and the wide list's capacities, each with a block width
-RANGE_CAPS = {"cap32": (32, 256), "cap256": (256, 512),
-              "past_widest": (None, 1024)}
+# the frontier's and the wide list's capacities (None: one past the
+# widest level)
+RANGE_CAPS = {"cap32": 32, "cap256": 256, "past_widest": None}
 _seeded: dict = {}
 
 
@@ -326,15 +326,14 @@ def test_model_range_seeding_equals_jax(name, dtype, caps):
     frontier and a wide list of 32 entries, of 256, and of one past the
     widest level (each at most the M nodes), with the table staged as
     range_plan stages it: JAX's dense seeding, bit for bit."""
-    cap, threads = RANGE_CAPS[caps]
+    cap = RANGE_CAPS[caps]
     cap = _widest(name) + 1 if cap is None else cap
     st = _state(name, dtype)
     plan = im.range_plan(im.SMEM_OPTIN, st.adj.shape[0], st.wide_off.numel(),
                          st.wide_eid.numel(), st.length.element_size(),
-                         threads=threads, cap=cap, list_cap=cap)
+                         cap=cap, list_cap=cap)
     cap = min(cap, st.adj.shape[0])  # no level holds more than M entries
-    assert (plan["cap"], plan["list_cap"], plan["threads"]) == (
-        cap, cap, threads)
+    assert (plan["cap"], plan["list_cap"]) == (cap, cap)
     s = im.arrays_of(st)
     B = _backbone(name)[1].num_leaves
     stats = {}
@@ -370,9 +369,8 @@ def test_range_plan_divides_the_budget():
     assert (p["cap"], p["list_cap"], p["n_off"], p["n_eid"]) == (100, 100, 9,
                                                                   40)
     p = im.range_plan(budget, M, 5537, 26000, 4, cap=32, list_cap=32,
-                      stage_eid=False, threads=1024)
-    assert (p["cap"], p["list_cap"], p["n_eid"], p["threads"]) == (32, 32, 0,
-                                                                    1024)
+                      stage_eid=False)
+    assert (p["cap"], p["list_cap"], p["n_eid"]) == (32, 32, 0)
     p = im.range_plan(12000, M, 5537, 26000, 4)
     assert p["n_off"] == 0 and p["n_eid"] == 0 and p["cap"] >= im.CAP
     p = im.range_plan(budget, M, 5537, 26000, 4, cap=1000)
@@ -380,8 +378,6 @@ def test_range_plan_divides_the_budget():
     assert p["list_cap"] > 1000
     with pytest.raises(ValueError, match="bytes of shared memory"):
         im.range_plan(budget, M, 5537, 26000, 4, cap=20000)
-    with pytest.raises(ValueError, match="threads"):
-        im.range_plan(budget, M, 5537, 26000, 4, threads=128)
 
 
 @pytest.mark.parametrize("chunk", [7, 1 << 16])
