@@ -395,6 +395,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import io
 import json
 import math
@@ -455,6 +456,9 @@ KERNELS = {
     "msa_cluster_dist": ("dipper_tpu_torch/csrc/msa_cluster_dist.cu",
                          "dipper_tpu/dc/pipeline.py:1210 (XLA program, no "
                          "Pallas)"),
+    "msa_cluster_dist_pack": ("dipper_tpu_torch/csrc/msa_cluster_dist.cu",
+                              "dipper_tpu/dc/pipeline.py:1198 (XLA program, "
+                              "no Pallas)"),
 }
 NRF_LIMIT = 0.35
 # nRF vs the true tree of the full-size sets (seed 1) in every smoke so
@@ -783,6 +787,32 @@ def bound_of(ops: float, nbytes: float,
             "ops": ops, "bytes": nbytes}
 
 
+def sass_functions(lib: str) -> dict:
+    """The SASS of a library of the port (`lib`, built under csrc/build.py's
+    BUILD_DIR, or a path to a .so), by `cuobjdump -sass`: function name ->
+    its instructions as (address, opcode without modifiers or predicate,
+    text)."""
+    from dipper_tpu_torch.csrc.build import BUILD_DIR
+
+    path = lib if lib.endswith(".so") else os.path.join(BUILD_DIR,
+                                                        f"lib{lib}.so")
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out, ins = {}, None
+    for ln in sass.splitlines():
+        if ln.strip().startswith("Function :"):
+            ins = out.setdefault(ln.split(":", 1)[1].strip(), [])
+        elif ins is not None:
+            for addr, text in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);",
+                                         ln):
+                text = re.sub(r"^@!?U?P[T0-9]+\s+", "", text.strip())
+                ins.append((int(addr, 16), text.split()[0].split(".")[0],
+                            text))
+    return out
+
+
 def sketch_window_sass() -> dict:
     """Instructions of one window of the sketch kernel, from the SASS of
     the built library (cuobjdump): the tile loop of select_kernel<true>,
@@ -791,20 +821,10 @@ def sketch_window_sass() -> dict:
     runs (its forward branches skip only the second key word's code, for
     k <= 8). Returns the counts a window: all, the ALU pipe's, the FMA
     pipe's IMAD, and each opcode's."""
-    from dipper_tpu_torch.csrc.build import BUILD_DIR
-
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    sass = subprocess.run(
-        [tool, "-sass", os.path.join(BUILD_DIR, "libminhash_sketch.so")],
-        capture_output=True, text=True, check=True, timeout=300).stdout
-    parts = sass.split("select_kernelILb1E", 1)
-    check(len(parts) == 2, "no select_kernel<true> in the sketch library")
-    body = parts[1].split("Function :", 1)[0]
-    ins = []
-    for addr, text in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body):
-        text = re.sub(r"^@!?U?P[T0-9]+\s+", "", text.strip())
-        ins.append((int(addr, 16), text.split()[0].split(".")[0], text))
+    fns = [v for k, v in sass_functions("minhash_sketch").items()
+           if "select_kernelILb1E" in k]
+    check(len(fns) == 1, "no select_kernel<true> in the sketch library")
+    ins = fns[0]
     loops = [(a - int(m.group(1), 16), int(m.group(1), 16), a)
              for a, op, text in ins if op == "BRA"
              for m in [re.search(r"0x([0-9a-f]+)", text)]
@@ -2004,7 +2024,7 @@ def run_cli(argv) -> tuple[int, str, float]:
     return rc, tee.buf.getvalue(), time.time() - t0
 
 
-def phase_gpu_vs_cpu(tmp: str, n: int = 512) -> None:
+def phase_gpu_vs_cpu(tmp: str, n: int = 256) -> None:
     from dipper_tpu_torch.utils.treecmp import rf_distance
 
     fa, _ = make_dataset(n, os.path.join(tmp, f"n{n}"), seed=2)
@@ -2089,6 +2109,7 @@ def reset_counts() -> None:
     cluster_cuda.STREAM_BLOCK_LAUNCHES = 0
     cluster_cuda.CLUSTER_BUILD_LAUNCHES = 0
     msa_cuda.CLUSTER_DIST_LAUNCHES = 0
+    msa_cuda.PACK_LAUNCHES = 0
     assign_cuda.ASSIGN_LAUNCHES = 0
     assign_cuda.PACK_LAUNCHES = 0
     mash_cuda.LAUNCHES = 0
@@ -2149,7 +2170,8 @@ def read_counts() -> dict:
             "exact_step": exact_cuda.EXACT_STEP_LAUNCHES,
             "dc_assign": assign_cuda.ASSIGN_LAUNCHES,
             "dc_assign_pack": assign_cuda.PACK_LAUNCHES,
-            "msa_cluster_dist": msa_cuda.CLUSTER_DIST_LAUNCHES}
+            "msa_cluster_dist": msa_cuda.CLUSTER_DIST_LAUNCHES,
+            "msa_cluster_dist_pack": msa_cuda.PACK_LAUNCHES}
 
 
 class SketchSampler:
@@ -2443,20 +2465,20 @@ def phase_nj_gpu_vs_cpu(tmp: str, n: int = 2048) -> dict:
     phy = os.path.join(tmp, f"nj{n}.phy")
     rc, _, _ = run_cli(["-i", "r", "-I", fa, "-O", phy, "-o", "d"])
     check(rc == 0, f"-i r -o d returned {rc}")
-    # -i r -o d at 512 taxa: the device sketcher, device ranks and kernel
+    # -i r -o d at 256 taxa: the device sketcher, device ranks and kernel
     # 2 on the card, their plain versions on the CPU; equal PHYLIP bytes
-    head = head_fasta(fa, 512, os.path.join(tmp, "nj512.fa"))
-    res, phys = {"o_d_512": {"wall_s": {}}}, {}
+    head = head_fasta(fa, 256, os.path.join(tmp, "nj256.fa"))
+    res, phys = {"o_d_256": {"wall_s": {}}}, {}
     for dev in ("cuda", "cpu"):
-        out = os.path.join(tmp, f"nj512.{dev}.phy")
+        out = os.path.join(tmp, f"nj256.{dev}.phy")
         rc, _, wall = run_cli(["-i", "r", "-I", head, "-O", out, "-o", "d",
                                "--device", dev])
         check(rc == 0, f"-i r -o d --device {dev} returned {rc}")
         phys[dev] = open(out, "rb").read()
-        res["o_d_512"]["wall_s"][dev] = wall
-    check(phys["cuda"] == phys["cpu"], "-i r -o d at 512: the card's PHYLIP "
+        res["o_d_256"]["wall_s"][dev] = wall
+    check(phys["cuda"] == phys["cpu"], "-i r -o d at 256: the card's PHYLIP "
           "bytes != the CPU's")
-    res["o_d_512"]["phylip_identical"] = True
+    res["o_d_256"]["phylip_identical"] = True
     for prec in ("f32", "f64"):
         outs, nj_ms = {}, {}
         for dev in ("cuda", "cpu"):
@@ -3387,6 +3409,7 @@ def phase_msa_dc(tmp: str, fa: str, true_nwk: str, n: int) -> dict:
           f"-i m -m 3: dc_assign {counts['dc_assign']} launches for "
           f"{p2['chunks']} phase-2 chunks")
     check_one_pack("-i m -m 3", counts, p2)
+    planes = check_planes("-i m -m 3", log, counts)
     nwk = open(out).read().strip()
     check(nwk.count(",") == n - 1, f"Newick has {nwk.count(',')} commas, "
           f"want {n - 1}")
@@ -3422,31 +3445,62 @@ def phase_msa_dc(tmp: str, fa: str, true_nwk: str, n: int) -> dict:
           "plain_route_wall_ms": wall_p * 1e3, "newick_identical_plain": True,
           "newick_identical_cpu_at": MSA_DC_CPU_N, "phase3_steps": steps,
           "phase3_bfs_levels": levels, "kernel_launches": counts,
-          "rf": rf, "nrf_vs_true_restricted": nrf})
+          **planes, "rf": rf, "nrf_vs_true_restricted": nrf})
     return {"counts": counts}
+
+
+def check_planes(tag: str, log: str, counts: dict) -> dict:
+    """A -i m -m 3 run on the card packed its aligned set once (one
+    msa_cluster_dist_pack launch, as its "MSA planes in" line counts) and
+    gathered no codes on the host for its batched buckets' distances."""
+    m = re.search(r"MSA planes in: (\d+) ms \((\d+) bytes on the card, "
+                  r"(\d+) pack launches; the copies (\d+) ms\)", log)
+    check(m is not None, f"{tag}: no 'MSA planes in' line in the log")
+    check(counts["msa_cluster_dist_pack"] == int(m[3]) == 1,
+          f"{tag}: msa_cluster_dist_pack launched "
+          f"{counts['msa_cluster_dist_pack']} times (log: {m[3]}), once "
+          "wanted")
+    gathered = [int(g) for g in re.findall(
+        r"DC phase 3: bucket \S+ clusters=\d+ path=batch .*? "
+        r"gathered_bytes=(\d+)", log)]
+    check(bool(gathered) and not any(gathered),
+          f"{tag}: phase 3 gathered {gathered} bytes of codes on the host "
+          "on the card's route")
+    return {"planes_ms": int(m[1]), "planes_bytes": int(m[2]),
+            "pack_launches": int(m[3]), "planes_copies_ms": int(m[4]),
+            "phase3_gathered_bytes": sum(gathered)}
 
 
 class ClusterDistRecorder:
     """Kernel 12's launches of a D&C run: each chunk's (members, clusters),
-    and the codes of each bucket's first chunk (the tensor handed to the
-    kernel, kept on the card; the pipeline never writes it)."""
+    and each bucket's first chunk's witness lists (wit_d, the tensor handed
+    to the kernel, kept on the card; the pipeline never writes it) with the
+    planes and non-gap counts they index; and the host codes the run packed
+    (`codes`: the CLI's order, which its input shuffle sets)."""
 
     def __init__(self):
         from dipper_tpu_torch.distance import msa_cuda
 
         self.mod, self.fn = msa_cuda, msa_cuda.cluster_dist
-        self.launches, self.first = [], {}
+        self.pack_bank = msa_cuda.pack_bank
+        self.launches, self.first, self.codes = [], {}, None
 
-        def rec(codes, members, **kw):
-            out = self.fn(codes, members, **kw)
-            self.launches.append((members, codes.shape[0]))
-            self.first.setdefault(members, codes)
+        def rec_pack(codes, device, log=None):
+            self.codes = codes
+            return self.pack_bank(codes, device, log=log)
+
+        def rec(planes, nongap, wit, members, **kw):
+            out = self.fn(planes, nongap, wit, members, **kw)
+            self.launches.append((members, wit.shape[0]))
+            self.first.setdefault(members, (planes, nongap, wit))
             return out
 
         msa_cuda.cluster_dist = rec
+        msa_cuda.pack_bank = rec_pack
 
     def restore(self) -> None:
         self.mod.cluster_dist = self.fn
+        self.mod.pack_bank = self.pack_bank
 
 
 def same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
@@ -3459,9 +3513,9 @@ def same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
     return torch.equal(x, y)
 
 
-def hard_chunk(codes: np.ndarray, seed: int = 5) -> np.ndarray:
-    """uint8 [4, 18, 203] witness codes of a made-up bucket-8 chunk (10
-    head witnesses) whose first cluster's members are
+def hard_chunk(codes: np.ndarray, seed: int = 5) -> tuple:
+    """(uint8 [18, 203] bank, int64 [4, 18] witness lists) of a made-up
+    bucket-8 chunk (10 head witnesses) whose first cluster's members are
     tests/test_torch_msa.py::_hard_codes' kinds of row: unrelated ones
     (the log of a negative: NaN), a pair a transversion or A<->C apart in
     every column, an all-gap row (0/0, x/0) and a duplicate; the last
@@ -3477,18 +3531,48 @@ def hard_chunk(codes: np.ndarray, seed: int = 5) -> np.ndarray:
     wit = rng.integers(0, n, (4, 18))
     wit[0, 10:] = np.arange(n - 8, n)
     wit[-1, 14:] = wit[-1, 13]
-    return bank[wit]
+    return bank, wit
 
 
 def cluster_dist_bound(codes: torch.Tensor, members: int, item: int) -> dict:
-    """Kernel 12's bound on one chunk: the 4 x 4 bins of every pair as
-    int8 one-hot products (16 multiply-adds a pair and column) at the
-    tensor cores' int8 rate, against each code byte read once and each
-    distance written once."""
+    """Kernel 12's first design's bound on one chunk, kept beside
+    planes_bound to compare with that design's share: the 4 x 4 bins of
+    every pair as int8 one-hot products (16 multiply-adds a pair and
+    column) at the tensor cores' int8 rate, against each code byte read
+    once and each distance written once."""
     c, W, L = codes.shape
     pairs = c * members * W
     return bound_of(2.0 * 16 * pairs * L, c * W * L + pairs * item,
                     PEAK_INT8_PER_S)
+
+
+def planes_bound(planes: torch.Tensor, wit: torch.Tensor, members: int,
+                 item: int) -> dict:
+    """Kernel 12's bound on one chunk, from what it reads: each of the
+    chunk's witness rows' planes once (4 x words x 4 bytes a row), each
+    distance written once; the 16 bins of every pair as one-bit
+    AND-popcount products (32 bit operations a pair and column) at the
+    one-bit tensor cores' rate (8 x the int8 peak: an m16n8k256 at the
+    issue rate of an m16n8k32)."""
+    c, W = wit.shape
+    words = planes.shape[2]
+    pairs = c * members * W
+    return bound_of(32.0 * pairs * words * 32,
+                    c * W * words * 16 + pairs * item, 8 * PEAK_INT8_PER_S)
+
+
+def pack_bound(N: int, L: int, words: int) -> dict:
+    """The pack's bound: the codes read once, the planes and counts written
+    once; four compares a column on the int32 lanes."""
+    return bound_of(4.0 * N * L, N * L + N * words * 16 + N * 4)
+
+
+def msa_cluster_sass() -> dict:
+    """Kernel 12's tensor-core and popcount instructions by function in the
+    built library's SASS (cuobjdump): BMMA (one-bit mma), IMMA, POPC."""
+    return {name: {op: sum(o == op for _, o, _ in ins)
+                   for op in ("BMMA", "IMMA", "POPC")}
+            for name, ins in sass_functions("msa_cluster_dist").items()}
 
 
 def bucket_times(log: str) -> dict:
@@ -3499,17 +3583,22 @@ def bucket_times(log: str) -> dict:
 
 def phase_msa_dc_main_path(tmp: str, fa: str, true_nwk: str, n: int) -> dict:
     """-i m -m 3 on the whole aligned set, default flags (f32, -d 1, B = n
-    // 20), in turns with the plain distance route (one _block_distance
-    call a cluster on the same gathered codes, msa.uses_cluster_dist_kernel
-    patched):
-    plain, kernel, kernel, plain. Every turn rc 0 and the same Newick
-    bytes, a complete tree, nRF vs the true tree < DC_NRF_LIMIT; the first
-    kernel turn, counted, launches msa_cluster_dist and dc_cluster_build
-    once a batched chunk. Then kernel 12 bit for bit against its plain
-    version on each bucket's first chunk of that run and on a made-up chunk
-    of hard rows, all six models in f32 and f64; and each first chunk's
-    kernel time queued behind a device sleep, its bound and the plain
-    version's time, at the run's settings."""
+    // 20), in turns with the plain distance route (the witness lists'
+    codes gathered on the host and one _block_distance call a cluster,
+    msa.uses_cluster_dist_kernel patched): plain, kernel, kernel, plain.
+    Every turn rc 0 and the same Newick bytes, a complete tree, nRF vs the
+    true tree < DC_NRF_LIMIT; the first kernel turn, counted, packs the set
+    once (one msa_cluster_dist_pack launch), launches msa_cluster_dist and
+    dc_cluster_build once a batched chunk and gathers no codes on the host
+    (its bucket lines' gathered_bytes 0; the plain turns' not). Then the
+    pack bit for bit against its plain version on the whole set and on
+    hard rows, the run's resident planes equal to them, kernel 12 bit for
+    bit against its plain version on each bucket's first chunk of that run
+    (its recorded witness lists) and on a made-up chunk of hard rows, all
+    six models in f32 and f64; kernel 12's SASS one-bit mma (BMMA) without
+    POPC; and the pack's and each first chunk's kernel time queued behind
+    a device sleep, beside its bounds and the plain version's time, at the
+    run's settings."""
     from dipper_tpu_torch.distance import msa, msa_cuda
 
     def cli(route: str, tag: str) -> dict:
@@ -3560,40 +3649,89 @@ def phase_msa_dc_main_path(tmp: str, fa: str, true_nwk: str, n: int) -> dict:
     rf, nrf = restricted_rf(nwk, open(true_nwk).read())
     check(nrf < DC_NRF_LIMIT, f"-i m -m 3 at {n}: nRF vs the true tree "
           f"{nrf} >= {DC_NRF_LIMIT}")
+    planes_run = check_planes(f"-i m -m 3 at {n}", log, counts)
+    check(all(re.search(r"gathered_bytes=[1-9]", t["log"])
+              for t in turns if t["route"] == "plain"),
+          f"-i m -m 3 at {n}: a plain turn gathered no codes on the host")
 
-    # kernel 12 against its plain version on the run's chunks, all models
-    hard = torch.from_numpy(hard_chunk(load_codes(fa, 10))).cuda()
-    cases = {**{f"bucket{q}": (codes, q) for q, codes in rec.first.items()},
-             "hard": (hard, 8)}
+    # the pack against its plain version on the whole set (the run's
+    # codes, in its order), and the run's resident planes (the recorded
+    # chunks') equal to both
+    codes = torch.from_numpy(rec.codes).cuda()
+    N, L = codes.shape
+    want_p, want_ng = msa.pack_planes_plain(codes)
+    planes, nongap = torch.empty_like(want_p), torch.empty_like(want_ng)
+    msa_cuda.pack(codes, planes, nongap)
+    check(same_bits(planes, want_p) and same_bits(nongap, want_ng),
+          f"msa_cluster_dist_pack differs from its plain version at {N} x "
+          f"{L}")
+    check(all(same_bits(p, want_p) and same_bits(g, want_ng)
+              for p, g, _ in rec.first.values()),
+          "the run's resident planes differ from the plain version's")
+    del want_p, want_ng
+    words = planes.shape[2]
+    pack = {"rows": N, "L": L, "words": words,
+            "ms": queued_ms(lambda: msa_cuda.pack(codes, planes, nongap),
+                            reps=5),
+            "plain_ms": event_ms(lambda: msa.pack_planes_plain(codes),
+                                 reps=1),
+            "planes_in_ms": planes_run["planes_ms"],
+            **pack_bound(N, L, words)}
+    pack["share_of_bound"] = pack["bound_ms"] / pack["ms"]
+
+    # kernel 12 against its plain version on the run's chunks and on hard
+    # rows, all models
+    hb, hw = hard_chunk(load_codes(fa, 10))
+    hard = torch.from_numpy(hb).cuda()
+    hp, hng = msa.pack_planes_plain(hard)
+    hp_k, hng_k = torch.empty_like(hp), torch.empty_like(hng)
+    msa_cuda.pack(hard, hp_k, hng_k)
+    check(same_bits(hp_k, hp) and same_bits(hng_k, hng),
+          "msa_cluster_dist_pack differs from its plain version on the hard "
+          "rows")
+    cases = {**{f"bucket{q}": (p, g, w, codes, q)
+                for q, (p, g, w) in rec.first.items()},
+             "hard": (hp_k, hng_k, msa_cuda.witness_lists(hw, len(hb), "cuda"),
+                      hard, 8)}
     compared = {}
-    for name, (codes, q) in cases.items():
+    for name, (p, g, w, src, q) in cases.items():
         for dt in range(1, 7):
             for dtype in ("float32", "float64"):
                 kw = dict(distance_type=dt, dtype_name=dtype)
-                got = msa_cuda.cluster_dist(codes, q, **kw)
-                want = msa.cluster_block_distances_plain(codes, q, **kw)
+                got = msa_cuda.cluster_dist(p, g, w, q, **kw)
+                want = msa.cluster_dist_by_index_plain(src, w, q, **kw)
                 check(same_bits(got, want), f"msa_cluster_dist differs from "
                       f"its plain version on {name}, -d {dt}, {dtype}")
                 if name == "hard" and dt > 1:
                     check(bool(got.isnan().any() or got.isinf().any()),
                           f"the hard chunk gave no NaN or inf at -d {dt}, "
                           f"{dtype}")
-        compared[name] = list(codes.shape)
+        compared[name] = list(w.shape) + [q]
         del got, want
+    sass = msa_cluster_sass()
+    dist_fns = {k: v for k, v in sass.items() if "cluster_dist_kernel" in k}
+    check(len(dist_fns) == 2 and all(v["BMMA"] > 0 and v["POPC"] == 0
+                                     for v in dist_fns.values()),
+          f"kernel 12's SASS is not one-bit mma without POPC: {sass}")
     # times at the run's settings (f32, -d 1)
     kw = dict(distance_type=1, dtype_name="float32")
     by_bucket = {}
-    for q, codes in sorted(rec.first.items()):
-        t = {"clusters": codes.shape[0], "W": codes.shape[1],
-             "ms": queued_ms(lambda: msa_cuda.cluster_dist(codes, q, **kw),
+    for q, (p, g, w) in sorted(rec.first.items()):
+        c, W = w.shape
+        t = {"clusters": c, "W": W,
+             "ms": queued_ms(lambda: msa_cuda.cluster_dist(p, g, w, q, **kw),
                              reps=5),
              "plain_ms": event_ms(
-                 lambda: msa.cluster_block_distances_plain(codes, q, **kw),
+                 lambda: msa.cluster_dist_by_index_plain(codes, w, q, **kw),
                  reps=2),
-             **cluster_dist_bound(codes, q, 4)}
+             **planes_bound(p, w, q, 4)}
         t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        b22 = cluster_dist_bound(torch.empty((c, W, L), device="meta"), q, 4)
+        t.update(bound_pr22_ms=b22["bound_ms"], bound_pr22_by=b22["bound_by"],
+                 share_of_bound_pr22=b22["bound_ms"] / t["ms"])
         by_bucket[q] = t
     rec.first.clear()
+    del codes, planes, nongap
     res = {"phase": "main_path", "path": "msa_dc_main", "n": n, "L": 10000,
            "distance_type": 1, "precision": "f32", "backbone": n // 20,
            "turns": [{"route": t["route"], "wall_ms": t["wall_ms"],
@@ -3601,11 +3739,14 @@ def phase_msa_dc_main_path(tmp: str, fa: str, true_nwk: str, n: int) -> dict:
                       **_dc_log(t["log"]),
                       "bucket_s": bucket_times(t["log"])} for t in turns],
            "chunks": [list(x) for x in rec.launches],
-           "newick_identical_plain": True, "kernel_vs_plain": compared,
-           "by_bucket": by_bucket, "kernel_launches": counts, "rf": rf,
-           "nrf_vs_true": nrf, "nrf_limit": DC_NRF_LIMIT}
+           "newick_identical_plain": True,
+           "newick_md5": hashlib.md5(turns[1]["nwk"].encode()).hexdigest(),
+           **planes_run, "pack": pack, "kernel_vs_plain": compared,
+           "sass": sass, "by_bucket": by_bucket, "kernel_launches": counts,
+           "rf": rf, "nrf_vs_true": nrf, "nrf_limit": DC_NRF_LIMIT}
     emit(res)
-    return {"counts": counts, "by_bucket": by_bucket}
+    return {"counts": counts, "by_bucket": by_bucket, "pack": pack,
+            "sass": sass}
 
 
 def backbone_splits_survive(out_nwk: str, back_nwk: str) -> tuple:
@@ -3912,13 +4053,16 @@ def _dc_log(log: str) -> dict:
             "input": _ms(r"Input in: (\d+) ms", log),
             "sketch": _ms(r"Sketch in: (\d+) ms", log),
             "rank_bank": _ms(r"Rank bank in: (\d+) ms", log),
+            "msa_planes": _ms(r"MSA planes in: (\d+) ms", log),
             "phase1_backbone": _ms(r"DC phase 1 in: (\d+) ms", log),
             "phase2_assign": _ms(r"DC phase 2 in: (\d+) ms", log),
             "phase3_clusters": _ms(r"DC phase 3 in: (\d+) ms", log),
             "tree_created": _ms(r"Tree Created in: (\d+) ms", log)},
         "clusters": re.search(r"DC phase 3: (\d+ clusters, size .*)",
                               log).group(1),
-        "buckets": re.findall(r"DC phase 3: (bucket .*)", log)}
+        "buckets": re.findall(r"DC phase 3: (bucket .*)", log),
+        "phase3_gathered_bytes": sum(int(b) for b in re.findall(
+            r"DC phase 3: bucket .* gathered_bytes=(\d+)", log))}
 
 
 class Phase3Recorder:
@@ -5385,10 +5529,10 @@ def exact_route_profiled(D, n: int) -> dict:
 
 def phase_exact(tmp: str, fa: str, n: int, window: int = EXACT_WINDOW,
                 small: int = 512, parent: str | None = None) -> dict:
-    """Exact placement on the card and on the CPU, f64: the alignment's
-    first n sequences through build_placement_tree_from_seqs(exact=True)
-    and their distance matrix through build_placement_tree_from_matrix(
-    exact=True), and the matrix's first `small` taxa; the kernel route
+    """Exact placement on the card, f64: the alignment's first n sequences
+    through build_placement_tree_from_seqs(exact=True) and their distance
+    matrix through build_placement_tree_from_matrix(exact=True), and both
+    at their first `small` taxa on the card and on the CPU; the kernel route
     against the plain route on the card in windows; the kernel route's
     launches, copies and syncs an insertion; kernel and plain times."""
     from dipper_tpu_torch.distance import msa
@@ -5421,10 +5565,11 @@ def phase_exact(tmp: str, fa: str, n: int, window: int = EXACT_WINDOW,
 
     res, trees = {}, {}
     # (frontend, taxa, built on the CPU too): the CPU's plain version takes
-    # ~15 ms an insertion at 2,048, so the sequences' build is held to the
-    # CPU at `small` and to the matrix's build on the card at n
-    for frontend, size, on_cpu in (("msa", small, True), ("matrix", n, True),
-                                   ("msa", n, False)):
+    # 15-30 ms an insertion at 2,048, so both builds are held to the CPU at
+    # `small`, and at n the card's builds to each other
+    for frontend, size, on_cpu in (("msa", small, True),
+                                   ("matrix", small, True),
+                                   ("matrix", n, False), ("msa", n, False)):
         reset_counts()
         gpu, gpu_s, gpu_ms = build(frontend, size, "cuda")
         counts = read_counts()
@@ -7157,9 +7302,17 @@ def main() -> int:
             records["msa_cluster_dist"].update(
                 launches=res["counts"]["msa_cluster_dist"], max_abs_err=0.0,
                 library_ms=None, by_bucket=res["by_bucket"],
+                sass=res["sass"],
                 **{k: b8[k] for k in ("clusters", "W", "ms", "plain_ms",
                                       "bound_ms", "bound_by",
-                                      "share_of_bound")})
+                                      "share_of_bound", "bound_pr22_ms",
+                                      "share_of_bound_pr22")})
+            records["msa_cluster_dist_pack"].update(
+                launches=res["counts"]["msa_cluster_dist_pack"],
+                max_abs_err=0.0, library_ms=None,
+                **{k: res["pack"][k] for k in (
+                    "rows", "L", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "share_of_bound", "planes_in_ms")})
         if 14 in phases:
             note("add", phase_add(tmp, data[0], min(4096, args.n // 2),
                                   min(1024, args.n // 8))["counts"])

@@ -24,16 +24,19 @@ into pow2 buckets (which bound the padding) and builds each bucket's
 clusters together, PHASE3_BUDGET // cmax_b at a time, from one [c, cmax_b,
 W] distance tensor: for mash the per-cluster count kernel
 (csrc/mash_cluster_inter.cu, one launch a chunk), for a matrix a double
-gather, for aligned sequences the witness lists' codes gathered on the
-host and staged once (the members are their tail), then on the card one
-launch of csrc/msa_cluster_dist.cu (kernel 12) a chunk, on the CPU one
-plain call a cluster; on the card a chunk's build is one launch of
+gather, for aligned sequences on the card one launch of
+csrc/msa_cluster_dist.cu (kernel 12) a chunk on the set's one-hot bit
+planes, packed onto the card once a run, read by the witness lists'
+indices (only the lists go up; the members are their tail), on the CPU
+the witness lists' codes gathered on the host and one plain call a
+cluster; on the card a chunk's build is one launch of
 csrc/dc_cluster_build.cu. Clusters of _STREAM_CLUSTER_MIN members and
 more build one at a time with rows streamed _STREAM_ROW_BLOCK at a time
 (on the card, one launch of csrc/dc_stream_block.cu a row block; aligned
 rows by msa_tiled_block's pair-count product). Each bucket's
-log line counts its distance launches, steps, host syncs (BFS levels)
-and build-kernel launches. Assembly and Newick are host NumPy,
+log line counts its distance launches, steps, host syncs (BFS levels),
+build-kernel launches and the codes' bytes gathered on the host for its
+distances. Assembly and Newick are host NumPy,
 as in the JAX package.
 
 Sharded (mesh, parallel/sharded.py; the JAX package's _shard_batch over
@@ -58,6 +61,7 @@ import numpy as np
 import torch
 
 from dipper_tpu_torch.dc import cluster
+from dipper_tpu_torch.distance import msa
 from dipper_tpu_torch.placement import kclosest
 from dipper_tpu_torch.placement.kclosest import K
 from dipper_tpu_torch.utils.device import synchronize, torch_dtype
@@ -104,17 +108,23 @@ def _frontend(seqs, params: Param, matrix, device, dtype, log):
                 (params.kmer_size, params.sketch_size))
     if params.in_format == "m":
         # the aligned bank stays on the host (dc/msa.cu's pattern): the
-        # backbone's codes live on the device, query blocks and cluster
-        # gathers upload on demand
-        from dipper_tpu_torch.distance.msa import nongap_counts
+        # backbone's codes live on the device and query blocks upload on
+        # demand; on the card the whole set is also packed once into bit
+        # planes that stay there, which phase 3's kernel reads by index
         from dipper_tpu_torch.io.encode import batch_codes, encode_4bit_codes
 
         t0 = time.time()
         codes_host, _ = batch_codes(seqs, encode_4bit_codes, pad_value=4)
         log(f"Encoded in: {int((time.time() - t0) * 1000)} ms")
         codes_bb = torch.from_numpy(codes_host[:B]).to(device)
-        return ("msa", codes_host,
-                (codes_bb, nongap_counts(codes_bb, params.dtype)),
+        bank = msa.ClusterBank(codes_host)
+        if msa.packs_planes(device):
+            from dipper_tpu_torch.distance import msa_cuda
+
+            bank.planes, bank.nongap = msa_cuda.pack_bank(codes_host, device,
+                                                          log=log)
+        return ("msa", bank,
+                (codes_bb, msa.nongap_counts(codes_bb, params.dtype)),
                 (params.distance_type,))
     raise SystemExit("Error: Input type must be unaligned or aligned for "
                      "clustering based approach")
@@ -133,15 +143,14 @@ def _phase2_rows(frontend, payload, bb_args, params: Param, q0: int,
                              k=params.kmer_size,
                              sketch_size=params.sketch_size,
                              dtype_name=params.dtype)
-    from dipper_tpu_torch.distance.msa import msa_tiled_block, nongap_counts
-
-    codes_q = torch.from_numpy(payload[q0:q1])
+    codes_q = torch.from_numpy(payload.codes[q0:q1])
     if torch.device(device).type == "cuda":
         # staged through pinned memory: an upload without a host sync
         codes_q = codes_q.pin_memory().to(device, non_blocking=True)
-    return msa_tiled_block(codes_q, nongap_counts(codes_q, params.dtype),
-                           *bb_args, distance_type=params.distance_type,
-                           dtype_name=params.dtype)
+    return msa.msa_tiled_block(codes_q,
+                               msa.nongap_counts(codes_q, params.dtype),
+                               *bb_args, distance_type=params.distance_type,
+                               dtype_name=params.dtype)
 
 
 def _pair_distances(frontend, payload, params: Param, wit, mem, device):
@@ -167,24 +176,13 @@ def _pair_distances(frontend, payload, params: Param, wit, mem, device):
         w = torch.from_numpy(wit).to(device)
         m = torch.from_numpy(mem).to(device)
         return payload[m[:, :, None], w[:, None, :]]
-    from dipper_tpu_torch.distance.msa import cluster_block_distances
-
     Q = mem.shape[1]
     assert wit.shape[1] >= Q, (wit.shape, mem.shape)
-    # the members are the witness lists' tail: one gather, one upload
-    if torch.device(device).type == "cuda":
-        # gathered straight into pinned memory: an upload without a host
-        # sync (mode="clip": with the default "raise" numpy gathers into a
-        # temporary and copies it out; the ids are rows of payload)
-        codes_w = torch.empty(wit.shape + payload.shape[1:],
-                              dtype=torch.uint8, pin_memory=True)
-        np.take(payload, wit, axis=0, out=codes_w.numpy(), mode="clip")
-        codes_w = codes_w.to(device, non_blocking=True)     # [c, W, L]
-    else:
-        codes_w = torch.from_numpy(payload[wit])
-    return cluster_block_distances(codes_w, Q,
-                                   distance_type=params.distance_type,
-                                   dtype_name=dtype)
+    # the members are the witness lists' tail: on the card only the lists
+    # go up, and kernel 12 reads the resident planes by them
+    return msa.cluster_distances(payload, wit, Q, device=device,
+                                 distance_type=params.distance_type,
+                                 dtype_name=dtype)
 
 
 def _stream_block_fn(frontend, payload, params: Param, wit, mem, device):
@@ -209,13 +207,12 @@ def _stream_block_fn(frontend, payload, params: Param, wit, mem, device):
         w = torch.from_numpy(wit).to(device)
         m = torch.from_numpy(mem).to(device)
         return lambda start: payload[m[start:start + Bb]][:, w]
-    from dipper_tpu_torch.distance.msa import msa_tiled_block, nongap_counts
-
-    codes_w = torch.from_numpy(payload[wit]).to(device)
-    codes_m = torch.from_numpy(payload[mem]).to(device)
-    ng_w = nongap_counts(codes_w, params.dtype)
-    ng_m = nongap_counts(codes_m, params.dtype)
-    return lambda start: msa_tiled_block(
+    codes_w = torch.from_numpy(payload.codes[wit]).to(device)
+    codes_m = torch.from_numpy(payload.codes[mem]).to(device)
+    msa.GATHERED_BYTES += codes_w.numel() + codes_m.numel()
+    ng_w = msa.nongap_counts(codes_w, params.dtype)
+    ng_m = msa.nongap_counts(codes_m, params.dtype)
+    return lambda start: msa.msa_tiled_block(
         codes_m[start:start + Bb], ng_m[start:start + Bb], codes_w, ng_w,
         distance_type=params.distance_type, dtype_name=params.dtype)
 
@@ -444,6 +441,7 @@ def build_dc_tree(seqs, names, params: Param, matrix=None, *, device,
             tb = time.time()
             steps0, levels0 = cluster.STEPS, cluster.BFS_LEVELS
             kernels0 = _phase3_kernel_launches()
+            gathered0 = msa.GATHERED_BYTES
             launches = 0
             # this rank's share of the bucket's clusters, all of them
             # without a mesh; their edge arrays, in cluster order
@@ -486,6 +484,7 @@ def build_dc_tree(seqs, names, params: Param, matrix=None, *, device,
                 f"bfs_levels={cluster.BFS_LEVELS - levels0} "
                 f"kernel_launches={_phase3_kernel_launches() - kernels0} "
                 f"plan={_phase3_plan(device, stream, cmax_b, dtype)} "
+                f"gathered_bytes={msa.GATHERED_BYTES - gathered0} "
                 f"in {time.time() - tb:.3f}s")
 
     log(f"DC phase 3 in: {int((time.time() - t) * 1000)} ms "

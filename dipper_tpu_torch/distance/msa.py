@@ -33,6 +33,8 @@ padding rows), and their sizes are set from the bytes of the count block.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -225,27 +227,126 @@ def msa_tiled_block(codes_q, nongap_q, codes_bank, nongap_bank, *,
     return out
 
 
-def uses_cluster_dist_kernel(codes: torch.Tensor) -> bool:
-    """Whether a chunk's cluster distances go to kernel 12: its codes are
-    on the card."""
-    return codes.device.type == "cuda"
+@dataclasses.dataclass
+class ClusterBank:
+    """D&C's aligned set: the host's uint8 codes [N, L] (phase 2's query
+    rows, streamed clusters and the plain route gather from them) and, on
+    the card, their one-hot bit planes int32 [N, 4, plane_words(L)] and
+    non-gap counts int32 [N], resident for kernel 12 (msa_cuda.pack_bank).
+    """
+    codes: np.ndarray
+    planes: torch.Tensor | None = None
+    nongap: torch.Tensor | None = None
 
 
-def cluster_block_distances(codes_w: torch.Tensor, members: int, *,
-                            distance_type: int,
-                            dtype_name: str) -> torch.Tensor:
-    """D&C phase 3's distances of a chunk of clusters: uint8 [c, W, L]
-    codes, each cluster's W witness rows ending with its `members` (Q)
-    member rows (wit = [head, mem], as phase 3 builds the lists) -> [c, Q,
-    W] distances d(member k, witness w) on the codes' device. On the card
-    one launch of kernel 12 (distance/msa_cuda.py); on the CPU the plain
-    version."""
-    if uses_cluster_dist_kernel(codes_w):
+# bytes of codes gathered on the host for cluster distances by this
+# process (the plain route and streamed clusters); D&C's bucket lines log
+# its growth, 0 on the card's batched route
+GATHERED_BYTES = 0
+
+# words of one m16n8k256 k-step (256 columns): a plane's words are whole
+# k-steps (csrc/msa_cluster_dist.cu's kStepWords)
+PLANE_STEP_WORDS = 8
+
+
+def plane_words(L: int) -> int:
+    """Words of one bit plane of a row of L columns: ceil(L / 32) rounded
+    up to whole k-steps of the kernel's product."""
+    return -(-L // (32 * PLANE_STEP_WORDS)) * PLANE_STEP_WORDS
+
+
+def pack_planes_plain(codes: torch.Tensor) -> tuple:
+    """uint8 [R, L] codes (0-3 bases, 4 and above gaps) -> (int32 [R, 4,
+    plane_words(L)] planes, int32 [R] non-gap counts) on the codes' device:
+    bit j of plane a, word t, set when column 32 t + j holds base a (the
+    uint32 bits kept in int32); columns past L are gaps. The plain version
+    of csrc/msa_cluster_dist.cu's pack: shifts and sums."""
+    R, L = codes.shape
+    words = plane_words(L)
+    padded = torch.full((R, words * 32), 4, dtype=torch.uint8,
+                        device=codes.device)
+    padded[:, :L] = codes
+    v = padded.view(R, words, 32)
+    bit = torch.ones((), dtype=torch.int64, device=codes.device) << \
+        torch.arange(32, dtype=torch.int64, device=codes.device)
+    planes = torch.stack([((v == a).to(torch.int64) * bit).sum(dim=-1)
+                          for a in range(4)], dim=1)
+    planes = torch.where(planes >= 2**31, planes - 2**32, planes)
+    return (planes.to(torch.int32),
+            (codes < 4).sum(dim=1).to(torch.int32))
+
+
+def check_lists(wit, n_rows: int) -> None:
+    """Raises unless every row id of the witness lists `wit` (host) lies
+    in [0, n_rows)."""
+    wit = np.asarray(wit)
+    if wit.size and (wit.min() < 0 or wit.max() >= n_rows):
+        raise ValueError(f"witness ids span [{wit.min()}, {wit.max()}], "
+                         f"outside the bank's [0, {n_rows})")
+
+
+def packs_planes(device) -> bool:
+    """Whether D&C packs its aligned set into resident planes: on the
+    card."""
+    return torch.device(device).type == "cuda"
+
+
+def uses_cluster_dist_kernel(bank: ClusterBank) -> bool:
+    """Whether a chunk's cluster distances go to kernel 12: the bank's
+    planes are on the card."""
+    return bank.planes is not None and bank.planes.device.type == "cuda"
+
+
+def cluster_distances(bank: ClusterBank, wit: np.ndarray, members: int, *,
+                      device, distance_type: int,
+                      dtype_name: str) -> torch.Tensor:
+    """D&C phase 3's distances of a chunk of clusters: wit [c, W] host row
+    ids of `bank`, each cluster's witness list ending with its `members`
+    (Q) members (wit = [head, mem], as phase 3 builds the lists) -> [c, Q,
+    W] distances d(member k, witness w) on `device`. On the card one launch
+    of kernel 12 on the resident planes (distance/msa_cuda.py), only the
+    lists uploaded; else the plain version, from the host codes."""
+    if uses_cluster_dist_kernel(bank):
         from dipper_tpu_torch.distance import msa_cuda
 
-        return msa_cuda.cluster_dist(codes_w, members,
-                                     distance_type=distance_type,
+        wit_d = msa_cuda.witness_lists(wit, len(bank.codes),
+                                       bank.planes.device)
+        return msa_cuda.cluster_dist(bank.planes, bank.nongap, wit_d,
+                                     members, distance_type=distance_type,
                                      dtype_name=dtype_name)
+    return cluster_dist_by_index_plain(bank.codes, wit, members,
+                                       distance_type=distance_type,
+                                       dtype_name=dtype_name, device=device)
+
+
+def cluster_dist_by_index_plain(codes, wit, members: int, *,
+                                distance_type: int, dtype_name: str,
+                                device=None) -> torch.Tensor:
+    """Kernel 12's plain version: uint8 [N, L] codes, wit [c, W] row ids ->
+    [c, Q, W] distances: the codes gathered by the lists and
+    cluster_block_distances_plain on them. A tensor's are gathered on its
+    device; a host array's on the host (its ids checked first), into
+    pinned memory for a card `device` (default the CPU)."""
+    global GATHERED_BYTES
+    if torch.is_tensor(codes):
+        if codes.device.type == "cpu":
+            check_lists(np.asarray(torch.as_tensor(wit)), len(codes))
+        codes_w = codes[torch.as_tensor(wit, device=codes.device).long()]
+    else:
+        wit = np.asarray(wit.cpu() if torch.is_tensor(wit) else wit)
+        check_lists(wit, len(codes))
+        if device is not None and torch.device(device).type == "cuda":
+            # gathered straight into pinned memory: an upload without a
+            # host sync (mode="clip": with the default "raise" numpy
+            # gathers into a temporary and copies it out; the ids are
+            # checked above)
+            codes_w = torch.empty(wit.shape + codes.shape[1:],
+                                  dtype=torch.uint8, pin_memory=True)
+            np.take(codes, wit, axis=0, out=codes_w.numpy(), mode="clip")
+            codes_w = codes_w.to(device, non_blocking=True)
+        else:
+            codes_w = torch.from_numpy(codes[wit])
+        GATHERED_BYTES += codes_w.numel()
     return cluster_block_distances_plain(codes_w, members,
                                          distance_type=distance_type,
                                          dtype_name=dtype_name)
@@ -254,8 +355,10 @@ def cluster_block_distances(codes_w: torch.Tensor, members: int, *,
 def cluster_block_distances_plain(codes_w: torch.Tensor, members: int, *,
                                   distance_type: int,
                                   dtype_name: str) -> torch.Tensor:
-    """cluster_block_distances in tensor code, one _block_distance call a
-    cluster (the CPU path, and kernel 12's yardstick on the card)."""
+    """Distances of a chunk of clusters from their gathered codes: uint8
+    [c, W, L], each cluster's W witness rows ending with its `members` (Q)
+    member rows -> [c, Q, W], one _block_distance call a cluster on the
+    codes' device (cluster_dist_by_index_plain's body)."""
     c, W, L = codes_w.shape
     if c == 0:
         return torch.empty((0, members, W), dtype=torch_dtype(dtype_name),

@@ -2437,10 +2437,12 @@ def test_phase3_wrappers_reject_bad_inputs(cuda):
 
 # ---------------------------------------------------------------------------
 # Kernel 12 (csrc/msa_cluster_dist.cu): D&C phase 3's per-cluster MSA
-# distances against their plain version, bit for bit
+# distances from the bit planes by index, and their pack, against their
+# plain versions, bit for bit
 # ---------------------------------------------------------------------------
 
 _MSA_BANKS: dict = {}
+MSA_CLUSTER_L = (1, 31, 32, 255, 257, 1000, 10000)
 
 
 def _msa_bank(L):
@@ -2458,57 +2460,120 @@ def _msa_bank(L):
     return _MSA_BANKS[L]
 
 
-def _cluster_chunk(cmax, L, seed):
-    """uint8 [c, cmax + 10, L] witness codes of a chunk as D&C's phase 3
-    stages them (the last cmax rows the members): cluster 0's members the
-    hard rows, the last cluster ragged (its last members repeat one)."""
-    bank = _msa_bank(L)
-    N = len(bank)
+def _msa_cluster_lists(cmax, N, seed):
+    """int64 [c, cmax + 10] witness lists of a chunk as D&C's phase 3 builds
+    them (the last cmax the members): cluster 0's members the bank's last
+    8 rows (the hard ones), every cluster's first three witnesses the same
+    rows (backbone witnesses shared by the chunk), the last cluster ragged
+    (its last members repeat one)."""
     rng = np.random.default_rng(seed)
     c, W = max(2, 64 // cmax), cmax + 10
     wit = rng.integers(0, N, (c, W))
+    wit[:, :3] = wit[0, :3]
     wit[0, W - 8:] = np.arange(N - 8, N)
     wit[-1, W - cmax // 2:] = wit[-1, W - cmax // 2 - 1]
-    return bank[wit]
+    return wit
 
 
-@pytest.mark.parametrize("cmax", [8, 32, 128, 512])
+@pytest.mark.parametrize("cmax", [8, 16, 32, 64, 128, 256, 512, 1023])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("dt", [1, 2, 3, 4, 5, 6])
 def test_msa_cluster_dist_equals_plain(cuda, dt, dtype, cmax):
-    """One launch a chunk, the plain version's bits (NaN and +-inf in the
-    same places), at L = 10,000, 1,001 and 203."""
+    """One launch a chunk on the packed planes by index, the plain
+    version's bits (NaN and +-inf in the same places), at every L of
+    MSA_CLUSTER_L; up to 1,023 members, the widest cluster that D&C
+    batches (dc/pipeline.py::_STREAM_CLUSTER_MIN)."""
     from dipper_tpu_torch.distance import msa, msa_cuda
 
     kw = dict(distance_type=dt, dtype_name=dtype)
-    for L in (10000, 1001, 203):
-        codes = torch.from_numpy(_cluster_chunk(cmax, L, dt + L)).to(cuda)
+    for L in MSA_CLUSTER_L:
+        codes = torch.from_numpy(_msa_bank(L)).to(cuda)
+        planes, ng = msa.pack_planes_plain(codes)
+        wit = _msa_cluster_lists(cmax, len(codes), dt + L)
+        wit_d = msa_cuda.witness_lists(wit, len(codes), cuda)
         before = msa_cuda.CLUSTER_DIST_LAUNCHES
-        got = msa.cluster_block_distances(codes, cmax, **kw)
+        got = msa_cuda.cluster_dist(planes, ng, wit_d, cmax, **kw)
         torch.cuda.synchronize()
         assert msa_cuda.CLUSTER_DIST_LAUNCHES == before + 1
-        want = msa.cluster_block_distances_plain(codes, cmax, **kw)
-        assert _bits_equal(got, want)
-        if dt != 1:
+        want = msa.cluster_dist_by_index_plain(codes, wit_d, cmax, **kw)
+        assert _bits_equal(got, want), (L, cmax)
+        if dt != 1 and L >= 255:
             assert got.isnan().any() or got.isinf().any()
 
 
-def test_msa_cluster_dist_rejects_bad_inputs(cuda):
+@pytest.mark.parametrize("L", MSA_CLUSTER_L)
+def test_msa_pack_equals_plain(cuda, L):
+    """The pack kernel's planes and counts are pack_planes_plain's (gap
+    codes 4 and above, an all-gap row); pack_bank through several chunks
+    equals one."""
+    from dipper_tpu_torch.distance import msa, msa_cuda
+
+    rng = np.random.default_rng(L)
+    codes = rng.integers(0, 4, (37, L)).astype(np.uint8)
+    codes[rng.random((37, L)) < 0.1] = 4
+    codes[rng.random((37, L)) < 0.05] = 15
+    codes[5] = 4
+    want_p, want_ng = msa.pack_planes_plain(torch.from_numpy(codes).to(cuda))
+    planes = torch.full_like(want_p, -1)
+    ng = torch.full_like(want_ng, -1)
+    before = msa_cuda.PACK_LAUNCHES
+    msa_cuda.pack(torch.from_numpy(codes).to(cuda), planes, ng)
+    torch.cuda.synchronize()
+    assert msa_cuda.PACK_LAUNCHES == before + 1
+    assert torch.equal(planes, want_p) and torch.equal(ng, want_ng)
+    chunk = msa_cuda.PACK_CHUNK_BYTES
+    try:
+        msa_cuda.PACK_CHUNK_BYTES = 10 * L
+        logs = []
+        p2, ng2 = msa_cuda.pack_bank(codes, cuda, log=logs.append)
+    finally:
+        msa_cuda.PACK_CHUNK_BYTES = chunk
+    assert msa_cuda.PACK_LAUNCHES == before + 1 + 4
+    assert torch.equal(p2, want_p) and torch.equal(ng2, want_ng)
+    assert "MSA planes in:" in logs[0] and "4 pack launches" in logs[0]
+
+
+def test_msa_cluster_dist_plan_equals_model(cuda):
+    from dipper_tpu_torch.distance import msa_cluster_model as mm
     from dipper_tpu_torch.distance import msa_cuda
 
-    codes = torch.from_numpy(_cluster_chunk(8, 203, 1)).to(cuda)
+    for Q in (1, 3, 8, 16, 32, 64, 128, 226, 256, 512, 1023):
+        for W in (Q, Q + 1, Q + 10):
+            assert msa_cuda.plan(W, Q) == mm.plan(W, Q), (W, Q)
+
+
+def test_msa_cluster_dist_rejects_bad_inputs(cuda):
+    from dipper_tpu_torch.distance import msa, msa_cuda
+
+    codes = torch.from_numpy(_msa_bank(203)).to(cuda)
+    planes, ng = msa.pack_planes_plain(codes)
+    wit = _msa_cluster_lists(8, len(codes), 1)
+    wit_d = msa_cuda.witness_lists(wit, len(codes), cuda)
     kw = dict(distance_type=1, dtype_name="float32")
     with pytest.raises(ValueError, match="contiguous"):
-        msa_cuda.cluster_dist(codes[:, :, ::2], 8, **kw)
-    with pytest.raises(ValueError, match="uint8"):
-        msa_cuda.cluster_dist(codes.int(), 8, **kw)
+        msa_cuda.cluster_dist(planes, ng, wit_d[:, ::2], 4, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        msa_cuda.cluster_dist(planes, ng, wit_d.long(), 8, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        msa_cuda.cluster_dist(planes.long(), ng, wit_d, 8, **kw)
     with pytest.raises(ValueError, match="CUDA"):
-        msa_cuda.cluster_dist(codes.cpu(), 8, **kw)
+        msa_cuda.cluster_dist(planes, ng, wit_d.cpu(), 8, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        msa_cuda.cluster_dist(planes.cpu(), ng.cpu(), wit_d.cpu(), 8, **kw)
+    bad = wit.copy()
+    bad[1, 4] = len(codes)
+    with pytest.raises(ValueError, match="outside the bank"):
+        msa_cuda.witness_lists(bad, len(codes), cuda)
     with pytest.raises(ValueError, match="members"):
-        msa_cuda.cluster_dist(codes, 19, **kw)
+        msa_cuda.cluster_dist(planes, ng, wit_d, 19, **kw)
     with pytest.raises(ValueError, match="distance_type"):
-        msa_cuda.cluster_dist(codes, 8, distance_type=7,
+        msa_cuda.cluster_dist(planes, ng, wit_d, 8, distance_type=7,
                               dtype_name="float32")
     with pytest.raises(ValueError, match="precision"):
-        msa_cuda.cluster_dist(codes, 8, distance_type=1,
+        msa_cuda.cluster_dist(planes, ng, wit_d, 8, distance_type=1,
                               dtype_name="float16")
+    with pytest.raises(ValueError, match="not a pack's"):
+        msa_cuda.cluster_dist(planes[:, :, :5].contiguous(), ng, wit_d, 8,
+                              **kw)
+    with pytest.raises(ValueError, match="do not fit"):
+        msa_cuda.pack(codes, planes[:-1], ng[:-1])
