@@ -3726,9 +3726,11 @@ def phase_msa_dc_main_path(tmp: str, fa: str, true_nwk: str, n: int) -> dict:
                  reps=2),
              **planes_bound(p, w, q, 4)}
         t["share_of_bound"] = t["bound_ms"] / t["ms"]
-        b22 = cluster_dist_bound(torch.empty((c, W, L), device="meta"), q, 4)
-        t.update(bound_pr22_ms=b22["bound_ms"], bound_pr22_by=b22["bound_by"],
-                 share_of_bound_pr22=b22["bound_ms"] / t["ms"])
+        codes_b = cluster_dist_bound(torch.empty((c, W, L), device="meta"),
+                                     q, 4)
+        t.update(codes_bound_ms=codes_b["bound_ms"],
+                 codes_bound_by=codes_b["bound_by"],
+                 share_of_codes_bound=codes_b["bound_ms"] / t["ms"])
         by_bucket[q] = t
     rec.first.clear()
     del codes, planes, nongap
@@ -7305,8 +7307,8 @@ def main() -> int:
                 sass=res["sass"],
                 **{k: b8[k] for k in ("clusters", "W", "ms", "plain_ms",
                                       "bound_ms", "bound_by",
-                                      "share_of_bound", "bound_pr22_ms",
-                                      "share_of_bound_pr22")})
+                                      "share_of_bound", "codes_bound_ms",
+                                      "share_of_codes_bound")})
             records["msa_cluster_dist_pack"].update(
                 launches=res["counts"]["msa_cluster_dist_pack"],
                 max_abs_err=0.0, library_ms=None,
